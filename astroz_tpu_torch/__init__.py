@@ -1,11 +1,11 @@
 """astroz_tpu_torch — the PyTorch/CUDA port of astroz_tpu.
 
-Ported so far: the near-earth ``method="fast"`` path, from TLE/OMM text
-through SGP4 init to ``propagate``, with its kernel written for the
-NVIDIA H100 (``csrc/sgp4_shallow.cu``). Deep-space catalogs, the f64
-path and the rest of the JAX package raise ``NotImplementedError`` or
-are not here yet (see ROADMAP.md). The package imports torch and numpy,
-never JAX.
+Ported so far: the ``method="fast"`` path of near-earth and mixed
+near-earth / deep-space catalogs, from TLE/OMM text through SGP4/SDP4
+init to ``propagate``, with its kernels written for the NVIDIA H100
+(``csrc/``). The f64 path and the rest of the JAX package raise
+``NotImplementedError`` or are not here yet (see ROADMAP.md). The
+package imports torch and numpy, never JAX.
 """
 
 __version__ = "0.1.0"

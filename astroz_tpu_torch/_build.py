@@ -2,9 +2,11 @@
 
 The library is built at first use, never at import, into ``csrc/build/``
 (listed in ``.gitignore``), and rebuilt when the hash of a source or of
-the flags changes. Every exported function has a plain C interface;
-pointers and the stream go through ``ctypes.c_void_p``. A failed build
-raises with nvcc's output.
+the flags changes: one nvcc per ``.cu`` file, all started together, then
+one link. Every exported function has a plain C interface; pointers and
+the stream go through ``ctypes.c_void_p``. A failed build raises with
+nvcc's output; ptxas' report (registers and spills of each kernel) is
+kept beside the library (:func:`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,9 +24,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 
 #: no FMA contraction and no fast math: the kernels then give the bits
-#: of their plain torch versions (see csrc/sgp4_shallow.cu)
+#: of their plain torch versions (see csrc/sgp4_common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +38,15 @@ SIGNATURES = {
     # want_vel, j2, re, vkmpersec, r, v, err, stream
     "astroz_sgp4_shallow": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _F, _F, _F, _P, _P, _P, _P]),
+    # the same, then deep_slot, dr, dv, de, n_deep before r, v, err, stream
+    "astroz_sgp4_shallow_merge": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _F, _F, _F, _P, _P, _P, _P, _I,
+                                       _P, _P, _P, _P]),
+    # t_time, t_sat, spine, tail, flags, tables, n_times, n_deep, n_steps,
+    # kepler_iters, want_vel, j2, re, vkmpersec, xke, j3oj2, r, v, err,
+    # stream
+    "astroz_sgp4_deep": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _F, _F, _F, _F, _P, _P, _P, _P]),
 }
 
 
@@ -63,6 +75,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libastroz_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands together; raise with the output of a failed one,
+    else return their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for this hash exists."""
     out = library_path()
@@ -70,15 +96,41 @@ def build() -> Path:
         return out
     sources, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    nvcc = _nvcc()
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
+
+
+def ptxas_report():
+    """``[(kernel, registers, spill_stores, spill_loads)]`` from ptxas'
+    output of the current build (mangled kernel names)."""
+    log = library_path().with_suffix(".log").read_text()
+    report, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report.append((name, int(m.group(1))) + spills)
+            name, spills = None, (0, 0)
+    return report
 
 
 @functools.cache

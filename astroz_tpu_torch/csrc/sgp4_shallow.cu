@@ -1,25 +1,30 @@
-// Near-earth SGP4 propagation over a separable time grid, for Hopper.
+// Near-earth SGP4 propagation over a separable time grid, for Hopper:
+// kernel K1 and its merge variant K3.
 //
-// Replaces the TPU kernel astroz_tpu/ops/pallas_sgp4.py:_kernel_fused_sep
+// K1 replaces the TPU kernel astroz_tpu/ops/pallas_sgp4.py:_kernel_fused_sep
 // (wrapper propagate_fast_pallas_sep). For every (time t, satellite s):
 //   tsince = t_time[t] - t_sat[s]                         (f64)
 //   spine: secular angles in f64, reduced mod 2pi, cast to f32
 //   tail:  drag, Newton Kepler (3/4/5/8 trips), J2 short-period terms,
 //          TEME r (and v) in f32 with a polynomial sincos
 //   errors 1/4/6 over the init error; failed points zero-filled.
-// The plain torch version is astroz_tpu_torch/ops/fast.py (spine_f64 +
-// shallow_tail_f32); this file runs the same operations in the same
-// order. The TPU kernel ran the spine in double-f32 (Dekker) arithmetic
-// because the TPU has no f64; Hopper has, so the spine here is native
-// f64, as the JAX package's XLA path spine_f64 computes it.
+// K3 (MERGE = true) replaces _kernel_fused_sep_merge (wrapper
+// propagate_fast_pallas_sep_merge): the same kernel, given a per-column
+// deep_slot map (-1 on near-earth columns, else the column's index in the
+// deep subset) and kernel K2's (3, T, D) / (T, D) planes. A deep column
+// does not run the tail: its thread copies r, v and err from the deep
+// planes at its slot. It is a select, never a blend, so no shallow value
+// reaches a deep column; every other column is K1, bit for bit. The TPU
+// kernel scattered the deep columns with a bf16 one-hot matmul on its
+// matrix unit; on Hopper a direct indexed read does it, with no bound on
+// the deep fraction.
 //
-// Numerics. Built with --fmad=false and without --use_fast_math: every
-// operation is one IEEE-rounded f32/f64 op, divides and square roots are
-// correctly rounded (1/sqrtf stands for the JAX rsqrt; CUDA's rsqrtf is
-// an approximation), and rintf rounds half to even like jnp.round. So
-// the kernel gives the plain version's bits, and its positions are the
-// same with and without velocities. f64 remainders follow torch/jnp
-// remainder (the divisor's sign): fmod, then + 2pi below zero.
+// The plain torch version is astroz_tpu_torch/ops/fast.py (spine_f64 +
+// shallow_tail_f32); this file runs the same operations in the same order
+// (sgp4_common.cuh says how the bits are kept). The TPU kernel ran the
+// spine in double-f32 (Dekker) arithmetic because the TPU has no f64;
+// Hopper has, so the spine here is native f64, as the JAX package's XLA
+// path spine_f64 computes it.
 //
 // Bound. At 13,478 x 1,440 each point stores 28 bytes (16 without
 // velocities) and does ~350 f32 and ~20 f64 operations, five f64 fmods
@@ -28,17 +33,17 @@
 // stores alone would take ~0.17 ms at 3.35 TB/s; measured on an H100
 // SXM at a 700 W limit the kernel takes 0.855 ms (635 GB/s of stores),
 // so instruction issue bounds it (the fmods, the divide and square-root
-// sequences, 31% occupancy at 96 registers a thread). The design
-// keeps it simple and coalesced: one thread owns one satellite and
-// ROWS time rows, loads the satellite's fields into registers once,
-// and neighbouring threads take neighbouring satellites, so the loads
-// of the (rows, S) field matrices and the stores to the (3, T, S)
-// planes are contiguous across a warp. Outputs are exact-shape; the
-// ragged satellite and time edges are masked. Making it fast (FMA,
-// occupancy, staging the field rows) is later work.
+// sequences, 31% occupancy at 96 registers a thread). The merge adds a
+// branch per thread and, on the ~5% deep columns, 28-byte reads per point
+// in place of the tail. The design keeps it simple and coalesced: one
+// thread owns one satellite and ROWS time rows, loads the satellite's
+// fields into registers once, and neighbouring threads take neighbouring
+// satellites, so the loads of the (rows, S) field matrices and the stores
+// to the (3, T, S) planes are contiguous across a warp. Outputs are
+// exact-shape; the ragged satellite and time edges are masked. Making it
+// fast (FMA, occupancy, staging the field rows) is later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "sgp4_common.cuh"
 
 namespace {
 
@@ -48,107 +53,23 @@ constexpr int ROWS = 8;     // time rows per thread
 constexpr int N_SPINE = 12;  // ops/fast.py SPINE_FIELD_NAMES
 constexpr int N_TAIL = 21;   // ops/fast.py TAIL_FIELD_NAMES
 
-// f32 constants are the f32 rounding of the double the Python code
-// writes, as torch and JAX round a python float against an f32 tensor
-#define F32(x) ((float)(x))
+// kernel K2's outputs and the per-column map into them (K3 only)
+struct DeepPlanes {
+  const int* slot;  // (S,) i32: -1, or the column's deep-subset index
+  const float* r;   // (3, T, D) f32
+  const float* v;   // (3, T, D) f32, null without velocities
+  const int* err;   // (T, D) i32
+  int n_deep;       // D
+};
 
-constexpr double TWO_PI_D = 2.0 * 3.141592653589793;
-constexpr float TWO_PI_F = F32(2.0 * 3.141592653589793);
-
-constexpr float TWO_OVER_PI = F32(0.6366197723675814);
-constexpr float PIO2_HI = F32(2.0 * 0.78515625);
-constexpr float PIO2_MED = F32(2.0 * 2.4187564849853515625e-4);
-constexpr float PIO2_LO = F32(2.0 * 3.77489497744594108e-8);
-constexpr float S1 = F32(-1.6666654611e-1);
-constexpr float S2 = F32(8.3321608736e-3);
-constexpr float S3 = F32(-1.9515295891e-4);
-constexpr float C1 = F32(4.166664568298827e-2);
-constexpr float C2 = F32(-1.388731625493765e-3);
-constexpr float C3 = F32(2.443315711809948e-5);
-
-constexpr float SIXTH = F32(1.0 / 6.0);
-constexpr float TWELFTH = F32(1.0 / 12.0);
-constexpr float THIRD = F32(1.0 / 3.0);
-
-// fastmath.sincos
-__device__ __forceinline__ void sincos_poly(float x, float& s, float& c) {
-  const float k = rintf(x * TWO_OVER_PI);
-  const float y = ((x - k * PIO2_HI) - k * PIO2_MED) - k * PIO2_LO;
-  const float y2 = y * y;
-  const float sp = y + y * y2 * (S1 + y2 * (S2 + y2 * S3));
-  const float cp = 1.0f - 0.5f * y2 + y2 * y2 * (C1 + y2 * (C2 + y2 * C3));
-  const int q = (int)k & 3;
-  const bool swap = (q & 1) == 1;
-  s = swap ? cp : sp;
-  c = swap ? sp : cp;
-  if ((q & 2) == 2) s = -s;
-  if (((q + 1) & 2) == 2) c = -c;
-}
-
-// fastmath.angle_add
-__device__ __forceinline__ void angle_add(float sin_a, float cos_a,
-                                          float delta, float& s, float& c) {
-  const float d2 = delta * delta;
-  const float sd = delta * (1.0f - d2 * SIXTH * (1.0f - F32(0.05) * d2));
-  const float cd = 1.0f - 0.5f * d2 * (1.0f - d2 * TWELFTH);
-  s = sin_a * cd + cos_a * sd;
-  c = cos_a * cd - sin_a * sd;
-}
-
-// min(max(x, lo), hi); NaN stays NaN like torch.clamp / jnp.maximum
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  x = (x < lo) ? lo : x;
-  return (x > hi) ? hi : x;
-}
-
-// torch.remainder(x, 2pi) in f64
-__device__ __forceinline__ double rem_two_pi(double x) {
-  double r = fmod(x, TWO_PI_D);
-  if (r < 0.0) r += TWO_PI_D;
-  return r;
-}
-
-// fast._wrap_two_pi_f32
-__device__ __forceinline__ float wrap_two_pi(float x) {
-  if (x >= TWO_PI_F) x = x - TWO_PI_F;
-  if (x >= TWO_PI_F) x = x - TWO_PI_F;
-  if (x < 0.0f) x = x + TWO_PI_F;
-  return x;
-}
-
-// fast.solve_kepler_fast: returns sin and cos of the eccentric longitude
-template <int ITERS>
-__device__ __forceinline__ void solve_kepler(float u, float axnl, float aynl,
-                                             float& sineo1, float& coseo1) {
-  float eo1 = u;
-  sincos_poly(eo1, sineo1, coseo1);
-#pragma unroll
-  for (int i = 0; i < ITERS - 1; ++i) {
-    const float denom = 1.0f - coseo1 * axnl - sineo1 * aynl;
-    const float tem5 = (u - aynl * coseo1 + axnl * sineo1 - eo1) / denom;
-    eo1 = eo1 + clampf(tem5, F32(-0.95), F32(0.95));
-    sincos_poly(eo1, sineo1, coseo1);
-  }
-  const float denom = 1.0f - coseo1 * axnl - sineo1 * aynl;
-  const float tem5 = (u - aynl * coseo1 + axnl * sineo1 - eo1) / denom;
-  const float d = clampf(tem5, F32(-0.95), F32(0.95));
-  const float d2h = 0.5f * d * d;
-  const float sind = d * (1.0f - THIRD * d2h);
-  const float cosd = 1.0f - d2h;
-  const float s = sineo1 * cosd + coseo1 * sind;
-  const float c = coseo1 * cosd - sineo1 * sind;
-  sineo1 = s;
-  coseo1 = c;
-}
-
-template <bool WANT_VEL, int ITERS>
+template <bool WANT_VEL, int ITERS, bool MERGE>
 __global__ void __launch_bounds__(BLOCK)
 sgp4_shallow_kernel(const double* __restrict__ t_time,
                     const double* __restrict__ t_sat,
                     const double* __restrict__ spine,
                     const float* __restrict__ tail,
                     const int* __restrict__ flags, int n_times, int n_sats,
-                    float j2, float re, float vkmpersec,
+                    float j2, float re, float vkmpersec, DeepPlanes deep,
                     float* __restrict__ r, float* __restrict__ v,
                     int* __restrict__ err) {
   const int s = blockIdx.x * BLOCK + threadIdx.x;
@@ -156,6 +77,30 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
   const int t_begin = blockIdx.y * ROWS;
   const int t_end = min(t_begin + ROWS, n_times);
   const size_t ns = (size_t)n_sats;
+  const size_t plane = (size_t)n_times * ns;
+
+  if (MERGE) {
+    const int slot = deep.slot[s];
+    if (slot >= 0) {
+      // a deep column: K2's values, as they are
+      const size_t nd = (size_t)deep.n_deep;
+      const size_t dplane = (size_t)n_times * nd;
+      for (int ti = t_begin; ti < t_end; ++ti) {
+        const size_t idx = (size_t)ti * ns + s;
+        const size_t di = (size_t)ti * nd + slot;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          r[c * plane + idx] = deep.r[c * dplane + di];
+        err[idx] = deep.err[di];
+        if (WANT_VEL) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            v[c * plane + idx] = deep.v[c * dplane + di];
+        }
+      }
+      return;
+    }
+  }
 
   // per-satellite fields, loaded once (rows of SoA matrices: coalesced)
   double sp[N_SPINE];
@@ -224,91 +169,25 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
     sincos_poly(node32 + 0.0f, sin_node, cos_node);
     const float argpp = (not_simp ? argp32 - tempd : argp32) + 0.0f;
 
-    // ---- long-period terms + Kepler (fast._kepler_posvel_f32) ----------
-    float sin_argpp, cos_argpp;
-    sincos_poly(argpp, sin_argpp, cos_argpp);
-    const float axnl = em * cos_argpp;
-    const float temp_lp = 1.0f / (am_safe * (1.0f - em * em));
-    const float aynl = em * sin_argpp + temp_lp * aycof;
-    const float u_kep = wrap_two_pi(u_base + temp_lp * xlcof * axnl);
-    float sineo1, coseo1;
-    solve_kepler<ITERS>(u_kep, axnl, aynl, sineo1, coseo1);
-
-    // ---- short-period corrections + position/velocity ------------------
-    const float ecose = axnl * coseo1 + aynl * sineo1;
-    const float esine = axnl * sineo1 - aynl * coseo1;
-    const float el2 = axnl * axnl + aynl * aynl;
-    const float pl = am * (1.0f - el2);
-    if (pl < 0.0f && error == 0) error = 4;
-    const float pl_safe = pl > 0.0f ? pl : 1.0f;
-
-    const float rl = am * (1.0f - ecose);
-    const float rl_inv = 1.0f / rl;
-    const float betal = sqrtf(fabsf(1.0f - el2));
-    const float temp_b = esine / (1.0f + betal);
-    const float am_rl = am * rl_inv;
-    const float sinu = am_rl * (sineo1 - aynl - axnl * temp_b);
-    const float cosu = am_rl * (coseo1 - axnl + aynl * temp_b);
-    const float sin2u = (cosu + cosu) * sinu;
-    const float cos2u = 1.0f - 2.0f * sinu * sinu;
-    const float rsq_pl = 1.0f / sqrtf(pl_safe);
-    const float temp_p = rsq_pl * rsq_pl;
-    const float temp1 = 0.5f * j2 * temp_p;
-    const float temp2 = temp1 * temp_p;
-
-    const float mrt = rl * (1.0f - 1.5f * temp2 * betal * con41) +
-                      0.5f * temp1 * x1mth2 * cos2u;
-    float sinsu, cossu, snod, cnod, sini, cosi;
-    angle_add(sinu, cosu, -0.25f * temp2 * x7thm1 * sin2u, sinsu, cossu);
-    angle_add(sin_node, cos_node, 1.5f * temp2 * cosip * sin2u, snod, cnod);
-    angle_add(sinip, cosip, 1.5f * temp2 * cosip * sinip * cos2u, sini,
-              cosi);
-
-    const float xmx = -snod * cosi;
-    const float xmy = cnod * cosi;
-    const float ux = xmx * sinsu + cnod * cossu;
-    const float uy = xmy * sinsu + snod * cossu;
-    const float uz = sini * sinsu;
-
-    if (mrt < 1.0f && error == 0) error = 6;
-    const bool ok = error == 0;
-    const float mrt_re = ok ? mrt * re : 0.0f;
-
-    const size_t plane = (size_t)n_times * ns;
-    const size_t idx = (size_t)ti * ns + s;
-    r[idx] = mrt_re * ux;
-    r[plane + idx] = mrt_re * uy;
-    r[2 * plane + idx] = mrt_re * uz;
-    err[idx] = error;
-    if (WANT_VEL) {
-      const float rdotl = am_safe * rsq_am * esine * rl_inv;
-      const float rvdotl = pl_safe * rsq_pl * rl_inv;
-      const float nm_oxke = rsq_am * rsq_am * rsq_am;
-      const float mvt = rdotl - nm_oxke * temp1 * x1mth2 * sin2u;
-      const float rvdot =
-          rvdotl + nm_oxke * temp1 * (x1mth2 * cos2u + 1.5f * con41);
-      const float vx_ = xmx * cossu - cnod * sinsu;
-      const float vy_ = xmy * cossu - snod * sinsu;
-      const float vz_ = sini * cossu;
-      const float mvt_s = ok ? vkmpersec * mvt : 0.0f;
-      const float rvdot_s = ok ? vkmpersec * rvdot : 0.0f;
-      v[idx] = mvt_s * ux + rvdot_s * vx_;
-      v[plane + idx] = mvt_s * uy + rvdot_s * vy_;
-      v[2 * plane + idx] = mvt_s * uz + rvdot_s * vz_;
-    }
+    // ---- long-period terms -> Kepler -> TEME (fast._kepler_posvel_f32) -
+    const PosVel o = kepler_posvel<WANT_VEL, ITERS>(
+        u_base, am, am_safe, rsq_am, em, argpp, sin_node, cos_node, sinip,
+        cosip, aycof, xlcof, con41, x1mth2, x7thm1, error, j2, re, vkmpersec);
+    store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
   }
 }
 
-template <bool WANT_VEL>
+template <bool WANT_VEL, bool MERGE>
 cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
                    const double* t_time, const double* t_sat,
                    const double* spine, const float* tail, const int* flags,
                    int n_times, int n_sats, float j2, float re,
-                   float vkmpersec, float* r, float* v, int* err) {
+                   float vkmpersec, DeepPlanes deep, float* r, float* v,
+                   int* err) {
 #define ASTROZ_LAUNCH(IT)                                                   \
-  sgp4_shallow_kernel<WANT_VEL, IT><<<grid, BLOCK, 0, stream>>>(            \
+  sgp4_shallow_kernel<WANT_VEL, IT, MERGE><<<grid, BLOCK, 0, stream>>>(     \
       t_time, t_sat, spine, tail, flags, n_times, n_sats, j2, re, vkmpersec, \
-      r, v, err)
+      deep, r, v, err)
   switch (kepler_iters) {
     case 3: ASTROZ_LAUNCH(3); break;
     case 4: ASTROZ_LAUNCH(4); break;
@@ -320,28 +199,57 @@ cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+template <bool MERGE>
+int launch_vel(int want_vel, int kepler_iters, const double* t_time,
+               const double* t_sat, const double* spine, const float* tail,
+               const int* flags, int n_times, int n_sats, float j2, float re,
+               float vkmpersec, DeepPlanes deep, float* r, float* v,
+               int* err, void* stream) {
+  const dim3 grid((n_sats + BLOCK - 1) / BLOCK, (n_times + ROWS - 1) / ROWS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      want_vel ? launch<true, MERGE>(kepler_iters, grid, st, t_time, t_sat,
+                                     spine, tail, flags, n_times, n_sats, j2,
+                                     re, vkmpersec, deep, r, v, err)
+               : launch<false, MERGE>(kepler_iters, grid, st, t_time, t_sat,
+                                      spine, tail, flags, n_times, n_sats,
+                                      j2, re, vkmpersec, deep, r, v, err);
+  return static_cast<int>(rc);
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes by astroz_tpu_torch/_build.py).
+// Plain C entry points (bound with ctypes by astroz_tpu_torch/_build.py).
 // Shapes: t_time (T,) f64; t_sat (S,) f64; spine (12, S) f64;
 // tail (21, S) f32; flags (2, S) i32 = [isimp, init error];
 // r (3, T, S) f32; v (3, T, S) f32 or null when want_vel == 0;
-// err (T, S) i32. All contiguous on the current device. Launches on
-// `stream` and returns the launch's cudaError_t (0 = success).
+// err (T, S) i32. All contiguous on the current device. Launch on
+// `stream` and return the launch's cudaError_t (0 = success).
+
+// K1
 extern "C" int astroz_sgp4_shallow(const double* t_time, const double* t_sat,
                                    const double* spine, const float* tail,
                                    const int* flags, int n_times, int n_sats,
                                    int kepler_iters, int want_vel, float j2,
                                    float re, float vkmpersec, float* r,
                                    float* v, int* err, void* stream) {
-  const dim3 grid((n_sats + BLOCK - 1) / BLOCK, (n_times + ROWS - 1) / ROWS);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc =
-      want_vel ? launch<true>(kepler_iters, grid, st, t_time, t_sat, spine,
-                              tail, flags, n_times, n_sats, j2, re,
-                              vkmpersec, r, v, err)
-               : launch<false>(kepler_iters, grid, st, t_time, t_sat, spine,
-                               tail, flags, n_times, n_sats, j2, re,
-                               vkmpersec, r, v, err);
-  return static_cast<int>(rc);
+  return launch_vel<false>(want_vel, kepler_iters, t_time, t_sat, spine, tail,
+                           flags, n_times, n_sats, j2, re, vkmpersec,
+                           DeepPlanes{nullptr, nullptr, nullptr, nullptr, 0},
+                           r, v, err, stream);
+}
+
+// K3: K1's arguments plus deep_slot (S,) i32 and kernel K2's planes
+// dr (3, T, D) f32, dv (3, T, D) f32 (null when want_vel == 0) and
+// de (T, D) i32.
+extern "C" int astroz_sgp4_shallow_merge(
+    const double* t_time, const double* t_sat, const double* spine,
+    const float* tail, const int* flags, int n_times, int n_sats,
+    int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
+    const int* deep_slot, const float* dr, const float* dv, const int* de,
+    int n_deep, float* r, float* v, int* err, void* stream) {
+  return launch_vel<true>(want_vel, kepler_iters, t_time, t_sat, spine, tail,
+                          flags, n_times, n_sats, j2, re, vkmpersec,
+                          DeepPlanes{deep_slot, dr, dv, de, n_deep}, r, v,
+                          err, stream);
 }

@@ -1,10 +1,10 @@
 """Fast f32 math of the propagation tail, in plain torch.
 
-Counterpart of ``astroz_tpu/ops/fastmath.py:37-82, 206-236``. Every
+Counterpart of ``astroz_tpu/ops/fastmath.py:37-142, 206-236``. Every
 function is a chain of single IEEE-rounded f32 operations, written in
-the same order as the JAX package's, so the CUDA kernel
-(``csrc/sgp4_shallow.cu``, built without FMA contraction) computes the
-same bits from the same inputs. Python float constants are rounded to
+the same order as the JAX package's, so the CUDA kernels (``csrc/``,
+built without FMA contraction) compute the same bits from the same
+inputs. Python float constants are rounded to
 f32 by torch exactly as JAX rounds its weakly typed ones.
 """
 
@@ -78,3 +78,52 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     is an approximation on CUDA, which would split the kernel from its
     plain version)."""
     return 1.0 / sqrt_rn(x)
+
+
+#: odd minimax polynomial of atan on [-1, 1], degree 15 (the JAX
+#: package's coefficients)
+_AT = (0.9999994161665577, -0.33330223078054766, 0.1995111999819918,
+       -0.1393327926026066, 0.09709489254190584, -0.05688293268565614,
+       0.022568342982102904, -0.004257856903975933)
+_HALF_PI = 1.5707963267948966
+_PI = 3.141592653589793
+
+
+def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Polynomial atan2 of f32 tensors, range (-pi, pi]: octant folding
+    to a ratio in [0, 1], the degree-15 polynomial, quadrant fix-up.
+    atan2(0, 0) is 0."""
+    abs_y = torch.abs(y)
+    abs_x = torch.abs(x)
+    swap = abs_y > abs_x
+    num = torch.where(swap, abs_x, abs_y)
+    den = torch.where(swap, abs_y, abs_x)
+    den = torch.where(den > 0.0, den, 1.0)
+    z = num / den
+    z2 = z * z
+    a = _AT[7]
+    for c in reversed(_AT[:7]):
+        a = c + z2 * a
+    a = z * a
+    a = torch.where(swap, _HALF_PI - a, a)
+    a = torch.where(x < 0.0, _PI - a, a)
+    return torch.where(y < 0.0, -a, a)
+
+
+def fast_cbrt(x: torch.Tensor) -> torch.Tensor:
+    """cbrt(x) of an f32 tensor with x > 0: a third of the exponent by a
+    bit trick (int32 floor division of the bits by 3, which truncates
+    for positive x), then three Newton steps with true divides."""
+    i = x.view(torch.int32)
+    y = (torch.div(i, 3, rounding_mode="floor") + 0x2A511CD0).view(
+        torch.float32)
+    y = (2.0 * y + x / (y * y)) * (1.0 / 3.0)
+    y = (2.0 * y + x / (y * y)) * (1.0 / 3.0)
+    y = (2.0 * y + x / (y * y)) * (1.0 / 3.0)
+    return y
+
+
+def pow23(x: torch.Tensor) -> torch.Tensor:
+    """x^(2/3) for x > 0."""
+    c = fast_cbrt(x)
+    return c * c

@@ -1,12 +1,15 @@
-"""SGP4 near-earth element init (host, f64 numpy).
+"""SGP4 element init (host, f64 numpy) and the f64 propagation tail
+(torch).
 
-Counterpart of ``astroz_tpu/ops/sgp4.py:40-295``: the published SGP4
-init (Vallado, "Revisiting Spacetrack Report #3", AIAA 2006-6753),
-vectorized over a catalog, every data-dependent branch a ``where`` mask
-and every init error a per-lane python-sgp4 code. Init runs once per
-catalog on the host in f64, as in the JAX package's ingest path, and
-gives the same bits; the catalog layer moves the finished elements to
-the device once.
+Counterpart of ``astroz_tpu/ops/sgp4.py``: the published SGP4 init
+(Vallado, "Revisiting Spacetrack Report #3", AIAA 2006-6753; JAX
+:40-295), vectorized over a catalog, every data-dependent branch a
+``where`` mask and every init error a per-lane python-sgp4 code. Init
+runs once per catalog on the host in f64, as in the JAX package's ingest
+path, and gives the same bits; the catalog layer moves the finished
+elements to the device once. :func:`update_secular`,
+:func:`solve_kepler` and :func:`kepler_and_posvel` (JAX :296-433) are
+the f64 propagation stages in plain torch, on any device.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..constants import (GravityModel, SGP4_DEEP_SPACE_THRESHOLD_MINUTES,
                          TWO_PI)
@@ -245,3 +249,124 @@ def sgp4_init_np(grav: GravityModel, *, no_kozai, ecco, inclo, nodeo,
     return _sgp4_init_core(
         grav, no_kozai=no_kozai, ecco=ecco, inclo=inclo, nodeo=nodeo,
         argpo=argpo, mo=mo, bstar=bstar, epoch_jd=epoch_jd)
+
+
+def solve_kepler(u, axnl, aynl, iters: int = 10):
+    """Equinoctial Kepler solve in f64: ``iters`` Newton trips, each lane
+    frozen once its step falls below 1e-12."""
+    eo1 = u
+    done = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+    sineo1 = torch.sin(eo1)
+    coseo1 = torch.cos(eo1)
+    for _ in range(iters):
+        denom = 1.0 - coseo1 * axnl - sineo1 * aynl
+        tem5 = (u - aynl * coseo1 + axnl * sineo1 - eo1) / denom
+        tem5 = torch.clamp(tem5, -0.95, 0.95)
+        eo1 = torch.where(done, eo1, eo1 + tem5)
+        done = done | (torch.abs(tem5) < 1.0e-12)
+        sineo1 = torch.sin(eo1)
+        coseo1 = torch.cos(eo1)
+    return eo1, sineo1, coseo1
+
+
+def kepler_and_posvel(grav: GravityModel, *, am, nm, ep, xincp, nodep,
+                      argpp, mp, aycof, xlcof, con41, x1mth2, x7thm1,
+                      error):
+    """Long-period terms, Kepler solve, short-period corrections and
+    orientation vectors -> TEME r (km) and v (km/s), stacked ``(..., 3)``
+    and zero-filled where ``error`` is set (codes 4 and 6 added here)."""
+    sinip = torch.sin(xincp)
+    cosip = torch.cos(xincp)
+
+    axnl = ep * torch.cos(argpp)
+    temp = 1.0 / (am * (1.0 - ep * ep))
+    aynl = ep * torch.sin(argpp) + temp * aycof
+    xl = mp + argpp + nodep + temp * xlcof * axnl
+
+    u = torch.remainder(xl - nodep, TWO_PI)
+    _, sineo1, coseo1 = solve_kepler(u, axnl, aynl)
+
+    ecose = axnl * coseo1 + aynl * sineo1
+    esine = axnl * sineo1 - aynl * coseo1
+    el2 = axnl * axnl + aynl * aynl
+    pl = am * (1.0 - el2)
+    error = torch.where((pl < 0.0) & (error == 0), 4, error)
+    pl_safe = torch.where(pl > 0.0, pl, 1.0)
+
+    rl = am * (1.0 - ecose)
+    rdotl = torch.sqrt(am) * esine / rl
+    rvdotl = torch.sqrt(pl_safe) / rl
+    betal = torch.sqrt(torch.abs(1.0 - el2))
+    temp = esine / (1.0 + betal)
+    sinu = am / rl * (sineo1 - aynl - axnl * temp)
+    cosu = am / rl * (coseo1 - axnl + aynl * temp)
+    su = torch.atan2(sinu, cosu)
+    sin2u = (cosu + cosu) * sinu
+    cos2u = 1.0 - 2.0 * sinu * sinu
+    temp = 1.0 / pl_safe
+    temp1 = 0.5 * grav.j2 * temp
+    temp2 = temp1 * temp
+
+    mrt = (rl * (1.0 - 1.5 * temp2 * betal * con41)
+           + 0.5 * temp1 * x1mth2 * cos2u)
+    su = su - 0.25 * temp2 * x7thm1 * sin2u
+    xnode = nodep + 1.5 * temp2 * cosip * sin2u
+    xinc = xincp + 1.5 * temp2 * cosip * sinip * cos2u
+    mvt = rdotl - nm * temp1 * x1mth2 * sin2u / grav.xke
+    rvdot = rvdotl + nm * temp1 * (x1mth2 * cos2u + 1.5 * con41) / grav.xke
+
+    sinsu = torch.sin(su)
+    cossu = torch.cos(su)
+    snod = torch.sin(xnode)
+    cnod = torch.cos(xnode)
+    sini = torch.sin(xinc)
+    cosi = torch.cos(xinc)
+    xmx = -snod * cosi
+    xmy = cnod * cosi
+    ux = xmx * sinsu + cnod * cossu
+    uy = xmy * sinsu + snod * cossu
+    uz = sini * sinsu
+    vx = xmx * cossu - cnod * sinsu
+    vy = xmy * cossu - snod * sinsu
+    vz = sini * cossu
+
+    re = grav.radius_earth_km
+    vkmpersec = re * grav.xke / 60.0
+    mrt_re = mrt * re
+    r = torch.stack([mrt_re * ux, mrt_re * uy, mrt_re * uz], dim=-1)
+    v = torch.stack([vkmpersec * (mvt * ux + rvdot * vx),
+                     vkmpersec * (mvt * uy + rvdot * vy),
+                     vkmpersec * (mvt * uz + rvdot * vz)], dim=-1)
+
+    error = torch.where((mrt < 1.0) & (error == 0), 6, error)
+    ok = (error == 0)[..., None]
+    return torch.where(ok, r, 0.0), torch.where(ok, v, 0.0), error
+
+
+def update_secular(els: Sgp4Elements, t):
+    """Secular gravity and drag update to ``t`` minutes from epoch, f64:
+    returns ``(mm, argpm, nodem, tempa, tempe, templ)``."""
+    xmdf = els.mo + els.mdot * t
+    argpdf = els.argpo + els.argpdot * t
+    nodedf = els.nodeo + els.nodedot * t
+    t2 = t * t
+    nodem = nodedf + els.nodecf * t2
+    tempa = 1.0 - els.cc1 * t
+    tempe = els.bstar * els.cc4 * t
+    templ = els.t2cof * t2
+
+    # higher-order drag on the non-simplified lanes
+    delomg = els.omgcof * t
+    delmtemp = 1.0 + els.eta * torch.cos(xmdf)
+    delm = els.xmcof * (delmtemp ** 3 - els.delmo)
+    tempd = delomg + delm
+    not_simp = ~els.isimp
+    mm = torch.where(not_simp, xmdf + tempd, xmdf)
+    argpm = torch.where(not_simp, argpdf - tempd, argpdf)
+    t3 = t2 * t
+    t4 = t3 * t
+    tempa = tempa - els.d2 * t2 - els.d3 * t3 - els.d4 * t4
+    tempe = tempe + torch.where(
+        not_simp, els.bstar * els.cc5 * (torch.sin(mm) - els.sinmao), 0.0)
+    templ = templ + els.t3cof * t3 + els.t4cof * t4 + t4 * t * els.t5cof
+    return mm, argpm, nodem, tempa, tempe, templ

@@ -1,17 +1,24 @@
-"""Catalog propagation: the near-earth ``method="fast"`` path.
+"""Catalog propagation: the ``method="fast"`` path of mixed
+near-earth / deep-space catalogs.
 
-Counterpart of ``astroz_tpu/propagation.py`` for catalogs whose every
-satellite is near-earth (period under 225 min): ``build_catalog`` parses
-and initializes on the host and moves the elements to one device;
-``propagate`` runs kernel K1 (``ops/cuda_sgp4.py``) over the separable
-grid ``tsince = t_time[t] - t_sat[s]`` and converts frames and layouts
-in plain torch on the kernel's (3, T, S) planes.
+Counterpart of ``astroz_tpu/propagation.py``: ``build_catalog`` parses
+and initializes SGP4 and, where any lane is deep (period of 225 min or
+more), SDP4 on the host, splits off the deep subset and moves the
+elements to one device. ``propagate`` runs over the separable grid
+``tsince = t_time[t] - t_sat[s]``:
 
-Not ported yet, and raising ``NotImplementedError`` where a call reaches
-them: deep-space satellites (SDP4; ROADMAP queue 1, item 6),
-``method="f64"`` and ``scan_times=True`` (item 9). The JAX package's
-small-grid route to its native host engine (item 11) is not ported: on
-a CUDA catalog every fast propagate goes through the kernel.
+* a near-earth catalog through kernel K1 (``ops/cuda_sgp4.py``);
+* a mixed catalog through kernel K2 over the deep subset, the full-f64
+  recompute of its extreme half-day lanes (the HEO escape, plain torch),
+  then kernel K3, which is K1 with the deep columns copied in from K2's
+  planes.
+
+Frames and layouts are converted in plain torch on the kernels' (3, T, S)
+planes. Not ported yet, and raising ``NotImplementedError`` where a call
+reaches them: ``method="f64"`` and ``scan_times=True`` (ROADMAP queue 1,
+item 9). The JAX package's small-grid route to its native host engine
+(item 11) is not ported: on a CUDA catalog every fast propagate goes
+through the kernels.
 """
 
 from __future__ import annotations
@@ -24,9 +31,13 @@ import torch
 
 from .constants import MINUTES_PER_DAY, RAD2DEG, WGS72, GravityModel
 from .frames import ecef_to_geodetic_xyz
-from .ops.cuda_sgp4 import propagate_fast_sep
-from .ops.fast import (SPINE_FIELD_NAMES, TAIL_FIELD_NAMES,
-                       _shallow_f32_fields)
+from .ops.cuda_sgp4 import (propagate_deep_sep, propagate_fast_sep,
+                             propagate_fast_sep_merge)
+from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
+                       SPINE_FIELD_NAMES, TAIL_FIELD_NAMES,
+                       _shallow_f32_fields, deep_f32_fields,
+                       resonance_tables, sdp4_propagate_tables)
+from .ops.sdp4 import DeepElements, sdp4_init_np
 from .ops.sgp4 import Sgp4Elements, sgp4_init_np
 from .time import gstime
 from .tle import Tle, TleArrays, iter_tles, parse_omm
@@ -37,6 +48,24 @@ OUTPUT_MODES = ("teme", "ecef", "geodetic", "geodetic_deg")
 #: (3, T, S), the kernel's own layout
 LAYOUTS = ("time_major", "sat_major", "planes")
 
+#: half-day resonant (irez == 2) lanes above this eccentricity are
+#: recomputed in f64 by the fast path (SatCatalog.heo_escape): the f32
+#: deep tail loses tens of metres near their perigees
+HEO_ESCAPE_ECC = 0.7
+#: with more escape lanes than this the f64 recompute would stop being a
+#: small part of a sweep; such a catalog keeps the f32 tail's accuracy
+_HEO_ESCAPE_CAP = 512
+
+
+class DeepStaging(NamedTuple):
+    """Per-catalog device tensors of the deep subset (kernels K2, K3)."""
+
+    t_sat: torch.Tensor  # (D,) f64 epochs, minutes from the earliest
+    spine: torch.Tensor  # (13, D) f64 rows ops.fast.DEEP_SPINE_FIELD_NAMES
+    tail: torch.Tensor  # (33, D) f32 rows ops.fast.DEEP_FIELD_NAMES
+    flags: torch.Tensor  # (2, D) i32 rows [irez, init error]
+    slot: torch.Tensor  # (S,) i32: -1, or the column's deep-subset index
+
 
 class FastStaging(NamedTuple):
     """Per-catalog device tensors every fast propagate reads."""
@@ -45,6 +74,16 @@ class FastStaging(NamedTuple):
     spine: torch.Tensor  # (12, S) f64 rows ops.fast.SPINE_FIELD_NAMES
     tail: torch.Tensor  # (21, S) f32 rows ops.fast.TAIL_FIELD_NAMES
     flags: torch.Tensor  # (2, S) i32 rows [isimp, init error]
+    deep: Optional[DeepStaging]  # None for a near-earth catalog
+
+
+class HeoEscape(NamedTuple):
+    """The extreme half-day lanes of the deep subset, on the device."""
+
+    els: Sgp4Elements  # f64 elements of the escape lanes
+    deep: DeepElements  # their deep-space coefficients
+    t_sat: torch.Tensor  # (X,) f64 epochs, minutes from the earliest
+    idx: torch.Tensor  # (X,) i64 positions in the deep subset
 
 
 def _device(device) -> torch.device:
@@ -62,21 +101,42 @@ def _to_numpy(x):
     return np.asarray(x)
 
 
+def _on(device, tree):
+    return type(tree)(*(torch.as_tensor(x, device=device) for x in tree))
+
+
 class SatCatalog:
     """An initialized catalog on one device.
 
     ``host`` keeps the f64 numpy elements from init; ``els`` holds the
-    same fields as tensors on ``device``, moved there once."""
+    same fields as tensors on ``device``, moved there once. A catalog
+    with deep lanes also keeps their SDP4 coefficients (``deep_host``,
+    numpy, every lane) and the static deep partition: ``deep_idx`` (the
+    deep columns) and the deep subset's elements and coefficients on the
+    device (``els_deep``, ``deep_sub``); these are None otherwise."""
 
     def __init__(self, els: Sgp4Elements, grav: GravityModel,
-                 satnum: np.ndarray, names=None, *, device="cuda"):
+                 satnum: np.ndarray, names=None, *,
+                 deep: Optional[DeepElements] = None, device="cuda"):
         self.grav = grav
         self.satnum = satnum
         self.names = names
         self.device = _device(device)
         self.host = Sgp4Elements(*(_to_numpy(x) for x in els))
-        self.els = Sgp4Elements(*(torch.as_tensor(x, device=self.device)
-                                  for x in self.host))
+        self.els = _on(self.device, self.host)
+        if (deep is None) == bool(self.host.is_deep.any()):
+            raise ValueError("deep must hold the SDP4 coefficients "
+                             "(ops.sdp4.sdp4_init_np) exactly when a lane "
+                             "is deep")
+        self.deep_host = deep
+        self.deep_idx = self.els_deep = self.deep_sub = None
+        if deep is not None:
+            self.deep_idx = np.nonzero(self.host.is_deep)[0]
+            self.els_deep = _on(self.device, Sgp4Elements(
+                *(x[self.deep_idx] for x in self.host)))
+            self.deep_sub = _on(self.device, DeepElements(
+                *(np.asarray(x)[self.deep_idx] for x in deep)))
+        self._tables = {}
 
     def __len__(self) -> int:
         return int(self.host.no_kozai.shape[0])
@@ -106,20 +166,84 @@ class SatCatalog:
         """Per-satellite python-sgp4 init error codes (0 = ok)."""
         return self.host.error
 
+    @property
+    def deep_epochs_jd(self) -> Optional[np.ndarray]:
+        return self.epochs_jd[self.deep_idx] if self.has_deep else None
+
+    def _t_sat(self, epochs_jd) -> torch.Tensor:
+        return torch.as_tensor(
+            (epochs_jd - self.epoch_min_jd) * MINUTES_PER_DAY,
+            dtype=torch.float64, device=self.device)
+
     @cached_property
     def fast_staging(self) -> FastStaging:
-        """Epoch offsets and the field matrices of kernel K1, built once
-        per catalog on its device."""
+        """Epoch offsets and the field matrices of kernels K1-K3, built
+        once per catalog on its device."""
         els = self.els
         fields = _shallow_f32_fields(els)
-        t_sat = (self.epochs_jd - self.epoch_min_jd) * MINUTES_PER_DAY
+        deep = None
+        if self.has_deep:
+            e, d = self.els_deep, self.deep_sub
+            spine = {n: getattr(d if n in DeepElements._fields else e, n)
+                     for n in DEEP_SPINE_FIELD_NAMES}
+            tail = deep_f32_fields(e, d)
+            slot = np.full(len(self), -1, np.int32)
+            slot[self.deep_idx] = np.arange(self.n_deep, dtype=np.int32)
+            deep = DeepStaging(
+                t_sat=self._t_sat(self.deep_epochs_jd),
+                spine=torch.stack([spine[n] for n in DEEP_SPINE_FIELD_NAMES]),
+                tail=torch.stack([tail[n] for n in DEEP_FIELD_NAMES]),
+                flags=torch.stack([d.irez.to(torch.int32),
+                                   e.error.to(torch.int32)]),
+                slot=torch.as_tensor(slot, device=self.device))
         return FastStaging(
-            t_sat=torch.as_tensor(t_sat, dtype=torch.float64,
-                                  device=self.device),
+            t_sat=self._t_sat(self.epochs_jd),
             spine=torch.stack([getattr(els, n) for n in SPINE_FIELD_NAMES]),
             tail=torch.stack([fields[n] for n in TAIL_FIELD_NAMES]),
             flags=torch.stack([els.isimp.to(torch.int32),
-                               els.error.to(torch.int32)]))
+                               els.error.to(torch.int32)]),
+            deep=deep)
+
+    def resonance_tables(self, steps: int) -> torch.Tensor:
+        """The deep subset's resonance tables at depth ``steps``
+        (``ops.fast.resonance_tables``), integrated once per catalog and
+        depth on the device and kept."""
+        if steps not in self._tables:
+            self._tables[steps] = resonance_tables(self.deep_sub,
+                                                   self.els_deep, steps)
+        return self._tables[steps]
+
+    @cached_property
+    def deep_kepler_iters(self) -> int:
+        """Newton trips of kernel K2: 6 reach the f32 floor of 8 up to
+        e = 0.8, which real deep catalogs stay under."""
+        if not self.has_deep:
+            return 8
+        return 6 if float(self.host.ecco[self.deep_idx].max()) < 0.8 else 8
+
+    @cached_property
+    def heo_escape(self) -> Optional[HeoEscape]:
+        """The deep subset's half-day resonant lanes (irez == 2) with
+        eccentricity above :data:`HEO_ESCAPE_ECC`, which the fast path
+        recomputes in f64 (:func:`_apply_escape`); None when there are
+        none or more than ``_HEO_ESCAPE_CAP``."""
+        if not self.has_deep:
+            return None
+        ecc = self.host.ecco[self.deep_idx]
+        irez = np.asarray(self.deep_host.irez)[self.deep_idx]
+        idx = np.nonzero((irez == 2) & (ecc > HEO_ESCAPE_ECC))[0]
+        if idx.size == 0 or idx.size > _HEO_ESCAPE_CAP:
+            return None
+        idx_dev = torch.as_tensor(idx, device=self.device)
+        return HeoEscape(
+            els=Sgp4Elements(*(x[idx_dev] for x in self.els_deep)),
+            deep=DeepElements(*(x[idx_dev] for x in self.deep_sub)),
+            t_sat=self._t_sat(self.deep_epochs_jd[idx]), idx=idx_dev)
+
+    def escape_tables(self, steps: int) -> torch.Tensor:
+        """The resonance tables of the escape lanes: their columns of
+        :meth:`resonance_tables` (each lane's integration is its own)."""
+        return self.resonance_tables(steps)[:, :, self.heo_escape.idx]
 
     @cached_property
     def kepler_iters(self) -> int:
@@ -188,10 +312,13 @@ def catalog_from_elements(els: Sgp4Elements, grav: GravityModel,
                           names: Optional[Tuple[Optional[str], ...]] = None,
                           *, device="cuda") -> SatCatalog:
     """Finish a catalog from initialized SGP4 elements (numpy arrays or
-    tensors on any device): the elements move to ``device`` once."""
+    tensors on any device): SDP4 init on the host where any lane is
+    deep, then the elements move to ``device`` once."""
+    els = Sgp4Elements(*(_to_numpy(x) for x in els))
     if satnum is None:
-        satnum = np.arange(_to_numpy(els.no_kozai).shape[0], dtype=np.int64)
-    return SatCatalog(els, grav, satnum, names, device=device)
+        satnum = np.arange(els.no_kozai.shape[0], dtype=np.int64)
+    deep = sdp4_init_np(grav, els) if els.is_deep.any() else None
+    return SatCatalog(els, grav, satnum, names, deep=deep, device=device)
 
 
 def _finalize_planes(r3, v3, err, jd_sum, output: str, want_vel: bool,
@@ -224,6 +351,29 @@ def _finalize_planes(r3, v3, err, jd_sum, output: str, want_vel: bool,
     return r, v, err
 
 
+def resonance_steps(jd_sum: np.ndarray, deep_epochs_jd: np.ndarray) -> int:
+    """Depth of the resonance tables for a sweep: the 720-minute steps to
+    the farthest point from a deep epoch, plus one, rounded up to a
+    power of two (at least 2)."""
+    tmax = float(max(abs(jd_sum.max() - deep_epochs_jd.min()),
+                     abs(jd_sum.min() - deep_epochs_jd.max()))
+                 * MINUTES_PER_DAY)
+    return max(2, int(2 ** np.ceil(np.log2(max(tmax / 720.0, 1.0) + 1.0))))
+
+
+def _apply_escape(esc: HeoEscape, tables, t_time, grav,
+                  want_vel: bool, d_r3, d_v3, d_err):
+    """Overwrite the escape lanes' columns of K2's planes, in place, with
+    their full-f64 recompute (``ops.fast.sdp4_propagate_tables``) cast
+    to f32."""
+    ts = t_time[:, None] - esc.t_sat[None, :]
+    xr, xv, xe = sdp4_propagate_tables(esc.els, esc.deep, ts, grav, tables)
+    d_r3[:, :, esc.idx] = xr.permute(2, 0, 1).to(d_r3.dtype)
+    if want_vel:
+        d_v3[:, :, esc.idx] = xv.permute(2, 0, 1).to(d_v3.dtype)
+    d_err[:, esc.idx] = xe.to(d_err.dtype)
+
+
 def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
               velocities: bool = True, layout: str = "time_major",
               scan_times: bool = False, method: str = "f64",
@@ -231,7 +381,7 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
     """Propagate every satellite to every epoch.
 
     Args:
-      cat: a near-earth catalog from :func:`build_catalog`.
+      cat: a catalog from :func:`build_catalog`.
       jd, fr: Julian date split (python-sgp4 convention); ``fr``
         defaults to zeros. Scalars or 1-D arrays of equal length.
       output: ``"teme"`` (km, km/s), ``"ecef"`` (GMST-rotated),
@@ -264,12 +414,6 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
         raise NotImplementedError(
             "method='f64' is not ported yet (ROADMAP queue 1, item 9); "
             "use method='fast'")
-    if cat.has_deep:
-        raise NotImplementedError(
-            f"the catalog holds {cat.n_deep} deep-space satellites "
-            "(period >= 225 min); SDP4 and the deep kernel are not "
-            "ported yet: ROADMAP queue 1, item 6")
-
     dev = cat.device
     jd_h = np.atleast_1d(np.asarray(jd, np.float64))
     fr_h = (np.zeros_like(jd_h) if fr is None
@@ -281,9 +425,24 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
     jd_sum = torch.as_tensor((jd_h + fr_h)[:, None], dtype=torch.float64,
                              device=dev)
     st = cat.fast_staging
-    r3, v3, err = propagate_fast_sep(
-        t_time, st.t_sat, st.spine, st.tail, st.flags, grav=cat.grav,
-        kepler_iters=cat.kepler_iters, want_vel=velocities)
+    if st.deep is None:
+        r3, v3, err = propagate_fast_sep(
+            t_time, st.t_sat, st.spine, st.tail, st.flags, grav=cat.grav,
+            kepler_iters=cat.kepler_iters, want_vel=velocities)
+    else:
+        ds = st.deep
+        steps = resonance_steps(jd_h + fr_h, cat.deep_epochs_jd)
+        d_r3, d_v3, d_err = propagate_deep_sep(
+            t_time, ds.t_sat, ds.spine, ds.tail, ds.flags,
+            cat.resonance_tables(steps), grav=cat.grav,
+            kepler_iters=cat.deep_kepler_iters, want_vel=velocities)
+        if cat.heo_escape is not None:
+            _apply_escape(cat.heo_escape, cat.escape_tables(steps), t_time,
+                          cat.grav, velocities, d_r3, d_v3, d_err)
+        r3, v3, err = propagate_fast_sep_merge(
+            t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, d_r3,
+            d_v3, d_err, grav=cat.grav, kepler_iters=cat.kepler_iters,
+            want_vel=velocities)
     r, v, err = _finalize_planes(r3, v3, err, jd_sum, output, velocities,
                                  layout)
 

@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's near-earth main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -8,21 +8,38 @@ Phases (any failure exits non-zero; nothing is caught):
 
 0. the card: ``torch.cuda.is_available()``, its name and power limit from
    nvidia-smi; the port imports without JAX;
-1. build kernel K1 (``astroz_tpu_torch/csrc/sgp4_shallow.cu``) with nvcc;
-2. kernel vs its plain torch version on the card, on a small ragged
-   catalog with backward and forward times and at the full 13,478 x
-   1,440 shape, with and without velocities, at 3 and 8 Newton trips:
-   error codes identical, positions within 1e-3 km, velocities within
-   1e-6 km/s, kernel positions bit-equal with and without velocities;
-3. the main path: 13,478 synthetic near-earth TLEs as text ->
+1. build kernels K1-K3 (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one
+   process per source, and print ptxas' registers and spills;
+2. K1 vs its plain torch version on the card, on a small ragged
+   near-earth catalog with backward and forward times and at the full
+   13,478 x 1,440 shape, with and without velocities, at 3 and 8 Newton
+   trips: error codes identical, positions within 1e-3 km, velocities
+   within 1e-6 km/s, kernel positions bit-equal with and without
+   velocities;
+2b. K2 (deep subset) and K3 (merge) vs their plain versions under the
+   same bounds: a small mixed catalog with spread epochs and failing
+   deep lanes, backward and forward times, at 6 and 8 trips, with and
+   without velocities, and again at the headline mixed catalog's deep
+   subset x 1,440; K3's deep columns must equal K2's planes bit for bit;
+3. the near-earth main path: 13,478 synthetic near-earth TLEs as text ->
    ``Constellation(text, device="cuda")`` -> ``propagate`` over 1,440
    one-minute epochs, as planes, as ECEF planes and time-major. Each
-   call must launch the kernel once; outputs must be finite CUDA
-   tensors, |r| in the LEO band on healthy lanes, a 512-column sample
-   equal to the plain version run on the CPU within the phase-2 bounds,
-   and the python-sgp4 golden trajectory within 0.1 km;
-4. timings with CUDA events: the kernel alone and its plain version on
-   the card, in turns, and the whole ``propagate`` call.
+   call must launch K1 once (and K2, K3 never); outputs must be finite
+   CUDA tensors, |r| in the LEO band on healthy lanes, a 512-column
+   sample equal to the plain version run on the CPU within the phase-2
+   bounds, and the python-sgp4 golden trajectory within 0.1 km;
+3b. the mixed main path: the headline catalog of bench.py (13,478 TLEs,
+   667 deep lanes, 14 of them HEO-escape lanes) through the same calls.
+   Each call must launch K2 once and K3 once (and K1 never); outputs
+   finite CUDA tensors; healthy LEO, GEO and HEO/GPS columns in their
+   radius bands; every column at 145 of the epochs equal to the plain
+   path run on the CPU within the phase-2 bounds; the python-sgp4 GEO
+   and Molniya golden vectors within 0.1 km;
+4. timings with CUDA events: K1 alone and its plain version on the card,
+   in turns, and the whole near-earth ``propagate`` call;
+4b. the same for K2 and K3, plus the HEO escape, the resonance tables
+   and the whole mixed ``propagate`` call, and the peak device memory of
+   a mixed sweep.
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels, and ``{"ok": true, "device": ...}``.
@@ -36,15 +53,24 @@ import time
 import numpy as np
 import torch
 
+DEVICE = "cuda"
 N_SATS = 13478
 N_TIMES = 1440
 EPOCH_JD = 2460310.5
 POS_TOL_KM = 1e-3
 VEL_TOL_KMS = 1e-6
 SAMPLE_COLS = 512
-#: geocentric radius band of the synthetic catalog's healthy lanes:
-#: above the surface, below the 12 rev/day, e = 0.02 apogee (~8,220 km)
+#: geocentric radius band of the synthetic catalogs' healthy near-earth
+#: lanes: above the surface, below the 12 rev/day, e = 0.02 apogee
+#: (~8,220 km)
 LEO_BAND_KM = (6378.135, 8300.0)
+#: GEO lanes (rev/day ~1.0027, e < 5e-4) stay within this of 42,164 km
+GEO_RADIUS_KM, GEO_BAND_KM = 42164.0, 100.0
+#: the headline generator's 1.9-2.1 rev/day lanes with e up to 0.74:
+#: apogee at most (1 + 0.74) x 27,540 km = 47,920 km
+HEO_BAND_KM = (6378.135, 48500.0)
+#: facts of the headline generator (bench.py) at 13,478 satellites
+HEADLINE_DEEP, HEADLINE_ESCAPE = 667, 14
 
 #: python-sgp4 v2.25 reference trajectory of the TLE below (WGS-72):
 #: (minutes since epoch, TEME position km)
@@ -57,10 +83,49 @@ GOLDEN = [(0.0, (-6388.6251039457, -2316.4105418668, -10.5105608841)),
           (720.0, (-1479.3844792026, 3958.1883289274, -5328.0625952509)),
           (1440.0, (6475.4254340451, 2031.6698883792, -355.1829280487))]
 
+#: python-sgp4 deep-space golden vectors (GEO 28626 on the Lyddane
+#: branch, Molniya-class 09880 on half-day resonance, an escape lane):
+#: (minutes since epoch, TEME position km; None where not recorded)
+GOLDEN_DEEP_TLES = (
+    "1 28626U 05004A   24186.00000000 -.00000098  00000+0  00000+0 0  9998\n"
+    "2 28626   0.0163 279.8379 0003069  20.3251 343.1766  1.00270142 70992\n"
+    "1 09880U 77021B   24186.00000000  .00000023  00000+0  00000+0 0  9999\n"
+    "2 09880  63.4300  75.8891 7318036 269.8735  16.7549  2.00611684 54321")
+GOLDEN_DEEP = {
+    0.0: [(9727.65902952, -41014.43193269, -9.39974955),
+          (2575.93297901, 13237.27540045, 1419.07364030)],
+    1440.0: [(10430.11028794, -40841.32649665, None),
+             (2175.00194988, 14214.96552375, 2741.44350110)]}
+
 
 def check(ok, what):
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from astroz_tpu_torch.ops import cuda_sgp4
+
+    for name in cuda_sgp4.LAUNCHES:
+        cuda_sgp4.LAUNCHES[name] = 0
+
+
+def _tle_text(epoch, ecco, inclo, nodeo, argpo, mo, rev_day, bstar):
+    from astroz_tpu_torch.tle import format_lines
+
+    lines = []
+    for k in range(len(ecco)):
+        lines += format_lines(
+            satnum=10000 + k, epoch_jd=float(epoch[k]), ecco=float(ecco[k]),
+            inclo_deg=float(inclo[k]), nodeo_deg=float(nodeo[k]),
+            argpo_deg=float(argpo[k]), mo_deg=float(mo[k]),
+            no_rev_day=float(rev_day[k]), bstar=float(bstar[k]))
+    return "\n".join(lines)
 
 
 def near_earth_catalog_text(n, seed=42, epoch_spread_days=0.0):
@@ -68,8 +133,6 @@ def near_earth_catalog_text(n, seed=42, epoch_spread_days=0.0):
     rev/day U(12, 16), e U(1e-4, 0.02), i U(17, 103) deg, bstar
     U(-1e-4, 1e-3), epoch JD 2460310.5 (plus a uniform spread if
     asked), as 2-line TLE text."""
-    from astroz_tpu_torch.tle import format_lines
-
     rng = np.random.default_rng(seed)
     rev_day = rng.uniform(12.0, 16.0, n)
     ecco = rng.uniform(1e-4, 0.02, n)
@@ -79,14 +142,35 @@ def near_earth_catalog_text(n, seed=42, epoch_spread_days=0.0):
     mo = rng.uniform(0, 360.0, n)
     bstar = rng.uniform(-1e-4, 1e-3, n)
     epoch = EPOCH_JD + rng.uniform(-epoch_spread_days, epoch_spread_days, n)
-    lines = []
-    for k in range(n):
-        lines += format_lines(
-            satnum=10000 + k, epoch_jd=float(epoch[k]), ecco=float(ecco[k]),
-            inclo_deg=float(inclo[k]), nodeo_deg=float(nodeo[k]),
-            argpo_deg=float(argpo[k]), mo_deg=float(mo[k]),
-            no_rev_day=float(rev_day[k]), bstar=float(bstar[k]))
-    return "\n".join(lines)
+    return _tle_text(epoch, ecco, inclo, nodeo, argpo, mo, rev_day, bstar)
+
+
+def mixed_catalog_text(n, seed=42, epoch_spread_days=0.0):
+    """The headline benchmark's synthetic catalog (``bench.py``'s
+    ``synthetic_catalog_text``, the same draws in the same order): ~95%
+    LEO (rev/day U(12, 16), e U(1e-4, 0.02)), ~3% GEO (rev/day
+    N(1.0027, 1e-4), e U(1e-4, 5e-4), i U(0, 5.7) deg), ~2% GPS/HEO
+    (rev/day U(1.9, 2.1), e U(0.01, 0.74)); i U(17, 103) deg off GEO,
+    bstar U(-1e-4, 1e-3), epoch JD 2460310.5 (plus a uniform spread if
+    asked, drawn last), as 2-line TLE text."""
+    rng = np.random.default_rng(seed)
+    kind = rng.choice(3, size=n, p=[0.95, 0.03, 0.02])
+    rev_day = np.where(kind == 0, rng.uniform(12.0, 16.0, n),
+                       np.where(kind == 1, rng.normal(1.0027, 1e-4, n),
+                                rng.uniform(1.9, 2.1, n)))
+    ecco = np.where(kind == 0, rng.uniform(1e-4, 0.02, n),
+                    np.where(kind == 1, rng.uniform(1e-4, 5e-4, n),
+                             rng.uniform(0.01, 0.74, n)))
+    inclo = np.where(kind == 1, rng.uniform(0.0, 5.7, n),
+                     rng.uniform(17.0, 103.0, n))
+    nodeo = rng.uniform(0, 360.0, n)
+    argpo = rng.uniform(0, 360.0, n)
+    mo = rng.uniform(0, 360.0, n)
+    bstar = rng.uniform(-1e-4, 1e-3, n)
+    epoch = np.full(n, EPOCH_JD)
+    if epoch_spread_days:
+        epoch = epoch + rng.uniform(-epoch_spread_days, epoch_spread_days, n)
+    return _tle_text(epoch, ecco, inclo, nodeo, argpo, mo, rev_day, bstar)
 
 
 def phase0_card():
@@ -112,11 +196,14 @@ def phase1_build():
     print(f"# phase 1: nvcc built {path.name} in "
           f"{time.perf_counter() - t0:.1f} s "
           f"(flags: {' '.join(_build.NVCC_FLAGS)})")
+    for name, regs, spill_st, spill_ld in _build.ptxas_report():
+        print(f"# phase 1: ptxas {name}: {regs} registers, spill stores "
+              f"{spill_st} B, spill loads {spill_ld} B")
 
 
 def _kernel_vs_twin(st, t_time, grav, label, codes=None):
-    """Kernel vs plain version at one shape, both Newton rungs, with
-    and without velocities; returns the largest position and velocity
+    """K1 vs its plain version at one shape, both Newton rungs, with and
+    without velocities; returns the largest position and velocity
     differences. ``codes``: the error codes the points must show."""
     from astroz_tpu_torch.ops import cuda_sgp4
 
@@ -129,7 +216,7 @@ def _kernel_vs_twin(st, t_time, grav, label, codes=None):
             *args, grav=grav, kepler_iters=iters, want_vel=False)
         rr, vr, er = cuda_sgp4.propagate_fast_sep_reference(
             *args, grav=grav, kepler_iters=iters)
-        torch.cuda.synchronize()
+        sync()
         check(v0 is None, "want_vel=False returned velocities")
         check(torch.equal(e, er) and torch.equal(e0, er),
               f"{label} iters={iters}: error codes differ from the plain "
@@ -137,7 +224,7 @@ def _kernel_vs_twin(st, t_time, grav, label, codes=None):
         dr = (r - rr).abs().max().item()
         dv = (v - vr).abs().max().item()
         codes_seen = sorted(set(torch.unique(e).tolist()))
-        print(f"# phase 2: {label} iters={iters}: max|dr| {dr:.3e} km, "
+        print(f"# phase 2: K1 {label} iters={iters}: max|dr| {dr:.3e} km, "
               f"max|dv| {dv:.3e} km/s, error codes {codes_seen}, "
               f"r bit-equal without v: {torch.equal(r, r0)}")
         check(dr <= POS_TOL_KM, f"{label}: |dr| {dr} > {POS_TOL_KM} km")
@@ -162,17 +249,117 @@ def phase2_kernel_vs_twin(headline_cat):
                             bstar=0.5)
     small = build_catalog(near_earth_catalog_text(333, seed=7,
                                                   epoch_spread_days=2.0)
-                          + "\n" + "\n".join(decaying), device="cuda")
+                          + "\n" + "\n".join(decaying), device=DEVICE)
     t_small = torch.linspace(-1440.0, 1440.0, 37, dtype=torch.float64,
-                             device="cuda")
+                             device=DEVICE)
     worst = _kernel_vs_twin(small.fast_staging, t_small, small.grav,
                             "334 sats x 37 times (-1 .. +1 day)",
                             codes={0, 1, 4, 6})
-    t_head = torch.arange(N_TIMES, dtype=torch.float64, device="cuda")
+    t_head = torch.arange(N_TIMES, dtype=torch.float64, device=DEVICE)
     head = _kernel_vs_twin(headline_cat.fast_staging, t_head,
                            headline_cat.grav,
                            f"{N_SATS} sats x {N_TIMES} times")
     return max(worst[0], head[0]), max(worst[1], head[1])
+
+
+def _max_diff(a, b):
+    return (a - b).abs().max().item() if a.numel() else 0.0
+
+
+def _deep_and_merge_vs_twin(cat, t_time, label, k2_codes=None):
+    """K2 vs its plain version at 6 and 8 trips, then K3 over the whole
+    catalog on K2's planes vs its plain version, each with and without
+    velocities. Returns the worst (K2 dr, K2 dv, K3 dr, K3 dv)."""
+    from astroz_tpu_torch.ops import cuda_sgp4
+    from astroz_tpu_torch.propagation import resonance_steps
+
+    st, ds = cat.fast_staging, cat.fast_staging.deep
+    jd_sum = cat.epoch_min_jd + t_time.cpu().numpy() / 1440.0
+    steps = resonance_steps(jd_sum, cat.deep_epochs_jd)
+    dargs = (t_time, ds.t_sat, ds.spine, ds.tail, ds.flags,
+             cat.resonance_tables(steps))
+    margs = (t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot)
+    mkw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
+    cols = torch.as_tensor(cat.deep_idx, device=DEVICE)
+    worst = [0.0] * 4
+    for iters in (6, 8):
+        kw = dict(grav=cat.grav, kepler_iters=iters)
+        r, v, e = cuda_sgp4.propagate_deep_sep(*dargs, **kw)
+        r0, v0, e0 = cuda_sgp4.propagate_deep_sep(*dargs, **kw,
+                                                  want_vel=False)
+        rr, vr, er = cuda_sgp4.propagate_deep_sep_reference(*dargs, **kw)
+        sync()
+        dr, dv = _max_diff(r, rr), _max_diff(v, vr)
+        codes = sorted(set(torch.unique(e).tolist()))
+        print(f"# phase 2b: K2 {label} steps={steps} iters={iters}: "
+              f"max|dr| {dr:.3e} km, max|dv| {dv:.3e} km/s, error codes "
+              f"{codes}, r bit-equal without v: {torch.equal(r, r0)}")
+        check(v0 is None, "K2 want_vel=False returned velocities")
+        check(torch.equal(e, er) and torch.equal(e0, er),
+              f"K2 {label} iters={iters}: error codes differ")
+        check(dr <= POS_TOL_KM and dv <= VEL_TOL_KMS,
+              f"K2 {label} iters={iters}: |dr| {dr} km, |dv| {dv} km/s")
+        check(torch.equal(r, r0), f"K2 {label}: positions differ with and "
+              "without velocities")
+        check(k2_codes is None or set(k2_codes) <= set(codes),
+              f"K2 {label}: error codes {codes} lack {k2_codes}")
+        worst[0], worst[1] = max(worst[0], dr), max(worst[1], dv)
+
+        m = cuda_sgp4.propagate_fast_sep_merge(*margs, r, v, e, **mkw)
+        m0 = cuda_sgp4.propagate_fast_sep_merge(*margs, r0, None, e0, **mkw,
+                                                want_vel=False)
+        mr = cuda_sgp4.propagate_fast_sep_merge_reference(*margs, r, v, e,
+                                                          **mkw)
+        sync()
+        dr, dv = _max_diff(m[0], mr[0]), _max_diff(m[1], mr[1])
+        codes = sorted(set(torch.unique(m[2]).tolist()))
+        print(f"# phase 2b: K3 {label} on K2's iters={iters} planes: "
+              f"max|dr| {dr:.3e} km, max|dv| {dv:.3e} km/s, error codes "
+              f"{codes}, r bit-equal without v: {torch.equal(m[0], m0[0])}")
+        check(m0[1] is None, "K3 want_vel=False returned velocities")
+        check(torch.equal(m[2], mr[2]) and torch.equal(m0[2], mr[2]),
+              f"K3 {label}: error codes differ")
+        check(dr <= POS_TOL_KM and dv <= VEL_TOL_KMS,
+              f"K3 {label}: |dr| {dr} km, |dv| {dv} km/s")
+        check(torch.equal(m[0], m0[0]), f"K3 {label}: positions differ "
+              "with and without velocities")
+        check(torch.equal(m[0][:, :, cols], r)
+              and torch.equal(m[1][:, :, cols], v)
+              and torch.equal(m[2][:, cols], e),
+              f"K3 {label}: deep columns are not K2's planes")
+        worst[2], worst[3] = max(worst[2], dr), max(worst[3], dv)
+    return worst
+
+
+def phase2b_deep_and_merge(headline_cat):
+    from astroz_tpu_torch import build_catalog
+    from astroz_tpu_torch.tle import format_lines
+
+    # spread epochs, plus two failing deep lanes: a perigee below the
+    # surface (error 6 near perigee) and a huge bstar (error 1)
+    failing = [format_lines(satnum=99990 + k, epoch_jd=EPOCH_JD - 1.5,
+                            ecco=ecc, inclo_deg=30.0, nodeo_deg=40.0,
+                            argpo_deg=50.0, mo_deg=60.0, no_rev_day=rev,
+                            bstar=bstar)
+               for k, (rev, ecc, bstar) in enumerate(((6.3, 0.75, 0.01),
+                                                      (6.0, 0.5, 5.0)))]
+    small = build_catalog(
+        mixed_catalog_text(1000, seed=7, epoch_spread_days=2.0) + "\n"
+        + "\n".join(line for pair in failing for line in pair),
+        device=DEVICE)
+    irez = np.asarray(small.deep_host.irez)[small.deep_idx]
+    print(f"# phase 2b: small mixed catalog: {len(small)} sats, "
+          f"{small.n_deep} deep (irez 0/1/2: "
+          f"{[int((irez == k).sum()) for k in range(3)]})")
+    t_small = torch.linspace(-1440.0, 1440.0, 37, dtype=torch.float64,
+                             device=DEVICE) + 2880.0
+    w_small = _deep_and_merge_vs_twin(small, t_small,
+                                      f"{len(small)} sats x 37 times",
+                                      k2_codes={0, 1, 6})
+    t_head = torch.arange(N_TIMES, dtype=torch.float64, device=DEVICE)
+    w_head = _deep_and_merge_vs_twin(headline_cat, t_head,
+                                     f"{N_SATS} sats x {N_TIMES} times")
+    return [max(a, b) for a, b in zip(w_small, w_head)]
 
 
 def phase3_main_path(text):
@@ -180,31 +367,34 @@ def phase3_main_path(text):
     from astroz_tpu_torch.ops import cuda_sgp4
 
     t0 = time.perf_counter()
-    con = Constellation(text, device="cuda")
-    torch.cuda.synchronize()
+    con = Constellation(text, device=DEVICE)
+    sync()
     print(f"# phase 3: Constellation({N_SATS} TLEs) on cuda in "
           f"{time.perf_counter() - t0:.2f} s, kepler_iters "
           f"{con.catalog.kepler_iters}")
-    check(con.num_deep_space == 0, "synthetic catalog has deep lanes")
+    assert con.num_deep_space == 0 and con.catalog.fast_staging.deep is None, \
+        "near_earth_catalog_text made deep lanes"
     times = np.arange(float(N_TIMES))
 
-    cuda_sgp4.LAUNCHES = 0
+    reset_launches()
     r_p, v_p, e_p = con.propagate(times, start_time=EPOCH_JD,
                                   layout="planes")
-    n1 = cuda_sgp4.LAUNCHES
+    n1 = dict(cuda_sgp4.LAUNCHES)
     r_e, v_e, e_e = con.propagate(times, start_time=EPOCH_JD,
                                   layout="planes", output="ecef")
-    n2 = cuda_sgp4.LAUNCHES
+    n2 = dict(cuda_sgp4.LAUNCHES)
     r_t, v_t, e_t = con.propagate(times, start_time=EPOCH_JD)
-    torch.cuda.synchronize()
-    launches = cuda_sgp4.LAUNCHES
-    print("# phase 3: kernel launches per call "
-          f"{[n1, n2 - n1, launches - n2]}")
-    check([n1, n2, launches] == [1, 2, 3],
-          "each propagate call must launch the kernel exactly once")
+    sync()
+    launches = dict(cuda_sgp4.LAUNCHES)
+    print(f"# phase 3: kernel launches after each call {[n1, n2, launches]}")
+    check([n["sgp4_shallow"] for n in (n1, n2, launches)] == [1, 2, 3],
+          "each propagate call must launch K1 exactly once")
+    check(launches["sgp4_deep"] == launches["sgp4_shallow_merge"] == 0,
+          "the near-earth path launched K2 or K3")
 
     outs = (r_p, v_p, e_p, r_e, v_e, e_e, r_t, v_t, e_t)
-    check(all(x.is_cuda for x in outs), "an output is not a CUDA tensor")
+    check(all(x.device.type == DEVICE for x in outs),
+          "an output is not on the card")
     check(tuple(r_p.shape) == (3, N_TIMES, N_SATS)
           and tuple(r_t.shape) == (N_TIMES, N_SATS, 3)
           and tuple(e_p.shape) == (N_TIMES, N_SATS), "output shapes")
@@ -234,7 +424,7 @@ def phase3_main_path(text):
     st = cat.fast_staging
     cols = np.sort(np.random.default_rng(0).choice(N_SATS, SAMPLE_COLS,
                                                    replace=False))
-    idx = torch.as_tensor(cols, device="cuda")
+    idx = torch.as_tensor(cols, device=DEVICE)
     jd = EPOCH_JD + times / 1440.0
     t_time = torch.as_tensor((jd - cat.epoch_min_jd) * 1440.0)
     rr, vr, er = cuda_sgp4.propagate_fast_sep_reference(
@@ -249,7 +439,7 @@ def phase3_main_path(text):
     check(torch.equal(e_p[:, idx].cpu(), er), "sample error codes differ")
     check(dr <= POS_TOL_KM and dv <= VEL_TOL_KMS, "sample differs")
 
-    golden = Constellation(GOLDEN_L1 + "\n" + GOLDEN_L2, device="cuda")
+    golden = Constellation(GOLDEN_L1 + "\n" + GOLDEN_L2, device=DEVICE)
     rg, _, eg = golden.propagate([m for m, _ in GOLDEN],
                                  start_time=golden.epochs_jd[0])
     d_gold = max(np.linalg.norm(rg[i, 0].cpu().double().numpy()
@@ -258,20 +448,151 @@ def phase3_main_path(text):
     print(f"# phase 3: golden trajectory max|dr| {d_gold * 1e3:.2f} m")
     check((eg == 0).all().item() and d_gold < 0.1,
           "golden trajectory off by more than 0.1 km")
+    return con, launches["sgp4_shallow"]
+
+
+def _golden_deep():
+    """The GEO and Molniya golden vectors through the mixed path; returns
+    the largest distance in km."""
+    from astroz_tpu_torch import Constellation
+
+    con = Constellation(GOLDEN_DEEP_TLES, device=DEVICE)
+    check(con.num_deep_space == 2
+          and con.catalog.heo_escape is not None, "golden deep catalog")
+    times = sorted(GOLDEN_DEEP)
+    r, _, e = con.propagate(times, start_time=con.epochs_jd[0])
+    check((e == 0).all().item(), "golden deep lanes report errors")
+    worst = 0.0
+    for i, t in enumerate(times):
+        for s, ref in enumerate(GOLDEN_DEEP[t]):
+            known = [c for c in range(3) if ref[c] is not None]
+            got = r[i, s].cpu().double().numpy()[known]
+            worst = max(worst, float(np.linalg.norm(
+                got - np.asarray([ref[c] for c in known]))))
+    return worst
+
+
+def phase3b_mixed_path(text):
+    from astroz_tpu_torch import Constellation
+    from astroz_tpu_torch.ops import cuda_sgp4
+
+    t0 = time.perf_counter()
+    con = Constellation(text, device=DEVICE)
+    sync()
+    cat = con.catalog
+    esc = cat.heo_escape
+    print(f"# phase 3b: Constellation({N_SATS} mixed TLEs) on cuda in "
+          f"{time.perf_counter() - t0:.2f} s: {cat.n_deep} deep, "
+          f"{0 if esc is None else len(esc.idx)} escape lanes, "
+          f"kepler_iters {cat.kepler_iters}, deep {cat.deep_kepler_iters}")
+    check(cat.n_deep == HEADLINE_DEEP and esc is not None
+          and len(esc.idx) == HEADLINE_ESCAPE,
+          "the headline catalog's deep and escape lanes")
+    times = np.arange(float(N_TIMES))
+
+    reset_launches()
+    calls = []
+    r_p, v_p, e_p = con.propagate(times, start_time=EPOCH_JD,
+                                  layout="planes")
+    calls.append(dict(cuda_sgp4.LAUNCHES))
+    r_e, v_e, e_e = con.propagate(times, start_time=EPOCH_JD,
+                                  layout="planes", output="ecef")
+    calls.append(dict(cuda_sgp4.LAUNCHES))
+    r_t, v_t, e_t = con.propagate(times, start_time=EPOCH_JD)
+    sync()
+    launches = dict(cuda_sgp4.LAUNCHES)
+    calls.append(launches)
+    print(f"# phase 3b: kernel launches after each call {calls}")
+    check([(n["sgp4_deep"], n["sgp4_shallow_merge"]) for n in calls]
+          == [(1, 1), (2, 2), (3, 3)],
+          "each mixed propagate call must launch K2 and K3 exactly once")
+    check(launches["sgp4_shallow"] == 0, "the mixed path launched K1")
+
+    outs = (r_p, v_p, e_p, r_e, v_e, e_e, r_t, v_t, e_t)
+    check(all(x.device.type == DEVICE for x in outs),
+          "an output is not on the card")
+    check(tuple(r_p.shape) == (3, N_TIMES, N_SATS)
+          and tuple(r_t.shape) == (N_TIMES, N_SATS, 3), "output shapes")
+    check(all(torch.isfinite(x).all().item()
+              for x in (r_p, v_p, r_e, v_e, r_t, v_t)), "non-finite output")
+    check(torch.equal(e_p, e_e) and torch.equal(e_p, e_t),
+          "error codes differ between calls")
+    check(torch.equal(r_t, r_p.permute(1, 2, 0)),
+          "time_major differs from planes")
+
+    # radius bands by kind on healthy points
+    irez = np.zeros(N_SATS, np.int64)
+    irez[cat.deep_idx] = np.asarray(cat.deep_host.irez)[cat.deep_idx]
+    kinds = {"LEO": ~cat.is_deep, "GEO": cat.is_deep & (irez == 1),
+             "GPS/HEO": cat.is_deep & (irez != 1)}
+    bands = {"LEO": LEO_BAND_KM,
+             "GEO": (GEO_RADIUS_KM - GEO_BAND_KM,
+                     GEO_RADIUS_KM + GEO_BAND_KM),
+             "GPS/HEO": HEO_BAND_KM}
+    radius = r_p.norm(dim=0)
+    share = (e_p == 0).float().mean().item()
+    print(f"# phase 3b: healthy points {share:.6f}, error codes "
+          f"{sorted(set(torch.unique(e_p).tolist()))}")
+    check(share > 0.9, f"only {share} of the points are healthy")
+    for kind, cols in kinds.items():
+        idx = torch.as_tensor(np.nonzero(cols)[0], device=DEVICE)
+        rad = radius[:, idx][e_p[:, idx] == 0]
+        lo, hi = rad.min().item(), rad.max().item()
+        print(f"# phase 3b: {kind}: {len(idx)} columns, healthy |r| "
+              f"{lo:.1f} .. {hi:.1f} km (band {bands[kind]})")
+        check(bands[kind][0] < lo and hi < bands[kind][1],
+              f"{kind} |r| outside its band")
+
+    # every column at 145 of the epochs against the plain path on the CPU
+    t_idx = np.r_[0:N_TIMES:10, N_TIMES - 1]
+    cpu = Constellation(text, device="cpu")
+    rc, vc, ec = cpu.propagate(times[t_idx], start_time=EPOCH_JD,
+                               layout="planes")
+    ti = torch.as_tensor(t_idx, device=DEVICE)
+    r_s, v_s, e_s = (r_p[:, ti].cpu(), v_p[:, ti].cpu(), e_p[ti].cpu())
+    check(torch.equal(e_s, ec), "error codes differ from the CPU plain path")
+    esc_cols = cat.deep_idx[esc.idx.cpu().numpy()]
+    groups = dict(kinds)
+    groups["escape"] = np.isin(np.arange(N_SATS), esc_cols)
+    worst = (0.0, 0.0)
+    for kind, cols in groups.items():
+        c = torch.as_tensor(np.nonzero(cols)[0])
+        dr = _max_diff(r_s[:, :, c], rc[:, :, c])
+        dv = _max_diff(v_s[:, :, c], vc[:, :, c])
+        print(f"# phase 3b: {kind} columns x {len(t_idx)} epochs vs the "
+              f"CPU plain path: max|dr| {dr:.3e} km, max|dv| {dv:.3e} km/s")
+        worst = (max(worst[0], dr), max(worst[1], dv))
+    check(worst[0] <= POS_TOL_KM and worst[1] <= VEL_TOL_KMS,
+          f"mixed path differs from the CPU plain path: {worst}")
+
+    d_gold = _golden_deep()
+    print(f"# phase 3b: GEO and Molniya golden vectors max|dr| "
+          f"{d_gold * 1e3:.2f} m")
+    check(d_gold < 0.1, "deep golden vectors off by more than 0.1 km")
     return con, launches
 
 
 def _cuda_ms(fn, reps):
     fn()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    sync()
     return start.elapsed_time(end) / reps
+
+
+def _in_turns(kernel, plain, reps_kernel, reps_plain):
+    """plain, kernel, kernel, plain; returns the two means and the four
+    times."""
+    p1, k1, k2, p2 = (_cuda_ms(plain, reps_plain),
+                      _cuda_ms(kernel, reps_kernel),
+                      _cuda_ms(kernel, reps_kernel),
+                      _cuda_ms(plain, reps_plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
 def phase4_timings(con, smi):
@@ -279,56 +600,126 @@ def phase4_timings(con, smi):
 
     cat = con.catalog
     st = cat.fast_staging
-    t_time = torch.arange(N_TIMES, dtype=torch.float64, device="cuda")
+    t_time = torch.arange(N_TIMES, dtype=torch.float64, device=DEVICE)
     args = (t_time, st.t_sat, st.spine, st.tail, st.flags)
     kw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
-
-    def kernel():
-        cuda_sgp4.propagate_fast_sep(*args, **kw)
-
-    def plain():
-        cuda_sgp4.propagate_fast_sep_reference(*args, **kw)
-
-    # in turns: plain, kernel, kernel, plain
-    p1, k1, k2, p2 = (_cuda_ms(plain, 3), _cuda_ms(kernel, 20),
-                      _cuda_ms(kernel, 20), _cuda_ms(plain, 3))
+    k_ms, p_ms, turns = _in_turns(
+        lambda: cuda_sgp4.propagate_fast_sep(*args, **kw),
+        lambda: cuda_sgp4.propagate_fast_sep_reference(*args, **kw), 20, 3)
     times = np.arange(float(N_TIMES))
     call_planes = _cuda_ms(lambda: con.propagate(
         times, start_time=EPOCH_JD, layout="planes"), 10)
     call_tm = _cuda_ms(lambda: con.propagate(times, start_time=EPOCH_JD), 10)
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     props = N_SATS * N_TIMES
     print(f"# phase 4 [{smi}]: kernel K1 {k_ms:.4f} ms "
-          f"({k1:.4f}, {k2:.4f}; {props / k_ms / 1e6:.3f} G props/s)")
-    print(f"# phase 4 [{smi}]: plain torch version {p_ms:.4f} ms "
-          f"({p1:.4f}, {p2:.4f})")
-    print(f"# phase 4 [{smi}]: propagate() planes {call_planes:.4f} ms, "
-          f"time_major {call_tm:.4f} ms")
-    print(f"# phase 4: peak device memory "
+          f"({turns[1]:.4f}, {turns[2]:.4f}; "
+          f"{props / k_ms / 1e6:.3f} G props/s)")
+    print(f"# phase 4 [{smi}]: K1 plain torch version {p_ms:.4f} ms "
+          f"({turns[0]:.4f}, {turns[3]:.4f})")
+    print(f"# phase 4 [{smi}]: near-earth propagate() planes "
+          f"{call_planes:.4f} ms, time_major {call_tm:.4f} ms")
+    print(f"# phase 4: peak device memory so far "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return k_ms, p_ms
 
 
+def phase4b_mixed_timings(con, smi):
+    from astroz_tpu_torch.ops import cuda_sgp4, fast
+    from astroz_tpu_torch.propagation import _apply_escape, resonance_steps
+
+    cat = con.catalog
+    st, ds = cat.fast_staging, cat.fast_staging.deep
+    times = np.arange(float(N_TIMES))
+    t_time = torch.as_tensor(times, dtype=torch.float64, device=DEVICE)
+    steps = resonance_steps(EPOCH_JD + times / 1440.0, cat.deep_epochs_jd)
+    tables = cat.resonance_tables(steps)
+    dargs = (t_time, ds.t_sat, ds.spine, ds.tail, ds.flags, tables)
+    dkw = dict(grav=cat.grav, kepler_iters=cat.deep_kepler_iters)
+    k2_ms, k2_plain, k2_turns = _in_turns(
+        lambda: cuda_sgp4.propagate_deep_sep(*dargs, **dkw),
+        lambda: cuda_sgp4.propagate_deep_sep_reference(*dargs, **dkw),
+        50, 3)
+    dr, dv, de = cuda_sgp4.propagate_deep_sep(*dargs, **dkw)
+    esc_ms = _cuda_ms(lambda: _apply_escape(
+        cat.heo_escape, cat.escape_tables(steps), t_time, cat.grav, True,
+        dr, dv, de), 10)
+    margs = (t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, dr, dv,
+             de)
+    mkw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
+    k3_ms, k3_plain, k3_turns = _in_turns(
+        lambda: cuda_sgp4.propagate_fast_sep_merge(*margs, **mkw),
+        lambda: cuda_sgp4.propagate_fast_sep_merge_reference(*margs, **mkw),
+        20, 3)
+    tables_ms = _cuda_ms(lambda: fast.resonance_tables(
+        cat.deep_sub, cat.els_deep, steps), 3)
+    call_planes = _cuda_ms(lambda: con.propagate(
+        times, start_time=EPOCH_JD, layout="planes"), 10)
+    call_tm = _cuda_ms(lambda: con.propagate(times, start_time=EPOCH_JD), 10)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = con.propagate(times, start_time=EPOCH_JD)
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    props = N_SATS * N_TIMES
+    print(f"# phase 4b [{smi}]: kernel K2 {k2_ms:.4f} ms "
+          f"({k2_turns[1]:.4f}, {k2_turns[2]:.4f}; {cat.n_deep} x "
+          f"{N_TIMES}), plain torch version {k2_plain:.4f} ms "
+          f"({k2_turns[0]:.4f}, {k2_turns[3]:.4f})")
+    print(f"# phase 4b [{smi}]: kernel K3 {k3_ms:.4f} ms "
+          f"({k3_turns[1]:.4f}, {k3_turns[2]:.4f}; "
+          f"{props / k3_ms / 1e6:.3f} G props/s), plain torch version "
+          f"{k3_plain:.4f} ms ({k3_turns[0]:.4f}, {k3_turns[3]:.4f})")
+    print(f"# phase 4b [{smi}]: HEO escape ({len(cat.heo_escape.idx)} "
+          f"lanes, plain f64 torch) {esc_ms:.4f} ms; resonance tables "
+          f"(depth {steps}, once per catalog and depth) {tables_ms:.4f} ms")
+    print(f"# phase 4b [{smi}]: mixed propagate() planes {call_planes:.4f} "
+          f"ms ({props / call_planes / 1e6:.3f} G props/s), time_major "
+          f"{call_tm:.4f} ms")
+    print(f"# phase 4b: device memory of a time-major mixed sweep: peak "
+          f"{peak / 2**30:.3f} GiB, of which {base / 2**30:.3f} GiB were "
+          f"held before the call")
+    return (k2_ms, k2_plain), (k3_ms, k3_plain)
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase0_card()
     phase1_build()
     from astroz_tpu_torch import build_catalog
 
     t0 = time.perf_counter()
     text = near_earth_catalog_text(N_SATS)
-    print(f"# synthetic catalog text: {N_SATS} TLEs in "
+    mixed_text = mixed_catalog_text(N_SATS)
+    print(f"# synthetic catalog texts: 2 x {N_SATS} TLEs in "
           f"{time.perf_counter() - t0:.2f} s")
-    worst_r, worst_v = phase2_kernel_vs_twin(build_catalog(text,
-                                                           device="cuda"))
-    con, launches = phase3_main_path(text)
-    k_ms, p_ms = phase4_timings(con, smi)
+    k1_err = phase2_kernel_vs_twin(build_catalog(text, device=DEVICE))
+    deep_err = phase2b_deep_and_merge(build_catalog(mixed_text,
+                                                    device=DEVICE))
+    con, k1_launches = phase3_main_path(text)
+    mcon, mixed_launches = phase3b_mixed_path(mixed_text)
+    k1_ms, k1_plain = phase4_timings(con, smi)
+    k2, k3 = phase4b_mixed_timings(mcon, smi)
+    print(f"# chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "sgp4_shallow (K1)", "route": "cuda",
-        "source": "astroz_tpu_torch/csrc/sgp4_shallow.cu",
-        "replaces": "astroz_tpu/ops/pallas_sgp4.py:286",
-        "launches": launches, "max_abs_err": worst_r,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "sgp4_shallow (K1)", "route": "cuda",
+         "source": "astroz_tpu_torch/csrc/sgp4_shallow.cu",
+         "replaces": "astroz_tpu/ops/pallas_sgp4.py:286",
+         "launches": k1_launches, "max_abs_err": k1_err[0],
+         "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "sgp4_deep (K2)", "route": "cuda",
+         "source": "astroz_tpu_torch/csrc/sgp4_deep.cu",
+         "replaces": "astroz_tpu/ops/pallas_sgp4.py:410",
+         "launches": mixed_launches["sgp4_deep"],
+         "max_abs_err": deep_err[0], "ms": k2[0], "plain_ms": k2[1]},
+        {"name": "sgp4_shallow_merge (K3)", "route": "cuda",
+         "source": "astroz_tpu_torch/csrc/sgp4_shallow.cu",
+         "replaces": "astroz_tpu/ops/pallas_sgp4.py:657",
+         "launches": mixed_launches["sgp4_shallow_merge"],
+         "max_abs_err": deep_err[2], "ms": k3[0], "plain_ms": k3[1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
-"""Kernel K1 on the card against its plain torch version (marked ``cuda``;
-skips where ``torch.cuda.is_available()`` is False).
+"""Kernels K1, K2 and K3 on the card against their plain torch versions
+(marked ``cuda``; skips where ``torch.cuda.is_available()`` is False).
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-``synthetic_leo_text`` is shared with the other ``test_torch_*`` files.
+``synthetic_leo_text`` and ``synthetic_deep_text`` are shared with the
+other ``test_torch_*`` files.
 """
 
 import numpy as np
@@ -48,6 +49,43 @@ def synthetic_leo_text(n: int = 64, seed: int = 7,
     return "\n".join(lines)
 
 
+def synthetic_deep_text(n: int = 48, seed: int = 11,
+                        failing: bool = True) -> str:
+    """3-line text of ``n`` random deep-space satellites, epochs spread
+    over +-2 days around JD 2460310.5: GEO lanes (rev/day ~1.0027,
+    e < 5e-4, i < 5.7 deg: geosynchronous resonance and the Lyddane
+    branch), 12-hour lanes (rev/day 1.9-2.1, e 0.01-0.74, i 17-103 deg:
+    half-day resonant where e >= 0.5) and Molniya-class lanes (rev/day
+    ~2.006, e 0.70-0.74, i 63.4 deg: the HEO escape above e = 0.7). With
+    ``failing``, the first lane's perigee lies below the surface (rev/day
+    6.3, e 0.75: error 6 near perigee) and the second carries bstar 5
+    (error 1)."""
+    rng = np.random.default_rng(seed)
+    kind = rng.choice(3, size=n, p=[0.4, 0.4, 0.2])
+    rev = np.where(kind == 0, rng.normal(1.0027, 1e-4, n),
+                   np.where(kind == 1, rng.uniform(1.9, 2.1, n),
+                            rng.uniform(2.005, 2.007, n)))
+    ecc = np.where(kind == 0, rng.uniform(1e-4, 5e-4, n),
+                   np.where(kind == 1, rng.uniform(0.01, 0.74, n),
+                            rng.uniform(0.70, 0.74, n)))
+    inc = np.where(kind == 0, rng.uniform(0.0, 5.7, n),
+                   np.where(kind == 1, rng.uniform(17.0, 103.0, n), 63.4))
+    ang = rng.uniform(0.0, 360.0, (3, n))
+    bstar = rng.uniform(-1e-4, 1e-3, n)
+    epoch = 2460310.5 + rng.uniform(-2.0, 2.0, n)
+    if failing:
+        rev[:2], ecc[:2], bstar[:2] = (6.3, 6.0), (0.75, 0.5), (0.01, 5.0)
+    lines = []
+    for k in range(n):
+        l1, l2 = format_lines(
+            satnum=50000 + k, epoch_jd=float(epoch[k]), ecco=float(ecc[k]),
+            inclo_deg=float(inc[k]), nodeo_deg=float(ang[0, k]),
+            argpo_deg=float(ang[1, k]), mo_deg=float(ang[2, k]),
+            no_rev_day=float(rev[k]), bstar=float(bstar[k]))
+        lines += [f"DEEP-{k}", l1, l2]
+    return "\n".join(lines)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -68,14 +106,14 @@ def test_kernel_matches_twin_on_cuda(cuda_device, iters):
     t = torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
                        device=cuda_device)
     args = (t, st.t_sat, st.spine, st.tail, st.flags)
-    before = cuda_sgp4.LAUNCHES
+    before = cuda_sgp4.LAUNCHES["sgp4_shallow"]
     r, v, e = cuda_sgp4.propagate_fast_sep(*args, grav=cat.grav,
                                            kepler_iters=iters)
     r0, v0, e0 = cuda_sgp4.propagate_fast_sep(*args, grav=cat.grav,
                                               kepler_iters=iters,
                                               want_vel=False)
     torch.cuda.synchronize()
-    assert cuda_sgp4.LAUNCHES == before + 2 and v0 is None
+    assert cuda_sgp4.LAUNCHES["sgp4_shallow"] == before + 2 and v0 is None
     rr, vr, er = cuda_sgp4.propagate_fast_sep_reference(
         *args, grav=cat.grav, kepler_iters=iters)
     assert torch.equal(e, er) and torch.equal(e0, er)
@@ -83,3 +121,74 @@ def test_kernel_matches_twin_on_cuda(cuda_device, iters):
     assert (r - rr).abs().max().item() <= 1e-3
     assert (v - vr).abs().max().item() <= 1e-6
     assert torch.equal(r, r0)
+
+
+def _mixed_catalog(device):
+    return build_catalog(synthetic_leo_text() + "\n"
+                         + synthetic_deep_text(), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [6, 8])
+def test_deep_kernel_matches_twin_on_cuda(cuda_device, iters):
+    """K2 against its plain version over -1 .. +1 day around the deep
+    epochs: error codes identical, positions within 1e-3 km, velocities
+    within 1e-6 km/s, positions bit-equal with and without velocities."""
+    cat = _mixed_catalog(cuda_device)
+    ds = cat.fast_staging.deep
+    t = (torch.linspace(-1440.0, 1440.0, 13, dtype=torch.float64,
+                        device=cuda_device) + 2880.0)
+    args = (t, ds.t_sat, ds.spine, ds.tail, ds.flags,
+            cat.resonance_tables(8))
+    before = cuda_sgp4.LAUNCHES["sgp4_deep"]
+    r, v, e = cuda_sgp4.propagate_deep_sep(*args, grav=cat.grav,
+                                           kepler_iters=iters)
+    r0, v0, e0 = cuda_sgp4.propagate_deep_sep(*args, grav=cat.grav,
+                                              kepler_iters=iters,
+                                              want_vel=False)
+    torch.cuda.synchronize()
+    assert cuda_sgp4.LAUNCHES["sgp4_deep"] == before + 2 and v0 is None
+    rr, vr, er = cuda_sgp4.propagate_deep_sep_reference(
+        *args, grav=cat.grav, kepler_iters=iters)
+    assert torch.equal(e, er) and torch.equal(e0, er)
+    assert 0 in set(torch.unique(e).tolist()) and (e != 0).any()
+    assert (r - rr).abs().max().item() <= 1e-3
+    assert (v - vr).abs().max().item() <= 1e-6
+    assert torch.equal(r, r0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_vel", [True, False])
+def test_merge_kernel_matches_twin_on_cuda(cuda_device, want_vel):
+    """K3 against its plain version: the deep columns equal K2's planes
+    bit for bit (NaN planted in their shallow fields does not leak), the
+    rest K1's plain version within 1e-3 km."""
+    cat = _mixed_catalog(cuda_device)
+    st, ds = cat.fast_staging, cat.fast_staging.deep
+    t = torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
+                       device=cuda_device)
+    dr, dv, de = cuda_sgp4.propagate_deep_sep(
+        t, ds.t_sat, ds.spine, ds.tail, ds.flags, cat.resonance_tables(8),
+        grav=cat.grav, kepler_iters=cat.deep_kepler_iters,
+        want_vel=want_vel)
+    cols = torch.as_tensor(cat.deep_idx, device=cuda_device)
+    # NaN in the deep columns' shallow fields must not leak: a select
+    tail = st.tail.clone()
+    tail[:, cols] = float("nan")
+    args = (t, st.t_sat, st.spine, tail, st.flags, ds.slot, dr, dv, de)
+    kw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters,
+              want_vel=want_vel)
+    before = cuda_sgp4.LAUNCHES["sgp4_shallow_merge"]
+    r, v, e = cuda_sgp4.propagate_fast_sep_merge(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_sgp4.LAUNCHES["sgp4_shallow_merge"] == before + 1
+    rr, vr, er = cuda_sgp4.propagate_fast_sep_merge_reference(*args, **kw)
+    assert torch.isfinite(r).all() and torch.equal(e, er)
+    assert v is None or torch.isfinite(v).all()
+    assert torch.equal(r[:, :, cols], dr) and torch.equal(e[:, cols], de)
+    assert (r - rr).abs().max().item() <= 1e-3
+    if want_vel:
+        assert torch.equal(v[:, :, cols], dv)
+        assert (v - vr).abs().max().item() <= 1e-6
+    else:
+        assert v is None and vr is None

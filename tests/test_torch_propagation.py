@@ -179,14 +179,15 @@ def test_unported_paths_raise(cats):
     pcat = cats[1]
     mixed = P.build_catalog(LEO_TEXT + "\n" + DEEP_TEXT, device="cpu")
     assert mixed.n_deep == 3
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.propagate(mixed, JD, FR, method="fast")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.Constellation(mixed).propagate([0.0], start_time=2460310.5)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        P.propagate(pcat, JD, FR, method="f64")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        P.propagate(pcat, JD, FR, method="fast", scan_times=True)
+    # the mixed fast path is ported (test_torch_mixed.py); f64 is not
+    r, _, e = P.Constellation(mixed).propagate([0.0], start_time=2460310.5)
+    assert tuple(r.shape) == (1, len(mixed), 3)
+    assert (e[:, mixed.deep_idx] == 0).all()
+    for cat in (pcat, mixed):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            P.propagate(cat, JD, FR, method="f64")
+        with pytest.raises(NotImplementedError, match="item 9"):
+            P.propagate(cat, JD, FR, method="fast", scan_times=True)
     with pytest.raises(ValueError, match="output"):
         P.propagate(pcat, JD, FR, method="fast", output="gcrs")
     with pytest.raises(ValueError, match="no TLEs"):
