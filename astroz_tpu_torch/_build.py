@@ -47,6 +47,8 @@ SIGNATURES = {
     # stream
     "astroz_sgp4_deep": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _F, _F, _F, _F, _P, _P, _P, _P]),
+    # r, n_times, n_sats, j0, width, out, stream
+    "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
 }
 
 

@@ -1,10 +1,9 @@
-"""High-level constellation API: load and propagate.
+"""High-level constellation API: load, propagate, screen.
 
-Counterpart of ``astroz_tpu/constellation.py:61-209``: source loading
+Counterpart of ``astroz_tpu/constellation.py:61-218``: source loading
 (file path, raw TLE/3LE/OMM text, or a CelesTrak group / NORAD id / URL
 through ``fetch``), the :class:`Constellation` class and the one-call
-:func:`propagate`. Screening is not ported yet (ROADMAP queue 1,
-item 10).
+:func:`propagate` and :func:`screen`.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from .constants import WGS72, GravityModel
 from .ops.sgp4 import Sgp4Elements
 from .propagation import SatCatalog, build_catalog, catalog_from_elements
 from .propagation import propagate as _propagate_catalog
+from .screening import screen_all, screen_target
 from .time import jday
 from .tle import Tle
 
@@ -158,6 +158,22 @@ class Constellation:
                                   velocities=velocities, layout=layout,
                                   method=method)
 
+    def screen(self, times, start_time=None, *,
+               threshold_km: float = 5.0, target=None, method="fast",
+               **kwargs):
+        """Conjunction screen over the given epochs: one target against
+        the catalog when ``target`` is given
+        (:func:`~astroz_tpu_torch.screening.screen_target`, with the
+        threshold mask), else every pair
+        (:func:`~astroz_tpu_torch.screening.screen_all`, which takes
+        ``kwargs``)."""
+        jd = _times_to_jd(times, start_time)
+        if target is not None:
+            return screen_target(self.catalog, target, jd,
+                                 threshold_km=threshold_km, method=method)
+        return screen_all(self.catalog, jd, threshold_km=threshold_km,
+                          method=method, **kwargs)
+
 
 def propagate(source, times, start_time=None, *, output: str = "teme",
               velocities: bool = True, norad_id: Optional[int] = None,
@@ -172,3 +188,14 @@ def propagate(source, times, start_time=None, *, output: str = "teme",
         con = con.select([norad_id])
     return con.propagate(times, start_time, output=output,
                          velocities=velocities, method=method)
+
+
+def screen(source, times, start_time=None, *, threshold_km: float = 5.0,
+           target=None, grav: GravityModel = WGS72,
+           fetch: Optional[Callable[[str], str]] = None, device="cuda",
+           **kwargs):
+    """One call: load ``source`` on ``device`` and screen it
+    (:meth:`Constellation.screen`)."""
+    con = Constellation(source, grav=grav, fetch=fetch, device=device)
+    return con.screen(times, start_time, threshold_km=threshold_km,
+                      target=target, **kwargs)

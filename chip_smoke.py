@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 0. the card: ``torch.cuda.is_available()``, its name and power limit from
    nvidia-smi; the port imports without JAX;
-1. build kernels K1-K3 (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one
+1. build kernels K1-K4 (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one
    process per source, and print ptxas' registers and spills;
 2. K1 vs its plain torch version on the card, on a small ragged
    near-earth catalog with backward and forward times and at the full
@@ -39,10 +39,32 @@ Phases (any failure exits non-zero; nothing is caught):
    in turns, and the whole near-earth ``propagate`` call;
 4b. the same for K2 and K3, plus the HEO escape, the resonance tables
    and the whole mixed ``propagate`` call, and the peak device memory of
-   a mixed sweep.
+   a mixed sweep;
+5. K4 (the coarse screening pass) vs its plain version on the card, bit
+   for bit on every entry (NaN where NaN, +inf at and below the
+   diagonal): a ragged 1,002-satellite x 100-epoch shell with parked
+   failed lanes and one NaN position, single-shot and in ragged column
+   chunks, and the main path's one column chunk of the full 13,478 x 240
+   planes (all 13,478 columns, against the plain version in 4,096-column
+   chunks);
+6. the screening main path: bench_screening's shell (13,478 TLEs) ->
+   ``Constellation(text, device="cuda").screen`` over 240 one-minute
+   epochs at 10 km, which must launch K1 once and K4 once per column
+   chunk; the pairs (numpy, i < j, d < 10 km, sorted) must equal those of
+   the plain coarse version run on the card, then the same mask and
+   refine;
+6b. the same screen over the mixed headline catalog (K2, the escape, K3,
+   then K4), and ``screen_target`` of the ISS golden TLE against it,
+   equal to a direct reduction of the propagated planes;
+7. timings with CUDA events: K4 alone at 13,478 x 240 and its plain
+   version on the card, in turns, the ``torch.cdist`` yardstick on one
+   column chunk, the pieces and the whole of a ``screen`` call,
+   ``screen_target``, and the peak device memory of a screen.
 
 The last three lines of output are the card line from nvidia-smi, a
-JSON line describing the kernels, and ``{"ok": true, "device": ...}``.
+JSON line describing the kernels (with each one's bound: the larger of
+its bytes over the card's memory rate and its operations over the peak
+rate for their type), and ``{"ok": true, "device": ...}``.
 """
 
 import json
@@ -71,6 +93,24 @@ GEO_RADIUS_KM, GEO_BAND_KM = 42164.0, 100.0
 HEO_BAND_KM = (6378.135, 48500.0)
 #: facts of the headline generator (bench.py) at 13,478 satellites
 HEADLINE_DEEP, HEADLINE_ESCAPE = 667, 14
+
+#: the screening scenario: bench_screening's shell at N_SATS satellites,
+#: 240 one-minute epochs from its epoch (24001.5), a 10 km threshold
+SCREEN_TIMES = 240
+SCREEN_EPOCH_JD = 2460311.0
+SCREEN_KM = 10.0
+#: column chunk of K4's plain version on the card: (13,478, 4,096) f32
+#: temporaries of 0.22 GB each
+PLAIN_COLS = 4096
+#: column chunk of the cdist yardstick: a (240, 13,478, 512) f32 result
+#: of 6.6 GB
+CDIST_COLS = 512
+
+#: NVIDIA H100 SXM peaks (data sheet; the f32 rate counts an FMA as two
+#: operations, the f64 rate is the vector rate outside the tensor cores)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+PEAK_F64_OPS_S = 34e12
 
 #: python-sgp4 v2.25 reference trajectory of the TLE below (WGS-72):
 #: (minutes since epoch, TEME position km)
@@ -109,10 +149,72 @@ def sync():
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    from astroz_tpu_torch.ops import cuda_sgp4
+    from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4
 
-    for name in cuda_sgp4.LAUNCHES:
-        cuda_sgp4.LAUNCHES[name] = 0
+    for counts in (cuda_sgp4.LAUNCHES, cuda_screen.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launches():
+    """Every kernel's launch count, by kernel."""
+    from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4
+
+    return {**cuda_sgp4.LAUNCHES, **cuda_screen.LAUNCHES}
+
+
+#: aten ops that write floats without arithmetic: they make, move,
+#: reshape, cast or select data
+_NOT_ARITHMETIC = frozenset((
+    "_to_copy", "_unsafe_view", "alias", "as_strided", "cat", "clone",
+    "copy_", "detach", "empty", "empty_like", "expand", "fill_", "full",
+    "full_like", "gather", "index", "index_select", "lift_fresh",
+    "masked_fill", "masked_fill_", "new_empty", "ones", "ones_like",
+    "permute", "scalar_tensor", "select", "slice", "stack", "unbind",
+    "unsqueeze", "view", "where", "zeros", "zeros_like"))
+
+
+def count_ops(fn):
+    """Run ``fn``, a kernel's plain version, and count its floating-point
+    arithmetic: the elements written by every aten op whose result is f32
+    or f64, outside :data:`_NOT_ARITHMETIC`, by the result's type. Casts,
+    selects and data movement are not counted, nor are comparisons and
+    integer or boolean ops (their results are not floats). A divide, a
+    square root or an ``fmod`` counts as one operation. Returns
+    ``(f32_ops, f64_ops)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    counts = {torch.float32: 0, torch.float64: 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = [x for x in tree_flatten(out)[0]
+                    if isinstance(x, torch.Tensor)]
+            if (outs and outs[0].dtype in counts
+                    and func.overloadpacket.__name__ not in _NOT_ARITHMETIC):
+                counts[outs[0].dtype] += outs[0].numel()
+            return out
+
+    with Count():
+        fn()
+    return counts[torch.float32], counts[torch.float64]
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors
+               if x is not None)
+
+
+def bound(n_bytes, f32_ops, f64_ops):
+    """The least time the card could take, ms, and what bounds it: the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate for their type (f32 and f64 run on separate units)."""
+    by_bytes = n_bytes / PEAK_BYTES_S
+    by_ops = max(f32_ops / PEAK_F32_OPS_S, f64_ops / PEAK_F64_OPS_S)
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def _tle_text(epoch, ecco, inclo, nodeo, argpo, mo, rev_day, bstar):
@@ -171,6 +273,25 @@ def mixed_catalog_text(n, seed=42, epoch_spread_days=0.0):
     if epoch_spread_days:
         epoch = epoch + rng.uniform(-epoch_spread_days, epoch_spread_days, n)
     return _tle_text(epoch, ecco, inclo, nodeo, argpo, mo, rev_day, bstar)
+
+
+def screening_shell_text(n, seed=7):
+    """The screening benchmark's synthetic shell
+    (``benchmarks/bench_screening.py``, the same draws in the same
+    order): inclination 53 +- 2 deg, RAAN and mean anomaly U(0, 360) deg,
+    e = 1e-4, argument of perigee 90 deg, 14-15.5 rev/day, bstar 0, one
+    epoch (24001.5, JD 2460311.0), as 2-line TLE text."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for k in range(n):
+        incl = 53.0 + rng.uniform(-2, 2)
+        raan = rng.uniform(0, 360)
+        mo = rng.uniform(0, 360)
+        lines.append(f"1 {10000+k:05d}U 98067A   24001.50000000  "
+                     f".00000000  00000-0  00000+0 0  9990")
+        lines.append(f"2 {10000+k:05d} {incl:8.4f} {raan:8.4f} 0001000 "
+                     f" 90.0000 {mo:8.4f} {14.0 + rng.uniform(0, 1.5):11.8f}10")
+    return "\n".join(lines)
 
 
 def phase0_card():
@@ -620,7 +741,14 @@ def phase4_timings(con, smi):
           f"{call_planes:.4f} ms, time_major {call_tm:.4f} ms")
     print(f"# phase 4: peak device memory so far "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return k_ms, p_ms
+    ops = count_ops(lambda: cuda_sgp4.propagate_fast_sep_reference(*args,
+                                                                   **kw))
+    k1_bound = bound(nbytes(*args, *cuda_sgp4.propagate_fast_sep(*args, **kw)),
+                     *ops)
+    print(f"# phase 4: K1 bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
+          f"({ops[0] / props:.1f} f32 and {ops[1] / props:.1f} f64 "
+          f"operations a point in its plain version)")
+    return k_ms, p_ms, k1_bound
 
 
 def phase4b_mixed_timings(con, smi):
@@ -680,46 +808,348 @@ def phase4b_mixed_timings(con, smi):
     print(f"# phase 4b: device memory of a time-major mixed sweep: peak "
           f"{peak / 2**30:.3f} GiB, of which {base / 2**30:.3f} GiB were "
           f"held before the call")
-    return (k2_ms, k2_plain), (k3_ms, k3_plain)
+    k2_ops = count_ops(lambda: cuda_sgp4.propagate_deep_sep_reference(
+        *dargs, **dkw))
+    k2_bound = bound(nbytes(*dargs, dr, dv, de), *k2_ops)
+    # K3 runs K1's tail on the near-earth columns only and copies the
+    # deep ones
+    k1_ops = count_ops(lambda: cuda_sgp4.propagate_fast_sep_reference(
+        *margs[:5], **mkw))
+    near = (N_SATS - cat.n_deep) / N_SATS
+    k3_bound = bound(nbytes(*margs, *cuda_sgp4.propagate_fast_sep_merge(
+        *margs, **mkw)), k1_ops[0] * near, k1_ops[1] * near)
+    print(f"# phase 4b: K2 bound {k2_bound[0]:.4f} ms by {k2_bound[1]} "
+          f"({k2_ops[0] / (cat.n_deep * N_TIMES):.1f} f32 and "
+          f"{k2_ops[1] / (cat.n_deep * N_TIMES):.1f} f64 operations a "
+          f"point); K3 bound {k3_bound[0]:.4f} ms by {k3_bound[1]}")
+    return (k2_ms, k2_plain, k2_bound), (k3_ms, k3_plain, k3_bound)
+
+
+def _same_or_both_nan(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _k4_vs_twin(r, chunks, label):
+    """K4's column chunks ``(j0, dmin)`` against its plain version on the
+    same columns, bit for bit on every entry (NaN where it is NaN, +inf at
+    and below the diagonal); returns the largest difference on the
+    entries finite in both."""
+    from astroz_tpu_torch.ops import cuda_screen
+
+    worst = 0.0
+    for j0, dmin in chunks:
+        w = dmin.shape[1]
+        ref = cuda_screen.coarse_min_chunk_reference(r, j0, w)
+        check(_same_or_both_nan(dmin, ref),
+              f"K4 {label} columns {j0}..{j0 + w}: differs from its plain "
+              "version")
+        fin = torch.isfinite(dmin) & torch.isfinite(ref)
+        worst = max(worst, _max_diff(dmin[fin], ref[fin]))
+        del ref, fin
+    return worst
+
+
+def phase5_coarse_vs_twin(shell_con):
+    """K4 against its plain version; returns the largest difference at the
+    main path's shape."""
+    from astroz_tpu_torch import build_catalog
+    from astroz_tpu_torch.ops import cuda_screen
+    from astroz_tpu_torch.screening import _positions_planes_f32
+    from astroz_tpu_torch.tle import format_lines
+
+    # 1,000 shell lanes and two that have decayed by the shell's epoch
+    decayed = [format_lines(satnum=99990 + k, epoch_jd=SCREEN_EPOCH_JD - 2.0,
+                            ecco=5e-4, inclo_deg=53.0, nodeo_deg=10.0 * k,
+                            argpo_deg=20.0, mo_deg=30.0, no_rev_day=16.0,
+                            bstar=0.5) for k in range(2)]
+    small = build_catalog(screening_shell_text(1000) + "\n"
+                          + "\n".join(ln for pair in decayed for ln in pair),
+                          device=DEVICE)
+    r = _positions_planes_f32(small, SCREEN_EPOCH_JD
+                              + np.arange(100.0) / 1440.0)
+    n = r.shape[2]
+    parked = int((r[0, 0] >= 0.5e7).sum())
+    r[1, 50, 500] = float("nan")
+    check(parked == 2, f"{parked} parked lanes, expected the 2 decayed ones")
+    single = list(cuda_screen.coarse_min_all(r))
+    chunked = list(cuda_screen.coarse_min_all(r, max_bytes=4 * n * 300))
+    check(len(single) == 1 and len(chunked) == 4,
+          f"{len(single)} and {len(chunked)} column chunks, expected 1 and 4")
+    check(bool(torch.isnan(single[0][1]).any()), "the NaN position is lost")
+    label = f"{n} sats x 100 times"
+    worst = _k4_vs_twin(r, single, label)
+    worst = max(worst, _k4_vs_twin(r, chunked, label + ", 4 chunks"))
+    check(_same_or_both_nan(torch.cat([d for _, d in chunked], dim=1),
+                            single[0][1]),
+          "chunked K4 differs from the single shot")
+    # the main path's shape: screen_all's one chunk of all 13,478 columns,
+    # held against the plain version in PLAIN_COLS-column pieces
+    full = _positions_planes_f32(shell_con.catalog, SCREEN_EPOCH_JD
+                                 + np.arange(SCREEN_TIMES) / 1440.0)
+    nf = full.shape[2]
+    ((j0, dmin),) = cuda_screen.coarse_min_all(full)
+    check(j0 == 0 and tuple(dmin.shape) == (nf, nf),
+          f"screen_all's K4 chunk is {j0}, {tuple(dmin.shape)}")
+    worst_full = _k4_vs_twin(
+        full, [(c0, dmin[:, c0:c0 + PLAIN_COLS])
+               for c0 in range(0, nf, PLAIN_COLS)],
+        f"{N_SATS} sats x {SCREEN_TIMES} times")
+    del dmin
+    sync()
+    print(f"# phase 5: K4 vs its plain version, bit-equal on every entry: "
+          f"{label} ({parked} parked lanes, one NaN) single-shot and in 4 "
+          f"chunks, max |d2 diff| {worst:.3e} km^2; all {nf} columns of "
+          f"{N_SATS} x {SCREEN_TIMES} (screen_all's one chunk), max |d2 "
+          f"diff| {worst_full:.3e} km^2")
+    return worst_full
+
+
+def _check_pairs(res, label):
+    ci, cj, d, t = res
+    check([x.dtype for x in res] == [np.int64, np.int64, np.float64,
+                                     np.int64],
+          f"{label}: output types {[x.dtype for x in res]}")
+    check(len(ci) > 0, f"{label}: no pairs")
+    check(bool((ci < cj).all() and (cj < N_SATS).all() and (d < SCREEN_KM).all()
+               and (d >= 0).all() and (t >= 0).all()
+               and (t < SCREEN_TIMES).all()), f"{label}: pair bounds")
+    check(bool((np.lexsort((cj, ci)) == np.arange(len(ci))).all()),
+          f"{label}: pairs not in (i, j) order")
+
+
+def _plain_screen(cat, jd):
+    """The screen with K4 replaced by its plain version on the card, in
+    column chunks of PLAIN_COLS, then the same mask and refine."""
+    from astroz_tpu_torch.ops import cuda_screen
+    from astroz_tpu_torch.screening import (_positions_planes_f32,
+                                            _screen_planes)
+
+    r = _positions_planes_f32(cat, jd)
+    n = r.shape[2]
+    chunks = ((j0, cuda_screen.coarse_min_chunk_reference(
+        r, j0, min(PLAIN_COLS, n - j0))) for j0 in range(0, n, PLAIN_COLS))
+    return _screen_planes(r, chunks, SCREEN_KM, 10_000_000)
+
+
+def _screen_vs_plain(cat, jd, res, label):
+    ref = _plain_screen(cat, jd)
+    check(np.array_equal(res[0], ref[0]) and np.array_equal(res[1], ref[1]),
+          f"{label}: the pair set differs from the plain coarse version's")
+    check(np.array_equal(res[3], ref[3]), f"{label}: epoch indices differ")
+    dd = float(np.abs(res[2] - ref[2]).max())
+    check(dd <= 1e-6, f"{label}: distances differ by {dd} km")
+    return dd
+
+
+def phase6_screen(con):
+    check(len(con) == N_SATS and not con.catalog.has_deep,
+          "the screening shell")
+    times = np.arange(float(SCREEN_TIMES))
+    # (N, N) f32 is 0.73 GB, under coarse_min_all's 2 GiB: one chunk
+    check(4 * N_SATS * N_SATS < 2 << 30, "one K4 chunk at this size")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = con.screen(times, start_time=SCREEN_EPOCH_JD,
+                     threshold_km=SCREEN_KM)
+    wall = time.perf_counter() - t0
+    n = launches()
+    print(f"# phase 6: screen of {N_SATS} x {SCREEN_TIMES} at {SCREEN_KM} "
+          f"km (first call, {wall:.3f} s): {len(res[0])} pairs, kernel "
+          f"launches {n}")
+    check(n == {"sgp4_shallow": 1, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
+                "screen_coarse": 1},
+          "the screen must launch K1 once and K4 once")
+    _check_pairs(res, "shell screen")
+    dd = _screen_vs_plain(con.catalog, SCREEN_EPOCH_JD + times / 1440.0, res,
+                          "shell screen")
+    print(f"# phase 6: the pairs, epochs and distances (max diff {dd:.1e} "
+          f"km) of the plain coarse version; closest pair "
+          f"{res[2].min():.4f} km")
+    return n
+
+
+def phase6b_mixed_screen(mcon):
+    from astroz_tpu_torch import Constellation, screen_all, screen_target
+    from astroz_tpu_torch.ops.fastmath import sqrt_rn
+
+    cat = mcon.catalog
+    times = np.arange(float(SCREEN_TIMES))
+    jd = EPOCH_JD + times / 1440.0
+    reset_launches()
+    res = screen_all(cat, jd, threshold_km=SCREEN_KM)
+    n = launches()
+    print(f"# phase 6b: screen of the mixed catalog x {SCREEN_TIMES} at "
+          f"{SCREEN_KM} km: {len(res[0])} pairs, kernel launches {n}")
+    check(n == {"sgp4_shallow": 0, "sgp4_deep": 1, "sgp4_shallow_merge": 1,
+                "screen_coarse": 1},
+          "the mixed screen must launch K2, K3 and K4 once each")
+    _check_pairs(res, "mixed screen")
+    dd = _screen_vs_plain(cat, jd, res, "mixed screen")
+
+    tgt = GOLDEN_L1 + "\n" + GOLDEN_L2
+    min_d, t_idx, mask = screen_target(cat, tgt, jd, threshold_km=1000.0)
+    r, _, err = mcon.propagate(times, start_time=EPOCH_JD, layout="planes",
+                               velocities=False)
+    rt, _, et = Constellation(tgt, device=DEVICE).propagate(
+        times, start_time=EPOCH_JD, layout="planes", velocities=False)
+    healthy = (err == 0).all(dim=0)
+    check(bool((et == 0).all()) and healthy.float().mean().item() > 0.9,
+          "target or catalog lanes failed")
+    dx, dy, dz = r - rt
+    direct_d, direct_t = sqrt_rn(dx * dx + dy * dy + dz * dz).min(dim=0)
+    d64 = ((r.double() - rt.double()) ** 2).sum(dim=0).sqrt().amin(dim=0)
+    d64_diff = (min_d - d64)[healthy].abs().max().item()
+    check(torch.equal(min_d[healthy], direct_d[healthy])
+          and torch.equal(t_idx[healthy], direct_t[healthy])
+          and torch.equal(mask, min_d < 1000.0),
+          "screen_target differs from the direct reduction")
+    check(d64_diff <= 0.01, f"screen_target is {d64_diff} km from f64")
+    print(f"# phase 6b: the pairs, epochs and distances (max diff {dd:.1e} "
+          f"km) of the plain coarse version; screen_target of the ISS "
+          f"golden TLE: {int(healthy.sum())} healthy lanes equal the direct "
+          f"reduction (min {min_d[healthy].min().item():.3f} km, "
+          f"{int(mask.sum())} within 1000 km), {d64_diff:.2e} km from its "
+          f"f64 form")
+
+
+def phase7_screen_timings(con, smi):
+    from astroz_tpu_torch import build_catalog, screen_target
+    from astroz_tpu_torch.ops import cuda_screen
+    from astroz_tpu_torch.screening import (_chunk_candidates,
+                                            _positions_planes_f32, _refine)
+
+    cat = con.catalog
+    times = np.arange(float(SCREEN_TIMES))
+    jd = SCREEN_EPOCH_JD + times / 1440.0
+    r = _positions_planes_f32(cat, jd)
+    n = r.shape[2]
+
+    def plain():
+        return [cuda_screen.coarse_min_chunk_reference(
+            r, j0, min(PLAIN_COLS, n - j0)) for j0 in range(0, n, PLAIN_COLS)]
+
+    k4_ms, plain_ms, turns = _in_turns(
+        lambda: cuda_screen.coarse_min_chunk(r, 0, n), plain, 5, 1)
+    r_tm = r.permute(1, 2, 0).contiguous()           # (T, N, 3)
+    r_cols = r_tm[:, :CDIST_COLS].contiguous()
+    cdist_chunk = _cuda_ms(lambda: torch.cdist(
+        r_tm, r_cols, compute_mode="donot_use_mm_for_euclid_dist").amin(0), 3)
+    library_ms = cdist_chunk * n / CDIST_COLS
+    del r_tm, r_cols
+
+    thr2 = float(np.float32((SCREEN_KM * (1.0 + 1.0e-6)) ** 2))
+    dmin = cuda_screen.coarse_min_chunk(r, 0, n)
+    ci, cj = _chunk_candidates(dmin, 0, thr2)
+    prop_ms = _cuda_ms(lambda: _positions_planes_f32(cat, jd), 10)
+    mask_ms = _cuda_ms(lambda: _chunk_candidates(dmin, 0, thr2), 5)
+    refine_ms = _cuda_ms(lambda: _refine(r, ci, cj), 10)
+    del dmin
+
+    def call():
+        return con.screen(times, start_time=SCREEN_EPOCH_JD,
+                          threshold_km=SCREEN_KM)
+
+    call_ms = _cuda_ms(call, 5)
+    walls = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        call()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    iss = build_catalog(GOLDEN_L1 + "\n" + GOLDEN_L2, device=DEVICE)
+    target_ms = _cuda_ms(lambda: screen_target(cat, iss, jd,
+                                               threshold_km=SCREEN_KM), 10)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+
+    # the plain version's operations an entry and epoch, on a small chunk;
+    # the work this run needs is the strict upper triangle's pair-times
+    f32_ops, f64_ops = count_ops(
+        lambda: cuda_screen.coarse_min_chunk_reference(r[:, :2].contiguous(),
+                                                       0, 64))
+    per_pair = f32_ops / (2 * n * 64)
+    check(f64_ops == 0, "K4's plain version does f64 arithmetic")
+    pair_times = SCREEN_TIMES * n * (n - 1) // 2
+    k4_bound = bound(nbytes(r) + 4 * n * n, per_pair * pair_times, 0)
+    print(f"# phase 7 [{smi}]: kernel K4 {k4_ms:.4f} ms ({turns[1]:.4f}, "
+          f"{turns[2]:.4f}; {n} x {SCREEN_TIMES}, {pair_times:.4g} "
+          f"pair-times, {pair_times / k4_ms / 1e9:.2f} T pair-times/s), "
+          f"plain torch version {plain_ms:.4f} ms ({turns[0]:.4f}, "
+          f"{turns[3]:.4f}; in {PLAIN_COLS}-column chunks)")
+    print(f"# phase 7 [{smi}]: K4 bound {k4_bound[0]:.4f} ms by "
+          f"{k4_bound[1]} ({per_pair:.1f} f32 operations a pair-time of the "
+          f"strict upper triangle; built without FMA "
+          f"each is one instruction, so the instruction bound at half the "
+          f"flop rate is {2 * k4_bound[0]:.4f} ms); cdist yardstick "
+          f"{cdist_chunk:.4f} ms for {CDIST_COLS} columns, {library_ms:.4f} "
+          f"ms scaled to all {n}")
+    print(f"# phase 7 [{smi}]: screen() pieces: propagate to planes "
+          f"{prop_ms:.4f} ms, K4 {k4_ms:.4f} ms, mask + count + compaction "
+          f"{mask_ms:.4f} ms ({len(ci)} candidates), refine {refine_ms:.4f} "
+          f"ms; whole call {call_ms:.4f} ms (CUDA events), "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms (wall clock, "
+          f"synchronized)")
+    print(f"# phase 7 [{smi}]: screen_target of one TLE vs {n} x "
+          f"{SCREEN_TIMES} {target_ms:.4f} ms; device memory of a screen: "
+          f"peak {peak / 2**30:.3f} GiB, of which {base / 2**30:.3f} GiB were "
+          f"held before the call")
+    return k4_ms, plain_ms, k4_bound, library_ms
 
 
 def main():
     t_start = time.perf_counter()
     smi = phase0_card()
     phase1_build()
-    from astroz_tpu_torch import build_catalog
+    from astroz_tpu_torch import Constellation, build_catalog
 
     t0 = time.perf_counter()
     text = near_earth_catalog_text(N_SATS)
     mixed_text = mixed_catalog_text(N_SATS)
-    print(f"# synthetic catalog texts: 2 x {N_SATS} TLEs in "
+    shell_text = screening_shell_text(N_SATS)
+    print(f"# synthetic catalog texts: 3 x {N_SATS} TLEs in "
           f"{time.perf_counter() - t0:.2f} s")
     k1_err = phase2_kernel_vs_twin(build_catalog(text, device=DEVICE))
     deep_err = phase2b_deep_and_merge(build_catalog(mixed_text,
                                                     device=DEVICE))
     con, k1_launches = phase3_main_path(text)
     mcon, mixed_launches = phase3b_mixed_path(mixed_text)
-    k1_ms, k1_plain = phase4_timings(con, smi)
+    k1 = phase4_timings(con, smi)
     k2, k3 = phase4b_mixed_timings(mcon, smi)
+    scon = Constellation(shell_text, device=DEVICE)
+    k4_err = phase5_coarse_vs_twin(scon)
+    screen_launches = phase6_screen(scon)
+    phase6b_mixed_screen(mcon)
+    k4 = phase7_screen_timings(scon, smi)
     print(f"# chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
+
+    def entry(name, source, replaces, n, err, times, library_ms=None):
+        ms, plain_ms, (bound_ms, bound_by) = times[:3]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
     print(json.dumps({"kernels": [
-        {"name": "sgp4_shallow (K1)", "route": "cuda",
-         "source": "astroz_tpu_torch/csrc/sgp4_shallow.cu",
-         "replaces": "astroz_tpu/ops/pallas_sgp4.py:286",
-         "launches": k1_launches, "max_abs_err": k1_err[0],
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "sgp4_deep (K2)", "route": "cuda",
-         "source": "astroz_tpu_torch/csrc/sgp4_deep.cu",
-         "replaces": "astroz_tpu/ops/pallas_sgp4.py:410",
-         "launches": mixed_launches["sgp4_deep"],
-         "max_abs_err": deep_err[0], "ms": k2[0], "plain_ms": k2[1]},
-        {"name": "sgp4_shallow_merge (K3)", "route": "cuda",
-         "source": "astroz_tpu_torch/csrc/sgp4_shallow.cu",
-         "replaces": "astroz_tpu/ops/pallas_sgp4.py:657",
-         "launches": mixed_launches["sgp4_shallow_merge"],
-         "max_abs_err": deep_err[2], "ms": k3[0], "plain_ms": k3[1]}]}))
+        entry("sgp4_shallow (K1)", "astroz_tpu_torch/csrc/sgp4_shallow.cu",
+              "astroz_tpu/ops/pallas_sgp4.py:286", k1_launches, k1_err[0],
+              k1),
+        entry("sgp4_deep (K2)", "astroz_tpu_torch/csrc/sgp4_deep.cu",
+              "astroz_tpu/ops/pallas_sgp4.py:410",
+              mixed_launches["sgp4_deep"], deep_err[0], k2),
+        entry("sgp4_shallow_merge (K3)",
+              "astroz_tpu_torch/csrc/sgp4_shallow.cu",
+              "astroz_tpu/ops/pallas_sgp4.py:657",
+              mixed_launches["sgp4_shallow_merge"], deep_err[2], k3),
+        entry("screen_coarse (K4)", "astroz_tpu_torch/csrc/screen_coarse.cu",
+              "astroz_tpu/ops/pallas_screen.py:57",
+              screen_launches["screen_coarse"], k4_err, k4, k4[3])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Kernels K1, K2 and K3 on the card against their plain torch versions
+"""Kernels K1 to K4 on the card against their plain torch versions, and a
+small all-vs-all screen on the card against the same call on the CPU
 (marked ``cuda``; skips where ``torch.cuda.is_available()`` is False).
 
 This file imports no JAX, so it also runs on a GPU machine without it:
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from astroz_tpu_torch import build_catalog
-from astroz_tpu_torch.ops import cuda_sgp4
+from astroz_tpu_torch import build_catalog, screen_all
+from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4
+from astroz_tpu_torch.screening import _positions_planes_f32
 from astroz_tpu_torch.tle import format_lines
 
 torch.set_num_threads(1)
@@ -192,3 +194,57 @@ def test_merge_kernel_matches_twin_on_cuda(cuda_device, want_vel):
         assert (v - vr).abs().max().item() <= 1e-6
     else:
         assert v is None and vr is None
+
+
+def _same_or_both_nan(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.cuda
+def test_coarse_kernel_matches_twin_on_cuda(cuda_device):
+    """K4 against its plain version on a ragged 333-satellite x 100-epoch
+    shell with parked (failed) lanes and one NaN position: bit-equal entry
+    for entry (NaN where NaN, +inf at and below the diagonal), single-shot
+    and in ragged column chunks."""
+    cat = build_catalog(synthetic_leo_text(333), device=cuda_device)
+    jd = cat.epoch_min_jd + np.linspace(0.0, 2.0, 100)
+    r = _positions_planes_f32(cat, jd)
+    assert (r > 5.0e6).any()  # the decaying lane is parked
+    r[1, 7, 50] = float("nan")
+    n = r.shape[2]
+    before = cuda_screen.LAUNCHES["screen_coarse"]
+    ((_, full),) = cuda_screen.coarse_min_all(r)
+    chunks = list(cuda_screen.coarse_min_all(r, max_bytes=4 * n * 37))
+    torch.cuda.synchronize()
+    assert cuda_screen.LAUNCHES["screen_coarse"] == before + 1 + len(chunks)
+    plain = cuda_screen.coarse_min_chunk_reference(r, 0, n)
+    assert torch.isnan(plain).any()
+    il = torch.tril_indices(n, n, device=cuda_device)
+    assert torch.isposinf(full[il[0], il[1]]).all()
+    assert _same_or_both_nan(full, plain)
+    for j0, dmin in chunks:
+        ref = cuda_screen.coarse_min_chunk_reference(r, j0, dmin.shape[1])
+        assert _same_or_both_nan(dmin, ref)
+    assert len(chunks) == -(-n // 37)
+    assert _same_or_both_nan(torch.cat([d for _, d in chunks], dim=1), full)
+
+
+@pytest.mark.cuda
+def test_screen_all_on_cuda_matches_cpu(cuda_device):
+    """A small all-vs-all screen on the card gives the pairs and epochs of
+    the same call on the CPU, distances within K1's 1e-3 km bound, through
+    K1 and K4 once each."""
+    text = synthetic_leo_text(200)
+    jd = 2460310.5 + np.linspace(0.0, 0.5, 145)
+    cpu = screen_all(build_catalog(text, device="cpu"), jd,
+                     threshold_km=300.0)
+    cat = build_catalog(text, device=cuda_device)
+    k1 = cuda_sgp4.LAUNCHES["sgp4_shallow"]
+    k4 = cuda_screen.LAUNCHES["screen_coarse"]
+    got = screen_all(cat, jd, threshold_km=300.0)
+    assert cuda_sgp4.LAUNCHES["sgp4_shallow"] == k1 + 1
+    assert cuda_screen.LAUNCHES["screen_coarse"] == k4 + 1
+    assert len(cpu[0]) > 0
+    for a, b in zip(got[:2] + got[3:], cpu[:2] + cpu[3:]):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(got[2] - cpu[2]).max() <= 1e-3
