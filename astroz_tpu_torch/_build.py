@@ -42,6 +42,14 @@ SIGNATURES = {
     "astroz_sgp4_shallow_merge": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _F, _F, _F, _P, _P, _P, _P, _I,
                                        _P, _P, _P, _P]),
+    # tsince, sat_stride, spine, tail, flags, n_times, n_sats,
+    # kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
+    "astroz_sgp4_shallow_dense": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                       _F, _F, _F, _P, _P, _P, _P]),
+    # t32, u_base, mm, argp32, node32, xmdf32, tail, flags, n_times,
+    # n_sats, kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
+    "astroz_sgp4_shallow_grids": (_I, [_P] * 8 + [_I] * 4 + [_F] * 3
+                                  + [_P] * 4),
     # t_time, t_sat, spine, tail, flags, tables, n_times, n_deep, n_steps,
     # kepler_iters, want_vel, j2, re, vkmpersec, xke, j3oj2, r, v, err,
     # stream

@@ -6,7 +6,9 @@ JAX package's ``Sgp4Elements`` among them), or a dict of them, whose
 values numpy can read, and returns this package's elements as tensors on
 one device: the same inputs for both packages.
 :func:`deep_elements_from_numpy` does the same for
-:class:`~astroz_tpu_torch.ops.sdp4.DeepElements`.
+:class:`~astroz_tpu_torch.ops.sdp4.DeepElements`, and
+:func:`carry_from_numpy` for the resonance integrator's
+:class:`~astroz_tpu_torch.ops.sdp4.ResonanceCarry`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from .ops.sdp4 import DeepElements
+from .ops.sdp4 import DeepElements, ResonanceCarry
 from .ops.sgp4 import Sgp4Elements
 
 
@@ -40,3 +42,10 @@ def deep_elements_from_numpy(obj, device="cpu") -> DeepElements:
     named like the :class:`DeepElements` fields) as tensors on
     ``device``; dtypes are kept (f64 coefficients, int32 ``irez``)."""
     return _tensors(DeepElements, obj, device)
+
+
+def carry_from_numpy(obj, device="cpu") -> ResonanceCarry:
+    """A resonance carry of ``obj`` (attributes or mapping keys
+    ``atime``, ``xli``, ``xni``, the JAX package's ``ResonanceCarry``
+    among them) as f64 tensors on ``device``."""
+    return _tensors(ResonanceCarry, obj, device)

@@ -1,14 +1,16 @@
-// Near-earth SGP4 propagation over a separable time grid, for Hopper:
-// kernel K1 and its merge variant K3.
+// Near-earth SGP4 propagation for Hopper: kernel K1, its merge variant
+// K3 and its two dense-grid variants K5 and K6, four modes of one
+// templated kernel that share the f32 tail (shallow_tail below).
 //
-// K1 replaces the TPU kernel astroz_tpu/ops/pallas_sgp4.py:_kernel_fused_sep
-// (wrapper propagate_fast_pallas_sep). For every (time t, satellite s):
+// K1 (SEP) replaces the TPU kernel astroz_tpu/ops/pallas_sgp4.py:
+// _kernel_fused_sep (wrapper propagate_fast_pallas_sep). For every
+// (time t, satellite s):
 //   tsince = t_time[t] - t_sat[s]                         (f64)
 //   spine: secular angles in f64, reduced mod 2pi, cast to f32
 //   tail:  drag, Newton Kepler (3/4/5/8 trips), J2 short-period terms,
 //          TEME r (and v) in f32 with a polynomial sincos
 //   errors 1/4/6 over the init error; failed points zero-filled.
-// K3 (MERGE = true) replaces _kernel_fused_sep_merge (wrapper
+// K3 (MERGE) replaces _kernel_fused_sep_merge (wrapper
 // propagate_fast_pallas_sep_merge): the same kernel, given a per-column
 // deep_slot map (-1 on near-earth columns, else the column's index in the
 // deep subset) and kernel K2's (3, T, D) / (T, D) planes. A deep column
@@ -18,30 +20,44 @@
 // kernel scattered the deep columns with a bf16 one-hot matmul on its
 // matrix unit; on Hopper a direct indexed read does it, with no bound on
 // the deep fraction.
+// K5 (DENSE) replaces _kernel_fused (wrapper propagate_fast_pallas_fused):
+// K1 on a dense tsince grid, read directly as f64, either a (T, S) grid
+// or a (T, 1) column read with a satellite stride of 0, so a grid shared
+// by every satellite is never materialised at (T, S). The TPU kernel
+// took tsince split into f32 hi/lo grids and ran a double-f32 (Dekker)
+// spine; here the spine is K1's, in native f64.
+// K6 (GRIDS) replaces _kernel (wrapper propagate_fast_pallas): the tail
+// alone, on the six (T, S) f32 grids (t32, u_base, mm, argp32, node32,
+// xmdf32) that the f64 spine wrote outside the kernel (the port's
+// ops/fast.py:spine_f64, in plain torch on the device).
 //
 // The plain torch version is astroz_tpu_torch/ops/fast.py (spine_f64 +
 // shallow_tail_f32); this file runs the same operations in the same order
-// (sgp4_common.cuh says how the bits are kept). The TPU kernel ran the
-// spine in double-f32 (Dekker) arithmetic because the TPU has no f64;
-// Hopper has, so the spine here is native f64, as the JAX package's XLA
-// path spine_f64 computes it.
+// (sgp4_common.cuh says how the bits are kept), so a K5 point equals the
+// K1 point of the same tsince, and a K6 point the K5 point of the same
+// spine, bit for bit.
 //
 // Bound. At 13,478 x 1,440 each point stores 28 bytes (16 without
 // velocities) and does ~350 f32 and ~20 f64 operations, five f64 fmods
 // and ~8 IEEE divides and square roots: ~12 flops per stored byte, on
 // paper a near-balance between store bandwidth and f32 issue rate. The
 // stores alone would take ~0.17 ms at 3.35 TB/s; measured on an H100
-// SXM at a 700 W limit the kernel takes 0.855 ms (635 GB/s of stores),
-// so instruction issue bounds it (the fmods, the divide and square-root
+// SXM at a 700 W limit K1 takes 0.855 ms (635 GB/s of stores), so
+// instruction issue bounds it (the fmods, the divide and square-root
 // sequences, 31% occupancy at 96 registers a thread). The merge adds a
 // branch per thread and, on the ~5% deep columns, 28-byte reads per point
-// in place of the tail. The design keeps it simple and coalesced: one
-// thread owns one satellite and ROWS time rows, loads the satellite's
-// fields into registers once, and neighbouring threads take neighbouring
-// satellites, so the loads of the (rows, S) field matrices and the stores
-// to the (3, T, S) planes are contiguous across a warp. Outputs are
-// exact-shape; the ragged satellite and time edges are masked. Making it
-// fast (FMA, occupancy, staging the field rows) is later work.
+// in place of the tail. K5 adds an 8-byte f64 read a point to K1's work
+// (36 bytes a point in all) and is bound the same way. K6 reads 24 bytes
+// of grids a point (52 in all) and skips the f64 spine and its five
+// fmods, so it moves the most bytes and issues the fewest instructions of
+// the four. The design keeps it simple and coalesced: one thread owns one
+// satellite and ROWS time rows, loads the satellite's fields into
+// registers once, and neighbouring threads take neighbouring satellites,
+// so the loads of the (rows, S) field matrices and of the (T, S) grids
+// and the stores to the (3, T, S) planes are contiguous across a warp.
+// Outputs are exact-shape; the ragged satellite and time edges are
+// masked. Making it fast (FMA, occupancy, staging the field rows) is
+// later work.
 
 #include "sgp4_common.cuh"
 
@@ -53,6 +69,14 @@ constexpr int ROWS = 8;     // time rows per thread
 constexpr int N_SPINE = 12;  // ops/fast.py SPINE_FIELD_NAMES
 constexpr int N_TAIL = 21;   // ops/fast.py TAIL_FIELD_NAMES
 
+// where each mode finds its times
+enum Mode : int {
+  SEP = 0,    // K1: t_time[t] - t_sat[s]
+  MERGE = 1,  // K3: K1, deep columns copied from K2's planes
+  DENSE = 2,  // K5: a dense f64 tsince grid
+  GRIDS = 3,  // K6: six f32 spine grids
+};
+
 // kernel K2's outputs and the per-column map into them (K3 only)
 struct DeepPlanes {
   const int* slot;  // (S,) i32: -1, or the column's deep-subset index
@@ -62,7 +86,92 @@ struct DeepPlanes {
   int n_deep;       // D
 };
 
-template <bool WANT_VEL, int ITERS, bool MERGE>
+// the dense inputs of K5 and K6
+struct DenseInputs {
+  const double* tsince;  // K5: (T, S) f64, or (T, 1) with sat_stride 0
+  int sat_stride;        // K5: 1 for a (T, S) grid, 0 for a (T, 1) column
+  const float* grids[6];  // K6: (T, S) f32 t32, u_base, mm, argp32,
+                          // node32, xmdf32
+};
+
+// the f32 angles of one point (fast.spine_f64's returns)
+struct Spine {
+  float t32, u_base, mm, argp32, node32, xmdf32;
+};
+
+// fast.spine_f64 at t minutes from epoch
+__device__ __forceinline__ Spine spine_f64(double t,
+                                           const double (&sp)[N_SPINE]) {
+  const double mo = sp[0], mdot = sp[1], argpo = sp[2], argpdot = sp[3];
+  const double nodeo = sp[4], nodedot = sp[5], nodecf = sp[6];
+  const double no_unkozai = sp[7], t2cof = sp[8], t3cof = sp[9];
+  const double t4cof = sp[10], t5cof = sp[11];
+  const double xmdf = mo + mdot * t;
+  const double argpdf = argpo + argpdot * t;
+  const double t2 = t * t;
+  const double nodem64 = nodeo + nodedot * t + nodecf * t2;
+  const double templ_big =
+      no_unkozai * t2 * (t2cof + t * (t3cof + t * (t4cof + t * t5cof)));
+  const double mm_spine = xmdf + templ_big;
+  Spine g;
+  g.t32 = __double2float_rn(t);
+  g.u_base = __double2float_rn(rem_two_pi(mm_spine + argpdf));
+  g.mm = __double2float_rn(rem_two_pi(mm_spine));
+  g.argp32 = __double2float_rn(rem_two_pi(argpdf));
+  g.node32 = __double2float_rn(rem_two_pi(nodem64));
+  g.xmdf32 = __double2float_rn(rem_two_pi(xmdf));
+  return g;
+}
+
+// fast.shallow_tail_f32 at one point; tf holds the TAIL_FIELD_NAMES rows
+template <bool WANT_VEL, int ITERS>
+__device__ __forceinline__ PosVel shallow_tail(
+    const Spine& g, const float (&tf)[N_TAIL], bool not_simp, int error0,
+    float j2, float re, float vkmpersec) {
+  const float omgcof = tf[0], eta = tf[1], xmcof = tf[2], delmo = tf[3];
+  const float cc1 = tf[4], d2 = tf[5], d3 = tf[6], d4 = tf[7];
+  const float bstar = tf[8], cc4 = tf[9], cc5 = tf[10], sinmao = tf[11];
+  const float ecco = tf[12], sinip = tf[13], cosip = tf[14], a = tf[15];
+  const float aycof = tf[16], xlcof = tf[17], con41 = tf[18];
+  const float x1mth2 = tf[19], x7thm1 = tf[20];
+  const float t32 = g.t32;
+
+  // ---- drag; cos(xmdf) as in SGP4 --------------------------------------
+  int error = error0;
+  float cos_xmdf, sin_unused;
+  sincos_poly(g.xmdf32, sin_unused, cos_xmdf);
+  const float delmtemp = 1.0f + eta * cos_xmdf;
+  const float tempd =
+      omgcof * t32 + xmcof * (delmtemp * delmtemp * delmtemp - delmo);
+  const float mm_drag = not_simp ? g.mm + tempd : g.mm;
+  const float t2_32 = t32 * t32;
+  const float tempa = 1.0f - cc1 * t32 - d2 * t2_32 - d3 * t2_32 * t32 -
+                      d4 * t2_32 * t2_32;
+  float sin_mm, cos_unused;
+  sincos_poly(mm_drag, sin_mm, cos_unused);
+  const float tempe = bstar * cc4 * t32 +
+                      (not_simp ? bstar * cc5 * (sin_mm - sinmao) : 0.0f);
+
+  const float am = a * tempa * tempa;
+  const float am_safe = am > 0.0f ? am : 1.0f;
+  const float rsq_am = 1.0f / sqrtf(am_safe);
+
+  float em = ecco - tempe;
+  if ((em >= 1.0f || em < F32(-0.001)) && error == 0) error = 1;
+  em = clampf(em, F32(1.0e-6), F32(0.999999));
+
+  // "+ 0.0f" as in the plain version (it turns -0 into +0)
+  float sin_node, cos_node;
+  sincos_poly(g.node32 + 0.0f, sin_node, cos_node);
+  const float argpp = (not_simp ? g.argp32 - tempd : g.argp32) + 0.0f;
+
+  // ---- long-period terms -> Kepler -> TEME (fast._kepler_posvel_f32) ---
+  return kepler_posvel<WANT_VEL, ITERS>(
+      g.u_base, am, am_safe, rsq_am, em, argpp, sin_node, cos_node, sinip,
+      cosip, aycof, xlcof, con41, x1mth2, x7thm1, error, j2, re, vkmpersec);
+}
+
+template <bool WANT_VEL, int ITERS, int MODE>
 __global__ void __launch_bounds__(BLOCK)
 sgp4_shallow_kernel(const double* __restrict__ t_time,
                     const double* __restrict__ t_sat,
@@ -70,8 +179,8 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
                     const float* __restrict__ tail,
                     const int* __restrict__ flags, int n_times, int n_sats,
                     float j2, float re, float vkmpersec, DeepPlanes deep,
-                    float* __restrict__ r, float* __restrict__ v,
-                    int* __restrict__ err) {
+                    DenseInputs dense, float* __restrict__ r,
+                    float* __restrict__ v, int* __restrict__ err) {
   const int s = blockIdx.x * BLOCK + threadIdx.x;
   if (s >= n_sats) return;
   const int t_begin = blockIdx.y * ROWS;
@@ -79,7 +188,7 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
   const size_t ns = (size_t)n_sats;
   const size_t plane = (size_t)n_times * ns;
 
-  if (MERGE) {
+  if constexpr (MODE == MERGE) {
     const int slot = deep.slot[s];
     if (slot >= 0) {
       // a deep column: K2's values, as they are
@@ -104,90 +213,66 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
 
   // per-satellite fields, loaded once (rows of SoA matrices: coalesced)
   double sp[N_SPINE];
+  if constexpr (MODE != GRIDS) {
 #pragma unroll
-  for (int k = 0; k < N_SPINE; ++k) sp[k] = spine[k * ns + s];
-  const double mo = sp[0], mdot = sp[1], argpo = sp[2], argpdot = sp[3];
-  const double nodeo = sp[4], nodedot = sp[5], nodecf = sp[6];
-  const double no_unkozai = sp[7], t2cof = sp[8], t3cof = sp[9];
-  const double t4cof = sp[10], t5cof = sp[11];
+    for (int k = 0; k < N_SPINE; ++k) sp[k] = spine[k * ns + s];
+  }
   float tf[N_TAIL];
 #pragma unroll
   for (int k = 0; k < N_TAIL; ++k) tf[k] = tail[k * ns + s];
-  const float omgcof = tf[0], eta = tf[1], xmcof = tf[2], delmo = tf[3];
-  const float cc1 = tf[4], d2 = tf[5], d3 = tf[6], d4 = tf[7];
-  const float bstar = tf[8], cc4 = tf[9], cc5 = tf[10], sinmao = tf[11];
-  const float ecco = tf[12], sinip = tf[13], cosip = tf[14], a = tf[15];
-  const float aycof = tf[16], xlcof = tf[17], con41 = tf[18];
-  const float x1mth2 = tf[19], x7thm1 = tf[20];
   const bool not_simp = flags[s] == 0;
   const int error0 = flags[ns + s];
-  const double epoch = t_sat[s];
+  // only SEP and MERGE read t_sat. Written as one const, as K1 had it:
+  // ptxas then gives K1 and K3 the registers they had before the modes
+  // (96 / 80 and 96 / 91 with / without velocities)
+  const double epoch = (MODE == SEP || MODE == MERGE) ? t_sat[s] : 0.0;
 
   for (int ti = t_begin; ti < t_end; ++ti) {
-    // ---- f64 spine (fast.spine_f64) ------------------------------------
-    const double t = t_time[ti] - epoch;
-    const double xmdf = mo + mdot * t;
-    const double argpdf = argpo + argpdot * t;
-    const double t2 = t * t;
-    const double nodem64 = nodeo + nodedot * t + nodecf * t2;
-    const double templ_big =
-        no_unkozai * t2 * (t2cof + t * (t3cof + t * (t4cof + t * t5cof)));
-    const double mm_spine = xmdf + templ_big;
-    const float t32 = __double2float_rn(t);
-    const float u_base = __double2float_rn(rem_two_pi(mm_spine + argpdf));
-    const float mm = __double2float_rn(rem_two_pi(mm_spine));
-    const float argp32 = __double2float_rn(rem_two_pi(argpdf));
-    const float node32 = __double2float_rn(rem_two_pi(nodem64));
-    const float xmdf32 = __double2float_rn(rem_two_pi(xmdf));
-
-    // ---- drag (fast.shallow_tail_f32); cos(xmdf) as in SGP4 ------------
-    int error = error0;
-    float cos_xmdf, sin_unused;
-    sincos_poly(xmdf32, sin_unused, cos_xmdf);
-    const float delmtemp = 1.0f + eta * cos_xmdf;
-    const float tempd =
-        omgcof * t32 + xmcof * (delmtemp * delmtemp * delmtemp - delmo);
-    const float mm_drag = not_simp ? mm + tempd : mm;
-    const float t2_32 = t32 * t32;
-    const float tempa = 1.0f - cc1 * t32 - d2 * t2_32 - d3 * t2_32 * t32 -
-                        d4 * t2_32 * t2_32;
-    float sin_mm, cos_unused;
-    sincos_poly(mm_drag, sin_mm, cos_unused);
-    const float tempe = bstar * cc4 * t32 +
-                        (not_simp ? bstar * cc5 * (sin_mm - sinmao) : 0.0f);
-
-    const float am = a * tempa * tempa;
-    const float am_safe = am > 0.0f ? am : 1.0f;
-    const float rsq_am = 1.0f / sqrtf(am_safe);
-
-    float em = ecco - tempe;
-    if ((em >= 1.0f || em < F32(-0.001)) && error == 0) error = 1;
-    em = clampf(em, F32(1.0e-6), F32(0.999999));
-
-    // "+ 0.0f" as in the plain version (it turns -0 into +0)
-    float sin_node, cos_node;
-    sincos_poly(node32 + 0.0f, sin_node, cos_node);
-    const float argpp = (not_simp ? argp32 - tempd : argp32) + 0.0f;
-
-    // ---- long-period terms -> Kepler -> TEME (fast._kepler_posvel_f32) -
-    const PosVel o = kepler_posvel<WANT_VEL, ITERS>(
-        u_base, am, am_safe, rsq_am, em, argpp, sin_node, cos_node, sinip,
-        cosip, aycof, xlcof, con41, x1mth2, x7thm1, error, j2, re, vkmpersec);
+    Spine g;
+    if constexpr (MODE == GRIDS) {
+      const size_t idx = (size_t)ti * ns + s;
+      g.t32 = dense.grids[0][idx];
+      g.u_base = dense.grids[1][idx];
+      g.mm = dense.grids[2][idx];
+      g.argp32 = dense.grids[3][idx];
+      g.node32 = dense.grids[4][idx];
+      g.xmdf32 = dense.grids[5][idx];
+    } else if constexpr (MODE == DENSE) {
+      const size_t row = dense.sat_stride ? ns : 1;
+      g = spine_f64(dense.tsince[(size_t)ti * row +
+                                 (size_t)s * dense.sat_stride], sp);
+    } else {
+      g = spine_f64(t_time[ti] - epoch, sp);
+    }
+    const PosVel o = shallow_tail<WANT_VEL, ITERS>(g, tf, not_simp, error0,
+                                                   j2, re, vkmpersec);
     store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
   }
 }
 
-template <bool WANT_VEL, bool MERGE>
+// every argument of every mode; a mode reads only its own
+struct Args {
+  const double* t_time;
+  const double* t_sat;
+  const double* spine;
+  const float* tail;
+  const int* flags;
+  int n_times, n_sats;
+  float j2, re, vkmpersec;
+  DeepPlanes deep;
+  DenseInputs dense;
+  float* r;
+  float* v;
+  int* err;
+};
+
+template <bool WANT_VEL, int MODE>
 cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
-                   const double* t_time, const double* t_sat,
-                   const double* spine, const float* tail, const int* flags,
-                   int n_times, int n_sats, float j2, float re,
-                   float vkmpersec, DeepPlanes deep, float* r, float* v,
-                   int* err) {
-#define ASTROZ_LAUNCH(IT)                                                   \
-  sgp4_shallow_kernel<WANT_VEL, IT, MERGE><<<grid, BLOCK, 0, stream>>>(     \
-      t_time, t_sat, spine, tail, flags, n_times, n_sats, j2, re, vkmpersec, \
-      deep, r, v, err)
+                   const Args& a) {
+#define ASTROZ_LAUNCH(IT)                                                  \
+  sgp4_shallow_kernel<WANT_VEL, IT, MODE><<<grid, BLOCK, 0, stream>>>(     \
+      a.t_time, a.t_sat, a.spine, a.tail, a.flags, a.n_times, a.n_sats,    \
+      a.j2, a.re, a.vkmpersec, a.deep, a.dense, a.r, a.v, a.err)
   switch (kepler_iters) {
     case 3: ASTROZ_LAUNCH(3); break;
     case 4: ASTROZ_LAUNCH(4); break;
@@ -199,23 +284,19 @@ cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <bool MERGE>
-int launch_vel(int want_vel, int kepler_iters, const double* t_time,
-               const double* t_sat, const double* spine, const float* tail,
-               const int* flags, int n_times, int n_sats, float j2, float re,
-               float vkmpersec, DeepPlanes deep, float* r, float* v,
-               int* err, void* stream) {
-  const dim3 grid((n_sats + BLOCK - 1) / BLOCK, (n_times + ROWS - 1) / ROWS);
+template <int MODE>
+int launch_vel(int want_vel, int kepler_iters, const Args& a, void* stream) {
+  const dim3 grid((a.n_sats + BLOCK - 1) / BLOCK,
+                  (a.n_times + ROWS - 1) / ROWS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
-      want_vel ? launch<true, MERGE>(kepler_iters, grid, st, t_time, t_sat,
-                                     spine, tail, flags, n_times, n_sats, j2,
-                                     re, vkmpersec, deep, r, v, err)
-               : launch<false, MERGE>(kepler_iters, grid, st, t_time, t_sat,
-                                      spine, tail, flags, n_times, n_sats,
-                                      j2, re, vkmpersec, deep, r, v, err);
+      want_vel ? launch<true, MODE>(kepler_iters, grid, st, a)
+               : launch<false, MODE>(kepler_iters, grid, st, a);
   return static_cast<int>(rc);
 }
+
+constexpr DeepPlanes NO_DEEP{nullptr, nullptr, nullptr, nullptr, 0};
+constexpr DenseInputs NO_DENSE{nullptr, 0, {}};
 
 }  // namespace
 
@@ -233,10 +314,10 @@ extern "C" int astroz_sgp4_shallow(const double* t_time, const double* t_sat,
                                    int kepler_iters, int want_vel, float j2,
                                    float re, float vkmpersec, float* r,
                                    float* v, int* err, void* stream) {
-  return launch_vel<false>(want_vel, kepler_iters, t_time, t_sat, spine, tail,
-                           flags, n_times, n_sats, j2, re, vkmpersec,
-                           DeepPlanes{nullptr, nullptr, nullptr, nullptr, 0},
-                           r, v, err, stream);
+  const Args a{t_time, t_sat, spine,  tail,     flags,    n_times,
+               n_sats, j2,    re,     vkmpersec, NO_DEEP, NO_DENSE,
+               r,      v,     err};
+  return launch_vel<SEP>(want_vel, kepler_iters, a, stream);
 }
 
 // K3: K1's arguments plus deep_slot (S,) i32 and kernel K2's planes
@@ -248,8 +329,37 @@ extern "C" int astroz_sgp4_shallow_merge(
     int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
     const int* deep_slot, const float* dr, const float* dv, const int* de,
     int n_deep, float* r, float* v, int* err, void* stream) {
-  return launch_vel<true>(want_vel, kepler_iters, t_time, t_sat, spine, tail,
-                          flags, n_times, n_sats, j2, re, vkmpersec,
-                          DeepPlanes{deep_slot, dr, dv, de, n_deep}, r, v,
-                          err, stream);
+  const Args a{t_time, t_sat, spine, tail, flags, n_times, n_sats, j2, re,
+               vkmpersec, DeepPlanes{deep_slot, dr, dv, de, n_deep},
+               NO_DENSE, r, v, err};
+  return launch_vel<MERGE>(want_vel, kepler_iters, a, stream);
+}
+
+// K5: K1 on tsince (T, S) f64 minutes since each satellite's epoch, or a
+// (T, 1) column shared by every satellite (sat_stride 0; 1 for (T, S)).
+extern "C" int astroz_sgp4_shallow_dense(
+    const double* tsince, int sat_stride, const double* spine,
+    const float* tail, const int* flags, int n_times, int n_sats,
+    int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
+    float* r, float* v, int* err, void* stream) {
+  const Args a{nullptr, nullptr, spine, tail, flags, n_times, n_sats, j2,
+               re, vkmpersec, NO_DEEP, DenseInputs{tsince, sat_stride, {}},
+               r, v, err};
+  return launch_vel<DENSE>(want_vel, kepler_iters, a, stream);
+}
+
+// K6: the tail on six (T, S) f32 spine grids t32, u_base, mm, argp32,
+// node32, xmdf32 (ops/fast.py:spine_f64's returns); no spine rows.
+extern "C" int astroz_sgp4_shallow_grids(
+    const float* t32, const float* u_base, const float* mm,
+    const float* argp32, const float* node32, const float* xmdf32,
+    const float* tail, const int* flags, int n_times, int n_sats,
+    int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
+    float* r, float* v, int* err, void* stream) {
+  const Args a{nullptr, nullptr, nullptr, tail, flags, n_times, n_sats, j2,
+               re, vkmpersec, NO_DEEP,
+               DenseInputs{nullptr, 0,
+                           {t32, u_base, mm, argp32, node32, xmdf32}},
+               r, v, err};
+  return launch_vel<GRIDS>(want_vel, kepler_iters, a, stream);
 }

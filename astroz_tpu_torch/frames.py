@@ -1,6 +1,6 @@
 """Coordinate frames: TEME -> ECEF rotation and ECEF -> geodetic.
 
-Counterpart of ``astroz_tpu/frames.py:18-80`` in plain torch.
+Counterpart of ``astroz_tpu/frames.py:18-75`` in plain torch.
 """
 
 from __future__ import annotations
@@ -41,3 +41,11 @@ def ecef_to_geodetic_xyz(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     n = a / torch.sqrt(1.0 - e2 * sin_lat * sin_lat)
     alt = p_safe / torch.cos(lat) - n
     return lat, lon, alt
+
+
+def ecef_to_geodetic(r_ecef: torch.Tensor, iters: int = 10) -> torch.Tensor:
+    """ECEF (..., 3) km -> stacked (..., 3) ``(lat rad, lon rad, alt
+    km)`` on WGS-84 (:func:`ecef_to_geodetic_xyz`)."""
+    lat, lon, alt = ecef_to_geodetic_xyz(r_ecef[..., 0], r_ecef[..., 1],
+                                         r_ecef[..., 2], iters)
+    return torch.stack([lat, lon, alt], dim=-1)

@@ -1,4 +1,5 @@
-"""The CUDA propagation kernels K1, K2 and K3 and their plain versions.
+"""The CUDA propagation kernels K1, K2, K3, K5 and K6 and their plain
+versions.
 
 * K1, :func:`propagate_fast_sep`, replaces the TPU kernel
   ``astroz_tpu/ops/pallas_sgp4.py:_kernel_fused_sep`` (wrapper
@@ -8,13 +9,22 @@
 * K3, :func:`propagate_fast_sep_merge`, replaces
   ``_kernel_fused_sep_merge`` (wrapper ``propagate_fast_pallas_sep_merge``):
   K1 over a mixed catalog, its deep columns taken from K2's planes.
+* K5, :func:`propagate_fast_dense` and over elements
+  :func:`propagate_fast_fused`, replaces ``_kernel_fused`` (wrapper
+  ``propagate_fast_pallas_fused``): K1 on a dense tsince grid.
+* K6, :func:`propagate_fast_spine_grids` and over elements
+  :func:`propagate_fast_grids`, replaces ``_kernel`` (wrapper
+  ``propagate_fast_pallas``): K1's tail on the six f32 grids of the f64
+  spine, which runs outside the kernel (``ops/fast.py:spine_f64``).
 
-Each propagates over the separable grid ``tsince[t, n] = t_time[t] -
-t_sat[n]`` minutes and returns the grouped planes ``r (3, T, N)`` f32,
-``v (3, T, N)`` f32 (``None`` with ``want_vel=False``) and ``err (T, N)``
-i32. The kernels are ``csrc/sgp4_shallow.cu`` (K1, K3) and
-``csrc/sgp4_deep.cu`` (K2); their source notes say what bounds them on
-Hopper and what the design does about that.
+K1-K3 propagate over the separable grid ``tsince[t, n] = t_time[t] -
+t_sat[n]`` minutes, K5 and K6 over a dense one. The planes-level
+functions return the grouped planes ``r (3, T, N)`` f32, ``v (3, T, N)``
+f32 (``None`` with ``want_vel=False``) and ``err (T, N)`` i32; the
+element-level ones ``r``, ``v`` (T, N, 3) and ``err`` (T, N), as the JAX
+wrappers do. The kernels are ``csrc/sgp4_shallow.cu`` (K1, K3, K5, K6)
+and ``csrc/sgp4_deep.cu`` (K2); their source notes say what bounds them
+on Hopper and what the design does about that.
 
 On a CUDA tensor a wrapper launches its kernel or raises, and adds one
 to its entry of :data:`LAUNCHES`. On a CPU tensor it runs its
@@ -32,7 +42,7 @@ from ..constants import GravityModel
 from .fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                    RESONANCE_TABLE_NAMES, SPINE_FIELD_NAMES,
                    TAIL_FIELD_NAMES, deep_spine_f64, deep_tail_f32,
-                   shallow_tail_f32, spine_f64)
+                   shallow_staging, shallow_tail_f32, spine_f64)
 
 #: Newton trip counts K1 and K3 are built for (SatCatalog.kepler_iters)
 KEPLER_ITERS = (3, 4, 5, 8)
@@ -41,7 +51,8 @@ DEEP_KEPLER_ITERS = (6, 8)
 
 #: kernel launches so far in this process, by kernel; each launch adds
 #: one to its kernel's entry
-LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0}
+LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
+            "sgp4_shallow_dense": 0, "sgp4_shallow_grids": 0}
 
 F32 = torch.float32
 F64 = torch.float64
@@ -79,6 +90,16 @@ def _device_of(t_time, name):
     return dev
 
 
+def _launch_device(x, kepler_iters, name):
+    """The device of ``x``; on CUDA, ``kepler_iters`` must be one the
+    near-earth kernels are built for."""
+    dev = _device_of(x, name)
+    if dev.type == "cuda" and kepler_iters not in KEPLER_ITERS:
+        raise ValueError(f"kepler_iters must be one of {KEPLER_ITERS}, "
+                         f"got {kepler_iters}")
+    return dev
+
+
 def _outputs(dev, n_times, n, want_vel):
     r = torch.empty((3, n_times, n), dtype=F32, device=dev)
     v = torch.empty_like(r) if want_vel else None
@@ -112,23 +133,35 @@ def _grav_args(grav: GravityModel):
 # ---------------------------------------------------------------------------
 
 
+def _planes(out, want_vel):
+    """(r3, v3 | None, err) from a tail's component tuple."""
+    r3 = torch.stack(out[0:3])
+    v3 = torch.stack(out[3:6]) if want_vel else None
+    return r3, v3, out[-1]
+
+
+def _tail_reference(grids, tail, flags, grav, kepler_iters, want_vel):
+    """The shallow tail in plain torch on the spine's six grids."""
+    fields = dict(zip(TAIL_FIELD_NAMES, tail))
+    fields["not_simp"] = flags[0] == 0
+    fields["error0"] = flags[1]
+    return _planes(shallow_tail_f32(grav, kepler_iters, *grids,
+                                    want_vel=want_vel, **fields), want_vel)
+
+
+def _spine_grids(tsince, spine):
+    return spine_f64(tsince, **dict(zip(SPINE_FIELD_NAMES, spine)))
+
+
 def propagate_fast_sep_reference(t_time, t_sat, spine, tail, flags, *,
                                  grav: GravityModel, kepler_iters: int,
                                  want_vel: bool = True):
     """Plain torch version of K1, on any device: the same arguments and
     returns as :func:`propagate_fast_sep`."""
     _check_sep(t_time, t_sat, spine, tail, flags)
-    tsince = t_time[:, None] - t_sat[None, :]
-    fields = dict(zip(TAIL_FIELD_NAMES, tail))
-    fields["not_simp"] = flags[0] == 0
-    fields["error0"] = flags[1]
-    out = shallow_tail_f32(grav, kepler_iters,
-                           *spine_f64(tsince,
-                                      **dict(zip(SPINE_FIELD_NAMES, spine))),
-                           want_vel=want_vel, **fields)
-    r3 = torch.stack(out[0:3])
-    v3 = torch.stack(out[3:6]) if want_vel else None
-    return r3, v3, out[-1]
+    return _tail_reference(
+        _spine_grids(t_time[:, None] - t_sat[None, :], spine), tail, flags,
+        grav, kepler_iters, want_vel)
 
 
 def propagate_fast_sep(t_time, t_sat, spine, tail, flags, *,
@@ -151,14 +184,11 @@ def propagate_fast_sep(t_time, t_sat, spine, tail, flags, *,
     points are zero-filled.
     """
     n_times, n_sats = _check_sep(t_time, t_sat, spine, tail, flags)
-    dev = _device_of(t_time, "propagate_fast_sep")
+    dev = _launch_device(t_time, kepler_iters, "propagate_fast_sep")
     if dev.type == "cpu":
         return propagate_fast_sep_reference(
             t_time, t_sat, spine, tail, flags, grav=grav,
             kepler_iters=kepler_iters, want_vel=want_vel)
-    if kepler_iters not in KEPLER_ITERS:
-        raise ValueError(f"kepler_iters must be one of {KEPLER_ITERS}, "
-                         f"got {kepler_iters}")
     r, v, err = _outputs(dev, n_times, n_sats, want_vel)
     if n_times == 0 or n_sats == 0:
         return r, v, err
@@ -204,14 +234,11 @@ def propagate_deep_sep_reference(t_time, t_sat, spine, tail, flags, tables,
     tsince = t_time[:, None] - t_sat[None, :]
     fields = dict(zip(DEEP_FIELD_NAMES, tail))
     fields["error0"] = flags[1]
-    out = deep_tail_f32(
+    return _planes(deep_tail_f32(
         grav, kepler_iters,
         *deep_spine_f64(tsince, tables, irez=flags[0],
                         **dict(zip(DEEP_SPINE_FIELD_NAMES, spine))),
-        want_vel=want_vel, **fields)
-    r3 = torch.stack(out[0:3])
-    v3 = torch.stack(out[3:6]) if want_vel else None
-    return r3, v3, out[-1]
+        want_vel=want_vel, **fields), want_vel)
 
 
 def propagate_deep_sep(t_time, t_sat, spine, tail, flags, tables, *,
@@ -323,14 +350,11 @@ def propagate_fast_sep_merge(t_time, t_sat, spine, tail, flags, deep_slot,
     n_times, n_sats, n_deep = _check_merge(t_time, t_sat, spine, tail,
                                            flags, deep_slot, dr, dv, de,
                                            want_vel)
-    dev = _device_of(t_time, "propagate_fast_sep_merge")
+    dev = _launch_device(t_time, kepler_iters, "propagate_fast_sep_merge")
     if dev.type == "cpu":
         return propagate_fast_sep_merge_reference(
             t_time, t_sat, spine, tail, flags, deep_slot, dr, dv, de,
             grav=grav, kepler_iters=kepler_iters, want_vel=want_vel)
-    if kepler_iters not in KEPLER_ITERS:
-        raise ValueError(f"kepler_iters must be one of {KEPLER_ITERS}, "
-                         f"got {kepler_iters}")
     r, v, err = _outputs(dev, n_times, n_sats, want_vel)
     if n_times == 0:
         return r, v, err
@@ -346,3 +370,197 @@ def propagate_fast_sep_merge(t_time, t_sat, spine, tail, flags, deep_slot,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "sgp4_shallow_merge")
     return r, v, err
+
+
+# ---------------------------------------------------------------------------
+# K5: K1 on a dense tsince grid
+# ---------------------------------------------------------------------------
+
+
+def _check_tail(device, tail, flags, n_sats):
+    _check(device, ((tail, (len(TAIL_FIELD_NAMES), n_sats), F32, "tail"),
+                    (flags, (2, n_sats), I32, "flags")))
+
+
+def _check_dense(tsince, spine, tail, flags):
+    if tsince.dim() != 2:
+        raise ValueError(f"tsince: expected (T, S) or (T, 1), got "
+                         f"{tuple(tsince.shape)}")
+    n_times, n_sats = tsince.shape[0], spine.shape[-1]
+    if tsince.shape[1] not in (1, n_sats):
+        raise ValueError(f"tsince: expected ({n_times}, {n_sats}) or "
+                         f"({n_times}, 1), got {tuple(tsince.shape)}")
+    _check(tsince.device, (
+        (tsince, tuple(tsince.shape), F64, "tsince"),
+        (spine, (len(SPINE_FIELD_NAMES), n_sats), F64, "spine")))
+    _check_tail(tsince.device, tail, flags, n_sats)
+    return n_times, n_sats
+
+
+def propagate_fast_dense_reference(tsince, spine, tail, flags, *,
+                                   grav: GravityModel, kepler_iters: int,
+                                   want_vel: bool = True):
+    """Plain torch version of K5, on any device: the same arguments and
+    returns as :func:`propagate_fast_dense`."""
+    _check_dense(tsince, spine, tail, flags)
+    return _tail_reference(_spine_grids(tsince, spine), tail, flags, grav,
+                           kepler_iters, want_vel)
+
+
+def propagate_fast_dense(tsince, spine, tail, flags, *, grav: GravityModel,
+                         kepler_iters: int, want_vel: bool = True):
+    """K5: propagate near-earth satellites to a dense grid of minutes
+    since each one's epoch.
+
+    Args:
+      tsince: (T, S) f64, or a (T, 1) column that every satellite shares
+        (the kernel reads it with a satellite stride of 0).
+      spine, tail, flags, grav, kepler_iters, want_vel: as
+        :func:`propagate_fast_sep` (``ops.fast.shallow_staging``).
+
+    Returns ``(r, v, err)`` as :func:`propagate_fast_sep`.
+    """
+    n_times, n_sats = _check_dense(tsince, spine, tail, flags)
+    dev = _launch_device(tsince, kepler_iters, "propagate_fast_dense")
+    if dev.type == "cpu":
+        return propagate_fast_dense_reference(
+            tsince, spine, tail, flags, grav=grav, kepler_iters=kepler_iters,
+            want_vel=want_vel)
+    r, v, err = _outputs(dev, n_times, n_sats, want_vel)
+    if n_times == 0 or n_sats == 0:
+        return r, v, err
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_sgp4_shallow_dense(
+            tsince.data_ptr(), int(tsince.shape[1] == n_sats),
+            spine.data_ptr(), tail.data_ptr(), flags.data_ptr(), n_times,
+            n_sats, kepler_iters, int(want_vel), *_grav_args(grav),
+            r.data_ptr(), _ptr(v), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sgp4_shallow_dense")
+    return r, v, err
+
+
+def _time_major(r3, v3, err):
+    """The JAX wrappers' (T, S, 3) layout from the (3, T, S) planes."""
+    r = r3.permute(1, 2, 0).contiguous()
+    v = None if v3 is None else v3.permute(1, 2, 0).contiguous()
+    return r, v, err
+
+
+def _tsince_for(els, tsince):
+    return torch.as_tensor(tsince, dtype=F64, device=els.no_kozai.device)
+
+
+def propagate_fast_fused_reference(els, tsince, grav: GravityModel,
+                                   kepler_iters: int = 5,
+                                   want_vel: bool = True):
+    """Plain torch version of :func:`propagate_fast_fused`, on any
+    device (``ops.fast.spine_f64`` + ``shallow_tail_f32``)."""
+    return _time_major(*propagate_fast_dense_reference(
+        _tsince_for(els, tsince), *shallow_staging(els), grav=grav,
+        kepler_iters=kepler_iters, want_vel=want_vel))
+
+
+def propagate_fast_fused(els, tsince, grav: GravityModel,
+                         kepler_iters: int = 5, want_vel: bool = True):
+    """Near-earth propagate of elements (``Sgp4Elements`` of tensors,
+    broadcast satellites too) to a dense ``tsince`` grid through K5.
+
+    ``tsince``: (T, S) or (T, 1) f64 minutes since each epoch. Returns
+    ``(r, v, err)``: r and v (T, S, 3) f32 TEME km and km/s (v None
+    with ``want_vel=False``), err (T, S) i32 python-sgp4 codes."""
+    return _time_major(*propagate_fast_dense(
+        _tsince_for(els, tsince), *shallow_staging(els), grav=grav,
+        kepler_iters=kepler_iters, want_vel=want_vel))
+
+
+# ---------------------------------------------------------------------------
+# K6: the tail on the f64 spine's six grids
+# ---------------------------------------------------------------------------
+
+
+def _check_grids(grids, tail, flags):
+    if len(grids) != 6 or grids[0].dim() != 2:
+        raise ValueError("grids: expected six (T, S) f32 tensors "
+                         "(t32, u_base, mm, argp32, node32, xmdf32)")
+    shape = tuple(grids[0].shape)
+    _check(grids[0].device, [(g, shape, F32, f"grids[{k}]")
+                             for k, g in enumerate(grids)])
+    _check_tail(grids[0].device, tail, flags, shape[1])
+    return shape
+
+
+def propagate_fast_spine_grids_reference(grids, tail, flags, *,
+                                         grav: GravityModel,
+                                         kepler_iters: int,
+                                         want_vel: bool = True):
+    """Plain torch version of K6, on any device: the same arguments and
+    returns as :func:`propagate_fast_spine_grids`."""
+    _check_grids(grids, tail, flags)
+    return _tail_reference(grids, tail, flags, grav, kepler_iters, want_vel)
+
+
+def propagate_fast_spine_grids(grids, tail, flags, *, grav: GravityModel,
+                               kepler_iters: int, want_vel: bool = True):
+    """K6: the near-earth tail on the f64 spine's grids.
+
+    Args:
+      grids: the six (T, S) f32 tensors ``ops.fast.spine_f64`` returns,
+        t32, u_base, mm, argp32, node32, xmdf32, each contiguous.
+      tail, flags, grav, kepler_iters, want_vel: as
+        :func:`propagate_fast_sep`.
+
+    Returns ``(r, v, err)`` as :func:`propagate_fast_sep`.
+    """
+    n_times, n_sats = _check_grids(grids, tail, flags)
+    dev = _launch_device(grids[0], kepler_iters,
+                         "propagate_fast_spine_grids")
+    if dev.type == "cpu":
+        return propagate_fast_spine_grids_reference(
+            grids, tail, flags, grav=grav, kepler_iters=kepler_iters,
+            want_vel=want_vel)
+    r, v, err = _outputs(dev, n_times, n_sats, want_vel)
+    if n_times == 0 or n_sats == 0:
+        return r, v, err
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_sgp4_shallow_grids(
+            *(g.data_ptr() for g in grids), tail.data_ptr(),
+            flags.data_ptr(), n_times, n_sats, kepler_iters, int(want_vel),
+            *_grav_args(grav), r.data_ptr(), _ptr(v), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sgp4_shallow_grids")
+    return r, v, err
+
+
+def spine_grids(els, tsince):
+    """The f64 spine of ``els`` at ``tsince`` ((T, S) or (T, 1) f64) as
+    K6 reads it: six contiguous (T, S) f32 grids, and the staging's tail
+    and flags."""
+    spine, tail, flags = shallow_staging(els)
+    t = _tsince_for(els, tsince)
+    shape = (t.shape[0], spine.shape[1])
+    grids = tuple(g.expand(shape).contiguous()
+                  for g in _spine_grids(t, spine))
+    return grids, tail, flags
+
+
+def propagate_fast_grids_reference(els, tsince, grav: GravityModel,
+                                   kepler_iters: int = 5,
+                                   want_vel: bool = True):
+    """Plain torch version of :func:`propagate_fast_grids`, on any
+    device."""
+    return _time_major(*propagate_fast_spine_grids_reference(
+        *spine_grids(els, tsince), grav=grav, kepler_iters=kepler_iters,
+        want_vel=want_vel))
+
+
+def propagate_fast_grids(els, tsince, grav: GravityModel,
+                         kepler_iters: int = 5, want_vel: bool = True):
+    """:func:`propagate_fast_fused`'s function with the f64 spine run in
+    plain torch on the device (:func:`spine_grids`) and the tail in K6.
+    The same arguments and returns."""
+    return _time_major(*propagate_fast_spine_grids(
+        *spine_grids(els, tsince), grav=grav, kepler_iters=kepler_iters,
+        want_vel=want_vel))

@@ -16,6 +16,11 @@ each grid point reads its row by a direct index
 full-f64 SDP4 on those tables, the accuracy escape of extreme half-day
 lanes.
 
+:func:`propagate_fast` is the JAX package's unified dense entry point
+(``astroz_tpu/ops/fast.py:644``): near-earth elements go through kernel
+K5 (``ops/cuda_sgp4.py:propagate_fast_fused``), a mixed catalog through
+the plain torch tail here, which the JAX package runs in XLA.
+
 The JAX package spells the reciprocal square roots of the tail as
 ``lax.rsqrt``; here they are ``1 / sqrt(x)`` (:func:`fastmath.rsqrt`),
 correctly rounded on every device.
@@ -31,7 +36,8 @@ from ..constants import GravityModel, TWO_PI
 from .fastmath import (angle_add, div_pos, fast_atan2, pow23, recip_pos,
                        rsqrt, sincos, sqrt_rn)
 from .sdp4 import (FASX2, FASX4, FASX6, G22, G32, G44, G52, G54, PI, RPTIM,
-                   STEP2, STEPP, ZEL, ZES, ZNL, ZNS, sdp4_finish)
+                   STEP2, STEPP, ZEL, ZES, ZNL, ZNS, integrate_resonance,
+                   sdp4_finish)
 from .sgp4 import update_secular
 
 F32 = torch.float32
@@ -223,6 +229,19 @@ def _shallow_f32_fields(els) -> dict:
         xlcof=f32(els.xlcof), con41=f32(els.con41),
         x1mth2=f32(els.x1mth2), x7thm1=f32(els.x7thm1),
         error0=els.error)
+
+
+def shallow_staging(els):
+    """The per-satellite matrices of the near-earth kernels (K1, K3, K5,
+    K6), from elements held as tensors (a broadcast of one satellite's
+    elements too): ``spine`` (12, S) f64 rows :data:`SPINE_FIELD_NAMES`,
+    ``tail`` (21, S) f32 rows :data:`TAIL_FIELD_NAMES` and ``flags`` (2,
+    S) i32 rows ``[isimp, init error]``, each contiguous."""
+    fields = _shallow_f32_fields(els)
+    return (torch.stack([getattr(els, n) for n in SPINE_FIELD_NAMES]),
+            torch.stack([fields[n] for n in TAIL_FIELD_NAMES]),
+            torch.stack([els.isimp.to(torch.int32),
+                         els.error.to(torch.int32)]))
 
 
 def spine_f64(t: torch.Tensor, *, mo, mdot, argpo, argpdot, nodeo, nodedot,
@@ -592,3 +611,172 @@ def sdp4_propagate_tables(els, deep, t: torch.Tensor, grav: GravityModel,
     error = els.error.to(torch.int32).expand(t.shape)
     return sdp4_finish(els, deep, grav, t, em, argpm, inclm, mm, nodem, nm,
                        tempa, tempe, templ, error, els.is_deep)
+
+
+# ---------------------------------------------------------------------------
+# The unified dense fast path (near-earth through kernel K5 on the card;
+# mixed catalogs in plain torch, as the JAX package runs them in XLA)
+# ---------------------------------------------------------------------------
+
+
+def _dpper_fast(deep, t32, ep, inclp, sin_node, cos_node, nodep, mp, argpp,
+                u_sum, apply_mask):
+    """:func:`_dpper_core` on the f32 coefficients of ``deep``, its
+    results taken where ``apply_mask`` holds and the inputs passed
+    through elsewhere."""
+    new = _dpper_core(t32, ep, inclp, sin_node, cos_node, nodep, mp, argpp,
+                      u_sum, **{n: getattr(deep, n).to(F32)
+                                for n in DPPER_FIELD_NAMES})
+    old = (ep, inclp, nodep, sin_node, cos_node, argpp, u_sum)
+    return tuple(torch.where(apply_mask, a, b) for a, b in zip(new, old))
+
+
+def propagate_fast(els, deep, tsince, grav: GravityModel, carry=None,
+                   kepler_iters: int = 8, resonance_steps=None):
+    """Split-precision propagate of a catalog to ``tsince`` minutes from
+    each epoch (f64, broadcasting against the ``(n_sats,)`` elements).
+
+    Returns ``(r, v, error)``: f32 TEME km and km/s stacked ``(..., 3)``,
+    int32 python-sgp4 codes. With ``deep`` None (a near-earth catalog)
+    this is :func:`~.cuda_sgp4.propagate_fast_fused`: kernel K5 on a CUDA
+    tensor, its plain version on a CPU one. Otherwise the mixed tail
+    below runs in plain torch over every lane, the deep coefficients
+    zero on near-earth lanes; the resonance comes from
+    :func:`resonance_tables` (``resonance_steps`` deep, 64 by default)
+    read by :func:`resonance_from_tables`, or with a
+    :class:`~.sdp4.ResonanceCarry`, from a masked 720-minute loop resumed
+    from ``carry`` per point. The drag term takes cos(xmdf), as SGP4
+    does (the JAX package's mixed tail takes the sine; ROADMAP queue
+    3)."""
+    t = torch.as_tensor(tsince, dtype=els.no_kozai.dtype,
+                        device=els.no_kozai.device)
+    n_sats = els.no_kozai.shape[0]
+    shape = torch.broadcast_shapes(t.shape, (n_sats,))
+
+    if deep is None:
+        # cuda_sgp4 imports this module, so it is imported here
+        from .cuda_sgp4 import propagate_fast_fused
+
+        if t.dim() != 2 or t.shape[1] not in (1, n_sats):
+            t = t.expand(shape).reshape(-1, n_sats)
+        r, v, err = propagate_fast_fused(els, t.contiguous(), grav,
+                                         kepler_iters=kepler_iters)
+        return (r.reshape(shape + (3,)), v.reshape(shape + (3,)),
+                err.reshape(shape))
+
+    # ---- f64 spine ---------------------------------------------------------
+    xmdf = els.mo + els.mdot * t
+    argpdf = els.argpo + els.argpdot * t
+    t2 = t * t
+    nodem64 = els.nodeo + els.nodedot * t + els.nodecf * t2
+    # lunisolar secular rates (exact zeros on near-earth lanes)
+    xmdf = xmdf + deep.dmdt * t
+    argpdf = argpdf + deep.domdt * t
+    nodem64 = nodem64 + deep.dnodt * t
+    templ_big = els.no_unkozai * t2 * (
+        els.t2cof + t * (els.t3cof + t * (els.t4cof + t * els.t5cof)))
+
+    is_deep = els.is_deep
+    nm_res64 = els.no_unkozai + torch.zeros_like(xmdf)
+    resonant = deep.irez != 0
+    if carry is None:
+        tables = resonance_tables(deep, els, resonance_steps or 64)
+        nm_res, xl = resonance_from_tables(t.expand(shape), tables)
+    else:
+        nm_res, xl, _ = integrate_resonance(deep, els, t, carry,
+                                            _resonance_derivs_fast)
+    theta = torch.fmod(els.gsto + t * RPTIM, TWO_PI)
+    mm_geo = xl - nodem64 - argpdf + theta
+    mm_half = xl - 2.0 * nodem64 + 2.0 * theta
+    mm_res = torch.where(deep.irez == 1, mm_geo, mm_half)
+    mm_spine = torch.where(resonant, mm_res, xmdf)
+    nm_res64 = torch.where(resonant, nm_res, nm_res64)
+    mm_spine = mm_spine + templ_big
+
+    # ---- f32 tail ----------------------------------------------------------
+    t32 = t.to(F32)
+    u_base = torch.remainder(mm_spine + argpdf, TWO_PI).to(F32)
+    mm = torch.remainder(mm_spine, TWO_PI).to(F32)
+    argp32 = torch.remainder(argpdf, TWO_PI).to(F32)
+    nodem = torch.remainder(nodem64, TWO_PI).to(F32)
+    xmdf32 = torch.remainder(xmdf, TWO_PI).to(F32)
+    nm_deep = nm_res64.to(F32)
+
+    def f32(x):
+        return x.to(F32)
+
+    ecco, inclo, bstar = f32(els.ecco), f32(els.inclo), f32(els.bstar)
+    error = torch.zeros(u_base.shape, dtype=torch.int32,
+                        device=u_base.device) + els.error
+
+    # drag
+    _, cos_xmdf = sincos(xmdf32)
+    delomg = f32(els.omgcof) * t32
+    delmtemp = 1.0 + f32(els.eta) * cos_xmdf
+    delm = f32(els.xmcof) * (delmtemp * delmtemp * delmtemp - f32(els.delmo))
+    tempd = delomg + delm
+    not_simp = ~els.isimp
+    mm_drag = torch.where(not_simp, mm + tempd, mm)
+
+    t2_32 = t32 * t32
+    tempa = (1.0 - f32(els.cc1) * t32 - f32(els.d2) * t2_32
+             - f32(els.d3) * t2_32 * t32 - f32(els.d4) * t2_32 * t2_32)
+    sin_mm, _ = sincos(mm_drag)
+    tempe = bstar * f32(els.cc4) * t32
+    tempe = tempe + torch.where(
+        not_simp, bstar * f32(els.cc5) * (sin_mm - f32(els.sinmao)), 0.0)
+
+    # semi-major axis: deep lanes from the resonance mean motion
+    xke32 = torch.tensor(grav.xke, dtype=F32, device=u_base.device)
+    bad_nm = nm_deep <= 0.0
+    error = torch.where(bad_nm & is_deep & (error == 0), 2, error)
+    a_base = torch.where(is_deep,
+                         pow23(xke32 / torch.where(bad_nm, 1e-8, nm_deep)),
+                         f32(els.a))
+    am = a_base * tempa * tempa
+    am_safe = torch.where(am > 0.0, am, 1.0)
+    rsq_am = rsqrt(am_safe)
+
+    em = ecco - tempe + f32(deep.dedt) * t32
+    inclm = inclo + f32(deep.didt) * t32
+    error = torch.where(((em >= 1.0) | (em < -0.001)) & (error == 0), 1,
+                        error)
+    em = torch.clamp(em, 1.0e-6, 0.999999)
+
+    # lunisolar periodics and node (deep lanes)
+    nodem = nodem.expand(u_base.shape)
+    sin_node, cos_node = sincos(nodem)
+    argpp = torch.where(not_simp, argp32 - tempd, argp32) \
+        + torch.zeros_like(u_base)
+    ep, xincp, nodem, sin_node, cos_node, argpp, u = _dpper_fast(
+        deep, t32, em, inclm, sin_node, cos_node, nodem, mm, argpp, u_base,
+        apply_mask=is_deep)
+    # inclination flip: node += pi, argp -= pi, and u = mp + argp with it
+    neg_inc = xincp < 0.0
+    xincp = torch.abs(xincp)
+    sin_node = torch.where(neg_inc, -sin_node, sin_node)
+    cos_node = torch.where(neg_inc, -cos_node, cos_node)
+    argpp = torch.where(neg_inc, argpp - PI, argpp)
+    u = torch.where(neg_inc, u - PI, u)
+    error = torch.where(((ep < 0.0) | (ep > 1.0)) & (error == 0), 3, error)
+    ep = torch.clamp(ep, 1e-12, 0.999999)
+
+    # inclination-dependent coefficients, per point on deep lanes
+    sinip, cosip = sincos(xincp)
+    j3oj2 = torch.tensor(grav.j3oj2, dtype=F32, device=u_base.device)
+    aycof_d = -0.5 * j3oj2 * sinip
+    near180 = torch.abs(cosip + 1.0) > 1.5e-12
+    denom = torch.where(near180, 1.0 + cosip, 1.5e-12)
+    xlcof_d = -0.25 * j3oj2 * sinip * (3.0 + 5.0 * cosip) / denom
+    cosisq = cosip * cosip
+    aycof = torch.where(is_deep, aycof_d, f32(els.aycof))
+    xlcof = torch.where(is_deep, xlcof_d, f32(els.xlcof))
+    con41 = torch.where(is_deep, 3.0 * cosisq - 1.0, f32(els.con41))
+    x1mth2 = torch.where(is_deep, 1.0 - cosisq, f32(els.x1mth2))
+    x7thm1 = torch.where(is_deep, 7.0 * cosisq - 1.0, f32(els.x7thm1))
+
+    rx, ry, rz, vx, vy, vz, error = _kepler_posvel_f32(
+        grav, kepler_iters, u, am, am_safe, rsq_am, ep, argpp, sin_node,
+        cos_node, sinip, cosip, aycof, xlcof, con41, x1mth2, x7thm1, error)
+    return (torch.stack([rx, ry, rz], dim=-1),
+            torch.stack([vx, vy, vz], dim=-1), error)

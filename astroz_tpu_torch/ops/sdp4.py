@@ -1,27 +1,31 @@
-"""SDP4 deep-space init (host, f64 numpy) and the f64 deep-space tail
-(torch, on the catalog's device).
+"""SDP4 deep-space init (host, f64 numpy) and the f64 deep-space
+propagator (torch, on the catalog's device).
 
 Counterpart of ``astroz_tpu/ops/sdp4.py``: the constants (:39-75),
 :class:`DeepElements` (:77), ``_dscom`` (:162), ``_sdp4_init_core``
 (:297) and ``sdp4_init_np`` (:511) run in numpy once per catalog, with
 the same operations in the same order as the JAX package's numpy branch,
-so every field agrees bit for bit; :func:`dpper` (:524) and
-:func:`sdp4_finish` (:777) are the published f64 algorithm (Vallado,
-"Revisiting Spacetrack Report #3", AIAA 2006-6753) in plain torch, the
-tail of the fast path's f64 accuracy escape
-(``ops/fast.py:sdp4_propagate_tables``).
+so every field agrees bit for bit. The rest is the published f64
+algorithm (Vallado, "Revisiting Spacetrack Report #3", AIAA 2006-6753)
+in plain torch: :func:`dpper` (:524) and :func:`sdp4_finish` (:777), the
+tail shared with the fast path's f64 accuracy escape
+(``ops/fast.py:sdp4_propagate_tables``); the 720-minute resonance
+integrator :func:`dspace` (:651) with its :class:`ResonanceCarry`
+(:140); and the unified propagators :func:`sdp4_propagate` (:722) and
+:func:`sdp4_propagate_scan` (:841).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..constants import GravityModel, TWO_PI
-from .sgp4 import X2O3, _TEMP4, Sgp4Elements, kepler_and_posvel
+from .sgp4 import (X2O3, _TEMP4, Sgp4Elements, kepler_and_posvel,
+                   update_secular)
 
 PI = math.pi
 
@@ -120,6 +124,23 @@ class DeepElements(NamedTuple):
     # resonance integrator seeds
     xfact: object
     xlamo: object
+
+
+class ResonanceCarry(NamedTuple):
+    """Resumable state of the 720-minute resonance integrator: the time
+    of the last step and the integrated mean longitude and motion."""
+
+    atime: torch.Tensor
+    xli: torch.Tensor
+    xni: torch.Tensor
+
+
+def fresh_carry(deep: DeepElements, no_unkozai) -> ResonanceCarry:
+    """The integrator's state at epoch (atime 0), over ``deep.xlamo``'s
+    shape."""
+    return ResonanceCarry(atime=torch.zeros_like(deep.xlamo),
+                          xli=deep.xlamo,
+                          xni=no_unkozai + torch.zeros_like(deep.xlamo))
 
 
 def _dscom(epoch_jd, ep, argpp, tc, inclp, nodep, np_):
@@ -585,3 +606,183 @@ def sdp4_finish(els: Sgp4Elements, deep: DeepElements, grav: GravityModel,
         grav, am=am, nm=nm, ep=ep, xincp=xincp, nodep=nodep, argpp=argpp,
         mp=mp, aycof=aycof, xlcof=xlcof, con41=con41, x1mth2=x1mth2,
         x7thm1=x7thm1, error=error)
+
+
+def _resonance_derivs(deep: DeepElements, els: Sgp4Elements, xli, xni,
+                      atime):
+    """xndt, xldot and xnddt * xldot at the integrator state: the
+    geosynchronous 3-term and the half-day 10-term series, merged by
+    irez."""
+    xndt_1 = (deep.del1 * torch.sin(xli - FASX2)
+              + deep.del2 * torch.sin(2.0 * (xli - FASX4))
+              + deep.del3 * torch.sin(3.0 * (xli - FASX6)))
+    xnddt_1 = (deep.del1 * torch.cos(xli - FASX2)
+               + 2.0 * deep.del2 * torch.cos(2.0 * (xli - FASX4))
+               + 3.0 * deep.del3 * torch.cos(3.0 * (xli - FASX6)))
+    xomi = els.argpo + els.argpdot * atime
+    x2omi = xomi + xomi
+    x2li = xli + xli
+    xndt_2 = (deep.d2201 * torch.sin(x2omi + xli - G22)
+              + deep.d2211 * torch.sin(xli - G22)
+              + deep.d3210 * torch.sin(xomi + xli - G32)
+              + deep.d3222 * torch.sin(-xomi + xli - G32)
+              + deep.d4410 * torch.sin(x2omi + x2li - G44)
+              + deep.d4422 * torch.sin(x2li - G44)
+              + deep.d5220 * torch.sin(xomi + xli - G52)
+              + deep.d5232 * torch.sin(-xomi + xli - G52)
+              + deep.d5421 * torch.sin(xomi + x2li - G54)
+              + deep.d5433 * torch.sin(-xomi + x2li - G54))
+    xnddt_2 = (deep.d2201 * torch.cos(x2omi + xli - G22)
+               + deep.d2211 * torch.cos(xli - G22)
+               + deep.d3210 * torch.cos(xomi + xli - G32)
+               + deep.d3222 * torch.cos(-xomi + xli - G32)
+               + deep.d5220 * torch.cos(xomi + xli - G52)
+               + deep.d5232 * torch.cos(-xomi + xli - G52)
+               + 2.0 * (deep.d4410 * torch.cos(x2omi + x2li - G44)
+                        + deep.d4422 * torch.cos(x2li - G44)
+                        + deep.d5421 * torch.cos(xomi + x2li - G54)
+                        + deep.d5433 * torch.cos(-xomi + x2li - G54)))
+    half_day = deep.irez == 2
+    xndt = torch.where(half_day, xndt_2, xndt_1)
+    xnddt = torch.where(half_day, xnddt_2, xnddt_1)
+    xldot = xni + deep.xfact
+    return xndt, xldot, xnddt * xldot
+
+
+def integrate_resonance(deep: DeepElements, els: Sgp4Elements, t,
+                        carry: ResonanceCarry, derivs=_resonance_derivs,
+                        max_steps: Optional[int] = None):
+    """The resonance Euler-Maclaurin integration to ``t`` minutes,
+    resumed from ``carry``, with the accelerations ``derivs`` (this
+    module's f64 series, or the fast path's).
+
+    A lane restarts from epoch where its carry is at epoch, lies on the
+    other side of epoch, or lies beyond ``t``; then every resonant lane
+    steps 720 minutes toward ``t`` until it is less than a step away, a
+    Python loop over ``active.any()`` (one host sync a step), or exactly
+    ``max_steps`` masked steps. Returns ``(nm_res, xl, carry)``: the
+    resonance mean motion and longitude at ``t`` (meaningful on resonant
+    lanes) and the new carry."""
+    resonant = deep.irez != 0
+    atime, xli, xni = carry
+    restart = ((atime == 0.0) | (t * atime <= 0.0)
+               | (torch.abs(t) < torch.abs(atime)))
+    atime = torch.where(restart, 0.0, atime)
+    xli = torch.where(restart, deep.xlamo, xli)
+    xni = torch.where(restart, els.no_unkozai, xni)
+
+    delt = torch.where(t > 0.0, torch.full_like(t, STEPP),
+                       torch.full_like(t, -STEPP))
+
+    def active_at(atime_):
+        return resonant & (torch.abs(t - atime_) >= STEPP)
+
+    def step(atime_, xli_, xni_):
+        xndt, xldot, xnddt = derivs(deep, els, xli_, xni_, atime_)
+        act = active_at(atime_)
+        return (torch.where(act, atime_ + delt, atime_),
+                torch.where(act, xli_ + xldot * delt + xndt * STEP2, xli_),
+                torch.where(act, xni_ + xndt * delt + xnddt * STEP2, xni_))
+
+    if max_steps is None:
+        while bool(active_at(atime).any()):
+            atime, xli, xni = step(atime, xli, xni)
+    else:
+        for _ in range(max_steps):
+            atime, xli, xni = step(atime, xli, xni)
+
+    # the derivatives at the final state
+    xndt, xldot, xnddt = derivs(deep, els, xli, xni, atime)
+    ft = t - atime
+    nm_res = xni + xndt * ft + xnddt * ft * ft * 0.5
+    xl = xli + xldot * ft + xndt * ft * ft * 0.5
+    return nm_res, xl, ResonanceCarry(atime, xli, xni)
+
+
+def dspace(deep: DeepElements, els: Sgp4Elements, t, tc, em, argpm, inclm,
+           mm, nodem, nm, carry: ResonanceCarry,
+           max_steps: Optional[int] = None):
+    """Deep-space secular update and the resonance integration to ``t``
+    minutes, resumed from ``carry`` (:func:`integrate_resonance`).
+    Returns the updated ``(em, argpm, inclm, mm, nodem, nm)`` and the new
+    carry."""
+    theta = torch.fmod(els.gsto + tc * RPTIM, TWO_PI)
+    em = em + deep.dedt * t
+    inclm = inclm + deep.didt * t
+    argpm = argpm + deep.domdt * t
+    nodem = nodem + deep.dnodt * t
+    mm = mm + deep.dmdt * t
+
+    resonant = deep.irez != 0
+    nm_res, xl, carry = integrate_resonance(deep, els, t, carry,
+                                            max_steps=max_steps)
+    mm_geo = xl - nodem - argpm + theta
+    mm_half = xl - 2.0 * nodem + 2.0 * theta
+    mm = torch.where(resonant, torch.where(deep.irez == 1, mm_geo, mm_half),
+                     mm)
+    nm = torch.where(resonant, nm_res, nm)
+    return em, argpm, inclm, mm, nodem, nm, carry
+
+
+def sdp4_propagate(els: Sgp4Elements, deep: DeepElements, tsince,
+                   grav: GravityModel,
+                   carry: Optional[ResonanceCarry] = None,
+                   max_steps: Optional[int] = None):
+    """Propagate a mixed near-earth / deep-space catalog to ``tsince``
+    minutes from epoch, in f64.
+
+    Near-earth lanes see zeroed deep coefficients (exact no-ops) and
+    their higher-order drag through the isimp mask; deep lanes get
+    :func:`dspace` and :func:`dpper` and their inclination-dependent
+    coefficients per point. ``tsince`` broadcasts as in
+    :func:`~.sgp4.sgp4_propagate`. Returns ``(r, v, error, carry)``."""
+    t = torch.as_tensor(tsince, dtype=els.no_kozai.dtype,
+                        device=els.no_kozai.device)
+    if carry is None:
+        shape = torch.broadcast_shapes(t.shape, deep.xlamo.shape)
+        carry = ResonanceCarry(
+            atime=torch.zeros(shape, dtype=t.dtype, device=t.device),
+            xli=deep.xlamo.expand(shape), xni=els.no_unkozai.expand(shape))
+
+    mm, argpm, nodem, tempa, tempe, templ = update_secular(els, t)
+    nm = els.no_unkozai + torch.zeros_like(mm)
+    em = els.ecco + torch.zeros_like(mm)
+    inclm = els.inclo + torch.zeros_like(mm)
+    error = els.error.to(torch.int32).expand(
+        torch.broadcast_shapes(els.error.shape, t.shape))
+
+    em_d, argpm_d, inclm_d, mm_d, nodem_d, nm_d, carry = dspace(
+        deep, els, t, t, em, argpm, inclm, mm, nodem, nm, carry,
+        max_steps=max_steps)
+    is_deep = els.is_deep
+    em = torch.where(is_deep, em_d, em)
+    argpm = torch.where(is_deep, argpm_d, argpm)
+    inclm = torch.where(is_deep, inclm_d, inclm)
+    mm = torch.where(is_deep, mm_d, mm)
+    nodem = torch.where(is_deep, nodem_d, nodem)
+    nm = torch.where(is_deep, nm_d, nm)
+
+    r, v, error = sdp4_finish(els, deep, grav, t, em, argpm, inclm, mm,
+                              nodem, nm, tempa, tempe, templ, error, is_deep)
+    return r, v, error, carry
+
+
+def sdp4_propagate_scan(els: Sgp4Elements, deep: DeepElements, times,
+                        grav: GravityModel,
+                        carry: Optional[ResonanceCarry] = None):
+    """Propagate over a time axis sorted in one direction, one step of
+    ``times[0]``, ``times[1]``, ... after the other, each resuming the
+    resonance integration from the previous one's carry: O(n_times)
+    resonance steps in all instead of O(n_times * t / 720). Returns
+    ``(r, v, error)`` stacked along a leading ``n_times`` axis."""
+    times = torch.as_tensor(times, dtype=els.no_kozai.dtype,
+                            device=els.no_kozai.device)
+    if carry is None:
+        carry = fresh_carry(deep, els.no_unkozai)
+    rs, vs, errs = [], [], []
+    for t in times:
+        r, v, err, carry = sdp4_propagate(els, deep, t, grav, carry=carry)
+        rs.append(r)
+        vs.append(v)
+        errs.append(err)
+    return torch.stack(rs), torch.stack(vs), torch.stack(errs)

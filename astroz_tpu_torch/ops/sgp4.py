@@ -9,7 +9,9 @@ runs once per catalog on the host in f64, as in the JAX package's ingest
 path, and gives the same bits; the catalog layer moves the finished
 elements to the device once. :func:`update_secular`,
 :func:`solve_kepler` and :func:`kepler_and_posvel` (JAX :296-433) are
-the f64 propagation stages in plain torch, on any device.
+the f64 propagation stages in plain torch, on any device, and
+:func:`sgp4_propagate` (JAX :436) the f64 near-earth propagator built
+from them.
 """
 
 from __future__ import annotations
@@ -370,3 +372,44 @@ def update_secular(els: Sgp4Elements, t):
         not_simp, els.bstar * els.cc5 * (torch.sin(mm) - els.sinmao), 0.0)
     templ = templ + els.t3cof * t3 + els.t4cof * t4 + t4 * t * els.t5cof
     return mm, argpm, nodem, tempa, tempe, templ
+
+
+def sgp4_propagate(els: Sgp4Elements, tsince, grav: GravityModel):
+    """Propagate near-earth satellites to ``tsince`` minutes from epoch,
+    in f64 (JAX :436).
+
+    ``tsince`` broadcasts against the ``(n_sats,)`` element tensors:
+    ``(n_times, 1)`` or ``(n_times, n_sats)`` times give a dense grid.
+    Returns ``(r, v, error)``: TEME km and km/s stacked ``(..., 3)``, and
+    int32 python-sgp4 error codes."""
+    t = torch.as_tensor(tsince, dtype=els.no_kozai.dtype,
+                        device=els.no_kozai.device)
+    mm, argpm, nodem, tempa, tempe, templ = update_secular(els, t)
+
+    nm = els.no_unkozai
+    em = els.ecco
+    inclm = els.inclo
+    error = els.error.to(torch.int32).expand(
+        torch.broadcast_shapes(els.error.shape, t.shape))
+
+    error = torch.where((nm <= 0.0) & (error == 0), 2, error)
+    nm_safe = torch.where(nm > 0.0, nm, 1e-8)
+    am = (grav.xke / nm_safe) ** X2O3 * tempa * tempa
+    nm = grav.xke / torch.where(am > 0.0, am, 1.0) ** 1.5
+    em = em - tempe
+
+    error = torch.where(((em >= 1.0) | (em < -0.001)) & (error == 0), 1,
+                        error)
+    em = torch.clamp(em, 1.0e-6, 0.999999)
+    mm = mm + els.no_unkozai * templ
+    xlm = mm + argpm + nodem
+
+    nodem = torch.remainder(nodem, TWO_PI)
+    argpm = torch.remainder(argpm, TWO_PI)
+    xlm = torch.remainder(xlm, TWO_PI)
+    mm = torch.remainder(xlm - argpm - nodem, TWO_PI)
+
+    return kepler_and_posvel(
+        grav, am=am, nm=nm, ep=em, xincp=inclm, nodep=nodem, argpp=argpm,
+        mp=mm, aycof=els.aycof, xlcof=els.xlcof, con41=els.con41,
+        x1mth2=els.x1mth2, x7thm1=els.x7thm1, error=error)

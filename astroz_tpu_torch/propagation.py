@@ -1,11 +1,10 @@
-"""Catalog propagation: the ``method="fast"`` path of mixed
-near-earth / deep-space catalogs.
+"""Catalog propagation of mixed near-earth / deep-space catalogs.
 
 Counterpart of ``astroz_tpu/propagation.py``: ``build_catalog`` parses
 and initializes SGP4 and, where any lane is deep (period of 225 min or
 more), SDP4 on the host, splits off the deep subset and moves the
-elements to one device. ``propagate`` runs over the separable grid
-``tsince = t_time[t] - t_sat[s]``:
+elements to one device. ``propagate(method="fast")`` runs over the
+separable grid ``tsince = t_time[t] - t_sat[s]``:
 
 * a near-earth catalog through kernel K1 (``ops/cuda_sgp4.py``);
 * a mixed catalog through kernel K2 over the deep subset, the full-f64
@@ -14,11 +13,13 @@ elements to one device. ``propagate`` runs over the separable grid
   planes.
 
 Frames and layouts are converted in plain torch on the kernels' (3, T, S)
-planes. Not ported yet, and raising ``NotImplementedError`` where a call
-reaches them: ``method="f64"`` and ``scan_times=True`` (ROADMAP queue 1,
-item 9). The JAX package's small-grid route to its native host engine
-(item 11) is not ported: on a CUDA catalog every fast propagate goes
-through the kernels.
+planes. ``propagate(method="f64")`` (the default, as in the JAX package)
+and :func:`propagate_tsince` run the f64 propagators of ``ops/sgp4.py``
+and ``ops/sdp4.py`` in plain torch on the catalog's device over the dense
+``(T, S)`` grid of minutes since each epoch, and ``scan_times=True``
+threads the SDP4 resonance carry along the time axis. The JAX package's
+small-grid route to its native host engine (item 11) is not ported: on a
+CUDA catalog every fast propagate goes through the kernels.
 """
 
 from __future__ import annotations
@@ -30,15 +31,15 @@ import numpy as np
 import torch
 
 from .constants import MINUTES_PER_DAY, RAD2DEG, WGS72, GravityModel
-from .frames import ecef_to_geodetic_xyz
+from .frames import ecef_to_geodetic, ecef_to_geodetic_xyz, teme_to_ecef
 from .ops.cuda_sgp4 import (propagate_deep_sep, propagate_fast_sep,
                              propagate_fast_sep_merge)
 from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
-                       SPINE_FIELD_NAMES, TAIL_FIELD_NAMES,
-                       _shallow_f32_fields, deep_f32_fields,
-                       resonance_tables, sdp4_propagate_tables)
-from .ops.sdp4 import DeepElements, sdp4_init_np
-from .ops.sgp4 import Sgp4Elements, sgp4_init_np
+                       deep_f32_fields, resonance_tables,
+                       sdp4_propagate_tables, shallow_staging)
+from .ops.sdp4 import (DeepElements, sdp4_init_np, sdp4_propagate,
+                       sdp4_propagate_scan)
+from .ops.sgp4 import Sgp4Elements, sgp4_init_np, sgp4_propagate
 from .time import gstime
 from .tle import Tle, TleArrays, iter_tles, parse_omm
 
@@ -111,9 +112,11 @@ class SatCatalog:
     ``host`` keeps the f64 numpy elements from init; ``els`` holds the
     same fields as tensors on ``device``, moved there once. A catalog
     with deep lanes also keeps their SDP4 coefficients (``deep_host``,
-    numpy, every lane) and the static deep partition: ``deep_idx`` (the
-    deep columns) and the deep subset's elements and coefficients on the
-    device (``els_deep``, ``deep_sub``); these are None otherwise."""
+    numpy, every lane; ``deep``, the same on the device, moved at first
+    use by the f64 path) and the static deep partition: ``deep_idx``
+    (the deep columns) and the deep subset's elements and coefficients
+    on the device (``els_deep``, ``deep_sub``); these are None
+    otherwise."""
 
     def __init__(self, els: Sgp4Elements, grav: GravityModel,
                  satnum: np.ndarray, names=None, *,
@@ -153,6 +156,16 @@ class SatCatalog:
     def has_deep(self) -> bool:
         return bool(self.is_deep.any())
 
+    @cached_property
+    def deep(self) -> Optional[DeepElements]:
+        """Every lane's SDP4 coefficients on the device (zeros on
+        near-earth lanes), which the f64 path reads; None for a
+        near-earth catalog."""
+        if self.deep_host is None:
+            return None
+        return _on(self.device, DeepElements(
+            *(np.asarray(x) for x in self.deep_host)))
+
     @property
     def epochs_jd(self) -> np.ndarray:
         return self.host.epoch_jd
@@ -179,8 +192,6 @@ class SatCatalog:
     def fast_staging(self) -> FastStaging:
         """Epoch offsets and the field matrices of kernels K1-K3, built
         once per catalog on its device."""
-        els = self.els
-        fields = _shallow_f32_fields(els)
         deep = None
         if self.has_deep:
             e, d = self.els_deep, self.deep_sub
@@ -196,13 +207,9 @@ class SatCatalog:
                 flags=torch.stack([d.irez.to(torch.int32),
                                    e.error.to(torch.int32)]),
                 slot=torch.as_tensor(slot, device=self.device))
-        return FastStaging(
-            t_sat=self._t_sat(self.epochs_jd),
-            spine=torch.stack([getattr(els, n) for n in SPINE_FIELD_NAMES]),
-            tail=torch.stack([fields[n] for n in TAIL_FIELD_NAMES]),
-            flags=torch.stack([els.isimp.to(torch.int32),
-                               els.error.to(torch.int32)]),
-            deep=deep)
+        spine, tail, flags = shallow_staging(self.els)
+        return FastStaging(t_sat=self._t_sat(self.epochs_jd), spine=spine,
+                           tail=tail, flags=flags, deep=deep)
 
     def resonance_tables(self, steps: int) -> torch.Tensor:
         """The deep subset's resonance tables at depth ``steps``
@@ -351,6 +358,22 @@ def _finalize_planes(r3, v3, err, jd_sum, output: str, want_vel: bool,
     return r, v, err
 
 
+def _finalize(r, v, err, jd_sum, output: str, want_vel: bool):
+    """Frame conversion of the f64 path's time-major stacked ``(T, S, 3)``
+    outputs; ``jd_sum`` is (T, 1) f64."""
+    if output != "teme":
+        gmst = gstime(jd_sum).to(r.dtype)
+        r = teme_to_ecef(r, gmst)
+        if want_vel:
+            v = teme_to_ecef(v, gmst)
+        if output in ("geodetic", "geodetic_deg"):
+            r = ecef_to_geodetic(r)
+            if output == "geodetic_deg":
+                r = torch.stack([r[..., 0] * RAD2DEG, r[..., 1] * RAD2DEG,
+                                 r[..., 2]], dim=-1)
+    return r, v if want_vel else None, err
+
+
 def resonance_steps(jd_sum: np.ndarray, deep_epochs_jd: np.ndarray) -> int:
     """Depth of the resonance tables for a sweep: the 720-minute steps to
     the farthest point from a deep epoch, plus one, rounded up to a
@@ -391,9 +414,13 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
         the velocity terms.
       layout: ``"time_major"`` (T, S, 3), ``"sat_major"`` (S, T, 3) or
         ``"planes"`` (3, T, S).
-      scan_times: the f64 path's resonance carry; not ported yet.
-      method: ``"fast"`` (f64 angle spine + f32 tail, f32 outputs).
-        ``"f64"`` is not ported yet.
+      scan_times: with ``method="f64"``, thread the SDP4 resonance carry
+        along the time axis, which must be sorted in one direction (for
+        long monotone grids with many deep lanes). The fast method
+        ignores it, as the JAX package's does.
+      method: ``"f64"`` (full double precision, f64 outputs) or
+        ``"fast"`` (f64 angle spine + f32 tail in the kernels, f32
+        outputs).
       satellite_mask: optional (S,) bool; masked satellites come back
         zero-filled with error code -1.
 
@@ -406,24 +433,70 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
         raise ValueError(f"layout must be one of {LAYOUTS}")
     if method not in ("fast", "f64"):
         raise ValueError("method must be 'fast' or 'f64'")
-    if scan_times:
-        raise NotImplementedError(
-            "scan_times=True (the SDP4 resonance carry of the f64 path) "
-            "is not ported yet: ROADMAP queue 1, item 9")
-    if method == "f64":
-        raise NotImplementedError(
-            "method='f64' is not ported yet (ROADMAP queue 1, item 9); "
-            "use method='fast'")
     dev = cat.device
     jd_h = np.atleast_1d(np.asarray(jd, np.float64))
     fr_h = (np.zeros_like(jd_h) if fr is None
             else np.atleast_1d(np.asarray(fr, np.float64)))
     jd_h, fr_h = np.broadcast_arrays(jd_h, fr_h)
-    t_time = torch.as_tensor(
-        ((jd_h - cat.epoch_min_jd) + fr_h) * MINUTES_PER_DAY,
-        dtype=torch.float64, device=dev)
     jd_sum = torch.as_tensor((jd_h + fr_h)[:, None], dtype=torch.float64,
                              device=dev)
+    if method == "f64":
+        r, v, err = _propagate_f64(cat, jd_h, fr_h, jd_sum, output,
+                                   velocities, layout, scan_times)
+    else:
+        r, v, err = _propagate_fast(cat, jd_h, fr_h, jd_sum, output,
+                                    velocities, layout)
+
+    if satellite_mask is not None:
+        m = torch.as_tensor(satellite_mask, dtype=torch.bool, device=dev)
+        # the satellite axis is axis 1 of err for time_major/planes and
+        # axis 0 for sat_major
+        me = m[:, None] if layout == "sat_major" else m[None, :]
+        mr = m[None, None, :] if layout == "planes" else me[..., None]
+        r = torch.where(mr, r, 0.0)
+        if v is not None:
+            v = torch.where(mr, v, 0.0)
+        err = torch.where(me, err, -1)
+    return r, v, err
+
+
+def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
+                   velocities: bool, layout: str, scan_times: bool):
+    """The f64 branch of :func:`propagate`."""
+    dev = cat.device
+    jd = torch.as_tensor(jd_h, dtype=torch.float64, device=dev)
+    fr = torch.as_tensor(fr_h, dtype=torch.float64, device=dev)
+    # minutes since each epoch, from the jd/fr split: the subtraction
+    # runs at the magnitude of epoch differences (days), not of a JD
+    tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
+              + fr[:, None]) * MINUTES_PER_DAY
+    if not cat.has_deep:
+        r, v, err = sgp4_propagate(cat.els, tsince, cat.grav)
+    elif scan_times:
+        # one time row after the other, each resuming the resonance
+        # integration from the row before (the rows sorted one way)
+        r, v, err = sdp4_propagate_scan(cat.els, cat.deep, tsince, cat.grav)
+    else:
+        r, v, err, _ = sdp4_propagate(cat.els, cat.deep, tsince, cat.grav)
+    r, v, err = _finalize(r, v, err, jd_sum, output, velocities)
+    # time-major stacked outputs; the other layouts are relaid here
+    if layout == "sat_major":
+        r = r.transpose(0, 1).contiguous()
+        v = None if v is None else v.transpose(0, 1).contiguous()
+        err = err.T.contiguous()
+    elif layout == "planes":
+        r = r.permute(2, 0, 1).contiguous()
+        v = None if v is None else v.permute(2, 0, 1).contiguous()
+    return r, v, err
+
+
+def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
+                    velocities: bool, layout: str):
+    """The fast branch of :func:`propagate`: the kernels over the
+    separable grid."""
+    t_time = torch.as_tensor(
+        ((jd_h - cat.epoch_min_jd) + fr_h) * MINUTES_PER_DAY,
+        dtype=torch.float64, device=cat.device)
     st = cat.fast_staging
     if st.deep is None:
         r3, v3, err = propagate_fast_sep(
@@ -443,17 +516,23 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
             t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, d_r3,
             d_v3, d_err, grav=cat.grav, kepler_iters=cat.kepler_iters,
             want_vel=velocities)
-    r, v, err = _finalize_planes(r3, v3, err, jd_sum, output, velocities,
-                                 layout)
+    return _finalize_planes(r3, v3, err, jd_sum, output, velocities,
+                            layout)
 
-    if satellite_mask is not None:
-        m = torch.as_tensor(satellite_mask, dtype=torch.bool, device=dev)
-        # the satellite axis is axis 1 of err for time_major/planes and
-        # axis 0 for sat_major
-        me = m[:, None] if layout == "sat_major" else m[None, :]
-        mr = m[None, None, :] if layout == "planes" else me[..., None]
-        r = torch.where(mr, r, 0.0)
-        if v is not None:
-            v = torch.where(mr, v, 0.0)
-        err = torch.where(me, err, -1)
-    return r, v, err
+
+def propagate_tsince(cat: SatCatalog, tsince_min, *,
+                     velocities: bool = True):
+    """Propagate to offsets in minutes since each satellite's own epoch,
+    in f64.
+
+    ``tsince_min`` broadcasts against the catalog: (n_times, 1) or
+    (n_times, n_sats) gives a dense grid, a scalar or (n_sats,) a single
+    shot. Always TEME. Returns ``(r, v, error)`` on the catalog's
+    device, r and v stacked ``(..., 3)`` f64 (v None with
+    ``velocities=False``)."""
+    t = torch.as_tensor(tsince_min, dtype=torch.float64, device=cat.device)
+    if not cat.has_deep:
+        r, v, err = sgp4_propagate(cat.els, t, cat.grav)
+    else:
+        r, v, err, _ = sdp4_propagate(cat.els, cat.deep, t, cat.grav)
+    return r, v if velocities else None, err

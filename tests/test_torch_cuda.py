@@ -1,6 +1,7 @@
-"""Kernels K1 to K4 on the card against their plain torch versions, and a
+"""Kernels K1 to K6 on the card against their plain torch versions, and a
 small all-vs-all screen on the card against the same call on the CPU
-(marked ``cuda``; skips where ``torch.cuda.is_available()`` is False).
+(marked ``cuda``; skips where ``torch.cuda.is_available()`` is False);
+and, on the CPU, that no wrapper counts a launch there.
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -14,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from astroz_tpu_torch import build_catalog, screen_all
-from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4
+from astroz_tpu_torch import build_catalog, propagate, screen_all
+from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4, propagate_fast
 from astroz_tpu_torch.screening import _positions_planes_f32
 from astroz_tpu_torch.tle import format_lines
 
@@ -248,3 +249,97 @@ def test_screen_all_on_cuda_matches_cpu(cuda_device):
     for a, b in zip(got[:2] + got[3:], cpu[:2] + cpu[3:]):
         np.testing.assert_array_equal(a, b)
     assert np.abs(got[2] - cpu[2]).max() <= 1e-3
+
+
+def _dense_grid(cat, device):
+    """A (37, S) grid of mixed sign: -1 .. +1 day around the earliest
+    epoch minus each epoch, jittered by up to 30 minutes."""
+    base = torch.linspace(-1440.0, 1440.0, 37, dtype=torch.float64,
+                          device=device)[:, None]
+    gen = torch.Generator().manual_seed(5)
+    jitter = (torch.rand((37, len(cat)), generator=gen,
+                         dtype=torch.float64) - 0.5) * 60.0
+    return base - cat.fast_staging.t_sat[None, :] + jitter.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [3, 8])
+def test_dense_kernels_match_twins_on_cuda(cuda_device, iters):
+    """K5 on a dense grid and on a (T, 1) column, and K6 on the port's
+    spine grids, against their plain versions: error codes identical,
+    positions within 1e-3 km, velocities within 1e-6 km/s; positions
+    bit-equal with and without velocities; K6 equals K5 bit for bit."""
+    cat = build_catalog(synthetic_leo_text(), device=cuda_device)
+    st = cat.fast_staging
+    kw = dict(grav=cat.grav, kepler_iters=iters)
+    for t in (_dense_grid(cat, cuda_device),
+              torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
+                             device=cuda_device)[:, None].contiguous()):
+        before = dict(cuda_sgp4.LAUNCHES)
+        r, v, e = cuda_sgp4.propagate_fast_dense(t, st.spine, st.tail,
+                                                 st.flags, **kw)
+        r0, v0, _ = cuda_sgp4.propagate_fast_dense(t, st.spine, st.tail,
+                                                   st.flags, want_vel=False,
+                                                   **kw)
+        grids, tail, flags = cuda_sgp4.spine_grids(cat.els, t)
+        g = cuda_sgp4.propagate_fast_spine_grids(grids, tail, flags, **kw)
+        torch.cuda.synchronize()
+        assert cuda_sgp4.LAUNCHES["sgp4_shallow_dense"] == \
+            before["sgp4_shallow_dense"] + 2
+        assert cuda_sgp4.LAUNCHES["sgp4_shallow_grids"] == \
+            before["sgp4_shallow_grids"] + 1
+        rr, vr, er = cuda_sgp4.propagate_fast_dense_reference(
+            t, st.spine, st.tail, st.flags, **kw)
+        assert torch.equal(e, er) and v0 is None
+        assert 1 in set(torch.unique(e).tolist())
+        assert (r - rr).abs().max().item() <= 1e-3
+        assert (v - vr).abs().max().item() <= 1e-6
+        assert torch.equal(r, r0)
+        assert all(torch.equal(a, b) for a, b in zip(g, (r, v, e)))
+
+
+@pytest.mark.cuda
+def test_dense_kernel_equals_k1_on_cuda(cuda_device):
+    """K5 on tsince = t_time - t_sat gives K1's planes bit for bit, and
+    ``ops.propagate_fast(deep=None)`` launches K5 once."""
+    cat = build_catalog(synthetic_leo_text(), device=cuda_device)
+    st = cat.fast_staging
+    t_time = torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
+                            device=cuda_device)
+    kw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
+    k1 = cuda_sgp4.propagate_fast_sep(t_time, st.t_sat, st.spine, st.tail,
+                                      st.flags, **kw)
+    tsince = (t_time[:, None] - st.t_sat[None, :]).contiguous()
+    k5 = cuda_sgp4.propagate_fast_dense(tsince, st.spine, st.tail, st.flags,
+                                        **kw)
+    assert all(torch.equal(a, b) for a, b in zip(k1, k5))
+    before = cuda_sgp4.LAUNCHES["sgp4_shallow_dense"]
+    r, v, e = propagate_fast(cat.els, None, tsince, cat.grav,
+                             kepler_iters=cat.kepler_iters)
+    torch.cuda.synchronize()
+    assert cuda_sgp4.LAUNCHES["sgp4_shallow_dense"] == before + 1
+    assert torch.equal(r, k5[0].permute(1, 2, 0))
+
+
+def test_cpu_runs_no_kernel():
+    """On CPU tensors every wrapper runs its plain version and counts no
+    launch, and the f64 path launches nothing."""
+    before = dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES)
+    cat = build_catalog(synthetic_leo_text(16) + "\n"
+                        + synthetic_deep_text(6), device="cpu")
+    st = cat.fast_staging
+    near = build_catalog(synthetic_leo_text(16), device="cpu")
+    t = torch.linspace(-100.0, 100.0, 5, dtype=torch.float64)
+    kw = dict(grav=cat.grav, kepler_iters=3)
+    cuda_sgp4.propagate_fast_sep(t, st.t_sat, st.spine, st.tail, st.flags,
+                                 **kw)
+    cuda_sgp4.propagate_fast_fused(cat.els, t[:, None].contiguous(),
+                                   cat.grav, kepler_iters=3)
+    cuda_sgp4.propagate_fast_grids(cat.els, t[:, None].contiguous(),
+                                   cat.grav, kepler_iters=3)
+    propagate_fast(near.els, None, t[:, None], near.grav)
+    jd = cat.epoch_min_jd + np.linspace(0.0, 0.5, 4)
+    for method in ("fast", "f64"):
+        propagate(cat, jd, method=method)
+    screen_all(near, jd, threshold_km=50.0)
+    assert (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES)) == before

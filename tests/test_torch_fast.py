@@ -82,7 +82,9 @@ def jax_drag_fixed(monkeypatch):
                     jnp.float32(np.pi / 2) - xmdf32, **kw)
 
     jitted = (jprop._propagate_fast_shallow,
-              pallas_sgp4.propagate_fast_pallas_sep, _jax_tail)
+              pallas_sgp4.propagate_fast_pallas_sep,
+              pallas_sgp4.propagate_fast_pallas_fused,
+              pallas_sgp4.propagate_fast_pallas, _jax_tail)
     for f in jitted:
         f.clear_cache()
     monkeypatch.setattr(jfast, "shallow_tail_f32", fixed)

@@ -176,18 +176,33 @@ def test_elements_from_numpy_round_trip(cats):
 
 
 def test_unported_paths_raise(cats):
-    pcat = cats[1]
-    mixed = P.build_catalog(LEO_TEXT + "\n" + DEEP_TEXT, device="cpu")
+    """Every path of ``propagate`` now runs: ``method="f64"`` (the
+    default) with and without ``scan_times`` gives the JAX f64 path's
+    outputs (error codes identical, 1e-5 km, ``test_torch_f64.py``), and
+    ``scan_times=True`` with ``method="fast"`` is ignored, as the JAX
+    package ignores it. Bad arguments still raise."""
+    jcat, pcat = cats
+    text = LEO_TEXT + "\n" + DEEP_TEXT
+    mixed = P.build_catalog(text, device="cpu")
+    jmixed = J.build_catalog(jtle.TleArrays.from_text(text,
+                                                      allow_native=False))
     assert mixed.n_deep == 3
-    # the mixed fast path is ported (test_torch_mixed.py); f64 is not
     r, _, e = P.Constellation(mixed).propagate([0.0], start_time=2460310.5)
     assert tuple(r.shape) == (1, len(mixed), 3)
     assert (e[:, mixed.deep_idx] == 0).all()
-    for cat in (pcat, mixed):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            P.propagate(cat, JD, FR, method="f64")
-        with pytest.raises(NotImplementedError, match="item 9"):
-            P.propagate(cat, JD, FR, method="fast", scan_times=True)
+    fr = np.sort(FR)
+    for jc, cat in ((jcat, pcat), (jmixed, mixed)):
+        for scan in (False, True):
+            rj, vj, ej = J.propagate(jc, JD, fr, method="f64",
+                                     scan_times=scan)
+            rp, vp, ep = P.propagate(cat, JD, fr, scan_times=scan)
+            assert rp.dtype == torch.float64
+            np.testing.assert_array_equal(np.asarray(ej), ep.numpy())
+            assert np.abs(np.asarray(rj) - rp.numpy()).max() <= 1e-5
+            assert np.abs(np.asarray(vj) - vp.numpy()).max() <= 1e-8
+        fast = P.propagate(cat, JD, fr, method="fast")
+        fast_scan = P.propagate(cat, JD, fr, method="fast", scan_times=True)
+        assert all(torch.equal(a, b) for a, b in zip(fast, fast_scan))
     with pytest.raises(ValueError, match="output"):
         P.propagate(pcat, JD, FR, method="fast", output="gcrs")
     with pytest.raises(ValueError, match="no TLEs"):
