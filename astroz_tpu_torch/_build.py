@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 #: exported C functions: name -> (restype, argtypes)
 SIGNATURES = {
@@ -57,6 +58,8 @@ SIGNATURES = {
                               _F, _F, _F, _F, _F, _P, _P, _P, _P]),
     # r, n_times, n_sats, j0, width, out, stream
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
+    # r, n_times, n_sats, thr2, cap, out_ij, count, stream
+    "astroz_screen_candidates": (_I, [_P, _I, _I, _F, _L, _P, _P, _P]),
 }
 
 

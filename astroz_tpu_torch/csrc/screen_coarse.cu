@@ -1,40 +1,57 @@
 // All-vs-all conjunction screening, coarse pass, for Hopper: kernel K4.
 //
 // K4 replaces the TPU kernel astroz_tpu/ops/pallas_screen.py:_kernel
-// (wrappers _coarse_chunk and coarse_min_all). Given the (3, T, N) f32
-// TEME position planes and one column chunk [j0, j0 + width), it writes
-// out (N, width) f32 with, for every pair (i, j = j0 + c) with j > i,
-//   out[i, c] = min over t of (dx*dx + dy*dy) + dz*dz,
+// (wrappers _coarse_chunk and coarse_min_all). From the (3, T, N) f32 TEME
+// position planes it takes, for every pair (i, j) with j > i,
+//   min over t of fma(dz, dz, fma(dx, dx, dy * dy)),
 //   dx = x[t, i] - x[t, j]   (dy, dz alike)
-// in f32, in that order, with no FMA (the library is built with
-// --fmad=false), and a min that keeps a NaN as torch.minimum does. The
-// plain torch version is ops/cuda_screen.py:coarse_min_chunk_reference;
-// the two agree bit for bit. Entries at or below the diagonal (j <= i)
-// are +inf: a tile holding no pair j > i writes +inf and skips its time
-// loop (the TPU kernel's diagonal skip), a tile that straddles the
-// diagonal stores +inf there, so a caller thresholds the chunk with no
-// triangle mask of its own.
+// in f32 with the explicit intrinsics (the library is built with
+// --fmad=false, so nothing else is contracted), and a min that keeps a NaN
+// as torch.minimum does. That chain is the contraction XLA:CPU gives the
+// TPU kernel's dx*dx + dy*dy + dz*dz. The plain torch versions are in
+// ops/cuda_screen.py (coarse_min_chunk_reference emulates the FMA by
+// rounding to odd in f64); kernel and plain version agree bit for bit.
+//
+// One kernel body, two exported modes:
+//  * matrix mode (astroz_screen_coarse): the (N, width) f32 matrix of the
+//    column chunk [j0, j0 + width), +inf at and below the diagonal. A tile
+//    with no pair j > i writes +inf and skips its time loop.
+//  * candidate mode (astroz_screen_candidates): the grid holds only the
+//    tiles with a pair j > i (a linear block index maps to ti <= tj). After
+//    the time loop each thread appends the (i, j) of its pairs whose
+//    minimum is <= thr2 (NaN never is): one vote and, where a warp has
+//    hits, one warp-wide prefix sum and one atomicAdd on a 64-bit counter
+//    that counts every hit, even past the room given. The matrix is never
+//    written.
 //
 // Bound. At 13,478 satellites x 240 epochs the strict upper triangle holds
-// 2.18e10 pair-times of 9 f32 operations each (3 subtracts, 3 multiplies,
-// 2 adds, 1 min: without FMA each is one instruction), 1.96e11 in all;
-// the inputs are 39 MB and the output 0.73 GB. Operations bound it: the
-// design must reuse every loaded position many times from on-chip memory.
+// 2.18e10 pair-times. Counted as 9 f32 operations each (3 subtracts, 3
+// multiplies, 2 adds, 1 min) at 67 TFLOP/s the card needs 2.928 ms; the
+// inputs are 39 MB, so operations bound it. With FMA a pair-time is 7
+// instructions (3 FADD, 1 FMUL, 2 FFMA, 1 FMNMX), and the card issues
+// 132 SMs x 128 lanes x 1.98 GHz = 3.35e13 of them a second: a floor of
+// 4.56 ms. The 2.928 ms bound counts an FFMA as two operations and is out
+// of reach for the direct difference; the Gram form that would reach the
+// tensor cores cancels by |r|^2 x eps (several km^2 in f32) against a
+// 100 km^2 threshold, so it is not the function.
 //
-// Design, simple first. One block of 16 x 16 threads owns a 64 x 64 tile of
-// pairs; each thread keeps a 4 x 4 micro-tile of running minima in
-// registers (rows ty + 16a, columns tx + 16b, so that a warp's shared-memory
-// reads are broadcasts or 16 consecutive words). The block walks the time
-// axis in chunks of 16 epochs: each chunk stages x, y, z of its 64 i and 64
-// j satellites into shared memory with loads coalesced along the satellite
-// axis of the planes, then every thread updates its 16 minima from shared
-// memory. The kernel masks its own ragged edges, so the output is the exact
-// (N, width) with no padded rows or columns, and addresses are 64-bit (a
-// row offset i * width overflows 32 bits past ~46,000 satellites). What the
-// TPU kernel needed and this one does not: the pre-transposed i-side copy,
-// time padding by repeated epochs, parking of padding satellites and the
-// scalar prefetch of j0 (a kernel argument). wgmma, TMA and a persistent
-// grid are later work.
+// Design, against that floor:
+//  * FMA: 7 instructions a pair-time instead of 9.
+//  * A 128 x 128 tile of pairs a block, 256 threads, an 8 x 8 micro-tile of
+//    running minima in registers: rows 4*ty + a and 64 + 4*ty + a, columns
+//    likewise with tx, so that each thread reads its 8 i-values and 8
+//    j-values of a coordinate as two 16-byte shared loads (12 LDS.128 a
+//    thread and epoch for 64 pair-times). The larger tile halves the L2
+//    traffic of the 64 x 64 design (each plane is read about 106 times).
+//  * Asynchronous staging, double-buffered: 16 epochs of the tile's 128 +
+//    128 satellites (48 KiB a stage) are copied with cp.async (4 bytes, so
+//    rows need no alignment: N is rarely a multiple of 4), zero-filled past
+//    the ragged edge, while the previous 16 epochs compute. Each thread
+//    stages one satellite of one side over 3 coordinates x 16 epochs with
+//    64-bit pointer steps, no integer divide. A short last chunk is cut by
+//    its epoch count, never padded.
+//  * In candidate mode the epilogue replaces the 0.73 GB of stores, the
+//    bool mask, the count pass and nonzero of a matrix screen.
 
 #include <cuda_runtime.h>
 
@@ -42,11 +59,16 @@
 
 namespace {
 
-constexpr int TILE = 64;    // satellites per tile side (rows i, columns j)
+constexpr int TILE = 128;   // satellites per tile side (rows i, columns j)
+constexpr int HALF = TILE / 2;
 constexpr int SIDE = 16;    // threads per block side
-constexpr int MICRO = TILE / SIDE;  // 4 x 4 pairs per thread
-constexpr int TCHUNK = 16;  // epochs staged in shared memory per pass
+constexpr int MICRO = 8;    // 8 x 8 pairs per thread
+constexpr int TCHUNK = 16;  // epochs per stage
 constexpr int THREADS = SIDE * SIDE;
+// floats of one stage: [side (i, j)][coordinate][epoch][satellite]
+constexpr int STAGE = 2 * 3 * TCHUNK * TILE;
+constexpr size_t SMEM_BYTES = 2 * STAGE * sizeof(float);  // two stages
+static_assert(THREADS == 2 * TILE, "one staging thread per satellite side");
 
 // min that returns NaN when either argument is NaN (torch.minimum);
 // fminf would drop it
@@ -56,17 +78,86 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
+// 4-byte asynchronous copy to shared memory; zero-fills when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// row (or column) offset within the tile of micro-tile entry a
+__device__ __forceinline__ int micro_offset(int t, int a) {
+  return (a < 4 ? 0 : HALF - 4) + 4 * t + a;
+}
+
+// first linear index of row ti of the upper triangle (ti <= tj) of a
+// tiles x tiles grid
+__device__ __forceinline__ long long tri_row_start(long long ti,
+                                                   long long tiles) {
+  return ti * tiles - ti * (ti - 1) / 2;
+}
+
+// Stage epochs t0 .. t0 + TCHUNK - 1 of one satellite (column g of the
+// planes, on side `side`) into stage buffer `buf`.
+__device__ __forceinline__ void stage_chunk(float* buf, const float* r,
+                                            size_t plane, size_t ns,
+                                            int side, int s, int g,
+                                            bool g_ok, int t0, int n_times) {
+  float* dst = buf + side * 3 * TCHUNK * TILE + s;
+  const float* col = r + (g_ok ? g : 0);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float* src = col + q * plane + (size_t)t0 * ns;
+#pragma unroll
+    for (int tt = 0; tt < TCHUNK; ++tt) {
+      const bool ok = g_ok && t0 + tt < n_times;
+      cp_async4(dst + (q * TCHUNK + tt) * TILE, ok ? src : r, ok);
+      src += ns;
+    }
+  }
+}
+
+template <bool CANDIDATES>
 __global__ void __launch_bounds__(THREADS)
 screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
-                     int j0, int width, float* __restrict__ out) {
-  __shared__ float s_i[3][TCHUNK][TILE];
-  __shared__ float s_j[3][TCHUNK][TILE];
+                     int j0, int width, float* __restrict__ out, float thr2,
+                     long long cap, int* __restrict__ out_ij,
+                     unsigned long long* __restrict__ count) {
+  extern __shared__ __align__(16) float smem[];
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * SIDE + tx;
-  const int i_base = blockIdx.y * TILE;  // first row of the tile
-  const int c_base = blockIdx.x * TILE;  // first column, within the chunk
-  const size_t w = (size_t)width;
+  const int tid = threadIdx.x;
+  const int ty = tid / SIDE, tx = tid % SIDE;  // constants: shifts
+
+  // the tile: rows [i_base, i_base + TILE), global columns [j_base, ...),
+  // valid below j_end
+  int i_base, j_base, j_end;
+  if (CANDIDATES) {
+    const long long tiles = (n_sats + TILE - 1) / TILE;
+    const long long lin = blockIdx.x;
+    const double b = 2.0 * (double)tiles + 1.0;
+    long long ti = (long long)((b - sqrt(b * b - 8.0 * (double)lin)) * 0.5);
+    ti = ti < 0 ? 0 : (ti >= tiles ? tiles - 1 : ti);
+    while (ti + 1 < tiles && tri_row_start(ti + 1, tiles) <= lin) ++ti;
+    while (ti > 0 && tri_row_start(ti, tiles) > lin) --ti;
+    const long long tj = ti + (lin - tri_row_start(ti, tiles));
+    i_base = (int)ti * TILE;
+    j_base = (int)tj * TILE;
+    j_end = n_sats;
+  } else {
+    i_base = blockIdx.y * TILE;
+    j_base = j0 + blockIdx.x * TILE;
+    j_end = j0 + width;
+  }
 
   float m[MICRO][MICRO];
 #pragma unroll
@@ -74,81 +165,176 @@ screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
 #pragma unroll
     for (int b = 0; b < MICRO; ++b) m[a][b] = __int_as_float(0x7f800000);
 
-  // the tile's largest global column against its smallest row: no pair
-  // j > i in it, so it keeps +inf
-  const int gj_max = j0 + min(c_base + TILE, width) - 1;
-  if (gj_max > i_base) {
+  // the tile's largest column against its smallest row: no pair j > i in
+  // it, so it keeps +inf
+  const bool any_pair = min(j_base + TILE, j_end) - 1 > i_base;
+  if (CANDIDATES && !any_pair) return;
+  if (any_pair && n_times > 0) {
     const size_t ns = (size_t)n_sats;
     const size_t plane = (size_t)n_times * ns;
-    for (int t0 = 0; t0 < n_times; t0 += TCHUNK) {
+    // staging role: one satellite of one side
+    const int side = tid / TILE, s = tid % TILE;
+    const int g = (side == 0 ? i_base : j_base) + s;
+    const bool g_ok = g < (side == 0 ? n_sats : j_end);
+    const int n_chunks = (n_times + TCHUNK - 1) / TCHUNK;
+
+    stage_chunk(smem, r, plane, ns, side, s, g, g_ok, 0, n_times);
+    cp_async_commit();
+    for (int c = 0; c < n_chunks; ++c) {
+      const int t0 = c * TCHUNK;
+      if (c + 1 < n_chunks) {
+        stage_chunk(smem + ((c + 1) & 1) * STAGE, r, plane, ns, side, s, g,
+                    g_ok, t0 + TCHUNK, n_times);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // chunk c has landed for every thread
+
+      const float* st = smem + (c & 1) * STAGE;
       const int tn = min(TCHUNK, n_times - t0);
-      __syncthreads();  // the previous chunk has been read
-      for (int k = tid; k < TCHUNK * TILE; k += THREADS) {
-        const int tt = k / TILE, s = k % TILE;
-        const int gi = i_base + s, c = c_base + s;
-        const size_t row = (size_t)(t0 + tt) * ns;
+#pragma unroll 4
+      for (int tt = 0; tt < tn; ++tt) {
+        float vi[3][MICRO], vj[3][MICRO];
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
-          s_i[q][tt][s] =
-              (tt < tn && gi < n_sats) ? r[q * plane + row + gi] : 0.0f;
-          s_j[q][tt][s] =
-              (tt < tn && c < width) ? r[q * plane + row + j0 + c] : 0.0f;
-        }
-      }
-      __syncthreads();
-      for (int tt = 0; tt < tn; ++tt) {
-        float xi[MICRO], yi[MICRO], zi[MICRO];
-        float xj[MICRO], yj[MICRO], zj[MICRO];
-#pragma unroll
-        for (int a = 0; a < MICRO; ++a) {
-          xi[a] = s_i[0][tt][ty + SIDE * a];
-          yi[a] = s_i[1][tt][ty + SIDE * a];
-          zi[a] = s_i[2][tt][ty + SIDE * a];
-          xj[a] = s_j[0][tt][tx + SIDE * a];
-          yj[a] = s_j[1][tt][tx + SIDE * a];
-          zj[a] = s_j[2][tt][tx + SIDE * a];
+          const float* pi = st + (q * TCHUNK + tt) * TILE;
+          const float* pj = pi + 3 * TCHUNK * TILE;
+          const float4 i0 = *reinterpret_cast<const float4*>(pi + 4 * ty);
+          const float4 i1 =
+              *reinterpret_cast<const float4*>(pi + HALF + 4 * ty);
+          const float4 j0v = *reinterpret_cast<const float4*>(pj + 4 * tx);
+          const float4 j1v =
+              *reinterpret_cast<const float4*>(pj + HALF + 4 * tx);
+          vi[q][0] = i0.x; vi[q][1] = i0.y; vi[q][2] = i0.z; vi[q][3] = i0.w;
+          vi[q][4] = i1.x; vi[q][5] = i1.y; vi[q][6] = i1.z; vi[q][7] = i1.w;
+          vj[q][0] = j0v.x; vj[q][1] = j0v.y; vj[q][2] = j0v.z;
+          vj[q][3] = j0v.w; vj[q][4] = j1v.x; vj[q][5] = j1v.y;
+          vj[q][6] = j1v.z; vj[q][7] = j1v.w;
         }
 #pragma unroll
         for (int a = 0; a < MICRO; ++a)
 #pragma unroll
           for (int b = 0; b < MICRO; ++b) {
-            const float dx = xi[a] - xj[b];
-            const float dy = yi[a] - yj[b];
-            const float dz = zi[a] - zj[b];
-            m[a][b] = min_nan(m[a][b], (dx * dx + dy * dy) + dz * dz);
+            const float dx = vi[0][a] - vj[0][b];
+            const float dy = vi[1][a] - vj[1][b];
+            const float dz = vi[2][a] - vj[2][b];
+            m[a][b] = min_nan(m[a][b],
+                              __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, dy * dy)));
           }
       }
+      __syncthreads();  // chunk c has been read before it is overwritten
     }
   }
 
+  if (!CANDIDATES) {
+    const size_t w = (size_t)width;
+#pragma unroll
+    for (int a = 0; a < MICRO; ++a) {
+      const int gi = i_base + micro_offset(ty, a);
+      if (gi >= n_sats) continue;
+#pragma unroll
+      for (int b = 0; b < MICRO; ++b) {
+        const int gj = j_base + micro_offset(tx, b);
+        if (gj < j_end)
+          out[(size_t)gi * w + (gj - j0)] =
+              gj > gi ? m[a][b] : __int_as_float(0x7f800000);
+      }
+    }
+    return;
+  }
+
+  // candidate epilogue: gj > gi and gj < n_sats imply gi < n_sats
+  int n_hit = 0;
 #pragma unroll
   for (int a = 0; a < MICRO; ++a) {
-    const int gi = i_base + ty + SIDE * a;
-    if (gi >= n_sats) continue;
+    const int gi = i_base + micro_offset(ty, a);
 #pragma unroll
     for (int b = 0; b < MICRO; ++b) {
-      const int c = c_base + tx + SIDE * b;
-      if (c < width)
-        out[(size_t)gi * w + c] =
-            j0 + c > gi ? m[a][b] : __int_as_float(0x7f800000);
+      const int gj = j_base + micro_offset(tx, b);
+      n_hit += (gj < n_sats && gj > gi && m[a][b] <= thr2) ? 1 : 0;
+    }
+  }
+  const unsigned full = 0xffffffffu;
+  if (!__any_sync(full, n_hit > 0)) return;
+  const int lane = tid & 31;
+  int incl = n_hit;  // inclusive prefix sum over the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(full, incl, d);
+    if (lane >= d) incl += v;
+  }
+  unsigned long long base = 0;
+  if (lane == 31) base = atomicAdd(count, (unsigned long long)incl);
+  base = __shfl_sync(full, base, 31);
+  unsigned long long k = base + (unsigned long long)(incl - n_hit);
+  const unsigned long long room = (unsigned long long)cap;
+#pragma unroll
+  for (int a = 0; a < MICRO; ++a) {
+    const int gi = i_base + micro_offset(ty, a);
+#pragma unroll
+    for (int b = 0; b < MICRO; ++b) {
+      const int gj = j_base + micro_offset(tx, b);
+      if (gj < n_sats && gj > gi && m[a][b] <= thr2) {
+        if (k < room) {
+          out_ij[2 * k] = gi;
+          out_ij[2 * k + 1] = gj;
+        }
+        ++k;
+      }
     }
   }
 }
 
+template <bool CANDIDATES>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(screen_coarse_kernel<CANDIDATES>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)SMEM_BYTES);
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes by astroz_tpu_torch/_build.py).
-// r: (3, T, N) f32 position planes; out: (N, width) f32, for the columns
-// j0 .. j0 + width - 1 (0 <= j0, j0 + width <= N). Both contiguous on the
-// current device. Launch on `stream` and return the launch's cudaError_t
+// Plain C entry points (bound with ctypes by astroz_tpu_torch/_build.py).
+// Each launches on `stream` and returns the launch's cudaError_t
 // (0 = success).
+//
+// Matrix mode. r: (3, T, N) f32 position planes; out: (N, width) f32, for
+// the columns j0 .. j0 + width - 1 (0 <= j0, j0 + width <= N). Both
+// contiguous on the current device.
 extern "C" int astroz_screen_coarse(const float* r, int n_times, int n_sats,
                                     int j0, int width, float* out,
                                     void* stream) {
   if (n_sats <= 0 || width <= 0) return 0;
+  cudaError_t err = allow_smem<false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((width + TILE - 1) / TILE, (n_sats + TILE - 1) / TILE);
-  const dim3 block(SIDE, SIDE);
-  screen_coarse_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      r, n_times, n_sats, j0, width, out);
+  screen_coarse_kernel<false>
+      <<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+          r, n_times, n_sats, j0, width, out, 0.0f, 0, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Candidate mode. r: (3, T, N) f32 position planes; out_ij: (cap, 2) int32
+// (i, j) pairs, in no order; count: one uint64, zeroed by the caller, to
+// which the kernel adds every pair with j > i and minimum <= thr2 (only the
+// first cap of them are written).
+extern "C" int astroz_screen_candidates(const float* r, int n_times,
+                                        int n_sats, float thr2,
+                                        long long cap, int* out_ij,
+                                        unsigned long long* count,
+                                        void* stream) {
+  if (n_sats <= 0) return 0;
+  cudaError_t err = allow_smem<true>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (n_sats + TILE - 1) / TILE;
+  const long long blocks = tiles * (tiles + 1) / 2;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  screen_coarse_kernel<true>
+      <<<(unsigned)blocks, THREADS, SMEM_BYTES,
+         static_cast<cudaStream_t>(stream)>>>(r, n_times, n_sats, 0, n_sats,
+                                              nullptr, thr2, cap, out_ij,
+                                              count);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,12 +7,12 @@ Counterpart of ``astroz_tpu/screening.py``:
   catalog's device.
 * :func:`screen_all`: every pair closer than a threshold. The positions
   come from ``propagate(..., velocities=False, layout="planes")``; the
-  coarse pass is kernel K4 (``ops/cuda_screen.py``), the exact
-  min-over-time squared distance of every pair j > i in column chunks
-  (+inf at and below the diagonal); the threshold and the compaction run
-  on the device, and the host receives only the candidate indices; the
-  refine (plain torch on the device) recovers each survivor's distance
-  and epoch.
+  coarse pass is kernel K4 in candidate mode
+  (``ops/cuda_screen.coarse_candidates``): the exact min-over-time
+  squared distance of every pair j > i, thresholded inside the kernel,
+  so that the device writes only the candidate pairs and the host
+  receives only their indices; the refine (plain torch on the device)
+  recovers each survivor's distance and epoch.
 
 Failed lanes park at distinct far points, so they never screen as close
 to each other or to anything else.
@@ -28,12 +28,12 @@ keywords, as on any unknown one.
 from __future__ import annotations
 
 import warnings
-from typing import Iterable, Optional, Tuple, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
-from .ops.cuda_screen import coarse_min_all
+from .ops import cuda_screen
 from .ops.fastmath import sqrt_rn
 from .propagation import SatCatalog, build_catalog, propagate
 from .tle import Tle
@@ -107,72 +107,44 @@ def _refine_pairs_planes(r_planes, ii, jj):
     return sqrt_rn(dx * dx + dy * dy + dz * dz).min(dim=0)
 
 
-def _compact_mask(mask) -> Tuple[np.ndarray, np.ndarray]:
-    """(row, col) int64 host indices of the True entries of a boolean
-    matrix, compacted on its device: the host receives the indices,
-    never the matrix."""
-    ii, jj = torch.nonzero(mask, as_tuple=True)
-    return ii.cpu().numpy(), jj.cpu().numpy()
-
-
-def _chunk_candidates(dmin, j0: int, thr2: float):
-    """Candidate pairs ``(i, j)`` of one coarse column chunk: squared
-    distance at most ``thr2`` (the chunk is +inf at and below the
-    diagonal, so only pairs ``j > i`` pass), as int64 host arrays. One
-    count fetch; a chunk without candidates compacts nothing."""
-    mask = dmin <= thr2
-    if int(mask.sum()) == 0:
-        return np.empty(0, np.int64), np.empty(0, np.int64)
-    ii, jj = _compact_mask(mask)
-    return ii, jj + j0
-
-
-def _refine(r_planes, ci: np.ndarray, cj: np.ndarray):
-    """Refine candidate pairs on the planes' device, in chunks that keep
-    the (3, T, P) gathers bounded: (min distance f32, epoch index int64)
-    host arrays."""
+def _refine(r_planes, ii, jj):
+    """Refine candidate pairs (int64 tensors on the planes' device) in
+    chunks that keep the (3, T, P) gathers bounded: (min distance f32,
+    epoch index int64) tensors on that device."""
     n_times = r_planes.shape[1]
     chunk_cap = max(1 << 12, (1 << 26) // max(n_times, 1))
-    dmin = np.empty(ci.size, np.float32)
-    tmin = np.empty(ci.size, np.int64)
-    for c0 in range(0, ci.size, chunk_cap):
-        c1 = min(c0 + chunk_cap, ci.size)
-        d, t = _refine_pairs_planes(
-            r_planes, torch.as_tensor(ci[c0:c1], device=r_planes.device),
-            torch.as_tensor(cj[c0:c1], device=r_planes.device))
-        dmin[c0:c1] = d.cpu().numpy()
-        tmin[c0:c1] = t.cpu().numpy()
-    return dmin, tmin
+    parts = [_refine_pairs_planes(r_planes, ii[c0:c0 + chunk_cap],
+                                  jj[c0:c0 + chunk_cap])
+             for c0 in range(0, len(ii), chunk_cap)]
+    return torch.cat([d for d, _ in parts]), torch.cat([t for _, t in parts])
 
 
-def _screen_planes(r_planes, chunks: Iterable, threshold_km: float,
-                   max_pairs: int):
-    """The screen after propagation: coarse column chunks ``(j0, dmin)``
-    of ``r_planes`` -> candidates -> refine -> pairs below the
-    threshold, as :func:`screen_all` returns them."""
+def _screen_planes(r_planes, threshold_km: float, max_pairs: int,
+                   coarse: Optional[Callable] = None):
+    """The screen after propagation: coarse candidates of ``r_planes``
+    (``coarse(r_planes, thr2)``, K4's candidate mode unless given; (i, j)
+    tensors sorted by (i, j)) -> refine on the device -> pairs below the
+    threshold, as :func:`screen_all` returns them. The host receives the
+    candidate count and then the refined candidates, in two copies."""
     # a relative 1e-6 cushion, so that a boundary pair never flips
     # between the coarse d^2 compare and the refine's sqrt-then-compare
     thr2 = float(np.float32((threshold_km * (1.0 + 1.0e-6)) ** 2))
-    found = [_chunk_candidates(dmin, j0, thr2) for j0, dmin in chunks]
-    ci = np.concatenate([f[0] for f in found] + [np.empty(0, np.int64)])
-    cj = np.concatenate([f[1] for f in found] + [np.empty(0, np.int64)])
-    if ci.size > max_pairs:
+    ii, jj = (coarse or cuda_screen.coarse_candidates)(r_planes, thr2)
+    if len(ii) > max_pairs:
         warnings.warn(
-            f"screen_all: coarse candidate set ({ci.size}) exceeds "
+            f"screen_all: coarse candidate set ({len(ii)}) exceeds "
             f"max_pairs ({max_pairs}); candidates are truncated BEFORE "
             "the exact refine, so real conjunctions may be dropped — "
             "raise max_pairs or lower threshold_km", stacklevel=3)
-        ci, cj = ci[:max_pairs], cj[:max_pairs]
-    if ci.size == 0:
+        ii, jj = ii[:max_pairs], jj[:max_pairs]
+    if len(ii) == 0:
         return (np.empty(0, np.int64), np.empty(0, np.int64),
                 np.empty(0, np.float64), np.empty(0, np.int64))
-    dmin, tmin = _refine(r_planes, ci, cj)
-    hit = dmin < threshold_km
-    ci, cj = ci[hit], cj[hit]
-    d_out = dmin[hit].astype(np.float64)
-    t_out = tmin[hit]
-    order = np.lexsort((cj, ci))  # deterministic (i, j) order
-    return ci[order], cj[order], d_out[order], t_out[order]
+    dmin, tmin = _refine(r_planes, ii, jj)
+    ci, cj, t = torch.stack([ii, jj, tmin]).cpu().numpy()
+    d = dmin.cpu().numpy()
+    hit = d < threshold_km
+    return ci[hit], cj[hit], d[hit].astype(np.float64), t[hit]
 
 
 def screen_all(cat: SatCatalog, jd, fr=None, *, threshold_km: float = 5.0,
@@ -185,5 +157,4 @@ def screen_all(cat: SatCatalog, jd, fr=None, *, threshold_km: float = 5.0,
     ``max_pairs`` are dropped before the refine, with a warning.
     """
     r_planes = _positions_planes_f32(cat, jd, fr, method)
-    return _screen_planes(r_planes, coarse_min_all(r_planes), threshold_km,
-                          max_pairs)
+    return _screen_planes(r_planes, threshold_km, max_pairs)

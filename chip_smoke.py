@@ -4,6 +4,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --cpu-screen N`` only times the screen of N
+shell lanes with ``device="cpu"``; see :func:`cpu_screen_cost`.)
+
 Phases (any failure exits non-zero; nothing is caught):
 
 0. the card: ``torch.cuda.is_available()``, its name and power limit from
@@ -67,26 +70,33 @@ Phases (any failure exits non-zero; nothing is caught):
 4b. the same for K2 and K3, plus the HEO escape, the resonance tables
    and the whole mixed ``propagate`` call, and the peak device memory of
    a mixed sweep;
-5. K4 (the coarse screening pass) vs its plain version on the card, bit
-   for bit on every entry (NaN where NaN, +inf at and below the
-   diagonal): a ragged 1,002-satellite x 100-epoch shell with parked
-   failed lanes and one NaN position, single-shot and in ragged column
-   chunks, and the main path's one column chunk of the full 13,478 x 240
-   planes (all 13,478 columns, against the plain version in 4,096-column
-   chunks);
+5. K4 (the coarse screening pass) vs its plain version on the card, in
+   both modes. Matrix mode bit for bit on every entry checked (NaN where
+   NaN, +inf at and below the diagonal): a ragged 1,002-satellite x
+   100-epoch shell with parked failed lanes and one NaN position,
+   single-shot and in ragged column chunks, and ``coarse_min_all`` of the
+   full 13,478 x 240 planes (one chunk of all columns) on the column
+   blocks of K4_SAMPLE_BLOCKS. Candidate mode with the same (i, j) pairs
+   in order as its plain version: the small shell at 200 km, once with
+   room for all pairs and once through the overflow path (two launches),
+   and the 13,478 x 240 planes at 10 km, where it also equals the
+   thresholded matrix. The plain matrix version's device memory an entry
+   must stay within the bytes its column blocks are sized by;
 6. the screening main path: bench_screening's shell (13,478 TLEs) ->
    ``Constellation(text, device="cuda").screen`` over 240 one-minute
-   epochs at 10 km, which must launch K1 once and K4 once per column
-   chunk; the pairs (numpy, i < j, d < 10 km, sorted) must equal those of
-   the plain coarse version run on the card, then the same mask and
-   refine;
+   epochs at 10 km, which must launch K1 once and K4's candidate mode
+   once (matrix mode never); the pairs (numpy, i < j, d < 10 km, sorted)
+   must equal those of the plain candidate version of phase 5 (the same
+   planes and threshold), then the same refine;
 6b. the same screen over the mixed headline catalog (K2, the escape, K3,
-   then K4), and ``screen_target`` of the ISS golden TLE against it,
-   equal to a direct reduction of the propagated planes;
-7. timings with CUDA events: K4 alone at 13,478 x 240 and its plain
-   version on the card, in turns, the ``torch.cdist`` yardstick on one
-   column chunk, the pieces and the whole of a ``screen`` call,
-   ``screen_target``, and the peak device memory of a screen;
+   then K4's candidate mode), and ``screen_target`` of the ISS golden TLE
+   against it, equal to a direct reduction of the propagated planes;
+7. timings with CUDA events: K4's two modes at 13,478 x 240 and their
+   plain versions, in turns, each mode's share of its operation bound and
+   of the FMA instruction floor, K4's registers and spills from ptxas, the
+   ``torch.cdist`` yardstick on one column chunk, the pieces and the whole
+   of a ``screen`` call (CUDA events and wall clock), ``screen_target``,
+   and the peak device memory of a screen;
 4c. timings with CUDA events: K5 and K6 alone at one (4,096, 1,024) chunk
    and their plain versions, in turns, the torch spine that feeds K6, the
    whole 1year_1s sweep through K5 and through the f64 ``sgp4_propagate``,
@@ -131,9 +141,14 @@ HEADLINE_DEEP, HEADLINE_ESCAPE = 667, 14
 SCREEN_TIMES = 240
 SCREEN_EPOCH_JD = 2460311.0
 SCREEN_KM = 10.0
-#: column chunk of K4's plain version on the card: (13,478, 4,096) f32
-#: temporaries of 0.22 GB each
-PLAIN_COLS = 4096
+#: column chunk of K4's plain version on the card: (13,478, 2,048) f64
+#: temporaries of 0.22 GB each (the rows below a chunk's last column
+#: only, so narrow chunks skip most of the lower triangle)
+PLAIN_COLS = 2048
+#: K4's matrix mode at 13,478 x 240 is held against its plain version on
+#: these column blocks (start, width): the first, one across the middle
+#: and the ragged last
+K4_SAMPLE_BLOCKS = ((0, 512), (6400, 512), (N_SATS - 300, 300))
 #: column chunk of the cdist yardstick: a (240, 13,478, 512) f32 result
 #: of 6.6 GB
 CDIST_COLS = 512
@@ -143,6 +158,11 @@ CDIST_COLS = 512
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_F64_OPS_S = 34e12
+#: K4's f32 operations a pair-time: 3 subtracts, 3 multiplies, 2 adds
+#: and a min (an FMA counts as a multiply and an add); and the
+#: instructions it issues with FMA (3 FADD, 1 FMUL, 2 FFMA, 1 FMNMX),
+#: against 128 f32 lanes an SM at the card's largest SM clock
+K4_OPS, K4_INSTRUCTIONS, LANES_PER_SM = 9, 7, 128
 
 #: python-sgp4 v2.25 reference trajectory of the TLE below (WGS-72):
 #: (minutes since epoch, TEME position km)
@@ -1030,8 +1050,9 @@ def phase3d_f64_path(mcon):
     return scan_ms, scan_peak
 
 
-def _cuda_ms(fn, reps):
-    fn()
+def _cuda_ms(fn, reps, warm=True):
+    if warm:
+        fn()
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1186,9 +1207,49 @@ def _k4_vs_twin(r, chunks, label):
     return worst
 
 
+def _k4_pairs_vs_twin(r, thr2, label, **kw):
+    """K4's candidate mode against its plain version (in PLAIN_COLS-column
+    chunks), the same (i, j) pairs in order. Returns the plain pairs and
+    the largest |kernel - plain| over their i and j indices."""
+    from astroz_tpu_torch.ops import cuda_screen
+
+    got = cuda_screen.coarse_candidates(r, thr2, **kw)
+    ref = cuda_screen.coarse_candidates_reference(
+        r, thr2, max_bytes=4 * r.shape[2] * PLAIN_COLS)
+    check(len(got[0]) == len(ref[0]),
+          f"K4 candidates {label}: {len(got[0])} pairs, the plain version "
+          f"{len(ref[0])}")
+    err = ((torch.stack(got) - torch.stack(ref)).abs().max().item()
+           if len(ref[0]) else 0)
+    check(err == 0, f"K4 candidates {label}: pairs differ from the plain "
+          f"version's (largest index difference {err})")
+    return ref, float(err)
+
+
+def _plain_peak_per_entry(r, j0, width):
+    """Device bytes the plain matrix version held at its peak beside its
+    output, for each entry of the one (rows, width) block it computes
+    (``width`` under a column block of PLAIN_WORK_BYTES)."""
+    from astroz_tpu_torch.ops import cuda_screen
+
+    n = r.shape[2]
+    rows = min(n, j0 + width - 1)
+    check(width * rows * cuda_screen.PLAIN_BYTES_PER_ENTRY
+          <= cuda_screen.PLAIN_WORK_BYTES["cuda"],
+          "the chunk must be one column block")
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = cuda_screen.coarse_min_chunk_reference(r, j0, width)
+    sync()
+    held = torch.cuda.max_memory_allocated() - base - out.numel() * 4
+    return held / (rows * width)
+
+
 def phase5_coarse_vs_twin(shell_con):
-    """K4 against its plain version; returns the largest difference at the
-    main path's shape."""
+    """K4 against its plain version in both modes. Returns the largest
+    matrix difference at the main path's shape and the launches of the
+    matrix path, ``coarse_min_all`` of the 13,478 x 240 planes."""
     from astroz_tpu_torch import build_catalog
     from astroz_tpu_torch.ops import cuda_screen
     from astroz_tpu_torch.screening import _positions_planes_f32
@@ -1219,26 +1280,57 @@ def phase5_coarse_vs_twin(shell_con):
     check(_same_or_both_nan(torch.cat([d for _, d in chunked], dim=1),
                             single[0][1]),
           "chunked K4 differs from the single shot")
-    # the main path's shape: screen_all's one chunk of all 13,478 columns,
-    # held against the plain version in PLAIN_COLS-column pieces
+    # candidate mode on the same planes at 200 km, once with room for all
+    # pairs and once through the overflow path (cap=1: two launches)
+    thr2_small = float(np.float32(200.0 ** 2))
+    before = cuda_screen.LAUNCHES["screen_candidates"]
+    small_pairs, _ = _k4_pairs_vs_twin(r, thr2_small, label)
+    _k4_pairs_vs_twin(r, thr2_small, label + ", cap=1", cap=1)
+    sync()
+    check(cuda_screen.LAUNCHES["screen_candidates"] == before + 3,
+          "candidate mode: the overflow path must launch twice")
+    check(len(small_pairs[0]) > 0, "no candidate pairs within 200 km")
+
+    # the main path's shape: matrix mode (coarse_min_all, one chunk of all
+    # 13,478 columns) held against the plain version on K4_SAMPLE_BLOCKS,
+    # and candidate mode at the screen's 10 km against the plain version
+    # on every column
     full = _positions_planes_f32(shell_con.catalog, SCREEN_EPOCH_JD
                                  + np.arange(SCREEN_TIMES) / 1440.0)
     nf = full.shape[2]
     ((j0, dmin),) = cuda_screen.coarse_min_all(full)
     check(j0 == 0 and tuple(dmin.shape) == (nf, nf),
-          f"screen_all's K4 chunk is {j0}, {tuple(dmin.shape)}")
+          f"coarse_min_all's K4 chunk is {j0}, {tuple(dmin.shape)}")
     worst_full = _k4_vs_twin(
-        full, [(c0, dmin[:, c0:c0 + PLAIN_COLS])
-               for c0 in range(0, nf, PLAIN_COLS)],
+        full, [(c0, dmin[:, c0:c0 + w]) for c0, w in K4_SAMPLE_BLOCKS],
         f"{N_SATS} sats x {SCREEN_TIMES} times")
+    thr2 = float(np.float32((SCREEN_KM * (1.0 + 1.0e-6)) ** 2))
+    ci, cj = cuda_screen.coarse_candidates(full, thr2)
+    check(torch.equal(torch.stack([ci, cj], 1), torch.nonzero(dmin <= thr2)),
+          "candidate mode differs from the thresholded matrix")
     del dmin
-    sync()
-    print(f"# phase 5: K4 vs its plain version, bit-equal on every entry: "
-          f"{label} ({parked} parked lanes, one NaN) single-shot and in 4 "
-          f"chunks, max |d2 diff| {worst:.3e} km^2; all {nf} columns of "
-          f"{N_SATS} x {SCREEN_TIMES} (screen_all's one chunk), max |d2 "
-          f"diff| {worst_full:.3e} km^2")
-    return worst_full
+    full_pairs, cand_err = _k4_pairs_vs_twin(full, thr2,
+                                             f"{N_SATS} x {SCREEN_TIMES}")
+    # the plain version's working set, measured on the one-block chunk of
+    # the middle sample (its rows above the chunk's last column)
+    per_entry = _plain_peak_per_entry(full, *K4_SAMPLE_BLOCKS[1])
+    check(per_entry <= cuda_screen.PLAIN_BYTES_PER_ENTRY,
+          f"the plain matrix version held {per_entry:.1f} B an entry, over "
+          f"its PLAIN_BYTES_PER_ENTRY {cuda_screen.PLAIN_BYTES_PER_ENTRY}")
+    print(f"# phase 5: K4 matrix mode vs its plain version, bit-equal on "
+          f"every entry checked: {label} ({parked} parked lanes, one NaN) "
+          f"single-shot and in 4 chunks, max |d2 diff| {worst:.3e} km^2; "
+          f"{N_SATS} x {SCREEN_TIMES} (coarse_min_all's one chunk) on column "
+          f"blocks {K4_SAMPLE_BLOCKS}, max |d2 diff| {worst_full:.3e} km^2")
+    print(f"# phase 5: K4 candidate mode equals its plain version: {label} "
+          f"at 200 km ({len(small_pairs[0])} pairs, also with cap=1), "
+          f"{N_SATS} x {SCREEN_TIMES} at {SCREEN_KM} km ({len(full_pairs[0])} "
+          f"pairs, largest index difference {cand_err:.0f}, equal to the "
+          f"thresholded matrix too)")
+    print(f"# phase 5: the plain matrix version held {per_entry:.2f} B of "
+          f"device memory an entry beside its output (at most "
+          f"{cuda_screen.PLAIN_BYTES_PER_ENTRY}, its column blocks' rule)")
+    return worst_full, cand_err, full_pairs
 
 
 def _check_pairs(res, label):
@@ -1254,22 +1346,27 @@ def _check_pairs(res, label):
           f"{label}: pairs not in (i, j) order")
 
 
-def _plain_screen(cat, jd):
-    """The screen with K4 replaced by its plain version on the card, in
-    column chunks of PLAIN_COLS, then the same mask and refine."""
+def _plain_screen(cat, jd, plain_pairs=None):
+    """The screen with K4 replaced by its plain candidate version on the
+    card (column chunks of PLAIN_COLS), or by ``plain_pairs`` where phase
+    5 already ran it on these planes, then the same refine."""
     from astroz_tpu_torch.ops import cuda_screen
     from astroz_tpu_torch.screening import (_positions_planes_f32,
                                             _screen_planes)
 
     r = _positions_planes_f32(cat, jd)
-    n = r.shape[2]
-    chunks = ((j0, cuda_screen.coarse_min_chunk_reference(
-        r, j0, min(PLAIN_COLS, n - j0))) for j0 in range(0, n, PLAIN_COLS))
-    return _screen_planes(r, chunks, SCREEN_KM, 10_000_000)
+
+    def coarse(planes, thr2):
+        if plain_pairs is not None:
+            return plain_pairs
+        return cuda_screen.coarse_candidates_reference(
+            planes, thr2, max_bytes=4 * planes.shape[2] * PLAIN_COLS)
+
+    return _screen_planes(r, SCREEN_KM, 10_000_000, coarse=coarse)
 
 
-def _screen_vs_plain(cat, jd, res, label):
-    ref = _plain_screen(cat, jd)
+def _screen_vs_plain(cat, jd, res, label, plain_pairs=None):
+    ref = _plain_screen(cat, jd, plain_pairs)
     check(np.array_equal(res[0], ref[0]) and np.array_equal(res[1], ref[1]),
           f"{label}: the pair set differs from the plain coarse version's")
     check(np.array_equal(res[3], ref[3]), f"{label}: epoch indices differ")
@@ -1278,12 +1375,12 @@ def _screen_vs_plain(cat, jd, res, label):
     return dd
 
 
-def phase6_screen(con):
+def phase6_screen(con, plain_pairs):
+    """The shell screen; ``plain_pairs`` are phase 5's plain candidates of
+    the same planes at the same threshold."""
     check(len(con) == N_SATS and not con.catalog.has_deep,
           "the screening shell")
     times = np.arange(float(SCREEN_TIMES))
-    # (N, N) f32 is 0.73 GB, under coarse_min_all's 2 GiB: one chunk
-    check(4 * N_SATS * N_SATS < 2 << 30, "one K4 chunk at this size")
     reset_launches()
     t0 = time.perf_counter()
     res = con.screen(times, start_time=SCREEN_EPOCH_JD,
@@ -1294,11 +1391,11 @@ def phase6_screen(con):
           f"km (first call, {wall:.3f} s): {len(res[0])} pairs, kernel "
           f"launches {n}")
     check(n == {**dict.fromkeys(n, 0), "sgp4_shallow": 1,
-                "screen_coarse": 1},
-          "the screen must launch K1 once and K4 once")
+                "screen_candidates": 1},
+          "the screen must launch K1 once and K4 (candidate mode) once")
     _check_pairs(res, "shell screen")
     dd = _screen_vs_plain(con.catalog, SCREEN_EPOCH_JD + times / 1440.0, res,
-                          "shell screen")
+                          "shell screen", plain_pairs)
     print(f"# phase 6: the pairs, epochs and distances (max diff {dd:.1e} "
           f"km) of the plain coarse version; closest pair "
           f"{res[2].min():.4f} km")
@@ -1318,8 +1415,9 @@ def phase6b_mixed_screen(mcon):
     print(f"# phase 6b: screen of the mixed catalog x {SCREEN_TIMES} at "
           f"{SCREEN_KM} km: {len(res[0])} pairs, kernel launches {n}")
     check(n == {**dict.fromkeys(n, 0), "sgp4_deep": 1,
-                "sgp4_shallow_merge": 1, "screen_coarse": 1},
-          "the mixed screen must launch K2, K3 and K4 once each")
+                "sgp4_shallow_merge": 1, "screen_candidates": 1},
+          "the mixed screen must launch K2, K3 and K4 (candidate mode) "
+          "once each")
     _check_pairs(res, "mixed screen")
     dd = _screen_vs_plain(cat, jd, res, "mixed screen")
 
@@ -1349,24 +1447,50 @@ def phase6b_mixed_screen(mcon):
           f"f64 form")
 
 
+def _max_sm_clock_hz():
+    """The card's largest SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def phase7_screen_timings(con, smi):
-    from astroz_tpu_torch import build_catalog, screen_target
+    """Times of K4's two modes and their plain versions, the screen's
+    pieces and the whole screen; returns the matrix and candidate entries
+    ``(ms, plain_ms, (bound_ms, bound_by), library_ms)``."""
+    from astroz_tpu_torch import _build, build_catalog, screen_target
     from astroz_tpu_torch.ops import cuda_screen
-    from astroz_tpu_torch.screening import (_chunk_candidates,
-                                            _positions_planes_f32, _refine)
+    from astroz_tpu_torch.screening import _positions_planes_f32, _refine
 
     cat = con.catalog
     times = np.arange(float(SCREEN_TIMES))
     jd = SCREEN_EPOCH_JD + times / 1440.0
     r = _positions_planes_f32(cat, jd)
     n = r.shape[2]
+    thr2 = float(np.float32((SCREEN_KM * (1.0 + 1.0e-6)) ** 2))
+    count = torch.zeros(1, dtype=torch.int64, device=DEVICE)
 
-    def plain():
+    def candidates_kernel():
+        count.zero_()
+        cuda_screen._launch_candidates(r, thr2, cuda_screen.CANDIDATE_CAP,
+                                       count)
+
+    def plain_matrix():
         return [cuda_screen.coarse_min_chunk_reference(
             r, j0, min(PLAIN_COLS, n - j0)) for j0 in range(0, n, PLAIN_COLS)]
 
-    k4_ms, plain_ms, turns = _in_turns(
-        lambda: cuda_screen.coarse_min_chunk(r, 0, n), plain, 5, 1)
+    def plain_candidates():
+        return cuda_screen.coarse_candidates_reference(
+            r, thr2, max_bytes=4 * n * PLAIN_COLS)
+
+    # in turns: plain, matrix, candidates, candidates, matrix, plain
+    turns = [_cuda_ms(plain_candidates, 1, warm=False),
+             _cuda_ms(lambda: cuda_screen.coarse_min_chunk(r, 0, n), 10),
+             _cuda_ms(candidates_kernel, 10), _cuda_ms(candidates_kernel, 10),
+             _cuda_ms(lambda: cuda_screen.coarse_min_chunk(r, 0, n), 10),
+             _cuda_ms(plain_matrix, 1, warm=False)]
+    mat_ms, cand_ms = (turns[1] + turns[4]) / 2, (turns[2] + turns[3]) / 2
     r_tm = r.permute(1, 2, 0).contiguous()           # (T, N, 3)
     r_cols = r_tm[:, :CDIST_COLS].contiguous()
     cdist_chunk = _cuda_ms(lambda: torch.cdist(
@@ -1374,19 +1498,16 @@ def phase7_screen_timings(con, smi):
     library_ms = cdist_chunk * n / CDIST_COLS
     del r_tm, r_cols
 
-    thr2 = float(np.float32((SCREEN_KM * (1.0 + 1.0e-6)) ** 2))
-    dmin = cuda_screen.coarse_min_chunk(r, 0, n)
-    ci, cj = _chunk_candidates(dmin, 0, thr2)
+    ii, jj = cuda_screen.coarse_candidates(r, thr2)
     prop_ms = _cuda_ms(lambda: _positions_planes_f32(cat, jd), 10)
-    mask_ms = _cuda_ms(lambda: _chunk_candidates(dmin, 0, thr2), 5)
-    refine_ms = _cuda_ms(lambda: _refine(r, ci, cj), 10)
-    del dmin
+    wrapper_ms = _cuda_ms(lambda: cuda_screen.coarse_candidates(r, thr2), 10)
+    refine_ms = _cuda_ms(lambda: _refine(r, ii, jj), 10)
 
     def call():
         return con.screen(times, start_time=SCREEN_EPOCH_JD,
                           threshold_km=SCREEN_KM)
 
-    call_ms = _cuda_ms(call, 5)
+    call_ms = _cuda_ms(call, 10)
     walls = []
     for _ in range(3):
         sync()
@@ -1404,38 +1525,49 @@ def phase7_screen_timings(con, smi):
     sync()
     peak = torch.cuda.max_memory_allocated()
 
-    # the plain version's operations an entry and epoch, on a small chunk;
-    # the work this run needs is the strict upper triangle's pair-times
-    f32_ops, f64_ops = count_ops(
-        lambda: cuda_screen.coarse_min_chunk_reference(r[:, :2].contiguous(),
-                                                       0, 64))
-    per_pair = f32_ops / (2 * n * 64)
-    check(f64_ops == 0, "K4's plain version does f64 arithmetic")
+    # the work this run needs: the strict upper triangle's pair-times
     pair_times = SCREEN_TIMES * n * (n - 1) // 2
-    k4_bound = bound(nbytes(r) + 4 * n * n, per_pair * pair_times, 0)
-    print(f"# phase 7 [{smi}]: kernel K4 {k4_ms:.4f} ms ({turns[1]:.4f}, "
-          f"{turns[2]:.4f}; {n} x {SCREEN_TIMES}, {pair_times:.4g} "
-          f"pair-times, {pair_times / k4_ms / 1e9:.2f} T pair-times/s), "
-          f"plain torch version {plain_ms:.4f} ms ({turns[0]:.4f}, "
-          f"{turns[3]:.4f}; in {PLAIN_COLS}-column chunks)")
-    print(f"# phase 7 [{smi}]: K4 bound {k4_bound[0]:.4f} ms by "
-          f"{k4_bound[1]} ({per_pair:.1f} f32 operations a pair-time of the "
-          f"strict upper triangle; built without FMA "
-          f"each is one instruction, so the instruction bound at half the "
-          f"flop rate is {2 * k4_bound[0]:.4f} ms); cdist yardstick "
-          f"{cdist_chunk:.4f} ms for {CDIST_COLS} columns, {library_ms:.4f} "
-          f"ms scaled to all {n}")
+    ops = K4_OPS * pair_times
+    mat_bound = bound(nbytes(r) + 4 * n * n, ops, 0)
+    cand_bound = bound(nbytes(r) + 8 * len(ii), ops, 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _max_sm_clock_hz()
+    floor_ms = (K4_INSTRUCTIONS * pair_times
+                / (sms * LANES_PER_SM * clock) * 1e3)
+    regs = [(name, rg, st, ld) for name, rg, st, ld in _build.ptxas_report()
+            if "screen_coarse" in name]
+    check(all(st == ld == 0 for _, _, st, ld in regs), f"K4 spills: {regs}")
+    for ms, bd, label in ((mat_ms, mat_bound, "matrix"),
+                          (cand_ms, cand_bound, "candidate")):
+        print(f"# phase 7 [{smi}]: K4 {label} mode {ms:.4f} ms "
+              f"({pair_times:.4g} pair-times, "
+              f"{pair_times / ms / 1e9:.2f} T pair-times/s): "
+              f"{bd[0] / ms:.1%} of the {bd[0]:.4f} ms bound "
+              f"({K4_OPS} f32 operations a pair-time, by {bd[1]}), "
+              f"{floor_ms / ms:.1%} of the {floor_ms:.4f} ms FMA floor "
+              f"({K4_INSTRUCTIONS} instructions a pair-time, {sms} SMs x "
+              f"{LANES_PER_SM} lanes at {clock / 1e9:.3f} GHz)")
+    print(f"# phase 7 [{smi}]: K4 in turns (plain candidates, matrix, "
+          f"candidates, candidates, matrix, plain matrix): "
+          f"{', '.join(f'{t:.4f}' for t in turns)} ms; plain versions in "
+          f"{PLAIN_COLS}-column chunks; cdist yardstick {cdist_chunk:.4f} ms "
+          f"for {CDIST_COLS} columns, {library_ms:.4f} ms scaled to all {n}")
+    print("# phase 7: ptxas for K4: " + "; ".join(
+        f"{'candidate' if 'ILb1' in name else 'matrix'} mode {rg} registers, "
+        f"spill stores {st} B, spill loads {ld} B"
+        for name, rg, st, ld in regs))
     print(f"# phase 7 [{smi}]: screen() pieces: propagate to planes "
-          f"{prop_ms:.4f} ms, K4 {k4_ms:.4f} ms, mask + count + compaction "
-          f"{mask_ms:.4f} ms ({len(ci)} candidates), refine {refine_ms:.4f} "
-          f"ms; whole call {call_ms:.4f} ms (CUDA events), "
-          f"{', '.join(f'{w:.3f}' for w in walls)} ms (wall clock, "
-          f"synchronized)")
+          f"{prop_ms:.4f} ms, K4 candidate kernel {cand_ms:.4f} ms, its "
+          f"wrapper (count fetch, sort) {wrapper_ms:.4f} ms ({len(ii)} "
+          f"candidates), refine {refine_ms:.4f} ms; whole call {call_ms:.4f} "
+          f"ms (CUDA events), {', '.join(f'{w:.3f}' for w in walls)} ms "
+          f"(wall clock, synchronized)")
     print(f"# phase 7 [{smi}]: screen_target of one TLE vs {n} x "
           f"{SCREEN_TIMES} {target_ms:.4f} ms; device memory of a screen: "
           f"peak {peak / 2**30:.3f} GiB, of which {base / 2**30:.3f} GiB were "
           f"held before the call")
-    return k4_ms, plain_ms, k4_bound, library_ms
+    return ((mat_ms, turns[5], mat_bound, library_ms),
+            (cand_ms, turns[0], cand_bound, None))
 
 
 def _peak(fn):
@@ -1554,10 +1686,10 @@ def main():
     k1 = phase4_timings(con, smi)
     k2, k3 = phase4b_mixed_timings(mcon, smi)
     scon = Constellation(shell_text, device=DEVICE)
-    k4_err = phase5_coarse_vs_twin(scon)
-    screen_launches = phase6_screen(scon)
+    k4_err, k4c_err, plain_pairs = phase5_coarse_vs_twin(scon)
+    screen_launches = phase6_screen(scon, plain_pairs)
     phase6b_mixed_screen(mcon)
-    k4 = phase7_screen_timings(scon, smi)
+    k4, k4c = phase7_screen_timings(scon, smi)
     k5, k6 = phase4c_dense_timings(mcon, smi, scan_ms, scan_peak)
     print(f"# chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1581,9 +1713,15 @@ def main():
               "astroz_tpu_torch/csrc/sgp4_shallow.cu",
               "astroz_tpu/ops/pallas_sgp4.py:657",
               mixed_launches["sgp4_shallow_merge"], deep_err[2], k3),
-        entry("screen_coarse (K4)", "astroz_tpu_torch/csrc/screen_coarse.cu",
+        # matrix mode is off the screen's path: its count there is 0
+        entry("screen_coarse (K4, matrix mode)",
+              "astroz_tpu_torch/csrc/screen_coarse.cu",
               "astroz_tpu/ops/pallas_screen.py:57",
               screen_launches["screen_coarse"], k4_err, k4, k4[3]),
+        entry("screen_candidates (K4, candidate mode)",
+              "astroz_tpu_torch/csrc/screen_coarse.cu",
+              "astroz_tpu/ops/pallas_screen.py:57",
+              screen_launches["screen_candidates"], k4c_err, k4c, k4c[3]),
         entry("sgp4_shallow_dense (K5)",
               "astroz_tpu_torch/csrc/sgp4_shallow.cu",
               "astroz_tpu/ops/pallas_sgp4.py:202",
@@ -1597,5 +1735,30 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def cpu_screen_cost(n_sats):
+    """``python3 chip_smoke.py --cpu-screen N``: the screen with
+    ``device="cpu"`` (K1's and K4's plain versions) of N lanes of the
+    screening shell over SCREEN_TIMES epochs at SCREEN_KM; prints its
+    wall time and the process's peak resident memory. Needs no card."""
+    import resource
+    from astroz_tpu_torch import Constellation
+
+    con = Constellation(screening_shell_text(n_sats), device="cpu")
+    times = np.arange(float(SCREEN_TIMES))
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    res = con.screen(times, start_time=SCREEN_EPOCH_JD, threshold_km=SCREEN_KM)
+    wall = time.perf_counter() - t0
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    print(f"# cpu screen: {n_sats} x {SCREEN_TIMES} at {SCREEN_KM} km, "
+          f"{len(res[0])} pairs in {wall:.3f} s on {torch.get_num_threads()} "
+          f"threads ({torch.__version__}); peak resident memory "
+          f"{peak / 2**20:.3f} GiB ({before / 2**20:.3f} GiB before the "
+          f"call)")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-screen"]:
+        cpu_screen_cost(int(sys.argv[2]))
+    else:
+        main()

@@ -201,17 +201,24 @@ def _same_or_both_nan(a, b):
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-@pytest.mark.cuda
-def test_coarse_kernel_matches_twin_on_cuda(cuda_device):
-    """K4 against its plain version on a ragged 333-satellite x 100-epoch
-    shell with parked (failed) lanes and one NaN position: bit-equal entry
-    for entry (NaN where NaN, +inf at and below the diagonal), single-shot
-    and in ragged column chunks."""
-    cat = build_catalog(synthetic_leo_text(333), device=cuda_device)
+def _coarse_planes(device):
+    """A ragged 333-satellite x 100-epoch shell with a parked (failed)
+    lane and one NaN position (satellite 50, epoch 7)."""
+    cat = build_catalog(synthetic_leo_text(333), device=device)
     jd = cat.epoch_min_jd + np.linspace(0.0, 2.0, 100)
     r = _positions_planes_f32(cat, jd)
     assert (r > 5.0e6).any()  # the decaying lane is parked
     r[1, 7, 50] = float("nan")
+    return r
+
+
+@pytest.mark.cuda
+def test_coarse_kernel_matches_twin_on_cuda(cuda_device):
+    """K4's matrix mode against its plain version (the FMA chain, emulated
+    by rounding to odd) on the ragged shell of ``_coarse_planes``:
+    bit-equal entry for entry (NaN where NaN, +inf at and below the
+    diagonal), single-shot and in ragged column chunks."""
+    r = _coarse_planes(cuda_device)
     n = r.shape[2]
     before = cuda_screen.LAUNCHES["screen_coarse"]
     ((_, full),) = cuda_screen.coarse_min_all(r)
@@ -231,20 +238,47 @@ def test_coarse_kernel_matches_twin_on_cuda(cuda_device):
 
 
 @pytest.mark.cuda
+def test_candidate_kernel_matches_twin_on_cuda(cuda_device):
+    """K4's candidate mode against its plain version on the ragged shell
+    of ``_coarse_planes``: the same (i, j) pairs in (i, j) order, none of
+    the NaN satellite; with ``cap=1`` the overflow path launches twice and
+    gives the same pairs."""
+    r = _coarse_planes(cuda_device)
+    n = r.shape[2]
+    plain = cuda_screen.coarse_min_chunk_reference(r, 0, n)
+    finite = plain[torch.isfinite(plain)]
+    thr2 = float(np.float32(torch.quantile(finite[:1 << 20].double(),
+                                           0.01).item()))
+    ref = cuda_screen.coarse_candidates_reference(r, thr2)
+    assert len(ref[0]) > 100
+    assert ((ref[0] != 50) & (ref[1] != 50)).all()
+    before = cuda_screen.LAUNCHES["screen_candidates"]
+    got = cuda_screen.coarse_candidates(r, thr2)
+    torch.cuda.synchronize()
+    assert cuda_screen.LAUNCHES["screen_candidates"] == before + 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    over = cuda_screen.coarse_candidates(r, thr2, cap=1)
+    torch.cuda.synchronize()
+    assert cuda_screen.LAUNCHES["screen_candidates"] == before + 3
+    assert torch.equal(over[0], ref[0]) and torch.equal(over[1], ref[1])
+
+
+@pytest.mark.cuda
 def test_screen_all_on_cuda_matches_cpu(cuda_device):
     """A small all-vs-all screen on the card gives the pairs and epochs of
     the same call on the CPU, distances within K1's 1e-3 km bound, through
-    K1 and K4 once each."""
+    K1 and K4's candidate mode once each (the matrix mode never)."""
     text = synthetic_leo_text(200)
     jd = 2460310.5 + np.linspace(0.0, 0.5, 145)
     cpu = screen_all(build_catalog(text, device="cpu"), jd,
                      threshold_km=300.0)
     cat = build_catalog(text, device=cuda_device)
     k1 = cuda_sgp4.LAUNCHES["sgp4_shallow"]
-    k4 = cuda_screen.LAUNCHES["screen_coarse"]
+    k4 = dict(cuda_screen.LAUNCHES)
     got = screen_all(cat, jd, threshold_km=300.0)
     assert cuda_sgp4.LAUNCHES["sgp4_shallow"] == k1 + 1
-    assert cuda_screen.LAUNCHES["screen_coarse"] == k4 + 1
+    assert cuda_screen.LAUNCHES == {**k4, "screen_candidates":
+                                    k4["screen_candidates"] + 1}
     assert len(cpu[0]) > 0
     for a, b in zip(got[:2] + got[3:], cpu[:2] + cpu[3:]):
         np.testing.assert_array_equal(a, b)

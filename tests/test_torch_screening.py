@@ -5,12 +5,13 @@ the ``Constellation`` entry points.
 
 Tolerances, each with its reason and the value measured on these inputs:
 
-* Coarse pass, on the same numpy planes: within 2 f32 ulps on the strict
-  upper triangle (measured 2). XLA:CPU contracts the TPU kernel's
-  ``dx*dx + dy*dy + dz*dz`` into ``fma(dz, dz, fma(dx, dx, dy*dy))`` (an
-  FMA emulation reproduces its bits), where the port keeps the
-  uncontracted order, as the CUDA kernel does with ``--fmad=false``; the
-  port's plain version is held bit for bit to numpy in that order.
+* Coarse pass, on the same numpy planes: bit for bit on the strict upper
+  triangle (measured 0 ulps). XLA:CPU contracts the TPU kernel's
+  ``dx*dx + dy*dy + dz*dz`` into ``fma(dz, dz, fma(dx, dx, dy*dy))``, and
+  the CUDA kernel computes that chain with explicit FMAs; the port's
+  plain version emulates each FMA by rounding to odd in f64 and is held
+  bit for bit to an independent numpy emulation, including an input
+  where a plain f64 sum rounded to f32 gives the wrong bit.
 * Refine, on the same planes: 1 ulp of the distance (measured 1), the
   square root of the same contraction; epoch indices identical.
 * ``screen_all`` / ``screen_target`` end to end: the positions come from
@@ -48,7 +49,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch.set_num_threads(1)
 
-COARSE_ULPS = 2
+COARSE_ULPS = 0
 SHELL_D_TOL_KM = 0.01
 MIXED_D_TOL_KM = 0.05
 
@@ -75,6 +76,36 @@ def _ulps(a, b):
                   / np.spacing(np.maximum(a, b))).max())
 
 
+def _fma_f32(a, b, c):
+    """numpy: ``fma(a, b, c)`` of f32 arrays, rounded once to f32: the
+    exact f64 product, the f64 sum rounded to odd (a TwoSum error term;
+    an inexact sum with an even last bit steps one ulp toward the exact
+    value), then rounded to nearest f32."""
+    p = np.asarray(a, np.float64) * b
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    with np.errstate(invalid="ignore"):
+        step = (np.abs(err) > 0) & (s.view(np.int64) & 1 == 0)
+        toward = np.nextafter(s, np.copysign(np.inf, err))
+    return np.where(step, toward, s).astype(np.float32)
+
+
+def _coarse_numpy(r):
+    """K4's matrix in numpy: min over time of
+    ``fma(dz, dz, fma(dx, dx, dy*dy))``, +inf at and below the
+    diagonal."""
+    x, y, z = r
+    n = r.shape[2]
+    expect = np.full((n, n), np.inf, np.float32)
+    for t in range(r.shape[1]):
+        dx, dy, dz = (c[t][:, None] - c[t][None, :] for c in (x, y, z))
+        expect = np.minimum(expect, _fma_f32(dz, dz, _fma_f32(dx, dx,
+                                                              dy * dy)))
+    expect[np.tril_indices(n)] = np.inf
+    return expect
+
+
 def _assemble(chunks, n):
     out = np.full((n, n), np.nan, np.float32)
     for j0, dmin in chunks:
@@ -91,15 +122,61 @@ def test_coarse_matches_jax_interpret(n, n_times):
     iu = np.triu_indices(n, k=1)
     got = full.numpy()[iu]
     assert _ulps(np.asarray(jfull)[:n, :n][iu], got) <= COARSE_ULPS
-    # bit for bit the uncontracted order in numpy, +inf at and below the
-    # diagonal
-    x, y, z = r
-    expect = np.full((n, n), np.inf, np.float32)
-    for t in range(n_times):
-        dx, dy, dz = (c[t][:, None] - c[t][None, :] for c in (x, y, z))
-        expect = np.minimum(expect, (dx * dx + dy * dy) + dz * dz)
-    expect[np.tril_indices(n)] = np.inf
-    np.testing.assert_array_equal(full.numpy(), expect)
+    # bit for bit the FMA chain in numpy, +inf at and below the diagonal
+    np.testing.assert_array_equal(full.numpy(), _coarse_numpy(r))
+
+
+def test_coarse_fma_at_the_double_rounding_corner():
+    """dx = 4097 km and dy = 2^-15 km: dx*dx + dy*dy = 16785409 + 2^-30 is
+    just above the midpoint of the f32 neighbours 16785408 and 16785410.
+    The f64 sum rounds to the midpoint and then, cast to f32, to the even
+    16785408; one FMA gives 16785410. Pair (0, 1) meets the corner in the
+    inner FMA, pair (1, 2) in the outer one (dz = 4097); the plain version,
+    the numpy emulation and the TPU kernel in interpret mode agree."""
+    r = np.zeros((3, 2, 3), np.float32)
+    r[:, 0, 0] = (4097.0, 2.0**-15, 0.0)
+    r[:, 0, 2] = (2.0**-15, 0.0, 4097.0)
+    r[:, 1] = 1.0e4 * np.arange(3)          # far apart at the second epoch
+    assert np.float32(4097.0**2 + 2.0**-30) == 16785408.0   # plain f64
+    ((_, full),) = cuda_screen.coarse_min_all(torch.as_tensor(r))
+    assert full[0, 1].item() == full[1, 2].item() == 16785410.0
+    np.testing.assert_array_equal(full.numpy(), _coarse_numpy(r))
+    ((_, jfull),) = pallas_screen.coarse_min_all(r, interpret=True)
+    iu = np.triu_indices(3, k=1)
+    np.testing.assert_array_equal(np.asarray(jfull)[:3, :3][iu],
+                                  full.numpy()[iu])
+
+
+def _nan_planes(n, n_times):
+    """Planes with a NaN position on satellite 40 at the fourth epoch."""
+    r = torch.as_tensor(_planes(n, n_times))
+    r[1, 3, 40] = float("nan")
+    return r
+
+
+@pytest.mark.parametrize("n,n_times", [(96, 90), (600, 24)])
+def test_candidates_equal_the_thresholded_matrix(n, n_times):
+    """K4's candidate mode gives the (i, j) of the matrix entries at most
+    thr2, in (i, j) order, with no pair of the NaN satellite; with
+    ``cap=1`` (the kernel's overflow path) and in the plain version's
+    column chunks the same."""
+    r = _nan_planes(n, n_times)
+    ((_, dmin),) = cuda_screen.coarse_min_all(r)
+    upper = dmin[torch.isfinite(dmin)]
+    thr2 = float(np.float32(np.quantile(upper.numpy(), 0.02)))
+    ii, jj = cuda_screen.coarse_candidates(r, thr2)
+    assert ii.dtype == jj.dtype == torch.int64 and len(ii) > 10
+    expect = torch.nonzero(dmin <= thr2)        # row-major: (i, j) order
+    assert torch.equal(ii, expect[:, 0]) and torch.equal(jj, expect[:, 1])
+    assert ((ii != 40) & (jj != 40)).all() and (ii < jj).all()
+    key = ii * n + jj
+    assert (key[1:] > key[:-1]).all()
+    for got in (cuda_screen.coarse_candidates(r, thr2, cap=1),
+                cuda_screen.coarse_candidates_reference(
+                    r, thr2, max_bytes=4 * n * 37)):
+        assert torch.equal(got[0], ii) and torch.equal(got[1], jj)
+    none = cuda_screen.coarse_candidates(r, -1.0)
+    assert none[0].numel() == none[1].numel() == 0
 
 
 @pytest.mark.parametrize("n,n_times", [(96, 90), (600, 24)])
@@ -114,6 +191,22 @@ def test_coarse_chunked_matches_single_shot(n, n_times):
     assert len(chunks) == -(-n // 37) > 1
     assert all(d.numel() * 4 <= max_bytes for _, d in chunks)
     np.testing.assert_array_equal(_assemble(chunks, n), full.numpy())
+
+
+@pytest.mark.parametrize("n,n_times", [(96, 90), (600, 24)])
+def test_plain_column_blocks_match_single_shot(n, n_times):
+    """The plain matrix version under a small ``work_bytes`` computes its
+    chunk in ragged blocks of columns (37 here, each with only the rows
+    above its last column) and gives the same bits, NaN and +inf
+    included."""
+    r = _nan_planes(n, n_times)
+    ((_, full),) = cuda_screen.coarse_min_all(r)
+    work = cuda_screen.PLAIN_BYTES_PER_ENTRY * n * 37
+    for j0, width in ((0, n), (n // 3, n - n // 3 - 5)):
+        blocks = cuda_screen.coarse_min_chunk_reference(r, j0, width,
+                                                        work_bytes=work)
+        np.testing.assert_array_equal(blocks.numpy(),
+                                      full[:, j0:j0 + width].numpy())
 
 
 def test_coarse_keeps_nan_and_checks_arguments():
@@ -235,11 +328,19 @@ def test_screen_all_empty_when_threshold_tiny(shell):
 
 
 def test_max_pairs_truncates_with_a_warning(shell):
+    """The truncation keeps the first ``max_pairs`` candidates in (i, j)
+    order: the cut screen is the full screen's pairs among them."""
     pcat, times = shell[2:]
     full = P.screen_all(pcat, times, threshold_km=50.0)
     with pytest.warns(UserWarning, match="max_pairs"):
         cut = P.screen_all(pcat, times, threshold_km=50.0, max_pairs=2)
     assert len(full[0]) > 2 and len(cut[0]) <= 2
+    thr2 = float(np.float32((50.0 * (1.0 + 1.0e-6)) ** 2))
+    ci, cj = cuda_screen.coarse_candidates(
+        pscr._positions_planes_f32(pcat, times), thr2)
+    first = set(zip(ci[:2].tolist(), cj[:2].tolist()))
+    keep = np.array([(i, j) in first for i, j in zip(full[0], full[1])])
+    _assert_same_screen(cut, tuple(x[keep] for x in full), 0.0)
 
 
 def test_screen_target_matches_jax(shell):
@@ -292,18 +393,24 @@ def test_unported_keywords_raise(shell):
 
 
 def test_screen_all_runs_the_kernel_wrapper(shell, monkeypatch):
-    """screen_all reaches K4's wrapper once per column chunk."""
+    """screen_all reaches K4's candidate wrapper once, with the cushioned
+    f32 threshold, and never the matrix wrapper."""
     pcat, times = shell[2:]
     calls = []
-    real = cuda_screen.coarse_min_chunk
+    real = cuda_screen.coarse_candidates
 
-    def spy(r_planes, j0, width):
-        calls.append((j0, width))
-        return real(r_planes, j0, width)
+    def spy(r_planes, thr2, **kw):
+        calls.append((tuple(r_planes.shape), thr2))
+        return real(r_planes, thr2, **kw)
 
-    monkeypatch.setattr(cuda_screen, "coarse_min_chunk", spy)
+    def matrix(*args, **kw):
+        raise AssertionError("screen_all ran the matrix mode")
+
+    monkeypatch.setattr(cuda_screen, "coarse_candidates", spy)
+    monkeypatch.setattr(cuda_screen, "coarse_min_chunk", matrix)
     P.screen_all(pcat, times, threshold_km=50.0)
-    assert calls == [(0, 96)]
+    assert calls == [((3, 90, 96),
+                      float(np.float32((50.0 * (1.0 + 1.0e-6)) ** 2)))]
 
 
 def test_screening_shell_text_matches_bench(monkeypatch):
