@@ -39,10 +39,11 @@ SIGNATURES = {
     # want_vel, j2, re, vkmpersec, r, v, err, stream
     "astroz_sgp4_shallow": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _F, _F, _F, _P, _P, _P, _P]),
-    # the same, then deep_slot, dr, dv, de, n_deep before r, v, err, stream
+    # the same, then near_cols, n_near, deep_cols, dr, dv, de, n_deep
+    # before r, v, err, stream
     "astroz_sgp4_shallow_merge": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _F, _F, _F, _P, _P, _P, _P, _I,
-                                       _P, _P, _P, _P]),
+                                       _F, _F, _F, _P, _I, _P, _P, _P, _P,
+                                       _I, _P, _P, _P, _P]),
     # tsince, sat_stride, spine, tail, flags, n_times, n_sats,
     # kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
     "astroz_sgp4_shallow_dense": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,

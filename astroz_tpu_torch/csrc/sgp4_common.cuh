@@ -8,8 +8,11 @@
 // _build.py), so the kernels give the plain versions' bits: divides and
 // square roots are correctly rounded (1/sqrtf stands for the JAX rsqrt;
 // CUDA's rsqrtf is an approximation), rintf rounds half to even like
-// torch.round, and f64 remainders follow torch.remainder (the divisor's
-// sign: fmod, then + 2pi below zero).
+// torch.round, and f64 remainders follow torch.fmod and torch.remainder
+// (the divisor's sign: fmod, then + 2pi below zero). The fmod by 2pi is
+// not CUDA's fmod, a loop of f64 steps once per bit of the quotient, but
+// one fused multiply-add with the right integer quotient (fmod_two_pi):
+// fmod's result is exact, so that FMA rounds nothing and gives its bits.
 
 #pragma once
 
@@ -24,6 +27,7 @@ namespace {
 
 constexpr double PI_D = 3.141592653589793;
 constexpr double TWO_PI_D = 2.0 * 3.141592653589793;
+constexpr double INV_TWO_PI_D = 1.0 / TWO_PI_D;
 constexpr float TWO_PI_F = F32(2.0 * 3.141592653589793);
 
 constexpr float TWO_OVER_PI = F32(0.6366197723675814);
@@ -72,9 +76,25 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return (x > hi) ? hi : x;
 }
 
-// torch.remainder(x, 2pi) in f64
+// fmod(x, 2pi) in f64, bit for bit (torch.fmod), -0 and the sign of a zero
+// result included. For |a| < 2^52 the f64 quotient a * (1 / 2pi) is within
+// one of a / 2pi, so k = trunc of it needs at most one step; with the
+// right k, a - k * 2pi lies in [0, 2pi) and is a multiple of 2pi's ulp,
+// so it is exact and fma(-k, 2pi, a) returns it unrounded. Beyond 2^52
+// (and for inf and NaN) CUDA's fmod does it.
+__device__ __forceinline__ double fmod_two_pi(double x) {
+  const double a = fabs(x);
+  if (!(a < 0x1p52)) return fmod(x, TWO_PI_D);
+  double k = trunc(a * INV_TWO_PI_D);
+  const double r = fma(-k, TWO_PI_D, a);
+  k += (r < 0.0) ? -1.0 : (r >= TWO_PI_D ? 1.0 : 0.0);
+  return copysign(fma(-k, TWO_PI_D, a), x);
+}
+
+// torch.remainder(x, 2pi) in f64: fmod, then + 2pi below zero (rounded,
+// as torch's is); -0 stays -0
 __device__ __forceinline__ double rem_two_pi(double x) {
-  double r = fmod(x, TWO_PI_D);
+  double r = fmod_two_pi(x);
   if (r < 0.0) r += TWO_PI_D;
   return r;
 }

@@ -26,7 +26,8 @@
 //
 // Bound. Each point does ~450 f32 operations (eleven polynomial sincos,
 // the atan2 polynomial, the cube root's three divides, Kepler), ~30 f64
-// operations with five f64 fmods, and stores 28 bytes (16 without
+// operations with five reductions mod 2pi (one FMA each with its quotient,
+// sgp4_common.cuh:fmod_two_pi), and stores 28 bytes (16 without
 // velocities); the deep subset is ~5% of a catalog (667 x 1,440 points
 // at the headline grid, 27 MB of stores), so the kernel is small and
 // issue-bound, with register pressure from the 26 lunisolar coefficients
@@ -168,7 +169,7 @@ sgp4_deep_kernel(const double* __restrict__ t_time,
       const double ft = t - atime;
       nm64 = xni + xndt * ft + xnddt * ft * ft * 0.5;
       const double xl = xli + xldot * ft + xndt * ft * ft * 0.5;
-      const double theta = fmod(gsto + t * RPTIM, TWO_PI_D);
+      const double theta = fmod_two_pi(gsto + t * RPTIM);
       mm_spine = irez == 1 ? xl - nodem64 - argpdf + theta
                            : xl - 2.0 * nodem64 + 2.0 * theta;
     }

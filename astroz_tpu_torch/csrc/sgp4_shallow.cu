@@ -11,15 +11,17 @@
 //          TEME r (and v) in f32 with a polynomial sincos
 //   errors 1/4/6 over the init error; failed points zero-filled.
 // K3 (MERGE) replaces _kernel_fused_sep_merge (wrapper
-// propagate_fast_pallas_sep_merge): the same kernel, given a per-column
-// deep_slot map (-1 on near-earth columns, else the column's index in the
-// deep subset) and kernel K2's (3, T, D) / (T, D) planes. A deep column
-// does not run the tail: its thread copies r, v and err from the deep
-// planes at its slot. It is a select, never a blend, so no shallow value
-// reaches a deep column; every other column is K1, bit for bit. The TPU
-// kernel scattered the deep columns with a bf16 one-hot matmul on its
-// matrix unit; on Hopper a direct indexed read does it, with no bound on
-// the deep fraction.
+// propagate_fast_pallas_sep_merge): K1 over a mixed catalog whose deep
+// columns are copied from kernel K2's (3, T, D) / (T, D) planes. One
+// launch has two ranges of blocks: tail blocks, whose thread k runs K1's
+// body for column near_cols[k], and copy blocks, whose consecutive
+// threads take consecutive deep slots and copy K2's planes to
+// deep_cols[slot]. No warp mixes the copy with the tail, no thread
+// branches on a slot, and a deep column's shallow fields are never read:
+// it is a select, never a blend, and every near-earth column is K1, bit
+// for bit. The TPU kernel scattered the deep columns with a bf16 one-hot
+// matmul on its matrix unit; here the maps do it, with no bound on the
+// deep fraction.
 // K5 (DENSE) replaces _kernel_fused (wrapper propagate_fast_pallas_fused):
 // K1 on a dense tsince grid, read directly as f64, either a (T, S) grid
 // or a (T, 1) column read with a satellite stride of 0, so a grid shared
@@ -38,26 +40,34 @@
 // spine, bit for bit.
 //
 // Bound. At 13,478 x 1,440 each point stores 28 bytes (16 without
-// velocities) and does ~350 f32 and ~20 f64 operations, five f64 fmods
-// and ~8 IEEE divides and square roots: ~12 flops per stored byte, on
-// paper a near-balance between store bandwidth and f32 issue rate. The
-// stores alone would take ~0.17 ms at 3.35 TB/s; measured on an H100
-// SXM at a 700 W limit K1 takes 0.855 ms (635 GB/s of stores), so
-// instruction issue bounds it (the fmods, the divide and square-root
-// sequences, 31% occupancy at 96 registers a thread). The merge adds a
-// branch per thread and, on the ~5% deep columns, 28-byte reads per point
-// in place of the tail. K5 adds an 8-byte f64 read a point to K1's work
-// (36 bytes a point in all) and is bound the same way. K6 reads 24 bytes
-// of grids a point (52 in all) and skips the f64 spine and its five
-// fmods, so it moves the most bytes and issues the fewest instructions of
-// the four. The design keeps it simple and coalesced: one thread owns one
-// satellite and ROWS time rows, loads the satellite's fields into
-// registers once, and neighbouring threads take neighbouring satellites,
-// so the loads of the (rows, S) field matrices and of the (T, S) grids
-// and the stores to the (3, T, S) planes are contiguous across a warp.
-// Outputs are exact-shape; the ragged satellite and time edges are
-// masked. Making it fast (FMA, occupancy, staging the field rows) is
-// later work.
+// velocities) and does ~440 f32 and ~28 f64 operations, five reductions
+// mod 2pi and ~8 IEEE divides and square roots. The stores alone would
+// take 0.163 ms at 3.35 TB/s; K1 takes ~0.66 ms on an H100 SXM at a 700 W
+// limit, ~1,150 issue slots a point at 3.35e13 lane-instructions/s, so
+// instruction issue bounds it, and K3 and K5 with it. K6 reads 24 bytes
+// of grids a point and skips the spine. What the design does about it
+// (each choice timed in turns on the card by shallow_variants.py at the
+// repository root, which builds each variant from an edited copy):
+// - the five reductions are one FMA each with an f64 quotient
+//   (sgp4_common.cuh: fmod_two_pi) in place of CUDA's fmod, a loop of f64
+//   steps once per bit of the quotient whose lanes diverge: K1 0.86 ->
+//   0.66 ms, K5 0.26 -> 0.20 ms on a year of seconds;
+// - K3 runs the tail on the near-earth columns only and copies the deep
+//   ones in blocks of their own: 0.92 -> 0.66 ms, no slower than K1;
+// - 128-thread blocks at 96 registers, 5 blocks (31% occupancy) an SM:
+//   forcing 6 spills and slows K3, 8 slows K3 more; 16 or 32 time rows a
+//   thread, and two rows in flight in one thread, were slower;
+// - no FMA contraction (--fmad=false, for the plain versions' bits), so
+//   every multiply-add is two instructions: contracting all of them would
+//   save 10% of K1 (the f32 tail 9%), but most sit in the polynomial
+//   sincos, angle_add and the Newton step, which the plain versions keep
+//   equal to the JAX package's; the rest would save 3%.
+// One thread owns one satellite and ROWS time rows, loads the satellite's
+// fields into registers once, and neighbouring threads take neighbouring
+// satellites, so the loads of the (rows, S) field matrices and of the
+// (T, S) grids and the stores to the (3, T, S) planes are contiguous
+// across a warp. Outputs are exact-shape; the ragged satellite and time
+// edges are masked.
 
 #include "sgp4_common.cuh"
 
@@ -72,18 +82,20 @@ constexpr int N_TAIL = 21;   // ops/fast.py TAIL_FIELD_NAMES
 // where each mode finds its times
 enum Mode : int {
   SEP = 0,    // K1: t_time[t] - t_sat[s]
-  MERGE = 1,  // K3: K1, deep columns copied from K2's planes
+  MERGE = 1,  // K3: K1 on the near-earth columns, K2's planes on the rest
   DENSE = 2,  // K5: a dense f64 tsince grid
   GRIDS = 3,  // K6: six f32 spine grids
 };
 
-// kernel K2's outputs and the per-column map into them (K3 only)
+// kernel K2's outputs and the column maps of a mixed catalog (K3 only)
 struct DeepPlanes {
-  const int* slot;  // (S,) i32: -1, or the column's deep-subset index
-  const float* r;   // (3, T, D) f32
-  const float* v;   // (3, T, D) f32, null without velocities
-  const int* err;   // (T, D) i32
-  int n_deep;       // D
+  const int* near_cols;  // (S - D,) i32: the near-earth columns
+  int n_near;            // S - D
+  const int* deep_cols;  // (D,) i32: the column of each deep slot
+  const float* r;        // (3, T, D) f32
+  const float* v;        // (3, T, D) f32, null without velocities
+  const int* err;        // (T, D) i32
+  int n_deep;            // D
 };
 
 // the dense inputs of K5 and K6
@@ -171,6 +183,57 @@ __device__ __forceinline__ PosVel shallow_tail(
       cosip, aycof, xlcof, con41, x1mth2, x7thm1, error, j2, re, vkmpersec);
 }
 
+// the spine of point (ti, s) as each mode finds it
+template <int MODE>
+__device__ __forceinline__ Spine spine_at(int ti, int s, size_t ns,
+                                          const double* t_time, double epoch,
+                                          const double (&sp)[N_SPINE],
+                                          const DenseInputs& dense) {
+  Spine g;
+  if constexpr (MODE == GRIDS) {
+    const size_t idx = (size_t)ti * ns + s;
+    g.t32 = dense.grids[0][idx];
+    g.u_base = dense.grids[1][idx];
+    g.mm = dense.grids[2][idx];
+    g.argp32 = dense.grids[3][idx];
+    g.node32 = dense.grids[4][idx];
+    g.xmdf32 = dense.grids[5][idx];
+  } else if constexpr (MODE == DENSE) {
+    const size_t row = dense.sat_stride ? ns : 1;
+    g = spine_f64(dense.tsince[(size_t)ti * row +
+                               (size_t)s * dense.sat_stride], sp);
+  } else {
+    g = spine_f64(t_time[ti] - epoch, sp);
+  }
+  return g;
+}
+
+// K3's copy blocks: deep slot `slot`'s rows [t_begin, t_end) of K2's
+// planes, as they are, into its column of the outputs
+template <bool WANT_VEL>
+__device__ __forceinline__ void copy_deep_slot(const DeepPlanes& deep,
+                                               int slot, int t_begin,
+                                               int t_end, int n_times,
+                                               size_t ns, float* r, float* v,
+                                               int* err) {
+  const size_t col = (size_t)deep.deep_cols[slot];
+  const size_t nd = (size_t)deep.n_deep;
+  const size_t plane = (size_t)n_times * ns;
+  const size_t dplane = (size_t)n_times * nd;
+  for (int ti = t_begin; ti < t_end; ++ti) {
+    const size_t idx = (size_t)ti * ns + col;
+    const size_t di = (size_t)ti * nd + slot;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) r[c * plane + idx] = deep.r[c * dplane + di];
+    err[idx] = deep.err[di];
+    if (WANT_VEL) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        v[c * plane + idx] = deep.v[c * dplane + di];
+    }
+  }
+}
+
 template <bool WANT_VEL, int ITERS, int MODE>
 __global__ void __launch_bounds__(BLOCK)
 sgp4_shallow_kernel(const double* __restrict__ t_time,
@@ -181,34 +244,26 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
                     float j2, float re, float vkmpersec, DeepPlanes deep,
                     DenseInputs dense, float* __restrict__ r,
                     float* __restrict__ v, int* __restrict__ err) {
-  const int s = blockIdx.x * BLOCK + threadIdx.x;
-  if (s >= n_sats) return;
   const int t_begin = blockIdx.y * ROWS;
   const int t_end = min(t_begin + ROWS, n_times);
   const size_t ns = (size_t)n_sats;
   const size_t plane = (size_t)n_times * ns;
+  int s = blockIdx.x * BLOCK + threadIdx.x;
 
   if constexpr (MODE == MERGE) {
-    const int slot = deep.slot[s];
-    if (slot >= 0) {
-      // a deep column: K2's values, as they are
-      const size_t nd = (size_t)deep.n_deep;
-      const size_t dplane = (size_t)n_times * nd;
-      for (int ti = t_begin; ti < t_end; ++ti) {
-        const size_t idx = (size_t)ti * ns + s;
-        const size_t di = (size_t)ti * nd + slot;
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          r[c * plane + idx] = deep.r[c * dplane + di];
-        err[idx] = deep.err[di];
-        if (WANT_VEL) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            v[c * plane + idx] = deep.v[c * dplane + di];
-        }
-      }
+    // blocks [0, tail_blocks) run the tail, the rest copy deep slots
+    const int tail_blocks = (deep.n_near + BLOCK - 1) / BLOCK;
+    if ((int)blockIdx.x >= tail_blocks) {
+      const int slot = ((int)blockIdx.x - tail_blocks) * BLOCK + threadIdx.x;
+      if (slot < deep.n_deep)
+        copy_deep_slot<WANT_VEL>(deep, slot, t_begin, t_end, n_times, ns, r,
+                                 v, err);
       return;
     }
+    if (s >= deep.n_near) return;
+    s = deep.near_cols[s];
+  } else {
+    if (s >= n_sats) return;
   }
 
   // per-satellite fields, loaded once (rows of SoA matrices: coalesced)
@@ -222,28 +277,11 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
   for (int k = 0; k < N_TAIL; ++k) tf[k] = tail[k * ns + s];
   const bool not_simp = flags[s] == 0;
   const int error0 = flags[ns + s];
-  // only SEP and MERGE read t_sat. Written as one const, as K1 had it:
-  // ptxas then gives K1 and K3 the registers they had before the modes
-  // (96 / 80 and 96 / 91 with / without velocities)
+  // only SEP and MERGE read t_sat
   const double epoch = (MODE == SEP || MODE == MERGE) ? t_sat[s] : 0.0;
 
   for (int ti = t_begin; ti < t_end; ++ti) {
-    Spine g;
-    if constexpr (MODE == GRIDS) {
-      const size_t idx = (size_t)ti * ns + s;
-      g.t32 = dense.grids[0][idx];
-      g.u_base = dense.grids[1][idx];
-      g.mm = dense.grids[2][idx];
-      g.argp32 = dense.grids[3][idx];
-      g.node32 = dense.grids[4][idx];
-      g.xmdf32 = dense.grids[5][idx];
-    } else if constexpr (MODE == DENSE) {
-      const size_t row = dense.sat_stride ? ns : 1;
-      g = spine_f64(dense.tsince[(size_t)ti * row +
-                                 (size_t)s * dense.sat_stride], sp);
-    } else {
-      g = spine_f64(t_time[ti] - epoch, sp);
-    }
+    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, dense);
     const PosVel o = shallow_tail<WANT_VEL, ITERS>(g, tf, not_simp, error0,
                                                    j2, re, vkmpersec);
     store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
@@ -284,10 +322,15 @@ cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+int blocks_of(int n) { return (n + BLOCK - 1) / BLOCK; }
+
 template <int MODE>
 int launch_vel(int want_vel, int kepler_iters, const Args& a, void* stream) {
-  const dim3 grid((a.n_sats + BLOCK - 1) / BLOCK,
-                  (a.n_times + ROWS - 1) / ROWS);
+  // K3: the tail blocks of the near-earth columns, then the copy blocks
+  const int x_blocks =
+      MODE == MERGE ? blocks_of(a.deep.n_near) + blocks_of(a.deep.n_deep)
+                    : blocks_of(a.n_sats);
+  const dim3 grid(x_blocks, (a.n_times + ROWS - 1) / ROWS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
       want_vel ? launch<true, MODE>(kepler_iters, grid, st, a)
@@ -295,7 +338,8 @@ int launch_vel(int want_vel, int kepler_iters, const Args& a, void* stream) {
   return static_cast<int>(rc);
 }
 
-constexpr DeepPlanes NO_DEEP{nullptr, nullptr, nullptr, nullptr, 0};
+constexpr DeepPlanes NO_DEEP{nullptr, 0, nullptr, nullptr, nullptr, nullptr,
+                             0};
 constexpr DenseInputs NO_DENSE{nullptr, 0, {}};
 
 }  // namespace
@@ -320,17 +364,20 @@ extern "C" int astroz_sgp4_shallow(const double* t_time, const double* t_sat,
   return launch_vel<SEP>(want_vel, kepler_iters, a, stream);
 }
 
-// K3: K1's arguments plus deep_slot (S,) i32 and kernel K2's planes
-// dr (3, T, D) f32, dv (3, T, D) f32 (null when want_vel == 0) and
-// de (T, D) i32.
+// K3: K1's arguments plus the column maps near_cols (S - D,) i32 and
+// deep_cols (D,) i32 (the column of each deep slot; together they hold
+// every column once) and kernel K2's planes dr (3, T, D) f32, dv (3, T,
+// D) f32 (null when want_vel == 0) and de (T, D) i32.
 extern "C" int astroz_sgp4_shallow_merge(
     const double* t_time, const double* t_sat, const double* spine,
     const float* tail, const int* flags, int n_times, int n_sats,
     int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
-    const int* deep_slot, const float* dr, const float* dv, const int* de,
-    int n_deep, float* r, float* v, int* err, void* stream) {
+    const int* near_cols, int n_near, const int* deep_cols, const float* dr,
+    const float* dv, const int* de, int n_deep, float* r, float* v, int* err,
+    void* stream) {
   const Args a{t_time, t_sat, spine, tail, flags, n_times, n_sats, j2, re,
-               vkmpersec, DeepPlanes{deep_slot, dr, dv, de, n_deep},
+               vkmpersec,
+               DeepPlanes{near_cols, n_near, deep_cols, dr, dv, de, n_deep},
                NO_DENSE, r, v, err};
   return launch_vel<MERGE>(want_vel, kepler_iters, a, stream);
 }

@@ -34,6 +34,8 @@ to its entry of :data:`LAUNCHES`. On a CPU tensor it runs its
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -331,9 +333,35 @@ def propagate_fast_sep_merge_reference(t_time, t_sat, spine, tail, flags,
     return r3, v3, torch.where(deep_col, de[:, slot], err)
 
 
+class MergeMaps(NamedTuple):
+    """K3's column maps of one ``deep_slot`` tensor, which they keep:
+    K3 takes them only with that very tensor."""
+    slot: torch.Tensor  # (S,) i32 deep_slot they were made from
+    near_cols: torch.Tensor  # (S - D,) i32 near-earth columns, in order
+    deep_cols: torch.Tensor  # (D,) i32 column of each deep slot
+
+
+def merge_maps(deep_slot, n_deep) -> MergeMaps:
+    """K3's column maps from a ``deep_slot`` map. Raises unless each of
+    the ``n_deep`` slots is taken by exactly one column (this reads the
+    map on the host)."""
+    deep = deep_slot >= 0
+    cols = torch.nonzero(deep).flatten()
+    slots = deep_slot[cols].long()
+    if not torch.equal(torch.sort(slots).values,
+                       torch.arange(n_deep, device=slots.device)):
+        raise ValueError(f"deep_slot must give each of the {n_deep} deep "
+                         "slots exactly one column")
+    deep_cols = torch.empty(n_deep, dtype=I32, device=deep_slot.device)
+    deep_cols[slots] = cols.to(I32)
+    return MergeMaps(deep_slot, torch.nonzero(~deep).flatten().to(I32),
+                     deep_cols)
+
+
 def propagate_fast_sep_merge(t_time, t_sat, spine, tail, flags, deep_slot,
                              dr, dv, de, *, grav: GravityModel,
-                             kepler_iters: int, want_vel: bool = True):
+                             kepler_iters: int, want_vel: bool = True,
+                             maps: MergeMaps | None = None):
     """K3: K1 over a mixed catalog, whose deep columns are copied from
     K2's planes instead of propagated.
 
@@ -344,6 +372,10 @@ def propagate_fast_sep_merge(t_time, t_sat, spine, tail, flags, deep_slot,
         index in the deep subset.
       dr, dv, de: K2's planes over the D >= 1 deep satellites: (3, T, D)
         f32, (3, T, D) f32 (may be None without velocities), (T, D) i32.
+      maps: the kernel's column maps, :func:`merge_maps` of this
+        ``deep_slot`` tensor (a catalog keeps them in its staging); made
+        here, with one read on the host, when not given. Maps of any
+        other tensor raise.
 
     Returns ``(r, v, err)`` as :func:`propagate_fast_sep`.
     """
@@ -351,10 +383,19 @@ def propagate_fast_sep_merge(t_time, t_sat, spine, tail, flags, deep_slot,
                                            flags, deep_slot, dr, dv, de,
                                            want_vel)
     dev = _launch_device(t_time, kepler_iters, "propagate_fast_sep_merge")
+    if maps is not None and maps.slot is not deep_slot:
+        raise ValueError("maps: made from another deep_slot tensor; pass "
+                         "merge_maps(deep_slot, D) or none")
     if dev.type == "cpu":
         return propagate_fast_sep_merge_reference(
             t_time, t_sat, spine, tail, flags, deep_slot, dr, dv, de,
             grav=grav, kepler_iters=kepler_iters, want_vel=want_vel)
+    if maps is None:
+        maps = merge_maps(deep_slot, n_deep)
+    _, near_cols, deep_cols = maps
+    n_near = n_sats - n_deep
+    _check(dev, ((near_cols, (n_near,), I32, "near_cols"),
+                 (deep_cols, (n_deep,), I32, "deep_cols")))
     r, v, err = _outputs(dev, n_times, n_sats, want_vel)
     if n_times == 0:
         return r, v, err
@@ -364,9 +405,9 @@ def propagate_fast_sep_merge(t_time, t_sat, spine, tail, flags, deep_slot,
             t_time.data_ptr(), t_sat.data_ptr(), spine.data_ptr(),
             tail.data_ptr(), flags.data_ptr(), n_times, n_sats,
             kepler_iters, int(want_vel), *_grav_args(grav),
-            deep_slot.data_ptr(), dr.data_ptr(),
-            _ptr(dv) if want_vel else None, de.data_ptr(), n_deep,
-            r.data_ptr(), _ptr(v), err.data_ptr(),
+            near_cols.data_ptr(), n_near, deep_cols.data_ptr(),
+            dr.data_ptr(), _ptr(dv) if want_vel else None, de.data_ptr(),
+            n_deep, r.data_ptr(), _ptr(v), err.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "sgp4_shallow_merge")
     return r, v, err

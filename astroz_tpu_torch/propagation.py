@@ -32,8 +32,8 @@ import torch
 
 from .constants import MINUTES_PER_DAY, RAD2DEG, WGS72, GravityModel
 from .frames import ecef_to_geodetic, ecef_to_geodetic_xyz, teme_to_ecef
-from .ops.cuda_sgp4 import (propagate_deep_sep, propagate_fast_sep,
-                             propagate_fast_sep_merge)
+from .ops.cuda_sgp4 import (MergeMaps, propagate_deep_sep,
+                             propagate_fast_sep, propagate_fast_sep_merge)
 from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                        deep_f32_fields, resonance_tables,
                        sdp4_propagate_tables, shallow_staging)
@@ -66,6 +66,7 @@ class DeepStaging(NamedTuple):
     tail: torch.Tensor  # (33, D) f32 rows ops.fast.DEEP_FIELD_NAMES
     flags: torch.Tensor  # (2, D) i32 rows [irez, init error]
     slot: torch.Tensor  # (S,) i32: -1, or the column's deep-subset index
+    maps: MergeMaps  # K3's column maps of `slot`
 
 
 class FastStaging(NamedTuple):
@@ -200,13 +201,17 @@ class SatCatalog:
             tail = deep_f32_fields(e, d)
             slot = np.full(len(self), -1, np.int32)
             slot[self.deep_idx] = np.arange(self.n_deep, dtype=np.int32)
+            slot, near_cols, deep_cols = (
+                torch.as_tensor(x.astype(np.int32), device=self.device)
+                for x in (slot, np.nonzero(~self.is_deep)[0],
+                          self.deep_idx))
             deep = DeepStaging(
                 t_sat=self._t_sat(self.deep_epochs_jd),
                 spine=torch.stack([spine[n] for n in DEEP_SPINE_FIELD_NAMES]),
                 tail=torch.stack([tail[n] for n in DEEP_FIELD_NAMES]),
                 flags=torch.stack([d.irez.to(torch.int32),
                                    e.error.to(torch.int32)]),
-                slot=torch.as_tensor(slot, device=self.device))
+                slot=slot, maps=MergeMaps(slot, near_cols, deep_cols))
         spine, tail, flags = shallow_staging(self.els)
         return FastStaging(t_sat=self._t_sat(self.epochs_jd), spine=spine,
                            tail=tail, flags=flags, deep=deep)
@@ -515,7 +520,7 @@ def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
         r3, v3, err = propagate_fast_sep_merge(
             t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, d_r3,
             d_v3, d_err, grav=cat.grav, kepler_iters=cat.kepler_iters,
-            want_vel=velocities)
+            want_vel=velocities, maps=ds.maps)
     return _finalize_planes(r3, v3, err, jd_sum, output, velocities,
                             layout)
 

@@ -1,0 +1,450 @@
+"""Time variants of the port's near-earth kernel source on one NVIDIA GPU,
+in turns; or measure on the CPU how FMA contraction moves the tail's
+sincos and angle_add.
+
+Run from the repository root::
+
+    python3 shallow_variants.py [--variants NAME ...] [--tree DIR]
+        [--rounds N] [--tag TAG]
+    python3 shallow_variants.py --fma-ulps
+
+A variant is a copy of the package ``astroz_tpu_torch`` with the named
+edits of :data:`VARIANTS` made to its sources, imported under a name of
+its own, so that its wrappers build and launch its own kernel library
+(in the copy's ``csrc/build/``). The copies live in
+``astroz_tpu_torch/csrc/build/variants/``. ``default`` is the package as
+it is; ``--tree DIR`` adds ``tree``, the package of another checkout as
+it is (for example the parent commit unpacked with ``git archive`` into
+a directory that ``.gitignore`` lists). Every variant's kernels are timed
+with CUDA events at the main path's shapes, round after round, the order
+of the variants reversed on every other round:
+
+* K1 (``propagate_fast_sep``): ``chip_smoke.near_earth_catalog_text`` x
+  1,440 one-minute epochs, with velocities;
+* K3 (``propagate_fast_sep_merge``): ``chip_smoke.mixed_catalog_text`` x
+  1,440, on the default build's K2 planes;
+* K5 and K6: one (4,096, 1,024) chunk of bench_single_sat's 1year_1s
+  grid (the ISS x 1,024 lanes, 5 trips);
+* K2: the mixed catalog's deep subset x 1,440.
+
+It prints, for each variant, ptxas' registers and spills of every
+kernel instantiation, whether its outputs equal the default build's bit
+for bit, each kernel's time in every round and the mean, the card's name
+and power limit, and a JSON line with all of it, also written to
+``chiprun_out/variants_<tag>.json``.
+
+``--fma-ulps`` runs on the CPU: sincos and angle_add of
+``ops/fastmath.py`` with every multiply-add fused as ``--fmad=true``
+would fuse it (each emulated with ``ops/cuda_screen.fma_f32``, the
+first product of a sum of two products fused), against the plain
+versions on the inputs of ``tests/test_torch_fastmath.py``: the largest
+distance in f32 ulps of the result and the share of outputs more than
+one ulp away.
+"""
+
+import argparse
+import concurrent.futures
+import importlib
+import importlib.util
+import inspect
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+VARIANT_DIR = ROOT / "astroz_tpu_torch" / "csrc" / "build" / "variants"
+N_SATS, N_TIMES = 13478, 1440
+K_REPS = {"K1": 20, "K3": 20, "K5": 50, "K6": 50, "K2": 50}
+#: mangled template arguments of the kernels: (velocities, trips, mode)
+_SHALLOW = re.compile(r"sgp4_shallow_kernelILb(\d)ELi(\d+)ELi(\d)E")
+_DEEP = re.compile(r"sgp4_deep_kernelILb(\d)ELi(\d+)E")
+_MODES = ("K1", "K3", "K5", "K6")
+
+_SHALLOW_CU = "csrc/sgp4_shallow.cu"
+_COMMON = "csrc/sgp4_common.cuh"
+
+#: --fmad=true in place of --fmad=false: every multiply-add contracted
+#: (timing only; its bits are not the plain versions')
+FMAD = [("_build.py", '"--fmad=false"', '"--fmad=true"', 1)]
+
+
+def _rows(n):
+    return [(_SHALLOW_CU, "constexpr int ROWS = 8;",
+             f"constexpr int ROWS = {n};", 1)]
+
+
+def _min_blocks(n):
+    return [(_SHALLOW_CU, "__launch_bounds__(BLOCK)\nsgp4_shallow_kernel",
+             f"__launch_bounds__(BLOCK, {n})\nsgp4_shallow_kernel", 1)]
+
+
+# The guards write a function's multiply-adds with __fmul_rn / __fadd_rn
+# (and __dmul_rn / __dadd_rn), which nvcc never contracts: the same
+# operations in the same order, so with --fmad=false the bits do not move.
+GUARD_SPINE = [(_SHALLOW_CU, """\
+  const double xmdf = mo + mdot * t;
+  const double argpdf = argpo + argpdot * t;
+  const double t2 = t * t;
+  const double nodem64 = nodeo + nodedot * t + nodecf * t2;
+  const double templ_big =
+      no_unkozai * t2 * (t2cof + t * (t3cof + t * (t4cof + t * t5cof)));
+""", """\
+  const double xmdf = __dadd_rn(mo, __dmul_rn(mdot, t));
+  const double argpdf = __dadd_rn(argpo, __dmul_rn(argpdot, t));
+  const double t2 = t * t;
+  const double nodem64 = __dadd_rn(__dadd_rn(nodeo, __dmul_rn(nodedot, t)),
+                                   __dmul_rn(nodecf, t2));
+  const double poly = __dadd_rn(t2cof, __dmul_rn(t, __dadd_rn(
+      t3cof, __dmul_rn(t, __dadd_rn(t4cof, __dmul_rn(t, t5cof))))));
+  const double templ_big = __dmul_rn(no_unkozai * t2, poly);
+""", 1)]
+GUARD_SINCOS = [(_COMMON, """\
+  const float y = ((x - k * PIO2_HI) - k * PIO2_MED) - k * PIO2_LO;
+  const float y2 = y * y;
+  const float sp = y + y * y2 * (S1 + y2 * (S2 + y2 * S3));
+  const float cp = 1.0f - 0.5f * y2 + y2 * y2 * (C1 + y2 * (C2 + y2 * C3));
+""", """\
+  const float y = __fsub_rn(__fsub_rn(__fsub_rn(x, __fmul_rn(k, PIO2_HI)),
+                                      __fmul_rn(k, PIO2_MED)),
+                            __fmul_rn(k, PIO2_LO));
+  const float y2 = y * y;
+  const float ps = __fadd_rn(S1, __fmul_rn(y2, __fadd_rn(S2,
+                                                         __fmul_rn(y2, S3))));
+  const float sp = __fadd_rn(y, __fmul_rn(y * y2, ps));
+  const float pc = __fadd_rn(C1, __fmul_rn(y2, __fadd_rn(C2,
+                                                         __fmul_rn(y2, C3))));
+  const float cp = __fadd_rn(__fsub_rn(1.0f, __fmul_rn(0.5f, y2)),
+                             __fmul_rn(y2 * y2, pc));
+""", 1)]
+GUARD_ANGLE_ADD = [(_COMMON, """\
+  const float sd = delta * (1.0f - d2 * SIXTH * (1.0f - F32(0.05) * d2));
+  const float cd = 1.0f - 0.5f * d2 * (1.0f - d2 * TWELFTH);
+  s = sin_a * cd + cos_a * sd;
+  c = cos_a * cd - sin_a * sd;
+""", """\
+  const float sd = delta * __fsub_rn(1.0f, __fmul_rn(d2 * SIXTH, __fsub_rn(
+                               1.0f, __fmul_rn(F32(0.05), d2))));
+  const float cd = __fsub_rn(1.0f, __fmul_rn(0.5f * d2, __fsub_rn(
+                                       1.0f, __fmul_rn(d2, TWELFTH))));
+  s = __fadd_rn(__fmul_rn(sin_a, cd), __fmul_rn(cos_a, sd));
+  c = __fsub_rn(__fmul_rn(cos_a, cd), __fmul_rn(sin_a, sd));
+""", 1)]
+GUARD_NEWTON = [
+    (_COMMON, """\
+const float denom = 1.0f - coseo1 * axnl - sineo1 * aynl;""", """\
+const float denom = __fsub_rn(__fsub_rn(1.0f, __fmul_rn(coseo1, axnl)),
+                                  __fmul_rn(sineo1, aynl));""", 2),
+    (_COMMON, """\
+const float tem5 = (u - aynl * coseo1 + axnl * sineo1 - eo1) / denom;""",
+     """\
+const float tem5 = __fsub_rn(__fadd_rn(__fsub_rn(u, __fmul_rn(aynl, coseo1)),
+                                           __fmul_rn(axnl, sineo1)),
+                                 eo1) / denom;""", 2),
+    (_COMMON, """\
+  const float sind = d * (1.0f - THIRD * d2h);
+  const float cosd = 1.0f - d2h;
+  const float s = sineo1 * cosd + coseo1 * sind;
+  const float c = coseo1 * cosd - sineo1 * sind;
+""", """\
+  const float sind = d * __fsub_rn(1.0f, __fmul_rn(THIRD, d2h));
+  const float cosd = 1.0f - d2h;
+  const float s = __fadd_rn(__fmul_rn(sineo1, cosd), __fmul_rn(coseo1, sind));
+  const float c = __fsub_rn(__fmul_rn(coseo1, cosd), __fmul_rn(sineo1, sind));
+""", 1)]
+GUARDS = GUARD_SPINE + GUARD_SINCOS + GUARD_ANGLE_ADD + GUARD_NEWTON
+
+#: name -> [(file in the package, text, replacement, times it occurs)]
+VARIANTS = {
+    "default": [],
+    "rows16": _rows(16),
+    "rows32": _rows(32),
+    "minblocks5": _min_blocks(5),
+    "minblocks6": _min_blocks(6),
+    "minblocks8": _min_blocks(8),
+    # two time rows in flight in one thread: two Newton chains to overlap
+    "pairs": [(_SHALLOW_CU, """\
+  for (int ti = t_begin; ti < t_end; ++ti) {
+    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, dense);
+    const PosVel o = shallow_tail<WANT_VEL, ITERS>(g, tf, not_simp, error0,
+                                                   j2, re, vkmpersec);
+    store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
+  }
+""", """\
+  for (int ti = t_begin; ti < t_end; ti += 2) {
+    const int tj = min(ti + 1, t_end - 1);
+    const Spine g0 = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, dense);
+    const Spine g1 = spine_at<MODE>(tj, s, ns, t_time, epoch, sp, dense);
+    const PosVel o0 = shallow_tail<WANT_VEL, ITERS>(g0, tf, not_simp,
+                                                    error0, j2, re,
+                                                    vkmpersec);
+    const PosVel o1 = shallow_tail<WANT_VEL, ITERS>(g1, tf, not_simp,
+                                                    error0, j2, re,
+                                                    vkmpersec);
+    store_point<WANT_VEL>(o0, (size_t)ti * ns + s, plane, r, v, err);
+    if (tj != ti)
+      store_point<WANT_VEL>(o1, (size_t)tj * ns + s, plane, r, v, err);
+  }
+""", 1)],
+    # the guards alone: must equal the default build bit for bit
+    "guards": GUARDS,
+    "fmad": FMAD,
+    # the f32 tail contracted, K1's f64 spine not
+    "fmad_tail": FMAD + GUARD_SPINE,
+    # only the multiply-adds outside the spine, sincos, angle_add and
+    # the Newton solve contracted
+    "fmad_outer": FMAD + GUARDS,
+}
+
+
+def make_variant(name, src=ROOT / "astroz_tpu_torch", edits=()):
+    """Copy the package ``src`` with ``edits`` made and import it as
+    ``astroz_variant_<name>``; raise unless each edit's text occurs as
+    many times as it says."""
+    pkg = f"astroz_variant_{name}"
+    dst = VARIANT_DIR / name / pkg
+    shutil.rmtree(dst.parent, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("build",
+                                                            "__pycache__"))
+    for rel, old, new, count in edits:
+        path = dst / rel
+        text = path.read_text()
+        if text.count(old) != count:
+            raise SystemExit(f"variant {name}: {rel}: expected {count} of "
+                             f"{old!r}, found {text.count(old)}")
+        path.write_text(text.replace(old, new))
+    spec = importlib.util.spec_from_file_location(
+        pkg, dst / "__init__.py", submodule_search_locations=[str(dst)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[pkg] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(f"{pkg}._build"),
+            importlib.import_module(f"{pkg}.ops.cuda_sgp4"))
+
+
+def ptxas_summary(report):
+    """{"K1 v1 i5": (registers, spill stores, spill loads), ...} for the
+    kernels' instantiations (v: velocities, i: Newton trips)."""
+    out = {}
+    for name, regs, st, ld in report:
+        m = _SHALLOW.search(name)
+        if m:
+            out[f"{_MODES[int(m.group(3))]} v{m.group(1)} i{m.group(2)}"] = (
+                regs, st, ld)
+        m = _DEEP.search(name)
+        if m:
+            out[f"K2 v{m.group(1)} i{m.group(2)}"] = (regs, st, ld)
+    return out
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def inputs(chip_smoke, default_ops):
+    """The kernels' inputs at the main path's shapes, staged by this
+    tree's package; K3 takes K2's planes from ``default_ops``."""
+    from astroz_tpu_torch import build_catalog
+    from astroz_tpu_torch.ops.fast import shallow_staging
+    from astroz_tpu_torch.propagation import resonance_steps
+
+    near = build_catalog(chip_smoke.near_earth_catalog_text(N_SATS))
+    mixed = build_catalog(chip_smoke.mixed_catalog_text(N_SATS))
+    t_time = torch.arange(N_TIMES, dtype=torch.float64, device="cuda")
+    st = near.fast_staging
+    mst, ds = mixed.fast_staging, mixed.fast_staging.deep
+    steps = resonance_steps(mixed.epoch_min_jd + np.arange(N_TIMES) / 1440.0,
+                            mixed.deep_epochs_jd)
+    k2 = (t_time, ds.t_sat, ds.spine, ds.tail, ds.flags,
+          mixed.resonance_tables(steps))
+    k2_kw = dict(grav=mixed.grav, kepler_iters=mixed.deep_kepler_iters)
+    iss = build_catalog(chip_smoke.GOLDEN_L1 + "\n" + chip_smoke.GOLDEN_L2)
+    els = chip_smoke.single_sat_elements(iss)
+    chunk = next(chip_smoke.single_sat_chunks(
+        *chip_smoke.SINGLE_SAT_SCENARIOS[-1][1:]))
+    return dict(
+        k1=((t_time, st.t_sat, st.spine, st.tail, st.flags),
+            dict(grav=near.grav, kepler_iters=near.kepler_iters)),
+        k2=(k2, k2_kw),
+        k3=((t_time, mst.t_sat, mst.spine, mst.tail, mst.flags, ds.slot,
+             *default_ops.propagate_deep_sep(*k2, **k2_kw)),
+            dict(grav=mixed.grav, kepler_iters=mixed.kepler_iters)),
+        maps=ds.maps, chunk=chunk, staged=shallow_staging(els),
+        grids=default_ops.spine_grids(els, chunk),
+        dense_kw=dict(grav=iss.grav, kepler_iters=5))
+
+
+def workloads(ops, x):
+    """{kernel: fn()} through the wrappers of one variant's package."""
+    k3_kw = dict(x["k3"][1])
+    if "maps" in inspect.signature(ops.propagate_fast_sep_merge).parameters:
+        k3_kw["maps"] = x["maps"]
+    grids, tail, flags = x["grids"]
+    return {
+        "K1": lambda: ops.propagate_fast_sep(*x["k1"][0], **x["k1"][1]),
+        "K3": lambda: ops.propagate_fast_sep_merge(*x["k3"][0], **k3_kw),
+        "K5": lambda: ops.propagate_fast_dense(x["chunk"], *x["staged"],
+                                               **x["dense_kw"]),
+        "K6": lambda: ops.propagate_fast_spine_grids(grids, tail, flags,
+                                                     **x["dense_kw"]),
+        "K2": lambda: ops.propagate_deep_sep(*x["k2"][0], **x["k2"][1]),
+    }
+
+
+def time_variants(args):
+    if not torch.cuda.is_available():
+        raise SystemExit("shallow_variants: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    pkgs = {v: make_variant(v, edits=VARIANTS[v]) for v in args.variants}
+    if args.tree:
+        pkgs["tree"] = make_variant(
+            "tree", Path(args.tree).resolve() / "astroz_tpu_torch")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(pkgs)) as pool:
+        list(pool.map(lambda p: p[0].build(), pkgs.values()))
+    print(f"# {args.tag}: built {len(pkgs)} variants in "
+          f"{time.perf_counter() - t0:.1f} s")
+    x = inputs(chip_smoke, pkgs["default"][1])
+    fns = {v: workloads(ops, x) for v, (_, ops) in pkgs.items()}
+    ref = {k: fn() for k, fn in fns["default"].items()}
+
+    result = {"tag": args.tag, "card": smi, "tree": args.tree,
+              "variants": {}}
+    for v, (build, _) in pkgs.items():
+        equal = {k: all(a is b is None or torch.equal(a, b)
+                        for a, b in zip(fn(), ref[k]))
+                 for k, fn in fns[v].items()}
+        ptxas = ptxas_summary(build.ptxas_report())
+        result["variants"][v] = {"edits": len(VARIANTS.get(v, ())),
+                                 "equal_to_default": equal, "ptxas": ptxas,
+                                 "ms": {k: [] for k in fns[v]}}
+        print(f"# {args.tag} {v}: bit-equal to the default build {equal}")
+        for kname, (regs, st, ld) in sorted(ptxas.items()):
+            print(f"# {args.tag} {v}: ptxas {kname}: {regs} registers, "
+                  f"spill stores {st} B, spill loads {ld} B")
+    for rnd in range(args.rounds):
+        order = list(pkgs) if rnd % 2 == 0 else list(pkgs)[::-1]
+        for v in order:
+            for k, fn in fns[v].items():
+                result["variants"][v]["ms"][k].append(cuda_ms(fn,
+                                                              K_REPS[k]))
+    for v, res in result["variants"].items():
+        res["mean_ms"] = {k: sum(xs) / len(xs) for k, xs in res["ms"].items()}
+        print(f"# {args.tag} {v} [{smi}]: " + "; ".join(
+            f"{k} {res['mean_ms'][k]:.4f} ms ("
+            + ", ".join(f"{t:.4f}" for t in xs) + ")"
+            for k, xs in res["ms"].items()))
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / f"variants_{args.tag}.json", "w") as fh:
+        json.dump(result, fh, indent=1)
+    print(smi)
+    print(json.dumps({k: {v: round(r["mean_ms"][k], 4)
+                          for v, r in result["variants"].items()}
+                      for k in K_REPS}))
+
+
+def _ulps(a, b):
+    """|a - b| in units of the f32 spacing at max(|a|, |b|)."""
+    a, b = a.numpy(), b.numpy()
+    scale = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    return (np.abs(a.astype(np.float64) - b.astype(np.float64))
+            / scale.astype(np.float64))
+
+
+def fma_ulps():
+    """Print how far the FMA-contracted sincos and angle_add lie from the
+    plain versions."""
+    from astroz_tpu_torch.ops import fastmath as fm
+    from astroz_tpu_torch.ops.cuda_screen import fma_f32
+
+    def fma(a, b, c):
+        a, b, c = torch.broadcast_tensors(*(torch.as_tensor(
+            t, dtype=torch.float32) for t in (a, b, c)))
+        return fma_f32(a, b, c)
+
+    def sincos(x):
+        k = torch.round(x * fm.TWO_OVER_PI)
+        y = fma(-k, fm.PIO2_HI, x)
+        y = fma(-k, fm.PIO2_MED, y)
+        y = fma(-k, fm.PIO2_LO, y)
+        y2 = y * y
+        sp = fma(y * y2, fma(y2, fma(y2, fm._S3, fm._S2), fm._S1), y)
+        cp = fma(y2 * y2, fma(y2, fma(y2, fm._C3, fm._C2), fm._C1),
+                 fma(-0.5, y2, 1.0))
+        q = k.to(torch.int32) & 3
+        swap = (q & 1) == 1
+        s, c = torch.where(swap, cp, sp), torch.where(swap, sp, cp)
+        return (torch.where((q & 2) == 2, -s, s),
+                torch.where(((q + 1) & 2) == 2, -c, c))
+
+    def angle_add(sa, ca, d):
+        d2 = d * d
+        sd = d * fma(-(d2 * (1.0 / 6.0)), fma(-0.05, d2, 1.0), 1.0)
+        cd = fma(-(0.5 * d2), fma(-d2, 1.0 / 12.0, 1.0), 1.0)
+        return fma(sa, cd, ca * sd), fma(ca, cd, -(sa * sd))
+
+    # tests/test_torch_fastmath.py's inputs
+    x = np.random.default_rng(0).uniform(-1e3, 1e3, 200000).astype(
+        np.float32)
+    ties = ((np.arange(-64, 65) + 0.5) * np.float32(np.pi / 2)).astype(
+        np.float32)
+    x = torch.from_numpy(np.concatenate(
+        [x, ties, np.nextafter(ties, np.float32(np.inf)),
+         np.asarray([0.0, -0.0, 1e-30, -1e-30], np.float32)]))
+    rng = np.random.default_rng(1)
+    a = rng.uniform(-np.pi, np.pi, 100000)
+    sa, ca = (torch.from_numpy(f(a).astype(np.float32))
+              for f in (np.sin, np.cos))
+    d = torch.from_numpy(rng.uniform(-0.1, 0.1, 100000).astype(np.float32))
+    for name, got, plain in (
+            ("sincos", sincos(x), fm.sincos(x)),
+            ("angle_add", angle_add(sa, ca, d), fm.angle_add(sa, ca, d))):
+        for part, g, p in zip(("sin", "cos"), got, plain):
+            u = _ulps(g, p)
+            print(f"# {name} {part}, FMA-contracted vs plain: max "
+                  f"{u.max():.0f} ulps, {np.mean(u > 1):.3e} of "
+                  f"{u.size} outputs over 1 ulp, {np.mean(u > 0):.3e} "
+                  "differ")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", nargs="+", default=["default"],
+                    choices=list(VARIANTS))
+    ap.add_argument("--tree", default=None)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--tag", default="change")
+    ap.add_argument("--fma-ulps", action="store_true")
+    args = ap.parse_args()
+    if args.fma_ulps:
+        fma_ulps()
+        return
+    if "default" not in args.variants:
+        args.variants.insert(0, "default")
+    time_variants(args)
+
+
+if __name__ == "__main__":
+    main()

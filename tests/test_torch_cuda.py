@@ -100,10 +100,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("iters", [3, 4, 5, 8])
 def test_kernel_matches_twin_on_cuda(cuda_device, iters):
-    """Error codes identical, positions within 1e-3 km, velocities
-    within 1e-6 km/s, and the kernel's positions bit-equal with and
-    without velocities, over -250 .. +2000 minutes from the earliest
-    epoch (ragged shapes: 64 satellites x 9 times)."""
+    """Positions, velocities and error codes bit-equal to the plain
+    version, and the kernel's positions bit-equal with and without
+    velocities, over -250 .. +2000 minutes from the earliest epoch
+    (ragged shapes: 64 satellites x 9 times)."""
     cat = build_catalog(synthetic_leo_text(), device=cuda_device)
     st = cat.fast_staging
     t = torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
@@ -121,9 +121,24 @@ def test_kernel_matches_twin_on_cuda(cuda_device, iters):
         *args, grav=cat.grav, kepler_iters=iters)
     assert torch.equal(e, er) and torch.equal(e0, er)
     assert set(torch.unique(e).tolist()) == {0, 1, 6}
-    assert (r - rr).abs().max().item() <= 1e-3
-    assert (v - vr).abs().max().item() <= 1e-6
+    assert torch.equal(r, rr) and torch.equal(v, vr)
     assert torch.equal(r, r0)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_over_a_year_on_cuda(cuda_device):
+    """K1 over -1 .. +1 year (41 epochs; the spine's reduction mod 2pi at
+    quotients up to ~2^13) bit-equal to its plain version."""
+    cat = build_catalog(synthetic_leo_text(), device=cuda_device)
+    st = cat.fast_staging
+    t = torch.linspace(-525600.0, 525600.0, 41, dtype=torch.float64,
+                       device=cuda_device)
+    args = (t, st.t_sat, st.spine, st.tail, st.flags)
+    kw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
+    got = cuda_sgp4.propagate_fast_sep(*args, **kw)
+    ref = cuda_sgp4.propagate_fast_sep_reference(*args, **kw)
+    assert (got[2] == 0).any()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def _mixed_catalog(device):
@@ -135,8 +150,8 @@ def _mixed_catalog(device):
 @pytest.mark.parametrize("iters", [6, 8])
 def test_deep_kernel_matches_twin_on_cuda(cuda_device, iters):
     """K2 against its plain version over -1 .. +1 day around the deep
-    epochs: error codes identical, positions within 1e-3 km, velocities
-    within 1e-6 km/s, positions bit-equal with and without velocities."""
+    epochs: positions, velocities and error codes bit-equal, positions
+    bit-equal with and without velocities."""
     cat = _mixed_catalog(cuda_device)
     ds = cat.fast_staging.deep
     t = (torch.linspace(-1440.0, 1440.0, 13, dtype=torch.float64,
@@ -155,17 +170,17 @@ def test_deep_kernel_matches_twin_on_cuda(cuda_device, iters):
         *args, grav=cat.grav, kepler_iters=iters)
     assert torch.equal(e, er) and torch.equal(e0, er)
     assert 0 in set(torch.unique(e).tolist()) and (e != 0).any()
-    assert (r - rr).abs().max().item() <= 1e-3
-    assert (v - vr).abs().max().item() <= 1e-6
+    assert torch.equal(r, rr) and torch.equal(v, vr)
     assert torch.equal(r, r0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_vel", [True, False])
 def test_merge_kernel_matches_twin_on_cuda(cuda_device, want_vel):
-    """K3 against its plain version: the deep columns equal K2's planes
-    bit for bit (NaN planted in their shallow fields does not leak), the
-    rest K1's plain version within 1e-3 km."""
+    """K3 against its plain version, bit for bit: the deep columns equal
+    K2's planes (NaN planted in their shallow fields does not leak), the
+    rest K1's plain version; the catalog's column maps and maps derived
+    from ``deep_slot`` give the same planes, in one launch each."""
     cat = _mixed_catalog(cuda_device)
     st, ds = cat.fast_staging, cat.fast_staging.deep
     t = torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
@@ -182,17 +197,21 @@ def test_merge_kernel_matches_twin_on_cuda(cuda_device, want_vel):
     kw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters,
               want_vel=want_vel)
     before = cuda_sgp4.LAUNCHES["sgp4_shallow_merge"]
-    r, v, e = cuda_sgp4.propagate_fast_sep_merge(*args, **kw)
+    r, v, e = cuda_sgp4.propagate_fast_sep_merge(
+        *args, **kw, maps=ds.maps)
+    derived = cuda_sgp4.propagate_fast_sep_merge(*args, **kw)
     torch.cuda.synchronize()
-    assert cuda_sgp4.LAUNCHES["sgp4_shallow_merge"] == before + 1
+    assert cuda_sgp4.LAUNCHES["sgp4_shallow_merge"] == before + 2
     rr, vr, er = cuda_sgp4.propagate_fast_sep_merge_reference(*args, **kw)
     assert torch.isfinite(r).all() and torch.equal(e, er)
     assert v is None or torch.isfinite(v).all()
     assert torch.equal(r[:, :, cols], dr) and torch.equal(e[:, cols], de)
-    assert (r - rr).abs().max().item() <= 1e-3
+    assert torch.equal(r, rr)
+    assert all(a is b is None or torch.equal(a, b)
+               for a, b in zip(derived, (r, v, e)))
     if want_vel:
         assert torch.equal(v[:, :, cols], dv)
-        assert (v - vr).abs().max().item() <= 1e-6
+        assert torch.equal(v, vr)
     else:
         assert v is None and vr is None
 
@@ -300,9 +319,9 @@ def _dense_grid(cat, device):
 @pytest.mark.parametrize("iters", [3, 8])
 def test_dense_kernels_match_twins_on_cuda(cuda_device, iters):
     """K5 on a dense grid and on a (T, 1) column, and K6 on the port's
-    spine grids, against their plain versions: error codes identical,
-    positions within 1e-3 km, velocities within 1e-6 km/s; positions
-    bit-equal with and without velocities; K6 equals K5 bit for bit."""
+    spine grids, against their plain versions: positions, velocities and
+    error codes bit-equal; positions bit-equal with and without
+    velocities; K6 equals K5 bit for bit."""
     cat = build_catalog(synthetic_leo_text(), device=cuda_device)
     st = cat.fast_staging
     kw = dict(grav=cat.grav, kepler_iters=iters)
@@ -326,8 +345,7 @@ def test_dense_kernels_match_twins_on_cuda(cuda_device, iters):
             t, st.spine, st.tail, st.flags, **kw)
         assert torch.equal(e, er) and v0 is None
         assert 1 in set(torch.unique(e).tolist())
-        assert (r - rr).abs().max().item() <= 1e-3
-        assert (v - vr).abs().max().item() <= 1e-6
+        assert torch.equal(r, rr) and torch.equal(v, vr)
         assert torch.equal(r, r0)
         assert all(torch.equal(a, b) for a, b in zip(g, (r, v, e)))
 
@@ -353,6 +371,47 @@ def test_dense_kernel_equals_k1_on_cuda(cuda_device):
     torch.cuda.synchronize()
     assert cuda_sgp4.LAUNCHES["sgp4_shallow_dense"] == before + 1
     assert torch.equal(r, k5[0].permute(1, 2, 0))
+
+
+def test_merge_maps_from_deep_slot():
+    """K3's column maps derived from ``deep_slot`` equal the ones a
+    catalog stages, and a map that leaves a deep slot without a column
+    (or gives one two) raises."""
+    cat = _mixed_catalog("cpu")
+    ds = cat.fast_staging.deep
+    assert ds.maps.slot is ds.slot
+    slot, near_cols, deep_cols = cuda_sgp4.merge_maps(ds.slot, cat.n_deep)
+    assert slot is ds.slot
+    assert near_cols.dtype == deep_cols.dtype == torch.int32
+    assert torch.equal(near_cols, ds.maps.near_cols)
+    assert torch.equal(deep_cols, ds.maps.deep_cols)
+    assert torch.equal(deep_cols.long(),
+                       torch.as_tensor(cat.deep_idx, dtype=torch.long))
+    assert len(near_cols) + len(deep_cols) == len(cat)
+    bad = ds.slot.clone()
+    bad[cat.deep_idx[0]] = 1 if cat.n_deep > 1 else -1
+    with pytest.raises(ValueError, match="exactly one column"):
+        cuda_sgp4.merge_maps(bad, cat.n_deep)
+
+
+def test_merge_maps_of_another_deep_slot_raise():
+    """K3 takes column maps only with the ``deep_slot`` tensor they were
+    made from: maps of an equal copy, or of another catalog's map, raise
+    before anything runs."""
+    cat = _mixed_catalog("cpu")
+    st, ds = cat.fast_staging, cat.fast_staging.deep
+    t = torch.linspace(0.0, 90.0, 4, dtype=torch.float64)
+    dr = torch.zeros((3, len(t), cat.n_deep))
+    de = torch.zeros((len(t), cat.n_deep), dtype=torch.int32)
+    args = (t, st.t_sat, st.spine, st.tail, st.flags, ds.slot, dr, dr, de)
+    kw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
+    r, _, e = cuda_sgp4.propagate_fast_sep_merge(*args, **kw, maps=ds.maps)
+    assert torch.equal(e[:, cat.deep_idx], de)
+    copy = cuda_sgp4.merge_maps(ds.slot.clone(), cat.n_deep)
+    shifted = ds.slot.roll(1)
+    for maps in (copy, cuda_sgp4.merge_maps(shifted, cat.n_deep)):
+        with pytest.raises(ValueError, match="another deep_slot"):
+            cuda_sgp4.propagate_fast_sep_merge(*args, **kw, maps=maps)
 
 
 def test_cpu_runs_no_kernel():

@@ -277,7 +277,7 @@ def test_propagate_fast_mixed_matches_jax(mixed, form):
         # a carry 1,440 minutes out: the points at or below it restart
         _, _, _, c = jsdp4.sdp4_propagate(jcat.els, jcat.deep,
                                           np.full(n, 1440.0), J_WGS72)
-        kw, pkw = dict(carry=c), dict(carry=carry_from_numpy(c))
+        kw, pkw = dict(carry=c), dict(carry=carry_from_numpy(c, "cpu"))
     fn = jax.jit(lambda els, deep, tt: _jax_propagate_fast_fixed()(
         els, deep, tt, J_WGS72, kepler_iters=8, **kw))
     rj, vj, ej = fn(jcat.els, jcat.deep, jnp.asarray(t))

@@ -3,10 +3,13 @@
 ``sgp4_propagate``, ``sdp4_propagate`` (its resonance integrator
 ``dspace`` and carry), ``sdp4_propagate_scan``, ``propagate(method="f64")``
 and ``propagate_tsince`` of astroz_tpu_torch against the JAX package's f64
-path: error codes identical, positions within 1e-5 km and velocities
-within 1e-8 km/s, the escape test's bound (``test_torch_deep.py``). Both
-are the published f64 algorithm in the same order of operations; they
-differ by the two libraries' f64 sin, cos and atan2 (measured ~1e-8 km).
+path: error codes identical, TEME positions within 2e-7 km and velocities
+within 3e-10 km/s, about ten times the largest differences measured on
+the CPU (1.955e-8 km, 2.784e-11 km/s). Both are the published f64
+algorithm in the same order of operations; they differ by the two
+libraries' f64 sin, cos and atan2. The Earth-fixed outputs add the
+rotation by the sidereal angle: within 6e-6 km and 1e-9 km/s (measured
+6.134e-7 km, 8.658e-11 km/s).
 Then the port alone against the python-sgp4 goldens of
 ``test_sgp4.py`` / ``test_sdp4.py`` at their own tolerances, and against
 the scalar oracle ``astroz_tpu/ops/scalar.py`` on a sample of
@@ -46,8 +49,11 @@ from test_torch_init import LEO_TEXT
 
 torch.set_num_threads(1)
 
-POS_TOL_KM = 1e-5
-VEL_TOL_KMS = 1e-8
+POS_TOL_KM = 2e-7
+VEL_TOL_KMS = 3e-10
+#: ECEF and geodetic altitude, after the rotation by the sidereal angle
+FIXED_POS_TOL_KM = 6e-6
+FIXED_VEL_TOL_KMS = 1e-9
 
 #: the mixed catalog: ISS, TRAJ, GPS, GEO, Molniya, then 16 synthetic
 #: deep lanes (GEO, 12-hour, Molniya-class, a perigee under the surface
@@ -75,8 +81,11 @@ def _assert_close(out_j, out_p, pos_tol=POS_TOL_KM, vel_tol=VEL_TOL_KMS):
     rp, vp, ep = out_p[:3]
     np.testing.assert_array_equal(ej, ep.numpy())
     assert rp.dtype == torch.float64 and ep.dtype == torch.int32
-    assert np.abs(rj - rp.numpy()).max() <= pos_tol
-    assert np.abs(vj - vp.numpy()).max() <= vel_tol
+    dr = np.abs(rj - rp.numpy()).max()
+    dv = np.abs(vj - vp.numpy()).max()
+    print(f"f64 vs JAX: max|dr| {dr:.3e} km, max|dv| {dv:.3e} km/s")
+    assert dr <= pos_tol
+    assert dv <= vel_tol
 
 
 def _grid(n_sats, dense, seed=0):
@@ -93,8 +102,8 @@ def test_sgp4_propagate_matches_jax(leo, dense):
     jcat, pcat = leo
     t = _grid(len(pcat), dense)
     out_j = jsgp4.sgp4_propagate(jcat.els, t, J_WGS72)
-    out_p = sgp4_propagate(elements_from_numpy(jcat.els), torch.from_numpy(t),
-                           WGS72)
+    out_p = sgp4_propagate(elements_from_numpy(jcat.els, "cpu"),
+                           torch.from_numpy(t), WGS72)
     assert set(out_p[2].numpy().ravel().tolist()) >= {0, 1}
     _assert_close(out_j, out_p)
     assert tuple(out_p[0].shape) == (9, len(pcat), 3)
@@ -122,7 +131,7 @@ def test_dspace_restart_across_sign_change(mixed):
     n = len(pcat)
     _, _, _, jcarry = jsdp4.sdp4_propagate(jcat.els, jd, np.full(n, 3000.0),
                                            J_WGS72)
-    pcarry = carry_from_numpy(jcarry)
+    pcarry = carry_from_numpy(jcarry, "cpu")
     assert pcarry.atime.dtype == torch.float64
     irez = pd.irez.numpy()
     np.testing.assert_array_equal(pcarry.atime.numpy()[irez != 0], 2880.0)
@@ -187,12 +196,14 @@ def _assert_output_close(rj, rp, output, layout):
     axis = 0 if layout == "planes" else -1
     for c in range(3):
         d = np.abs(np.take(rj, c, axis) - np.take(rp, c, axis))
-        tol = POS_TOL_KM
+        tol = POS_TOL_KM if output == "teme" else FIXED_POS_TOL_KM
         if output in ("geodetic", "geodetic_deg") and c < 2:
             tol = 1e-9 * (RAD2DEG if output == "geodetic_deg" else 1.0)
             if c == 1:  # longitude wraps
                 d = np.minimum(d, 2 * np.pi * (1.0 if output == "geodetic"
                                                else RAD2DEG) - d)
+        print(f"f64 vs JAX, {output} {layout} component {c}: max "
+              f"{d.max():.3e}")
         assert d.max() <= tol, (output, layout, c, d.max())
 
 
@@ -209,7 +220,9 @@ def test_propagate_f64_matches_jax(mixed, output, layout):
     np.testing.assert_array_equal(np.asarray(ej), ep.numpy())
     assert rp.is_contiguous() and ep.is_contiguous()
     _assert_output_close(rj, rp, output, layout)
-    assert np.abs(np.asarray(vj) - vp.numpy()).max() <= VEL_TOL_KMS
+    dv = np.abs(np.asarray(vj) - vp.numpy()).max()
+    print(f"f64 vs JAX, {output} {layout}: max|dv| {dv:.3e}")
+    assert dv <= (VEL_TOL_KMS if output == "teme" else FIXED_VEL_TOL_KMS)
 
 
 @pytest.mark.parametrize("layout", ["time_major", "sat_major", "planes"])
@@ -353,7 +366,8 @@ def test_unported_arguments_still_checked(mixed):
         P.propagate(pcat, JD, FR, method="f32")
     with pytest.raises(ValueError, match="layout"):
         P.propagate(pcat, JD, FR, layout="column_major")
-    assert deep_elements_from_numpy(mixed[0].deep).irez.dtype == torch.int32
+    deep = deep_elements_from_numpy(mixed[0].deep, "cpu")
+    assert deep.irez.dtype == torch.int32
 
 
 def _screening_shell():

@@ -4,7 +4,15 @@ astroz_tpu.ops.fastmath / ops.fast on the same f32 inputs.
 sincos and angle_add are chains of single f32 operations in both
 packages. JAX runs here op by op (not jitted: a fused XLA program may
 contract a multiply-add that torch rounds twice), and the two must agree
-to at most 1 f32 ulp."""
+to at most 1 f32 ulp.
+
+Then the near-earth kernels' reduction mod 2pi (``csrc/sgp4_common.cuh``:
+``fmod_two_pi``, ``rem_two_pi``), modelled here in Python with an exact
+FMA, against ``torch.fmod`` / ``torch.remainder``, which the plain
+versions take: bit for bit, the sign of zero included."""
+
+import math
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,3 +87,83 @@ def test_solve_kepler_fast_matches_jax(iters):
         torch.from_numpy(axnl), torch.from_numpy(aynl), iters)
     np.testing.assert_array_equal(np.asarray(sj), sp.numpy())
     np.testing.assert_array_equal(np.asarray(cj), cp.numpy())
+
+
+TWO_PI = 2.0 * 3.141592653589793
+INV_TWO_PI = 1.0 / TWO_PI
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once (Python's float of a Fraction rounds to
+    nearest, ties to even). An exact zero is +0, as on the card."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _kernel_fmod_two_pi(x):
+    """sgp4_common.cuh:fmod_two_pi, operation for operation."""
+    a = abs(x)
+    if not a < 2.0 ** 52:  # CUDA's fmod: NaN for inf and NaN
+        with np.errstate(invalid="ignore"):
+            return float(np.fmod(x, TWO_PI))
+    k = float(math.trunc(a * INV_TWO_PI))
+    r = _fma(-k, TWO_PI, a)
+    k += -1.0 if r < 0.0 else (1.0 if r >= TWO_PI else 0.0)
+    return math.copysign(_fma(-k, TWO_PI, a), x)
+
+
+def _kernel_rem_two_pi(x):
+    """sgp4_common.cuh:rem_two_pi."""
+    r = _kernel_fmod_two_pi(x)
+    return r + TWO_PI if r < 0.0 else r
+
+
+def _adversarial_angles():
+    """Multiples of 2pi as f64 and their neighbours 1 and 2 ulps away, a
+    few below 2pi, both signs; uniform values to 1e5 rad; the angles of
+    a year of one-second steps (the spine's rates up to 0.07 rad/min);
+    quotients near 2^20, 2^40 and past 2^52; +-0."""
+    rng = np.random.default_rng(3)
+    k = np.concatenate([np.arange(0, 3000), rng.integers(3000, 1 << 20, 400),
+                        rng.integers(1 << 38, 1 << 40, 100)]).astype(float)
+    mult = k * TWO_PI
+    up1 = np.nextafter(mult, np.inf)
+    dn1 = np.nextafter(mult, -np.inf)
+    near = np.concatenate([mult, up1, dn1, np.nextafter(up1, np.inf),
+                           np.nextafter(dn1, -np.inf), mult + 5e-13,
+                           mult - 5e-13, mult + 1e-16 * k, mult - 1e-16 * k])
+    year_min = np.arange(0.0, 525600.0, 60.0) + rng.uniform(0, 1, 8760)
+    year = np.concatenate([year_min * r for r in (0.0011, 0.0438, 0.0691)])
+    x = np.concatenate([near, rng.uniform(-1e5, 1e5, 4000), year,
+                        [0.0, TWO_PI, 2.0 ** 52 + 1.0, 1e17, 3e300]])
+    return np.concatenate([x, -x])
+
+
+def test_kernel_reduction_equals_torch_bit_for_bit():
+    x = _adversarial_angles()
+    assert (x == 0).sum() >= 2 and np.signbit(x[x == 0]).any()
+    xt = torch.from_numpy(x)
+    want_fmod = torch.fmod(xt, TWO_PI).numpy()
+    want_rem = torch.remainder(xt, TWO_PI).numpy()
+    got_fmod = np.array([_kernel_fmod_two_pi(v) for v in x.tolist()])
+    got_rem = np.array([_kernel_rem_two_pi(v) for v in x.tolist()])
+    # bit patterns: -0 and +0 differ
+    np.testing.assert_array_equal(got_fmod.view(np.int64),
+                                  want_fmod.view(np.int64))
+    np.testing.assert_array_equal(got_rem.view(np.int64),
+                                  want_rem.view(np.int64))
+    assert np.signbit(got_rem[(x == 0) & np.signbit(x)]).all()
+    # exact multiples land on a zero of the dividend's sign (fmod) and
+    # stay -0 below zero (remainder adds nothing to a zero)
+    neg_mult = -(np.arange(1.0, 3000.0) * TWO_PI)
+    got = np.array([_kernel_rem_two_pi(v) for v in neg_mult.tolist()])
+    np.testing.assert_array_equal(
+        got.view(np.int64),
+        torch.remainder(torch.from_numpy(neg_mult), TWO_PI).numpy().view(
+            np.int64))
+
+
+def test_kernel_reduction_of_non_finite_is_nan():
+    for v in (math.inf, -math.inf, math.nan):
+        assert math.isnan(_kernel_rem_two_pi(v))
+        x = torch.tensor(v, dtype=torch.float64)
+        assert torch.isnan(torch.remainder(x, TWO_PI))

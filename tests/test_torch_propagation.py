@@ -26,7 +26,10 @@ import astroz_tpu as J
 from astroz_tpu import tle as jtle
 import astroz_tpu_torch as P
 from astroz_tpu_torch.constants import RAD2DEG, WGS72
-from astroz_tpu_torch.convert import elements_from_numpy
+from astroz_tpu_torch.convert import (carry_from_numpy,
+                                      deep_elements_from_numpy,
+                                      elements_from_numpy)
+from astroz_tpu_torch.ops.sdp4 import DeepElements
 from astroz_tpu_torch.ops import cuda_sgp4
 
 from test_sgp4 import ISS_L1, ISS_L2, TRAJ_L1, TRAJ_L2
@@ -173,6 +176,24 @@ def test_elements_from_numpy_round_trip(cats):
         r0, v0, e0 = P.propagate(pcat, JD, FR, method="fast")
         assert torch.equal(r, r0) and torch.equal(v, v0)
         assert torch.equal(e, e0)
+
+
+def test_carrying_functions_default_to_the_card(cats):
+    """``elements_from_numpy``, ``deep_elements_from_numpy`` and
+    ``carry_from_numpy`` put their tensors on the card unless asked for
+    another device, and raise where there is none."""
+    jcat, _ = cats
+    zeros = {name: np.zeros(2) for name in DeepElements._fields}
+    carry = {"atime": np.zeros(2), "xli": np.zeros(2), "xni": np.zeros(2)}
+    calls = ((elements_from_numpy, jcat.els),
+             (deep_elements_from_numpy, zeros), (carry_from_numpy, carry))
+    for fn, src in calls:
+        assert all(x.device.type == "cpu" for x in fn(src, "cpu"))
+        if torch.cuda.is_available():
+            assert all(x.device.type == "cuda" for x in fn(src))
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                fn(src)
 
 
 def test_unported_paths_raise(cats):
