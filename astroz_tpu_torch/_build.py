@@ -45,9 +45,12 @@ SIGNATURES = {
                                        _F, _F, _F, _P, _I, _P, _P, _P, _P,
                                        _I, _P, _P, _P, _P]),
     # tsince, sat_stride, spine, tail, flags, n_times, n_sats,
-    # kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
+    # kepler_iters, want_vel, time_major, j2, re, vkmpersec, r, v, err,
+    # stream
     "astroz_sgp4_shallow_dense": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                       _F, _F, _F, _P, _P, _P, _P]),
+                                       _I, _F, _F, _F, _P, _P, _P, _P]),
+    # n_times, n_sats, kepler_iters, want_vel, grid (3,) i32 out
+    "astroz_sgp4_shallow_dense_grid": (_I, [_I, _I, _I, _I, _P]),
     # t32, u_base, mm, argp32, node32, xmdf32, tail, flags, n_times,
     # n_sats, kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
     "astroz_sgp4_shallow_grids": (_I, [_P] * 8 + [_I] * 4 + [_F] * 3
@@ -57,6 +60,8 @@ SIGNATURES = {
     # stream
     "astroz_sgp4_deep": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _F, _F, _F, _F, _P, _P, _P, _P]),
+    # n_times, n_deep, kepler_iters, want_vel, grid (3,) i32 out
+    "astroz_sgp4_deep_grid": (_I, [_I, _I, _I, _I, _P]),
     # r, n_times, n_sats, j0, width, out, stream
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
     # r, n_times, n_sats, thr2, cap, out_ij, count, stream

@@ -1,5 +1,6 @@
-// Device functions shared by the SGP4 kernels (sgp4_shallow.cu, K1 and
-// its merge variant K3; sgp4_deep.cu, K2).
+// Device functions shared by the SGP4 kernels (sgp4_shallow.cu, K1, its
+// merge variant K3 and its dense variants K5 and K6; sgp4_deep.cu, K2),
+// and the balanced persistent grid of K5 and K2.
 //
 // Each function is the twin of a plain torch function of
 // astroz_tpu_torch/ops/fastmath.py or ops/fast.py and runs the same
@@ -9,10 +10,10 @@
 // square roots are correctly rounded (1/sqrtf stands for the JAX rsqrt;
 // CUDA's rsqrtf is an approximation), rintf rounds half to even like
 // torch.round, and f64 remainders follow torch.fmod and torch.remainder
-// (the divisor's sign: fmod, then + 2pi below zero). The fmod by 2pi is
-// not CUDA's fmod, a loop of f64 steps once per bit of the quotient, but
-// one fused multiply-add with the right integer quotient (fmod_two_pi):
-// fmod's result is exact, so that FMA rounds nothing and gives its bits.
+// (the divisor's sign: fmod, then + 2pi below zero). An f64 fmod is not
+// CUDA's fmod, a loop of f64 steps once per bit of the quotient, but one
+// fused multiply-add with the right integer quotient (fmod_exact): fmod's
+// result is exact, so that FMA rounds nothing and gives its bits.
 
 #pragma once
 
@@ -76,19 +77,25 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return (x > hi) ? hi : x;
 }
 
-// fmod(x, 2pi) in f64, bit for bit (torch.fmod), -0 and the sign of a zero
-// result included. For |a| < 2^52 the f64 quotient a * (1 / 2pi) is within
-// one of a / 2pi, so k = trunc of it needs at most one step; with the
-// right k, a - k * 2pi lies in [0, 2pi) and is a multiple of 2pi's ulp,
-// so it is exact and fma(-k, 2pi, a) returns it unrounded. Beyond 2^52
-// (and for inf and NaN) CUDA's fmod does it.
-__device__ __forceinline__ double fmod_two_pi(double x) {
+// fmod(x, d) in f64 for a divisor d > 0 and inv_d its f64 inverse, bit for
+// bit (torch.fmod), -0 and the sign of a zero result included. For |a| <
+// 2^52 the f64 quotient a * inv_d is within one of a / d, so k = trunc of
+// it needs at most one step; with the right k, a - k * d is fmod's
+// result, which is exact, and fma(-k, d, a) returns it unrounded. Beyond
+// 2^52 (and for inf and NaN) CUDA's fmod, a loop of f64 steps, does it.
+__device__ __forceinline__ double fmod_exact(double x, double d,
+                                             double inv_d) {
   const double a = fabs(x);
-  if (!(a < 0x1p52)) return fmod(x, TWO_PI_D);
-  double k = trunc(a * INV_TWO_PI_D);
-  const double r = fma(-k, TWO_PI_D, a);
-  k += (r < 0.0) ? -1.0 : (r >= TWO_PI_D ? 1.0 : 0.0);
-  return copysign(fma(-k, TWO_PI_D, a), x);
+  if (!(a < 0x1p52)) return fmod(x, d);
+  double k = trunc(a * inv_d);
+  const double r = fma(-k, d, a);
+  k += (r < 0.0) ? -1.0 : (r >= d ? 1.0 : 0.0);
+  return copysign(fma(-k, d, a), x);
+}
+
+// fmod(x, 2pi), the angles' reduction
+__device__ __forceinline__ double fmod_two_pi(double x) {
+  return fmod_exact(x, TWO_PI_D, INV_TWO_PI_D);
 }
 
 // torch.remainder(x, 2pi) in f64: fmod, then + 2pi below zero (rounded,
@@ -233,6 +240,104 @@ __device__ __forceinline__ void store_point(const PosVel& o, size_t idx,
     v[plane + idx] = o.v[1];
     v[2 * plane + idx] = o.v[2];
   }
+}
+
+// writes one point of the time-major (T, N, 3) r and v and the (T, N)
+// error plane: idx = t * N + n. A warp's 32 neighbouring points cover 384
+// contiguous bytes of r (and of v).
+template <bool WANT_VEL>
+__device__ __forceinline__ void store_point_time_major(const PosVel& o,
+                                                       size_t idx, float* r,
+                                                       float* v, int* err) {
+  float* rp = r + 3 * idx;
+  rp[0] = o.r[0];
+  rp[1] = o.r[1];
+  rp[2] = o.r[2];
+  err[idx] = o.error;
+  if (WANT_VEL) {
+    float* vp = v + 3 * idx;
+    vp[0] = o.v[0];
+    vp[1] = o.v[1];
+    vp[2] = o.v[2];
+  }
+}
+
+// ---- balanced persistent grids (K5, K2) -----------------------------------
+// The work of a launch is cut into units: one warp column (32 neighbouring
+// satellites, lane = satellite) at one time row. Unit u is warp column
+// u / n_times at row u % n_times: a column's rows in order, then the next
+// column. Each warp of the launch takes one contiguous run of units, and
+// the runs differ in length by at most one, so no warp waits on a wave
+// of its own; a warp reloads its satellites' fields only where its run
+// enters another column (at most twice when the grid has at least one
+// warp per column). tests/test_torch_dense.py models this walk in Python.
+
+constexpr int WARP = 32;
+
+// a warp's run of units: [first, first + count)
+struct WarpRun {
+  long long first;
+  long long count;
+};
+
+__device__ __forceinline__ WarpRun warp_run(long long units) {
+  const long long per_block = blockDim.x / WARP;
+  const long long n_warps = (long long)gridDim.x * per_block;
+  const long long warp = (long long)blockIdx.x * per_block + threadIdx.x / WARP;
+  const long long q = units / n_warps, rem = units % n_warps;
+  return {warp * q + (warp < rem ? warp : rem), q + (warp < rem ? 1 : 0)};
+}
+
+// N per-satellite fields of each thread of a block of B threads, kept in
+// shared memory and read where they are used, so that they hold no
+// registers across the rows: field k of thread i at rows[k][i], so a
+// warp's reads of one field are conflict-free. Only the thread that owns
+// a slot writes and reads it, so no barrier is needed.
+template <class T, int N, int B>
+struct SharedFields {
+  T (*rows)[B];
+  __device__ __forceinline__ T operator[](int k) const {
+    return rows[k][threadIdx.x];
+  }
+  // field k of satellite s from row k of an (N, stride) matrix
+  __device__ __forceinline__ void load(const T* src, size_t stride,
+                                       size_t s) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) rows[k][threadIdx.x] = src[k * stride + s];
+  }
+};
+
+// the persistent grid of one launch: blocks an SM (the kernel's own
+// occupancy, queried once per kernel instantiation and kept in `per_sm`),
+// the card's SMs, and the blocks launched: no more than fit at once, and
+// no more than there are units for their warps
+struct Grid {
+  int per_sm, sms, blocks;
+};
+
+template <class Kernel>
+cudaError_t persistent_grid(Kernel kernel, int block, int& per_sm,
+                            long long units, Grid* g) {
+  if (per_sm == 0) {
+    int n = 0;
+    const cudaError_t rc =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, block, 0);
+    if (rc != cudaSuccess) return rc;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    per_sm = n;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return rc;
+  const long long warps = block / WARP;
+  const long long wanted = (units + warps - 1) / warps;
+  const long long resident = (long long)per_sm * sms;
+  g->per_sm = per_sm;
+  g->sms = sms;
+  g->blocks = (int)(wanted < resident ? wanted : resident);
+  return cudaSuccess;
 }
 
 }  // namespace

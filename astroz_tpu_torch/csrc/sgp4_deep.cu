@@ -9,7 +9,8 @@
 //          tables (row k = min(floor(|t| / 720), steps), + steps + 1 when
 //          t < 0) and finished by the Euler-Maclaurin quadratic; reduced
 //          mod 2pi (theta by fmod, the dividend's sign; the rest by
-//          remainder, the divisor's) and cast to f32
+//          remainder, the divisor's) and cast to f32; every f64 fmod is
+//          sgp4_common.cuh:fmod_exact
 //   tail:  simplified drag, am = (xke / nm)^(2/3) by a bit-trick cube
 //          root, lunisolar periodics with the Lyddane branch below
 //          0.2 rad, the inclination flip, per-point inclination
@@ -30,19 +31,39 @@
 // sgp4_common.cuh:fmod_two_pi), and stores 28 bytes (16 without
 // velocities); the deep subset is ~5% of a catalog (667 x 1,440 points
 // at the headline grid, 27 MB of stores), so the kernel is small and
-// issue-bound, with register pressure from the 26 lunisolar coefficients
-// and 13 f64 spine fields a thread holds. The layout is K1's: one thread
-// owns one deep satellite and ROWS time rows, loads its fields once, and
-// neighbouring threads take neighbouring satellites, so field loads,
-// table reads and plane stores are contiguous across a warp. Outputs are
-// exact-shape; the ragged edges are masked.
+// issue-bound: the row loop's hot path is at most 1,541 SASS instructions
+// a point (both sides of its branches counted, chip_smoke.kernel_report
+// on the built library). What the design does about it (each choice
+// timed in turns on an H100 by shallow_variants.py, the calls replayed
+// from a CUDA graph):
+// - a persistent grid (sgp4_common.cuh: warp_run): no more blocks than
+//   fit at once, each warp a run of (warp column, time row) units that
+//   differ by at most one, so the 27-lane last column holds one warp, not
+//   a block, and no wave runs part full (the grid of 8-row blocks ran
+//   2.05 waves, the third on 24 SMs): -23% at 667 x 1,440;
+// - the 13 f64 spine fields and 33 f32 coefficients live in shared memory
+//   (30 KB a block), read where they are used, not in ~59 registers
+//   across the rows; __launch_bounds__(128, 6) then gives 79 registers
+//   without a spill, 6 blocks an SM where 113 registers gave 4;
+// - the catalog stages the deep slots grouped by regime
+//   (propagation.deep_slots), so that a warp's lanes take one side of the
+//   Lyddane branch and of the resonance branch: ~5% of K2.
+// Together 0.096 -> 0.067 ms. The kernel is now shorter than the host
+// time of its Python wrapper (55-77 us a call), so calls launched back to
+// back take ~0.07-0.09 ms each: what is left is on the host.
+// A thread owns one deep satellite of its warp's column, and neighbouring
+// lanes take neighbouring slots, so field loads, table reads and plane
+// stores are contiguous across a warp. Outputs are exact-shape; the ragged
+// edges are masked.
 
 #include "sgp4_common.cuh"
 
 namespace {
 
 constexpr int BLOCK = 128;  // deep satellites per block
-constexpr int ROWS = 8;     // time rows per thread
+// blocks an SM that __launch_bounds__ asks registers for (the fields
+// live in shared memory, 30 KB a block, so at most 7 fit; 6 is faster)
+constexpr int DEEP_MIN_BLOCKS = 6;
 
 constexpr int N_SPINE = 13;  // ops/fast.py DEEP_SPINE_FIELD_NAMES
 constexpr int N_TAIL = 33;   // ops/fast.py DEEP_FIELD_NAMES
@@ -102,225 +123,286 @@ __device__ __forceinline__ float pow23(float x) {
   return y * y;
 }
 
-template <bool WANT_VEL, int ITERS>
-__global__ void __launch_bounds__(BLOCK)
-sgp4_deep_kernel(const double* __restrict__ t_time,
-                 const double* __restrict__ t_sat,
-                 const double* __restrict__ spine,
-                 const float* __restrict__ tail,
-                 const int* __restrict__ flags,
-                 const double* __restrict__ tables, int n_times, int n_deep,
-                 int n_steps, float j2, float re, float vkmpersec, float xke,
-                 float j3oj2, float* __restrict__ r, float* __restrict__ v,
-                 int* __restrict__ err) {
-  const int d = blockIdx.x * BLOCK + threadIdx.x;
-  if (d >= n_deep) return;
-  const int t_begin = blockIdx.y * ROWS;
-  const int t_end = min(t_begin + ROWS, n_times);
-  const size_t nd = (size_t)n_deep;
-  const size_t plane = (size_t)n_times * nd;
-  const size_t table = (size_t)(2 * (n_steps + 1)) * nd;
+// K2's inputs and outputs
+struct DeepArgs {
+  const double* t_time;  // (T,) f64
+  const double* t_sat;   // (D,) f64
+  const double* spine;   // (13, D) f64
+  const float* tail;     // (33, D) f32
+  const int* flags;      // (2, D) i32
+  const double* tables;  // (5, 2 * (n_steps + 1), D) f64
+  int n_times, n_deep, n_steps;
+  float j2, re, vkmpersec, xke, j3oj2;
+  float* r;
+  float* v;
+  int* err;
+};
 
-  double sp[N_SPINE];
-#pragma unroll
-  for (int k = 0; k < N_SPINE; ++k) sp[k] = spine[k * nd + d];
+// one point of fast.deep_spine_f64 + fast.deep_tail_f32 at t minutes from
+// the epoch of deep satellite d; sp[k] is DEEP_SPINE_FIELD_NAMES[k], tf[k]
+// DEEP_FIELD_NAMES[k] (SharedFields), each read where it is used
+template <bool WANT_VEL, int ITERS, class SpineFields, class TailFields>
+__device__ __forceinline__ PosVel deep_point(double t, const SpineFields& sp,
+                                             const TailFields& tf, int irez,
+                                             int error0, int d,
+                                             const DeepArgs& a) {
+  const size_t nd = (size_t)a.n_deep;
+  const int n_steps = a.n_steps;
+  // ---- f64 deep spine (fast.deep_spine_f64) --------------------------------
   const double mo = sp[0], mdot = sp[1], dmdt = sp[2], argpo = sp[3];
   const double argpdot = sp[4], domdt = sp[5], nodeo = sp[6];
   const double nodedot = sp[7], dnodt = sp[8], nodecf = sp[9];
-  const double no_unkozai = sp[10], t2cof = sp[11], gsto = sp[12];
-  float tf[N_TAIL];
-#pragma unroll
-  for (int k = 0; k < N_TAIL; ++k) tf[k] = tail[k * nd + d];
-  const float cc1 = tf[0], bstar = tf[1], cc4 = tf[2], ecco = tf[3];
-  const float inclo = tf[4], dedt = tf[5], didt = tf[6];
-  // lunisolar coefficients: DPPER_FIELD_NAMES from row 7
-  const float zmos = tf[7], se2 = tf[8], se3 = tf[9], si2 = tf[10];
-  const float si3 = tf[11], sl2 = tf[12], sl3 = tf[13], sl4 = tf[14];
-  const float sgh2 = tf[15], sgh3 = tf[16], sgh4 = tf[17], sh2 = tf[18];
-  const float sh3 = tf[19], zmol = tf[20], ee2 = tf[21], e3 = tf[22];
-  const float xi2 = tf[23], xi3 = tf[24], xl2 = tf[25], xl3 = tf[26];
-  const float xl4 = tf[27], xgh2 = tf[28], xgh3 = tf[29], xgh4 = tf[30];
+  const double no_unkozai = sp[10], t2cof = sp[11];
+  const double xmdf = mo + (mdot + dmdt) * t;
+  const double argpdf = argpo + (argpdot + domdt) * t;
+  const double t2 = t * t;
+  const double nodem64 = nodeo + (nodedot + dnodt) * t + nodecf * t2;
+  const double templ_big = no_unkozai * t2 * t2cof;
+  double mm_spine = xmdf;
+  double nm64 = no_unkozai;
+  if (irez != 0) {
+    // fast.resonance_from_tables: exact floor division, then the row
+    const double at = fabs(t);
+    double k = (at - fmod_exact(at, STEPP, 1.0 / STEPP)) / STEPP;
+    k = (k > (double)n_steps) ? (double)n_steps : k;
+    const int row = (int)k + (t < 0.0 ? n_steps + 1 : 0);
+    // the five tables, ops/fast.py RESONANCE_TABLE_NAMES, `table` apart
+    const size_t table = (size_t)(2 * (n_steps + 1)) * nd;
+    const double* tb = a.tables + (size_t)row * nd + d;
+    const double xli = tb[0], xni = tb[table], xndt = tb[2 * table];
+    const double xldot = tb[3 * table], xnddt = tb[4 * table];
+    const double atime = k * (t > 0.0 ? STEPP : -STEPP);
+    const double ft = t - atime;
+    nm64 = xni + xndt * ft + xnddt * ft * ft * 0.5;
+    const double xl = xli + xldot * ft + xndt * ft * ft * 0.5;
+    const double gsto = sp[12];
+    const double theta = fmod_two_pi(gsto + t * RPTIM);
+    mm_spine = irez == 1 ? xl - nodem64 - argpdf + theta
+                         : xl - 2.0 * nodem64 + 2.0 * theta;
+  }
+  mm_spine = mm_spine + templ_big;
+  const float t32 = __double2float_rn(t);
+  float u = __double2float_rn(rem_two_pi(mm_spine + argpdf));
+  const float mp = __double2float_rn(rem_two_pi(mm_spine));
+  const float argp32 = __double2float_rn(rem_two_pi(argpdf));
+  const float nodep = __double2float_rn(rem_two_pi(nodem64));
+  const float nm_deep = __double2float_rn(nm64);
+
+  // ---- simplified drag, am from the resonance nm (fast.deep_tail_f32) ----
+  int error = error0;
+  const float cc1 = tf[0], bstar = tf[1], cc4 = tf[2];
+  const float tempa = 1.0f - cc1 * t32;
+  const float tempe = bstar * cc4 * t32;
+  const bool bad_nm = nm_deep <= 0.0f;
+  if (bad_nm && error == 0) error = 2;
+  const float a_base = pow23(a.xke / (bad_nm ? F32(1e-8) : nm_deep));
+  const float am = a_base * tempa * tempa;
+  const float am_safe = am > 0.0f ? am : 1.0f;
+  const float rsq_am = 1.0f / sqrtf(am_safe);
+
+  const float ecco = tf[3], inclo = tf[4], dedt = tf[5], didt = tf[6];
+  float em = ecco - tempe + dedt * t32;
+  const float inclm = inclo + didt * t32;
+  if ((em >= 1.0f || em < F32(-0.001)) && error == 0) error = 1;
+  em = clampf(em, F32(1.0e-6), F32(0.999999));
+
+  // ---- lunisolar periodics (fast._dpper_core) ------------------------------
+  // coefficients: DPPER_FIELD_NAMES from row 7
+  float sin_node, cos_node;
+  sincos_poly(nodep, sin_node, cos_node);
+  float szm, unused, sinzf, coszf;
+  float zm = tf[7] + ZNS * t32;  // zmos
+  sincos_poly(zm, szm, unused);
+  float zf = zm + 2.0f * ZES * szm;
+  sincos_poly(zf, sinzf, coszf);
+  float f2 = 0.5f * sinzf * sinzf - 0.25f;
+  float f3 = -0.5f * sinzf * coszf;
+  const float se2 = tf[8], se3 = tf[9], si2 = tf[10], si3 = tf[11];
+  const float sl2 = tf[12], sl3 = tf[13], sl4 = tf[14];
+  const float sgh2 = tf[15], sgh3 = tf[16], sgh4 = tf[17];
+  const float sh2 = tf[18], sh3 = tf[19];
+  const float ses = se2 * f2 + se3 * f3;
+  const float sis = si2 * f2 + si3 * f3;
+  const float sls = sl2 * f2 + sl3 * f3 + sl4 * sinzf;
+  const float sghs = sgh2 * f2 + sgh3 * f3 + sgh4 * sinzf;
+  const float shs = sh2 * f2 + sh3 * f3;
+
+  zm = tf[20] + ZNL * t32;  // zmol
+  sincos_poly(zm, szm, unused);
+  zf = zm + 2.0f * ZEL * szm;
+  sincos_poly(zf, sinzf, coszf);
+  f2 = 0.5f * sinzf * sinzf - 0.25f;
+  f3 = -0.5f * sinzf * coszf;
+  const float ee2 = tf[21], e3 = tf[22], xi2 = tf[23], xi3 = tf[24];
+  const float xl2 = tf[25], xl3 = tf[26], xl4 = tf[27];
+  const float xgh2 = tf[28], xgh3 = tf[29], xgh4 = tf[30];
   const float xh2 = tf[31], xh3 = tf[32];
-  const int irez = flags[d];
-  const int error0 = flags[nd + d];
-  const double epoch = t_sat[d];
+  const float sel = ee2 * f2 + e3 * f3;
+  const float sil = xi2 * f2 + xi3 * f3;
+  const float sll = xl2 * f2 + xl3 * f3 + xl4 * sinzf;
+  const float sghl = xgh2 * f2 + xgh3 * f3 + xgh4 * sinzf;
+  const float shll = xh2 * f2 + xh3 * f3;
 
-  for (int ti = t_begin; ti < t_end; ++ti) {
-    // ---- f64 deep spine (fast.deep_spine_f64) ----------------------------
-    const double t = t_time[ti] - epoch;
-    const double xmdf = mo + (mdot + dmdt) * t;
-    const double argpdf = argpo + (argpdot + domdt) * t;
-    const double t2 = t * t;
-    const double nodem64 = nodeo + (nodedot + dnodt) * t + nodecf * t2;
-    const double templ_big = no_unkozai * t2 * t2cof;
-    double mm_spine = xmdf;
-    double nm64 = no_unkozai;
-    if (irez != 0) {
-      // fast.resonance_from_tables: exact floor division, then the row
-      const double a = fabs(t);
-      double k = (a - fmod(a, STEPP)) / STEPP;
-      k = (k > (double)n_steps) ? (double)n_steps : k;
-      const int row = (int)k + (t < 0.0 ? n_steps + 1 : 0);
-      // the five tables, ops/fast.py RESONANCE_TABLE_NAMES, `table` apart
-      const double* tb = tables + (size_t)row * nd + d;
-      const double xli = tb[0], xni = tb[table], xndt = tb[2 * table];
-      const double xldot = tb[3 * table], xnddt = tb[4 * table];
-      const double atime = k * (t > 0.0 ? STEPP : -STEPP);
-      const double ft = t - atime;
-      nm64 = xni + xndt * ft + xnddt * ft * ft * 0.5;
-      const double xl = xli + xldot * ft + xndt * ft * ft * 0.5;
-      const double theta = fmod_two_pi(gsto + t * RPTIM);
-      mm_spine = irez == 1 ? xl - nodem64 - argpdf + theta
-                           : xl - 2.0 * nodem64 + 2.0 * theta;
+  const float pe = ses + sel;
+  const float pinc = sis + sil;
+  const float pl = sls + sll;
+  const float pgh = sghs + sghl;
+  const float ph = shs + shll;
+
+  float xincp = inclm + pinc;
+  float ep = em + pe;
+  float sinip, cosip;
+  sincos_poly(xincp, sinip, cosip);
+
+  float argpp, du;
+  if (xincp < F32(0.2)) {
+    // Lyddane path
+    const float alfdp =
+        sinip * sin_node + ph * cos_node + pinc * cosip * sin_node;
+    const float betdp =
+        sinip * cos_node - ph * sin_node + pinc * cosip * cos_node;
+    float nodep_l = fast_atan2(alfdp, betdp);
+    const bool far = fabsf(nodep - nodep_l) > PI_F;
+    if (far && nodep_l < nodep) {
+      nodep_l = nodep_l + TWO_PI_F;
+    } else if (far && nodep_l >= nodep) {
+      nodep_l = nodep_l - TWO_PI_F;
     }
-    mm_spine = mm_spine + templ_big;
-    const float t32 = __double2float_rn(t);
-    float u = __double2float_rn(rem_two_pi(mm_spine + argpdf));
-    const float mp = __double2float_rn(rem_two_pi(mm_spine));
-    const float argp32 = __double2float_rn(rem_two_pi(argpdf));
-    const float nodep = __double2float_rn(rem_two_pi(nodem64));
-    const float nm_deep = __double2float_rn(nm64);
+    const float xls =
+        mp + argp32 + cosip * nodep + pl + pgh - pinc * nodep * sinip;
+    const float mp_l = mp + pl;
+    argpp = xls - mp_l - cosip * nodep_l;
+    // mp_l + argpp_l - (mp + argpp), algebraically
+    du = pl + pgh + cosip * (nodep - nodep_l) - pinc * nodep * sinip;
+    sincos_poly(nodep_l, sin_node, cos_node);
+  } else {
+    const float sin_safe = fabsf(sinip) > F32(1e-12) ? sinip : F32(1e-12);
+    const float ph_n = ph / sin_safe;
+    const float pgh_n = pgh - cosip * ph_n;
+    argpp = argp32 + pgh_n;
+    du = pl + pgh_n;
+    angle_add(sin_node, cos_node, ph_n, sin_node, cos_node);
+  }
+  u = u + du;
 
-    // ---- simplified drag, am from the resonance nm (fast.deep_tail_f32)
-    int error = error0;
-    const float tempa = 1.0f - cc1 * t32;
-    const float tempe = bstar * cc4 * t32;
-    const bool bad_nm = nm_deep <= 0.0f;
-    if (bad_nm && error == 0) error = 2;
-    const float a_base = pow23(xke / (bad_nm ? F32(1e-8) : nm_deep));
-    const float am = a_base * tempa * tempa;
-    const float am_safe = am > 0.0f ? am : 1.0f;
-    const float rsq_am = 1.0f / sqrtf(am_safe);
+  // inclination flip: node += pi, argp -= pi, and u = mp + argp with it
+  if (xincp < 0.0f) {
+    sin_node = -sin_node;
+    cos_node = -cos_node;
+    argpp = argpp - PI_F;
+    u = u - PI_F;
+  }
+  xincp = fabsf(xincp);
+  if ((ep < 0.0f || ep > 1.0f) && error == 0) error = 3;
+  ep = clampf(ep, F32(1e-12), F32(0.999999));
 
-    float em = ecco - tempe + dedt * t32;
-    const float inclm = inclo + didt * t32;
-    if ((em >= 1.0f || em < F32(-0.001)) && error == 0) error = 1;
-    em = clampf(em, F32(1.0e-6), F32(0.999999));
+  // ---- per-point inclination-dependent coefficients --------------------
+  sincos_poly(xincp, sinip, cosip);
+  const float aycof = -0.5f * a.j3oj2 * sinip;
+  const bool near180 = fabsf(cosip + 1.0f) > F32(1.5e-12);
+  const float denom = near180 ? 1.0f + cosip : F32(1.5e-12);
+  const float xlcof =
+      -0.25f * a.j3oj2 * sinip * (3.0f + 5.0f * cosip) / denom;
+  const float cosisq = cosip * cosip;
+  const float con41 = 3.0f * cosisq - 1.0f;
+  const float x1mth2 = 1.0f - cosisq;
+  const float x7thm1 = 7.0f * cosisq - 1.0f;
 
-    // ---- lunisolar periodics (fast._dpper_core) ----------------------------
-    float sin_node, cos_node;
-    sincos_poly(nodep, sin_node, cos_node);
-    float szm, unused, sinzf, coszf;
-    float zm = zmos + ZNS * t32;
-    sincos_poly(zm, szm, unused);
-    float zf = zm + 2.0f * ZES * szm;
-    sincos_poly(zf, sinzf, coszf);
-    float f2 = 0.5f * sinzf * sinzf - 0.25f;
-    float f3 = -0.5f * sinzf * coszf;
-    const float ses = se2 * f2 + se3 * f3;
-    const float sis = si2 * f2 + si3 * f3;
-    const float sls = sl2 * f2 + sl3 * f3 + sl4 * sinzf;
-    const float sghs = sgh2 * f2 + sgh3 * f3 + sgh4 * sinzf;
-    const float shs = sh2 * f2 + sh3 * f3;
+  // ---- long-period terms -> Kepler -> TEME (fast._kepler_posvel_f32) ---
+  return kepler_posvel<WANT_VEL, ITERS>(
+      u, am, am_safe, rsq_am, ep, argpp, sin_node, cos_node, sinip, cosip,
+      aycof, xlcof, con41, x1mth2, x7thm1, error, a.j2, a.re, a.vkmpersec);
+}
 
-    zm = zmol + ZNL * t32;
-    sincos_poly(zm, szm, unused);
-    zf = zm + 2.0f * ZEL * szm;
-    sincos_poly(zf, sinzf, coszf);
-    f2 = 0.5f * sinzf * sinzf - 0.25f;
-    f3 = -0.5f * sinzf * coszf;
-    const float sel = ee2 * f2 + e3 * f3;
-    const float sil = xi2 * f2 + xi3 * f3;
-    const float sll = xl2 * f2 + xl3 * f3 + xl4 * sinzf;
-    const float sghl = xgh2 * f2 + xgh3 * f3 + xgh4 * sinzf;
-    const float shll = xh2 * f2 + xh3 * f3;
-
-    const float pe = ses + sel;
-    const float pinc = sis + sil;
-    const float pl = sls + sll;
-    const float pgh = sghs + sghl;
-    const float ph = shs + shll;
-
-    float xincp = inclm + pinc;
-    float ep = em + pe;
-    float sinip, cosip;
-    sincos_poly(xincp, sinip, cosip);
-
-    float argpp, du;
-    if (xincp < F32(0.2)) {
-      // Lyddane path
-      const float alfdp =
-          sinip * sin_node + ph * cos_node + pinc * cosip * sin_node;
-      const float betdp =
-          sinip * cos_node - ph * sin_node + pinc * cosip * cos_node;
-      float nodep_l = fast_atan2(alfdp, betdp);
-      const bool far = fabsf(nodep - nodep_l) > PI_F;
-      if (far && nodep_l < nodep) {
-        nodep_l = nodep_l + TWO_PI_F;
-      } else if (far && nodep_l >= nodep) {
-        nodep_l = nodep_l - TWO_PI_F;
+// K2: each warp walks its run of (warp column, time row) units
+// (sgp4_common.cuh: warp_run); a thread owns one deep satellite of the
+// column and keeps its fields in shared memory.
+template <bool WANT_VEL, int ITERS>
+__global__ void __launch_bounds__(BLOCK, DEEP_MIN_BLOCKS)
+sgp4_deep_kernel(const DeepArgs a) {
+  __shared__ double spine_rows[N_SPINE][BLOCK];
+  __shared__ float tail_rows[N_TAIL][BLOCK];
+  SharedFields<double, N_SPINE, BLOCK> sp{spine_rows};
+  SharedFields<float, N_TAIL, BLOCK> tf{tail_rows};
+  const int n_times = a.n_times, n_deep = a.n_deep;
+  const size_t nd = (size_t)n_deep;
+  const size_t plane = (size_t)n_times * nd;
+  const WarpRun run =
+      warp_run((long long)((n_deep + WARP - 1) / WARP) * n_times);
+  if (run.count == 0) return;
+  int col = (int)(run.first / n_times);
+  int ti = (int)(run.first % n_times);
+  int d = col * WARP + (int)(threadIdx.x % WARP);
+  int loaded = -1;
+  int irez = 0, error0 = 0;
+  double epoch = 0.0;
+  for (long long k = run.count; k > 0; --k) {
+    if (col != loaded) {
+      if (d < n_deep) {
+        sp.load(a.spine, nd, d);
+        tf.load(a.tail, nd, d);
+        irez = a.flags[d];
+        error0 = a.flags[nd + d];
+        epoch = a.t_sat[d];
       }
-      const float xls =
-          mp + argp32 + cosip * nodep + pl + pgh - pinc * nodep * sinip;
-      const float mp_l = mp + pl;
-      argpp = xls - mp_l - cosip * nodep_l;
-      // mp_l + argpp_l - (mp + argpp), algebraically
-      du = pl + pgh + cosip * (nodep - nodep_l) - pinc * nodep * sinip;
-      sincos_poly(nodep_l, sin_node, cos_node);
-    } else {
-      const float sin_safe = fabsf(sinip) > F32(1e-12) ? sinip : F32(1e-12);
-      const float ph_n = ph / sin_safe;
-      const float pgh_n = pgh - cosip * ph_n;
-      argpp = argp32 + pgh_n;
-      du = pl + pgh_n;
-      angle_add(sin_node, cos_node, ph_n, sin_node, cos_node);
+      loaded = col;
     }
-    u = u + du;
-
-    // inclination flip: node += pi, argp -= pi, and u = mp + argp with it
-    if (xincp < 0.0f) {
-      sin_node = -sin_node;
-      cos_node = -cos_node;
-      argpp = argpp - PI_F;
-      u = u - PI_F;
+    if (d < n_deep) {
+      const PosVel o = deep_point<WANT_VEL, ITERS>(a.t_time[ti] - epoch, sp,
+                                                   tf, irez, error0, d, a);
+      store_point<WANT_VEL>(o, (size_t)ti * nd + d, plane, a.r, a.v, a.err);
     }
-    xincp = fabsf(xincp);
-    if ((ep < 0.0f || ep > 1.0f) && error == 0) error = 3;
-    ep = clampf(ep, F32(1e-12), F32(0.999999));
-
-    // ---- per-point inclination-dependent coefficients ------------------
-    sincos_poly(xincp, sinip, cosip);
-    const float aycof = -0.5f * j3oj2 * sinip;
-    const bool near180 = fabsf(cosip + 1.0f) > F32(1.5e-12);
-    const float denom = near180 ? 1.0f + cosip : F32(1.5e-12);
-    const float xlcof =
-        -0.25f * j3oj2 * sinip * (3.0f + 5.0f * cosip) / denom;
-    const float cosisq = cosip * cosip;
-    const float con41 = 3.0f * cosisq - 1.0f;
-    const float x1mth2 = 1.0f - cosisq;
-    const float x7thm1 = 7.0f * cosisq - 1.0f;
-
-    // ---- long-period terms -> Kepler -> TEME (fast._kepler_posvel_f32) -
-    const PosVel o = kepler_posvel<WANT_VEL, ITERS>(
-        u, am, am_safe, rsq_am, ep, argpp, sin_node, cos_node, sinip, cosip,
-        aycof, xlcof, con41, x1mth2, x7thm1, error, j2, re, vkmpersec);
-    store_point<WANT_VEL>(o, (size_t)ti * nd + d, plane, r, v, err);
+    if (++ti == n_times) {
+      ti = 0;
+      ++col;
+      d += WARP;
+    }
   }
 }
 
+// the persistent grid of one instantiation, then (with `launch`) the
+// launch on it
+template <bool WANT_VEL, int ITERS>
+cudaError_t deep_run(const DeepArgs& a, cudaStream_t stream, bool launch,
+                     Grid* g) {
+  static int per_sm = 0;  // this instantiation's blocks an SM
+  const long long units =
+      (long long)((a.n_deep + WARP - 1) / WARP) * a.n_times;
+  const cudaError_t rc = persistent_grid(sgp4_deep_kernel<WANT_VEL, ITERS>,
+                                         BLOCK, per_sm, units, g);
+  if (rc != cudaSuccess || !launch || g->blocks == 0) return rc;
+  sgp4_deep_kernel<WANT_VEL, ITERS><<<g->blocks, BLOCK, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <bool WANT_VEL>
-cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
-                   const double* t_time, const double* t_sat,
-                   const double* spine, const float* tail, const int* flags,
-                   const double* tables, int n_times, int n_deep,
-                   int n_steps, float j2, float re, float vkmpersec,
-                   float xke, float j3oj2, float* r, float* v, int* err) {
-#define ASTROZ_LAUNCH(IT)                                                  \
-  sgp4_deep_kernel<WANT_VEL, IT><<<grid, BLOCK, 0, stream>>>(              \
-      t_time, t_sat, spine, tail, flags, tables, n_times, n_deep, n_steps, \
-      j2, re, vkmpersec, xke, j3oj2, r, v, err)
+cudaError_t deep_iters(int kepler_iters, const DeepArgs& a,
+                       cudaStream_t stream, bool launch, Grid* g) {
   switch (kepler_iters) {
-    case 6: ASTROZ_LAUNCH(6); break;
-    case 8: ASTROZ_LAUNCH(8); break;
+    case 6: return deep_run<WANT_VEL, 6>(a, stream, launch, g);
+    case 8: return deep_run<WANT_VEL, 8>(a, stream, launch, g);
     default: return cudaErrorInvalidValue;
   }
-#undef ASTROZ_LAUNCH
-  return cudaGetLastError();
+}
+
+int deep(int want_vel, int kepler_iters, const DeepArgs& a, void* stream,
+         bool launch, int* grid) {
+  Grid g{0, 0, 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      want_vel ? deep_iters<true>(kepler_iters, a, st, launch, &g)
+               : deep_iters<false>(kepler_iters, a, st, launch, &g);
+  if (grid != nullptr) {
+    grid[0] = g.per_sm;
+    grid[1] = g.sms;
+    grid[2] = g.blocks;
+  }
+  return static_cast<int>(rc);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes by astroz_tpu_torch/_build.py).
+// Plain C entry points (bound with ctypes by astroz_tpu_torch/_build.py).
 // Shapes: t_time (T,) f64; t_sat (D,) f64 deep epochs; spine (13, D) f64;
 // tail (33, D) f32; flags (2, D) i32 = [irez, init error]; tables
 // (5, 2 * (n_steps + 1), D) f64; r (3, T, D) f32; v (3, T, D) f32 or null
@@ -334,14 +416,19 @@ extern "C" int astroz_sgp4_deep(const double* t_time, const double* t_sat,
                                 float re, float vkmpersec, float xke,
                                 float j3oj2, float* r, float* v, int* err,
                                 void* stream) {
-  const dim3 grid((n_deep + BLOCK - 1) / BLOCK, (n_times + ROWS - 1) / ROWS);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc =
-      want_vel ? launch<true>(kepler_iters, grid, st, t_time, t_sat, spine,
-                              tail, flags, tables, n_times, n_deep, n_steps,
-                              j2, re, vkmpersec, xke, j3oj2, r, v, err)
-               : launch<false>(kepler_iters, grid, st, t_time, t_sat, spine,
-                               tail, flags, tables, n_times, n_deep, n_steps,
-                               j2, re, vkmpersec, xke, j3oj2, r, v, err);
-  return static_cast<int>(rc);
+  const DeepArgs a{t_time,  t_sat, spine, tail,      flags, tables,
+                   n_times, n_deep, n_steps, j2,     re,    vkmpersec,
+                   xke,     j3oj2, r,     v,         err};
+  return deep(want_vel, kepler_iters, a, stream, true, nullptr);
+}
+
+// K2's grid at (n_times, n_deep) without a launch: grid[0] blocks an SM
+// of the instantiation, grid[1] the card's SMs, grid[2] blocks launched
+extern "C" int astroz_sgp4_deep_grid(int n_times, int n_deep,
+                                     int kepler_iters, int want_vel,
+                                     int* grid) {
+  DeepArgs a{};
+  a.n_times = n_times;
+  a.n_deep = n_deep;
+  return deep(want_vel, kepler_iters, a, nullptr, false, grid);
 }

@@ -1,6 +1,7 @@
 // Near-earth SGP4 propagation for Hopper: kernel K1, its merge variant
-// K3 and its two dense-grid variants K5 and K6, four modes of one
-// templated kernel that share the f32 tail (shallow_tail below).
+// K3 and its two dense-grid variants K5 and K6, which share the f32 tail
+// (shallow_tail below): K1, K3 and K6 are modes of one templated kernel,
+// K5 a persistent kernel of its own (sgp4_dense_kernel).
 //
 // K1 (SEP) replaces the TPU kernel astroz_tpu/ops/pallas_sgp4.py:
 // _kernel_fused_sep (wrapper propagate_fast_pallas_sep). For every
@@ -22,12 +23,15 @@
 // for bit. The TPU kernel scattered the deep columns with a bf16 one-hot
 // matmul on its matrix unit; here the maps do it, with no bound on the
 // deep fraction.
-// K5 (DENSE) replaces _kernel_fused (wrapper propagate_fast_pallas_fused):
-// K1 on a dense tsince grid, read directly as f64, either a (T, S) grid
-// or a (T, 1) column read with a satellite stride of 0, so a grid shared
-// by every satellite is never materialised at (T, S). The TPU kernel
-// took tsince split into f32 hi/lo grids and ran a double-f32 (Dekker)
-// spine; here the spine is K1's, in native f64.
+// K5 (sgp4_dense_kernel) replaces _kernel_fused (wrapper
+// propagate_fast_pallas_fused): K1 on a dense tsince grid, read directly
+// as f64, either a (T, S) grid or a (T, 1) column read with a satellite
+// stride of 0, so a grid shared by every satellite is never materialised
+// at (T, S); it writes the (3, T, S) planes or, for the element-level
+// wrapper, the time-major (T, S, 3) r and v that its callers return. The
+// TPU kernel took tsince split into f32 hi/lo grids, ran a double-f32
+// (Dekker) spine and wrote planes that XLA transposed; here the spine is
+// K1's, in native f64.
 // K6 (GRIDS) replaces _kernel (wrapper propagate_fast_pallas): the tail
 // alone, on the six (T, S) f32 grids (t32, u_base, mm, argp32, node32,
 // xmdf32) that the f64 spine wrote outside the kernel (the port's
@@ -61,13 +65,27 @@
 //   every multiply-add is two instructions: contracting all of them would
 //   save 10% of K1 (the f32 tail 9%), but most sit in the polynomial
 //   sincos, angle_add and the Newton step, which the plain versions keep
-//   equal to the JAX package's; the rest would save 3%.
-// One thread owns one satellite and ROWS time rows, loads the satellite's
-// fields into registers once, and neighbouring threads take neighbouring
-// satellites, so the loads of the (rows, S) field matrices and of the
-// (T, S) grids and the stores to the (3, T, S) planes are contiguous
-// across a warp. Outputs are exact-shape; the ragged satellite and time
-// edges are masked.
+//   equal to the JAX package's; the rest would save 3%;
+// - K5 runs on a persistent grid (sgp4_common.cuh: warp_run): no more
+//   blocks than fit on the card at once, each warp a run of (warp column,
+//   time row) units that differ by at most one, so no wave runs part full
+//   (the grid of 8-row blocks ran 6.2 waves at a bench chunk). The walk
+//   alone costs registers (101, so 4 blocks an SM, and it was slower), so
+//   the satellites' fields live in shared memory, read where they are
+//   used, and __launch_bounds__(128, 8) holds the tail to 64 registers
+//   without a spill: 8 blocks (50% occupancy) an SM. Each row loads the
+//   next row's tsince before its own tail runs. One (4,096, 1,024) chunk,
+//   replayed from a CUDA graph: 0.195 -> 0.186-0.190 ms. The row loop's
+//   hot path is 979 SASS instructions a point with both sides of each
+//   branch counted (chip_smoke.kernel_report on the built library), so
+//   the kernel issues at no more than ~66% of the card's rate.
+// K1, K3 and K6: one thread owns one satellite and ROWS time rows, loads
+// the satellite's fields into registers once, and neighbouring threads
+// take neighbouring satellites, so the loads of the (rows, S) field
+// matrices and of the (T, S) grids and the stores to the (3, T, S)
+// planes are contiguous across a warp; K5's warps keep the same
+// satellite-per-lane layout. Outputs are exact-shape; the ragged
+// satellite and time edges are masked.
 
 #include "sgp4_common.cuh"
 
@@ -79,13 +97,18 @@ constexpr int ROWS = 8;     // time rows per thread
 constexpr int N_SPINE = 12;  // ops/fast.py SPINE_FIELD_NAMES
 constexpr int N_TAIL = 21;   // ops/fast.py TAIL_FIELD_NAMES
 
-// where each mode finds its times
+// where each mode of sgp4_shallow_kernel finds its times (K5 is
+// sgp4_dense_kernel below); the values name the instantiations in
+// ptxas' reports (shallow_variants.py)
 enum Mode : int {
   SEP = 0,    // K1: t_time[t] - t_sat[s]
   MERGE = 1,  // K3: K1 on the near-earth columns, K2's planes on the rest
-  DENSE = 2,  // K5: a dense f64 tsince grid
   GRIDS = 3,  // K6: six f32 spine grids
 };
+
+// K5: blocks an SM that __launch_bounds__ asks registers for (the
+// fields live in shared memory, so the tail alone sets the registers)
+constexpr int DENSE_MIN_BLOCKS = 8;
 
 // kernel K2's outputs and the column maps of a mixed catalog (K3 only)
 struct DeepPlanes {
@@ -98,12 +121,9 @@ struct DeepPlanes {
   int n_deep;            // D
 };
 
-// the dense inputs of K5 and K6
-struct DenseInputs {
-  const double* tsince;  // K5: (T, S) f64, or (T, 1) with sat_stride 0
-  int sat_stride;        // K5: 1 for a (T, S) grid, 0 for a (T, 1) column
-  const float* grids[6];  // K6: (T, S) f32 t32, u_base, mm, argp32,
-                          // node32, xmdf32
+// K6's inputs: (T, S) f32 t32, u_base, mm, argp32, node32, xmdf32
+struct GridInputs {
+  const float* grids[6];
 };
 
 // the f32 angles of one point (fast.spine_f64's returns)
@@ -111,9 +131,10 @@ struct Spine {
   float t32, u_base, mm, argp32, node32, xmdf32;
 };
 
-// fast.spine_f64 at t minutes from epoch
-__device__ __forceinline__ Spine spine_f64(double t,
-                                           const double (&sp)[N_SPINE]) {
+// fast.spine_f64 at t minutes from epoch; sp[k] is SPINE_FIELD_NAMES[k]
+// (registers, or SharedFields)
+template <class SpineFields>
+__device__ __forceinline__ Spine spine_f64(double t, const SpineFields& sp) {
   const double mo = sp[0], mdot = sp[1], argpo = sp[2], argpdot = sp[3];
   const double nodeo = sp[4], nodedot = sp[5], nodecf = sp[6];
   const double no_unkozai = sp[7], t2cof = sp[8], t3cof = sp[9];
@@ -135,10 +156,11 @@ __device__ __forceinline__ Spine spine_f64(double t,
   return g;
 }
 
-// fast.shallow_tail_f32 at one point; tf holds the TAIL_FIELD_NAMES rows
-template <bool WANT_VEL, int ITERS>
+// fast.shallow_tail_f32 at one point; tf[k] is TAIL_FIELD_NAMES[k]
+// (registers, or SharedFields)
+template <bool WANT_VEL, int ITERS, class TailFields>
 __device__ __forceinline__ PosVel shallow_tail(
-    const Spine& g, const float (&tf)[N_TAIL], bool not_simp, int error0,
+    const Spine& g, const TailFields& tf, bool not_simp, int error0,
     float j2, float re, float vkmpersec) {
   const float omgcof = tf[0], eta = tf[1], xmcof = tf[2], delmo = tf[3];
   const float cc1 = tf[4], d2 = tf[5], d3 = tf[6], d4 = tf[7];
@@ -188,20 +210,16 @@ template <int MODE>
 __device__ __forceinline__ Spine spine_at(int ti, int s, size_t ns,
                                           const double* t_time, double epoch,
                                           const double (&sp)[N_SPINE],
-                                          const DenseInputs& dense) {
+                                          const GridInputs& grids) {
   Spine g;
   if constexpr (MODE == GRIDS) {
     const size_t idx = (size_t)ti * ns + s;
-    g.t32 = dense.grids[0][idx];
-    g.u_base = dense.grids[1][idx];
-    g.mm = dense.grids[2][idx];
-    g.argp32 = dense.grids[3][idx];
-    g.node32 = dense.grids[4][idx];
-    g.xmdf32 = dense.grids[5][idx];
-  } else if constexpr (MODE == DENSE) {
-    const size_t row = dense.sat_stride ? ns : 1;
-    g = spine_f64(dense.tsince[(size_t)ti * row +
-                               (size_t)s * dense.sat_stride], sp);
+    g.t32 = grids.grids[0][idx];
+    g.u_base = grids.grids[1][idx];
+    g.mm = grids.grids[2][idx];
+    g.argp32 = grids.grids[3][idx];
+    g.node32 = grids.grids[4][idx];
+    g.xmdf32 = grids.grids[5][idx];
   } else {
     g = spine_f64(t_time[ti] - epoch, sp);
   }
@@ -242,7 +260,7 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
                     const float* __restrict__ tail,
                     const int* __restrict__ flags, int n_times, int n_sats,
                     float j2, float re, float vkmpersec, DeepPlanes deep,
-                    DenseInputs dense, float* __restrict__ r,
+                    GridInputs grids, float* __restrict__ r,
                     float* __restrict__ v, int* __restrict__ err) {
   const int t_begin = blockIdx.y * ROWS;
   const int t_end = min(t_begin + ROWS, n_times);
@@ -281,10 +299,83 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
   const double epoch = (MODE == SEP || MODE == MERGE) ? t_sat[s] : 0.0;
 
   for (int ti = t_begin; ti < t_end; ++ti) {
-    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, dense);
+    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, grids);
     const PosVel o = shallow_tail<WANT_VEL, ITERS>(g, tf, not_simp, error0,
                                                    j2, re, vkmpersec);
     store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
+  }
+}
+
+// K5's inputs and outputs
+struct DenseArgs {
+  const double* tsince;  // (T, S) f64, or (T, 1) with sat_stride 0
+  int sat_stride;        // 1 for a (T, S) grid, 0 for a (T, 1) column
+  const double* spine;
+  const float* tail;
+  const int* flags;
+  int n_times, n_sats;
+  int time_major;  // 1: r, v (T, S, 3); 0: (3, T, S) planes
+  float j2, re, vkmpersec;
+  float* r;
+  float* v;
+  int* err;
+};
+
+// K5: each warp walks its run of (warp column, time row) units
+// (sgp4_common.cuh: warp_run); a thread owns one satellite of the column,
+// keeps its fields in shared memory, and loads the next unit's tsince
+// before it runs the current one's tail.
+template <bool WANT_VEL, int ITERS>
+__global__ void __launch_bounds__(BLOCK, DENSE_MIN_BLOCKS)
+sgp4_dense_kernel(const DenseArgs a) {
+  __shared__ double spine_rows[N_SPINE][BLOCK];
+  __shared__ float tail_rows[N_TAIL][BLOCK];
+  SharedFields<double, N_SPINE, BLOCK> sp{spine_rows};
+  SharedFields<float, N_TAIL, BLOCK> tf{tail_rows};
+  const int n_times = a.n_times, n_sats = a.n_sats;
+  const size_t ns = (size_t)n_sats;
+  const size_t plane = (size_t)n_times * ns;
+  const size_t row_stride = a.sat_stride ? ns : 1;
+  const WarpRun run =
+      warp_run((long long)((n_sats + WARP - 1) / WARP) * n_times);
+  if (run.count == 0) return;
+  int col = (int)(run.first / n_times);
+  int ti = (int)(run.first % n_times);
+  int s = col * WARP + (int)(threadIdx.x % WARP);
+  int loaded = -1;
+  bool not_simp = false;
+  int error0 = 0;
+  double t_next = s < n_sats ? a.tsince[(size_t)ti * row_stride +
+                                        (size_t)s * a.sat_stride]
+                             : 0.0;
+  for (long long k = run.count; k > 0; --k) {
+    if (col != loaded) {
+      if (s < n_sats) {
+        sp.load(a.spine, ns, s);
+        tf.load(a.tail, ns, s);
+        not_simp = a.flags[s] == 0;
+        error0 = a.flags[ns + s];
+      }
+      loaded = col;
+    }
+    const int t_row = ti, t_sat = s;
+    const double t = t_next;
+    if (++ti == n_times) {
+      ti = 0;
+      ++col;
+      s += WARP;
+    }
+    if (k > 1 && s < n_sats)
+      t_next = a.tsince[(size_t)ti * row_stride + (size_t)s * a.sat_stride];
+    if (t_sat < n_sats) {
+      const PosVel o = shallow_tail<WANT_VEL, ITERS>(
+          spine_f64(t, sp), tf, not_simp, error0, a.j2, a.re, a.vkmpersec);
+      const size_t idx = (size_t)t_row * ns + t_sat;
+      if (a.time_major)
+        store_point_time_major<WANT_VEL>(o, idx, a.r, a.v, a.err);
+      else
+        store_point<WANT_VEL>(o, idx, plane, a.r, a.v, a.err);
+    }
   }
 }
 
@@ -298,7 +389,7 @@ struct Args {
   int n_times, n_sats;
   float j2, re, vkmpersec;
   DeepPlanes deep;
-  DenseInputs dense;
+  GridInputs grids;
   float* r;
   float* v;
   int* err;
@@ -310,7 +401,7 @@ cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
 #define ASTROZ_LAUNCH(IT)                                                  \
   sgp4_shallow_kernel<WANT_VEL, IT, MODE><<<grid, BLOCK, 0, stream>>>(     \
       a.t_time, a.t_sat, a.spine, a.tail, a.flags, a.n_times, a.n_sats,    \
-      a.j2, a.re, a.vkmpersec, a.deep, a.dense, a.r, a.v, a.err)
+      a.j2, a.re, a.vkmpersec, a.deep, a.grids, a.r, a.v, a.err)
   switch (kepler_iters) {
     case 3: ASTROZ_LAUNCH(3); break;
     case 4: ASTROZ_LAUNCH(4); break;
@@ -340,7 +431,49 @@ int launch_vel(int want_vel, int kepler_iters, const Args& a, void* stream) {
 
 constexpr DeepPlanes NO_DEEP{nullptr, 0, nullptr, nullptr, nullptr, nullptr,
                              0};
-constexpr DenseInputs NO_DENSE{nullptr, 0, {}};
+constexpr GridInputs NO_GRIDS{{}};
+
+// K5: the persistent grid of one instantiation, then (with `launch`) the
+// launch on it
+template <bool WANT_VEL, int ITERS>
+cudaError_t dense_run(const DenseArgs& a, cudaStream_t stream, bool launch,
+                      Grid* g) {
+  static int per_sm = 0;  // this instantiation's blocks an SM
+  const long long units =
+      (long long)((a.n_sats + WARP - 1) / WARP) * a.n_times;
+  const cudaError_t rc = persistent_grid(sgp4_dense_kernel<WANT_VEL, ITERS>,
+                                         BLOCK, per_sm, units, g);
+  if (rc != cudaSuccess || !launch || g->blocks == 0) return rc;
+  sgp4_dense_kernel<WANT_VEL, ITERS><<<g->blocks, BLOCK, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool WANT_VEL>
+cudaError_t dense_iters(int kepler_iters, const DenseArgs& a,
+                        cudaStream_t stream, bool launch, Grid* g) {
+  switch (kepler_iters) {
+    case 3: return dense_run<WANT_VEL, 3>(a, stream, launch, g);
+    case 4: return dense_run<WANT_VEL, 4>(a, stream, launch, g);
+    case 5: return dense_run<WANT_VEL, 5>(a, stream, launch, g);
+    case 8: return dense_run<WANT_VEL, 8>(a, stream, launch, g);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int dense(int want_vel, int kepler_iters, const DenseArgs& a, void* stream,
+          bool launch, int* grid) {
+  Grid g{0, 0, 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      want_vel ? dense_iters<true>(kepler_iters, a, st, launch, &g)
+               : dense_iters<false>(kepler_iters, a, st, launch, &g);
+  if (grid != nullptr) {
+    grid[0] = g.per_sm;
+    grid[1] = g.sms;
+    grid[2] = g.blocks;
+  }
+  return static_cast<int>(rc);
+}
 
 }  // namespace
 
@@ -359,7 +492,7 @@ extern "C" int astroz_sgp4_shallow(const double* t_time, const double* t_sat,
                                    float re, float vkmpersec, float* r,
                                    float* v, int* err, void* stream) {
   const Args a{t_time, t_sat, spine,  tail,     flags,    n_times,
-               n_sats, j2,    re,     vkmpersec, NO_DEEP, NO_DENSE,
+               n_sats, j2,    re,     vkmpersec, NO_DEEP, NO_GRIDS,
                r,      v,     err};
   return launch_vel<SEP>(want_vel, kepler_iters, a, stream);
 }
@@ -378,21 +511,34 @@ extern "C" int astroz_sgp4_shallow_merge(
   const Args a{t_time, t_sat, spine, tail, flags, n_times, n_sats, j2, re,
                vkmpersec,
                DeepPlanes{near_cols, n_near, deep_cols, dr, dv, de, n_deep},
-               NO_DENSE, r, v, err};
+               NO_GRIDS, r, v, err};
   return launch_vel<MERGE>(want_vel, kepler_iters, a, stream);
 }
 
 // K5: K1 on tsince (T, S) f64 minutes since each satellite's epoch, or a
 // (T, 1) column shared by every satellite (sat_stride 0; 1 for (T, S)).
+// time_major 1: r and v are (T, S, 3) f32 (the element-level wrappers'
+// layout); 0: (3, T, S) planes.
 extern "C" int astroz_sgp4_shallow_dense(
     const double* tsince, int sat_stride, const double* spine,
     const float* tail, const int* flags, int n_times, int n_sats,
-    int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
-    float* r, float* v, int* err, void* stream) {
-  const Args a{nullptr, nullptr, spine, tail, flags, n_times, n_sats, j2,
-               re, vkmpersec, NO_DEEP, DenseInputs{tsince, sat_stride, {}},
-               r, v, err};
-  return launch_vel<DENSE>(want_vel, kepler_iters, a, stream);
+    int kepler_iters, int want_vel, int time_major, float j2, float re,
+    float vkmpersec, float* r, float* v, int* err, void* stream) {
+  const DenseArgs a{tsince, sat_stride, spine, tail,      flags, n_times,
+                    n_sats, time_major, j2,    re,        vkmpersec,
+                    r,      v,          err};
+  return dense(want_vel, kepler_iters, a, stream, true, nullptr);
+}
+
+// K5's grid at (n_times, n_sats) without a launch: grid[0] blocks an SM
+// of the instantiation, grid[1] the card's SMs, grid[2] blocks launched
+extern "C" int astroz_sgp4_shallow_dense_grid(int n_times, int n_sats,
+                                              int kepler_iters, int want_vel,
+                                              int* grid) {
+  DenseArgs a{};
+  a.n_times = n_times;
+  a.n_sats = n_sats;
+  return dense(want_vel, kepler_iters, a, nullptr, false, grid);
 }
 
 // K6: the tail on six (T, S) f32 spine grids t32, u_base, mm, argp32,
@@ -405,8 +551,7 @@ extern "C" int astroz_sgp4_shallow_grids(
     float* r, float* v, int* err, void* stream) {
   const Args a{nullptr, nullptr, nullptr, tail, flags, n_times, n_sats, j2,
                re, vkmpersec, NO_DEEP,
-               DenseInputs{nullptr, 0,
-                           {t32, u_base, mm, argp32, node32, xmdf32}},
-               r, v, err};
+               GridInputs{{t32, u_base, mm, argp32, node32, xmdf32}}, r, v,
+               err};
   return launch_vel<GRIDS>(want_vel, kepler_iters, a, stream);
 }

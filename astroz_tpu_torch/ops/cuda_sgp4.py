@@ -22,9 +22,11 @@ t_sat[n]`` minutes, K5 and K6 over a dense one. The planes-level
 functions return the grouped planes ``r (3, T, N)`` f32, ``v (3, T, N)``
 f32 (``None`` with ``want_vel=False``) and ``err (T, N)`` i32; the
 element-level ones ``r``, ``v`` (T, N, 3) and ``err`` (T, N), as the JAX
-wrappers do. The kernels are ``csrc/sgp4_shallow.cu`` (K1, K3, K5, K6)
-and ``csrc/sgp4_deep.cu`` (K2); their source notes say what bounds them
-on Hopper and what the design does about that.
+wrappers do (K5 writes that layout itself). The element-level ones stage
+their elements once per element set (:func:`_staged`). The kernels are
+``csrc/sgp4_shallow.cu`` (K1, K3, K5, K6) and ``csrc/sgp4_deep.cu`` (K2);
+their source notes say what bounds them on Hopper and what the design
+does about that; :func:`launch_grid` gives the grid K5 and K2 launch.
 
 On a CUDA tensor a wrapper launches its kernel or raises, and adds one
 to its entry of :data:`LAUNCHES`. On a CPU tensor it runs its
@@ -34,6 +36,8 @@ to its entry of :data:`LAUNCHES`. On a CPU tensor it runs its
 
 from __future__ import annotations
 
+import ctypes
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -102,8 +106,9 @@ def _launch_device(x, kepler_iters, name):
     return dev
 
 
-def _outputs(dev, n_times, n, want_vel):
-    r = torch.empty((3, n_times, n), dtype=F32, device=dev)
+def _outputs(dev, n_times, n, want_vel, time_major=False):
+    shape = (n_times, n, 3) if time_major else (3, n_times, n)
+    r = torch.empty(shape, dtype=F32, device=dev)
     v = torch.empty_like(r) if want_vel else None
     err = torch.empty((n_times, n), dtype=I32, device=dev)
     return r, v, err
@@ -448,6 +453,39 @@ def propagate_fast_dense_reference(tsince, spine, tail, flags, *,
                            kepler_iters, want_vel)
 
 
+def _time_major(r3, v3, err):
+    """The JAX wrappers' (T, S, 3) layout from the (3, T, S) planes."""
+    r = r3.permute(1, 2, 0).contiguous()
+    v = None if v3 is None else v3.permute(1, 2, 0).contiguous()
+    return r, v, err
+
+
+def _dense(tsince, spine, tail, flags, grav, kepler_iters, want_vel,
+           time_major):
+    """K5 (or its plain version on a CPU tensor) into the (3, T, S)
+    planes, or with ``time_major`` into (T, S, 3) r and v."""
+    n_times, n_sats = _check_dense(tsince, spine, tail, flags)
+    dev = _launch_device(tsince, kepler_iters, "propagate_fast_dense")
+    if dev.type == "cpu":
+        out = propagate_fast_dense_reference(
+            tsince, spine, tail, flags, grav=grav, kepler_iters=kepler_iters,
+            want_vel=want_vel)
+        return _time_major(*out) if time_major else out
+    r, v, err = _outputs(dev, n_times, n_sats, want_vel, time_major)
+    if n_times == 0 or n_sats == 0:
+        return r, v, err
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_sgp4_shallow_dense(
+            tsince.data_ptr(), int(tsince.shape[1] == n_sats),
+            spine.data_ptr(), tail.data_ptr(), flags.data_ptr(), n_times,
+            n_sats, kepler_iters, int(want_vel), int(time_major),
+            *_grav_args(grav), r.data_ptr(), _ptr(v), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sgp4_shallow_dense")
+    return r, v, err
+
+
 def propagate_fast_dense(tsince, spine, tail, flags, *, grav: GravityModel,
                          kepler_iters: int, want_vel: bool = True):
     """K5: propagate near-earth satellites to a dense grid of minutes
@@ -461,36 +499,44 @@ def propagate_fast_dense(tsince, spine, tail, flags, *, grav: GravityModel,
 
     Returns ``(r, v, err)`` as :func:`propagate_fast_sep`.
     """
-    n_times, n_sats = _check_dense(tsince, spine, tail, flags)
-    dev = _launch_device(tsince, kepler_iters, "propagate_fast_dense")
-    if dev.type == "cpu":
-        return propagate_fast_dense_reference(
-            tsince, spine, tail, flags, grav=grav, kepler_iters=kepler_iters,
-            want_vel=want_vel)
-    r, v, err = _outputs(dev, n_times, n_sats, want_vel)
-    if n_times == 0 or n_sats == 0:
-        return r, v, err
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.astroz_sgp4_shallow_dense(
-            tsince.data_ptr(), int(tsince.shape[1] == n_sats),
-            spine.data_ptr(), tail.data_ptr(), flags.data_ptr(), n_times,
-            n_sats, kepler_iters, int(want_vel), *_grav_args(grav),
-            r.data_ptr(), _ptr(v), err.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "sgp4_shallow_dense")
-    return r, v, err
-
-
-def _time_major(r3, v3, err):
-    """The JAX wrappers' (T, S, 3) layout from the (3, T, S) planes."""
-    r = r3.permute(1, 2, 0).contiguous()
-    v = None if v3 is None else v3.permute(1, 2, 0).contiguous()
-    return r, v, err
+    return _dense(tsince, spine, tail, flags, grav, kepler_iters, want_vel,
+                  time_major=False)
 
 
 def _tsince_for(els, tsince):
     return torch.as_tensor(tsince, dtype=F64, device=els.no_kozai.device)
+
+
+#: the one element set :func:`_staged` keeps: ``((weak reference, version
+#: counter) of each element tensor, their shallow_staging)``, or None
+_STAGED = None
+
+
+def _staged(els):
+    """``shallow_staging(els)``, staged once per element set.
+
+    The kept staging is returned while each element tensor is the same
+    live object as when it was staged, at the same address, and its
+    version counter (``Tensor._version``, which an expanded view shares
+    with its base) has not moved. That counter sees only writes made
+    through torch, so
+    elements whose memory torch did not allocate (``torch.from_numpy``,
+    ``torch.as_tensor`` of a numpy array, DLPack), which can be written
+    behind its back, are staged afresh on every call and never kept. The
+    entry holds weak references, so it keeps no element tensor alive,
+    and it is replaced whole, so threads that share it never read half of
+    one entry and half of another."""
+    global _STAGED
+    entry = _STAGED
+    if entry is not None and len(entry[0]) == len(els) and all(
+            ref() is x and key == (x._version, x.data_ptr())
+            for (ref, key), x in zip(entry[0], els)):
+        return entry[1]
+    staging = shallow_staging(els)
+    if all(x.untyped_storage().resizable() for x in els):
+        _STAGED = (tuple((weakref.ref(x), (x._version, x.data_ptr()))
+                         for x in els), staging)
+    return staging
 
 
 def propagate_fast_fused_reference(els, tsince, grav: GravityModel,
@@ -506,14 +552,33 @@ def propagate_fast_fused_reference(els, tsince, grav: GravityModel,
 def propagate_fast_fused(els, tsince, grav: GravityModel,
                          kepler_iters: int = 5, want_vel: bool = True):
     """Near-earth propagate of elements (``Sgp4Elements`` of tensors,
-    broadcast satellites too) to a dense ``tsince`` grid through K5.
+    broadcast satellites too) to a dense ``tsince`` grid through K5,
+    which writes the time-major layout; the elements are staged once per
+    element set (:func:`_staged`).
 
     ``tsince``: (T, S) or (T, 1) f64 minutes since each epoch. Returns
-    ``(r, v, err)``: r and v (T, S, 3) f32 TEME km and km/s (v None
-    with ``want_vel=False``), err (T, S) i32 python-sgp4 codes."""
-    return _time_major(*propagate_fast_dense(
-        _tsince_for(els, tsince), *shallow_staging(els), grav=grav,
-        kepler_iters=kepler_iters, want_vel=want_vel))
+    ``(r, v, err)``: r and v (T, S, 3) f32 TEME km and km/s, contiguous
+    (v None with ``want_vel=False``), err (T, S) i32 python-sgp4 codes."""
+    return _dense(_tsince_for(els, tsince), *_staged(els), grav,
+                  kepler_iters, want_vel, time_major=True)
+
+
+def launch_grid(kernel, n_times, n_sats, *, kepler_iters, want_vel=True):
+    """The persistent grid that K5 (``kernel="sgp4_shallow_dense"``) or
+    K2 (``"sgp4_deep"``) launches on the current CUDA device at
+    ``n_times`` x ``n_sats``: ``{"per_sm": blocks an SM (the
+    instantiation's occupancy), "sms": the card's SMs, "blocks": blocks
+    launched, "waves": blocks / (per_sm * sms)}``."""
+    fn = {"sgp4_shallow_dense": "astroz_sgp4_shallow_dense_grid",
+          "sgp4_deep": "astroz_sgp4_deep_grid"}[kernel]
+    grid = (ctypes.c_int * 3)()
+    rc = getattr(_build.library(), fn)(n_times, n_sats, kepler_iters,
+                                       int(want_vel), ctypes.addressof(grid))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} grid query failed: cudaError {rc}")
+    per_sm, sms, blocks = grid
+    return {"per_sm": per_sm, "sms": sms, "blocks": blocks,
+            "waves": blocks / (per_sm * sms)}
 
 
 # ---------------------------------------------------------------------------
@@ -579,7 +644,7 @@ def spine_grids(els, tsince):
     """The f64 spine of ``els`` at ``tsince`` ((T, S) or (T, 1) f64) as
     K6 reads it: six contiguous (T, S) f32 grids, and the staging's tail
     and flags."""
-    spine, tail, flags = shallow_staging(els)
+    spine, tail, flags = _staged(els)
     t = _tsince_for(els, tsince)
     shape = (t.shape[0], spine.shape[1])
     grids = tuple(g.expand(shape).contiguous()

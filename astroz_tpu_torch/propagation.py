@@ -56,6 +56,9 @@ HEO_ESCAPE_ECC = 0.7
 #: with more escape lanes than this the f64 recompute would stop being a
 #: small part of a sweep; such a catalog keeps the f32 tail's accuracy
 _HEO_ESCAPE_CAP = 512
+#: kernel K2 takes the Lyddane branch of the lunisolar periodics below
+#: this inclination (rad; ops/fast.py:_dpper_core)
+LYDDANE_INCL = 0.2
 
 
 class DeepStaging(NamedTuple):
@@ -107,6 +110,19 @@ def _on(device, tree):
     return type(tree)(*(torch.as_tensor(x, device=device) for x in tree))
 
 
+def deep_slots(host: Sgp4Elements, deep: DeepElements) -> np.ndarray:
+    """The deep lanes of a catalog in kernel K2's slot order: grouped by
+    regime (inclination under LYDDANE_INCL or not, then resonance irez
+    0, 1, 2), in catalog order within a group, so that the 32 neighbouring
+    slots of a warp seldom take both sides of K2's Lyddane or resonance
+    branch. Each lane is propagated on its own, so the order moves no
+    output bit."""
+    idx = np.nonzero(host.is_deep)[0]
+    key = ((host.inclo[idx] < LYDDANE_INCL) * 3
+           + np.asarray(deep.irez)[idx])
+    return idx[np.argsort(key, kind="stable")]
+
+
 class SatCatalog:
     """An initialized catalog on one device.
 
@@ -115,9 +131,9 @@ class SatCatalog:
     with deep lanes also keeps their SDP4 coefficients (``deep_host``,
     numpy, every lane; ``deep``, the same on the device, moved at first
     use by the f64 path) and the static deep partition: ``deep_idx``
-    (the deep columns) and the deep subset's elements and coefficients
-    on the device (``els_deep``, ``deep_sub``); these are None
-    otherwise."""
+    (the deep columns, in K2's slot order, :func:`deep_slots`) and the
+    deep subset's elements and coefficients in that order on the device
+    (``els_deep``, ``deep_sub``); these are None otherwise."""
 
     def __init__(self, els: Sgp4Elements, grav: GravityModel,
                  satnum: np.ndarray, names=None, *,
@@ -135,7 +151,7 @@ class SatCatalog:
         self.deep_host = deep
         self.deep_idx = self.els_deep = self.deep_sub = None
         if deep is not None:
-            self.deep_idx = np.nonzero(self.host.is_deep)[0]
+            self.deep_idx = deep_slots(self.host, deep)
             self.els_deep = _on(self.device, Sgp4Elements(
                 *(x[self.deep_idx] for x in self.host)))
             self.deep_sub = _on(self.device, DeepElements(

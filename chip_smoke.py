@@ -31,6 +31,8 @@ Phases (any failure exits non-zero; nothing is caught):
    full (4,096, 1,024) chunk, at 3 and 8 trips, with and without
    velocities; K5 on ``t_time - t_sat`` must equal K1, K6 must equal K5,
    and K5's positions must not change without velocities, bit for bit;
+   K5's time-major output (``propagate_fast_fused``) must equal the
+   (T, S, 3) layout of its planes bit for bit;
 3. the near-earth main path: 13,478 synthetic near-earth TLEs as text ->
    ``Constellation(text, device="cuda")`` -> ``propagate`` over 1,440
    one-minute epochs, as planes, as ECEF planes and time-major. Each
@@ -67,10 +69,15 @@ Phases (any failure exits non-zero; nothing is caught):
    0.01 km, and ``propagate_tsince`` on a (16, 1) grid equal to
    ``sdp4_propagate``;
 4. timings with CUDA events: K1 alone and its plain version on the card,
-   in turns, and the whole near-earth ``propagate`` call;
-4b. the same for K2 and K3, plus the HEO escape, the resonance tables
-   and the whole mixed ``propagate`` call, and the peak device memory of
-   a mixed sweep;
+   in turns (the kernel launched back to back, host gaps included, and
+   replayed from a CUDA graph, its own time), and the whole near-earth
+   ``propagate`` call;
+4b. the same for K2 and K3, plus K2's wrapper's host time, the HEO
+   escape, the resonance tables and the whole mixed ``propagate`` call,
+   and the peak device memory of a mixed sweep; K2's registers and
+   spills, its persistent grid (blocks an SM, blocks launched, waves) and
+   its issue estimate (the static SASS instructions of its row loop a
+   point over the card's issue rate);
 5. K4 (the coarse screening pass) vs its plain version on the card, in
    both modes. Matrix mode bit for bit on every entry checked (NaN where
    NaN, +inf at and below the diagonal): a ragged 1,002-satellite x
@@ -99,21 +106,33 @@ Phases (any failure exits non-zero; nothing is caught):
    of a ``screen`` call (CUDA events and wall clock), ``screen_target``,
    and the peak device memory of a screen;
 4c. timings with CUDA events: K5 and K6 alone at one (4,096, 1,024) chunk
-   and their plain versions, in turns, the torch spine that feeds K6, the
-   whole 1year_1s sweep through K5 and through the f64 ``sgp4_propagate``,
-   the f64 ``propagate`` of the mixed catalog (planes, time-major,
-   ``scan_times=True``), and the peak device memory of each.
+   and their plain versions, in turns as in phase 4 (K5 through
+   ``propagate_fast_fused`` on elements already staged, the time-major
+   store its callers use, and through ``propagate_fast_dense``, the
+   planes), the torch spine that feeds K6, the whole 1year_1s sweep
+   through K5 and through the f64 ``sgp4_propagate``, the f64
+   ``propagate`` of the mixed catalog (planes, time-major,
+   ``scan_times=True``), and the peak device memory of each; K5's
+   registers, spills, grid and issue estimate as K2's; and, under
+   ``torch.profiler``, a second ``propagate_fast_fused`` call on the same
+   elements must run K5 and no other device work (no staging, no copy).
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (with each one's bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
-rate for their type), and ``{"ok": true, "device": ...}``.
+rate for their type; ``ms`` is the kernel launched back to back through
+its wrapper, ``device_ms`` the same calls replayed from a CUDA graph,
+null for K4, whose candidate mode fetches a count), and ``{"ok": true,
+"device": ...}``.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -168,6 +187,10 @@ PEAK_F64_OPS_S = 34e12
 #: instructions it issues with FMA (3 FADD, 1 FMUL, 2 FFMA, 1 FMNMX),
 #: against 128 f32 lanes an SM at the card's largest SM clock
 K4_OPS, K4_INSTRUCTIONS, LANES_PER_SM = 9, 7, 128
+#: the mangled names of K5 and K2 with velocities at a number of Newton
+#: trips, as ptxas and cuobjdump show them
+DENSE_KERNEL = "sgp4_dense_kernelILb1ELi{}E"
+DEEP_KERNEL = "sgp4_deep_kernelILb1ELi{}E"
 
 #: python-sgp4 v2.25 reference trajectory of the TLE below (WGS-72):
 #: (minutes since epoch, TEME position km)
@@ -622,7 +645,20 @@ def _dense_vs_twin(els, tsince, grav, label, codes=None):
                                                   want_vel=False)
         gr = cuda_sgp4.propagate_fast_spine_grids_reference(grids, tail,
                                                             flags, **kw)
+        # K5's own time-major store against the layout of its planes
+        tm = cuda_sgp4.propagate_fast_fused(els, tsince, grav,
+                                            kepler_iters=iters)
+        tm0 = cuda_sgp4.propagate_fast_fused(els, tsince, grav,
+                                             kepler_iters=iters,
+                                             want_vel=False)
         sync()
+        check(all(a is b is None or torch.equal(a, b) for a, b in zip(
+                  tm, cuda_sgp4._time_major(rr, vr, er)))
+              and all(a is b is None or torch.equal(a, b) for a, b in zip(
+                  tm0, cuda_sgp4._time_major(rr, None, er)))
+              and tm[0].is_contiguous() and tm[1].is_contiguous(),
+              f"K5 {label} iters={iters}: its time-major output is not the "
+              "(T, S, 3) layout of its plain version's planes")
         check(v0 is None and g0[1] is None,
               "want_vel=False returned velocities")
         check(torch.equal(e, er) and torch.equal(e0, er),
@@ -636,7 +672,8 @@ def _dense_vs_twin(els, tsince, grav, label, codes=None):
               f"max|dv| {dv:.3e} km/s; K6 max|dr| {gdr:.3e} km, max|dv| "
               f"{gdv:.3e} km/s; error codes {codes_seen}; K6 bit-equal to "
               f"K5: {same}; r bit-equal without v: K5 {torch.equal(r, r0)}, "
-              f"K6 {torch.equal(g[0], g0[0])}")
+              f"K6 {torch.equal(g[0], g0[0])}; K5 time-major bit-equal to "
+              "its planes' layout: True")
         check(torch.equal(r, rr) and torch.equal(v, vr),
               f"K5 {label}: not bit-equal to the plain version (|dr| {dr} "
               f"km, |dv| {dv} km/s)")
@@ -1086,14 +1123,84 @@ def _cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, reps, per_graph=10):
+    """The mean time of a call of ``fn`` (a kernel's wrapper, which syncs
+    nothing) replayed from a CUDA graph: ``per_graph`` calls are captured
+    once and the graph replayed until ``reps`` calls ran, between CUDA
+    events. The card never waits for the host, so a kernel shorter than
+    its wrapper's host time is timed at its own length."""
+    fn()
+    sync()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    replays = max(1, reps // per_graph)
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / (replays * per_graph)
+    del graph
+    return ms
+
+
+def _host_us(fn, reps):
+    """The host's microseconds a call of ``fn`` takes to return, the card
+    not waited for."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    sync()
+    return host
+
+
+class Turns(NamedTuple):
+    """A kernel and its plain version timed in turns: plain, kernel
+    launched back to back (:func:`_cuda_ms`, host gaps included), kernel
+    replayed from a CUDA graph (:func:`_graph_ms`, its own time) twice,
+    kernel back to back, plain."""
+    times: tuple
+
+    @property
+    def ms(self):
+        return (self.times[1] + self.times[4]) / 2
+
+    @property
+    def device_ms(self):
+        return (self.times[2] + self.times[3]) / 2
+
+    @property
+    def plain_ms(self):
+        return (self.times[0] + self.times[5]) / 2
+
+    def text(self, name):
+        t = self.times
+        return (f"kernel {name} {self.ms:.4f} ms launched back to back "
+                f"({t[1]:.4f}, {t[4]:.4f}), {self.device_ms:.4f} ms replayed "
+                f"from a CUDA graph ({t[2]:.4f}, {t[3]:.4f}); plain torch "
+                f"version {self.plain_ms:.4f} ms ({t[0]:.4f}, {t[5]:.4f})")
+
+
 def _in_turns(kernel, plain, reps_kernel, reps_plain):
-    """plain, kernel, kernel, plain; returns the two means and the four
-    times."""
-    p1, k1, k2, p2 = (_cuda_ms(plain, reps_plain),
-                      _cuda_ms(kernel, reps_kernel),
-                      _cuda_ms(kernel, reps_kernel),
-                      _cuda_ms(plain, reps_plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+    """:class:`Turns` of ``kernel`` and ``plain``."""
+    return Turns((_cuda_ms(plain, reps_plain), _cuda_ms(kernel, reps_kernel),
+                  _graph_ms(kernel, reps_kernel),
+                  _graph_ms(kernel, reps_kernel),
+                  _cuda_ms(kernel, reps_kernel), _cuda_ms(plain, reps_plain)))
 
 
 def phase4_timings(con, smi):
@@ -1104,7 +1211,7 @@ def phase4_timings(con, smi):
     t_time = torch.arange(N_TIMES, dtype=torch.float64, device=DEVICE)
     args = (t_time, st.t_sat, st.spine, st.tail, st.flags)
     kw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
-    k_ms, p_ms, turns = _in_turns(
+    k1 = _in_turns(
         lambda: cuda_sgp4.propagate_fast_sep(*args, **kw),
         lambda: cuda_sgp4.propagate_fast_sep_reference(*args, **kw), 20, 3)
     times = np.arange(float(N_TIMES))
@@ -1112,11 +1219,8 @@ def phase4_timings(con, smi):
         times, start_time=EPOCH_JD, layout="planes"), 10)
     call_tm = _cuda_ms(lambda: con.propagate(times, start_time=EPOCH_JD), 10)
     props = N_SATS * N_TIMES
-    print(f"# phase 4 [{smi}]: kernel K1 {k_ms:.4f} ms "
-          f"({turns[1]:.4f}, {turns[2]:.4f}; "
-          f"{props / k_ms / 1e6:.3f} G props/s)")
-    print(f"# phase 4 [{smi}]: K1 plain torch version {p_ms:.4f} ms "
-          f"({turns[0]:.4f}, {turns[3]:.4f})")
+    print(f"# phase 4 [{smi}]: {k1.text('K1')} "
+          f"({props / k1.ms / 1e6:.3f} G props/s)")
     print(f"# phase 4 [{smi}]: near-earth propagate() planes "
           f"{call_planes:.4f} ms, time_major {call_tm:.4f} ms")
     print(f"# phase 4: peak device memory so far "
@@ -1128,7 +1232,7 @@ def phase4_timings(con, smi):
     print(f"# phase 4: K1 bound {k1_bound[0]:.4f} ms by {k1_bound[1]} "
           f"({ops[0] / props:.1f} f32 and {ops[1] / props:.1f} f64 "
           f"operations a point in its plain version)")
-    return k_ms, p_ms, k1_bound
+    return k1, k1_bound
 
 
 def phase4b_mixed_timings(con, smi):
@@ -1143,10 +1247,12 @@ def phase4b_mixed_timings(con, smi):
     tables = cat.resonance_tables(steps)
     dargs = (t_time, ds.t_sat, ds.spine, ds.tail, ds.flags, tables)
     dkw = dict(grav=cat.grav, kepler_iters=cat.deep_kepler_iters)
-    k2_ms, k2_plain, k2_turns = _in_turns(
+    k2 = _in_turns(
         lambda: cuda_sgp4.propagate_deep_sep(*dargs, **dkw),
         lambda: cuda_sgp4.propagate_deep_sep_reference(*dargs, **dkw),
         50, 3)
+    k2_host = _host_us(lambda: cuda_sgp4.propagate_deep_sep(*dargs, **dkw),
+                       50)
     dr, dv, de = cuda_sgp4.propagate_deep_sep(*dargs, **dkw)
     esc_ms = _cuda_ms(lambda: _apply_escape(
         cat.heo_escape, cat.escape_tables(steps), t_time, cat.grav, True,
@@ -1155,7 +1261,7 @@ def phase4b_mixed_timings(con, smi):
              de)
     mkw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
     maps = dict(maps=ds.maps)
-    k3_ms, k3_plain, k3_turns = _in_turns(
+    k3 = _in_turns(
         lambda: cuda_sgp4.propagate_fast_sep_merge(*margs, **mkw, **maps),
         lambda: cuda_sgp4.propagate_fast_sep_merge_reference(*margs, **mkw),
         20, 3)
@@ -1172,14 +1278,10 @@ def phase4b_mixed_timings(con, smi):
     peak = torch.cuda.max_memory_allocated()
     del out
     props = N_SATS * N_TIMES
-    print(f"# phase 4b [{smi}]: kernel K2 {k2_ms:.4f} ms "
-          f"({k2_turns[1]:.4f}, {k2_turns[2]:.4f}; {cat.n_deep} x "
-          f"{N_TIMES}), plain torch version {k2_plain:.4f} ms "
-          f"({k2_turns[0]:.4f}, {k2_turns[3]:.4f})")
-    print(f"# phase 4b [{smi}]: kernel K3 {k3_ms:.4f} ms "
-          f"({k3_turns[1]:.4f}, {k3_turns[2]:.4f}; "
-          f"{props / k3_ms / 1e6:.3f} G props/s), plain torch version "
-          f"{k3_plain:.4f} ms ({k3_turns[0]:.4f}, {k3_turns[3]:.4f})")
+    print(f"# phase 4b [{smi}]: {k2.text('K2')} ({cat.n_deep} x "
+          f"{N_TIMES}); its wrapper's host time {k2_host:.1f} us a call")
+    print(f"# phase 4b [{smi}]: {k3.text('K3')} "
+          f"({props / k3.ms / 1e6:.3f} G props/s)")
     print(f"# phase 4b [{smi}]: HEO escape ({len(cat.heo_escape.idx)} "
           f"lanes, plain f64 torch) {esc_ms:.4f} ms; resonance tables "
           f"(depth {steps}, once per catalog and depth) {tables_ms:.4f} ms")
@@ -1203,7 +1305,14 @@ def phase4b_mixed_timings(con, smi):
           f"({k2_ops[0] / (cat.n_deep * N_TIMES):.1f} f32 and "
           f"{k2_ops[1] / (cat.n_deep * N_TIMES):.1f} f64 operations a "
           f"point); K3 bound {k3_bound[0]:.4f} ms by {k3_bound[1]}")
-    return (k2_ms, k2_plain, k2_bound), (k3_ms, k3_plain, k3_bound)
+    kernel_report(
+        f"phase 4b: K2 ({cat.n_deep} x {N_TIMES}, "
+        f"{cat.deep_kepler_iters} trips)",
+        DEEP_KERNEL.format(cat.deep_kepler_iters),
+        cuda_sgp4.launch_grid("sgp4_deep", N_TIMES, cat.n_deep,
+                              kepler_iters=cat.deep_kepler_iters),
+        cat.n_deep * N_TIMES, k2.device_ms, smi)
+    return (k2, k2_bound), (k3, k3_bound)
 
 
 def _same_or_both_nan(a, b):
@@ -1478,6 +1587,101 @@ def _max_sm_clock_hz():
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
+def row_loop_instructions(lib_path, kernel):
+    """The static SASS instructions of the row loop of the kernel whose
+    mangled name matches the regex ``kernel``, in the library at
+    ``lib_path`` as ``cuobjdump -sass`` lists it: the span of the kernel's
+    widest backward branch, the loop that walks the time rows. Returns
+    ``(all, hot)``: all of them, and those outside the cold fallbacks of
+    ``sgp4_common.cuh:fmod_exact`` (CUDA's f64 fmod loop for |x| >=
+    2^52, which these grids never reach): the block that the branch on
+    its DSETP of |x| against 2^52 jumps to, up to the target of the
+    branch that ends the hot side before it. ``hot`` counts both sides of
+    every other branch, so it is an upper estimate of the instructions a
+    warp issues a row for its 32 points: a warp whose lanes all take one
+    side issues fewer. None if the dump shows no such loop."""
+    from astroz_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", dump)[1:]
+                 if re.search(kernel, f.split(None, 1)[0])), None)
+    if body is None:
+        return None
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    text = dict(ins)
+
+    def target(t, pattern=r"\bBRA\b[^;]*?(0x[0-9a-f]+)"):
+        m = re.search(pattern, t)
+        return int(m.group(1), 16) if m else None
+
+    spans = [(a - target(t), target(t), a) for a, t in ins
+             if target(t) is not None and target(t) < a]
+    if not spans:
+        return None
+    _, lo, hi = max(spans)
+    cold = set()
+    for i, (a, t) in enumerate(ins):
+        guard = re.match(r"DSETP\.GEU\.AND (P\d), PT, \|?R\d+\|?, "
+                         r"4\.503599627370496\d*e\+15", t)
+        if not (guard and lo <= a <= hi):
+            continue
+        pred = guard.group(1)
+        for b, u in ins[i + 1:]:
+            m = re.match(rf"^@(!?){pred} BRA (0x[0-9a-f]+)", u)
+            if not m:
+                if re.match(rf"^(@!?P\d\s+)?[A-Z][\w.]*\s+{pred}\b", u):
+                    break  # the guard's predicate is written again
+                continue
+            x = int(m.group(2), 16)
+            if m.group(1):  # the hot side branches away: cold falls through
+                start, end = b + 16, x
+            else:  # the cold side branches away, up to the hot side's jump
+                start = x
+                end = target(text.get(x - 16, ""), r"^BRA (0x[0-9a-f]+)")
+            if end is not None and start < end <= hi + 16:
+                cold.update(c for c, _ in ins if start <= c < end)
+            break
+    loop = [a for a, _ in ins if lo <= a <= hi]
+    return len(loop), sum(a not in cold for a in loop)
+
+
+def kernel_report(label, kernel, grid, points, ms, smi):
+    """Print a persistent kernel's registers and spills (ptxas), its grid
+    (``cuda_sgp4.launch_grid``) and its issue estimate: the hot static
+    instructions of its row loop a point (:func:`row_loop_instructions`,
+    both sides of each branch, so an upper estimate) x ``points`` over
+    the card's issue rate (its SMs x LANES_PER_SM lanes at its largest SM
+    clock), and its share of the kernel's time ``ms``: an upper estimate
+    of the share of the SMs' issue slots the kernel fills."""
+    from astroz_tpu_torch import _build
+
+    regs = [(rg, st, ld) for name, rg, st, ld in _build.ptxas_report()
+            if re.search(kernel, name)]
+    check(len(regs) == 1, f"{label}: ptxas reports {regs} for {kernel}")
+    rg, st, ld = regs[0]
+    loop = row_loop_instructions(_build.library_path(), kernel)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _max_sm_clock_hz()
+    issue = (None if loop is None
+             else loop[1] * points / (sms * LANES_PER_SM * clock) * 1e3)
+    issue_text = ("not measured (no row loop found in the SASS)"
+                  if issue is None else
+                  f"{issue:.4f} ms ({loop[1]} SASS instructions a point in "
+                  f"the row loop's hot path, both sides of each branch, of "
+                  f"{loop[0]} in the loop, x {points} points over {sms} SMs "
+                  f"x {LANES_PER_SM} lanes at {clock / 1e9:.3f} GHz; "
+                  f"{issue / ms:.1%} of the kernel's {ms:.4f} ms replayed "
+                  f"from a CUDA graph)")
+    print(f"# {label} [{smi}]: {rg} registers, spill stores {st} B, spill "
+          f"loads {ld} B; grid: {grid['per_sm']} blocks an SM x "
+          f"{grid['sms']} SMs, {grid['blocks']} blocks launched, "
+          f"{grid['waves']:.3f} waves; issue estimate (upper) {issue_text}")
+
+
 def phase7_screen_timings(con, smi):
     """Times of K4's two modes and their plain versions, the screen's
     pieces and the whole screen; returns the matrix and candidate entries
@@ -1604,6 +1808,20 @@ def _peak(fn):
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
+def _device_work(fn):
+    """The names of the device activities (kernels, copies, fills) that
+    one call of ``fn`` runs, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     from astroz_tpu_torch import build_catalog
     from astroz_tpu_torch.ops import cuda_sgp4, sgp4_propagate
@@ -1615,12 +1833,19 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     t = next(single_sat_chunks(n_year, step_year))
     staged = shallow_staging(els)
     kw = dict(grav=cat.grav, kepler_iters=5)
-    k5_ms, k5_plain, k5_turns = _in_turns(
+    # the main path's K5: the elements staged by the first call, then the
+    # time-major store
+    k5 = _in_turns(
+        lambda: cuda_sgp4.propagate_fast_fused(els, t, **kw),
+        lambda: cuda_sgp4.propagate_fast_fused_reference(els, t, **kw),
+        50, 3)
+    k5_planes = _in_turns(
         lambda: cuda_sgp4.propagate_fast_dense(t, *staged, **kw),
         lambda: cuda_sgp4.propagate_fast_dense_reference(t, *staged, **kw),
         50, 3)
+
     grids, tail, flags = cuda_sgp4.spine_grids(els, t)
-    k6_ms, k6_plain, k6_turns = _in_turns(
+    k6 = _in_turns(
         lambda: cuda_sgp4.propagate_fast_spine_grids(grids, tail, flags,
                                                      **kw),
         lambda: cuda_sgp4.propagate_fast_spine_grids_reference(
@@ -1639,6 +1864,12 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     year_f64 = _cuda_ms(lambda: sweep(sgp4_propagate), 2)
     peak_fast, peak_f64 = _peak(lambda: sweep(fast)), _peak(
         lambda: sweep(sgp4_propagate))
+    device_work = _device_work(lambda: fast(els, t, cat.grav))
+    print(f"# phase 4c: device work of a second propagate_fast_fused call "
+          f"on the same elements (torch.profiler): {device_work}")
+    check(len(device_work) == 1 and "sgp4_dense_kernel" in device_work[0],
+          "a second propagate_fast_fused call on the same elements must run "
+          "K5 and nothing else on the card")
 
     times = np.arange(float(N_TIMES))
     f64_kw = dict(start_time=EPOCH_JD, method="f64")
@@ -1649,14 +1880,13 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
                                                **f64_kw))
     peak_tm = _peak(lambda: mcon.propagate(times, **f64_kw))
     mixed_props = N_SATS * N_TIMES
-    print(f"# phase 4c [{smi}]: kernel K5 {k5_ms:.4f} ms ({k5_turns[1]:.4f}, "
-          f"{k5_turns[2]:.4f}; {tuple(t.shape)}, {props / k5_ms / 1e6:.3f} G "
-          f"props/s), plain torch version {k5_plain:.4f} ms "
-          f"({k5_turns[0]:.4f}, {k5_turns[3]:.4f})")
-    print(f"# phase 4c [{smi}]: kernel K6 {k6_ms:.4f} ms ({k6_turns[1]:.4f}, "
-          f"{k6_turns[2]:.4f}), plain torch version {k6_plain:.4f} ms "
-          f"({k6_turns[0]:.4f}, {k6_turns[3]:.4f}); the torch f64 spine "
-          f"that feeds it (spine_grids) {spine_ms:.4f} ms")
+    print(f"# phase 4c [{smi}]: time-major, propagate_fast_fused: "
+          f"{k5.text('K5')} ({tuple(t.shape)}, "
+          f"{props / k5.ms / 1e6:.3f} G props/s)")
+    print(f"# phase 4c [{smi}]: planes, propagate_fast_dense: "
+          f"{k5_planes.text('K5')}")
+    print(f"# phase 4c [{smi}]: {k6.text('K6')}; the torch f64 spine that "
+          f"feeds it (spine_grids) {spine_ms:.4f} ms")
     print(f"# phase 4c [{smi}]: {SINGLE_SAT_SCENARIOS[-1][0]} sweep ({n_year} "
           f"points): "
           f"propagate_fast_fused (K5) {year_fast:.3f} ms "
@@ -1683,7 +1913,12 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
           f"operations a point); K6 bound {k6_bound[0]:.4f} ms by "
           f"{k6_bound[1]} ({k6_ops[0] / props:.1f} f32 and "
           f"{k6_ops[1] / props:.1f} f64)")
-    return (k5_ms, k5_plain, k5_bound), (k6_ms, k6_plain, k6_bound)
+    kernel_report(f"phase 4c: K5 ({tuple(t.shape)}, 5 trips)",
+                  DENSE_KERNEL.format(5),
+                  cuda_sgp4.launch_grid("sgp4_shallow_dense", *t.shape,
+                                        kepler_iters=5),
+                  props, k5.device_ms, smi)
+    return (k5, k5_bound), (k6, k6_bound)
 
 
 def main():
@@ -1719,11 +1954,18 @@ def main():
     print(smi)
 
     def entry(name, source, replaces, n, err, times, library_ms=None):
-        ms, plain_ms, (bound_ms, bound_by) = times[:3]
+        if isinstance(times[0], Turns):
+            turns, (bound_ms, bound_by) = times
+            ms, plain_ms, device_ms = (turns.ms, turns.plain_ms,
+                                       turns.device_ms)
+        else:  # K4: launched back to back only
+            ms, plain_ms, (bound_ms, bound_by) = times[:3]
+            device_ms = None
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": device_ms}
 
     print(json.dumps({"kernels": [
         entry("sgp4_shallow (K1)", "astroz_tpu_torch/csrc/sgp4_shallow.cu",

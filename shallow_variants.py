@@ -5,7 +5,7 @@ sincos and angle_add.
 Run from the repository root::
 
     python3 shallow_variants.py [--variants NAME ...] [--tree DIR]
-        [--rounds N] [--tag TAG]
+        [--rounds N] [--tag TAG] [--kernels NAME ...]
     python3 shallow_variants.py --fma-ulps
 
 A variant is a copy of the package ``astroz_tpu_torch`` with the named
@@ -24,14 +24,26 @@ of the variants reversed on every other round:
 * K3 (``propagate_fast_sep_merge``): ``chip_smoke.mixed_catalog_text`` x
   1,440, on the default build's K2 planes;
 * K5 and K6: one (4,096, 1,024) chunk of bench_single_sat's 1year_1s
-  grid (the ISS x 1,024 lanes, 5 trips);
-* K2: the mixed catalog's deep subset x 1,440.
+  grid (the ISS x 1,024 lanes, 5 trips); ``K5tm``: the same through
+  ``propagate_fast_fused`` (time-major, the elements staged); ``sweep``:
+  the whole 1year_1s grid (8 chunks) through ``propagate_fast_fused``;
+* K2: the mixed catalog's deep subset x 1,440, its slots grouped by
+  regime (``propagation.deep_slots``); ``K2c``: the same with the slots
+  in catalog order, so that warps mix the Lyddane branch with the
+  other.
 
 It prints, for each variant, ptxas' registers and spills of every
-kernel instantiation, whether its outputs equal the default build's bit
-for bit, each kernel's time in every round and the mean, the card's name
-and power limit, and a JSON line with all of it, also written to
-``chiprun_out/variants_<tag>.json``.
+kernel instantiation, the static SASS instructions of K5's and K2's row
+loops (``chip_smoke.row_loop_instructions``), whether its outputs equal
+the default build's bit for bit, each kernel's time in every round and
+the mean, the card's name and power limit, and a JSON line with all of
+it, also written to ``variants_<tag>.json`` in the output directory
+beside this script. A kernel's
+calls are replayed from a CUDA graph between CUDA events
+(``chip_smoke._graph_ms``), so that the host's time a call does not count
+where it is longer than the kernel's; the sweep is timed with CUDA events
+around its calls, host gaps included. ``--kernels`` times only the named
+workloads.
 
 ``--fma-ulps`` runs on the CPU: sincos and angle_add of
 ``ops/fastmath.py`` with every multiply-add fused as ``--fmad=true``
@@ -62,13 +74,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 VARIANT_DIR = ROOT / "astroz_tpu_torch" / "csrc" / "build" / "variants"
 N_SATS, N_TIMES = 13478, 1440
-K_REPS = {"K1": 20, "K3": 20, "K5": 50, "K6": 50, "K2": 50}
-#: mangled template arguments of the kernels: (velocities, trips, mode)
+K_REPS = {"K1": 20, "K3": 20, "K5": 50, "K6": 50, "K2": 50, "K5tm": 50,
+          "sweep": 5, "K2c": 50}
+#: mangled template arguments of the kernels: (velocities, trips, mode);
+#: K5 is the dense kernel, or mode 2 of the shallow one in older trees
 _SHALLOW = re.compile(r"sgp4_shallow_kernelILb(\d)ELi(\d+)ELi(\d)E")
+_DENSE = re.compile(r"sgp4_dense_kernelILb(\d)ELi(\d+)E")
 _DEEP = re.compile(r"sgp4_deep_kernelILb(\d)ELi(\d+)E")
 _MODES = ("K1", "K3", "K5", "K6")
+#: K5 and K2 with velocities at the timed trips, in this tree and before
+_LOOPS = {"K5": ("sgp4_dense_kernelILb1ELi5E",
+                 "sgp4_shallow_kernelILb1ELi5ELi2E"),
+          "K2": ("sgp4_deep_kernelILb1ELi6E",)}
 
 _SHALLOW_CU = "csrc/sgp4_shallow.cu"
+_DEEP_CU = "csrc/sgp4_deep.cu"
 _COMMON = "csrc/sgp4_common.cuh"
 
 #: --fmad=true in place of --fmad=false: every multiply-add contracted
@@ -84,6 +104,72 @@ def _rows(n):
 def _min_blocks(n):
     return [(_SHALLOW_CU, "__launch_bounds__(BLOCK)\nsgp4_shallow_kernel",
              f"__launch_bounds__(BLOCK, {n})\nsgp4_shallow_kernel", 1)]
+
+
+def _constant(rel, name, value):
+    """Set ``constexpr int <name>`` of the package file ``rel``."""
+    text = (ROOT / "astroz_tpu_torch" / rel).read_text()
+    old = re.search(rf"constexpr int {name} = \d+;", text).group(0)
+    return [(rel, old, f"constexpr int {name} = {value};", 1)]
+
+
+# K5 and K2 keep their satellites' fields in registers across the rows
+# in place of shared memory; with no register cap
+REGISTERS = [(_COMMON, """\
+  T (*rows)[B];
+  __device__ __forceinline__ T operator[](int k) const {
+    return rows[k][threadIdx.x];
+  }
+  // field k of satellite s from row k of an (N, stride) matrix
+  __device__ __forceinline__ void load(const T* src, size_t stride,
+                                       size_t s) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) rows[k][threadIdx.x] = src[k * stride + s];
+  }
+""", """\
+  T x[N];
+  __device__ __forceinline__ SharedFields(T (*)[B]) {}
+  __device__ __forceinline__ T operator[](int k) const { return x[k]; }
+  __device__ __forceinline__ void load(const T* src, size_t stride,
+                                       size_t s) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) x[k] = src[k * stride + s];
+  }
+""", 1)]
+# fmod_exact's fallback for |x| >= 2^52 (CUDA's f64 fmod, a loop) in a
+# function of its own, out of the row loops
+FMOD_OUT_OF_LINE = [
+    (_COMMON, """\
+__device__ __forceinline__ double fmod_exact(double x, double d,
+""", """\
+__device__ __noinline__ double fmod_slow(double x, double d) {
+  return fmod(x, d);
+}
+__device__ __forceinline__ double fmod_exact(double x, double d,
+""", 1),
+    (_COMMON, "  if (!(a < 0x1p52)) return fmod(x, d);",
+     "  if (!(a < 0x1p52)) return fmod_slow(x, d);", 1)]
+NO_MIN_BLOCKS = (_constant(_SHALLOW_CU, "DENSE_MIN_BLOCKS", 1)
+                 + _constant(_DEEP_CU, "DEEP_MIN_BLOCKS", 1))
+# K5 loads each row's tsince at the head of the row
+NO_PREFETCH = [
+    (_SHALLOW_CU, """\
+  double t_next = s < n_sats ? a.tsince[(size_t)ti * row_stride +
+                                        (size_t)s * a.sat_stride]
+                             : 0.0;
+""", "", 1),
+    (_SHALLOW_CU, """\
+    const double t = t_next;
+""", "", 1),
+    (_SHALLOW_CU, """\
+    if (k > 1 && s < n_sats)
+      t_next = a.tsince[(size_t)ti * row_stride + (size_t)s * a.sat_stride];
+    if (t_sat < n_sats) {
+""", """\
+    if (t_sat < n_sats) {
+      const double t = a.tsince[(size_t)t_row * row_stride +
+                                (size_t)t_sat * a.sat_stride];
+""", 1)]
 
 
 # The guards write a function's multiply-adds with __fmul_rn / __fadd_rn
@@ -172,7 +258,7 @@ VARIANTS = {
     # two time rows in flight in one thread: two Newton chains to overlap
     "pairs": [(_SHALLOW_CU, """\
   for (int ti = t_begin; ti < t_end; ++ti) {
-    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, dense);
+    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, grids);
     const PosVel o = shallow_tail<WANT_VEL, ITERS>(g, tf, not_simp, error0,
                                                    j2, re, vkmpersec);
     store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
@@ -180,8 +266,8 @@ VARIANTS = {
 """, """\
   for (int ti = t_begin; ti < t_end; ti += 2) {
     const int tj = min(ti + 1, t_end - 1);
-    const Spine g0 = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, dense);
-    const Spine g1 = spine_at<MODE>(tj, s, ns, t_time, epoch, sp, dense);
+    const Spine g0 = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, grids);
+    const Spine g1 = spine_at<MODE>(tj, s, ns, t_time, epoch, sp, grids);
     const PosVel o0 = shallow_tail<WANT_VEL, ITERS>(g0, tf, not_simp,
                                                     error0, j2, re,
                                                     vkmpersec);
@@ -201,6 +287,23 @@ VARIANTS = {
     # only the multiply-adds outside the spine, sincos, angle_add and
     # the Newton solve contracted
     "fmad_outer": FMAD + GUARDS,
+    # K5 and K2: the kept build is the balanced persistent grid
+    # (a), fields in shared memory under a register cap (b) and, in K5,
+    # the next row's tsince loaded ahead (c)
+    "grid_only": REGISTERS + NO_MIN_BLOCKS + NO_PREFETCH,  # a alone
+    "registers": REGISTERS + NO_MIN_BLOCKS,  # a + c
+    "shared_no_cap": NO_MIN_BLOCKS,  # a + b without a register cap
+    "no_prefetch": NO_PREFETCH,  # a + b
+    "fmod_out_of_line": FMOD_OUT_OF_LINE,
+    # K2's resonance row by CUDA's f64 fmod (a loop) in place of
+    # fmod_exact's one FMA
+    "k2_cuda_fmod": [(_DEEP_CU, "fmod_exact(at, STEPP, 1.0 / STEPP)",
+                      "fmod(at, STEPP)", 1)],
+    # the kept caps are K5's 8 and K2's 6 blocks an SM
+    **{f"k5_min{n}": _constant(_SHALLOW_CU, "DENSE_MIN_BLOCKS", n)
+       for n in (5, 6, 7)},
+    **{f"k2_min{n}": _constant(_DEEP_CU, "DEEP_MIN_BLOCKS", n)
+       for n in (4, 5, 7)},
 }
 
 
@@ -238,23 +341,21 @@ def ptxas_summary(report):
         if m:
             out[f"{_MODES[int(m.group(3))]} v{m.group(1)} i{m.group(2)}"] = (
                 regs, st, ld)
+        m = _DENSE.search(name)
+        if m:
+            out[f"K5 v{m.group(1)} i{m.group(2)}"] = (regs, st, ld)
         m = _DEEP.search(name)
         if m:
             out[f"K2 v{m.group(1)} i{m.group(2)}"] = (regs, st, ld)
     return out
 
 
-def cuda_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def timed(chip_smoke, name, fn):
+    """The time of a call of workload ``name``, ms (see the module's
+    docstring)."""
+    if name == "sweep":
+        return chip_smoke._cuda_ms(fn, K_REPS[name])
+    return chip_smoke._graph_ms(fn, K_REPS[name])
 
 
 def inputs(chip_smoke, default_ops):
@@ -276,12 +377,18 @@ def inputs(chip_smoke, default_ops):
     k2_kw = dict(grav=mixed.grav, kepler_iters=mixed.deep_kepler_iters)
     iss = build_catalog(chip_smoke.GOLDEN_L1 + "\n" + chip_smoke.GOLDEN_L2)
     els = chip_smoke.single_sat_elements(iss)
-    chunk = next(chip_smoke.single_sat_chunks(
+    chunks = list(chip_smoke.single_sat_chunks(
         *chip_smoke.SINGLE_SAT_SCENARIOS[-1][1:]))
+    chunk = chunks[0]
+    # the deep slots in catalog order
+    order = torch.as_tensor(np.argsort(mixed.deep_idx), device="cuda")
+    k2c = (t_time, *(x[..., order].contiguous()
+                     for x in (ds.t_sat, ds.spine, ds.tail, ds.flags,
+                               k2[5])))
     return dict(
         k1=((t_time, st.t_sat, st.spine, st.tail, st.flags),
             dict(grav=near.grav, kepler_iters=near.kepler_iters)),
-        k2=(k2, k2_kw),
+        k2=(k2, k2_kw), k2c=k2c, order=order, chunks=chunks, els=els,
         k3=((t_time, mst.t_sat, mst.spine, mst.tail, mst.flags, ds.slot,
              *default_ops.propagate_deep_sep(*k2, **k2_kw)),
             dict(grav=mixed.grav, kepler_iters=mixed.kepler_iters)),
@@ -304,7 +411,24 @@ def workloads(ops, x):
         "K6": lambda: ops.propagate_fast_spine_grids(grids, tail, flags,
                                                      **x["dense_kw"]),
         "K2": lambda: ops.propagate_deep_sep(*x["k2"][0], **x["k2"][1]),
+        "K5tm": lambda: ops.propagate_fast_fused(x["els"], x["chunk"],
+                                                 **x["dense_kw"]),
+        "sweep": lambda: [ops.propagate_fast_fused(x["els"], c,
+                                                   **x["dense_kw"])
+                          for c in x["chunks"]][-1],
+        "K2c": lambda: ops.propagate_deep_sep(*x["k2c"], **x["k2"][1]),
     }
+
+
+def loop_counts(build, chip_smoke):
+    """{"K5": n, "K2": n}: the static SASS instructions of each kernel's
+    row loop in one variant's library (None where not found)."""
+    out = {}
+    for k, names in _LOOPS.items():
+        counts = [chip_smoke.row_loop_instructions(build.library_path(), n)
+                  for n in names]
+        out[k] = next((c for c in counts if c is not None), None)
+    return out
 
 
 def time_variants(args):
@@ -322,13 +446,22 @@ def time_variants(args):
         pkgs["tree"] = make_variant(
             "tree", Path(args.tree).resolve() / "astroz_tpu_torch")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(pkgs)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         list(pool.map(lambda p: p[0].build(), pkgs.values()))
     print(f"# {args.tag}: built {len(pkgs)} variants in "
           f"{time.perf_counter() - t0:.1f} s")
     x = inputs(chip_smoke, pkgs["default"][1])
-    fns = {v: workloads(ops, x) for v, (_, ops) in pkgs.items()}
+    fns = {v: {k: fn for k, fn in workloads(ops, x).items()
+               if k in args.kernels}
+           for v, (_, ops) in pkgs.items()}
     ref = {k: fn() for k, fn in fns["default"].items()}
+    if "K2" in ref and "K2c" in ref:
+        # the slot order moves K2's slots, and nothing else
+        reordered = tuple(y[..., x["order"]] for y in ref["K2"])
+        print(f"# {args.tag}: K2 on catalog-order slots bit-equal to K2's "
+              "regime-order slots reordered: " + str(all(
+                  torch.equal(a, b) for a, b in zip(ref["K2c"], reordered))))
+        ref["K2c"] = reordered
 
     result = {"tag": args.tag, "card": smi, "tree": args.tree,
               "variants": {}}
@@ -337,10 +470,13 @@ def time_variants(args):
                         for a, b in zip(fn(), ref[k]))
                  for k, fn in fns[v].items()}
         ptxas = ptxas_summary(build.ptxas_report())
+        loops = loop_counts(build, chip_smoke)
         result["variants"][v] = {"edits": len(VARIANTS.get(v, ())),
                                  "equal_to_default": equal, "ptxas": ptxas,
+                                 "row_loop_instructions": loops,
                                  "ms": {k: [] for k in fns[v]}}
-        print(f"# {args.tag} {v}: bit-equal to the default build {equal}")
+        print(f"# {args.tag} {v}: bit-equal to the default build {equal}; "
+              f"static SASS instructions of the row loops {loops}")
         for kname, (regs, st, ld) in sorted(ptxas.items()):
             print(f"# {args.tag} {v}: ptxas {kname}: {regs} registers, "
                   f"spill stores {st} B, spill loads {ld} B")
@@ -348,8 +484,8 @@ def time_variants(args):
         order = list(pkgs) if rnd % 2 == 0 else list(pkgs)[::-1]
         for v in order:
             for k, fn in fns[v].items():
-                result["variants"][v]["ms"][k].append(cuda_ms(fn,
-                                                              K_REPS[k]))
+                result["variants"][v]["ms"][k].append(
+                    timed(chip_smoke, k, fn))
     for v, res in result["variants"].items():
         res["mean_ms"] = {k: sum(xs) / len(xs) for k, xs in res["ms"].items()}
         print(f"# {args.tag} {v} [{smi}]: " + "; ".join(
@@ -362,7 +498,7 @@ def time_variants(args):
     print(smi)
     print(json.dumps({k: {v: round(r["mean_ms"][k], 4)
                           for v, r in result["variants"].items()}
-                      for k in K_REPS}))
+                      for k in args.kernels}))
 
 
 def _ulps(a, b):
@@ -436,6 +572,8 @@ def main():
     ap.add_argument("--tree", default=None)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--tag", default="change")
+    ap.add_argument("--kernels", nargs="+", default=list(K_REPS),
+                    choices=list(K_REPS))
     ap.add_argument("--fma-ulps", action="store_true")
     args = ap.parse_args()
     if args.fma_ulps:

@@ -436,3 +436,65 @@ def test_cpu_runs_no_kernel():
         propagate(cat, jd, method=method)
     screen_all(near, jd, threshold_km=50.0)
     assert (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES)) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [3, 8])
+def test_dense_time_major_matches_planes_on_cuda(cuda_device, iters):
+    """K5's time-major store (``propagate_fast_fused``) gives the (T, S,
+    3) layout of its planes bit for bit, contiguous, with and without
+    velocities, on a dense grid and on a (T, 1) column."""
+    cat = build_catalog(synthetic_leo_text(), device=cuda_device)
+    st = cat.fast_staging
+    kw = dict(grav=cat.grav, kepler_iters=iters)
+    for t in (_dense_grid(cat, cuda_device),
+              torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
+                             device=cuda_device)[:, None].contiguous()):
+        planes = cuda_sgp4.propagate_fast_dense(t, st.spine, st.tail,
+                                                st.flags, **kw)
+        before = cuda_sgp4.LAUNCHES["sgp4_shallow_dense"]
+        r, v, e = cuda_sgp4.propagate_fast_fused(cat.els, t, cat.grav,
+                                                 kepler_iters=iters)
+        r0, v0, e0 = cuda_sgp4.propagate_fast_fused(
+            cat.els, t, cat.grav, kepler_iters=iters, want_vel=False)
+        torch.cuda.synchronize()
+        assert cuda_sgp4.LAUNCHES["sgp4_shallow_dense"] == before + 2
+        ref = cuda_sgp4._time_major(*planes)
+        assert r.is_contiguous() and v.is_contiguous() and v0 is None
+        assert torch.equal(r, ref[0]) and torch.equal(v, ref[1])
+        assert torch.equal(e, ref[2]) and torch.equal(e0, ref[2])
+        assert torch.equal(r0, ref[0])
+
+
+@pytest.mark.cuda
+def test_persistent_kernels_match_twins_in_a_partial_wave_on_cuda(
+        cuda_device):
+    """K5 and K2 at ragged shapes small enough that their persistent grid
+    is a part of one wave: bit-equal to their plain versions."""
+    cat = _mixed_catalog(cuda_device)
+    near = build_catalog(synthetic_leo_text(45), device=cuda_device)
+    st = near.fast_staging
+    gen = torch.Generator().manual_seed(9)
+    t = ((torch.rand((7, 45), generator=gen, dtype=torch.float64) - 0.5)
+         * 2880.0).to(cuda_device)
+    kw = dict(grav=near.grav, kepler_iters=near.kepler_iters)
+    grid = cuda_sgp4.launch_grid("sgp4_shallow_dense", 7, 45,
+                                 kepler_iters=near.kepler_iters)
+    assert grid["waves"] < 1.0 and grid["blocks"] >= 1
+    got = cuda_sgp4.propagate_fast_dense(t, st.spine, st.tail, st.flags,
+                                         **kw)
+    ref = cuda_sgp4.propagate_fast_dense_reference(t, st.spine, st.tail,
+                                                   st.flags, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    ds = cat.fast_staging.deep
+    t_time = torch.linspace(0.0, 2880.0, 5, dtype=torch.float64,
+                            device=cuda_device)
+    dargs = (t_time, ds.t_sat, ds.spine, ds.tail, ds.flags,
+             cat.resonance_tables(8))
+    dkw = dict(grav=cat.grav, kepler_iters=cat.deep_kepler_iters)
+    grid = cuda_sgp4.launch_grid("sgp4_deep", 5, cat.n_deep,
+                                 kepler_iters=cat.deep_kepler_iters)
+    assert grid["waves"] < 1.0 and grid["blocks"] >= 1
+    got = cuda_sgp4.propagate_deep_sep(*dargs, **dkw)
+    ref = cuda_sgp4.propagate_deep_sep_reference(*dargs, **dkw)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))

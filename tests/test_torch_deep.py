@@ -91,6 +91,13 @@ def _j_tsince(jcat):
     return jnp.asarray(T_MIN)[:, None] - jcat.fast_staging[1][None, :]
 
 
+def _slots(jcat, pcat):
+    """For each of the port's deep slots (``deep_idx``, grouped by regime
+    for kernel K2: ``propagation.deep_slots``) its position in the JAX
+    package's deep subset (the deep columns in catalog order)."""
+    return np.searchsorted(np.asarray(jcat.deep_idx), pcat.deep_idx)
+
+
 def _twin(pcat, steps, iters, want_vel):
     ds = pcat.fast_staging.deep
     return cuda_sgp4.propagate_deep_sep_reference(
@@ -133,13 +140,17 @@ def test_deep_staging_matches_jax(cats):
     carried across from the JAX catalog are the port's own, bit for
     bit."""
     jcat, pcat, _ = cats
-    np.testing.assert_array_equal(np.asarray(jcat.deep_idx), pcat.deep_idx)
-    np.testing.assert_array_equal(np.asarray(jcat.fast_staging[1]),
+    pos = _slots(jcat, pcat)
+    np.testing.assert_array_equal(np.asarray(jcat.deep_idx),
+                                  np.sort(pcat.deep_idx))
+    np.testing.assert_array_equal(np.asarray(jcat.deep_idx)[pos],
+                                  pcat.deep_idx)
+    np.testing.assert_array_equal(np.asarray(jcat.fast_staging[1])[pos],
                                   pcat.fast_staging.deep.t_sat.numpy())
     deep = deep_elements_from_numpy(jcat.deep_sub, "cpu")
     els = elements_from_numpy(jcat.els_deep, "cpu")
     for a, b in zip(deep + els, pcat.deep_sub + pcat.els_deep):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a[pos], b)
     assert pcat.deep_kepler_iters == jcat.deep_kepler_iters == 6
 
 
@@ -150,8 +161,9 @@ def test_resonance_tables_match_jax(cats):
     tp = pcat.resonance_tables(steps)
     assert tp.shape == (5, 2 * (steps + 1), pcat.n_deep)
     rtol = dict(xli=1e-10, xni=1e-10, xldot=1e-10, xndt=1e-6, xnddt=1e-6)
+    pos = _slots(jcat, pcat)
     for name, a, b in zip(pfast.RESONANCE_TABLE_NAMES, tj, tp):
-        a = np.asarray(a)
+        a = np.asarray(a)[..., pos]
         scale = np.abs(a).max()
         assert np.abs(a - b.numpy()).max() <= rtol[name] * scale, name
 
@@ -163,12 +175,13 @@ def test_twin_matches_jax_spine_and_tail(cats, iters, want_vel):
     out = _jax_deep(jcat.els_deep, jcat.deep_sub, _j_tsince(jcat), steps,
                     iters, want_vel)
     r3, v3, err = _twin(pcat, steps, iters, want_vel)
-    np.testing.assert_array_equal(np.asarray(out[-1]), err.numpy())
+    pos = _slots(jcat, pcat)
+    np.testing.assert_array_equal(np.asarray(out[-1])[:, pos], err.numpy())
     assert set(err.numpy().ravel().tolist()) == {0, 1, 6}
-    rj = np.stack([np.asarray(c) for c in out[:3]])
+    rj = np.stack([np.asarray(c) for c in out[:3]])[..., pos]
     assert np.abs(rj - r3.numpy()).max() <= POS_TOL_KM
     if want_vel:
-        vj = np.stack([np.asarray(c) for c in out[3:6]])
+        vj = np.stack([np.asarray(c) for c in out[3:6]])[..., pos]
         assert np.abs(vj - v3.numpy()).max() <= VEL_TOL_KMS
     else:
         assert v3 is None
@@ -191,10 +204,13 @@ def test_wrapper_cpu_matches_pallas_interpret(cats, want_vel):
         want_vel=want_vel)
     assert cuda_sgp4.LAUNCHES == before  # the CPU runs no kernel
     assert r3.shape == (3, len(T_MIN), pcat.n_deep)
-    np.testing.assert_array_equal(np.asarray(outs[-1]), err.numpy())
-    assert np.abs(np.asarray(outs[0]) - r3.numpy()).max() <= POS_TOL_KM
+    pos = _slots(jcat, pcat)
+    np.testing.assert_array_equal(np.asarray(outs[-1])[:, pos], err.numpy())
+    assert (np.abs(np.asarray(outs[0])[..., pos] - r3.numpy()).max()
+            <= POS_TOL_KM)
     if want_vel:
-        assert np.abs(np.asarray(outs[1]) - v3.numpy()).max() <= VEL_TOL_KMS
+        assert (np.abs(np.asarray(outs[1])[..., pos] - v3.numpy()).max()
+                <= VEL_TOL_KMS)
     else:
         assert v3 is None and len(outs) == 2
 
@@ -222,7 +238,9 @@ def test_sdp4_propagate_tables_matches_jax(cats):
     jcat, pcat, steps = cats
     esc = pcat.heo_escape
     jesc = jcat.heo_escape
-    np.testing.assert_array_equal(np.asarray(jesc[4]), esc.idx.numpy())
+    # the same lanes, in the same (catalog) order
+    np.testing.assert_array_equal(np.asarray(jcat.deep_idx)[jesc[4]],
+                                  pcat.deep_idx[esc.idx.numpy()])
     ts = torch.from_numpy(T_MIN)[:, None] - esc.t_sat[None, :]
     rj, vj, ej = jfast.sdp4_propagate_tables(
         jesc[0], jesc[1], jnp.asarray(ts.numpy()), J_WGS72,

@@ -31,6 +31,7 @@ the card by ``test_torch_cuda.py`` and ``chip_smoke.py``.
 import inspect
 import os
 import sys
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -391,3 +392,174 @@ def test_single_sat_path_matches_jax(chip_smoke, jax_drag_fixed):
                                   "t3cof", "t4cof", "t5cof")})
             assert sp[0].shape == (8, 128)
     assert 0.0 < worst_day < 0.03
+
+
+# ---------------------------------------------------------------------------
+# The element-level wrappers stage each element set once
+# ---------------------------------------------------------------------------
+
+
+def _equal(a, b):
+    return all(x is y is None or torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("form", ["catalog", "broadcast"])
+def test_staging_is_kept_per_element_set(cats, monkeypatch, form):
+    """``propagate_fast_fused`` (and ``spine_grids``) stage an element set
+    once: the same tensors give the kept staging; an in-place edit of one
+    field (through the base of an expanded view too) or other elements
+    stage afresh, and the outputs after a miss equal a fresh plain call's
+    bit for bit."""
+    pcat = cats[1]
+    calls = []
+    real = cuda_sgp4.shallow_staging
+    monkeypatch.setattr(cuda_sgp4, "shallow_staging",
+                        lambda els: calls.append(1) or real(els))
+    monkeypatch.setattr(cuda_sgp4, "_STAGED", None)
+    base = type(pcat.els)(*(x.clone() for x in pcat.els))
+    els = (base if form == "catalog"
+           else type(base)(*(x[2:3].expand(16) for x in base)))
+    t = torch.from_numpy(_grids(pcat)["column"])
+
+    def fused():
+        before = len(calls)
+        out = cuda_sgp4.propagate_fast_fused(els, t, WGS72, kepler_iters=5)
+        return out, len(calls) - before
+
+    def fresh():
+        return cuda_sgp4.propagate_fast_fused_reference(els, t, WGS72,
+                                                        kepler_iters=5)
+
+    first, staged = fused()
+    again, staged_again = fused()
+    before = len(calls)
+    cuda_sgp4.spine_grids(els, t)
+    assert (staged, staged_again, len(calls) - before) == (1, 0, 0)
+    assert _equal(first, again) and _equal(first, fresh())
+    base.bstar.mul_(2.0)  # one field, in place
+    edited, staged = fused()
+    assert staged == 1 and _equal(edited, fresh())
+    assert not torch.equal(edited[0], first[0])
+    els = type(els)(*(x.clone() for x in els))  # other elements
+    other, staged = fused()
+    assert staged == 1 and _equal(other, fresh()) and _equal(other, edited)
+
+
+def test_staging_of_numpy_backed_elements_is_never_kept(cats, monkeypatch):
+    """Elements whose memory numpy owns can be written without torch's
+    version counter moving: each call stages them afresh, so an edit made
+    through numpy shows in the next call's outputs, as in a fresh plain
+    call's, bit for bit."""
+    pcat = cats[1]
+    calls = []
+    real = cuda_sgp4.shallow_staging
+    monkeypatch.setattr(cuda_sgp4, "shallow_staging",
+                        lambda els: calls.append(1) or real(els))
+    monkeypatch.setattr(cuda_sgp4, "_STAGED", None)
+    arrays = [x.numpy().copy() for x in pcat.els]
+    els = type(pcat.els)(*(torch.from_numpy(a) for a in arrays))
+    t = torch.from_numpy(_grids(pcat)["column"])
+    first = cuda_sgp4.propagate_fast_fused(els, t, WGS72, kepler_iters=5)
+    arrays[pcat.els._fields.index("bstar")] *= 2.0  # behind torch's back
+    edited = cuda_sgp4.propagate_fast_fused(els, t, WGS72, kepler_iters=5)
+    assert len(calls) == 2 and cuda_sgp4._STAGED is None
+    assert _equal(edited, cuda_sgp4.propagate_fast_fused_reference(
+        els, t, WGS72, kepler_iters=5))
+    assert not torch.equal(edited[0], first[0])
+
+
+def test_staging_keeps_no_elements_alive(cats, monkeypatch):
+    """The kept entry refers to its elements weakly: once the caller drops
+    them they are freed, and new elements stage afresh."""
+    pcat = cats[1]
+    monkeypatch.setattr(cuda_sgp4, "_STAGED", None)
+    els = type(pcat.els)(*(x.clone() for x in pcat.els))
+    t = torch.from_numpy(_grids(pcat)["column"])
+    kept = cuda_sgp4.propagate_fast_fused(els, t, WGS72, kepler_iters=5)
+    refs = [weakref.ref(x) for x in els]
+    assert cuda_sgp4._STAGED is not None
+    del els
+    assert all(ref() is None for ref in refs)
+    other = type(pcat.els)(*(x.clone() for x in pcat.els))
+    assert _equal(kept, cuda_sgp4.propagate_fast_fused(other, t, WGS72,
+                                                       kepler_iters=5))
+    assert all(ref() is x
+               for (ref, _), x in zip(cuda_sgp4._STAGED[0], other))
+
+
+# ---------------------------------------------------------------------------
+# The persistent grid's walk (csrc/sgp4_common.cuh: warp_run), in Python
+# ---------------------------------------------------------------------------
+
+WARP, BLOCK = 32, 128
+
+
+def _grid_blocks(units, per_sm, sms):
+    """``persistent_grid``'s block count."""
+    warps = BLOCK // WARP
+    return min(-(-units // warps), per_sm * sms)
+
+
+def _walk(n_times, n_sats, blocks, sat_stride):
+    """Every (t, s) point that K5's threads (and K2's) compute on a grid
+    of ``blocks`` blocks, with the tsince index each point reads, as the
+    kernels walk their warps' runs of (warp column, time row) units:
+    ``warp_run``'s split, the column reload, the next unit's tsince
+    loaded ahead. Returns the visits and the warps' column reloads."""
+    units = -(-n_sats // WARP) * n_times
+    n_warps = blocks * (BLOCK // WARP)
+    q, rem = divmod(units, n_warps)
+    row_stride = n_sats if sat_stride else 1
+    visits, reloads = [], []
+
+    def index(ti, s):
+        return ti * row_stride + s * sat_stride
+
+    for warp in range(n_warps):
+        first, count = warp * q + min(warp, rem), q + (warp < rem)
+        if count == 0:
+            continue
+        loads = 0
+        for lane in range(WARP):
+            col, ti = divmod(first, n_times)
+            s = col * WARP + lane
+            loaded = -1
+            t_next = index(ti, s) if s < n_sats else None
+            for k in range(count, 0, -1):
+                if col != loaded:
+                    loads += lane == 0
+                    loaded = col
+                t_row, t_sat, t = ti, s, t_next
+                ti += 1
+                if ti == n_times:
+                    ti, col, s = 0, col + 1, s + WARP
+                if k > 1 and s < n_sats:
+                    t_next = index(ti, s)
+                if t_sat < n_sats:
+                    visits.append((t_row, t_sat, t))
+        reloads.append(loads)
+    return visits, reloads
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3, 7, 64, 1000])
+@pytest.mark.parametrize("sat_stride", [1, 0])
+@pytest.mark.parametrize("shape", [(37, 100), (1, 33), (5, 1), (0, 10),
+                                   (10, 0), (64, 64), (13, 1000)])
+def test_persistent_walk_visits_every_point_once(shape, sat_stride, blocks):
+    """The walk of K5 and K2 computes every (t, s) point of ragged T and
+    S exactly once, reading its own tsince (of a (T, S) grid, or of a
+    (T, 1) column with a satellite stride of 0), for any block count; a
+    warp reloads its fields at most twice when there is a warp for every
+    column; the host's grid gives every warp a unit and fits the card."""
+    n_times, n_sats = shape
+    visits, reloads = _walk(n_times, n_sats, blocks, sat_stride)
+    row_stride = n_sats if sat_stride else 1
+    assert sorted((t, s) for t, s, _ in visits) == [
+        (t, s) for t in range(n_times) for s in range(n_sats)]
+    assert all(i == t * row_stride + s * sat_stride for t, s, i in visits)
+    columns = -(-n_sats // WARP)
+    if blocks * (BLOCK // WARP) >= columns:
+        assert max(reloads, default=0) <= 2
+    units = columns * n_times
+    b = _grid_blocks(units, per_sm=5, sms=132)
+    assert b <= 5 * 132 and (units == 0 or (b - 1) * (BLOCK // WARP) < units)

@@ -6,9 +6,10 @@ packages. JAX runs here op by op (not jitted: a fused XLA program may
 contract a multiply-add that torch rounds twice), and the two must agree
 to at most 1 f32 ulp.
 
-Then the near-earth kernels' reduction mod 2pi (``csrc/sgp4_common.cuh``:
-``fmod_two_pi``, ``rem_two_pi``), modelled here in Python with an exact
-FMA, against ``torch.fmod`` / ``torch.remainder``, which the plain
+Then the kernels' f64 fmod (``csrc/sgp4_common.cuh``: ``fmod_exact``,
+the reduction mod 2pi ``fmod_two_pi`` and ``rem_two_pi``, and K2's
+resonance row, fmod by 720 minutes), modelled here in Python with an
+exact FMA, against ``torch.fmod`` / ``torch.remainder``, which the plain
 versions take: bit for bit, the sign of zero included."""
 
 import math
@@ -99,16 +100,21 @@ def _fma(a, b, c):
     return float(Fraction(a) * Fraction(b) + Fraction(c))
 
 
-def _kernel_fmod_two_pi(x):
-    """sgp4_common.cuh:fmod_two_pi, operation for operation."""
+def _kernel_fmod_exact(x, d, inv_d):
+    """sgp4_common.cuh:fmod_exact, operation for operation."""
     a = abs(x)
     if not a < 2.0 ** 52:  # CUDA's fmod: NaN for inf and NaN
         with np.errstate(invalid="ignore"):
-            return float(np.fmod(x, TWO_PI))
-    k = float(math.trunc(a * INV_TWO_PI))
-    r = _fma(-k, TWO_PI, a)
-    k += -1.0 if r < 0.0 else (1.0 if r >= TWO_PI else 0.0)
-    return math.copysign(_fma(-k, TWO_PI, a), x)
+            return float(np.fmod(x, d))
+    k = float(math.trunc(a * inv_d))
+    r = _fma(-k, d, a)
+    k += -1.0 if r < 0.0 else (1.0 if r >= d else 0.0)
+    return math.copysign(_fma(-k, d, a), x)
+
+
+def _kernel_fmod_two_pi(x):
+    """sgp4_common.cuh:fmod_two_pi."""
+    return _kernel_fmod_exact(x, TWO_PI, INV_TWO_PI)
 
 
 def _kernel_rem_two_pi(x):
@@ -167,3 +173,23 @@ def test_kernel_reduction_of_non_finite_is_nan():
         assert math.isnan(_kernel_rem_two_pi(v))
         x = torch.tensor(v, dtype=torch.float64)
         assert torch.isnan(torch.remainder(x, TWO_PI))
+
+
+def test_kernel_fmod_by_step_equals_torch_bit_for_bit():
+    """K2's resonance row, ``fmod_exact(|t|, 720, 1 / 720)``: multiples of
+    720 minutes and their 1- and 2-ulp neighbours, spread times over
+    +-10 years, quotients near 2^20, 2^40 and past 2^52, against
+    ``torch.fmod`` bit for bit."""
+    step = 720.0
+    rng = np.random.default_rng(5)
+    k = np.concatenate([np.arange(0, 3000), rng.integers(3000, 1 << 20, 400),
+                        rng.integers(1 << 38, 1 << 40, 100)]).astype(float)
+    mult = k * step
+    up1, dn1 = np.nextafter(mult, np.inf), np.nextafter(mult, -np.inf)
+    x = np.abs(np.concatenate([
+        mult, up1, dn1, np.nextafter(up1, np.inf), np.nextafter(dn1, -np.inf),
+        rng.uniform(0.0, 5256000.0, 4000), [0.0, 2.0 ** 52 + 1.0, 1e17]]))
+    want = torch.fmod(torch.from_numpy(x), step).numpy()
+    got = np.array([_kernel_fmod_exact(v, step, 1.0 / step)
+                    for v in x.tolist()])
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))

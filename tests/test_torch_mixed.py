@@ -92,8 +92,9 @@ def test_heo_escape_lanes(cats):
     expect = np.nonzero((irez == 2) & (ecc > HEO_ESCAPE_ECC))[0]
     assert len(expect) == 10
     np.testing.assert_array_equal(esc.idx.numpy(), expect)
-    np.testing.assert_array_equal(esc.idx.numpy(),
-                                  np.sort(np.asarray(jcat.heo_escape[4])))
+    np.testing.assert_array_equal(
+        np.sort(pcat.deep_idx[esc.idx.numpy()]),
+        np.sort(np.asarray(jcat.deep_idx)[np.asarray(jcat.heo_escape[4])]))
     assert (esc.deep.irez == 2).all() and (esc.els.ecco > 0.7).all()
     no_escape = P.build_catalog("\n".join(MIXED_TEXT.splitlines()[:6]),
                                 device="cpu")
@@ -219,6 +220,27 @@ def test_escape_columns_match_jax_f64(cats):
     dv = np.linalg.norm(np.asarray(v64)[:, cols]
                         - vp.numpy()[:, cols].astype(np.float64), axis=-1)
     assert dr.max() < 5e-3 and dv.max() < 5e-6
+
+
+def test_deep_slots_by_regime_move_no_bit(cats, monkeypatch):
+    """K2's slots are grouped by regime (Lyddane lanes apart, then by
+    resonance), and a mixed ``propagate(method="fast")`` gives the
+    outputs of the catalog-order slots bit for bit, escape lanes
+    included."""
+    pcat, jd, fr = cats[1:]
+    key = ((pcat.host.inclo[pcat.deep_idx] < P.propagation.LYDDANE_INCL) * 3
+           + np.asarray(pcat.deep_host.irez)[pcat.deep_idx])
+    assert (np.diff(key) >= 0).all() and len(set(key.tolist())) > 1
+    assert not (np.diff(pcat.deep_idx) > 0).all()
+    monkeypatch.setattr(P.propagation, "deep_slots",
+                        lambda host, deep: np.nonzero(host.is_deep)[0])
+    plain = P.build_catalog(TEXT, device="cpu")
+    assert (np.diff(plain.deep_idx) > 0).all()
+    for kw in (dict(layout="planes"), dict(velocities=False)):
+        got = P.propagate(pcat, jd, fr, method="fast", **kw)
+        ref = P.propagate(plain, jd, fr, method="fast", **kw)
+        assert all(a is b is None or torch.equal(a, b)
+                   for a, b in zip(got, ref))
 
 
 def test_mixed_path_runs_the_deep_and_merge_wrappers(cats, monkeypatch):
