@@ -52,9 +52,15 @@ SIGNATURES = {
     # n_times, n_sats, kepler_iters, want_vel, grid (3,) i32 out
     "astroz_sgp4_shallow_dense_grid": (_I, [_I, _I, _I, _I, _P]),
     # t32, u_base, mm, argp32, node32, xmdf32, tail, flags, n_times,
-    # n_sats, kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
-    "astroz_sgp4_shallow_grids": (_I, [_P] * 8 + [_I] * 4 + [_F] * 3
+    # n_sats, kepler_iters, want_vel, time_major, j2, re, vkmpersec, r, v,
+    # err, stream
+    "astroz_sgp4_shallow_grids": (_I, [_P] * 8 + [_I] * 5 + [_F] * 3
                                   + [_P] * 4),
+    # n_times, n_sats, kepler_iters, want_vel, grid (3,) i32 out
+    "astroz_sgp4_shallow_grids_grid": (_I, [_I, _I, _I, _I, _P]),
+    # tsince, sat_stride, spine, n_times, n_sats, t32, u_base, mm, argp32,
+    # node32, xmdf32, stream
+    "astroz_sgp4_spine_grids": (_I, [_P, _I, _P, _I, _I] + [_P] * 7),
     # t_time, t_sat, spine, tail, flags, tables, n_times, n_deep, n_steps,
     # kepler_iters, want_vel, j2, re, vkmpersec, xke, j3oj2, r, v, err,
     # stream

@@ -307,6 +307,19 @@ struct SharedFields {
   }
 };
 
+// N per-satellite fields of a thread held in registers across the rows,
+// with SharedFields' interface (K6's tail fields)
+template <class T, int N>
+struct RegFields {
+  T x[N];
+  __device__ __forceinline__ T operator[](int k) const { return x[k]; }
+  __device__ __forceinline__ void load(const T* src, size_t stride,
+                                       size_t s) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) x[k] = src[k * stride + s];
+  }
+};
+
 // the persistent grid of one launch: blocks an SM (the kernel's own
 // occupancy, queried once per kernel instantiation and kept in `per_sm`),
 // the card's SMs, and the blocks launched: no more than fit at once, and

@@ -1,7 +1,8 @@
 // Near-earth SGP4 propagation for Hopper: kernel K1, its merge variant
-// K3 and its two dense-grid variants K5 and K6, which share the f32 tail
-// (shallow_tail below): K1, K3 and K6 are modes of one templated kernel,
-// K5 a persistent kernel of its own (sgp4_dense_kernel).
+// K3, its two dense-grid variants K5 and K6, which share the f32 tail
+// (shallow_tail below), and the f64 spine kernel that feeds K6. K1 and K3
+// are modes of one blocked kernel (sgp4_shallow_kernel), K5 and K6
+// instantiations of one persistent kernel (sgp4_dense_kernel).
 //
 // K1 (SEP) replaces the TPU kernel astroz_tpu/ops/pallas_sgp4.py:
 // _kernel_fused_sep (wrapper propagate_fast_pallas_sep). For every
@@ -23,25 +24,28 @@
 // for bit. The TPU kernel scattered the deep columns with a bf16 one-hot
 // matmul on its matrix unit; here the maps do it, with no bound on the
 // deep fraction.
-// K5 (sgp4_dense_kernel) replaces _kernel_fused (wrapper
+// K5 (sgp4_dense_kernel<..., TSINCE>) replaces _kernel_fused (wrapper
 // propagate_fast_pallas_fused): K1 on a dense tsince grid, read directly
 // as f64, either a (T, S) grid or a (T, 1) column read with a satellite
 // stride of 0, so a grid shared by every satellite is never materialised
-// at (T, S); it writes the (3, T, S) planes or, for the element-level
-// wrapper, the time-major (T, S, 3) r and v that its callers return. The
-// TPU kernel took tsince split into f32 hi/lo grids, ran a double-f32
-// (Dekker) spine and wrote planes that XLA transposed; here the spine is
-// K1's, in native f64.
-// K6 (GRIDS) replaces _kernel (wrapper propagate_fast_pallas): the tail
-// alone, on the six (T, S) f32 grids (t32, u_base, mm, argp32, node32,
-// xmdf32) that the f64 spine wrote outside the kernel (the port's
-// ops/fast.py:spine_f64, in plain torch on the device).
+// at (T, S). The TPU kernel took tsince split into f32 hi/lo grids, ran a
+// double-f32 (Dekker) spine and wrote planes that XLA transposed; here
+// the spine is K1's, in native f64.
+// K6 (sgp4_dense_kernel<..., GRIDS>) replaces _kernel (wrapper
+// propagate_fast_pallas): the tail alone, on the six (T, S) f32 grids
+// (t32, u_base, mm, argp32, node32, xmdf32) of the f64 spine.
+// The spine kernel (sgp4_spine_grids_kernel) writes those grids: the f64
+// spine of K5 (spine_f64) on a (T, S) or (T, 1) f64 tsince, one pass. On
+// the TPU XLA fused that spine around the Pallas call
+// (pallas_sgp4.py:139); it is not a Pallas kernel.
+// K5 and K6 write the (3, T, S) planes or, for the element-level
+// wrappers, the time-major (T, S, 3) r and v that their callers return.
 //
 // The plain torch version is astroz_tpu_torch/ops/fast.py (spine_f64 +
 // shallow_tail_f32); this file runs the same operations in the same order
 // (sgp4_common.cuh says how the bits are kept), so a K5 point equals the
-// K1 point of the same tsince, and a K6 point the K5 point of the same
-// spine, bit for bit.
+// K1 point of the same tsince, a spine grid the plain spine, and a K6
+// point the K5 point of the same spine, bit for bit.
 //
 // Bound. At 13,478 x 1,440 each point stores 28 bytes (16 without
 // velocities) and does ~440 f32 and ~28 f64 operations, five reductions
@@ -49,9 +53,11 @@
 // take 0.163 ms at 3.35 TB/s; K1 takes ~0.66 ms on an H100 SXM at a 700 W
 // limit, ~1,150 issue slots a point at 3.35e13 lane-instructions/s, so
 // instruction issue bounds it, and K3 and K5 with it. K6 reads 24 bytes
-// of grids a point and skips the spine. What the design does about it
-// (each choice timed in turns on the card by shallow_variants.py at the
-// repository root, which builds each variant from an edited copy):
+// of grids a point and skips the spine; the spine kernel reads 8 bytes
+// (or none, from a column) and writes 24, so bytes bound it. What the
+// design does about it (each choice timed in turns on the card by
+// shallow_variants.py at the repository root, which builds each variant
+// from an edited copy):
 // - the five reductions are one FMA each with an f64 quotient
 //   (sgp4_common.cuh: fmod_two_pi) in place of CUDA's fmod, a loop of f64
 //   steps once per bit of the quotient whose lanes diverge: K1 0.86 ->
@@ -66,49 +72,73 @@
 //   save 10% of K1 (the f32 tail 9%), but most sit in the polynomial
 //   sincos, angle_add and the Newton step, which the plain versions keep
 //   equal to the JAX package's; the rest would save 3%;
-// - K5 runs on a persistent grid (sgp4_common.cuh: warp_run): no more
-//   blocks than fit on the card at once, each warp a run of (warp column,
-//   time row) units that differ by at most one, so no wave runs part full
-//   (the grid of 8-row blocks ran 6.2 waves at a bench chunk). The walk
-//   alone costs registers (101, so 4 blocks an SM, and it was slower), so
-//   the satellites' fields live in shared memory, read where they are
-//   used, and __launch_bounds__(128, 8) holds the tail to 64 registers
-//   without a spill: 8 blocks (50% occupancy) an SM. Each row loads the
-//   next row's tsince before its own tail runs. One (4,096, 1,024) chunk,
-//   replayed from a CUDA graph: 0.195 -> 0.186-0.190 ms. The row loop's
-//   hot path is 979 SASS instructions a point with both sides of each
-//   branch counted (chip_smoke.kernel_report on the built library), so
-//   the kernel issues at no more than ~66% of the card's rate.
-// K1, K3 and K6: one thread owns one satellite and ROWS time rows, loads
+// - K5 and K6 run on a persistent grid (sgp4_common.cuh: warp_run): no
+//   more blocks than fit on the card at once, each warp a run of (warp
+//   column, time row) units that differ by at most one, so no wave runs
+//   part full (the grid of 8-row blocks ran 6.2 waves at a bench chunk,
+//   K6's 3.9). K5's walk alone cost registers (101, so 4 blocks an SM,
+//   and it was slower), so its 33 fields live in shared memory, read
+//   where they are used, and __launch_bounds__ holds the tail to 64
+//   registers without a spill: 8 blocks (50% occupancy) an SM; each unit
+//   loads the next unit's tsince before its own tail runs. K5 at one
+//   (4,096, 1,024) chunk, replayed from a CUDA graph: 0.195 -> 0.186-0.190
+//   ms; its row loop's hot path is 979 SASS instructions a point with
+//   both sides of each branch counted (chip_smoke.kernel_report on the
+//   built library), so it issues at no more than ~66% of the card's rate.
+//   K6 has no spine fields: its 21 tail fields fit in registers at 64
+//   without a spill, 8 blocks an SM, and it loads a unit's six grid
+//   values at the head of the unit: 742 hot instructions a point, 0.159
+//   ms a chunk in either store (on K1's blocked layout of 8 rows a
+//   thread: 644, 0.159 ms, planes only). In shared memory the fields cost 52 more instructions a
+//   point (+0.8%); loading the next unit's values ahead cost 26 more and
+//   +4.9% (both: +3.5%), so K6 does not wait on those loads; a cp.async
+//   ring of 2 units (+3.8%), 8-byte loads of satellite pairs (a spill)
+//   and 6, 7 or 10 blocks an SM were no better (PERF.md). K6 writes the
+//   time-major store as fast as the planes, so its element-level path
+//   copies nothing;
+// - the spine kernel keeps each satellite's 12 spine fields in registers
+//   over SPINE_ROWS = 4 time rows of its column (2 rows +0.5%, 8 +2.2%,
+//   16 +4.3%, 64 +34%: at 64 a chunk has 512 blocks, under half of what
+//   the card holds at once); neighbouring threads take neighbouring
+//   satellites, so every load and store is contiguous across a warp.
+// K1 and K3: one thread owns one satellite and ROWS time rows, loads
 // the satellite's fields into registers once, and neighbouring threads
 // take neighbouring satellites, so the loads of the (rows, S) field
-// matrices and of the (T, S) grids and the stores to the (3, T, S)
-// planes are contiguous across a warp; K5's warps keep the same
-// satellite-per-lane layout. Outputs are exact-shape; the ragged
-// satellite and time edges are masked.
+// matrices and the stores to the (3, T, S) planes are contiguous across a
+// warp; K5's and K6's warps keep the same satellite-per-lane layout.
+// Outputs are exact-shape; the ragged satellite and time edges are
+// masked.
 
 #include "sgp4_common.cuh"
 
 namespace {
 
 constexpr int BLOCK = 128;  // satellites per block
-constexpr int ROWS = 8;     // time rows per thread
+constexpr int ROWS = 8;     // time rows per thread (K1, K3)
 
 constexpr int N_SPINE = 12;  // ops/fast.py SPINE_FIELD_NAMES
 constexpr int N_TAIL = 21;   // ops/fast.py TAIL_FIELD_NAMES
 
-// where each mode of sgp4_shallow_kernel finds its times (K5 is
-// sgp4_dense_kernel below); the values name the instantiations in
-// ptxas' reports (shallow_variants.py)
+// where each mode of sgp4_shallow_kernel finds its times; the values
+// name the instantiations in ptxas' reports (shallow_variants.py)
 enum Mode : int {
   SEP = 0,    // K1: t_time[t] - t_sat[s]
   MERGE = 1,  // K3: K1 on the near-earth columns, K2's planes on the rest
-  GRIDS = 3,  // K6: six f32 spine grids
 };
 
-// K5: blocks an SM that __launch_bounds__ asks registers for (the
-// fields live in shared memory, so the tail alone sets the registers)
+// where sgp4_dense_kernel finds a unit's spine
+enum Source : int {
+  TSINCE = 0,  // K5: spine_f64 of the f64 tsince
+  GRIDS = 1,   // K6: the six f32 spine grids
+};
+
+// blocks an SM that __launch_bounds__ asks registers for (the fields
+// live in shared memory, so the tail alone sets the registers): K5, K6
 constexpr int DENSE_MIN_BLOCKS = 8;
+constexpr int GRIDS_MIN_BLOCKS = 8;
+
+// the spine kernel: time rows a thread
+constexpr int SPINE_ROWS = 4;
 
 // kernel K2's outputs and the column maps of a mixed catalog (K3 only)
 struct DeepPlanes {
@@ -119,11 +149,6 @@ struct DeepPlanes {
   const float* v;        // (3, T, D) f32, null without velocities
   const int* err;        // (T, D) i32
   int n_deep;            // D
-};
-
-// K6's inputs: (T, S) f32 t32, u_base, mm, argp32, node32, xmdf32
-struct GridInputs {
-  const float* grids[6];
 };
 
 // the f32 angles of one point (fast.spine_f64's returns)
@@ -205,27 +230,6 @@ __device__ __forceinline__ PosVel shallow_tail(
       cosip, aycof, xlcof, con41, x1mth2, x7thm1, error, j2, re, vkmpersec);
 }
 
-// the spine of point (ti, s) as each mode finds it
-template <int MODE>
-__device__ __forceinline__ Spine spine_at(int ti, int s, size_t ns,
-                                          const double* t_time, double epoch,
-                                          const double (&sp)[N_SPINE],
-                                          const GridInputs& grids) {
-  Spine g;
-  if constexpr (MODE == GRIDS) {
-    const size_t idx = (size_t)ti * ns + s;
-    g.t32 = grids.grids[0][idx];
-    g.u_base = grids.grids[1][idx];
-    g.mm = grids.grids[2][idx];
-    g.argp32 = grids.grids[3][idx];
-    g.node32 = grids.grids[4][idx];
-    g.xmdf32 = grids.grids[5][idx];
-  } else {
-    g = spine_f64(t_time[ti] - epoch, sp);
-  }
-  return g;
-}
-
 // K3's copy blocks: deep slot `slot`'s rows [t_begin, t_end) of K2's
 // planes, as they are, into its column of the outputs
 template <bool WANT_VEL>
@@ -260,8 +264,8 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
                     const float* __restrict__ tail,
                     const int* __restrict__ flags, int n_times, int n_sats,
                     float j2, float re, float vkmpersec, DeepPlanes deep,
-                    GridInputs grids, float* __restrict__ r,
-                    float* __restrict__ v, int* __restrict__ err) {
+                    float* __restrict__ r, float* __restrict__ v,
+                    int* __restrict__ err) {
   const int t_begin = blockIdx.y * ROWS;
   const int t_end = min(t_begin + ROWS, n_times);
   const size_t ns = (size_t)n_sats;
@@ -286,31 +290,30 @@ sgp4_shallow_kernel(const double* __restrict__ t_time,
 
   // per-satellite fields, loaded once (rows of SoA matrices: coalesced)
   double sp[N_SPINE];
-  if constexpr (MODE != GRIDS) {
 #pragma unroll
-    for (int k = 0; k < N_SPINE; ++k) sp[k] = spine[k * ns + s];
-  }
+  for (int k = 0; k < N_SPINE; ++k) sp[k] = spine[k * ns + s];
   float tf[N_TAIL];
 #pragma unroll
   for (int k = 0; k < N_TAIL; ++k) tf[k] = tail[k * ns + s];
   const bool not_simp = flags[s] == 0;
   const int error0 = flags[ns + s];
-  // only SEP and MERGE read t_sat
-  const double epoch = (MODE == SEP || MODE == MERGE) ? t_sat[s] : 0.0;
+  const double epoch = t_sat[s];
 
   for (int ti = t_begin; ti < t_end; ++ti) {
-    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, grids);
+    const Spine g = spine_f64(t_time[ti] - epoch, sp);
     const PosVel o = shallow_tail<WANT_VEL, ITERS>(g, tf, not_simp, error0,
                                                    j2, re, vkmpersec);
     store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
   }
 }
 
-// K5's inputs and outputs
+// K5's and K6's inputs and outputs; each reads only its own inputs
 struct DenseArgs {
-  const double* tsince;  // (T, S) f64, or (T, 1) with sat_stride 0
-  int sat_stride;        // 1 for a (T, S) grid, 0 for a (T, 1) column
-  const double* spine;
+  const double* tsince;   // K5: (T, S) f64, or (T, 1) with sat_stride 0
+  int sat_stride;         // 1 for a (T, S) grid (K6 always), 0 for (T, 1)
+  const double* spine;    // K5: (12, S) f64
+  const float* grids[6];  // K6: (T, S) f32 t32, u_base, mm, argp32,
+                          // node32, xmdf32
   const float* tail;
   const int* flags;
   int n_times, n_sats;
@@ -321,17 +324,62 @@ struct DenseArgs {
   int* err;
 };
 
-// K5: each warp walks its run of (warp column, time row) units
-// (sgp4_common.cuh: warp_run); a thread owns one satellite of the column,
-// keeps its fields in shared memory, and loads the next unit's tsince
-// before it runs the current one's tail.
-template <bool WANT_VEL, int ITERS>
-__global__ void __launch_bounds__(BLOCK, DENSE_MIN_BLOCKS)
+// what a thread loads for one unit, and the unit's spine from it: K5
+// its tsince, K6 its six grid values; idx = t * row_stride + s *
+// sat_stride
+template <int SRC>
+struct UnitInput;
+
+template <>
+struct UnitInput<TSINCE> {
+  double t;
+  __device__ __forceinline__ void load(const DenseArgs& a, size_t idx) {
+    t = a.tsince[idx];
+  }
+  template <class SpineFields>
+  __device__ __forceinline__ Spine spine(const SpineFields& sp) const {
+    return spine_f64(t, sp);
+  }
+};
+
+template <>
+struct UnitInput<GRIDS> {
+  Spine g;
+  __device__ __forceinline__ void load(const DenseArgs& a, size_t idx) {
+    g.t32 = a.grids[0][idx];
+    g.u_base = a.grids[1][idx];
+    g.mm = a.grids[2][idx];
+    g.argp32 = a.grids[3][idx];
+    g.node32 = a.grids[4][idx];
+    g.xmdf32 = a.grids[5][idx];
+  }
+  template <class SpineFields>
+  __device__ __forceinline__ Spine spine(const SpineFields&) const {
+    return g;
+  }
+};
+
+// K5 and K6: each warp walks its run of (warp column, time row) units
+// (sgp4_common.cuh: warp_run); a thread owns one satellite of the column.
+// K5 keeps its 33 fields in shared memory and loads the next unit's
+// tsince before it runs the current one's tail; K6, which has no spine
+// fields, keeps its 21 tail fields in registers and loads a unit's six
+// grid values at the head of the unit (timed in turns against the
+// alternatives: PERF.md).
+template <bool WANT_VEL, int ITERS, int SRC>
+__global__ void __launch_bounds__(
+    BLOCK, SRC == GRIDS ? GRIDS_MIN_BLOCKS : DENSE_MIN_BLOCKS)
 sgp4_dense_kernel(const DenseArgs a) {
-  __shared__ double spine_rows[N_SPINE][BLOCK];
-  __shared__ float tail_rows[N_TAIL][BLOCK];
+  constexpr bool AHEAD = SRC == TSINCE;
+  __shared__ double spine_rows[SRC == TSINCE ? N_SPINE : 1][BLOCK];
+  __shared__ float tail_rows[SRC == TSINCE ? N_TAIL : 1][BLOCK];
   SharedFields<double, N_SPINE, BLOCK> sp{spine_rows};
-  SharedFields<float, N_TAIL, BLOCK> tf{tail_rows};
+  auto tf = [&] {
+    if constexpr (SRC == GRIDS)
+      return RegFields<float, N_TAIL>{};
+    else
+      return SharedFields<float, N_TAIL, BLOCK>{tail_rows};
+  }();
   const int n_times = a.n_times, n_sats = a.n_sats;
   const size_t ns = (size_t)n_sats;
   const size_t plane = (size_t)n_times * ns;
@@ -345,13 +393,13 @@ sgp4_dense_kernel(const DenseArgs a) {
   int loaded = -1;
   bool not_simp = false;
   int error0 = 0;
-  double t_next = s < n_sats ? a.tsince[(size_t)ti * row_stride +
-                                        (size_t)s * a.sat_stride]
-                             : 0.0;
+  UnitInput<SRC> in{};
+  if (AHEAD && s < n_sats)
+    in.load(a, (size_t)ti * row_stride + (size_t)s * a.sat_stride);
   for (long long k = run.count; k > 0; --k) {
     if (col != loaded) {
       if (s < n_sats) {
-        sp.load(a.spine, ns, s);
+        if constexpr (SRC == TSINCE) sp.load(a.spine, ns, s);
         tf.load(a.tail, ns, s);
         not_simp = a.flags[s] == 0;
         error0 = a.flags[ns + s];
@@ -359,17 +407,19 @@ sgp4_dense_kernel(const DenseArgs a) {
       loaded = col;
     }
     const int t_row = ti, t_sat = s;
-    const double t = t_next;
+    if (!AHEAD && t_sat < n_sats)
+      in.load(a, (size_t)t_row * row_stride + (size_t)t_sat * a.sat_stride);
+    const UnitInput<SRC> cur = in;
     if (++ti == n_times) {
       ti = 0;
       ++col;
       s += WARP;
     }
-    if (k > 1 && s < n_sats)
-      t_next = a.tsince[(size_t)ti * row_stride + (size_t)s * a.sat_stride];
+    if (AHEAD && k > 1 && s < n_sats)
+      in.load(a, (size_t)ti * row_stride + (size_t)s * a.sat_stride);
     if (t_sat < n_sats) {
       const PosVel o = shallow_tail<WANT_VEL, ITERS>(
-          spine_f64(t, sp), tf, not_simp, error0, a.j2, a.re, a.vkmpersec);
+          cur.spine(sp), tf, not_simp, error0, a.j2, a.re, a.vkmpersec);
       const size_t idx = (size_t)t_row * ns + t_sat;
       if (a.time_major)
         store_point_time_major<WANT_VEL>(o, idx, a.r, a.v, a.err);
@@ -379,7 +429,41 @@ sgp4_dense_kernel(const DenseArgs a) {
   }
 }
 
-// every argument of every mode; a mode reads only its own
+// The spine kernel: the six (T, S) f32 grids of fast.spine_f64 on a
+// (T, S) f64 tsince, or a (T, 1) column read with a satellite stride of
+// 0. Thread k of block (x, y) owns satellite x * BLOCK + k at rows
+// [y * SPINE_ROWS, (y + 1) * SPINE_ROWS).
+__global__ void __launch_bounds__(BLOCK)
+sgp4_spine_grids_kernel(const double* __restrict__ tsince, int sat_stride,
+                        const double* __restrict__ spine, int n_times,
+                        int n_sats, float* __restrict__ t32,
+                        float* __restrict__ u_base, float* __restrict__ mm,
+                        float* __restrict__ argp32,
+                        float* __restrict__ node32,
+                        float* __restrict__ xmdf32) {
+  const int s = blockIdx.x * BLOCK + threadIdx.x;
+  if (s >= n_sats) return;
+  const size_t ns = (size_t)n_sats;
+  const size_t row_stride = sat_stride ? ns : 1;
+  double sp[N_SPINE];
+#pragma unroll
+  for (int k = 0; k < N_SPINE; ++k) sp[k] = spine[k * ns + s];
+  const int t_begin = blockIdx.y * SPINE_ROWS;
+  const int t_end = min(t_begin + SPINE_ROWS, n_times);
+  for (int ti = t_begin; ti < t_end; ++ti) {
+    const Spine g = spine_f64(
+        tsince[(size_t)ti * row_stride + (size_t)s * sat_stride], sp);
+    const size_t idx = (size_t)ti * ns + s;
+    t32[idx] = g.t32;
+    u_base[idx] = g.u_base;
+    mm[idx] = g.mm;
+    argp32[idx] = g.argp32;
+    node32[idx] = g.node32;
+    xmdf32[idx] = g.xmdf32;
+  }
+}
+
+// every argument of K1 and K3; K1 reads no deep planes
 struct Args {
   const double* t_time;
   const double* t_sat;
@@ -389,7 +473,6 @@ struct Args {
   int n_times, n_sats;
   float j2, re, vkmpersec;
   DeepPlanes deep;
-  GridInputs grids;
   float* r;
   float* v;
   int* err;
@@ -401,7 +484,7 @@ cudaError_t launch(int kepler_iters, dim3 grid, cudaStream_t stream,
 #define ASTROZ_LAUNCH(IT)                                                  \
   sgp4_shallow_kernel<WANT_VEL, IT, MODE><<<grid, BLOCK, 0, stream>>>(     \
       a.t_time, a.t_sat, a.spine, a.tail, a.flags, a.n_times, a.n_sats,    \
-      a.j2, a.re, a.vkmpersec, a.deep, a.grids, a.r, a.v, a.err)
+      a.j2, a.re, a.vkmpersec, a.deep, a.r, a.v, a.err)
   switch (kepler_iters) {
     case 3: ASTROZ_LAUNCH(3); break;
     case 4: ASTROZ_LAUNCH(4); break;
@@ -431,48 +514,58 @@ int launch_vel(int want_vel, int kepler_iters, const Args& a, void* stream) {
 
 constexpr DeepPlanes NO_DEEP{nullptr, 0, nullptr, nullptr, nullptr, nullptr,
                              0};
-constexpr GridInputs NO_GRIDS{{}};
 
-// K5: the persistent grid of one instantiation, then (with `launch`) the
-// launch on it
-template <bool WANT_VEL, int ITERS>
+// K5 or K6: the persistent grid of one instantiation, then (with
+// `launch`) the launch on it
+template <bool WANT_VEL, int ITERS, int SRC>
 cudaError_t dense_run(const DenseArgs& a, cudaStream_t stream, bool launch,
                       Grid* g) {
   static int per_sm = 0;  // this instantiation's blocks an SM
   const long long units =
       (long long)((a.n_sats + WARP - 1) / WARP) * a.n_times;
-  const cudaError_t rc = persistent_grid(sgp4_dense_kernel<WANT_VEL, ITERS>,
-                                         BLOCK, per_sm, units, g);
+  const cudaError_t rc = persistent_grid(
+      sgp4_dense_kernel<WANT_VEL, ITERS, SRC>, BLOCK, per_sm, units, g);
   if (rc != cudaSuccess || !launch || g->blocks == 0) return rc;
-  sgp4_dense_kernel<WANT_VEL, ITERS><<<g->blocks, BLOCK, 0, stream>>>(a);
+  sgp4_dense_kernel<WANT_VEL, ITERS, SRC><<<g->blocks, BLOCK, 0, stream>>>(
+      a);
   return cudaGetLastError();
 }
 
-template <bool WANT_VEL>
+template <bool WANT_VEL, int SRC>
 cudaError_t dense_iters(int kepler_iters, const DenseArgs& a,
                         cudaStream_t stream, bool launch, Grid* g) {
   switch (kepler_iters) {
-    case 3: return dense_run<WANT_VEL, 3>(a, stream, launch, g);
-    case 4: return dense_run<WANT_VEL, 4>(a, stream, launch, g);
-    case 5: return dense_run<WANT_VEL, 5>(a, stream, launch, g);
-    case 8: return dense_run<WANT_VEL, 8>(a, stream, launch, g);
+    case 3: return dense_run<WANT_VEL, 3, SRC>(a, stream, launch, g);
+    case 4: return dense_run<WANT_VEL, 4, SRC>(a, stream, launch, g);
+    case 5: return dense_run<WANT_VEL, 5, SRC>(a, stream, launch, g);
+    case 8: return dense_run<WANT_VEL, 8, SRC>(a, stream, launch, g);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <int SRC>
 int dense(int want_vel, int kepler_iters, const DenseArgs& a, void* stream,
           bool launch, int* grid) {
   Grid g{0, 0, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
-      want_vel ? dense_iters<true>(kepler_iters, a, st, launch, &g)
-               : dense_iters<false>(kepler_iters, a, st, launch, &g);
+      want_vel ? dense_iters<true, SRC>(kepler_iters, a, st, launch, &g)
+               : dense_iters<false, SRC>(kepler_iters, a, st, launch, &g);
   if (grid != nullptr) {
     grid[0] = g.per_sm;
     grid[1] = g.sms;
     grid[2] = g.blocks;
   }
   return static_cast<int>(rc);
+}
+
+template <int SRC>
+int dense_grid(int n_times, int n_sats, int kepler_iters, int want_vel,
+               int* grid) {
+  DenseArgs a{};
+  a.n_times = n_times;
+  a.n_sats = n_sats;
+  return dense<SRC>(want_vel, kepler_iters, a, nullptr, false, grid);
 }
 
 }  // namespace
@@ -491,9 +584,8 @@ extern "C" int astroz_sgp4_shallow(const double* t_time, const double* t_sat,
                                    int kepler_iters, int want_vel, float j2,
                                    float re, float vkmpersec, float* r,
                                    float* v, int* err, void* stream) {
-  const Args a{t_time, t_sat, spine,  tail,     flags,    n_times,
-               n_sats, j2,    re,     vkmpersec, NO_DEEP, NO_GRIDS,
-               r,      v,     err};
+  const Args a{t_time, t_sat, spine,  tail,     flags,   n_times, n_sats,
+               j2,     re,    vkmpersec, NO_DEEP, r,       v,       err};
   return launch_vel<SEP>(want_vel, kepler_iters, a, stream);
 }
 
@@ -511,7 +603,7 @@ extern "C" int astroz_sgp4_shallow_merge(
   const Args a{t_time, t_sat, spine, tail, flags, n_times, n_sats, j2, re,
                vkmpersec,
                DeepPlanes{near_cols, n_near, deep_cols, dr, dv, de, n_deep},
-               NO_GRIDS, r, v, err};
+               r, v, err};
   return launch_vel<MERGE>(want_vel, kepler_iters, a, stream);
 }
 
@@ -524,10 +616,10 @@ extern "C" int astroz_sgp4_shallow_dense(
     const float* tail, const int* flags, int n_times, int n_sats,
     int kepler_iters, int want_vel, int time_major, float j2, float re,
     float vkmpersec, float* r, float* v, int* err, void* stream) {
-  const DenseArgs a{tsince, sat_stride, spine, tail,      flags, n_times,
-                    n_sats, time_major, j2,    re,        vkmpersec,
-                    r,      v,          err};
-  return dense(want_vel, kepler_iters, a, stream, true, nullptr);
+  const DenseArgs a{tsince, sat_stride, spine,     {},   tail, flags,
+                    n_times, n_sats,    time_major, j2,  re,   vkmpersec,
+                    r,       v,         err};
+  return dense<TSINCE>(want_vel, kepler_iters, a, stream, true, nullptr);
 }
 
 // K5's grid at (n_times, n_sats) without a launch: grid[0] blocks an SM
@@ -535,23 +627,44 @@ extern "C" int astroz_sgp4_shallow_dense(
 extern "C" int astroz_sgp4_shallow_dense_grid(int n_times, int n_sats,
                                               int kepler_iters, int want_vel,
                                               int* grid) {
-  DenseArgs a{};
-  a.n_times = n_times;
-  a.n_sats = n_sats;
-  return dense(want_vel, kepler_iters, a, nullptr, false, grid);
+  return dense_grid<TSINCE>(n_times, n_sats, kepler_iters, want_vel, grid);
 }
 
 // K6: the tail on six (T, S) f32 spine grids t32, u_base, mm, argp32,
 // node32, xmdf32 (ops/fast.py:spine_f64's returns); no spine rows.
+// time_major as K5's.
 extern "C" int astroz_sgp4_shallow_grids(
     const float* t32, const float* u_base, const float* mm,
     const float* argp32, const float* node32, const float* xmdf32,
     const float* tail, const int* flags, int n_times, int n_sats,
-    int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
-    float* r, float* v, int* err, void* stream) {
-  const Args a{nullptr, nullptr, nullptr, tail, flags, n_times, n_sats, j2,
-               re, vkmpersec, NO_DEEP,
-               GridInputs{{t32, u_base, mm, argp32, node32, xmdf32}}, r, v,
-               err};
-  return launch_vel<GRIDS>(want_vel, kepler_iters, a, stream);
+    int kepler_iters, int want_vel, int time_major, float j2, float re,
+    float vkmpersec, float* r, float* v, int* err, void* stream) {
+  const DenseArgs a{nullptr, 1,      nullptr,
+                    {t32, u_base, mm, argp32, node32, xmdf32},
+                    tail,    flags,  n_times,   n_sats, time_major,
+                    j2,      re,     vkmpersec, r,      v,
+                    err};
+  return dense<GRIDS>(want_vel, kepler_iters, a, stream, true, nullptr);
+}
+
+// K6's grid, as astroz_sgp4_shallow_dense_grid gives K5's
+extern "C" int astroz_sgp4_shallow_grids_grid(int n_times, int n_sats,
+                                              int kepler_iters, int want_vel,
+                                              int* grid) {
+  return dense_grid<GRIDS>(n_times, n_sats, kepler_iters, want_vel, grid);
+}
+
+// The spine kernel: tsince (T, S) f64, or (T, 1) with sat_stride 0; spine
+// (12, S) f64; the six outputs (T, S) f32 each.
+extern "C" int astroz_sgp4_spine_grids(
+    const double* tsince, int sat_stride, const double* spine, int n_times,
+    int n_sats, float* t32, float* u_base, float* mm, float* argp32,
+    float* node32, float* xmdf32, void* stream) {
+  const dim3 grid(blocks_of(n_sats),
+                  (n_times + SPINE_ROWS - 1) / SPINE_ROWS);
+  sgp4_spine_grids_kernel<<<grid, BLOCK, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      tsince, sat_stride, spine, n_times, n_sats, t32, u_base, mm, argp32,
+      node32, xmdf32);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""The CUDA propagation kernels K1, K2, K3, K5 and K6 and their plain
-versions.
+"""The CUDA propagation kernels K1, K2, K3, K5 and K6, the f64 spine
+kernel that feeds K6, and their plain versions.
 
 * K1, :func:`propagate_fast_sep`, replaces the TPU kernel
   ``astroz_tpu/ops/pallas_sgp4.py:_kernel_fused_sep`` (wrapper
@@ -15,18 +15,20 @@ versions.
 * K6, :func:`propagate_fast_spine_grids` and over elements
   :func:`propagate_fast_grids`, replaces ``_kernel`` (wrapper
   ``propagate_fast_pallas``): K1's tail on the six f32 grids of the f64
-  spine, which runs outside the kernel (``ops/fast.py:spine_f64``).
+  spine (``ops/fast.py:spine_f64``), which the spine kernel
+  (:func:`spine_f64_grids`, over elements :func:`spine_grids`) writes.
 
 K1-K3 propagate over the separable grid ``tsince[t, n] = t_time[t] -
 t_sat[n]`` minutes, K5 and K6 over a dense one. The planes-level
 functions return the grouped planes ``r (3, T, N)`` f32, ``v (3, T, N)``
 f32 (``None`` with ``want_vel=False``) and ``err (T, N)`` i32; the
 element-level ones ``r``, ``v`` (T, N, 3) and ``err`` (T, N), as the JAX
-wrappers do (K5 writes that layout itself). The element-level ones stage
-their elements once per element set (:func:`_staged`). The kernels are
-``csrc/sgp4_shallow.cu`` (K1, K3, K5, K6) and ``csrc/sgp4_deep.cu`` (K2);
-their source notes say what bounds them on Hopper and what the design
-does about that; :func:`launch_grid` gives the grid K5 and K2 launch.
+wrappers do (K5 and K6 write that layout themselves). The element-level
+ones stage their elements once per element set (:func:`_staged`). The
+kernels are ``csrc/sgp4_shallow.cu`` (K1, K3, K5, K6, the spine kernel)
+and ``csrc/sgp4_deep.cu`` (K2); their source notes say what bounds them
+on Hopper and what the design does about that; :func:`launch_grid` gives
+the grid K5, K6 and K2 launch.
 
 On a CUDA tensor a wrapper launches its kernel or raises, and adds one
 to its entry of :data:`LAUNCHES`. On a CPU tensor it runs its
@@ -58,7 +60,8 @@ DEEP_KEPLER_ITERS = (6, 8)
 #: kernel launches so far in this process, by kernel; each launch adds
 #: one to its kernel's entry
 LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
-            "sgp4_shallow_dense": 0, "sgp4_shallow_grids": 0}
+            "sgp4_shallow_dense": 0, "sgp4_shallow_grids": 0,
+            "sgp4_spine_grids": 0}
 
 F32 = torch.float32
 F64 = torch.float64
@@ -428,7 +431,7 @@ def _check_tail(device, tail, flags, n_sats):
                     (flags, (2, n_sats), I32, "flags")))
 
 
-def _check_dense(tsince, spine, tail, flags):
+def _check_tsince(tsince, spine):
     if tsince.dim() != 2:
         raise ValueError(f"tsince: expected (T, S) or (T, 1), got "
                          f"{tuple(tsince.shape)}")
@@ -439,6 +442,11 @@ def _check_dense(tsince, spine, tail, flags):
     _check(tsince.device, (
         (tsince, tuple(tsince.shape), F64, "tsince"),
         (spine, (len(SPINE_FIELD_NAMES), n_sats), F64, "spine")))
+    return n_times, n_sats
+
+
+def _check_dense(tsince, spine, tail, flags):
+    n_times, n_sats = _check_tsince(tsince, spine)
     _check_tail(tsince.device, tail, flags, n_sats)
     return n_times, n_sats
 
@@ -564,12 +572,13 @@ def propagate_fast_fused(els, tsince, grav: GravityModel,
 
 
 def launch_grid(kernel, n_times, n_sats, *, kepler_iters, want_vel=True):
-    """The persistent grid that K5 (``kernel="sgp4_shallow_dense"``) or
-    K2 (``"sgp4_deep"``) launches on the current CUDA device at
-    ``n_times`` x ``n_sats``: ``{"per_sm": blocks an SM (the
-    instantiation's occupancy), "sms": the card's SMs, "blocks": blocks
-    launched, "waves": blocks / (per_sm * sms)}``."""
+    """The persistent grid that K5 (``kernel="sgp4_shallow_dense"``), K6
+    (``"sgp4_shallow_grids"``) or K2 (``"sgp4_deep"``) launches on the
+    current CUDA device at ``n_times`` x ``n_sats``: ``{"per_sm": blocks
+    an SM (the instantiation's occupancy), "sms": the card's SMs,
+    "blocks": blocks launched, "waves": blocks / (per_sm * sms)}``."""
     fn = {"sgp4_shallow_dense": "astroz_sgp4_shallow_dense_grid",
+          "sgp4_shallow_grids": "astroz_sgp4_shallow_grids_grid",
           "sgp4_deep": "astroz_sgp4_deep_grid"}[kernel]
     grid = (ctypes.c_int * 3)()
     rc = getattr(_build.library(), fn)(n_times, n_sats, kepler_iters,
@@ -582,8 +591,46 @@ def launch_grid(kernel, n_times, n_sats, *, kepler_iters, want_vel=True):
 
 
 # ---------------------------------------------------------------------------
-# K6: the tail on the f64 spine's six grids
+# The spine kernel and K6: the tail on the f64 spine's six grids
 # ---------------------------------------------------------------------------
+
+
+def spine_f64_grids_reference(tsince, spine):
+    """Plain torch version of the spine kernel, on any device: the same
+    arguments and returns as :func:`spine_f64_grids`."""
+    shape = _check_tsince(tsince, spine)
+    return tuple(g.expand(shape).contiguous()
+                 for g in _spine_grids(tsince, spine))
+
+
+def spine_f64_grids(tsince, spine):
+    """The spine kernel: ``ops.fast.spine_f64`` as K6 reads it.
+
+    Args:
+      tsince: (T, S) f64 minutes since each epoch, or a (T, 1) column
+        that every satellite shares (read with a satellite stride of 0).
+      spine: (12, S) f64 rows ``ops.fast.SPINE_FIELD_NAMES``.
+
+    Returns the six contiguous (T, S) f32 grids t32, u_base, mm, argp32,
+    node32, xmdf32.
+    """
+    n_times, n_sats = _check_tsince(tsince, spine)
+    dev = _device_of(tsince, "spine_f64_grids")
+    if dev.type == "cpu":
+        return spine_f64_grids_reference(tsince, spine)
+    grids = torch.empty((6, n_times, n_sats), dtype=F32,
+                        device=dev).unbind(0)
+    if n_times == 0 or n_sats == 0:
+        return grids
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_sgp4_spine_grids(
+            tsince.data_ptr(), int(tsince.shape[1] == n_sats),
+            spine.data_ptr(), n_times, n_sats,
+            *(g.data_ptr() for g in grids),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sgp4_spine_grids")
+    return grids
 
 
 def _check_grids(grids, tail, flags):
@@ -607,6 +654,32 @@ def propagate_fast_spine_grids_reference(grids, tail, flags, *,
     return _tail_reference(grids, tail, flags, grav, kepler_iters, want_vel)
 
 
+def _grids_tail(grids, tail, flags, grav, kepler_iters, want_vel,
+                time_major):
+    """K6 (or its plain version on a CPU tensor) into the (3, T, S)
+    planes, or with ``time_major`` into (T, S, 3) r and v."""
+    n_times, n_sats = _check_grids(grids, tail, flags)
+    dev = _launch_device(grids[0], kepler_iters,
+                         "propagate_fast_spine_grids")
+    if dev.type == "cpu":
+        out = propagate_fast_spine_grids_reference(
+            grids, tail, flags, grav=grav, kepler_iters=kepler_iters,
+            want_vel=want_vel)
+        return _time_major(*out) if time_major else out
+    r, v, err = _outputs(dev, n_times, n_sats, want_vel, time_major)
+    if n_times == 0 or n_sats == 0:
+        return r, v, err
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_sgp4_shallow_grids(
+            *(g.data_ptr() for g in grids), tail.data_ptr(),
+            flags.data_ptr(), n_times, n_sats, kepler_iters, int(want_vel),
+            int(time_major), *_grav_args(grav), r.data_ptr(), _ptr(v),
+            err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sgp4_shallow_grids")
+    return r, v, err
+
+
 def propagate_fast_spine_grids(grids, tail, flags, *, grav: GravityModel,
                                kepler_iters: int, want_vel: bool = True):
     """K6: the near-earth tail on the f64 spine's grids.
@@ -619,54 +692,35 @@ def propagate_fast_spine_grids(grids, tail, flags, *, grav: GravityModel,
 
     Returns ``(r, v, err)`` as :func:`propagate_fast_sep`.
     """
-    n_times, n_sats = _check_grids(grids, tail, flags)
-    dev = _launch_device(grids[0], kepler_iters,
-                         "propagate_fast_spine_grids")
-    if dev.type == "cpu":
-        return propagate_fast_spine_grids_reference(
-            grids, tail, flags, grav=grav, kepler_iters=kepler_iters,
-            want_vel=want_vel)
-    r, v, err = _outputs(dev, n_times, n_sats, want_vel)
-    if n_times == 0 or n_sats == 0:
-        return r, v, err
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.astroz_sgp4_shallow_grids(
-            *(g.data_ptr() for g in grids), tail.data_ptr(),
-            flags.data_ptr(), n_times, n_sats, kepler_iters, int(want_vel),
-            *_grav_args(grav), r.data_ptr(), _ptr(v), err.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "sgp4_shallow_grids")
-    return r, v, err
+    return _grids_tail(grids, tail, flags, grav, kepler_iters, want_vel,
+                       time_major=False)
 
 
 def spine_grids(els, tsince):
     """The f64 spine of ``els`` at ``tsince`` ((T, S) or (T, 1) f64) as
-    K6 reads it: six contiguous (T, S) f32 grids, and the staging's tail
-    and flags."""
+    K6 reads it (:func:`spine_f64_grids`), and the staging's tail and
+    flags."""
     spine, tail, flags = _staged(els)
-    t = _tsince_for(els, tsince)
-    shape = (t.shape[0], spine.shape[1])
-    grids = tuple(g.expand(shape).contiguous()
-                  for g in _spine_grids(t, spine))
-    return grids, tail, flags
+    return spine_f64_grids(_tsince_for(els, tsince), spine), tail, flags
 
 
 def propagate_fast_grids_reference(els, tsince, grav: GravityModel,
                                    kepler_iters: int = 5,
                                    want_vel: bool = True):
     """Plain torch version of :func:`propagate_fast_grids`, on any
-    device."""
+    device: the plain spine, then K6's plain version."""
+    spine, tail, flags = shallow_staging(els)
+    grids = spine_f64_grids_reference(_tsince_for(els, tsince), spine)
     return _time_major(*propagate_fast_spine_grids_reference(
-        *spine_grids(els, tsince), grav=grav, kepler_iters=kepler_iters,
+        grids, tail, flags, grav=grav, kepler_iters=kepler_iters,
         want_vel=want_vel))
 
 
 def propagate_fast_grids(els, tsince, grav: GravityModel,
                          kepler_iters: int = 5, want_vel: bool = True):
-    """:func:`propagate_fast_fused`'s function with the f64 spine run in
-    plain torch on the device (:func:`spine_grids`) and the tail in K6.
-    The same arguments and returns."""
-    return _time_major(*propagate_fast_spine_grids(
-        *spine_grids(els, tsince), grav=grav, kepler_iters=kepler_iters,
-        want_vel=want_vel))
+    """:func:`propagate_fast_fused`'s function in two kernels: the spine
+    kernel writes the f64 spine's grids (:func:`spine_grids`) and K6 runs
+    the tail on them into the time-major layout. The same arguments and
+    returns."""
+    return _grids_tail(*spine_grids(els, tsince), grav, kepler_iters,
+                       want_vel, time_major=True)

@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 0. the card: ``torch.cuda.is_available()``, its name and power limit from
    nvidia-smi; the port imports without JAX;
-1. build kernels K1-K6 (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one
-   process per source, and print ptxas' registers and spills;
+1. build kernels K1-K6 and the spine kernel
+   (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one process per source,
+   and print ptxas' registers and spills;
 2. K1 vs its plain torch version on the card, on a small ragged
    near-earth catalog with backward and forward times, over +-1 year
    (41 epochs: the reduction mod 2pi at quotients up to ~2^13) and at
@@ -24,15 +25,17 @@ Phases (any failure exits non-zero; nothing is caught):
    deep lanes, backward and forward times, at 6 and 8 trips, with and
    without velocities, and again at the headline mixed catalog's deep
    subset x 1,440; K3's deep columns must equal K2's planes bit for bit;
-2c. K5 (dense tsince) and K6 (the tail on the f64 spine's grids) vs
-   their plain versions, bit for bit: a ragged 1,002-satellite
-   catalog with spread epochs and a decaying lane on a dense grid of
-   mixed sign and on a (T, 1) column, and bench_single_sat's ISS at one
-   full (4,096, 1,024) chunk, at 3 and 8 trips, with and without
-   velocities; K5 on ``t_time - t_sat`` must equal K1, K6 must equal K5,
-   and K5's positions must not change without velocities, bit for bit;
-   K5's time-major output (``propagate_fast_fused``) must equal the
-   (T, S, 3) layout of its planes bit for bit;
+2c. K5 (dense tsince), the spine kernel (the f64 spine's six grids) and
+   K6 (the tail on them) vs their plain versions, bit for bit: a ragged
+   1,002-satellite catalog with spread epochs and a decaying lane on a
+   dense grid of mixed sign and on a (T, 1) column, and
+   bench_single_sat's ISS at one full (4,096, 1,024) chunk, at 3 and 8
+   trips, with and without velocities; K5 on ``t_time - t_sat`` must
+   equal K1, K6 on the spine kernel's grids must equal K5, and their
+   positions must not change without velocities, bit for bit; K5's and
+   K6's time-major outputs (``propagate_fast_fused``, K6's time-major
+   store, ``propagate_fast_grids``) must equal the (T, S, 3) layout of
+   the plain planes bit for bit;
 3. the near-earth main path: 13,478 synthetic near-earth TLEs as text ->
    ``Constellation(text, device="cuda")`` -> ``propagate`` over 1,440
    one-minute epochs, as planes, as ECEF planes and time-major. Each
@@ -52,8 +55,9 @@ Phases (any failure exits non-zero; nothing is caught):
    golden TLE broadcast to 1,024 lanes, minutes as (rows, 1,024) f64
    chunks of at most 2^22 points, over 1day_1min, 1week_1min and
    1year_1s (31,536,000 points, 8 chunks) through ``propagate_fast_fused``
-   (K5, once a chunk), ``propagate_fast_grids`` (K6, once a chunk, equal
-   to K5 bit for bit) and the f64 ``sgp4_propagate``: finite CUDA
+   (K5, once a chunk), ``propagate_fast_grids`` (the spine kernel and K6,
+   once each a chunk, equal to K5 bit for bit) and the f64
+   ``sgp4_propagate``: finite CUDA
    outputs, error codes all 0 on the short scenarios and equal between
    fast and f64 on all, |r| in the LEO band on healthy points, the f64
    path within 0.1 km of the python-sgp4 trajectory, fast within the JAX
@@ -105,17 +109,21 @@ Phases (any failure exits non-zero; nothing is caught):
    ``torch.cdist`` yardstick on one column chunk, the pieces and the whole
    of a ``screen`` call (CUDA events and wall clock), ``screen_target``,
    and the peak device memory of a screen;
-4c. timings with CUDA events: K5 and K6 alone at one (4,096, 1,024) chunk
-   and their plain versions, in turns as in phase 4 (K5 through
-   ``propagate_fast_fused`` on elements already staged, the time-major
-   store its callers use, and through ``propagate_fast_dense``, the
-   planes), the torch spine that feeds K6, the whole 1year_1s sweep
+4c. timings with CUDA events: K5, the spine kernel and K6 alone at one
+   (4,096, 1,024) chunk and their plain versions, in turns as in phase 4
+   (K5 through ``propagate_fast_fused`` on elements already staged, the
+   time-major store its callers use, and through
+   ``propagate_fast_dense``, the planes; K6 in its time-major store, as
+   ``propagate_fast_grids`` runs it, and in the planes), the whole
+   ``propagate_fast_grids`` call a chunk, the whole 1year_1s sweep
    through K5 and through the f64 ``sgp4_propagate``, the f64
    ``propagate`` of the mixed catalog (planes, time-major,
-   ``scan_times=True``), and the peak device memory of each; K5's
-   registers, spills, grid and issue estimate as K2's; and, under
+   ``scan_times=True``), and the peak device memory of each; K5's and
+   K6's registers, spills, grid and issue estimate as K2's; and, under
    ``torch.profiler``, a second ``propagate_fast_fused`` call on the same
-   elements must run K5 and no other device work (no staging, no copy).
+   elements must run K5 and no other device work (no staging, no copy),
+   and a second ``propagate_fast_grids`` call the spine kernel and K6 and
+   nothing else.
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (with each one's bound: the larger of
@@ -187,9 +195,10 @@ PEAK_F64_OPS_S = 34e12
 #: instructions it issues with FMA (3 FADD, 1 FMUL, 2 FFMA, 1 FMNMX),
 #: against 128 f32 lanes an SM at the card's largest SM clock
 K4_OPS, K4_INSTRUCTIONS, LANES_PER_SM = 9, 7, 128
-#: the mangled names of K5 and K2 with velocities at a number of Newton
-#: trips, as ptxas and cuobjdump show them
-DENSE_KERNEL = "sgp4_dense_kernelILb1ELi{}E"
+#: the mangled names of K5, K6 and K2 with velocities at a number of
+#: Newton trips, as ptxas and cuobjdump show them
+DENSE_KERNEL = "sgp4_dense_kernelILb1ELi{}ELi0E"
+GRIDS_KERNEL = "sgp4_dense_kernelILb1ELi{}ELi1E"
 DEEP_KERNEL = "sgp4_deep_kernelILb1ELi{}E"
 
 #: python-sgp4 v2.25 reference trajectory of the TLE below (WGS-72):
@@ -623,15 +632,26 @@ def phase2b_deep_and_merge(headline_cat):
 
 
 def _dense_vs_twin(els, tsince, grav, label, codes=None):
-    """K5 and K6 vs their plain versions at one shape, both Newton rungs,
-    with and without velocities, bit for bit; K6 on the torch spine's
-    grids must equal K5 bit for bit. Returns the largest K5 and K6
-    position and velocity differences."""
+    """K5, the spine kernel and K6 vs their plain versions at one shape,
+    both Newton rungs, with and without velocities, bit for bit; K6 on
+    the spine kernel's grids must equal K5 bit for bit, in both stores.
+    Returns the largest K5 and K6 position and velocity differences and
+    the spine kernel's largest difference."""
     from astroz_tpu_torch.ops import cuda_sgp4
     from astroz_tpu_torch.ops.fast import shallow_staging
 
     staged = shallow_staging(els)
+    before = launches()["sgp4_spine_grids"]
     grids, tail, flags = cuda_sgp4.spine_grids(els, tsince)
+    plain_grids = cuda_sgp4.spine_f64_grids_reference(tsince, staged[0])
+    sync()
+    spine_err = max(_max_diff(a, b) for a, b in zip(grids, plain_grids))
+    print(f"# phase 2c: {label}: spine kernel max diff {spine_err:.3e} "
+          f"from the plain spine")
+    check(launches()["sgp4_spine_grids"] == before + 1,
+          f"spine kernel {label}: not launched once")
+    check(all(torch.equal(a, b) for a, b in zip(grids, plain_grids)),
+          f"spine kernel {label}: not bit-equal to the plain spine")
     worst_r = worst_v = 0.0
     for iters in (3, 8):
         kw = dict(grav=grav, kepler_iters=iters)
@@ -645,20 +665,33 @@ def _dense_vs_twin(els, tsince, grav, label, codes=None):
                                                   want_vel=False)
         gr = cuda_sgp4.propagate_fast_spine_grids_reference(grids, tail,
                                                             flags, **kw)
-        # K5's own time-major store against the layout of its planes
+        # K5's and K6's own time-major stores against the layout of the
+        # plain planes
         tm = cuda_sgp4.propagate_fast_fused(els, tsince, grav,
                                             kepler_iters=iters)
         tm0 = cuda_sgp4.propagate_fast_fused(els, tsince, grav,
                                              kepler_iters=iters,
                                              want_vel=False)
+        gtm = cuda_sgp4._grids_tail(grids, tail, flags, grav, iters, True,
+                                    time_major=True)
+        gtm0 = cuda_sgp4._grids_tail(grids, tail, flags, grav, iters, False,
+                                     time_major=True)
+        path = cuda_sgp4.propagate_fast_grids(els, tsince, grav,
+                                              kepler_iters=iters)
         sync()
-        check(all(a is b is None or torch.equal(a, b) for a, b in zip(
-                  tm, cuda_sgp4._time_major(rr, vr, er)))
-              and all(a is b is None or torch.equal(a, b) for a, b in zip(
-                  tm0, cuda_sgp4._time_major(rr, None, er)))
-              and tm[0].is_contiguous() and tm[1].is_contiguous(),
-              f"K5 {label} iters={iters}: its time-major output is not the "
-              "(T, S, 3) layout of its plain version's planes")
+        layout, layout0 = (cuda_sgp4._time_major(rr, vr, er),
+                           cuda_sgp4._time_major(rr, None, er))
+        for name, out, out0 in (("K5", tm, tm0), ("K6", gtm, gtm0)):
+            check(all(a is b is None or torch.equal(a, b)
+                      for a, b in zip(out, layout))
+                  and all(a is b is None or torch.equal(a, b)
+                          for a, b in zip(out0, layout0))
+                  and out[0].is_contiguous() and out[1].is_contiguous(),
+                  f"{name} {label} iters={iters}: its time-major output is "
+                  "not the (T, S, 3) layout of the plain planes")
+        check(all(torch.equal(a, b) for a, b in zip(path, tm)),
+              f"{label} iters={iters}: propagate_fast_grids differs from "
+              "propagate_fast_fused")
         check(v0 is None and g0[1] is None,
               "want_vel=False returned velocities")
         check(torch.equal(e, er) and torch.equal(e0, er),
@@ -672,27 +705,30 @@ def _dense_vs_twin(els, tsince, grav, label, codes=None):
               f"max|dv| {dv:.3e} km/s; K6 max|dr| {gdr:.3e} km, max|dv| "
               f"{gdv:.3e} km/s; error codes {codes_seen}; K6 bit-equal to "
               f"K5: {same}; r bit-equal without v: K5 {torch.equal(r, r0)}, "
-              f"K6 {torch.equal(g[0], g0[0])}; K5 time-major bit-equal to "
-              "its planes' layout: True")
+              f"K6 {torch.equal(g[0], g0[0])}; K5's and K6's time-major "
+              "stores bit-equal to the planes' layout, propagate_fast_grids "
+              "to propagate_fast_fused: True")
         check(torch.equal(r, rr) and torch.equal(v, vr),
               f"K5 {label}: not bit-equal to the plain version (|dr| {dr} "
               f"km, |dv| {dv} km/s)")
         check(all(torch.equal(a, b) for a, b in zip(g, gr)),
               f"K6 {label}: not bit-equal to the plain version (|dr| {gdr} "
               f"km, |dv| {gdv} km/s, or error codes)")
-        check(same, f"{label}: K6 on the torch spine differs from K5")
+        check(same, f"{label}: K6 on the spine kernel's grids differs "
+              "from K5")
         check(torch.equal(r, r0) and torch.equal(g[0], g0[0])
               and torch.equal(g0[2], e),
               f"{label}: positions differ with and without velocities")
         check(codes is None or set(codes) <= set(codes_seen),
               f"{label}: error codes {codes_seen} lack {codes}")
         worst_r, worst_v = max(worst_r, dr, gdr), max(worst_v, dv, gdv)
-    return worst_r, worst_v
+    return worst_r, worst_v, spine_err
 
 
 def phase2c_dense_vs_twin():
-    """K5 and K6 against their plain versions; returns the largest
-    position and velocity differences."""
+    """K5, the spine kernel and K6 against their plain versions; returns
+    the largest position and velocity differences and the spine
+    kernel's largest difference."""
     from astroz_tpu_torch import build_catalog
     from astroz_tpu_torch.ops import cuda_sgp4
     from astroz_tpu_torch.tle import format_lines
@@ -735,7 +771,7 @@ def phase2c_dense_vs_twin():
     print(f"# phase 2c: K5 on t_time - t_sat bit-equal to K1 ({n} sats x "
           f"37 times, {small.kepler_iters} trips): {same}")
     check(same, "K5 on a separable grid differs from K1")
-    return tuple(max(w[k] for w in worst) for k in range(2))
+    return tuple(max(w[k] for w in worst) for k in range(3))
 
 
 def phase3_main_path(text):
@@ -1013,9 +1049,11 @@ def phase3c_single_sat():
     print(f"# phase 3c: {n_chunks} chunks, kernel launches {n}; the "
           f"python-sgp4 trajectory: f64 max|dr| {gold_f64 * 1e3:.3f} m, "
           f"fast {gold_fast * 1e3:.3f} m")
-    check(n["sgp4_shallow_dense"] == n["sgp4_shallow_grids"] == n_chunks
-          and sum(n.values()) == 2 * n_chunks,
-          "each chunk must launch K5 once and K6 once, and nothing else")
+    check(n["sgp4_shallow_dense"] == n["sgp4_shallow_grids"]
+          == n["sgp4_spine_grids"] == n_chunks
+          and sum(n.values()) == 3 * n_chunks,
+          "each chunk must launch K5 once, the spine kernel once and K6 "
+          "once, and nothing else")
     check(gold_f64 < 0.1, "the f64 path is off the python-sgp4 trajectory")
     return n
 
@@ -1808,18 +1846,22 @@ def _peak(fn):
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def _device_work(fn):
+def _device_work(*fns):
     """The names of the device activities (kernels, copies, fills) that
-    one call of ``fn`` runs, from ``torch.profiler``."""
+    one call of each of ``fns``, one after the other, runs, in the order
+    they started, from one ``torch.profiler`` session (a second session
+    in one process lost kernel events on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        for fn in fns:
+            fn()
+            sync()
+    return [name for _, name in sorted(
+        (e.time_range.start, e.name) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)]
 
 
 def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
@@ -1844,13 +1886,27 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
         lambda: cuda_sgp4.propagate_fast_dense_reference(t, *staged, **kw),
         50, 3)
 
+    # the spine kernel, then K6 in the time-major store of the main path
+    # and in the planes, then the two through propagate_fast_grids
+    spine = _in_turns(
+        lambda: cuda_sgp4.spine_f64_grids(t, staged[0]),
+        lambda: cuda_sgp4.spine_f64_grids_reference(t, staged[0]), 50, 3)
     grids, tail, flags = cuda_sgp4.spine_grids(els, t)
+
+    def k6_plain():
+        return cuda_sgp4.propagate_fast_spine_grids_reference(
+            grids, tail, flags, **kw)
+
     k6 = _in_turns(
+        lambda: cuda_sgp4._grids_tail(grids, tail, flags, cat.grav, 5, True,
+                                      time_major=True),
+        lambda: cuda_sgp4._time_major(*k6_plain()), 50, 3)
+    k6_planes = _in_turns(
         lambda: cuda_sgp4.propagate_fast_spine_grids(grids, tail, flags,
-                                                     **kw),
-        lambda: cuda_sgp4.propagate_fast_spine_grids_reference(
-            grids, tail, flags, **kw), 50, 3)
-    spine_ms = _cuda_ms(lambda: cuda_sgp4.spine_grids(els, t), 10)
+                                                     **kw), k6_plain, 50, 3)
+    grids_path = _in_turns(
+        lambda: cuda_sgp4.propagate_fast_grids(els, t, **kw),
+        lambda: cuda_sgp4.propagate_fast_grids_reference(els, t, **kw), 50, 3)
     props = t.numel()
 
     def sweep(fn):
@@ -1864,12 +1920,21 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     year_f64 = _cuda_ms(lambda: sweep(sgp4_propagate), 2)
     peak_fast, peak_f64 = _peak(lambda: sweep(fast)), _peak(
         lambda: sweep(sgp4_propagate))
-    device_work = _device_work(lambda: fast(els, t, cat.grav))
+    device_work = _device_work(
+        lambda: fast(els, t, cat.grav),
+        lambda: cuda_sgp4.propagate_fast_grids(els, t, **kw))
     print(f"# phase 4c: device work of a second propagate_fast_fused call "
-          f"on the same elements (torch.profiler): {device_work}")
-    check(len(device_work) == 1 and "sgp4_dense_kernel" in device_work[0],
+          f"on the same elements, then of a second propagate_fast_grids "
+          f"call (torch.profiler): {device_work}")
+    check(len(device_work) == 3
+          and "sgp4_dense_kernel" in device_work[0]
+          and "sgp4_spine_grids_kernel" in device_work[1]
+          and "sgp4_dense_kernel" in device_work[2]
+          and device_work[0] != device_work[2],
           "a second propagate_fast_fused call on the same elements must run "
-          "K5 and nothing else on the card")
+          "K5 and nothing else on the card, and a second "
+          "propagate_fast_grids call the spine kernel and K6 and nothing "
+          "else")
 
     times = np.arange(float(N_TIMES))
     f64_kw = dict(start_time=EPOCH_JD, method="f64")
@@ -1885,8 +1950,14 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
           f"{props / k5.ms / 1e6:.3f} G props/s)")
     print(f"# phase 4c [{smi}]: planes, propagate_fast_dense: "
           f"{k5_planes.text('K5')}")
-    print(f"# phase 4c [{smi}]: {k6.text('K6')}; the torch f64 spine that "
-          f"feeds it (spine_grids) {spine_ms:.4f} ms")
+    print(f"# phase 4c [{smi}]: {spine.text('spine')}")
+    print(f"# phase 4c [{smi}]: time-major, as propagate_fast_grids runs "
+          f"it: {k6.text('K6')}")
+    print(f"# phase 4c [{smi}]: planes, propagate_fast_spine_grids: "
+          f"{k6_planes.text('K6')}")
+    print(f"# phase 4c [{smi}]: the whole propagate_fast_grids call (spine "
+          f"kernel + K6 into (T, S, 3)): {grids_path.text('path')} "
+          f"({props / grids_path.ms / 1e6:.3f} G props/s)")
     print(f"# phase 4c [{smi}]: {SINGLE_SAT_SCENARIOS[-1][0]} sweep ({n_year} "
           f"points): "
           f"propagate_fast_fused (K5) {year_fast:.3f} ms "
@@ -1905,20 +1976,27 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
         t, *staged, **kw))
     k5_out = cuda_sgp4.propagate_fast_dense(t, *staged, **kw)
     k5_bound = bound(nbytes(t, *staged, *k5_out), *k5_ops)
-    k6_ops = count_ops(lambda: cuda_sgp4.propagate_fast_spine_grids_reference(
-        grids, tail, flags, **kw))
+    k6_ops = count_ops(k6_plain)
     k6_bound = bound(nbytes(*grids, tail, flags, *k5_out), *k6_ops)
+    spine_ops = count_ops(
+        lambda: cuda_sgp4.spine_f64_grids_reference(t, staged[0]))
+    spine_bound = bound(nbytes(t, staged[0], *grids), *spine_ops)
     print(f"# phase 4c: K5 bound {k5_bound[0]:.4f} ms by {k5_bound[1]} "
           f"({k5_ops[0] / props:.1f} f32 and {k5_ops[1] / props:.1f} f64 "
           f"operations a point); K6 bound {k6_bound[0]:.4f} ms by "
           f"{k6_bound[1]} ({k6_ops[0] / props:.1f} f32 and "
-          f"{k6_ops[1] / props:.1f} f64)")
-    kernel_report(f"phase 4c: K5 ({tuple(t.shape)}, 5 trips)",
-                  DENSE_KERNEL.format(5),
-                  cuda_sgp4.launch_grid("sgp4_shallow_dense", *t.shape,
-                                        kepler_iters=5),
-                  props, k5.device_ms, smi)
-    return (k5, k5_bound), (k6, k6_bound)
+          f"{k6_ops[1] / props:.1f} f64); spine kernel bound "
+          f"{spine_bound[0]:.4f} ms by {spine_bound[1]} "
+          f"({spine_ops[0] / props:.1f} f32 and {spine_ops[1] / props:.1f} "
+          f"f64)")
+    for name, kernel, grid, turns in (
+            ("K5", DENSE_KERNEL, "sgp4_shallow_dense", k5),
+            ("K6", GRIDS_KERNEL, "sgp4_shallow_grids", k6)):
+        kernel_report(f"phase 4c: {name} ({tuple(t.shape)}, 5 trips)",
+                      kernel.format(5),
+                      cuda_sgp4.launch_grid(grid, *t.shape, kepler_iters=5),
+                      props, turns.device_ms, smi)
+    return (k5, k5_bound), (k6, k6_bound), (spine, spine_bound)
 
 
 def main():
@@ -1948,7 +2026,7 @@ def main():
     screen_launches = phase6_screen(scon, plain_pairs)
     phase6b_mixed_screen(mcon)
     k4, k4c = phase7_screen_timings(scon, smi)
-    k5, k6 = phase4c_dense_timings(mcon, smi, scan_ms, scan_peak)
+    k5, k6, spine = phase4c_dense_timings(mcon, smi, scan_ms, scan_peak)
     print(f"# chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
@@ -1994,7 +2072,12 @@ def main():
         entry("sgp4_shallow_grids (K6)",
               "astroz_tpu_torch/csrc/sgp4_shallow.cu",
               "astroz_tpu/ops/pallas_sgp4.py:66",
-              dense_launches["sgp4_shallow_grids"], dense_err[0], k6)]}))
+              dense_launches["sgp4_shallow_grids"], dense_err[0], k6),
+        # the f64 spine that XLA fused around K6's Pallas call
+        entry("sgp4_spine_grids (the f64 spine feeding K6)",
+              "astroz_tpu_torch/csrc/sgp4_shallow.cu",
+              "astroz_tpu/ops/pallas_sgp4.py:139",
+              dense_launches["sgp4_spine_grids"], dense_err[2], spine)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

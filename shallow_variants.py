@@ -24,9 +24,15 @@ of the variants reversed on every other round:
 * K3 (``propagate_fast_sep_merge``): ``chip_smoke.mixed_catalog_text`` x
   1,440, on the default build's K2 planes;
 * K5 and K6: one (4,096, 1,024) chunk of bench_single_sat's 1year_1s
-  grid (the ISS x 1,024 lanes, 5 trips); ``K5tm``: the same through
-  ``propagate_fast_fused`` (time-major, the elements staged); ``sweep``:
-  the whole 1year_1s grid (8 chunks) through ``propagate_fast_fused``;
+  grid (the ISS x 1,024 lanes, 5 trips), into the (3, T, S) planes;
+  ``K5tm``: the same through ``propagate_fast_fused`` (time-major, the
+  elements staged); ``K6tm``: K6 into the time-major layout, as
+  ``propagate_fast_grids`` runs it (a tree without K6's time-major store:
+  K6's planes and their relayout); ``spine``: the f64 spine's six grids
+  of the chunk (``spine_grids``: the spine kernel, or a tree's torch
+  spine); ``grids``: the whole ``propagate_fast_grids`` call, replayed,
+  and ``grids_b2b`` launched back to back; ``sweep``: the whole 1year_1s
+  grid (8 chunks) through ``propagate_fast_fused``;
 * K2: the mixed catalog's deep subset x 1,440, its slots grouped by
   regime (``propagation.deep_slots``); ``K2c``: the same with the slots
   in catalog order, so that warps mix the Lyddane branch with the
@@ -41,9 +47,9 @@ it, also written to ``variants_<tag>.json`` in the output directory
 beside this script. A kernel's
 calls are replayed from a CUDA graph between CUDA events
 (``chip_smoke._graph_ms``), so that the host's time a call does not count
-where it is longer than the kernel's; the sweep is timed with CUDA events
-around its calls, host gaps included. ``--kernels`` times only the named
-workloads.
+where it is longer than the kernel's; the sweep and ``grids_b2b`` are
+timed with CUDA events around their calls, host gaps included.
+``--kernels`` times only the named workloads.
 
 ``--fma-ulps`` runs on the CPU: sincos and angle_add of
 ``ops/fastmath.py`` with every multiply-add fused as ``--fmad=true``
@@ -75,16 +81,25 @@ ROOT = Path(__file__).resolve().parent
 VARIANT_DIR = ROOT / "astroz_tpu_torch" / "csrc" / "build" / "variants"
 N_SATS, N_TIMES = 13478, 1440
 K_REPS = {"K1": 20, "K3": 20, "K5": 50, "K6": 50, "K2": 50, "K5tm": 50,
+          "K6tm": 50, "spine": 50, "grids": 50, "grids_b2b": 20,
           "sweep": 5, "K2c": 50}
+#: workloads timed with CUDA events around calls launched back to back
+_BACK_TO_BACK = ("sweep", "grids_b2b")
 #: mangled template arguments of the kernels: (velocities, trips, mode);
-#: K5 is the dense kernel, or mode 2 of the shallow one in older trees
+#: in older trees K5 is mode 2 of the shallow kernel or the dense one
+#: without a source, K6 mode 3 of the shallow one
 _SHALLOW = re.compile(r"sgp4_shallow_kernelILb(\d)ELi(\d+)ELi(\d)E")
-_DENSE = re.compile(r"sgp4_dense_kernelILb(\d)ELi(\d+)E")
+_DENSE = re.compile(r"sgp4_dense_kernelILb(\d)ELi(\d+)E(?:Li(\d)E)?")
 _DEEP = re.compile(r"sgp4_deep_kernelILb(\d)ELi(\d+)E")
+_SPINE = re.compile(r"sgp4_spine_grids_kernel")
 _MODES = ("K1", "K3", "K5", "K6")
-#: K5 and K2 with velocities at the timed trips, in this tree and before
-_LOOPS = {"K5": ("sgp4_dense_kernelILb1ELi5E",
+#: K5, K6 and K2 with velocities at the timed trips, in this tree and
+#: before (the first name a library has)
+_LOOPS = {"K5": ("sgp4_dense_kernelILb1ELi5ELi0E",
+                 "sgp4_dense_kernelILb1ELi5E",
                  "sgp4_shallow_kernelILb1ELi5ELi2E"),
+          "K6": ("sgp4_dense_kernelILb1ELi5ELi1E",
+                 "sgp4_shallow_kernelILb1ELi5ELi3E"),
           "K2": ("sgp4_deep_kernelILb1ELi6E",)}
 
 _SHALLOW_CU = "csrc/sgp4_shallow.cu"
@@ -151,25 +166,233 @@ __device__ __forceinline__ double fmod_exact(double x, double d,
      "  if (!(a < 0x1p52)) return fmod_slow(x, d);", 1)]
 NO_MIN_BLOCKS = (_constant(_SHALLOW_CU, "DENSE_MIN_BLOCKS", 1)
                  + _constant(_DEEP_CU, "DEEP_MIN_BLOCKS", 1))
-# K5 loads each row's tsince at the head of the row
-NO_PREFETCH = [
+
+# K5 loads each unit's tsince at the head of the unit (K6 always does)
+NO_PREFETCH = [(_SHALLOW_CU, "constexpr bool AHEAD = SRC == TSINCE;",
+                "constexpr bool AHEAD = false;", 1)]
+# K6 loads the next unit's six grid values ahead, as K5 its tsince
+K6_LOOKAHEAD = [(_SHALLOW_CU, "constexpr bool AHEAD = SRC == TSINCE;",
+                 "constexpr bool AHEAD = true;", 1)]
+# K6 keeps its 21 tail fields in shared memory, as K5 does
+K6_SHARED = [
+    (_SHALLOW_CU, "tail_rows[SRC == TSINCE ? N_TAIL : 1][BLOCK];",
+     "tail_rows[N_TAIL][BLOCK];", 1),
+    (_SHALLOW_CU, "      return RegFields<float, N_TAIL>{};",
+     "      return SharedFields<float, N_TAIL, BLOCK>{tail_rows};", 1)]
+
+# the end of the dense kernel: its walk, after the fields and the run
+_DENSE_WALK_END = """\
+        store_point<WANT_VEL>(o, idx, plane, a.r, a.v, a.err);
+    }
+  }
+}
+"""
+_DENSE_WALK_START = """\
+  UnitInput<SRC> in{};
+"""
+_CP_ASYNC = """\
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\\n" ::);
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\\n" ::"n"(PENDING));
+}
+
+"""
+
+
+def _k6_ring(stages):
+    """K6 stages its next ``stages - 1`` units' six grid values in a ring
+    of shared memory with 4-byte ``cp.async`` copies, in place of loading
+    them at the head of each unit (K5 as it is)."""
+    return [
+        (_SHALLOW_CU, "// K5 and K6: each warp walks its run",
+         _CP_ASYNC + "// K5 and K6: each warp walks its run", 1),
+        (_SHALLOW_CU, _DENSE_WALK_START, f"""\
+  if constexpr (SRC == GRIDS) {{
+    constexpr int STAGES = {stages};
+    __shared__ float ring[STAGES][6][BLOCK];
+    int f_ti = ti, f_s = s;  // the next unit to fetch
+    long long fetched = 0;
+    auto fetch = [&]() {{
+      if (fetched < run.count) {{
+        const int slot = (int)(fetched % STAGES);
+        const bool ok = f_s < n_sats;
+        const size_t idx = ok ? (size_t)f_ti * ns + f_s : 0;
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          cp_async4(&ring[slot][c][threadIdx.x], a.grids[c] + idx, ok);
+        if (++f_ti == n_times) {{
+          f_ti = 0;
+          f_s += WARP;
+        }}
+        ++fetched;
+      }}
+      cp_async_commit();
+    }};
+    for (int j = 0; j < STAGES - 1; ++j) fetch();
+    for (long long k = 0; k < run.count; ++k) {{
+      if (col != loaded) {{
+        if (s < n_sats) {{
+          tf.load(a.tail, ns, s);
+          not_simp = a.flags[s] == 0;
+          error0 = a.flags[ns + s];
+        }}
+        loaded = col;
+      }}
+      const int t_row = ti, t_sat = s;
+      if (++ti == n_times) {{
+        ti = 0;
+        ++col;
+        s += WARP;
+      }}
+      fetch();
+      cp_async_wait<STAGES - 1>();
+      const int slot = (int)(k % STAGES);
+      Spine g;
+      g.t32 = ring[slot][0][threadIdx.x];
+      g.u_base = ring[slot][1][threadIdx.x];
+      g.mm = ring[slot][2][threadIdx.x];
+      g.argp32 = ring[slot][3][threadIdx.x];
+      g.node32 = ring[slot][4][threadIdx.x];
+      g.xmdf32 = ring[slot][5][threadIdx.x];
+      if (t_sat < n_sats) {{
+        const PosVel o = shallow_tail<WANT_VEL, ITERS>(
+            g, tf, not_simp, error0, a.j2, a.re, a.vkmpersec);
+        const size_t idx = (size_t)t_row * ns + t_sat;
+        if (a.time_major)
+          store_point_time_major<WANT_VEL>(o, idx, a.r, a.v, a.err);
+        else
+          store_point<WANT_VEL>(o, idx, plane, a.r, a.v, a.err);
+      }}
+    }}
+  }} else {{
+""" + _DENSE_WALK_START, 1),
+        (_SHALLOW_CU, _DENSE_WALK_END, _DENSE_WALK_END[:-2] + "  }\n}\n", 1)]
+
+
+# K6 on an even S: a lane owns two neighbouring satellites of a 64-wide
+# column and reads each grid as one 8-byte pair, runs the two tails and
+# writes 8-byte pairs (timing only: it assumes an even S)
+K6_PAIRS = [
+    (_SHALLOW_CU, "// K5 and K6: each warp walks its run", """\
+// the tail fields of a lane's satellite `off / BLOCK` of its pair
+struct PairFields {
+  float (*rows)[2 * BLOCK];
+  int off;
+  __device__ __forceinline__ float operator[](int k) const {
+    return rows[k][off + threadIdx.x];
+  }
+};
+
+// K5 and K6: each warp walks its run""", 1),
     (_SHALLOW_CU, """\
-  double t_next = s < n_sats ? a.tsince[(size_t)ti * row_stride +
-                                        (size_t)s * a.sat_stride]
-                             : 0.0;
-""", "", 1),
-    (_SHALLOW_CU, """\
-    const double t = t_next;
-""", "", 1),
-    (_SHALLOW_CU, """\
-    if (k > 1 && s < n_sats)
-      t_next = a.tsince[(size_t)ti * row_stride + (size_t)s * a.sat_stride];
-    if (t_sat < n_sats) {
+sgp4_dense_kernel(const DenseArgs a) {
 """, """\
-    if (t_sat < n_sats) {
-      const double t = a.tsince[(size_t)t_row * row_stride +
-                                (size_t)t_sat * a.sat_stride];
-""", 1)]
+sgp4_dense_kernel(const DenseArgs a) {
+  if constexpr (SRC == GRIDS) {
+    __shared__ float pair_rows[N_TAIL][2 * BLOCK];
+    const int n_times = a.n_times, n_pairs = a.n_sats / 2;
+    const size_t ns = (size_t)a.n_sats, np = (size_t)n_pairs;
+    const size_t plane = (size_t)n_times * ns;
+    const WarpRun run =
+        warp_run((long long)((n_pairs + WARP - 1) / WARP) * n_times);
+    if (run.count == 0) return;
+    int col = (int)(run.first / n_times);
+    int ti = (int)(run.first % n_times);
+    int p = col * WARP + (int)(threadIdx.x % WARP);
+    int loaded = -1;
+    bool not_simp[2] = {false, false};
+    int error0[2] = {0, 0};
+    float2 next[6];
+    if (p < n_pairs) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+        next[c] = reinterpret_cast<const float2*>(a.grids[c])[
+            (size_t)ti * np + p];
+    }
+    for (long long k = run.count; k > 0; --k) {
+      if (col != loaded) {
+        if (p < n_pairs) {
+#pragma unroll
+          for (int f = 0; f < N_TAIL; ++f) {
+            pair_rows[f][threadIdx.x] = a.tail[f * ns + 2 * p];
+            pair_rows[f][BLOCK + threadIdx.x] = a.tail[f * ns + 2 * p + 1];
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            not_simp[j] = a.flags[2 * p + j] == 0;
+            error0[j] = a.flags[ns + 2 * p + j];
+          }
+        }
+        loaded = col;
+      }
+      const int t_row = ti, t_pair = p;
+      float2 cur[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) cur[c] = next[c];
+      if (++ti == n_times) {
+        ti = 0;
+        ++col;
+        p += WARP;
+      }
+      if (k > 1 && p < n_pairs) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          next[c] = reinterpret_cast<const float2*>(a.grids[c])[
+              (size_t)ti * np + p];
+      }
+      if (t_pair < n_pairs) {
+        PosVel o[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          Spine g;
+          g.t32 = j ? cur[0].y : cur[0].x;
+          g.u_base = j ? cur[1].y : cur[1].x;
+          g.mm = j ? cur[2].y : cur[2].x;
+          g.argp32 = j ? cur[3].y : cur[3].x;
+          g.node32 = j ? cur[4].y : cur[4].x;
+          g.xmdf32 = j ? cur[5].y : cur[5].x;
+          o[j] = shallow_tail<WANT_VEL, ITERS>(
+              g, PairFields{pair_rows, j * BLOCK}, not_simp[j], error0[j],
+              a.j2, a.re, a.vkmpersec);
+        }
+        const size_t idx = (size_t)t_row * ns + 2 * (size_t)t_pair;
+        if (a.time_major) {
+          float2* rp = reinterpret_cast<float2*>(a.r + 3 * idx);
+          rp[0] = make_float2(o[0].r[0], o[0].r[1]);
+          rp[1] = make_float2(o[0].r[2], o[1].r[0]);
+          rp[2] = make_float2(o[1].r[1], o[1].r[2]);
+          if (WANT_VEL) {
+            float2* vp = reinterpret_cast<float2*>(a.v + 3 * idx);
+            vp[0] = make_float2(o[0].v[0], o[0].v[1]);
+            vp[1] = make_float2(o[0].v[2], o[1].v[0]);
+            vp[2] = make_float2(o[1].v[1], o[1].v[2]);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            *reinterpret_cast<float2*>(a.r + c * plane + idx) =
+                make_float2(o[0].r[c], o[1].r[c]);
+            if (WANT_VEL)
+              *reinterpret_cast<float2*>(a.v + c * plane + idx) =
+                  make_float2(o[0].v[c], o[1].v[c]);
+          }
+        }
+        *reinterpret_cast<int2*>(a.err + idx) =
+            make_int2(o[0].error, o[1].error);
+      }
+    }
+  } else {
+""", 1),
+    (_SHALLOW_CU, _DENSE_WALK_END, _DENSE_WALK_END[:-2] + "  }\n}\n", 1)]
 
 
 # The guards write a function's multiply-adds with __fmul_rn / __fadd_rn
@@ -258,7 +481,7 @@ VARIANTS = {
     # two time rows in flight in one thread: two Newton chains to overlap
     "pairs": [(_SHALLOW_CU, """\
   for (int ti = t_begin; ti < t_end; ++ti) {
-    const Spine g = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, grids);
+    const Spine g = spine_f64(t_time[ti] - epoch, sp);
     const PosVel o = shallow_tail<WANT_VEL, ITERS>(g, tf, not_simp, error0,
                                                    j2, re, vkmpersec);
     store_point<WANT_VEL>(o, (size_t)ti * ns + s, plane, r, v, err);
@@ -266,8 +489,8 @@ VARIANTS = {
 """, """\
   for (int ti = t_begin; ti < t_end; ti += 2) {
     const int tj = min(ti + 1, t_end - 1);
-    const Spine g0 = spine_at<MODE>(ti, s, ns, t_time, epoch, sp, grids);
-    const Spine g1 = spine_at<MODE>(tj, s, ns, t_time, epoch, sp, grids);
+    const Spine g0 = spine_f64(t_time[ti] - epoch, sp);
+    const Spine g1 = spine_f64(t_time[tj] - epoch, sp);
     const PosVel o0 = shallow_tail<WANT_VEL, ITERS>(g0, tf, not_simp,
                                                     error0, j2, re,
                                                     vkmpersec);
@@ -295,6 +518,21 @@ VARIANTS = {
     "shared_no_cap": NO_MIN_BLOCKS,  # a + b without a register cap
     "no_prefetch": NO_PREFETCH,  # a + b
     "fmod_out_of_line": FMOD_OUT_OF_LINE,
+    # K6: its own block count an SM (the kept one is 8, at 64 registers
+    # without a spill), the next unit's grid values loaded ahead, its
+    # tail fields in shared memory (both: the walk as K5 runs it), a
+    # cp.async ring of 2 or 4 units, 8-byte pairs; the spine kernel's
+    # rows a thread (the kept one is 4)
+    **{f"k6_min{n}": _constant(_SHALLOW_CU, "GRIDS_MIN_BLOCKS", n)
+       for n in (6, 7, 10)},
+    "k6_lookahead": K6_LOOKAHEAD,
+    "k6_shared": K6_SHARED,
+    "k6_shared_lookahead": K6_SHARED + K6_LOOKAHEAD,
+    "k6_ring2": _k6_ring(2),
+    "k6_ring4": _k6_ring(4),
+    "k6_pairs8": K6_PAIRS,
+    **{f"spine_rows{n}": _constant(_SHALLOW_CU, "SPINE_ROWS", n)
+       for n in (1, 2, 8, 16)},
     # K2's resonance row by CUDA's f64 fmod (a loop) in place of
     # fmod_exact's one FMA
     "k2_cuda_fmod": [(_DEEP_CU, "fmod_exact(at, STEPP, 1.0 / STEPP)",
@@ -343,7 +581,10 @@ def ptxas_summary(report):
                 regs, st, ld)
         m = _DENSE.search(name)
         if m:
-            out[f"K5 v{m.group(1)} i{m.group(2)}"] = (regs, st, ld)
+            kernel = "K6" if m.group(3) == "1" else "K5"
+            out[f"{kernel} v{m.group(1)} i{m.group(2)}"] = (regs, st, ld)
+        if _SPINE.search(name):
+            out["spine"] = (regs, st, ld)
         m = _DEEP.search(name)
         if m:
             out[f"K2 v{m.group(1)} i{m.group(2)}"] = (regs, st, ld)
@@ -353,7 +594,7 @@ def ptxas_summary(report):
 def timed(chip_smoke, name, fn):
     """The time of a call of workload ``name``, ms (see the module's
     docstring)."""
-    if name == "sweep":
+    if name in _BACK_TO_BACK:
         return chip_smoke._cuda_ms(fn, K_REPS[name])
     return chip_smoke._graph_ms(fn, K_REPS[name])
 
@@ -403,6 +644,16 @@ def workloads(ops, x):
     if "maps" in inspect.signature(ops.propagate_fast_sep_merge).parameters:
         k3_kw["maps"] = x["maps"]
     grids, tail, flags = x["grids"]
+    kw = x["dense_kw"]
+    if hasattr(ops, "_grids_tail"):
+        def k6_time_major():
+            return ops._grids_tail(grids, tail, flags, kw["grav"],
+                                   kw["kepler_iters"], True,
+                                   time_major=True)
+    else:  # a tree whose K6 writes planes only
+        def k6_time_major():
+            return ops._time_major(*ops.propagate_fast_spine_grids(
+                grids, tail, flags, **kw))
     return {
         "K1": lambda: ops.propagate_fast_sep(*x["k1"][0], **x["k1"][1]),
         "K3": lambda: ops.propagate_fast_sep_merge(*x["k3"][0], **k3_kw),
@@ -417,12 +668,17 @@ def workloads(ops, x):
                                                    **x["dense_kw"])
                           for c in x["chunks"]][-1],
         "K2c": lambda: ops.propagate_deep_sep(*x["k2c"], **x["k2"][1]),
+        "K6tm": k6_time_major,
+        "spine": lambda: tuple(ops.spine_grids(x["els"], x["chunk"])[0]),
+        "grids": lambda: ops.propagate_fast_grids(x["els"], x["chunk"], **kw),
+        "grids_b2b": lambda: ops.propagate_fast_grids(x["els"], x["chunk"],
+                                                      **kw),
     }
 
 
 def loop_counts(build, chip_smoke):
-    """{"K5": n, "K2": n}: the static SASS instructions of each kernel's
-    row loop in one variant's library (None where not found)."""
+    """{"K5": n, "K6": n, "K2": n}: the static SASS instructions of each
+    kernel's row loop in one variant's library (None where not found)."""
     out = {}
     for k, names in _LOOPS.items():
         counts = [chip_smoke.row_loop_instructions(build.library_path(), n)
@@ -446,8 +702,22 @@ def time_variants(args):
         pkgs["tree"] = make_variant(
             "tree", Path(args.tree).resolve() / "astroz_tpu_torch")
     t0 = time.perf_counter()
+
+    def build(item):
+        try:
+            item[1][0].build()
+        except RuntimeError as exc:  # nvcc's output
+            return item[0], str(exc)
+        return None
+
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        list(pool.map(lambda p: p[0].build(), pkgs.values()))
+        failed = [f for f in pool.map(build, pkgs.items()) if f]
+    for v, text in failed:
+        print(f"# {args.tag}: variant {v} did not build and is left out:\n"
+              f"{text[-4000:]}")
+        if v == "default":
+            raise SystemExit("shallow_variants: the default build failed")
+        del pkgs[v]
     print(f"# {args.tag}: built {len(pkgs)} variants in "
           f"{time.perf_counter() - t0:.1f} s")
     x = inputs(chip_smoke, pkgs["default"][1])

@@ -1,4 +1,5 @@
-"""Kernels K1 to K6 on the card against their plain torch versions, and a
+"""Kernels K1 to K6 and the spine kernel on the card against their plain
+torch versions, and a
 small all-vs-all screen on the card against the same call on the CPU
 (marked ``cuda``; skips where ``torch.cuda.is_available()`` is False);
 and, on the CPU, that no wrapper counts a launch there.
@@ -318,9 +319,9 @@ def _dense_grid(cat, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("iters", [3, 8])
 def test_dense_kernels_match_twins_on_cuda(cuda_device, iters):
-    """K5 on a dense grid and on a (T, 1) column, and K6 on the port's
-    spine grids, against their plain versions: positions, velocities and
-    error codes bit-equal; positions bit-equal with and without
+    """K5 on a dense grid and on a (T, 1) column, and K6 on the spine
+    kernel's grids, against their plain versions: positions, velocities
+    and error codes bit-equal; positions bit-equal with and without
     velocities; K6 equals K5 bit for bit."""
     cat = build_catalog(synthetic_leo_text(), device=cuda_device)
     st = cat.fast_staging
@@ -341,6 +342,8 @@ def test_dense_kernels_match_twins_on_cuda(cuda_device, iters):
             before["sgp4_shallow_dense"] + 2
         assert cuda_sgp4.LAUNCHES["sgp4_shallow_grids"] == \
             before["sgp4_shallow_grids"] + 1
+        assert cuda_sgp4.LAUNCHES["sgp4_spine_grids"] == \
+            before["sgp4_spine_grids"] + 1
         rr, vr, er = cuda_sgp4.propagate_fast_dense_reference(
             t, st.spine, st.tail, st.flags, **kw)
         assert torch.equal(e, er) and v0 is None
@@ -430,6 +433,7 @@ def test_cpu_runs_no_kernel():
                                    cat.grav, kepler_iters=3)
     cuda_sgp4.propagate_fast_grids(cat.els, t[:, None].contiguous(),
                                    cat.grav, kepler_iters=3)
+    cuda_sgp4.spine_f64_grids(t[:, None].contiguous(), st.spine)
     propagate_fast(near.els, None, t[:, None], near.grav)
     jd = cat.epoch_min_jd + np.linspace(0.0, 0.5, 4)
     for method in ("fast", "f64"):
@@ -498,3 +502,102 @@ def test_persistent_kernels_match_twins_in_a_partial_wave_on_cuda(
     got = cuda_sgp4.propagate_deep_sep(*dargs, **dkw)
     ref = cuda_sgp4.propagate_deep_sep_reference(*dargs, **dkw)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def _spine_times(cat, device, form):
+    """-1 .. +1 year: a (41, S) grid of minutes since each epoch, or a
+    (41, 1) column (the reduction mod 2pi at quotients up to ~2^13)."""
+    base = torch.linspace(-525600.0, 525600.0, 41, dtype=torch.float64,
+                          device=device)[:, None]
+    if form == "column":
+        return base.contiguous()
+    return (base - cat.fast_staging.t_sat[None, :]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dense", "column"])
+def test_spine_kernel_matches_twin_on_cuda(cuda_device, form):
+    """The spine kernel against its plain version over -1 .. +1 year, on
+    a (T, S) tsince and on a (T, 1) column: the six grids bit-equal,
+    contiguous (T, S) f32, one launch."""
+    cat = build_catalog(synthetic_leo_text(), device=cuda_device)
+    spine = cat.fast_staging.spine
+    t = _spine_times(cat, cuda_device, form)
+    before = cuda_sgp4.LAUNCHES["sgp4_spine_grids"]
+    got = cuda_sgp4.spine_f64_grids(t, spine)
+    torch.cuda.synchronize()
+    assert cuda_sgp4.LAUNCHES["sgp4_spine_grids"] == before + 1
+    ref = cuda_sgp4.spine_f64_grids_reference(t, spine)
+    assert all(g.shape == (41, len(cat)) and g.dtype == torch.float32
+               and g.is_contiguous() for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [3, 8])
+def test_grids_kernel_stores_match_twin_on_cuda(cuda_device, iters):
+    """K6 in both stores, the (3, T, S) planes and the time-major (T, S,
+    3) r and v, against its plain version on the ragged shapes of
+    ``test_dense_kernels_match_twins_on_cuda`` and on a 7 x 45 grid that
+    is part of one wave: bit-equal, with and without velocities."""
+    cat = build_catalog(synthetic_leo_text(), device=cuda_device)
+    near = build_catalog(synthetic_leo_text(45), device=cuda_device)
+    gen = torch.Generator().manual_seed(9)
+    small = ((torch.rand((7, 45), generator=gen, dtype=torch.float64) - 0.5)
+             * 2880.0).to(cuda_device)
+    grid = cuda_sgp4.launch_grid("sgp4_shallow_grids", 7, 45,
+                                 kepler_iters=iters)
+    assert grid["waves"] < 1.0 and grid["blocks"] >= 1
+    for c, t in ((cat, _dense_grid(cat, cuda_device)),
+                 (cat, torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
+                                      device=cuda_device)[:, None]),
+                 (near, small)):
+        grids, tail, flags = cuda_sgp4.spine_grids(c.els, t)
+        for want_vel in (True, False):
+            kw = dict(grav=c.grav, kepler_iters=iters, want_vel=want_vel)
+            before = cuda_sgp4.LAUNCHES["sgp4_shallow_grids"]
+            planes = cuda_sgp4.propagate_fast_spine_grids(grids, tail, flags,
+                                                          **kw)
+            tm = cuda_sgp4._grids_tail(grids, tail, flags, c.grav, iters,
+                                       want_vel, time_major=True)
+            torch.cuda.synchronize()
+            assert cuda_sgp4.LAUNCHES["sgp4_shallow_grids"] == before + 2
+            ref = cuda_sgp4.propagate_fast_spine_grids_reference(
+                grids, tail, flags, **kw)
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(planes, ref))
+            ref_tm = cuda_sgp4._time_major(*ref)
+            assert tm[0].is_contiguous() and tm[0].shape == ref_tm[0].shape
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(tm, ref_tm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_vel", [True, False])
+def test_grids_path_equals_fused_on_cuda(cuda_device, want_vel):
+    """``propagate_fast_grids`` (the spine kernel, then K6 into the
+    time-major layout) equals ``propagate_fast_fused`` (K5) and its own
+    plain version bit for bit, on a dense grid and on a (T, 1) column;
+    each call launches the spine kernel once and K6 once, and nothing
+    else."""
+    cat = build_catalog(synthetic_leo_text(), device=cuda_device)
+    kw = dict(kepler_iters=cat.kepler_iters, want_vel=want_vel)
+    for t in (_dense_grid(cat, cuda_device),
+              torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
+                             device=cuda_device)[:, None]):
+        fused = cuda_sgp4.propagate_fast_fused(cat.els, t, cat.grav, **kw)
+        before = dict(cuda_sgp4.LAUNCHES)
+        got = cuda_sgp4.propagate_fast_grids(cat.els, t, cat.grav, **kw)
+        again = cuda_sgp4.propagate_fast_grids(cat.els, t, cat.grav, **kw)
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in cuda_sgp4.LAUNCHES.items()
+                 if n != before[k]}
+        assert moved == {"sgp4_spine_grids": 2, "sgp4_shallow_grids": 2}
+        plain = cuda_sgp4.propagate_fast_grids_reference(cat.els, t,
+                                                         cat.grav, **kw)
+        for out in (got, again):
+            assert out[0].is_contiguous()
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(out, fused))
+            assert all(a is b is None or torch.equal(a, b)
+                       for a, b in zip(out, plain))

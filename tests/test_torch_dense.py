@@ -12,7 +12,8 @@ that one line's sine and cosine swapped.
 * K5's and K6's plain versions against the JAX ``spine_f64`` +
   ``shallow_tail_f32`` under jit: positions within 5e-3 km, velocities
   within 5e-6 km/s, error codes identical (``test_torch_fast.py``'s
-  bounds).
+  bounds). ``propagate_fast_grids`` (the spine kernel, then K6) on CPU
+  tensors equals ``propagate_fast_fused``'s plain version bit for bit.
 * The CPU wrappers against the TPU kernels in interpret mode: within
   0.05 km (the JAX package's Pallas-vs-XLA gate), error codes identical;
   the TPU's K5 runs a double-f32 spine.
@@ -51,7 +52,8 @@ from astroz_tpu_torch import build_catalog
 from astroz_tpu_torch.constants import WGS72
 from astroz_tpu_torch.convert import carry_from_numpy
 from astroz_tpu_torch.ops import cuda_sgp4, propagate_fast, sgp4_propagate
-from astroz_tpu_torch.ops.fast import shallow_staging, spine_f64
+from astroz_tpu_torch.ops.fast import (SPINE_FIELD_NAMES, shallow_staging,
+                                       spine_f64)
 from astroz_tpu_torch.ops.sdp4 import fresh_carry
 
 from test_escape import MIXED_TEXT
@@ -204,6 +206,48 @@ def test_cpu_wrappers_match_pallas_interpret(cats, jax_drag_fixed, grid,
     assert cuda_sgp4.LAUNCHES == before
 
 
+@pytest.mark.parametrize("grid", ["dense", "column"])
+def test_spine_grids_plain_version(cats, grid):
+    """The spine kernel's wrapper on CPU tensors runs its plain version:
+    six contiguous (T, S) f32 grids, ``ops.fast.spine_f64`` broadcast to
+    (T, S), and a (T, 1) column gives its (T, S) broadcast's grids."""
+    pcat = cats[1]
+    st = pcat.fast_staging
+    t = torch.from_numpy(_grids(pcat)[grid])
+    before = dict(cuda_sgp4.LAUNCHES)
+    grids = cuda_sgp4.spine_f64_grids(t, st.spine)
+    assert cuda_sgp4.LAUNCHES == before
+    shape = (16, len(pcat))
+    assert all(g.shape == shape and g.dtype == torch.float32
+               and g.is_contiguous() for g in grids)
+    plain = spine_f64(t, **dict(zip(SPINE_FIELD_NAMES, st.spine)))
+    assert all(torch.equal(g, p.expand(shape)) for g, p in zip(grids, plain))
+    wide = cuda_sgp4.spine_f64_grids(t.expand(shape).contiguous(), st.spine)
+    assert all(torch.equal(a, b) for a, b in zip(grids, wide))
+
+
+@pytest.mark.parametrize("want_vel", [True, False])
+@pytest.mark.parametrize("iters", [3, 8])
+@pytest.mark.parametrize("grid", ["dense", "column"])
+def test_grids_path_equals_fused_plain_version(cats, grid, iters, want_vel):
+    """``propagate_fast_grids`` on CPU tensors (the spine kernel's and
+    K6's plain versions, K6 into the time-major layout) equals
+    ``propagate_fast_fused_reference`` bit for bit, contiguous, and
+    counts no launch."""
+    pcat = cats[1]
+    t = torch.from_numpy(_grids(pcat)[grid])
+    kw = dict(kepler_iters=iters, want_vel=want_vel)
+    before = dict(cuda_sgp4.LAUNCHES)
+    got = cuda_sgp4.propagate_fast_grids(pcat.els, t, WGS72, **kw)
+    ref = cuda_sgp4.propagate_fast_fused_reference(pcat.els, t, WGS72, **kw)
+    assert cuda_sgp4.LAUNCHES == before
+    assert tuple(got[0].shape) == (16, len(pcat), 3)
+    assert got[0].is_contiguous() and (got[1] is None) == (not want_vel)
+    assert _equal(got, ref)
+    assert _equal(cuda_sgp4.propagate_fast_grids_reference(pcat.els, t, WGS72,
+                                                           **kw), ref)
+
+
 def test_wrappers_reject_bad_inputs(cats):
     st = cats[1].fast_staging
     kw = dict(grav=WGS72, kepler_iters=3)
@@ -220,6 +264,10 @@ def test_wrappers_reject_bad_inputs(cats):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_sgp4.propagate_fast_dense(t.T.contiguous().T, st.spine,
                                        st.tail, st.flags, **kw)
+    with pytest.raises(ValueError, match="tsince"):
+        cuda_sgp4.spine_f64_grids(t[:, :3], st.spine)
+    with pytest.raises(ValueError, match="spine"):
+        cuda_sgp4.spine_f64_grids(t, st.spine.float())
     grids = [torch.zeros(t.shape) for _ in range(6)]
     with pytest.raises(ValueError, match="grids"):
         cuda_sgp4.propagate_fast_spine_grids(grids[:5], st.tail, st.flags,
@@ -563,3 +611,44 @@ def test_persistent_walk_visits_every_point_once(shape, sat_stride, blocks):
     units = columns * n_times
     b = _grid_blocks(units, per_sm=5, sms=132)
     assert b <= 5 * 132 and (units == 0 or (b - 1) * (BLOCK // WARP) < units)
+
+
+def _k6_walk(n_times, n_sats, blocks):
+    """Every point K6's threads compute on a grid of ``blocks`` blocks, as
+    (t, s, grid index read ahead, planes store index, time-major store
+    index of r's first component): K5's walk on (T, S) grids, which K6
+    always reads with a satellite stride of 1."""
+    visits, reloads = _walk(n_times, n_sats, blocks, sat_stride=1)
+    return [(t, s, i, t * n_sats + s, 3 * (t * n_sats + s))
+            for t, s, i in visits], reloads
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 7, 1000])
+@pytest.mark.parametrize("shape", [(37, 100), (1, 33), (1, 1), (3, 31),
+                                   (0, 10), (10, 0), (64, 64), (13, 1000),
+                                   (4096, 33)])
+def test_k6_walk_visits_every_point_once(shape, blocks):
+    """K6's walk of the six (T, S) grids, ragged T and S, S not a multiple
+    of 32, T = 1, T or S = 0: every point once, each reading its own grid
+    values ahead and writing its own slot of the (3, T, S) planes and of
+    the time-major (T, S, 3) r, v, and no other; a warp reloads its tail
+    fields at most twice when there is a warp for every column; the
+    host's grid fits the card at any of the block counts an SM that
+    K6's launch bounds were timed at (6, 8, 10)."""
+    n_times, n_sats = shape
+    visits, reloads = _k6_walk(n_times, n_sats, blocks)
+    points = [(t, s) for t in range(n_times) for s in range(n_sats)]
+    assert sorted((t, s) for t, s, *_ in visits) == points
+    assert all(i == plane == t * n_sats + s
+               for t, s, i, plane, _ in visits)
+    assert sorted(tm // 3 for *_, tm in visits) == list(range(len(points)))
+    assert all(tm % 3 == 0 and tm + 2 < 3 * len(points)
+               for *_, tm in visits)
+    columns = -(-n_sats // WARP)
+    if blocks * (BLOCK // WARP) >= columns:
+        assert max(reloads, default=0) <= 2
+    units = columns * n_times
+    for per_sm in (6, 8, 10):
+        b = _grid_blocks(units, per_sm=per_sm, sms=132)
+        assert b <= per_sm * 132
+        assert units == 0 or (b - 1) * (BLOCK // WARP) < units
