@@ -119,6 +119,10 @@ class Constellation:
         return len(self.catalog)
 
     @property
+    def num_satellites(self) -> int:
+        return len(self.catalog)
+
+    @property
     def num_deep_space(self) -> int:
         return self.catalog.n_deep
 

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from ..constants import GravityModel, TWO_PI
-from .sgp4 import (X2O3, _TEMP4, Sgp4Elements, kepler_and_posvel,
-                   update_secular)
+from .sgp4 import (X2O3, _TEMP4, Sgp4Elements, _host_and_device,
+                   kepler_and_posvel, update_secular)
 
 PI = math.pi
 
@@ -470,6 +470,18 @@ def sdp4_init_np(grav: GravityModel, els: Sgp4Elements) -> DeepElements:
     every lane, every coefficient zeroed where ``~els.is_deep``.
     ``els`` holds numpy arrays (from :func:`~.sgp4.sgp4_init_np`)."""
     return _sdp4_init_core(grav, els)
+
+
+def sdp4_init(grav: GravityModel, els: Sgp4Elements, *,
+              device="cuda") -> DeepElements:
+    """Deep-space init from elements of tensors or arrays (JAX :498):
+    the host init of :func:`sdp4_init_np`, returned as a
+    :class:`DeepElements` of tensors on ``device`` (the card unless the
+    caller asks for another; tensor elements must lie there)."""
+    host, device = _host_and_device(els, device)
+    deep = sdp4_init_np(grav, Sgp4Elements(*host))
+    return DeepElements(*(torch.as_tensor(np.asarray(x), device=device)
+                          for x in deep))
 
 
 def dpper(deep: DeepElements, t, ep, inclp, nodep, argpp, mp, apply_mask):

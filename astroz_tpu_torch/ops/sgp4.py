@@ -253,6 +253,49 @@ def sgp4_init_np(grav: GravityModel, *, no_kozai, ecco, inclo, nodeo,
         argpo=argpo, mo=mo, bstar=bstar, epoch_jd=epoch_jd)
 
 
+def _device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a ``"cuda"`` request without
+    CUDA raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain torch version")
+    return device
+
+
+def _host_and_device(values, device):
+    """``(numpy arrays, device)`` of init inputs that are tensors or
+    arrays: the tensors' device, else ``device``. Tensors on another
+    device than ``device``, or on several, raise."""
+    device = _device(device)
+    devices = {x.device for x in values if isinstance(x, torch.Tensor)}
+    if len(devices) > 1 or any(
+            d.type != device.type
+            or (device.index is not None and d.index != device.index)
+            for d in devices):
+        raise ValueError(f"init inputs on {sorted(map(str, devices))}, "
+                         f"device {str(device)!r} requested")
+    host = [x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x) for x in values]
+    return host, (devices.pop() if devices else device)
+
+
+def sgp4_init(grav: GravityModel, *, no_kozai, ecco, inclo, nodeo, argpo,
+              mo, bstar, epoch_jd, device="cuda") -> Sgp4Elements:
+    """Initialize SGP4 coefficients from tensors or arrays (JAX :265):
+    the host init of :func:`sgp4_init_np`, returned as an
+    :class:`Sgp4Elements` of tensors on ``device`` (the card unless the
+    caller asks for another; tensor inputs must lie there). Arguments
+    broadcast elementwise."""
+    host, device = _host_and_device(
+        (no_kozai, ecco, inclo, nodeo, argpo, mo, bstar, epoch_jd), device)
+    els = sgp4_init_np(grav, **dict(zip(
+        ("no_kozai", "ecco", "inclo", "nodeo", "argpo", "mo", "bstar",
+         "epoch_jd"), host)))
+    return Sgp4Elements(*(torch.as_tensor(x, device=device) for x in els))
+
+
 def solve_kepler(u, axnl, aynl, iters: int = 10):
     """Equinoctial Kepler solve in f64: ``iters`` Newton trips, each lane
     frozen once its step falls below 1e-12."""

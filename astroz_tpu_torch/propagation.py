@@ -39,7 +39,7 @@ from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                        sdp4_propagate_tables, shallow_staging)
 from .ops.sdp4 import (DeepElements, sdp4_init_np, sdp4_propagate,
                        sdp4_propagate_scan)
-from .ops.sgp4 import Sgp4Elements, sgp4_init_np, sgp4_propagate
+from .ops.sgp4 import Sgp4Elements, _device, sgp4_init_np, sgp4_propagate
 from .time import gstime
 from .tle import Tle, TleArrays, iter_tles, parse_omm
 
@@ -89,15 +89,6 @@ class HeoEscape(NamedTuple):
     deep: DeepElements  # their deep-space coefficients
     t_sat: torch.Tensor  # (X,) f64 epochs, minutes from the earliest
     idx: torch.Tensor  # (X,) i64 positions in the deep subset
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain torch version")
-    return device
 
 
 def _to_numpy(x):
@@ -327,12 +318,18 @@ def build_catalog(source: Union[str, Sequence[Tle], TleArrays],
         if has_names:
             names = tuple(t.name for t in tles)
         arrays = TleArrays.from_tles(tles)
-    els = sgp4_init_np(
+    return catalog_from_elements(elements_from_arrays(arrays, grav), grav,
+                                 np.asarray(arrays.satnum), names=names,
+                                 device=device)
+
+
+def elements_from_arrays(arrays: TleArrays,
+                         grav: GravityModel = WGS72) -> Sgp4Elements:
+    """SGP4 init on the host of parsed TLE columns: f64 numpy elements."""
+    return sgp4_init_np(
         grav, no_kozai=arrays.no_kozai, ecco=arrays.ecco,
         inclo=arrays.inclo, nodeo=arrays.nodeo, argpo=arrays.argpo,
         mo=arrays.mo, bstar=arrays.bstar, epoch_jd=arrays.epoch_jd)
-    return catalog_from_elements(els, grav, np.asarray(arrays.satnum),
-                                 names=names, device=device)
 
 
 def catalog_from_elements(els: Sgp4Elements, grav: GravityModel,

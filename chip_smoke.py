@@ -123,7 +123,29 @@ Phases (any failure exits non-zero; nothing is caught):
    ``torch.profiler``, a second ``propagate_fast_fused`` call on the same
    elements must run K5 and no other device work (no staging, no copy),
    and a second ``propagate_fast_grids`` call the spine kernel and K6 and
-   nothing else.
+   nothing else;
+8. the python-sgp4 drop-in API (``astroz_tpu_torch.api``): g++ builds
+   the native scalar engine; ``Satrec.twoline2rv(..., device="cuda")``
+   for every TLE of the mixed and of the near-earth catalog, then a
+   ``SatrecArray`` of each (host clock). ``SatrecArray.sgp4`` over the
+   1,440 epochs must launch K2 and K3 once (mixed) or K1 once
+   (near-earth) and equal ``propagate(fast, sat_major)`` cast to f64 bit
+   for bit; the mixed one is held to phase 3d's fast-vs-f64 gates. Timed:
+   the call, ``sgp4_into`` preallocated buffers, and the call's split
+   (propagate, relayout, copy to the host, cast on the host). A
+   1,000-lane array of half WGS72, half WGS84 satrecs runs one propagate
+   a model, each row equal to its single-model array's. ``Satrec.sgp4``
+   timed a call (10,000 calls) on the native core, which must be the
+   engine in use, the ctypes engine and the Python scalar, beside a
+   one-point ``propagate_tsince`` on the card (100 calls);
+   ``Satrec.sgp4_array``'s two paths (ISS, GEO) over 4,096 to 524,288
+   one-second points: the time-as-lanes f64 path on the card within
+   2e-6 km of the native array engine, both timed in turns, and the path
+   the API takes at each size the one its threshold gives
+   (``lanes_crossover``); ``create_sgp4_propagator`` on the
+   card equal to ``propagate_tsince``, under ``torch.func.vmap`` equal to
+   the loop, and for the GEO TLE with ``max_steps`` equal to the plain
+   call.
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (with each one's bound: the larger of
@@ -1058,6 +1080,32 @@ def phase3c_single_sat():
     return n
 
 
+def _fast_vs_f64_gates(cat, lane_worst, label, share):
+    """Print the worst lane of each regime of the mixed catalog ``cat``
+    (fast vs f64 distance a lane, km, healthy points only) and hold them
+    to the gates: 50 m near earth, 100 m anywhere, 5 m on escape lanes."""
+    irez = np.asarray(cat.deep_host.irez)
+    escape = np.isin(np.arange(len(cat)),
+                     cat.deep_idx[cat.heo_escape.idx.cpu().numpy()])
+    regimes = {"LEO": ~cat.is_deep, "GEO": irez == 1,
+               "half-day": (irez == 2) & ~escape,
+               "other deep": cat.is_deep & (irez == 0), "escape": escape}
+    print(f"# {label}: fast vs f64 on healthy points ({share:.6f} of them), "
+          "worst lane by regime: " + ", ".join(
+              f"{k} {lane_worst[m].max() * 1e3:.3f} m (lane "
+              f"{np.nonzero(m)[0][lane_worst[m].argmax()]}, "
+              f"e {cat.host.ecco[m][lane_worst[m].argmax()]:.4f})"
+              for k, m in regimes.items()))
+    # near-earth lanes at the JAX package's 50 m; deep lanes at the
+    # reference's 100 m budget (README.md): its f32 deep tail is ~60 m
+    # off on half-day lanes just under the escape's e > 0.7
+    check(lane_worst[regimes["LEO"]].max() < 0.05,
+          f"{label}: near-earth lanes over 0.05 km from f64")
+    check(lane_worst.max() < 0.1, f"{label}: fast is over 0.1 km from f64")
+    check(lane_worst[escape].max() < 5e-3,
+          f"{label}: escape lanes over 5e-3 km from f64")
+
+
 def phase3d_f64_path(mcon):
     """The f64 main path; returns the milliseconds of its scan_times call
     (host clock around synchronized work) and that call's peak device
@@ -1110,27 +1158,8 @@ def phase3d_f64_path(mcon):
     dist = (r_f.double() - r_p).norm(dim=0).masked_fill(~ok, 0.0)
     del r_f
     lane_worst = dist.amax(dim=0).cpu().numpy()
-    irez = np.asarray(cat.deep_host.irez)
-    escape = np.isin(np.arange(N_SATS),
-                     cat.deep_idx[cat.heo_escape.idx.cpu().numpy()])
-    regimes = {"LEO": ~cat.is_deep, "GEO": irez == 1,
-               "half-day": (irez == 2) & ~escape,
-               "other deep": cat.is_deep & (irez == 0), "escape": escape}
     share = ok.float().mean().item()
-    print(f"# phase 3d: fast vs f64 on healthy points ({share:.6f} of them), "
-          "worst lane by regime: " + ", ".join(
-              f"{k} {lane_worst[m].max() * 1e3:.3f} m (lane "
-              f"{np.nonzero(m)[0][lane_worst[m].argmax()]}, "
-              f"e {cat.host.ecco[m][lane_worst[m].argmax()]:.4f})"
-              for k, m in regimes.items()))
-    # near-earth lanes at the JAX package's 50 m; deep lanes at the
-    # reference's 100 m budget (README.md): its f32 deep tail is ~60 m
-    # off on half-day lanes just under the escape's e > 0.7
-    check(lane_worst[regimes["LEO"]].max() < 0.05,
-          "near-earth lanes over 0.05 km from f64")
-    check(lane_worst.max() < 0.1, "fast is over 0.1 km from f64")
-    check(lane_worst[escape].max() < 5e-3,
-          "escape lanes over 5e-3 km from f64")
+    _fast_vs_f64_gates(cat, lane_worst, "phase 3d", share)
 
     d_gold = _golden_deep("f64")
     print(f"# phase 3d: GEO and Molniya golden vectors through f64 max|dr| "
@@ -1999,6 +2028,372 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     return (k5, k5_bound), (k6, k6_bound), (spine, spine_bound)
 
 
+#: phase 8: timed calls of SatrecArray.sgp4 and its pieces, calls of a
+#: single-point engine, one-point calls on the card, and the one-second
+#: points at which Satrec.sgp4_array's two paths are timed
+API_REPS = 5
+SINGLE_POINT_CALLS = 10000
+CARD_POINT_CALLS = 100
+LANES_SIZES = (4096, 16384, 32768, 65536, 131072, 262144, 524288)
+
+
+def _tle_pairs(text):
+    """The (line 1, line 2) pairs of 2- or 3-line TLE text."""
+    lines = [ln for ln in text.splitlines() if ln[:2] in ("1 ", "2 ")]
+    return list(zip(lines[0::2], lines[1::2]))
+
+
+def _wall_ms(fn, reps):
+    """(mean, least) host milliseconds of a synchronized call of ``fn``,
+    after one call to warm up."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times)), float(np.min(times))
+
+
+def _engine_satrec(engine, l1, l2):
+    """A Satrec on DEVICE whose single-point calls run on one host
+    engine: ``core`` (the extension's SatCore, the default), ``ctypes``
+    (the native library through ctypes) or ``python``
+    (``ops/scalar.py``)."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from astroz_tpu_torch import native
+    from astroz_tpu_torch.api import Satrec
+
+    sat = Satrec.twoline2rv(l1, l2, device=DEVICE)
+    with ExitStack() as stack:
+        if engine != "core":
+            stack.enter_context(mock.patch.object(native, "sat_core",
+                                                  lambda *a: None))
+        if engine == "ctypes":
+            stack.enter_context(mock.patch.object(native, "_get_ext",
+                                                  lambda: None))
+        if engine == "python":
+            stack.enter_context(mock.patch.object(native, "scalar_engine",
+                                                  lambda sat: None))
+        sat._scalar_record()
+    return sat
+
+
+def _api_array(text, label):
+    """Satrec.twoline2rv for every TLE of ``text`` on DEVICE, then a
+    SatrecArray; prints the host time of each."""
+    from astroz_tpu_torch.api import Satrec, SatrecArray
+
+    pairs = _tle_pairs(text)
+    t0 = time.perf_counter()
+    sats = [Satrec.twoline2rv(l1, l2, device=DEVICE) for l1, l2 in pairs]
+    t_sats = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arr = SatrecArray(sats)
+    sync()
+    t_arr = time.perf_counter() - t0
+    print(f"# phase 8: {label}: {len(sats)} Satrec.twoline2rv in "
+          f"{t_sats:.3f} s ({t_sats / len(sats) * 1e6:.1f} us each), "
+          f"SatrecArray in {t_arr * 1e3:.1f} ms (host clock)")
+    check(len(arr) == len(pairs) and arr.catalog.device.type == DEVICE,
+          f"{label}: SatrecArray size or device")
+    return arr
+
+
+def _api_array_vs_propagate(arr, cat, expect, label):
+    """SatrecArray.sgp4 over N_TIMES one-minute epochs: its launches
+    (``expect``, by kernel) and its outputs, which must equal
+    ``propagate(cat, fast, sat_major)`` cast to f64 bit for bit. Returns
+    the epochs, the outputs and the launches of the call."""
+    from astroz_tpu_torch import propagate
+
+    jd = np.full(N_TIMES, EPOCH_JD)
+    fr = np.arange(N_TIMES) / 1440.0
+    reset_launches()
+    e, r, v = arr.sgp4(jd, fr)
+    moved = {k: n for k, n in launches().items() if n}
+    print(f"# phase 8: {label}: SatrecArray.sgp4 launched {moved}")
+    check(moved == expect, f"{label}: SatrecArray.sgp4 launched {moved}, "
+          f"expected {expect}")
+    rw, vw, ew = propagate(cat, jd, fr, method="fast", layout="sat_major")
+    check(e.dtype == np.int32 and r.dtype == v.dtype == np.float64
+          and r.shape == v.shape == (len(cat), N_TIMES, 3)
+          and e.shape == (len(cat), N_TIMES), f"{label}: output types")
+    check(np.array_equal(e, ew.cpu().numpy())
+          and np.array_equal(r, rw.double().cpu().numpy())
+          and np.array_equal(v, vw.double().cpu().numpy()),
+          f"{label}: SatrecArray.sgp4 differs from propagate(fast, "
+          "sat_major)")
+    check(np.isfinite(r).all() and np.isfinite(v).all(),
+          f"{label}: non-finite outputs")
+    print(f"# phase 8: {label}: equal to propagate(fast, sat_major) in f64 "
+          f"bit for bit; healthy points {(e == 0).mean():.6f}")
+    return jd, fr, e, r, moved
+
+
+def _api_array_timings(arr, cat, jd, fr, shape, label, smi):
+    """The whole SatrecArray.sgp4 call and sgp4_into, and the call's
+    split: propagate as planes, the relayout to sat_major, r, v and e
+    over the bus into page-locked memory, the cast to f64 on the host
+    into fresh arrays and into the caller's (``api._host_f64``'s route;
+    ``shallow_variants.py --f64-routes`` times it against the others)."""
+    from astroz_tpu_torch import propagate
+
+    whole = _wall_ms(lambda: arr.sgp4(jd, fr), API_REPS)
+    r_out, v_out = np.empty(shape), np.empty(shape)
+    e_out = np.empty(shape[:2], np.int32)
+    into = _wall_ms(lambda: arr.sgp4_into(jd, fr, r_out, v_out, e_out),
+                    API_REPS)
+    kw = dict(method="fast")
+    planes = _cuda_ms(lambda: propagate(cat, jd, fr, layout="planes", **kw),
+                      API_REPS)
+    sat_major = _cuda_ms(
+        lambda: propagate(cat, jd, fr, layout="sat_major", **kw), API_REPS)
+    r, v, e = propagate(cat, jd, fr, layout="sat_major", **kw)
+    staged = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+              for x in (r, v, e)]
+    d2h = _wall_ms(lambda: [y.copy_(x) for x, y in zip((r, v, e), staged)],
+                   API_REPS)
+    cast = _wall_ms(lambda: [torch.from_numpy(np.empty(shape)).copy_(y)
+                             for y in staged[:2]], API_REPS)
+    cast_into = _wall_ms(lambda: [torch.from_numpy(o).copy_(y) for o, y in
+                                  zip((r_out, v_out), staged[:2])],
+                         API_REPS)
+    del staged
+    print(f"# phase 8 [{smi}]: {label} SatrecArray.sgp4 "
+          f"({shape[0]} x {shape[1]}, f64 r, v and i32 e on the host): "
+          f"{whole[0]:.2f} ms (least {whole[1]:.2f}); sgp4_into "
+          f"preallocated buffers {into[0]:.2f} ms (least {into[1]:.2f}); "
+          f"host clock, {API_REPS} calls")
+    print(f"# phase 8 [{smi}]: {label} split: propagate planes {planes:.3f} "
+          f"ms, sat_major {sat_major:.3f} ms (relayout "
+          f"{sat_major - planes:.3f} ms; CUDA events); r, v, e (f32, i32) "
+          f"into page-locked memory {d2h[0]:.2f} ms (least {d2h[1]:.2f}); "
+          f"r, v cast to f64 on the host into fresh arrays {cast[0]:.2f} ms "
+          f"(least {cast[1]:.2f}), into the caller's buffers "
+          f"{cast_into[0]:.2f} ms (least {cast_into[1]:.2f})")
+
+
+def lanes_crossover(smi):
+    """``Satrec.sgp4_array``'s two paths for the ISS and a GEO TLE over
+    each of LANES_SIZES one-second points: the card's time as lanes
+    (``Satrec._sgp4_lanes``) within 2e-6 km of the native array engine
+    (``tests/test_api.py``'s gate), both timed in turns (card, native,
+    native, card; host clock around synchronized calls), and the path
+    ``sgp4_array`` takes, which must be the one ``_LANES_MIN_TIMES``
+    gives. Prints the sizes from which the card won in this run beside
+    that threshold."""
+    from astroz_tpu_torch import api
+    from astroz_tpu_torch.api import Satrec
+
+    deep_lines = GOLDEN_DEEP_TLES.splitlines()
+    for name, (l1, l2) in (("ISS", (GOLDEN_L1, GOLDEN_L2)),
+                           ("GEO", tuple(deep_lines[:2]))):
+        sat = Satrec.twoline2rv(l1, l2, device=DEVICE)
+        sat._scalar_record()
+        threshold = api._LANES_MIN_TIMES[sat.is_deep_space]
+        taken = []
+        lanes = sat._sgp4_lanes
+
+        def counted(jd, fr):
+            taken.append(len(jd))
+            return lanes(jd, fr)
+
+        sat._sgp4_lanes = counted
+        rows = []
+        for n in LANES_SIZES:
+            jd1 = np.full(n, sat.jdsatepoch)
+            fr1 = sat.jdsatepochF + np.arange(n) / 86400.0
+            tsince = ((jd1 - sat.jdsatepoch)
+                      + (fr1 - sat.jdsatepochF)) * 1440.0
+            el, rl, _ = lanes(jd1, fr1)
+            en, rn, _ = sat._scalar_native.sgp4_array(tsince)
+            d_lanes = float(np.abs(rl - rn).max())
+            check(np.array_equal(el, en) and (el == 0).all()
+                  and d_lanes <= 2e-6,
+                  f"{name}: time as lanes over 2e-6 km from the native "
+                  f"path at {n} points")
+            paths = {"card": lambda: lanes(jd1, fr1),
+                     "native": lambda: sat._scalar_native.sgp4_array(
+                         tsince)}
+            ms = {k: [] for k in paths}
+            for k in ("card", "native", "native", "card"):
+                ms[k].append(_wall_ms(paths[k], 2)[0])
+            rows.append((n, float(np.mean(ms["card"])),
+                         float(np.mean(ms["native"])), d_lanes))
+            del taken[:]
+            sat.sgp4_array(jd1, fr1)
+            check(bool(taken) == (n >= threshold),
+                  f"{name}: sgp4_array at {n} points did not take the "
+                  f"path _LANES_MIN_TIMES gives")
+        wins = [n for n, card, host, _ in rows if card < host]
+        since = next((n for n, _, _, _ in rows
+                      if all(m in wins for m in LANES_SIZES
+                             if m >= n)), None)
+        print(f"# phase 8 [{smi}]: {name} sgp4_array, time as lanes on "
+              f"the card / the native array engine (ms, mean of 2 turns "
+              f"of 2 calls; max|dr| km): " + "; ".join(
+                  f"{n}: {card:.3f} / {host:.3f} ({d:.1e})"
+                  for n, card, host, d in rows)
+              + f"; the card won from {since} points on in this run, "
+              f"the API takes it from {threshold}")
+
+
+def phase8_api(con, mcon, text, mixed_text, smi):
+    """The python-sgp4 drop-in API on the card (see the module
+    docstring); prints the kernel launches of its SatrecArray calls."""
+    from astroz_tpu_torch import build_catalog, native, propagate
+    from astroz_tpu_torch import propagate_tsince
+    from astroz_tpu_torch.api import (Satrec, SatrecArray, WGS72, WGS84,
+                                      create_sgp4_propagator)
+
+    t0 = time.perf_counter()
+    native._get_ext()
+    print(f"# phase 8: g++ built the native scalar engine "
+          f"({native.library_path().name}) and its extension in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the mixed headline catalog
+    marr = _api_array(mixed_text, "mixed")
+    mcat = mcon.catalog
+    jd, fr, e, r, moved = _api_array_vs_propagate(
+        marr, mcat, {"sgp4_deep": 1, "sgp4_shallow_merge": 1}, "mixed")
+    api_launches = {"mixed SatrecArray.sgp4": moved}
+    r64, _, e64 = propagate(mcat, jd, fr, method="f64", layout="sat_major",
+                            velocities=False)
+    check(np.array_equal(e64.cpu().numpy(), e),
+          "mixed: fast and f64 error codes differ")
+    ok = torch.from_numpy(e == 0).to(DEVICE)
+    dist = ((torch.from_numpy(r).to(DEVICE) - r64).norm(dim=-1)
+            .masked_fill(~ok, 0.0))
+    _fast_vs_f64_gates(mcat, dist.amax(dim=1).cpu().numpy(),
+                       "phase 8 (mixed SatrecArray)", float(ok.float().mean()))
+    del r64, dist, r
+    _api_array_timings(marr, mcat, jd, fr, (N_SATS, N_TIMES, 3), "mixed",
+                       smi)
+
+    # the near-earth catalog
+    narr = _api_array(text, "near-earth")
+    api_launches["near-earth SatrecArray.sgp4"] = _api_array_vs_propagate(
+        narr, con.catalog, {"sgp4_shallow": 1}, "near-earth")[-1]
+    _api_array_timings(narr, con.catalog, jd, fr, (N_SATS, N_TIMES, 3),
+                       "near-earth", smi)
+    del narr, marr
+
+    # mixed gravity: one propagate a model
+    pairs = _tle_pairs(text)[:1000]
+    sats = [Satrec.twoline2rv(l1, l2, WGS72 if k < 500 else WGS84,
+                              device=DEVICE)
+            for k, (l1, l2) in enumerate(pairs)]
+    garr = SatrecArray(sats)
+    check(garr._grav_groups is not None and len(garr._grav_groups) == 2,
+          "mixed gravity: two model groups")
+    reset_launches()
+    ge, gr, gv = garr.sgp4(jd, fr)
+    moved = {k: n for k, n in launches().items() if n}
+    api_launches["mixed-gravity SatrecArray.sgp4"] = moved
+    check(moved == {"sgp4_shallow": 2},
+          "mixed gravity: not one propagate (K1 launch) a model")
+    for rows, part in ((slice(0, 500), sats[:500]),
+                       (slice(500, 1000), sats[500:])):
+        pe, pr, pv = SatrecArray(part).sgp4(jd, fr)
+        check(np.array_equal(ge[rows], pe) and np.array_equal(gr[rows], pr)
+              and np.array_equal(gv[rows], pv),
+              "mixed gravity: a row differs from its single-model array")
+    d_models = float(np.abs(gr[:500] - SatrecArray(
+        [Satrec.twoline2rv(l1, l2, WGS84, device=DEVICE)
+         for l1, l2 in pairs[:500]]).sgp4(jd, fr)[1]).max())
+    check(d_models > 1e-3, "mixed gravity: the two models agree")
+    print(f"# phase 8: mixed gravity (1,000 lanes, 500 WGS72 + 500 WGS84): "
+          f"launches {moved}, every row equal to its single-model array's (the models "
+          f"differ by up to {d_models:.3f} km)")
+    print("# phase 8: API launches, main path: "
+          + json.dumps(api_launches))
+
+    # single-point calls on each host engine, and one point on the card
+    per_call, answers = {}, {}
+    for engine in ("core", "ctypes", "python"):
+        sat = _engine_satrec(engine, GOLDEN_L1, GOLDEN_L2)
+        jd0, fr0 = sat.jdsatepoch, sat.jdsatepochF
+        frs = [fr0 + k / 1440.0 for k in range(SINGLE_POINT_CALLS)]
+        call = sat.sgp4
+        call(jd0, fr0)
+        t0 = time.perf_counter()
+        for x in frs:
+            call(jd0, x)
+        per_call[engine] = ((time.perf_counter() - t0)
+                            / SINGLE_POINT_CALLS * 1e6)
+        answers[engine] = (sat, sat.sgp4(jd0, fr0 + 0.25))
+    core = answers["core"][0]
+    check(core._core is not None and "sgp4" in core.__dict__
+          and type(core.sgp4).__name__ == "builtin_function_or_method",
+          "the native core is not the engine in use")
+    fresh = Satrec.twoline2rv(GOLDEN_L1, GOLDEN_L2, device=DEVICE)
+    fresh.sgp4(fresh.jdsatepoch, fresh.jdsatepochF)
+    check("sgp4" in fresh.__dict__, "a Satrec does not bind the native core")
+    check(answers["ctypes"][0]._scalar_native._ext is None
+          and answers["python"][0]._scalar_native is None,
+          "an engine was not pinned")
+    check(answers["core"][1] == answers["ctypes"][1],
+          "the native core and the ctypes engine differ")
+    ec, rc, vc = answers["core"][1]
+    ep, rp, vp = answers["python"][1]
+    d_py = float(np.abs(np.subtract(rc, rp)).max())
+    check(ec == ep == 0 and d_py < 1e-9,
+          "the Python scalar engine differs from the native one")
+    cat1 = build_catalog(f"{GOLDEN_L1}\n{GOLDEN_L2}", device=DEVICE)
+
+    def one_point():
+        r1, v1, e1 = propagate_tsince(cat1, 360.0)
+        return r1.cpu(), v1.cpu(), e1.cpu()
+
+    card_ms = _wall_ms(one_point, CARD_POINT_CALLS)[0]
+    card_launch_us = _host_us(lambda: propagate_tsince(cat1, 360.0),
+                              CARD_POINT_CALLS)
+    r1 = one_point()[0].numpy()[0]
+    _, r_core, _ = core.sgp4_tsince(360.0)
+    check(float(np.abs(r1 - np.asarray(r_core)).max()) < 1e-6,
+          "one point on the card differs from the native core")
+    print(f"# phase 8 [{smi}]: Satrec.sgp4, {SINGLE_POINT_CALLS} calls: "
+          f"native core {per_call['core']:.3f} us a call, ctypes engine "
+          f"{per_call['ctypes']:.3f} us, Python scalar "
+          f"{per_call['python']:.3f} us (host clock); one-point "
+          f"propagate_tsince on the card with the copy back "
+          f"{card_ms * 1e3:.1f} us a call ({card_launch_us:.1f} us of host "
+          f"time without waiting for the card); Python vs native max|dr| "
+          f"{d_py:.3e} km")
+
+    lanes_crossover(smi)
+
+    # create_sgp4_propagator on the card
+    params, fn = create_sgp4_propagator(GOLDEN_L1, GOLDEN_L2, device=DEVICE)
+    t = torch.arange(float(N_TIMES), dtype=torch.float64, device=DEVICE)
+    rf, vf = fn(params, t)
+    rt, vt, _ = propagate_tsince(cat1, t[:, None])
+    check(rf.device.type == DEVICE and torch.equal(rf, rt[:, 0])
+          and torch.equal(vf, vt[:, 0]),
+          "propagate_fn differs from propagate_tsince")
+    rv, vv = torch.func.vmap(lambda x: fn(params, x))(t)
+    looped = [fn(params, x) for x in t]
+    check(all(torch.equal(rv[k], a) and torch.equal(vv[k], b)
+              for k, (a, b) in enumerate(looped)),
+          "propagate_fn under vmap differs from the loop")
+    gparams, gfn = create_sgp4_propagator(
+        *GOLDEN_DEEP_TLES.splitlines()[:2], device=DEVICE)
+    rg, vg = gfn(gparams, t)
+    rgv, vgv = torch.func.vmap(lambda x: gfn(gparams, x, max_steps=4))(t)
+    check(torch.equal(rg, rgv) and torch.equal(vg, vgv),
+          "deep propagate_fn under vmap with max_steps differs")
+    check("jax" not in sys.modules, "the API loaded jax")
+    print(f"# phase 8: create_sgp4_propagator on the card: ISS x {N_TIMES} "
+          f"equal to propagate_tsince and under vmap to the loop; GEO under "
+          f"vmap with max_steps=4 equal to the plain call, bit for bit")
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase0_card()
@@ -2027,6 +2422,7 @@ def main():
     phase6b_mixed_screen(mcon)
     k4, k4c = phase7_screen_timings(scon, smi)
     k5, k6, spine = phase4c_dense_timings(mcon, smi, scan_ms, scan_peak)
+    phase8_api(con, mcon, text, mixed_text, smi)
     print(f"# chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

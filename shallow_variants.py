@@ -7,6 +7,7 @@ Run from the repository root::
     python3 shallow_variants.py [--variants NAME ...] [--tree DIR]
         [--rounds N] [--tag TAG] [--kernels NAME ...]
     python3 shallow_variants.py --fma-ulps
+    python3 shallow_variants.py --f64-routes [--rounds N]
 
 A variant is a copy of the package ``astroz_tpu_torch`` with the named
 edits of :data:`VARIANTS` made to its sources, imported under a name of
@@ -50,6 +51,9 @@ calls are replayed from a CUDA graph between CUDA events
 where it is longer than the kernel's; the sweep and ``grids_b2b`` are
 timed with CUDA events around their calls, host gaps included.
 ``--kernels`` times only the named workloads.
+
+``--f64-routes`` times on the card three routes of the python-sgp4
+API's f32 outputs to f64 numpy on the host (:func:`f64_routes`).
 
 ``--fma-ulps`` runs on the CPU: sincos and angle_add of
 ``ops/fastmath.py`` with every multiply-add fused as ``--fmad=true``
@@ -835,6 +839,54 @@ def fma_ulps():
                   "differ")
 
 
+def f64_routes(rounds):
+    """Time three routes of the python-sgp4 API's largest outputs, f32 r
+    and v of a 13,478 x 1,440 ``sat_major`` propagate on the card, to f64
+    numpy on the host, round after round, the order reversed on every
+    other round: the API's (``api._host_f64``: a copy into page-locked
+    memory, the cast on the host), a copy into pageable memory then the
+    cast on the host, and the cast on the card then a copy into pageable
+    memory. The values are random (seed 0): a copy's time does not
+    depend on them."""
+    if not torch.cuda.is_available():
+        raise SystemExit("shallow_variants: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from astroz_tpu_torch.api import _host_f64
+
+    smi = chip_smoke.phase0_card()
+    shape = (N_SATS, N_TIMES, 3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r, v = (torch.randn(shape, generator=gen, device="cuda") * 7000.0
+            for _ in range(2))
+
+    def pinned():
+        for x in (r, v):
+            _host_f64(x)
+
+    def pageable():
+        for x in (r, v):
+            torch.from_numpy(np.empty(shape)).copy_(x)
+
+    def card_cast():
+        for x in (r, v):
+            torch.from_numpy(np.empty(shape)).copy_(x.double())
+
+    routes = {"page-locked, host cast (the API's)": pinned,
+              "pageable, host cast": pageable,
+              "card cast, pageable": card_cast}
+    ms = {name: [] for name in routes}
+    for rnd in range(rounds):
+        for name in (list(routes) if rnd % 2 == 0 else list(routes)[::-1]):
+            ms[name].append(chip_smoke._wall_ms(routes[name], 3)[0])
+    print(f"# f64 routes [{smi}]: r and v ({shape}, f32 on the card) to "
+          f"f64 numpy, ms a pair (host clock, mean of 3 synchronized calls "
+          f"a round, {rounds} rounds in turns): " + "; ".join(
+              f"{name} {np.mean(t):.2f} (" + ", ".join(f"{x:.2f}" for x in t)
+              + ")" for name, t in ms.items()))
+    print(smi)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", nargs="+", default=["default"],
@@ -845,9 +897,13 @@ def main():
     ap.add_argument("--kernels", nargs="+", default=list(K_REPS),
                     choices=list(K_REPS))
     ap.add_argument("--fma-ulps", action="store_true")
+    ap.add_argument("--f64-routes", action="store_true")
     args = ap.parse_args()
     if args.fma_ulps:
         fma_ulps()
+        return
+    if args.f64_routes:
+        f64_routes(args.rounds)
         return
     if "default" not in args.variants:
         args.variants.insert(0, "default")

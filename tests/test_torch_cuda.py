@@ -601,3 +601,122 @@ def test_grids_path_equals_fused_on_cuda(cuda_device, want_vel):
                        for a, b in zip(out, fused))
             assert all(a is b is None or torch.equal(a, b)
                        for a, b in zip(out, plain))
+
+
+def _tle_pairs(text):
+    """The (line 1, line 2) pairs of 2- or 3-line TLE text."""
+    lines = [ln for ln in text.splitlines() if ln[:2] in ("1 ", "2 ")]
+    return list(zip(lines[0::2], lines[1::2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["near", "mixed"])
+def test_satrec_array_equals_propagate_on_cuda(cuda_device, kind):
+    """``SatrecArray.sgp4`` of CUDA satrecs is ``propagate(fast,
+    sat_major)`` cast to f64, bit for bit, with one launch of K1 (a
+    near-earth array) or of K2 and K3 (a mixed one) a call;
+    ``sgp4_into`` writes the same into the caller's buffers."""
+    from astroz_tpu_torch.api import Satrec, SatrecArray
+    text = synthetic_leo_text()
+    if kind == "mixed":
+        text += "\n" + synthetic_deep_text()
+    arr = SatrecArray([Satrec.twoline2rv(l1, l2, device=cuda_device)
+                       for l1, l2 in _tle_pairs(text)])
+    cat = build_catalog(text, device=cuda_device)
+    jd = np.full(9, 2460310.5)
+    fr = np.linspace(-0.2, 1.4, 9)
+    before = dict(cuda_sgp4.LAUNCHES)
+    e, r, v = arr.sgp4(jd, fr)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in cuda_sgp4.LAUNCHES.items()
+             if n != before[k]}
+    assert moved == ({"sgp4_shallow": 1} if kind == "near" else
+                     {"sgp4_deep": 1, "sgp4_shallow_merge": 1})
+    rw, vw, ew = propagate(cat, jd, fr, method="fast", layout="sat_major")
+    assert r.dtype == v.dtype == np.float64 and r.shape == (len(cat), 9, 3)
+    np.testing.assert_array_equal(e, ew.cpu().numpy())
+    np.testing.assert_array_equal(r, rw.double().cpu().numpy())
+    np.testing.assert_array_equal(v, vw.double().cpu().numpy())
+    assert (e == 0).any() and (e != 0).any()
+    r_out, v_out = np.empty_like(r), np.empty_like(v)
+    e_out = np.empty_like(e)
+    arr.sgp4_into(jd, fr, r_out, v_out, e_out)
+    np.testing.assert_array_equal(r_out, r)
+    np.testing.assert_array_equal(v_out, v)
+    np.testing.assert_array_equal(e_out, e)
+
+
+@pytest.mark.cuda
+def test_init_entry_points_on_cuda(cuda_device):
+    """``ops.sgp4_init`` / ``ops.sdp4_init`` put arrays on the card by
+    default, equal to the host init; tensors elsewhere raise."""
+    from astroz_tpu_torch.constants import WGS72
+    from astroz_tpu_torch.ops import sdp4_init, sgp4_init
+    from astroz_tpu_torch.ops.sdp4 import sdp4_init_np
+    from astroz_tpu_torch.ops.sgp4 import sgp4_init_np
+    from astroz_tpu_torch.tle import TleArrays, iter_tles
+    text = synthetic_leo_text(8) + "\n" + synthetic_deep_text()
+    a = TleArrays.from_tles(list(iter_tles(text)))
+    kw = dict(no_kozai=a.no_kozai, ecco=a.ecco, inclo=a.inclo,
+              nodeo=a.nodeo, argpo=a.argpo, mo=a.mo, bstar=a.bstar,
+              epoch_jd=a.epoch_jd)
+    els = sgp4_init(WGS72, **kw)
+    deep = sdp4_init(WGS72, els)
+    want = sgp4_init_np(WGS72, **kw)
+    want_deep = sdp4_init_np(WGS72, want)
+    for got, ref in ((els, want), (deep, want_deep)):
+        for x, y in zip(got, ref):
+            assert x.device.type == "cuda"
+            np.testing.assert_array_equal(x.cpu().numpy(), np.asarray(y))
+    with pytest.raises(ValueError, match="cpu"):
+        sgp4_init(WGS72, **{k: torch.as_tensor(v) for k, v in kw.items()})
+    on_card = sgp4_init(WGS72, **{k: torch.as_tensor(v, device=cuda_device)
+                                  for k, v in kw.items()})
+    assert all(torch.equal(x, y) for x, y in zip(on_card, els))
+
+
+@pytest.mark.cuda
+def test_time_as_lanes_on_cuda(cuda_device, monkeypatch):
+    """``Satrec.sgp4_array`` from ``_LANES_MIN_TIMES`` times on (here
+    4,096) runs the f64 propagators on the card, within 2e-6 km of the
+    native small path
+    (``tests/test_api.py``'s gate and TLE: its epoch JD, 2460311.0, is
+    exact in f64; the time-as-lanes path, as the JAX package's, measures
+    minutes from the f64 epoch JD, whose rounding elsewhere moves a LEO
+    point by up to ~1.5e-4 km)."""
+    from astroz_tpu_torch import api
+    from astroz_tpu_torch.api import Satrec
+    monkeypatch.setattr(api, "_LANES_MIN_TIMES", {False: 4096, True: 4096})
+    traj = ("1 25544U 98067A   24001.50000000  .00016717  00000-0  10270-3 0"
+            "  9993",
+            "2 25544  51.6400 200.0000 0001234  90.0000 270.0000 "
+            "15.50000000000017")
+    sat = Satrec.twoline2rv(*traj, device=cuda_device)
+    n = 5000
+    jd = np.full(n, sat.jdsatepoch)
+    fr = sat.jdsatepochF + np.linspace(0.0, 1.0, n)
+    e, r, v = sat.sgp4_array(jd, fr)
+    assert sat._cat is not None and sat._cat.device.type == "cuda"
+    assert r.shape == (n, 3) and np.all(e == 0)
+    e2, r2, v2 = sat.sgp4_array(jd[::100], fr[::100])
+    np.testing.assert_allclose(r[::100], r2, rtol=0, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_propagate_fn_vmap_on_cuda(cuda_device):
+    """``create_sgp4_propagator``'s function on the card: under
+    ``torch.func.vmap`` it equals the loop, near-earth and deep with
+    ``max_steps``."""
+    from astroz_tpu_torch.api import create_sgp4_propagator
+    for text, kw in ((synthetic_leo_text(3, decaying=False), {}),
+                     (synthetic_deep_text(3, failing=False),
+                      {"max_steps": 5})):
+        l1, l2 = _tle_pairs(text)[-1]
+        params, fn = create_sgp4_propagator(l1, l2, device=cuda_device)
+        t = torch.linspace(-2000.0, 3000.0, 6, dtype=torch.float64,
+                           device=cuda_device)
+        r, v = torch.func.vmap(lambda x: fn(params, x, **kw))(t)
+        assert r.device.type == "cuda"
+        for k in range(len(t)):
+            rk, vk = fn(params, t[k])
+            assert torch.equal(r[k], rk) and torch.equal(v[k], vk)
