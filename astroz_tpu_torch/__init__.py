@@ -8,22 +8,36 @@ entry points of ``ops`` (``propagate_fast``, ``sgp4_init``,
 ``sdp4_propagate_scan``), conjunction screening (``screen_all``,
 ``screen_target``), and the python-sgp4 drop-in API (``api``:
 ``Satrec``, ``SatrecArray``, ``create_sgp4_propagator``) with its host
-scalar engines (``ops/scalar.py`` and the native copy in ``native/``),
-with every kernel written for the NVIDIA H100 (``csrc/``). The rest of
-the JAX package is not here yet (see ROADMAP.md). The package imports
-torch and numpy, never JAX.
+scalar engines (``ops/scalar.py``), with every kernel written for the
+NVIDIA H100 (``csrc/``). The native runtime (``native/``: the bulk TLE
+parser on ``build_catalog``'s path, the telemetry frame scanner, the
+scalar engine and the C ABI), telemetry ingestion (``io``), and the
+host-side domain modules (``constants``, ``equatorial``, ``spice``,
+``fits``, ``mission``, ``config``, ``profiling``) are here too. Not here
+yet: multi-device and the numerical propagators (see ROADMAP.md). The
+package imports torch and numpy, never JAX.
 """
 
 __version__ = "0.1.0"
 
 from . import api  # noqa: E402
+from . import config  # noqa: E402
+from . import constants  # noqa: E402
+from . import equatorial  # noqa: E402
+from . import fits  # noqa: E402
+from . import io  # noqa: E402
+from . import mission  # noqa: E402
+from . import native  # noqa: E402
+from . import profiling  # noqa: E402
+from . import spice  # noqa: E402
 from .constellation import Constellation, screen  # noqa: E402
 from .propagation import (SatCatalog, build_catalog,  # noqa: E402
                           catalog_from_elements, propagate,
                           propagate_tsince)
 from .screening import screen_all, screen_target  # noqa: E402
 
-__all__ = ["Constellation", "api", "SatCatalog", "build_catalog",
-           "catalog_from_elements", "propagate", "propagate_tsince",
-           "screen", "screen_all",
+__all__ = ["Constellation", "api", "config", "constants", "equatorial",
+           "fits", "io", "mission", "native", "profiling", "spice",
+           "SatCatalog", "build_catalog", "catalog_from_elements",
+           "propagate", "propagate_tsince", "screen", "screen_all",
            "screen_target", "__version__"]

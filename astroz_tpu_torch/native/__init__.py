@@ -1,23 +1,37 @@
-"""The native (C++) scalar SGP4/SDP4 host engine, bound with ctypes.
+"""The port's native (C++) runtime, bound with ctypes.
 
-Counterpart of the scalar part of ``astroz_tpu/native/`` (its
-``__init__.py:220-404``): ``scalar_sgp4.cpp`` propagates one packed
-element vector (``SCALAR_FIELDS``, laid out by ``scalar_fields.h``) to
-one time, to a time array (an 8-wide SIMD block for near-earth lanes),
-or over an (n_sats, n_times) grid; ``scalar_ext.c`` is a CPython
-extension whose ``SatCore`` runs a whole ``Satrec.sgp4(jd, fr)`` call in
-C. ``api.Satrec`` routes single-point calls here, and
-``api.SatrecArray`` routes its ``device="cpu"`` sweeps to
-:func:`sgp4_grid`.
+Counterpart of ``astroz_tpu/native/``. One shared library is built from
+four sources, as the JAX package builds its own:
 
-Both libraries are built with g++ at first use, never at import, into
+* ``tle_parser.cpp``: the bulk TLE parser (:func:`parse_catalog`), the
+  route of ``TleArrays.from_text`` and of ``build_catalog`` on two-line
+  text; its columns equal the Python parser's (``tle.py``) bit for bit;
+* ``frame_scanner.cpp``: the CCSDS / VITA-49 frame scanner
+  (:func:`scan_frames`), the route of ``io.Parser.iter_frames`` on large
+  buffers;
+* ``scalar_sgp4.cpp``: the scalar SGP4/SDP4 host engine; it propagates
+  one packed element vector (``SCALAR_FIELDS``, laid out by
+  ``scalar_fields.h``) to one time, to a time array (an 8-wide SIMD
+  block for near-earth lanes), or over an (n_sats, n_times) grid
+  (:func:`sgp4_grid`); ``api.Satrec`` routes single-point calls here;
+* ``c_api.cpp``: the C ABI for callers outside Python, declared in
+  ``astroz_c.h`` (:data:`HEADER`); a C program links the library at
+  :func:`library_path`.
+
+``scalar_ext.c`` is a CPython extension whose ``SatCore`` runs a whole
+``Satrec.sgp4(jd, fr)`` call in C.
+
+Both are built with g++ at first use, never at import, into
 ``native/build/`` (listed in ``.gitignore``), and rebuilt when the hash
-of the sources, the flags or (for the extension) the Python ABI
-changes. The ctypes library is required: a failed build raises with
-g++'s output. The extension is optional: a failed build is reported once
-on stderr and single-point calls take the ctypes path. The shared
-library and the module keep names of their own (``libastroz_torch_scalar``,
-``_astroz_torch_scalar``), so that they load beside the JAX package's.
+of the sources, the flags or (for the extension) the Python ABI changes.
+The library is required: a failed build raises ``RuntimeError`` with
+g++'s output, and nothing falls back to Python. The extension is
+optional: a failed build is reported once on stderr and single-point
+calls take the ctypes path. The library and the module keep names of
+their own (``libastroz_torch_native``, ``_astroz_torch_scalar``) and
+are loaded with ``RTLD_LOCAL`` (ctypes' and the import system's
+default), so that they load beside the JAX package's, which exports the
+same C names.
 """
 
 from __future__ import annotations
@@ -37,8 +51,12 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "build"
-_HEADER = _DIR / "scalar_fields.h"
+#: the C ABI's public header (declarations of ``c_api.cpp``)
+HEADER = _DIR / "astroz_c.h"
+_HEADERS = (_DIR / "scalar_fields.h", HEADER)
 _SRC = _DIR / "scalar_sgp4.cpp"
+_SOURCES = (_SRC, _DIR / "tle_parser.cpp", _DIR / "frame_scanner.cpp",
+            _DIR / "c_api.cpp")
 _SRC_EXT = _DIR / "scalar_ext.c"
 _EXT_NAME = "_astroz_torch_scalar"
 
@@ -57,21 +75,64 @@ _LIB: Optional[ctypes.CDLL] = None
 _EXT = None
 _EXT_TRIED = False
 
+N_COLS = 12  # must match tle_parser.cpp's Col enum
+
 _D = ctypes.POINTER(ctypes.c_double)
 _I = ctypes.POINTER(ctypes.c_int)
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
+_H = ctypes.c_void_p
+_F = ctypes.c_double
+
+
+class HohmannResult(ctypes.Structure):
+    """``AstrozHohmannResult`` of ``astroz_c.h``."""
+
+    _fields_ = [("semi_major_axis", _F), ("delta_v1", _F),
+                ("delta_v2", _F), ("total_delta_v", _F),
+                ("transfer_time", _F), ("transfer_time_days", _F)]
+
 
 #: exported C functions: name -> (restype, argtypes)
 SIGNATURES = {
-    "astroz_scalar_sgp4": (ctypes.c_int, [_D, ctypes.c_double, _D]),
+    "astroz_scalar_sgp4": (ctypes.c_int, [_D, _F, _D]),
     "astroz_scalar_sgp4_array": (_L, [_D, _D, _L, _D, _I]),
     "astroz_sgp4_grid": (_L, [_D, _L, _L, _D, _L, _D, _I]),
+    "astroz_parse_catalog": (ctypes.c_int,
+                             [ctypes.c_char_p, _L, _D, _LP, _L, _L]),
+    "astroz_scan_ccsds": (_L, [ctypes.c_char_p, _L, ctypes.c_char_p, _L,
+                               _LP, _LP, _L]),
+    "astroz_scan_vita49": (_L, [ctypes.c_char_p, _L, ctypes.c_char_p, _L,
+                                _LP, _LP, _L]),
+    # the C ABI (astroz_c.h)
+    "astroz_version": (ctypes.c_uint, []),
+    "astroz_init": (None, []),
+    "astroz_deinit": (None, []),
+    "tle_parse": (ctypes.c_int, [ctypes.c_char_p, ctypes.POINTER(_H)]),
+    "tle_free": (None, [_H]),
+    "tle_get_satellite_number": (ctypes.c_uint, [_H]),
+    "tle_get_epoch": (_F, [_H]),
+    "tle_get_inclination": (_F, [_H]),
+    "tle_get_eccentricity": (_F, [_H]),
+    "tle_get_mean_motion": (_F, [_H]),
+    "sgp4_init": (ctypes.c_int, [_H, ctypes.c_int, ctypes.POINTER(_H)]),
+    "sgp4_free": (None, [_H]),
+    "sgp4_propagate": (ctypes.c_int, [_H, _F, _D, _D]),
+    "sgp4_propagate_batch": (ctypes.c_int, [_H, _D, _D, ctypes.c_uint]),
+    "orbital_hohmann": (ctypes.c_int,
+                        [_F, _F, _F, ctypes.POINTER(HohmannResult)]),
+    "orbital_velocity": (_F, [_F, _F, _F]),
+    "orbital_period": (_F, [_F, _F]),
+    "orbital_escape_velocity": (_F, [_F, _F]),
+    "coords_eci_to_ecef": (None, [_D, _F, _D]),
+    "coords_ecef_to_geodetic": (None, [_D, _D]),
+    "coords_julian_to_gmst": (_F, [_F]),
 }
 
 
 def _target(stem: str, sources, extra: str = "") -> Path:
     h = hashlib.sha256(" ".join(BUILD_FLAGS).encode() + extra.encode())
-    for p in (*sources, _HEADER):
+    for p in (*sources, *_HEADERS):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
@@ -93,8 +154,9 @@ def _compile(out: Path, cmd_tail) -> None:
 
 
 def library_path() -> Path:
-    """Where the ctypes library for the current sources and flags lives."""
-    return _target("libastroz_torch_scalar", (_SRC,))
+    """Where the library for the current sources and flags lives (built
+    by :func:`get_lib`); a C program links it with :data:`HEADER`."""
+    return _target("libastroz_torch_native", _SOURCES)
 
 
 def _ext_path() -> Path:
@@ -103,18 +165,18 @@ def _ext_path() -> Path:
 
 
 def get_lib() -> ctypes.CDLL:
-    """The built and bound ctypes library (built on the first call);
-    raises ``RuntimeError`` with g++'s output when it does not build."""
+    """The built and bound library (built on the first call); raises
+    ``RuntimeError`` with g++'s output when it does not build."""
     global _LIB
     with _LOCK:
         if _LIB is None:
             out = library_path()
             if not out.exists():
                 try:
-                    _compile(out, [str(_SRC)])
+                    _compile(out, [str(p) for p in _SOURCES])
                 except (OSError, subprocess.SubprocessError) as exc:
                     raise RuntimeError(
-                        "the native scalar engine did not build: "
+                        "the native library did not build: "
                         + str(getattr(exc, "stderr", None) or exc)) from exc
             lib = ctypes.CDLL(str(out))
             for name, (restype, argtypes) in SIGNATURES.items():
@@ -151,6 +213,51 @@ def _get_ext():
                 "build; single-point calls take the ctypes path:\n"
                 + str(getattr(exc, "stderr", None) or exc) + "\n")
         return _EXT
+
+
+def parse_catalog(text: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Parse TLE / 3LE catalog text natively.
+
+    Returns ``(cols, satnums)``: ``cols`` f64 ``(N_COLS, n)`` in
+    ``TleArrays``' column order (epoch_jd, jdsatepoch, jdsatepochF,
+    no_kozai, ecco, inclo, nodeo, argpo, mo, bstar, ndot, nddot),
+    ``satnums`` int64 ``(n,)``. Records the Python parser would skip are
+    skipped; names are not kept."""
+    lib = get_lib()
+    data = text.encode("utf-8", errors="replace")
+    # every pair of lines could be one satellite
+    max_sats = data.count(b"\n") // 2 + 1
+    cols = np.zeros((N_COLS, max_sats), np.float64)
+    satnums = np.zeros(max_sats, np.int64)
+    n = lib.astroz_parse_catalog(data, len(data), cols.ctypes.data_as(_D),
+                                 satnums.ctypes.data_as(_LP), max_sats,
+                                 max_sats)
+    return cols[:, :n].copy(), satnums[:n].copy()
+
+
+def scan_frames(kind: str, data: bytes,
+                sync_pattern: Optional[bytes] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Frame boundaries in a telemetry buffer, found natively.
+
+    ``kind`` is ``"ccsds"`` or ``"vita49"``. Returns ``(offsets,
+    lengths)`` int64 arrays of the frames that ``io.Parser``'s Python
+    walk finds: with a sync pattern, the frame after each occurrence;
+    without one, a frame at every position that parses, else one byte
+    on (validation mirrors ``io.Ccsds.parse`` / ``io.Vita49.parse``)."""
+    names = {"ccsds": "astroz_scan_ccsds", "vita49": "astroz_scan_vita49"}
+    if kind not in names:
+        raise ValueError(f"unknown frame kind {kind!r}")
+    fn = getattr(get_lib(), names[kind])
+    data = bytes(data)
+    sync = bytes(sync_pattern or b"")
+    # every frame holds at least a 4-byte header
+    max_frames = len(data) // 4 + 1
+    offsets = np.zeros(max_frames, np.int64)
+    lengths = np.zeros(max_frames, np.int64)
+    n = fn(data, len(data), sync, len(sync), offsets.ctypes.data_as(_LP),
+           lengths.ctypes.data_as(_LP), max_frames)
+    return offsets[:n].copy(), lengths[:n].copy()
 
 
 #: packed element-vector layout for the native scalar propagator —

@@ -290,33 +290,42 @@ class SatCatalog:
         return 8
 
 
+def _two_line_text(text: str) -> bool:
+    """Text that is neither OMM JSON nor carries a name line: it has
+    nothing that the native bulk parser drops."""
+    return not text.lstrip().startswith(("[", "{")) and not any(
+        ln and not ln.lstrip().startswith(("1 ", "2 "))
+        for ln in text.splitlines())
+
+
 def build_catalog(source: Union[str, Sequence[Tle], TleArrays],
                   grav: GravityModel = WGS72, *,
                   device="cuda") -> SatCatalog:
     """Parse and initialize a catalog on ``device``.
 
     ``source`` is TLE/3LE text, OMM JSON text, a sequence of
-    :class:`~astroz_tpu_torch.tle.Tle` or a :class:`TleArrays`. Names are
-    kept where the source has them.
+    :class:`~astroz_tpu_torch.tle.Tle` or a :class:`TleArrays`. Two-line
+    text goes through the native bulk parser (``TleArrays.from_text``);
+    named 3LE text, OMM and records go through the Python parser, and
+    their names are kept.
     """
     names: Optional[Tuple[Optional[str], ...]] = None
     if isinstance(source, TleArrays):
         arrays = source
+    elif isinstance(source, str) and _two_line_text(source):
+        arrays = TleArrays.from_text(source)
+        if len(arrays) == 0:
+            raise ValueError("no TLEs found in source")
     else:
-        has_names = True
         if not isinstance(source, str):
             tles = list(source)
         elif source.lstrip().startswith(("[", "{")):
             tles = parse_omm(source)
         else:
             tles = list(iter_tles(source))
-            # pure 2-line text carries no names
-            has_names = any(ln and not ln.lstrip().startswith(("1 ", "2 "))
-                            for ln in source.splitlines())
         if not tles:
             raise ValueError("no TLEs found in source")
-        if has_names:
-            names = tuple(t.name for t in tles)
+        names = tuple(t.name for t in tles)
         arrays = TleArrays.from_tles(tles)
     return catalog_from_elements(elements_from_arrays(arrays, grav), grav,
                                  np.asarray(arrays.satnum), names=names,

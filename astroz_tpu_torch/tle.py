@@ -2,10 +2,13 @@
 
 Counterpart of ``astroz_tpu/tle.py``: fixed-column TLE lines, Alpha-5
 satellite numbers, the assumed-decimal fields, 2- and 3-line catalog
-text, and OMM (CCSDS 502.0-B-3) JSON. Parsing is host-side Python; the
-result is a :class:`TleArrays` of f64 numpy columns that the element
-init consumes. (The JAX package also has a C++ bulk parser; this
-package parses in Python only.)
+text, and OMM (CCSDS 502.0-B-3) JSON, on the host. The result is a
+:class:`TleArrays` of f64 numpy columns that the element init consumes.
+Catalog text goes to columns through the C++ bulk parser
+(``native/tle_parser.cpp``, :meth:`TleArrays.from_text`); the Python
+parser here is its plain version and gives the same columns bit for
+bit, and it parses what the bulk parser does not: names, OMM, one
+record at a time.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from . import native
 from .constants import DEG2RAD, TWO_PI
 from .time import (epoch_to_jd, iso8601_to_jd, jd_to_datetime_parts,
                    month_day_to_doy)
@@ -334,9 +338,22 @@ class TleArrays:
         return int(self.satnum.shape[0])
 
     @classmethod
-    def from_text(cls, text: str) -> "TleArrays":
-        """Parse 2- or 3-line catalog text straight into columns."""
-        return cls.from_tles(list(iter_tles(text)))
+    def from_text(cls, text: str, allow_native: bool = True
+                  ) -> "TleArrays":
+        """Parse 2- or 3-line catalog text straight into columns.
+
+        The C++ bulk parser (``native/tle_parser.cpp``) is the route; it
+        is built at first use and raises ``RuntimeError`` when it does
+        not build. ``allow_native=False`` runs the Python parser, its
+        plain version: both give the same records and columns, bit for
+        bit. Names are not kept either way."""
+        if not allow_native:
+            return cls.from_tles(list(iter_tles(text)))
+        cols, satnums = native.parse_catalog(text)
+        return cls(satnum=satnums, epoch_jd=cols[0], jdsatepoch=cols[1],
+                   jdsatepochF=cols[2], no_kozai=cols[3], ecco=cols[4],
+                   inclo=cols[5], nodeo=cols[6], argpo=cols[7], mo=cols[8],
+                   bstar=cols[9], ndot=cols[10], nddot=cols[11])
 
     @classmethod
     def from_tles(cls, tles: Sequence[Tle]) -> "TleArrays":

@@ -145,7 +145,29 @@ Phases (any failure exits non-zero; nothing is caught):
    (``lanes_crossover``); ``create_sgp4_propagator`` on the
    card equal to ``propagate_tsince``, under ``torch.func.vmap`` equal to
    the loop, and for the GEO TLE with ``max_steps`` equal to the plain
-   call.
+   call;
+9. the native ingest and runtime layer (``astroz_tpu_torch/native``; g++
+   builds it in phase 1 beside nvcc), host-bound, so each line carries
+   the host CPU's model beside the card: for the mixed and near-earth
+   13,478-TLE catalogs and the mixed 50,000 (README.md's debris scale),
+   the native and the Python parse in turns (all 12 columns and the
+   satellite numbers bit-equal) and the time to first sweep, TLE text ->
+   ``build_catalog(device="cuda")`` -> the first ``propagate(fast,
+   planes)`` over 1,440 epochs, through each route in turns, with its
+   split (parse, init, SDP4 init and device catalog, staging and
+   resonance tables, sweep); the native route must call
+   ``native.parse_catalog``, each first sweep launch K2 and K3 once (K1
+   on the near-earth catalog), and the mixed sweeps pass phase 3b's
+   gates; the frame scanner on ~64 MiB CCSDS and VITA-49 streams with
+   corrupt bytes between frames, with and without the sync marker, equal
+   to the Python walk, both timed; the C ABI through ctypes (ISS and GEO
+   golden TLEs x 1,440 minutes): ``sgp4_init``'s element vector equals
+   the Python init's, ``sgp4_propagate`` equals ``Satrec.sgp4_tsince`` on
+   the native core and ``sgp4_propagate_batch`` the native engine's
+   array path, bit for bit; and ``propagate(fast)`` of the ISS x 1,440 and
+   of 100 near-earth lanes x 100 epochs on the card against
+   ``native.sgp4_grid`` on the same inputs, in turns (the small-grid host
+   route the port leaves out).
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (with each one's bound: the larger of
@@ -157,6 +179,7 @@ null for K4, whose candidate mode fetches a count), and ``{"ok": true,
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -463,14 +486,26 @@ def phase0_card():
 
 
 def phase1_build():
-    from astroz_tpu_torch import _build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from astroz_tpu_torch import _build, native
+
+    def build_native():
+        t = time.perf_counter()
+        native.get_lib()
+        return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.library()
-    print(f"# phase 1: nvcc built {path.name} in "
-          f"{time.perf_counter() - t0:.1f} s "
-          f"(flags: {' '.join(_build.NVCC_FLAGS)})")
+    with ThreadPoolExecutor(1) as pool:
+        gxx = pool.submit(build_native)  # g++ beside the nvcc processes
+        path = _build.build()
+        _build.library()
+        print(f"# phase 1: nvcc built {path.name} in "
+              f"{time.perf_counter() - t0:.1f} s "
+              f"(flags: {' '.join(_build.NVCC_FLAGS)})")
+        print(f"# phase 1: g++ built {native.library_path().name} (TLE "
+              f"parser, frame scanner, scalar engine, C ABI) in "
+              f"{gxx.result():.1f} s")
     for name, regs, spill_st, spill_ld in _build.ptxas_report():
         print(f"# phase 1: ptxas {name}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B")
@@ -907,6 +942,35 @@ def _golden_deep(method="fast"):
     return worst
 
 
+def _regime_gates(cat, r_p, e_p, tag):
+    """A mixed sweep's sanity gates: more than 90% healthy points, and
+    the healthy |r| of each regime (LEO, GEO, GPS/HEO) in its band;
+    prints the error codes and each regime's range. Returns the regimes'
+    column masks."""
+    irez = np.zeros(len(cat), np.int64)
+    irez[cat.deep_idx] = np.asarray(cat.deep_host.irez)[cat.deep_idx]
+    kinds = {"LEO": ~cat.is_deep, "GEO": cat.is_deep & (irez == 1),
+             "GPS/HEO": cat.is_deep & (irez != 1)}
+    bands = {"LEO": LEO_BAND_KM,
+             "GEO": (GEO_RADIUS_KM - GEO_BAND_KM,
+                     GEO_RADIUS_KM + GEO_BAND_KM),
+             "GPS/HEO": HEO_BAND_KM}
+    radius = r_p.norm(dim=0)
+    share = (e_p == 0).float().mean().item()
+    print(f"# {tag}: healthy points {share:.6f}, error codes "
+          f"{sorted(set(torch.unique(e_p).tolist()))}")
+    check(share > 0.9, f"only {share} of the points are healthy")
+    for kind, cols in kinds.items():
+        idx = torch.as_tensor(np.nonzero(cols)[0], device=DEVICE)
+        rad = radius[:, idx][e_p[:, idx] == 0]
+        lo, hi = rad.min().item(), rad.max().item()
+        print(f"# {tag}: {kind}: {len(idx)} columns, healthy |r| "
+              f"{lo:.1f} .. {hi:.1f} km (band {bands[kind]})")
+        check(bands[kind][0] < lo and hi < bands[kind][1],
+              f"{kind} |r| outside its band")
+    return kinds
+
+
 def phase3b_mixed_path(text):
     from astroz_tpu_torch import Constellation
     from astroz_tpu_torch.ops import cuda_sgp4
@@ -955,28 +1019,7 @@ def phase3b_mixed_path(text):
     check(torch.equal(r_t, r_p.permute(1, 2, 0)),
           "time_major differs from planes")
 
-    # radius bands by kind on healthy points
-    irez = np.zeros(N_SATS, np.int64)
-    irez[cat.deep_idx] = np.asarray(cat.deep_host.irez)[cat.deep_idx]
-    kinds = {"LEO": ~cat.is_deep, "GEO": cat.is_deep & (irez == 1),
-             "GPS/HEO": cat.is_deep & (irez != 1)}
-    bands = {"LEO": LEO_BAND_KM,
-             "GEO": (GEO_RADIUS_KM - GEO_BAND_KM,
-                     GEO_RADIUS_KM + GEO_BAND_KM),
-             "GPS/HEO": HEO_BAND_KM}
-    radius = r_p.norm(dim=0)
-    share = (e_p == 0).float().mean().item()
-    print(f"# phase 3b: healthy points {share:.6f}, error codes "
-          f"{sorted(set(torch.unique(e_p).tolist()))}")
-    check(share > 0.9, f"only {share} of the points are healthy")
-    for kind, cols in kinds.items():
-        idx = torch.as_tensor(np.nonzero(cols)[0], device=DEVICE)
-        rad = radius[:, idx][e_p[:, idx] == 0]
-        lo, hi = rad.min().item(), rad.max().item()
-        print(f"# phase 3b: {kind}: {len(idx)} columns, healthy |r| "
-              f"{lo:.1f} .. {hi:.1f} km (band {bands[kind]})")
-        check(bands[kind][0] < lo and hi < bands[kind][1],
-              f"{kind} |r| outside its band")
+    kinds = _regime_gates(cat, r_p, e_p, "phase 3b")
 
     # every column at 145 of the epochs against the plain path on the CPU
     t_idx = np.r_[0:N_TIMES:10, N_TIMES - 1]
@@ -2253,8 +2296,8 @@ def phase8_api(con, mcon, text, mixed_text, smi):
 
     t0 = time.perf_counter()
     native._get_ext()
-    print(f"# phase 8: g++ built the native scalar engine "
-          f"({native.library_path().name}) and its extension in "
+    print(f"# phase 8: g++ built the scalar engine's CPython extension "
+          f"({native._ext_path().name}) in "
           f"{time.perf_counter() - t0:.2f} s")
 
     # the mixed headline catalog
@@ -2394,6 +2437,357 @@ def phase8_api(con, mcon, text, mixed_text, smi):
           f"vmap with max_steps=4 equal to the plain call, bit for bit")
 
 
+#: phase 9: the ingest catalogs (kind, satellites; 50,000 is README.md's
+#: debris scale), timed turns of each route, the telemetry streams' size,
+#: and the small grids timed against the native host engine
+INGEST_CATALOGS = (("mixed", N_SATS), ("near-earth", N_SATS),
+                   ("mixed", 50000))
+INGEST_TURNS = 3
+FRAME_STREAM_BYTES = 64 << 20
+FRAME_SYNC = b"\x1a\xcf\xfc\x1d"  # the CCSDS attached sync marker
+SMALL_GRID_REPS = 20
+
+
+def host_cpu():
+    """The host CPU from /proc/cpuinfo: its model name, or, where the
+    file gives none (as some virtual machines do), its vendor, family,
+    model and clock; and the logical core count."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break  # the first processor's block is enough
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model "
+                f"{info.get('model', '?')} at {info.get('cpu MHz', '?')} MHz")
+    return f"{name}, {os.cpu_count()} logical cores"
+
+
+def _catalog_text(kind, n):
+    return (mixed_catalog_text if kind == "mixed"
+            else near_earth_catalog_text)(n)
+
+
+def _first_sweep(text, route, expect):
+    """TLE text -> ``build_catalog(..., device="cuda")`` -> the first
+    ``propagate(method="fast", layout="planes")`` over N_TIMES one-minute
+    epochs, synchronized (host clock, ms), through the native parser or
+    through Python-parsed ``TleArrays``; then the same steps one by one
+    on a fresh catalog for the split. Checks that the native route
+    parsed natively (and the Python route not) and the launches of the
+    first sweep. Returns (total, split, r, e, cat)."""
+    from astroz_tpu_torch import build_catalog, native, propagate
+    from astroz_tpu_torch.propagation import (catalog_from_elements,
+                                              elements_from_arrays,
+                                              resonance_steps)
+    from astroz_tpu_torch.tle import TleArrays
+
+    jd = np.full(N_TIMES, EPOCH_JD)
+    fr = np.arange(N_TIMES) / 1440.0
+    parse_native = native.parse_catalog
+    parsed = []
+    native.parse_catalog = lambda t: parsed.append(1) or parse_native(t)
+    try:
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        src = (text if route == "native"
+               else TleArrays.from_text(text, allow_native=False))
+        cat = build_catalog(src, device=DEVICE)
+        r, _, e = propagate(cat, jd, fr, method="fast", layout="planes")
+        sync()
+        total = (time.perf_counter() - t0) * 1e3
+        moved = {k: n for k, n in launches().items() if n}
+        check(moved == expect, f"{route} first sweep launched {moved}, "
+              f"not {expect}")
+        check(len(parsed) == (route == "native"),
+              f"the {route} route parsed natively {len(parsed)} times")
+
+        split = {}
+        t = time.perf_counter()
+        arrays = TleArrays.from_text(text, allow_native=route == "native")
+        split["parse"] = time.perf_counter() - t
+        t = time.perf_counter()
+        els = elements_from_arrays(arrays)
+        split["init"] = time.perf_counter() - t
+        t = time.perf_counter()
+        fresh = catalog_from_elements(els, cat.grav, arrays.satnum,
+                                      device=DEVICE)
+        sync()
+        split["sdp4 init + device catalog"] = time.perf_counter() - t
+        t = time.perf_counter()
+        fresh.fast_staging
+        if fresh.has_deep:
+            fresh.resonance_tables(resonance_steps(jd + fr,
+                                                   fresh.deep_epochs_jd))
+            fresh.heo_escape
+        sync()
+        split["staging + resonance tables"] = time.perf_counter() - t
+        t = time.perf_counter()
+        propagate(fresh, jd, fr, method="fast", layout="planes")
+        sync()
+        split["sweep"] = time.perf_counter() - t
+    finally:
+        native.parse_catalog = parse_native
+    return total, {k: v * 1e3 for k, v in split.items()}, r, e, cat
+
+
+def _ingest(kind, n, smi, cpu):
+    """Phase 9's ingest of one catalog: the native and the plain parse
+    in turns, bit-equal columns, and the time to first sweep of each
+    route in turns."""
+    from astroz_tpu_torch import native
+    from astroz_tpu_torch.tle import TleArrays
+
+    text = _catalog_text(kind, n)
+    label = f"{kind} {n:,}"
+    nat = TleArrays.from_text(text)
+    py = TleArrays.from_text(text, allow_native=False)
+    cols = ("satnum", "epoch_jd", "jdsatepoch", "jdsatepochF", "no_kozai",
+            "ecco", "inclo", "nodeo", "argpo", "mo", "bstar", "ndot",
+            "nddot")
+    check(len(nat) == len(py) == n and all(
+        np.array_equal(getattr(nat, c), getattr(py, c)) for c in cols),
+        f"{label}: native and Python columns differ")
+    parse = {"native": [], "python": []}
+    for k in range(INGEST_TURNS):
+        for route in (("native", "python") if k % 2 == 0
+                      else ("python", "native")):
+            t0 = time.perf_counter()
+            TleArrays.from_text(text, allow_native=route == "native")
+            parse[route].append((time.perf_counter() - t0) * 1e3)
+    p_nat, p_py = (float(np.mean(parse[k])) for k in ("native", "python"))
+    print(f"# phase 9 [{smi}; {cpu}]: {label} TLEs ({len(text) / 2**20:.2f} "
+          f"MiB of text): parse native {p_nat:.2f} ms, Python "
+          f"{p_py:.2f} ms ({p_py / p_nat:.1f}x; host clock, mean of "
+          f"{INGEST_TURNS} in turns); all 12 columns and the satellite "
+          f"numbers bit-equal")
+
+    expect = ({"sgp4_deep": 1, "sgp4_shallow_merge": 1} if kind == "mixed"
+              else {"sgp4_shallow": 1})
+    # one untimed run first (its outputs are gated), then the turns
+    _, _, r, e, cat = _first_sweep(text, "native", expect)
+    check(r.device.type == DEVICE and tuple(r.shape) == (3, N_TIMES, n)
+          and torch.isfinite(r).all().item(), f"{label}: outputs")
+    if kind == "mixed":
+        _regime_gates(cat, r, e, f"phase 9: {label}")
+    del r, e, cat
+    runs = {"native": [], "python": []}
+    for k in range(INGEST_TURNS):
+        for route in (("native", "python") if k % 2 == 0
+                      else ("python", "native")):
+            total, split = _first_sweep(text, route, expect)[:2]
+            runs[route].append((total, split))
+    for route, rs in runs.items():
+        total = float(np.mean([t for t, _ in rs]))
+        split = {key: float(np.mean([sp[key] for _, sp in rs]))
+                 for key in rs[0][1]}
+        print(f"# phase 9 [{smi}; {cpu}]: {label} time to first sweep "
+              f"({route} parse): {total:.2f} ms (host clock, mean of "
+              f"{INGEST_TURNS} in turns); split, ms: " + ", ".join(
+                  f"{key} {v:.2f}" for key, v in split.items())
+              + f"; first sweep launched {expect}")
+
+
+def _frame_stream(kind, rng):
+    """About FRAME_STREAM_BYTES of packets with 0-8 corrupt bytes and the
+    attached sync marker before each."""
+    from astroz_tpu_torch.io.ccsds import build_packet as ccsds_packet
+    from astroz_tpu_torch.io.vita49 import build_packet as vita49_packet
+
+    parts, size, k = [], 0, 0
+    while size < FRAME_STREAM_BYTES:
+        if kind == "ccsds":
+            pkt = ccsds_packet(apid=int(rng.integers(0, 2048)),
+                               payload=rng.bytes(int(rng.integers(1, 1024))),
+                               sequence_count=k % 16384)
+        else:
+            pkt = vita49_packet(
+                payload=rng.bytes(4 * int(rng.integers(1, 256))),
+                stream_id=int(rng.integers(0, 1 << 16)), packet_count=k % 16)
+        gap = rng.bytes(int(rng.integers(0, 9)))
+        parts += [gap, FRAME_SYNC, pkt]
+        size += len(gap) + len(FRAME_SYNC) + len(pkt)
+        k += 1
+    return b"".join(parts), k
+
+
+def _frame_scans(cpu):
+    """The native frame scanner against the Python walk on ~64 MiB
+    streams, with and without the sync marker: equal offsets and
+    lengths, both timed in turns; iter_frames (native route, fields in
+    Python) timed once."""
+    from astroz_tpu_torch import native
+    from astroz_tpu_torch.io import Ccsds, Parser, Vita49
+
+    rng = np.random.default_rng(9)
+    for kind, ftype in (("ccsds", Ccsds), ("vita49", Vita49)):
+        blob, n_pkts = _frame_stream(kind, rng)
+        for sync_pattern in (FRAME_SYNC, None):
+            parser = Parser(ftype, sync_pattern=sync_pattern)
+            found, ms = {}, {"native": [], "walk": []}
+            for route in ("native", "walk", "walk", "native"):
+                t0 = time.perf_counter()
+                if route == "native":
+                    o, ln = native.scan_frames(kind, blob, sync_pattern)
+                    found[route] = (o.tolist(), ln.tolist())
+                else:
+                    w = [(o, f.total_length) for o, f in parser._walk(blob)]
+                    found[route] = ([o for o, _ in w], [ln for _, ln in w])
+                ms[route].append((time.perf_counter() - t0) * 1e3)
+            check(found["native"] == found["walk"],
+                  f"{kind}: native scan and Python walk differ")
+            n_frames = len(found["native"][0])
+            if sync_pattern:
+                check(n_frames == n_pkts, f"{kind}: {n_frames} frames of "
+                      f"{n_pkts} sync-framed packets")
+            t0 = time.perf_counter()
+            n_parsed = sum(1 for _ in parser.iter_frames(blob))
+            it_ms = (time.perf_counter() - t0) * 1e3
+            check(n_parsed == n_frames, f"{kind}: iter_frames count")
+            nat, walk = np.mean(ms["native"]), np.mean(ms["walk"])
+            print(f"# phase 9 [{cpu}]: {kind} stream of "
+                  f"{len(blob) / 2**20:.2f} MiB ({n_pkts} packets, corrupt "
+                  f"bytes between), sync marker "
+                  f"{'on' if sync_pattern else 'off'}: {n_frames} frames, "
+                  f"offsets and lengths equal; scan native {nat:.2f} ms, "
+                  f"Python walk {walk:.2f} ms ({walk / nat:.0f}x; host "
+                  f"clock, mean of 2 in turns); iter_frames (native scan, "
+                  f"fields in Python) {it_ms:.2f} ms")
+
+
+def _c_abi(cpu):
+    """The C ABI through ctypes: tle_parse -> sgp4_init ->
+    sgp4_propagate_batch over N_TIMES minutes of the ISS and GEO golden
+    TLEs, against ``Satrec`` on the native core."""
+    import ctypes
+
+    from astroz_tpu_torch import native
+    from astroz_tpu_torch.api import Satrec
+
+    lib = native.get_lib()
+    dbl = ctypes.POINTER(ctypes.c_double)
+    geo = GOLDEN_DEEP_TLES.splitlines()[:2]
+    t = np.arange(float(N_TIMES))
+    n_fields = len(native.SCALAR_FIELDS)
+    for name, (l1, l2) in (("ISS", (GOLDEN_L1, GOLDEN_L2)),
+                           ("GEO", tuple(geo))):
+        th, sh = ctypes.c_void_p(), ctypes.c_void_p()
+        check(lib.tle_parse(f"{l1}\n{l2}".encode(), ctypes.byref(th)) == 0,
+              f"C ABI: tle_parse of {name}")
+        check(lib.sgp4_init(th, 1, ctypes.byref(sh)) == 0,  # 1: WGS72
+              f"C ABI: sgp4_init of {name}")
+        try:
+            vec = np.ctypeslib.as_array(
+                (ctypes.c_double * n_fields).from_address(sh.value)).copy()
+            batch = np.zeros((N_TIMES, 6))
+            t0 = time.perf_counter()
+            code = lib.sgp4_propagate_batch(sh, t.ctypes.data_as(dbl),
+                                            batch.ctypes.data_as(dbl),
+                                            N_TIMES)
+            batch_us = (time.perf_counter() - t0) * 1e6
+            check(code == 0, f"C ABI: {name} batch returned {code}")
+            pos, vel = (ctypes.c_double * 3)(), (ctypes.c_double * 3)()
+            single = np.zeros((N_TIMES, 6))
+            for i, x in enumerate(t):
+                check(lib.sgp4_propagate(sh, x, pos, vel) == 0,
+                      f"C ABI: {name} sgp4_propagate")
+                single[i] = list(pos) + list(vel)
+        finally:
+            lib.sgp4_free(sh)
+            lib.tle_free(th)
+        sat = Satrec.twoline2rv(l1, l2, device=DEVICE)
+        sat._scalar_record()
+        sat.sgp4(sat.jdsatepoch, sat.jdsatepochF)
+        check("sgp4" in sat.__dict__, "the native core is not bound")
+        core = np.array([np.concatenate(sat.sgp4_tsince(x)[1:]) for x in t])
+        e, r, v = sat._scalar_native.sgp4_array(t)
+        check(np.array_equal(vec, native.pack_scalar_sat(sat._scalar)),
+              f"C ABI: {name} sgp4_init differs from the Python init")
+        check(np.array_equal(single, core), f"C ABI: {name} sgp4_propagate "
+              f"differs from Satrec.sgp4_tsince on the native core")
+        check((e == 0).all() and np.array_equal(
+            batch, np.concatenate([r, v], -1)), f"C ABI: {name} batch "
+            f"differs from the native engine's array path")
+        d_batch = float(np.abs(batch - core).max())
+        check(d_batch <= 1e-9, f"C ABI: {name} batch vs points {d_batch}")
+        print(f"# phase 9 [{cpu}]: C ABI {name} x {N_TIMES} min: sgp4_init "
+              f"equals the Python init's element vector, sgp4_propagate "
+              f"equals Satrec.sgp4_tsince on the native core and the batch "
+              f"the engine's array path, bit for bit; batch vs points "
+              f"max diff {d_batch:.3e} (km, km/s); batch {batch_us:.1f} us")
+
+
+def _small_grids(smi, cpu):
+    """``propagate(method="fast")`` of small grids on the card against
+    ``native.sgp4_grid`` on the same inputs, in turns: the card with
+    CUDA events (outputs on the card) and with the copy to the host
+    (host clock), the native engine on the host clock."""
+    from astroz_tpu_torch import build_catalog, native, propagate
+    from astroz_tpu_torch.ops import scalar
+    from astroz_tpu_torch.tle import iter_tles
+
+    grids = (("ISS x 1,440", f"{GOLDEN_L1}\n{GOLDEN_L2}", N_TIMES),
+             ("100 near-earth x 100", near_earth_catalog_text(100), 100))
+    for label, text, n_t in grids:
+        cat = build_catalog(text, device=DEVICE)
+        jd = np.full(n_t, EPOCH_JD)
+        fr = np.arange(n_t) / 1440.0
+        vecs = np.stack([native.pack_scalar_sat(scalar.sgp4init(
+            scalar.wgs72(), t.epoch_jd, t.bstar, t.ecco, t.argpo, t.inclo,
+            t.mo, t.no_kozai, t.nodeo)) for t in iter_tles(text)])
+        tsince = ((jd[None, :] - cat.epochs_jd[:, None])
+                  + fr[None, :]) * 1440.0
+
+        def card():
+            return propagate(cat, jd, fr, method="fast")
+
+        def card_host():
+            return tuple(x.cpu().numpy() for x in card())
+
+        def host():
+            return native.sgp4_grid(vecs, tsince)
+
+        ms = {"card": [], "card + copy": [], "native": []}
+        for route in ("card", "native", "native", "card"):
+            if route == "card":
+                ms["card"].append(_cuda_ms(card, SMALL_GRID_REPS))
+                ms["card + copy"].append(
+                    _wall_ms(card_host, SMALL_GRID_REPS)[0])
+            else:
+                ms["native"].append(_wall_ms(host, SMALL_GRID_REPS)[0])
+        r, _, e = card_host()
+        he, hr, _ = host()
+        ok = (e.T == 0) & (he == 0)
+        check(np.array_equal(e.T, he) and ok.any(),
+              f"{label}: card and native error codes differ")
+        d = float(np.abs(np.transpose(r, (1, 0, 2)) - hr)[ok].max())
+        check(d < 0.05, f"{label}: fast path {d} km from the native f64")
+        means = {k: float(np.mean(v)) for k, v in ms.items()}
+        print(f"# phase 9 [{smi}; {cpu}]: small grid {label}: propagate "
+              f"fast on the card {means['card']:.3f} ms (CUDA events), "
+              f"{means['card + copy']:.3f} ms with the copy to the host; "
+              f"native.sgp4_grid {means['native']:.3f} ms (host clock); "
+              f"mean of 2 turns of {SMALL_GRID_REPS} calls; max|dr| "
+              f"{d * 1e3:.2f} m")
+
+
+def phase9_ingest(smi):
+    """The native ingest and runtime layer (see the module docstring)."""
+    cpu = host_cpu()
+    print(f"# phase 9: host CPU {cpu}; card {smi}")
+    for kind, n in INGEST_CATALOGS:
+        _ingest(kind, n, smi, cpu)
+    _frame_scans(cpu)
+    _c_abi(cpu)
+    _small_grids(smi, cpu)
+    check("jax" not in sys.modules, "phase 9 loaded jax")
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase0_card()
@@ -2423,6 +2817,7 @@ def main():
     k4, k4c = phase7_screen_timings(scon, smi)
     k5, k6, spine = phase4c_dense_timings(mcon, smi, scan_ms, scan_peak)
     phase8_api(con, mcon, text, mixed_text, smi)
+    phase9_ingest(smi)
     print(f"# chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

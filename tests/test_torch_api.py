@@ -691,7 +691,7 @@ def test_native_build_is_keyed_on_sources():
     pnative.get_lib()
     path = pnative.library_path()
     assert path.parent == pnative.BUILD_DIR
-    assert path.name.startswith("libastroz_torch_scalar_")
+    assert path.name.startswith("libastroz_torch_native_")
     assert pnative._ext_path().name.startswith("_astroz_torch_scalar_")
     assert path.exists()
 
@@ -702,7 +702,15 @@ def test_native_build_is_keyed_on_sources():
 
 
 def test_api_imports_no_jax():
-    code = ("import sys, astroz_tpu_torch.api\n"
+    """Every module of the port imports without JAX or astroz_tpu."""
+    modules = ("astroz_tpu_torch", "astroz_tpu_torch.api",
+               "astroz_tpu_torch.io", "astroz_tpu_torch.fits",
+               "astroz_tpu_torch.mission", "astroz_tpu_torch.spice",
+               "astroz_tpu_torch.equatorial", "astroz_tpu_torch.profiling",
+               "astroz_tpu_torch.config", "astroz_tpu_torch.native")
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'astroz_tpu.')) or m == 'astroz_tpu']\n"
             "assert not bad, bad\n")
