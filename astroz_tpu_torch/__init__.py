@@ -13,22 +13,32 @@ NVIDIA H100 (``csrc/``). The native runtime (``native/``: the bulk TLE
 parser on ``build_catalog``'s path, the telemetry frame scanner, the
 scalar engine and the C ABI), telemetry ingestion (``io``), and the
 host-side domain modules (``constants``, ``equatorial``, ``spice``,
-``fits``, ``mission``, ``config``, ``profiling``) are here too. Not here
-yet: multi-device and the numerical propagators (see ROADMAP.md). The
+``fits``, ``mission``, ``config``, ``profiling``) are here too, and so is
+the numerical stack: ``calculations`` (Kepler, element <-> state,
+transfers, TRIAD, quaternions, attitude), ``orbital_mechanics``,
+``propagators`` (force models, RK4 and DP8(7), ``propagate_fixed``,
+``Propagator``, ``propagate_numerical``), ``spacecraft`` and
+``montecarlo``, in plain torch on the card by default (no TPU kernel
+lies on that path). Not here yet: multi-device (see ROADMAP.md). The
 package imports torch and numpy, never JAX.
 """
 
 __version__ = "0.1.0"
 
 from . import api  # noqa: E402
+from . import calculations  # noqa: E402
 from . import config  # noqa: E402
 from . import constants  # noqa: E402
 from . import equatorial  # noqa: E402
 from . import fits  # noqa: E402
 from . import io  # noqa: E402
 from . import mission  # noqa: E402
+from . import montecarlo  # noqa: E402
 from . import native  # noqa: E402
+from . import orbital_mechanics  # noqa: E402
 from . import profiling  # noqa: E402
+from . import propagators  # noqa: E402
+from . import spacecraft  # noqa: E402
 from . import spice  # noqa: E402
 from .constellation import Constellation, screen  # noqa: E402
 from .propagation import (SatCatalog, build_catalog,  # noqa: E402
@@ -36,8 +46,10 @@ from .propagation import (SatCatalog, build_catalog,  # noqa: E402
                           propagate_tsince)
 from .screening import screen_all, screen_target  # noqa: E402
 
-__all__ = ["Constellation", "api", "config", "constants", "equatorial",
-           "fits", "io", "mission", "native", "profiling", "spice",
+__all__ = ["Constellation", "api", "calculations", "config", "constants",
+           "equatorial", "fits", "io", "mission", "montecarlo", "native",
+           "orbital_mechanics", "profiling", "propagators", "spacecraft",
+           "spice",
            "SatCatalog", "build_catalog", "catalog_from_elements",
            "propagate", "propagate_tsince", "screen", "screen_all",
            "screen_target", "__version__"]

@@ -18,6 +18,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .calculations import OrbitalElements
+from .config import DEFAULT_DTYPE
 from .ops.sdp4 import DeepElements, ResonanceCarry
 from .ops.sgp4 import Sgp4Elements
 
@@ -55,3 +57,12 @@ def carry_from_numpy(obj, device="cuda") -> ResonanceCarry:
     ``atime``, ``xli``, ``xni``, the JAX package's ``ResonanceCarry``
     among them) as f64 tensors on ``device``."""
     return _tensors(ResonanceCarry, obj, device)
+
+
+def orbital_elements_from_numpy(el, device="cuda") -> OrbitalElements:
+    """Classical elements of ``el`` (attributes or mapping keys named
+    like the :class:`OrbitalElements` fields, the JAX package's
+    ``OrbitalElements`` among them) as ``DEFAULT_DTYPE`` tensors on
+    ``device``."""
+    return OrbitalElements(*(x.to(DEFAULT_DTYPE)
+                             for x in _tensors(OrbitalElements, el, device)))

@@ -153,6 +153,10 @@ class SatCatalog:
         return int(self.host.no_kozai.shape[0])
 
     @property
+    def n_sats(self) -> int:
+        return len(self)
+
+    @property
     def is_deep(self) -> np.ndarray:
         return self.host.is_deep
 

@@ -149,3 +149,14 @@ def gstime(jdut1):
         return torch.where(temp < 0.0, temp + TWO_PI, temp)
     temp = np.remainder(temp * DEG2RAD / 240.0, TWO_PI)
     return np.where(temp < 0.0, temp + TWO_PI, temp)
+
+
+def gstime_scalar(jdut1: float) -> float:
+    """GMST in radians of one Julian date, in Python floats."""
+    tut1 = (jdut1 - 2451545.0) / 36525.0
+    temp = (-6.2e-6 * tut1 ** 3 + 0.093104 * tut1 ** 2
+            + (876600.0 * 3600.0 + 8640184.812866) * tut1 + 67310.54841)
+    temp = math.fmod(temp * DEG2RAD / 240.0, TWO_PI)
+    if temp < 0.0:
+        temp += TWO_PI
+    return temp

@@ -22,7 +22,7 @@ import numpy as np
 from . import native
 from .constants import DEG2RAD, TWO_PI
 from .time import (epoch_to_jd, iso8601_to_jd, jd_to_datetime_parts,
-                   month_day_to_doy)
+                   month_day_to_doy, tle_year)
 
 
 class TleError(ValueError):
@@ -103,6 +103,10 @@ class Tle:
     @property
     def epoch_jd(self) -> float:
         return self.jdsatepoch + self.jdsatepochF
+
+    @property
+    def epoch_year(self) -> int:
+        return tle_year(self.epochyr)
 
 
 def format_satnum(satnum: int) -> str:
@@ -233,6 +237,14 @@ def parse_lines(line1: str, line2: str, name: Optional[str] = None) -> Tle:
         ecco=ecco, argpo=argpo, mo=mo, no_kozai=no_kozai, revnum=revnum,
         jdsatepoch=jd, jdsatepochF=fr, name=name, line1=line1, line2=line2,
     )
+
+
+def parse(text: str) -> Tle:
+    """Parse a single TLE from free-form text (tolerates names/blank lines)."""
+    tles = list(iter_tles(text))
+    if not tles:
+        raise TleError("no TLE found in text")
+    return tles[0]
 
 
 def iter_tles(text: str) -> Iterator[Tle]:

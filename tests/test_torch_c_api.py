@@ -40,6 +40,7 @@ from astroz_tpu.time import gstime_scalar
 
 from astroz_tpu_torch import frames as pframes
 from astroz_tpu_torch import native as pnative
+from astroz_tpu_torch import time as ptime
 from astroz_tpu_torch import tle as ptle
 from astroz_tpu_torch.ops import scalar as sc
 
@@ -240,12 +241,17 @@ def test_coords_match_python(lib):
     lib.coords_ecef_to_geodetic(out, lla)
     ref_lla = np.asarray(ecef_to_geodetic_deg(np.array(list(out))))
     np.testing.assert_allclose(list(lla), ref_lla, rtol=0, atol=1e-6)
+    plla = pframes.ecef_to_geodetic_deg(torch.tensor(list(out),
+                                                     dtype=torch.float64))
+    np.testing.assert_allclose(list(lla), plla.numpy(), rtol=0, atol=1e-6)
 
     jd = 2460310.5
     # 1e-9 rad: the Python gstime reduces the polynomial in another
     # association order (7e-12 rad apart at J2024)
     assert lib.coords_julian_to_gmst(jd) == pytest.approx(
         float(gstime_scalar(jd)), abs=1e-9)
+    assert lib.coords_julian_to_gmst(jd) == pytest.approx(
+        ptime.gstime_scalar(jd), abs=1e-9)
     assert lib.coords_julian_to_gmst(jd) == sc.gstime(jd)
 
 

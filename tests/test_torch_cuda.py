@@ -720,3 +720,55 @@ def test_propagate_fn_vmap_on_cuda(cuda_device):
         for k in range(len(t)):
             rk, vk = fn(params, t[k])
             assert torch.equal(r[k], rk) and torch.equal(v[k], vk)
+
+
+def _circular_lanes(n, seed=0):
+    """``n`` states around a 550 km circular orbit: 1 km and 1 m/s of
+    numpy noise."""
+    from astroz_tpu_torch.constants import EARTH
+    r = EARTH.eq_radius + 550.0
+    vc = np.sqrt(EARTH.mu / r)
+    base = np.array([r, 0.0, 0.0, 0.0, vc * np.cos(0.9), vc * np.sin(0.9)])
+    noise = np.random.default_rng(seed).normal(
+        0.0, [1.0, 1.0, 1.0, 1e-3, 1e-3, 1e-3], (n, 6))
+    return base + noise
+
+
+@pytest.mark.cuda
+def test_propagate_fixed_on_cuda_matches_cpu(cuda_device):
+    """RK4 ``propagate_fixed`` of TwoBody + J2 + Drag over one orbit at
+    30 s on the card against the same call on the CPU: 1e-6 km; the
+    card's loop reads nothing back to the host."""
+    from astroz_tpu_torch.propagators import (Composite, Drag, J2, TwoBody,
+                                              propagate_fixed)
+    accel = Composite([TwoBody(), J2(), Drag()])
+    lanes = _circular_lanes(256)
+    state = torch.as_tensor(lanes, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t, card = propagate_fixed(accel, state, 0.0, 5400.0, 30.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_host, host = propagate_fixed(accel, lanes, 0.0, 5400.0, 30.0,
+                                   device="cpu")
+    assert card.device.type == "cuda" and card.dtype == torch.float64
+    assert card.shape == (181, 256, 6)
+    np.testing.assert_array_equal(t, t_host)
+    assert float((card.cpu() - host)[..., :3].abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_dp87_adaptive_on_cuda_matches_cpu(cuda_device):
+    """One adaptive DP8(7) call of TwoBody + J2 over 3 h on the card
+    against the CPU: the same substep count, 1e-6 km."""
+    from astroz_tpu_torch.propagators import (Composite, J2, TwoBody,
+                                              dp87_adaptive, make_deriv)
+    deriv = make_deriv(Composite([TwoBody(), J2()]))
+    state = _circular_lanes(1)[0]
+    card, h, n = dp87_adaptive(deriv, state, 0.0, 10800.0, rtol=1e-10)
+    host, h_host, n_host = dp87_adaptive(deriv, state, 0.0, 10800.0,
+                                         rtol=1e-10, device="cpu")
+    assert card.device.type == "cuda" and card.dtype == torch.float64
+    assert n == n_host > 10
+    assert float((card.cpu() - host)[:3].abs().max()) <= 1e-6

@@ -12,6 +12,7 @@ near-earth satellites) is shared with the other ``test_torch_*`` files.
 """
 
 import dataclasses
+import inspect
 import json
 
 import numpy as np
@@ -168,3 +169,88 @@ def test_sgp4_init_np_matches_jax(grav):
         _assert_bit_equal(getattr(j, f), getattr(p, f), f)
     assert p.is_deep[:-2].sum() == 3 and set(p.error.tolist()) == {0, 1, 2}
     assert p.isimp[2] and not p.isimp[3]  # SYN-0 is the low-perigee lane
+
+
+def test_frame_leftovers_match_jax():
+    """ecef_to_teme, teme_to_ecef_at_jd, geodetic_to_ecef within 1e-9
+    km and ecef_to_geodetic_deg within 1e-12 deg (1e-9 km in altitude);
+    a float or numpy GMST / Julian date follows the position tensor."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(12)
+    r = rng.normal(0.0, 7000.0, (64, 3))
+    g = rng.uniform(0.0, 2 * np.pi, 64)
+    jd = 2460310.5 + rng.uniform(-10.0, 10.0, 64)
+    rt = torch.from_numpy(r)
+    np.testing.assert_allclose(
+        pframes.ecef_to_teme(rt, g).numpy(),
+        np.asarray(jframes.ecef_to_teme(jnp.asarray(r), jnp.asarray(g))),
+        rtol=0, atol=1e-9)
+    np.testing.assert_allclose(
+        pframes.ecef_to_teme(rt, 1.25).numpy(),
+        np.asarray(jframes.ecef_to_teme(jnp.asarray(r), 1.25)),
+        rtol=0, atol=1e-9)
+    np.testing.assert_allclose(
+        pframes.teme_to_ecef_at_jd(rt, jd).numpy(),
+        np.asarray(jframes.teme_to_ecef_at_jd(jnp.asarray(r),
+                                              jnp.asarray(jd))),
+        rtol=0, atol=1e-9)
+    lla_p = pframes.ecef_to_geodetic_deg(rt).numpy()
+    lla_j = np.asarray(jframes.ecef_to_geodetic_deg(jnp.asarray(r)))
+    np.testing.assert_allclose(lla_p[:, :2], lla_j[:, :2], rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(lla_p[:, 2], lla_j[:, 2], rtol=0, atol=1e-9)
+    lat = rng.uniform(-1.5, 1.5, 64)
+    lon = rng.uniform(-np.pi, np.pi, 64)
+    alt = rng.uniform(0.0, 2000.0, 64)
+    ep = pframes.geodetic_to_ecef(lat, lon, alt, device="cpu")
+    assert ep.dtype == torch.float64
+    np.testing.assert_allclose(
+        ep.numpy(), np.asarray(jframes.geodetic_to_ecef(
+            jnp.asarray(lat), jnp.asarray(lon), jnp.asarray(alt))),
+        rtol=0, atol=1e-9)
+
+
+def test_gstime_scalar_matches_jax():
+    for jd in (2451545.0, 2460310.5, 2460437.3285, 2299160.7, 2400000.5):
+        assert ptime.gstime_scalar(jd) == jtime.gstime_scalar(jd)
+
+
+def test_tle_parse_and_epoch_year_match_jax():
+    for text in (f"ISS (ZARYA)\n{ISS_L1}\n{ISS_L2}",
+                 f"\n\n{GEO_L1}\n{GEO_L2}\n", DEEP_TEXT):
+        p, j = ptle.parse(text), jtle.parse(text)
+        assert dataclasses.asdict(p) == dataclasses.asdict(j)
+        assert p.epoch_year == j.epoch_year
+    for t in ptle.iter_tles(LEO_TEXT):
+        assert t.epoch_year == jtle.tle_year(t.epochyr)
+    with pytest.raises(ptle.TleError, match="no TLE"):
+        ptle.parse("no lines here")
+
+
+def test_sat_catalog_n_sats_matches_jax():
+    from astroz_tpu.propagation import build_catalog as j_build
+    from astroz_tpu_torch.propagation import build_catalog as p_build
+
+    text = LEO_TEXT + "\n" + DEEP_TEXT
+    assert p_build(text, device="cpu").n_sats == j_build(text).n_sats \
+        == 64 + 2 + 3
+
+
+def test_ops_exports_are_the_ports_functions():
+    """The ``ops`` names of the JAX package are the port's own
+    functions, not copies or JAX's."""
+    import astroz_tpu.ops as jops
+    import astroz_tpu_torch.ops as pops
+    from astroz_tpu_torch.ops import fast, fastmath, sgp4
+
+    assert set(jops.__all__) <= set(pops.__all__)
+    assert pops.solve_kepler is sgp4.solve_kepler
+    assert pops.kepler_and_posvel is sgp4.kepler_and_posvel
+    assert pops.update_secular is sgp4.update_secular
+    assert pops.solve_kepler_fast is fast.solve_kepler_fast
+    assert pops.fastmath is fastmath
+    for name in pops.__all__:
+        obj = getattr(pops, name)
+        owner = obj.__name__ if inspect.ismodule(obj) else obj.__module__
+        assert owner.startswith("astroz_tpu_torch."), name

@@ -240,7 +240,11 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, astroz_tpu_torch, astroz_tpu_torch.convert; "
+    code = ("import sys, astroz_tpu_torch, astroz_tpu_torch.convert, "
+            "astroz_tpu_torch.calculations, "
+            "astroz_tpu_torch.orbital_mechanics, "
+            "astroz_tpu_torch.propagators, astroz_tpu_torch.spacecraft, "
+            "astroz_tpu_torch.montecarlo; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'astroz_tpu')); "
             "assert not bad, bad")
