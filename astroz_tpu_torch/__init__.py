@@ -19,8 +19,10 @@ transfers, TRIAD, quaternions, attitude), ``orbital_mechanics``,
 ``propagators`` (force models, RK4 and DP8(7), ``propagate_fixed``,
 ``Propagator``, ``propagate_numerical``), ``spacecraft`` and
 ``montecarlo``, in plain torch on the card by default (no TPU kernel
-lies on that path). Not here yet: multi-device (see ROADMAP.md). The
-package imports torch and numpy, never JAX.
+lies on that path), and multi-device: ``parallel`` (a mesh of devices
+driven from one process, sharded propagation) with the mesh screens
+``screen_all(mesh=)`` and ``screen_all_ring``. The package
+imports torch and numpy, never JAX.
 """
 
 __version__ = "0.1.0"
@@ -36,6 +38,7 @@ from . import mission  # noqa: E402
 from . import montecarlo  # noqa: E402
 from . import native  # noqa: E402
 from . import orbital_mechanics  # noqa: E402
+from . import parallel  # noqa: E402
 from . import profiling  # noqa: E402
 from . import propagators  # noqa: E402
 from . import spacecraft  # noqa: E402
@@ -44,12 +47,13 @@ from .constellation import Constellation, screen  # noqa: E402
 from .propagation import (SatCatalog, build_catalog,  # noqa: E402
                           catalog_from_elements, propagate,
                           propagate_tsince)
-from .screening import screen_all, screen_target  # noqa: E402
+from .screening import (screen_all, screen_all_ring,  # noqa: E402
+                        screen_target)
 
 __all__ = ["Constellation", "api", "calculations", "config", "constants",
            "equatorial", "fits", "io", "mission", "montecarlo", "native",
-           "orbital_mechanics", "profiling", "propagators", "spacecraft",
-           "spice",
+           "orbital_mechanics", "parallel", "profiling", "propagators",
+           "spacecraft", "spice",
            "SatCatalog", "build_catalog", "catalog_from_elements",
            "propagate", "propagate_tsince", "screen", "screen_all",
-           "screen_target", "__version__"]
+           "screen_all_ring", "screen_target", "__version__"]

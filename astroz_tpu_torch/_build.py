@@ -72,6 +72,9 @@ SIGNATURES = {
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
     # r, n_times, n_sats, thr2, cap, out_ij, count, stream
     "astroz_screen_candidates": (_I, [_P, _I, _I, _F, _L, _P, _P, _P]),
+    # rows, n_times, n_rows, cols, n_cols, thr2, cap, out_ij, count, stream
+    "astroz_screen_candidates_rect": (_I, [_P, _I, _I, _P, _I, _F, _L, _P,
+                                           _P, _P]),
 }
 
 

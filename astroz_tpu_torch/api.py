@@ -27,10 +27,12 @@ python-sgp4 returns them.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._C import _functorch
 
 from . import native
 from . import tle as _tle
@@ -574,6 +576,16 @@ class SatrecArray:
 # ---------------------------------------------------------------------------
 
 
+def _resonance_steps_under_transform(t) -> int:
+    """``ceil(max |t| / 720)`` of the values under a tensor's
+    ``torch.func`` wrappers (every batch of ``vmap``, the primal of
+    ``grad`` / ``jacrev``): the resonance steps that bring every point
+    within a step of its time."""
+    while _functorch.is_functorch_wrapped_tensor(t):
+        t = _functorch.get_unwrapped(t)
+    return int(math.ceil(float(t.abs().max()) / 720.0)) if t.numel() else 0
+
+
 def create_sgp4_propagator(line1: str, line2: str, gravity=WGS72, *,
                            device="cuda"):
     """astrojax-style functional API: returns ``(params, propagate_fn)``
@@ -581,12 +593,14 @@ def create_sgp4_propagator(line1: str, line2: str, gravity=WGS72, *,
     minutes since epoch (any shape) to ``(r_km, v_km_s)`` stacked on the
     trailing axis, f64 tensors on the params' device.
 
-    ``propagate_fn`` is a plain torch function: on a near-earth TLE it
-    runs under ``torch.func.vmap``, ``jacrev`` and ``grad``. A deep-space
-    TLE's resonance integration loops on the host until every lane is
-    within a step of its time, which no ``torch.func`` transform can
-    trace; pass ``max_steps`` (at least ``ceil(max |tsince| / 720)``)
-    to run exactly that many masked steps instead.
+    ``propagate_fn`` is a plain torch function that runs under
+    ``torch.func.vmap``, ``jacrev`` and ``grad``. A deep-space TLE's
+    resonance integration loops on the host until every lane is within a
+    step of its time, which no ``torch.func`` transform can trace: inside
+    one, with ``max_steps`` None, the function reads the tensor under the
+    transforms' wrappers and runs ``ceil(max |tsince| / 720)`` masked
+    steps, which give the loop's bits. ``max_steps`` (at least that
+    count) sets the steps outright.
     """
     grav = _resolve_grav(gravity)
     cat = build_catalog("\n".join([line1.rstrip(), line2.rstrip()]),
@@ -599,6 +613,8 @@ def create_sgp4_propagator(line1: str, line2: str, gravity=WGS72, *,
         t = torch.as_tensor(tsince, dtype=torch.float64,
                             device=els.no_kozai.device)[..., None]
         if deep is not None:
+            if max_steps is None and _functorch.is_functorch_wrapped_tensor(t):
+                max_steps = _resonance_steps_under_transform(t)
             r, v, _, _ = sdp4_propagate(els, deep, t, grav,
                                         max_steps=max_steps)
         else:

@@ -12,7 +12,7 @@
 // ops/cuda_screen.py (coarse_min_chunk_reference emulates the FMA by
 // rounding to odd in f64); kernel and plain version agree bit for bit.
 //
-// One kernel body, two exported modes:
+// One kernel body, three exported modes:
 //  * matrix mode (astroz_screen_coarse): the (N, width) f32 matrix of the
 //    column chunk [j0, j0 + width), +inf at and below the diagonal. A tile
 //    with no pair j > i writes +inf and skips its time loop.
@@ -23,6 +23,13 @@
 //    hits, one warp-wide prefix sum and one atomicAdd on a 64-bit counter
 //    that counts every hit, even past the room given. The matrix is never
 //    written.
+//  * rectangle mode (astroz_screen_candidates_rect): the candidate epilogue
+//    over every pair of one block's rows (row planes, (3, T, N_r)) with
+//    another block's columns (column planes, (3, T, N_c)), no j > i cut, on
+//    a full grid of tiles. It is a tile of the ring screen
+//    (screening.screen_all_ring), which has no TPU kernel of its own: the
+//    JAX package's ring pass is an XLA Gram expansion. Its bound is the
+//    same 9 f32 operations a pair-time over all N_r x N_c pairs.
 //
 // Bound. At 13,478 satellites x 240 epochs the strict upper triangle holds
 // 2.18e10 pair-times. Counted as 9 f32 operations each (3 subtracts, 3
@@ -70,6 +77,8 @@ constexpr int STAGE = 2 * 3 * TCHUNK * TILE;
 constexpr size_t SMEM_BYTES = 2 * STAGE * sizeof(float);  // two stages
 static_assert(THREADS == 2 * TILE, "one staging thread per satellite side");
 
+enum Mode { MATRIX, TRIANGLE, RECT };
+
 // min that returns NaN when either argument is NaN (torch.minimum);
 // fminf would drop it
 __device__ __forceinline__ float min_nan(float a, float b) {
@@ -100,6 +109,15 @@ __device__ __forceinline__ int micro_offset(int t, int a) {
   return (a < 4 ? 0 : HALF - 4) + 4 * t + a;
 }
 
+// a candidate pair of the mode: j > i in the triangle, any (i, j) inside
+// both blocks in the rectangle
+template <int MODE>
+__device__ __forceinline__ bool in_pairs(int gi, int gj, int n_sats,
+                                         int n_cols) {
+  return MODE == RECT ? (gi < n_sats && gj < n_cols)
+                      : (gj < n_sats && gj > gi);
+}
+
 // first linear index of row ti of the upper triangle (ti <= tj) of a
 // tiles x tiles grid
 __device__ __forceinline__ long long tri_row_start(long long ti,
@@ -108,7 +126,8 @@ __device__ __forceinline__ long long tri_row_start(long long ti,
 }
 
 // Stage epochs t0 .. t0 + TCHUNK - 1 of one satellite (column g of the
-// planes, on side `side`) into stage buffer `buf`.
+// planes r, whose rows hold ns satellites, on side `side`) into stage
+// buffer `buf`.
 __device__ __forceinline__ void stage_chunk(float* buf, const float* r,
                                             size_t plane, size_t ns,
                                             int side, int s, int g,
@@ -127,12 +146,16 @@ __device__ __forceinline__ void stage_chunk(float* buf, const float* r,
   }
 }
 
-template <bool CANDIDATES>
+// Rows i come from the planes r (n_sats satellites), columns j from the
+// planes rc (n_cols satellites); rc is r in the MATRIX and TRIANGLE modes.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
-                     int j0, int width, float* __restrict__ out, float thr2,
+                     const float* __restrict__ rc, int n_cols, int j0,
+                     int width, float* __restrict__ out, float thr2,
                      long long cap, int* __restrict__ out_ij,
                      unsigned long long* __restrict__ count) {
+  constexpr bool CANDIDATES = MODE != MATRIX;
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x;
@@ -141,7 +164,11 @@ screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
   // the tile: rows [i_base, i_base + TILE), global columns [j_base, ...),
   // valid below j_end
   int i_base, j_base, j_end;
-  if (CANDIDATES) {
+  if (MODE == RECT) {
+    i_base = blockIdx.y * TILE;
+    j_base = blockIdx.x * TILE;
+    j_end = n_cols;
+  } else if (MODE == TRIANGLE) {
     const long long tiles = (n_sats + TILE - 1) / TILE;
     const long long lin = blockIdx.x;
     const double b = 2.0 * (double)tiles + 1.0;
@@ -166,24 +193,28 @@ screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
     for (int b = 0; b < MICRO; ++b) m[a][b] = __int_as_float(0x7f800000);
 
   // the tile's largest column against its smallest row: no pair j > i in
-  // it, so it keeps +inf
-  const bool any_pair = min(j_base + TILE, j_end) - 1 > i_base;
+  // it, so it keeps +inf (a rectangle tile pairs all its rows and columns)
+  const bool any_pair =
+      MODE == RECT || min(j_base + TILE, j_end) - 1 > i_base;
   if (CANDIDATES && !any_pair) return;
   if (any_pair && n_times > 0) {
-    const size_t ns = (size_t)n_sats;
-    const size_t plane = (size_t)n_times * ns;
-    // staging role: one satellite of one side
+    // staging role: one satellite of one side, from that side's planes
+    // (the same planes for both sides but in the rectangle mode)
     const int side = tid / TILE, s = tid % TILE;
+    const bool col_side = MODE == RECT && side != 0;
+    const float* src = col_side ? rc : r;
+    const size_t ns = (size_t)(col_side ? n_cols : n_sats);
+    const size_t plane = (size_t)n_times * ns;
     const int g = (side == 0 ? i_base : j_base) + s;
     const bool g_ok = g < (side == 0 ? n_sats : j_end);
     const int n_chunks = (n_times + TCHUNK - 1) / TCHUNK;
 
-    stage_chunk(smem, r, plane, ns, side, s, g, g_ok, 0, n_times);
+    stage_chunk(smem, src, plane, ns, side, s, g, g_ok, 0, n_times);
     cp_async_commit();
     for (int c = 0; c < n_chunks; ++c) {
       const int t0 = c * TCHUNK;
       if (c + 1 < n_chunks) {
-        stage_chunk(smem + ((c + 1) & 1) * STAGE, r, plane, ns, side, s, g,
+        stage_chunk(smem + ((c + 1) & 1) * STAGE, src, plane, ns, side, s, g,
                     g_ok, t0 + TCHUNK, n_times);
         cp_async_commit();
         cp_async_wait<1>();
@@ -245,7 +276,8 @@ screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
     return;
   }
 
-  // candidate epilogue: gj > gi and gj < n_sats imply gi < n_sats
+  // candidate epilogue; in the triangle gj > gi and gj < n_sats imply
+  // gi < n_sats
   int n_hit = 0;
 #pragma unroll
   for (int a = 0; a < MICRO; ++a) {
@@ -253,7 +285,8 @@ screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
 #pragma unroll
     for (int b = 0; b < MICRO; ++b) {
       const int gj = j_base + micro_offset(tx, b);
-      n_hit += (gj < n_sats && gj > gi && m[a][b] <= thr2) ? 1 : 0;
+      n_hit += (in_pairs<MODE>(gi, gj, n_sats, n_cols) && m[a][b] <= thr2)
+                   ? 1 : 0;
     }
   }
   const unsigned full = 0xffffffffu;
@@ -276,7 +309,7 @@ screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
 #pragma unroll
     for (int b = 0; b < MICRO; ++b) {
       const int gj = j_base + micro_offset(tx, b);
-      if (gj < n_sats && gj > gi && m[a][b] <= thr2) {
+      if (in_pairs<MODE>(gi, gj, n_sats, n_cols) && m[a][b] <= thr2) {
         if (k < room) {
           out_ij[2 * k] = gi;
           out_ij[2 * k + 1] = gj;
@@ -287,9 +320,9 @@ screen_coarse_kernel(const float* __restrict__ r, int n_times, int n_sats,
   }
 }
 
-template <bool CANDIDATES>
+template <int MODE>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(screen_coarse_kernel<CANDIDATES>,
+  return cudaFuncSetAttribute(screen_coarse_kernel<MODE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)SMEM_BYTES);
 }
@@ -307,12 +340,13 @@ extern "C" int astroz_screen_coarse(const float* r, int n_times, int n_sats,
                                     int j0, int width, float* out,
                                     void* stream) {
   if (n_sats <= 0 || width <= 0) return 0;
-  cudaError_t err = allow_smem<false>();
+  cudaError_t err = allow_smem<MATRIX>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((width + TILE - 1) / TILE, (n_sats + TILE - 1) / TILE);
-  screen_coarse_kernel<false>
+  screen_coarse_kernel<MATRIX>
       <<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-          r, n_times, n_sats, j0, width, out, 0.0f, 0, nullptr, nullptr);
+          r, n_times, n_sats, r, n_sats, j0, width, out, 0.0f, 0, nullptr,
+          nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,15 +360,38 @@ extern "C" int astroz_screen_candidates(const float* r, int n_times,
                                         unsigned long long* count,
                                         void* stream) {
   if (n_sats <= 0) return 0;
-  cudaError_t err = allow_smem<true>();
+  cudaError_t err = allow_smem<TRIANGLE>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (n_sats + TILE - 1) / TILE;
   const long long blocks = tiles * (tiles + 1) / 2;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  screen_coarse_kernel<true>
+  screen_coarse_kernel<TRIANGLE>
       <<<(unsigned)blocks, THREADS, SMEM_BYTES,
-         static_cast<cudaStream_t>(stream)>>>(r, n_times, n_sats, 0, n_sats,
-                                              nullptr, thr2, cap, out_ij,
-                                              count);
+         static_cast<cudaStream_t>(stream)>>>(r, n_times, n_sats, r, n_sats,
+                                              0, n_sats, nullptr, thr2, cap,
+                                              out_ij, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rectangle mode. rows: (3, T, n_rows) and cols: (3, T, n_cols) f32
+// position planes; out_ij: (cap, 2) int32 (i, j) pairs of a row and a
+// column index, in no order; count as in candidate mode, for every pair
+// with minimum <= thr2.
+extern "C" int astroz_screen_candidates_rect(const float* rows, int n_times,
+                                             int n_rows, const float* cols,
+                                             int n_cols, float thr2,
+                                             long long cap, int* out_ij,
+                                             unsigned long long* count,
+                                             void* stream) {
+  if (n_rows <= 0 || n_cols <= 0) return 0;
+  const long long tiles_r = (n_rows + TILE - 1) / TILE;
+  if (tiles_r > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem<RECT>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_cols + TILE - 1) / TILE, (unsigned)tiles_r);
+  screen_coarse_kernel<RECT>
+      <<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+          rows, n_times, n_rows, cols, n_cols, 0, n_cols, nullptr, thr2, cap,
+          out_ij, count);
   return static_cast<int>(cudaGetLastError());
 }

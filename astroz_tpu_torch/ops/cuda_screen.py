@@ -7,7 +7,7 @@ TEME position planes of a catalog it takes, for every pair ``j > i``, the
 minimum over time of the squared direct-difference distance, computed as
 the card's fused multiply-adds ``fma(dz, dz, fma(dx, dx, dy*dy))`` (the
 contraction XLA:CPU gives the TPU kernel's ``dx*dx + dy*dy + dz*dz``),
-with a min that keeps NaN. Its two modes share one kernel body
+with a min that keeps NaN. Its modes share one kernel body
 (``csrc/screen_coarse.cu``, whose source note says what bounds it on
 Hopper and what the design does about that):
 
@@ -18,11 +18,17 @@ Hopper and what the design does about that):
 * candidate mode, :func:`coarse_candidates`: only the pairs whose minimum
   is at most a threshold, as (i, j) index tensors sorted by (i, j); the
   matrix is never written. This is what ``screening.screen_all`` runs.
+* rectangle mode, :func:`coarse_candidates_rect`: the candidate pairs of
+  one block of satellites (rows) against another (columns), every pair,
+  as (row, column) index tensors sorted by (row, column): a tile of
+  ``screening.screen_all_ring``.
 
 On a CUDA tensor each wrapper launches the kernel or raises, and adds one
 to :data:`LAUNCHES` per launch. On a CPU tensor it runs its plain torch
 version (:func:`coarse_min_chunk_reference`,
-:func:`coarse_candidates_reference`), which gives the kernel's bits.
+:func:`coarse_candidates_reference`,
+:func:`coarse_candidates_rect_reference`), which gives the kernel's
+bits.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import torch
 from .. import _build
 
 #: kernel launches so far in this process, by mode; each launch adds one
-LAUNCHES = {"screen_coarse": 0, "screen_candidates": 0}
+LAUNCHES = {"screen_coarse": 0, "screen_candidates": 0,
+            "screen_candidates_rect": 0}
 
 #: default room for candidates of :func:`coarse_candidates` (8 MiB of
 #: int32 pairs); a screen with more launches once more with room for all
@@ -103,16 +110,18 @@ def fma_f32(a, b, c):
                        s).float()
 
 
-def _block_min(r_planes, n_rows: int, cols: slice):
-    """min over time of ``fma(dz, dz, fma(dx, dx, dy*dy))`` of the rows
-    ``[0, n_rows)`` against the columns ``cols``, (n_rows, width) f32."""
-    x, y, z = r_planes
-    d = torch.full((n_rows, cols.stop - cols.start), math.inf,
-                   dtype=torch.float32, device=r_planes.device)
-    for t in range(r_planes.shape[1]):
-        dx = x[t, :n_rows, None] - x[t, None, cols]
-        dy = y[t, :n_rows, None] - y[t, None, cols]
-        dz = z[t, :n_rows, None] - z[t, None, cols]
+def _block_min(rows, cols):
+    """min over time of ``fma(dz, dz, fma(dx, dx, dy*dy))`` of every
+    satellite of the (3, T, R) planes ``rows`` against every one of the
+    (3, T, C) planes ``cols``, (R, C) f32."""
+    x, y, z = rows
+    xc, yc, zc = cols
+    d = torch.full((rows.shape[2], cols.shape[2]), math.inf,
+                   dtype=torch.float32, device=rows.device)
+    for t in range(rows.shape[1]):
+        dx = x[t, :, None] - xc[t, None, :]
+        dy = y[t, :, None] - yc[t, None, :]
+        dz = z[t, :, None] - zc[t, None, :]
         torch.minimum(d, fma_f32(dz, dz, fma_f32(dx, dx, dy.mul_(dy))),
                       out=d)
     return d
@@ -140,8 +149,8 @@ def coarse_min_chunk_reference(r_planes, j0: int, width: int, *,
     for c0 in range(0, width, step):
         c1 = min(width, c0 + step)
         n_rows = max(0, min(n_sats, j0 + c1 - 1))
-        dmin[:n_rows, c0:c1] = _block_min(r_planes, n_rows,
-                                          slice(j0 + c0, j0 + c1))
+        dmin[:n_rows, c0:c1] = _block_min(r_planes[:, :, :n_rows],
+                                          r_planes[:, :, j0 + c0:j0 + c1])
     rows = torch.arange(n_sats, device=dev)[:, None]
     cols_j = torch.arange(j0, j0 + width, device=dev)[None, :]
     return dmin.masked_fill_(cols_j <= rows, math.inf)
@@ -278,3 +287,90 @@ def coarse_candidates(r_planes, thr2: float, *, cap: int = CANDIDATE_CAP):
         pairs = _launch_candidates(r_planes, thr2, hits, count)
     pairs = pairs[:hits]
     return _sorted_pairs(pairs[:, 0], pairs[:, 1], n_sats)
+
+
+def _check_rect(rows, cols):
+    n_times, _ = _check_planes(rows)
+    if _check_planes(cols)[0] != n_times or cols.device != rows.device:
+        raise ValueError(f"rows and cols must hold the same epochs on one "
+                         f"device, got {tuple(rows.shape)} on {rows.device} "
+                         f"and {tuple(cols.shape)} on {cols.device}")
+    return n_times, rows.shape[2], cols.shape[2]
+
+
+def coarse_candidates_rect_reference(rows, cols, thr2: float, *,
+                                     work_bytes: Optional[int] = None):
+    """Plain torch version of K4's rectangle mode, on any device: the same
+    arguments and returns as :func:`coarse_candidates_rect`, pair for
+    pair. The columns go in blocks whose temporaries
+    (:data:`PLAIN_BYTES_PER_ENTRY` an entry) stay under ``work_bytes`` (by
+    default the device's :data:`PLAIN_WORK_BYTES`)."""
+    _, n_rows, n_cols = _check_rect(rows, cols)
+    if work_bytes is None:
+        work_bytes = PLAIN_WORK_BYTES.get(rows.device.type,
+                                          PLAIN_WORK_BYTES["cuda"])
+    step = max(1, work_bytes // (PLAIN_BYTES_PER_ENTRY * max(1, n_rows)))
+    found_i, found_j = [], []
+    for c0 in range(0, n_cols, step):
+        dmin = _block_min(rows, cols[:, :, c0:c0 + step])
+        ii, jj = torch.nonzero(dmin <= thr2, as_tuple=True)
+        found_i.append(ii)
+        found_j.append(jj + c0)
+    empty = torch.empty(0, dtype=torch.int64, device=rows.device)
+    return _sorted_pairs(torch.cat(found_i + [empty]),
+                         torch.cat(found_j + [empty]), n_cols)
+
+
+def _launch_rect(rows, cols, thr2: float, cap: int, count):
+    """One rectangle-mode launch into a new (cap, 2) int32 buffer; the
+    kernel adds every hit to ``count``, even past ``cap``."""
+    dev = rows.device
+    pairs = torch.empty((max(cap, 1), 2), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_screen_candidates_rect(
+            rows.data_ptr(), rows.shape[1], rows.shape[2], cols.data_ptr(),
+            cols.shape[2], ctypes.c_float(thr2), cap, pairs.data_ptr(),
+            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"screen_candidates_rect kernel launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES["screen_candidates_rect"] += 1
+    return pairs
+
+
+def coarse_candidates_rect(rows, cols, thr2: float, *,
+                           cap: int = CANDIDATE_CAP):
+    """K4, rectangle mode: every pair of a satellite of ``rows`` and a
+    satellite of ``cols`` whose min-over-time squared distance (the
+    chain of :func:`coarse_min_chunk`, row minus column) is at most
+    ``thr2``; a NaN minimum never passes. No pair is left out for its
+    order: the two blocks are different satellites.
+
+    Args:
+      rows, cols: (3, T, R) and (3, T, C) f32 TEME position planes, km,
+        contiguous, of the same epochs on one device (failed lanes already
+        parked by the caller).
+      thr2: the threshold on the squared distance, km^2 (an f32 value).
+      cap: room for candidates in the first launch; one count fetch
+        follows it, and a second launch with room for all where the count
+        is larger.
+
+    Returns (i, j) int64 tensors on the planes' device, i a row index and
+    j a column index, sorted by (i, j).
+    """
+    _, n_rows, n_cols = _check_rect(rows, cols)
+    dev = _device(rows, "coarse_candidates_rect")
+    if dev.type == "cpu":
+        return coarse_candidates_rect_reference(rows, cols, thr2)
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    if n_rows == 0 or n_cols == 0:
+        return empty, empty
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    pairs = _launch_rect(rows, cols, thr2, cap, count)
+    hits = int(count.item())
+    if hits > cap:
+        count.zero_()
+        pairs = _launch_rect(rows, cols, thr2, hits, count)
+    pairs = pairs[:hits]
+    return _sorted_pairs(pairs[:, 0], pairs[:, 1], n_cols)

@@ -121,7 +121,9 @@ class SatCatalog:
     same fields as tensors on ``device``, moved there once. A catalog
     with deep lanes also keeps their SDP4 coefficients (``deep_host``,
     numpy, every lane; ``deep``, the same on the device, moved at first
-    use by the f64 path) and the static deep partition: ``deep_idx``
+    use by the f64 path, which takes SDP4 on every lane of a catalog
+    that has them: a shard of a mixed catalog keeps them even where it
+    holds no deep lane) and the static deep partition: ``deep_idx``
     (the deep columns, in K2's slot order, :func:`deep_slots`) and the
     deep subset's elements and coefficients in that order on the device
     (``els_deep``, ``deep_sub``); these are None otherwise."""
@@ -135,10 +137,9 @@ class SatCatalog:
         self.device = _device(device)
         self.host = Sgp4Elements(*(_to_numpy(x) for x in els))
         self.els = _on(self.device, self.host)
-        if (deep is None) == bool(self.host.is_deep.any()):
+        if deep is None and bool(self.host.is_deep.any()):
             raise ValueError("deep must hold the SDP4 coefficients "
-                             "(ops.sdp4.sdp4_init_np) exactly when a lane "
-                             "is deep")
+                             "(ops.sdp4.sdp4_init_np) when a lane is deep")
         self.deep_host = deep
         self.deep_idx = self.els_deep = self.deep_sub = None
         if deep is not None:
@@ -501,7 +502,7 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
     # runs at the magnitude of epoch differences (days), not of a JD
     tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
               + fr[:, None]) * MINUTES_PER_DAY
-    if not cat.has_deep:
+    if cat.deep is None:
         r, v, err = sgp4_propagate(cat.els, tsince, cat.grav)
     elif scan_times:
         # one time row after the other, each resuming the resonance
@@ -525,9 +526,25 @@ def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
                     velocities: bool, layout: str):
     """The fast branch of :func:`propagate`: the kernels over the
     separable grid."""
-    t_time = torch.as_tensor(
-        ((jd_h - cat.epoch_min_jd) + fr_h) * MINUTES_PER_DAY,
-        dtype=torch.float64, device=cat.device)
+    t_time = _t_time(cat.epoch_min_jd, jd_h, fr_h, cat.device)
+    steps = (resonance_steps(jd_h + fr_h, cat.deep_epochs_jd)
+             if cat.has_deep else 0)
+    r3, v3, err = _fast_planes(cat, t_time, steps, velocities)
+    return _finalize_planes(r3, v3, err, jd_sum, output, velocities,
+                            layout)
+
+
+def _t_time(epoch_min_jd: float, jd_h, fr_h, device) -> torch.Tensor:
+    """The fast path's time factor: minutes of the epochs ``jd_h + fr_h``
+    from a catalog's earliest epoch, f64 on ``device``."""
+    return torch.as_tensor(((jd_h - epoch_min_jd) + fr_h) * MINUTES_PER_DAY,
+                           dtype=torch.float64, device=device)
+
+
+def _fast_planes(cat: SatCatalog, t_time, steps: int, velocities: bool):
+    """The kernels of the fast path over ``t_time`` (minutes from the
+    catalog's ``epoch_min_jd``), resonance tables at depth ``steps``:
+    (3, T, S) planes r, v (None without velocities) and (T, S) codes."""
     st = cat.fast_staging
     if st.deep is None:
         r3, v3, err = propagate_fast_sep(
@@ -535,7 +552,6 @@ def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
             kepler_iters=cat.kepler_iters, want_vel=velocities)
     else:
         ds = st.deep
-        steps = resonance_steps(jd_h + fr_h, cat.deep_epochs_jd)
         d_r3, d_v3, d_err = propagate_deep_sep(
             t_time, ds.t_sat, ds.spine, ds.tail, ds.flags,
             cat.resonance_tables(steps), grav=cat.grav,
@@ -547,8 +563,7 @@ def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
             t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, d_r3,
             d_v3, d_err, grav=cat.grav, kepler_iters=cat.kepler_iters,
             want_vel=velocities, maps=ds.maps)
-    return _finalize_planes(r3, v3, err, jd_sum, output, velocities,
-                            layout)
+    return r3, v3, err
 
 
 def propagate_tsince(cat: SatCatalog, tsince_min, *,

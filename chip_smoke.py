@@ -191,14 +191,34 @@ Phases (any failure exits non-zero; nothing is caught):
    burn (the orbit raised by over 100 km, the plane turned by the
    commanded 5 deg within 0.5, the inclination moved; card within 1e-5
    km of the host) and 10,000 ``propagate_attitude`` steps (card within
-   1e-12 of the host).
+   1e-12 of the host);
+11. the multi-device paths (``astroz_tpu_torch.parallel``, run after
+   phase 9) on a mesh of every visible card, or of one card repeated
+   MESH_SHARDS times (printed): (a) ``propagate_sharded_fast`` of the
+   mixed 13,478 x 1,440 catalog over ``sat`` 4 and over ``time 2 x sat
+   2`` bit-equal to ``propagate(method="fast")`` (r, v and codes, escape
+   lanes included) as time-major, sat-major, planes, without velocities
+   and in ECEF, each shard launching K2 and K3 once (K1 on a shard
+   without deep lanes); (b) ``propagate_sharded`` (f64) at 13,478 x 240
+   bit-equal to the f64 ``propagate``; (c) ``screen_all(mesh=)`` and (d)
+   ``screen_all_ring`` equal to ``screen_all`` (pairs, distances,
+   epochs) on phase 6's shell and phase 6b's mixed catalog, the ring
+   also on 2,000 shell lanes with two failed lanes at local column 0 of
+   two shards (no pair with them); (e) K4's rectangle mode pair for pair
+   against its plain version on ragged 1,003 x 777 blocks with a NaN,
+   once through its overflow path, and on one ring tile of the shell;
+   (f) times with CUDA events, in turns: the staged sharded sweep
+   against the single-device sweep, both mesh screens against
+   ``screen_all``, and the rectangle mode against its plain version,
+   with its bound.
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (with each one's bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type; ``ms`` is the kernel launched back to back through
 its wrapper, ``device_ms`` the same calls replayed from a CUDA graph,
-null for K4, whose candidate mode fetches a count), and ``{"ok": true,
+null for K4, whose candidate and rectangle modes fetch a count), and
+``{"ok": true,
 "device": ...}``.
 """
 
@@ -264,6 +284,8 @@ PEAK_F64_OPS_S = 34e12
 #: instructions it issues with FMA (3 FADD, 1 FMUL, 2 FFMA, 1 FMNMX),
 #: against 128 f32 lanes an SM at the card's largest SM clock
 K4_OPS, K4_INSTRUCTIONS, LANES_PER_SM = 9, 7, 128
+#: K4's modes by the template argument of its mangled kernel name
+K4_MODES = {"0": "matrix", "1": "candidate", "2": "rectangle"}
 #: the mangled names of K5, K6 and K2 with velocities at a number of
 #: Newton trips, as ptxas and cuobjdump show them
 DENSE_KERNEL = "sgp4_dense_kernelILb1ELi{}ELi0E"
@@ -1919,7 +1941,8 @@ def phase7_screen_timings(con, smi):
           f"{PLAIN_COLS}-column chunks; cdist yardstick {cdist_chunk:.4f} ms "
           f"for {CDIST_COLS} columns, {library_ms:.4f} ms scaled to all {n}")
     print("# phase 7: ptxas for K4: " + "; ".join(
-        f"{'candidate' if 'ILb1' in name else 'matrix'} mode {rg} registers, "
+        f"{K4_MODES[name.split('screen_coarse_kernelILi')[1][0]]} mode {rg} "
+        f"registers, "
         f"spill stores {st} B, spill loads {ld} B"
         for name, rg, st, ld in regs))
     print(f"# phase 7 [{smi}]: screen() pieces: propagate to planes "
@@ -2817,6 +2840,264 @@ def phase9_ingest(smi):
     check("jax" not in sys.modules, "phase 9 loaded jax")
 
 
+#: phase 11: the mesh of shards on the card(s): every visible card, or
+#: MESH_SHARDS shards on one card; the f64 sweep's epochs (of the
+#: 1,440); the threshold of the ragged rectangle-mode check, km
+MESH_SHARDS = 4
+MESH_F64_TIMES = 240
+RECT_SMALL_KM = 200.0
+
+
+def mesh_devices():
+    """The phase-11 mesh's devices: each visible card once, or one card
+    repeated MESH_SHARDS times, and a note saying which."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} cards, one shard each")
+    return ([torch.device("cuda", 0)] * MESH_SHARDS,
+            f"one card repeated {MESH_SHARDS} times (shards take turns on "
+            f"it: the times measure the cost of sharding on one card, not "
+            f"a speed-up)")
+
+
+def _same(got, want, label):
+    for a, b in zip(got, want):
+        check((a is None) == (b is None), f"{label}: velocities")
+        if a is not None:
+            check(a.shape == b.shape and a.dtype == b.dtype
+                  and torch.equal(a, b), f"{label}: differs from the "
+                  "single-device sweep")
+
+
+def _same_screen(got, want, label):
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+          f"{label}: pairs, distances or epochs differ from screen_all's")
+
+
+def _rect_vs_twin(rows, cols, thr2, label, **kw):
+    """K4's rectangle mode against its plain version (in PLAIN_COLS-column
+    blocks), the same (i, j) pairs in order; returns the plain pairs and
+    the largest index difference."""
+    from astroz_tpu_torch.ops import cuda_screen
+
+    got = cuda_screen.coarse_candidates_rect(rows, cols, thr2, **kw)
+    ref = cuda_screen.coarse_candidates_rect_reference(
+        rows, cols, thr2,
+        work_bytes=cuda_screen.PLAIN_BYTES_PER_ENTRY * rows.shape[2]
+        * PLAIN_COLS)
+    check(len(got[0]) == len(ref[0]),
+          f"K4 rectangle {label}: {len(got[0])} pairs, the plain version "
+          f"{len(ref[0])}")
+    err = ((torch.stack(got) - torch.stack(ref)).abs().max().item()
+           if len(ref[0]) else 0)
+    check(err == 0, f"K4 rectangle {label}: pairs differ from the plain "
+          f"version's (largest index difference {err})")
+    return ref, float(err)
+
+
+def phase11_mesh(mcon, scon, smi):
+    """Phase 11 (module docstring): the multi-device paths on a mesh of
+    the card(s). Returns the rectangle mode's kernels-line entry pieces
+    ``(launches, max_abs_err, (ms, plain_ms, (bound_ms, bound_by)))``."""
+    from astroz_tpu_torch import propagate, screen_all
+    from astroz_tpu_torch.ops import cuda_screen
+    from astroz_tpu_torch import _build, build_catalog
+    from astroz_tpu_torch.parallel import (make_mesh, propagate_sharded,
+                                           propagate_sharded_fast,
+                                           shard_catalog, stage_sharded_fast)
+    from astroz_tpu_torch.screening import (_positions_planes_f32,
+                                            _ring_planes, screen_all_ring)
+    from astroz_tpu_torch.tle import format_lines
+
+    devs, note = mesh_devices()
+    meshes = {"sat 4": make_mesh(devs),
+              "time 2 x sat 2": make_mesh(devs, time_parallel=2)}
+    print(f"# phase 11: mesh of {note}: "
+          + "; ".join(f"{k} {m}" for k, m in meshes.items()))
+    cat, scat = mcon.catalog, scon.catalog
+    jd = EPOCH_JD + np.arange(float(N_TIMES)) / 1440.0
+
+    # 11a: the sharded fast sweep of the mixed catalog, bit for bit
+    cases = [dict(layout="time_major"), dict(layout="sat_major"),
+             dict(layout="planes"), dict(layout="planes", velocities=False),
+             dict(layout="planes", output="ecef")]
+    want = [propagate(cat, jd, method="fast", **kw) for kw in cases]
+    for name, mesh in meshes.items():
+        deep = [s.has_deep for s in shard_catalog(cat, mesh)[0].shards.flat]
+        for kw, ref in zip(cases, want):
+            reset_launches()
+            got = propagate_sharded_fast(cat, jd, mesh=mesh, **kw)
+            sync()
+            n = launches()
+            _same(got, ref, f"phase 11a {name} {kw}")
+        check((n["sgp4_deep"], n["sgp4_shallow_merge"], n["sgp4_shallow"])
+              == (sum(deep), sum(deep), len(deep) - sum(deep)),
+              f"phase 11a {name}: launches {n}, expected K2 and K3 once a "
+              f"shard with deep lanes ({sum(deep)}), K1 once a shard "
+              "without")
+        print(f"# phase 11a: {name}: propagate_sharded_fast of the mixed "
+              f"{N_SATS} x {N_TIMES} ({sum(deep)} of {len(deep)} shards "
+              f"with deep lanes) bit-equal to propagate(method='fast') in "
+              f"{len(cases)} forms (time_major, sat_major, planes, "
+              f"velocities=False, ECEF), escape lanes included; launches "
+              f"of the last call {n}")
+
+    # 11b: the sharded f64 sweep, bit for bit
+    jd_f64 = jd[:MESH_F64_TIMES]
+    ref = propagate(cat, jd_f64, method="f64")
+    for name, mesh in meshes.items():
+        _same(propagate_sharded(cat, jd_f64, mesh=mesh), ref,
+              f"phase 11b {name}")
+    print(f"# phase 11b: propagate_sharded (f64) of the mixed {N_SATS} x "
+          f"{MESH_F64_TIMES} bit-equal to propagate(method='f64') on both "
+          "meshes")
+
+    # 11c, 11d: the mesh screens against screen_all
+    jd_s = SCREEN_EPOCH_JD + np.arange(float(SCREEN_TIMES)) / 1440.0
+    mesh = meshes["sat 4"]
+    shell_ref = screen_all(scat, jd_s, threshold_km=SCREEN_KM)
+    reset_launches()
+    got = screen_all(scat, jd_s, threshold_km=SCREEN_KM, mesh=mesh)
+    n_time = launches()
+    _same_screen(got, shell_ref, "phase 11c shell")
+    check(n_time["screen_candidates"] == len(devs)
+          and n_time["sgp4_shallow"] == 1,
+          f"phase 11c: launches {n_time}")
+    print(f"# phase 11c: screen_all(mesh=) of the shell ({len(got[0])} "
+          f"pairs) equals screen_all; launches {n_time}")
+    reset_launches()
+    got = screen_all_ring(scat, jd_s, threshold_km=SCREEN_KM, mesh=mesh)
+    n_ring = launches()
+    _same_screen(got, shell_ref, "phase 11d shell")
+    d = len(devs)
+    check(n_ring["screen_candidates"] == d
+          and n_ring["screen_candidates_rect"] == d * (d - 1)
+          and n_ring["sgp4_shallow"] == d,
+          f"phase 11d: launches {n_ring}")
+    jd_m = EPOCH_JD + np.arange(float(SCREEN_TIMES)) / 1440.0
+    mixed_ref = screen_all(cat, jd_m, threshold_km=SCREEN_KM)
+    _same_screen(screen_all_ring(cat, jd_m, threshold_km=SCREEN_KM,
+                                 mesh=mesh), mixed_ref, "phase 11d mixed")
+    _same_screen(screen_all(cat, jd_m, threshold_km=SCREEN_KM, mesh=mesh),
+                 mixed_ref, "phase 11c mixed")
+    # two decayed lanes at local column 0 of two shards (0 and 2 of 4):
+    # parked by their local columns they would meet at one point
+    decayed = [format_lines(satnum=99990 + k, epoch_jd=SCREEN_EPOCH_JD - 2.0,
+                            ecco=5e-4, inclo_deg=53.0, nodeo_deg=10.0 * k,
+                            argpo_deg=20.0, mo_deg=30.0, no_rev_day=16.0,
+                            bstar=0.5) for k in range(2)]
+    shell = screening_shell_text(1998).splitlines()
+    lines = [*decayed[0], *shell[:1998], *decayed[1], *shell[1998:]]
+    failed = build_catalog("\n".join(lines), device=DEVICE)
+    check(len(failed) == 2000, "the catalog with failed lanes")
+    res = screen_all_ring(failed, jd_s, threshold_km=SCREEN_KM, mesh=mesh)
+    _same_screen(res, screen_all(failed, jd_s, threshold_km=SCREEN_KM),
+                 "phase 11d failed lanes")
+    hit = set(res[0].tolist()) | set(res[1].tolist())
+    check(not {0, 1000} & hit, "phase 11d: a failed lane made a pair")
+    err0 = propagate(failed, jd_s[:1], method="fast")[2][0]
+    check(bool(err0[0] != 0 and err0[1000] != 0), "the lanes did not fail")
+    print(f"# phase 11d: screen_all_ring equals screen_all on the shell "
+          f"({len(shell_ref[0])} pairs; launches {n_ring}) and on the mixed "
+          f"catalog ({len(mixed_ref[0])} pairs; screen_all(mesh=) too), and "
+          f"on 2,000 shell lanes with failed lanes 0 and 1,000 (local column "
+          f"0 of two shards): {len(res[0])} pairs, none with them")
+
+    # 11e: the rectangle mode against its plain version
+    full = _positions_planes_f32(scat, jd_s)
+    n_full = full.shape[2]
+    rows = full[:, :, :1003].clone()
+    cols = full[:, :, n_full // 2:n_full // 2 + 777].contiguous()
+    rows[1, SCREEN_TIMES // 2, 500] = float("nan")
+    thr_small = float(np.float32(RECT_SMALL_KM ** 2))
+    small_pairs, _ = _rect_vs_twin(rows, cols, thr_small, "1003 x 777")
+    before = cuda_screen.LAUNCHES["screen_candidates_rect"]
+    _rect_vs_twin(rows, cols, thr_small, "1003 x 777, cap=1", cap=1)
+    sync()
+    check(cuda_screen.LAUNCHES["screen_candidates_rect"] == before + 2,
+          "rectangle mode: the overflow path must launch twice")
+    check(len(small_pairs[0]) > 0, "no rectangle pairs within 200 km")
+    planes = _ring_planes(scat, jd_s, None, make_mesh(devs), "fast")
+    thr2 = float(np.float32((SCREEN_KM * (1.0 + 1.0e-6)) ** 2))
+    tile_pairs, rect_err = _rect_vs_twin(planes[1], planes[0], thr2,
+                                         "ring tile")
+    print(f"# phase 11e: K4 rectangle mode equals its plain version: 1003 x "
+          f"777 x {SCREEN_TIMES} with a NaN at {RECT_SMALL_KM} km "
+          f"({len(small_pairs[0])} pairs, also with cap=1), the ring tile "
+          f"{tuple(planes[1].shape)} x {tuple(planes[0].shape)} at "
+          f"{SCREEN_KM} km ({len(tile_pairs[0])} pairs)")
+
+    # 11f: times
+    fns = {}
+    for name, m in meshes.items():
+        fn, args, _ = stage_sharded_fast(cat, jd, mesh=m, layout="planes")
+        fns[name] = (fn, args)
+
+    def single():
+        return propagate(cat, jd, method="fast", layout="planes")
+
+    t = [_cuda_ms(single, 10)]
+    t += [_cuda_ms(lambda f=f, a=a: f(*a), 10) for f, a in fns.values()]
+    t += [_cuda_ms(lambda f=f, a=a: f(*a), 10)
+          for f, a in reversed(list(fns.values()))]
+    t.append(_cuda_ms(single, 10))
+    sweep = {"single device": (t[0] + t[-1]) / 2,
+             "sat 4": (t[1] + t[4]) / 2, "time 2 x sat 2": (t[2] + t[3]) / 2}
+    print(f"# phase 11f [{smi}]: mixed {N_SATS} x {N_TIMES} planes sweep "
+          f"(staged, not gathered), {note}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sweep.items())
+          + f" (in turns: {', '.join(f'{x:.4f}' for x in t)})")
+    screens = {
+        "screen_all": lambda: screen_all(scat, jd_s, threshold_km=SCREEN_KM),
+        "screen_all(mesh=)": lambda: screen_all(
+            scat, jd_s, threshold_km=SCREEN_KM, mesh=mesh),
+        "screen_all_ring": lambda: screen_all_ring(
+            scat, jd_s, threshold_km=SCREEN_KM, mesh=mesh)}
+    order = list(screens) + list(reversed(screens))
+    st = [(k, _cuda_ms(screens[k], 3)) for k in order]
+    screen_ms = {k: sum(v for kk, v in st if kk == k) / 2 for k in screens}
+    print(f"# phase 11f [{smi}]: shell screen {N_SATS} x {SCREEN_TIMES} at "
+          f"{SCREEN_KM} km, {note}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in screen_ms.items())
+          + f" (in turns: {', '.join(f'{k} {v:.4f}' for k, v in st)})")
+
+    rows, cols = planes[1], planes[0]
+    count = torch.zeros(1, dtype=torch.int64, device=rows.device)
+
+    def rect_kernel():
+        count.zero_()
+        cuda_screen._launch_rect(rows, cols, thr2, cuda_screen.CANDIDATE_CAP,
+                                 count)
+
+    def rect_plain():
+        return cuda_screen.coarse_candidates_rect_reference(
+            rows, cols, thr2, work_bytes=cuda_screen.PLAIN_BYTES_PER_ENTRY
+            * rows.shape[2] * PLAIN_COLS)
+
+    rt = [_cuda_ms(rect_plain, 1, warm=False), _cuda_ms(rect_kernel, 20),
+          _cuda_ms(rect_kernel, 20), _cuda_ms(rect_plain, 1, warm=False)]
+    rect_ms, rect_plain_ms = (rt[1] + rt[2]) / 2, (rt[0] + rt[3]) / 2
+    pair_times = SCREEN_TIMES * rows.shape[2] * cols.shape[2]
+    rect_bound = bound(nbytes(rows, cols) + 8 * len(tile_pairs[0]),
+                       K4_OPS * pair_times, 0)
+    regs = [(name, rg, sp, ld) for name, rg, sp, ld in _build.ptxas_report()
+            if "ILi2E" in name and "screen_coarse" in name]
+    print(f"# phase 11f [{smi}]: K4 rectangle mode on the ring tile "
+          f"{rows.shape[2]} x {cols.shape[2]} x {SCREEN_TIMES} "
+          f"({pair_times:.4g} pair-times): {rect_ms:.4f} ms, "
+          f"{rect_bound[0] / rect_ms:.1%} of the {rect_bound[0]:.4f} ms "
+          f"bound ({K4_OPS} f32 operations a pair-time over the whole "
+          f"rectangle, by {rect_bound[1]}); plain version {rect_plain_ms:.4f}"
+          f" ms (in turns: {', '.join(f'{x:.4f}' for x in rt)}); ptxas "
+          + "; ".join(f"{rg} registers, spill stores {sp} B, spill loads "
+                      f"{ld} B" for _, rg, sp, ld in regs))
+    check(all(sp == ld == 0 for _, _, sp, ld in regs),
+          f"K4 rectangle mode spills: {regs}")
+    return (n_ring["screen_candidates_rect"], rect_err,
+            (rect_ms, rect_plain_ms, rect_bound))
+
+
 #: phase 10, the numerical stack. 10a: NUMERICAL_LANES Monte-Carlo lanes
 #: drawn from default_rng(NUMERICAL_SEED) around the ISS golden TLE's
 #: state (sigma 1 km, 1 m/s), RK4 of TwoBody + J2 + Drag over one
@@ -3246,6 +3527,7 @@ def main():
     k5, k6, spine = phase4c_dense_timings(mcon, smi, scan_ms, scan_peak)
     phase8_api(con, mcon, text, mixed_text, smi)
     phase9_ingest(smi)
+    rect = phase11_mesh(mcon, scon, smi)
     phase10_numerical()
     print(f"# chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -3285,6 +3567,11 @@ def main():
               "astroz_tpu_torch/csrc/screen_coarse.cu",
               "astroz_tpu/ops/pallas_screen.py:57",
               screen_launches["screen_candidates"], k4c_err, k4c, k4c[3]),
+        # a tile of the ring screen (phase 11), launched there
+        entry("screen_candidates_rect (K4, rectangle mode)",
+              "astroz_tpu_torch/csrc/screen_coarse.cu",
+              "astroz_tpu/ops/pallas_screen.py:57", rect[0], rect[1],
+              rect[2]),
         entry("sgp4_shallow_dense (K5)",
               "astroz_tpu_torch/csrc/sgp4_shallow.cu",
               "astroz_tpu/ops/pallas_sgp4.py:202",

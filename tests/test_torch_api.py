@@ -28,7 +28,9 @@ inputs.
   threaded grid.
 * ``torch.func``: ``jacrev`` of r within 1e-6 relative of a central
   difference (h = 1e-3 min); ``vmap`` equal to the loop, near-earth and
-  deep with ``max_steps``.
+  deep, with and without ``max_steps``; on deep TLEs without
+  ``max_steps``, ``vmap`` and ``jacrev`` against JAX's ``jax.vmap`` and
+  ``jax.jacrev`` (the f64 gate; 1e-9 relative on dr/dt).
 """
 
 import math
@@ -528,7 +530,8 @@ def test_jacrev_matches_central_difference():
 
 
 @pytest.mark.parametrize("name,max_steps", [("iss", None), ("traj", None),
-                                            ("geo", 5), ("heo", 5)])
+                                            ("geo", 5), ("heo", 5),
+                                            ("geo", None), ("heo", None)])
 def test_vmap_equals_loop(name, max_steps):
     """Bit for bit. Six points keep torch's CPU elementwise kernels on
     their scalar loop for the batch as for a single point (from 8 f64
@@ -545,6 +548,33 @@ def test_vmap_equals_loop(name, max_steps):
     # the plain call (the deep loop runs until every lane is done)
     r2, v2 = fn(params, t)
     assert torch.equal(r, r2) and torch.equal(v, v2)
+
+
+@pytest.mark.parametrize("name", ["geo", "heo"])
+def test_func_transforms_on_deep_tle_match_jax(name):
+    """vmap and jacrev of a deep TLE's function with no ``max_steps``
+    (the function reads the step count under the transforms' wrappers)
+    against JAX's jax.vmap and jax.jacrev of its own: r and v within the
+    f64 gate; dr/dt (km/min, up to ~300) within 1e-9 relative (measured
+    2e-15)."""
+    jparams, jfn = japi.create_sgp4_propagator(*TLES[name])
+    pparams, pfn = create_sgp4_propagator(*TLES[name], device="cpu")
+    t = np.linspace(-2000.0, 3000.0, 6)
+    rp, vp = torch.func.vmap(lambda x: pfn(pparams, x))(torch.as_tensor(t))
+    rj, vj = jax.vmap(lambda x: jfn(jparams, x))(jnp.asarray(t))
+    np.testing.assert_allclose(rp.numpy(), np.asarray(rj), rtol=0,
+                               atol=F64_POS_KM)
+    np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=0,
+                               atol=F64_VEL_KMS)
+    jac_p = torch.func.vmap(torch.func.jacrev(
+        lambda x: pfn(pparams, x)[0]))(torch.as_tensor(t))
+    jac_j = jax.vmap(jax.jacrev(lambda x: jfn(jparams, x)[0]))(
+        jnp.asarray(t))
+    np.testing.assert_allclose(jac_p.numpy(), np.asarray(jac_j), rtol=1e-9,
+                               atol=0)
+    one = torch.func.jacrev(lambda x: pfn(pparams, x)[0])(
+        torch.tensor(t[-1], dtype=torch.float64))
+    assert torch.equal(one, jac_p[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Kernels K1 to K6 and the spine kernel on the card against their plain
-torch versions, and a
-small all-vs-all screen on the card against the same call on the CPU
-(marked ``cuda``; skips where ``torch.cuda.is_available()`` is False);
-and, on the CPU, that no wrapper counts a launch there.
+"""Kernels K1 to K6 (K4 in its three modes) and the spine kernel on the
+card against their plain torch versions, a small all-vs-all screen on
+the card against the same call on the CPU, and the multi-device paths on
+a mesh of the card repeated against the single-device ones (marked
+``cuda``; skips where ``torch.cuda.is_available()`` is False); and, on
+the CPU, that no wrapper counts a launch there.
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -284,6 +285,52 @@ def test_candidate_kernel_matches_twin_on_cuda(cuda_device):
 
 
 @pytest.mark.cuda
+def test_rect_kernel_matches_twin_on_cuda(cuda_device):
+    """K4's rectangle mode against its plain version on ragged blocks of
+    the shell of ``_coarse_planes`` (rows 0..120 with the NaN satellite,
+    columns 121..332): the same (row, column) pairs in order, none of the
+    NaN satellite, also through the overflow path (two launches)."""
+    r = _coarse_planes(cuda_device)
+    rows, cols = r[:, :, :121].contiguous(), r[:, :, 121:].contiguous()
+    thr2 = float(np.float32(1500.0 ** 2))
+    ref = cuda_screen.coarse_candidates_rect_reference(rows, cols, thr2)
+    assert len(ref[0]) > 10 and (ref[0] != 50).all()
+    before = cuda_screen.LAUNCHES["screen_candidates_rect"]
+    got = cuda_screen.coarse_candidates_rect(rows, cols, thr2)
+    over = cuda_screen.coarse_candidates_rect(rows, cols, thr2, cap=1)
+    torch.cuda.synchronize()
+    assert cuda_screen.LAUNCHES["screen_candidates_rect"] == before + 3
+    for pairs in (got, over):
+        assert torch.equal(pairs[0], ref[0]) and torch.equal(pairs[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_mesh_paths_on_cuda_equal_single_device(cuda_device):
+    """On a mesh of the card repeated four times: the sharded fast sweep
+    of a mixed catalog equals ``propagate(method="fast")`` bit for bit,
+    and the time-sharded and ring screens give ``screen_all``'s pairs."""
+    from astroz_tpu_torch.parallel import make_mesh, propagate_sharded_fast
+    from astroz_tpu_torch.screening import screen_all_ring
+
+    mesh = make_mesh([cuda_device] * 4)
+    cat = build_catalog(synthetic_leo_text(150) + "\n"
+                        + synthetic_deep_text(30), device=cuda_device)
+    jd = cat.epoch_min_jd + np.linspace(-0.2, 1.0, 37)
+    for layout in ("time_major", "planes"):
+        got = propagate_sharded_fast(cat, jd, mesh=mesh, layout=layout)
+        want = propagate(cat, jd, method="fast", layout=layout)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    shell = build_catalog(synthetic_leo_text(200), device=cuda_device)
+    jd = 2460310.5 + np.linspace(0.0, 0.5, 145)
+    want = screen_all(shell, jd, threshold_km=300.0)
+    assert len(want[0]) > 0
+    for got in (screen_all(shell, jd, threshold_km=300.0, mesh=mesh),
+                screen_all_ring(shell, jd, threshold_km=300.0, mesh=mesh)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
 def test_screen_all_on_cuda_matches_cpu(cuda_device):
     """A small all-vs-all screen on the card gives the pairs and epochs of
     the same call on the CPU, distances within K1's 1e-3 km bound, through
@@ -439,6 +486,9 @@ def test_cpu_runs_no_kernel():
     for method in ("fast", "f64"):
         propagate(cat, jd, method=method)
     screen_all(near, jd, threshold_km=50.0)
+    from astroz_tpu_torch.parallel import make_mesh
+    from astroz_tpu_torch.screening import screen_all_ring
+    screen_all_ring(near, jd, threshold_km=50.0, mesh=make_mesh(["cpu"] * 2))
     assert (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES)) == before
 
 

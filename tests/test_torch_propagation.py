@@ -240,11 +240,17 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, astroz_tpu_torch, astroz_tpu_torch.convert, "
+    """The package, its multi-device module and every script of
+    ``examples_torch/`` import no JAX and nothing of astroz_tpu."""
+    code = ("import sys, glob, runpy, astroz_tpu_torch, "
+            "astroz_tpu_torch.convert, "
             "astroz_tpu_torch.calculations, "
             "astroz_tpu_torch.orbital_mechanics, "
             "astroz_tpu_torch.propagators, astroz_tpu_torch.spacecraft, "
-            "astroz_tpu_torch.montecarlo; "
+            "astroz_tpu_torch.montecarlo, astroz_tpu_torch.parallel; "
+            "scripts = sorted(glob.glob('examples_torch/*.py')); "
+            "assert len(scripts) == 19, scripts; "
+            "[runpy.run_path(f, run_name='imported') for f in scripts]; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'astroz_tpu')); "
             "assert not bad, bad")

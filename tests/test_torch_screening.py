@@ -385,7 +385,7 @@ def test_constellation_screen(shell):
 
 def test_unported_keywords_raise(shell):
     text, _, pcat, times = shell
-    for kw in ({"block": 64}, {"mesh": None}, {"engine": "xla"}):
+    for kw in ({"block": 64}, {"engine": "xla"}):
         with pytest.raises(TypeError):
             P.screen_all(pcat, times, threshold_km=50.0, **kw)
         with pytest.raises(TypeError):
