@@ -27,11 +27,18 @@ BUILD_DIR = CSRC / "build"
 #: of their plain torch versions (see csrc/sgp4_common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: sources built with contraction on, in place of NVCC_FLAGS' --fmad=false:
+#: the f64 kernel calls libdevice's f64 pow, which gives the bits of
+#: torch's pow only when built as torch's kernels are; its own arithmetic
+#: goes through rounded intrinsics, which are never contracted (see
+#: csrc/sgp4_f64.cu)
+FMAD_SOURCES = ("sgp4_f64.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 
 #: exported C functions: name -> (restype, argtypes)
 SIGNATURES = {
@@ -68,6 +75,19 @@ SIGNATURES = {
                               _F, _F, _F, _F, _F, _P, _P, _P, _P]),
     # n_times, n_deep, kepler_iters, want_vel, grid (3,) i32 out
     "astroz_sgp4_deep_grid": (_I, [_I, _I, _I, _I, _P]),
+    # tsince, t_row, t_col, fields, flags, n_lanes, lane_step, n_times,
+    # n_out, sdp4, want_vel, 7 constants (ops/cuda_sgp4.py _f64_consts), r,
+    # v, err, stream
+    "astroz_sgp4_f64_dense": (_I, [_P, _L, _L, _P, _P, _L, _L, _L, _L, _I,
+                                   _I] + [_D] * 7 + [_P] * 4),
+    # times, t_row, t_col, fields, flags, n_lanes, n_times, want_vel, 7
+    # constants, r, v, err, stream
+    "astroz_sgp4_f64_scan": (_I, [_P, _L, _L, _P, _P, _L, _L, _I]
+                             + [_D] * 7 + [_P] * 4),
+    # t_time, t_sat, fields, flags, idx, tables, n_times, n_esc, n_deep,
+    # n_steps, want_vel, 7 constants, r, v, err, stream
+    "astroz_sgp4_f64_escape": (_I, [_P] * 6 + [_L, _L, _L, _I, _I]
+                               + [_D] * 7 + [_P] * 4),
     # r, n_times, n_sats, j0, width, out, stream
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
     # r, n_times, n_sats, thr2, cap, out_ij, count, stream
@@ -96,7 +116,7 @@ def _sources():
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     sources, headers = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + FMAD_SOURCES).encode())
     for p in sources + headers:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -117,6 +137,14 @@ def _run_all(cmds):
     return "".join(outs)
 
 
+def _flags(src: Path):
+    """NVCC_FLAGS, with contraction on for FMAD_SOURCES."""
+    if src.name not in FMAD_SOURCES:
+        return NVCC_FLAGS
+    return tuple(f.replace("=false", "=true") if f.startswith("--fmad")
+                 else f for f in NVCC_FLAGS)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for this hash exists."""
     out = library_path()
@@ -129,7 +157,7 @@ def build() -> Path:
     tmp = BUILD_DIR / f"{tag}.so.tmp"
     nvcc = _nvcc()
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        log = _run_all([[nvcc, *_flags(src), "-c", "-o", str(obj), str(src)]
                         for src, obj in zip(sources, objs)])
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
         out.with_suffix(".log").write_text(log)

@@ -14,8 +14,8 @@ by default; a ``"cuda"`` request without CUDA raises), and a
   ``ops/scalar.py``. One scalar propagation costs less than a device
   launch and its copy back.
 * ``Satrec.sgp4_array`` on a CUDA satrec over ``_LANES_MIN_TIMES``
-  times or more folds the times into (rows, 512) lanes of the f64
-  propagators on the card; otherwise it runs the native array engine.
+  times or more folds the times into (rows, 512) lanes of one f64 kernel
+  launch on the card; otherwise it runs the native array engine.
 * ``SatrecArray.sgp4`` on a CUDA array is one ``propagate(...,
   method="fast", layout="sat_major")`` per gravity model: kernel K1 on a
   near-earth array, K2, the HEO escape and K3 on a mixed one. On
@@ -40,6 +40,7 @@ from .constants import (WGS72 as _WGS72_CONST, WGS72OLD as _WGS72OLD_CONST,
                         WGS84 as _WGS84_CONST, GravityModel,
                         MINUTES_PER_DAY)
 from .ops import scalar
+from .ops.cuda_sgp4 import sgp4_f64_dense
 from .ops.sdp4 import sdp4_propagate
 from .ops.sgp4 import Sgp4Elements, sgp4_init_np, sgp4_propagate
 from .propagation import (SatCatalog, _device, build_catalog,
@@ -60,11 +61,13 @@ _GRAV_BY_ENUM = {WGS72OLD: _WGS72OLD_CONST, WGS72: _WGS72_CONST,
 accelerated = True
 
 #: Satrec.sgp4_array on a CUDA satrec takes the card's time-as-lanes
-#: path from this many times on, keyed on is_deep_space: where it
-#: overtook the native array engine on an H100 (chip_smoke.py
-#: lanes_crossover, PERF.md §5): on the ISS from ~57k or ~215k points
-#: as the host's CPU varied, so the middle of that range; on GEO ~24k
-_LANES_MIN_TIMES = {False: 131072, True: 32768}
+#: path (one launch of the f64 kernel) from this many times on, keyed on
+#: is_deep_space: where it overtook the native array engine on an H100
+#: (chip_smoke.py lanes_crossover, PERF.md §5): on the ISS at ~4,096
+#: points as the host varied (0.48 against 0.55 ms, and 0.60 against
+#: 0.60), on a GEO TLE at every size measured, from 1,024 points (0.32
+#: against 0.49 ms)
+_LANES_MIN_TIMES = {False: 4096, True: 1024}
 #: the time-as-lanes fold: (rows, _LANES) minutes since epoch
 _LANES = 512
 
@@ -269,7 +272,8 @@ class Satrec:
 
     def _sgp4_lanes(self, jd: np.ndarray, fr: np.ndarray):
         """Time as lanes: the times fill (rows, _LANES) lanes of one
-        satellite's f64 propagate on its device."""
+        satellite's f64 propagate on its device, one launch of the f64
+        kernel (``ops.cuda_sgp4.sgp4_f64_dense``) on the card."""
         n = len(jd)
         cat = self._catalog()
         pad = (-n) % _LANES
@@ -279,10 +283,8 @@ class Satrec:
         tsince = np.concatenate(
             [tsince, np.full(pad, tsince[-1])]).reshape(-1, _LANES)
         t = torch.as_tensor(tsince, device=cat.device)
-        if cat.has_deep:
-            r, v, err, _ = sdp4_propagate(cat.els, cat.deep, t, cat.grav)
-        else:
-            r, v, err = sgp4_propagate(cat.els, t, cat.grav)
+        r, v, err = sgp4_f64_dense(t, *cat.f64_staging, grav=cat.grav,
+                                   sdp4=cat.has_deep)
         return (err.reshape(-1)[:n].cpu().numpy(),
                 _host_f64(r.reshape(-1, 3)[:n]),
                 _host_f64(v.reshape(-1, 3)[:n]))
@@ -594,7 +596,10 @@ def create_sgp4_propagator(line1: str, line2: str, gravity=WGS72, *,
     trailing axis, f64 tensors on the params' device.
 
     ``propagate_fn`` is a plain torch function that runs under
-    ``torch.func.vmap``, ``jacrev`` and ``grad``. A deep-space TLE's
+    ``torch.func.vmap``, ``jacrev`` and ``grad``: it calls the plain f64
+    propagators (``ops.sgp4.sgp4_propagate``, ``ops.sdp4.sdp4_propagate``)
+    on every device, never the f64 kernel, whose ctypes launch no
+    ``torch.func`` transform can trace. A deep-space TLE's
     resonance integration loops on the host until every lane is within a
     step of its time, which no ``torch.func`` transform can trace: inside
     one, with ``max_steps`` None, the function reads the tensor under the

@@ -1,5 +1,5 @@
 """The CUDA propagation kernels K1, K2, K3, K5 and K6, the f64 spine
-kernel that feeds K6, and their plain versions.
+kernel that feeds K6, the f64 kernel, and their plain versions.
 
 * K1, :func:`propagate_fast_sep`, replaces the TPU kernel
   ``astroz_tpu/ops/pallas_sgp4.py:_kernel_fused_sep`` (wrapper
@@ -17,6 +17,13 @@ kernel that feeds K6, and their plain versions.
   ``propagate_fast_pallas``): K1's tail on the six f32 grids of the f64
   spine (``ops/fast.py:spine_f64``), which the spine kernel
   (:func:`spine_f64_grids`, over elements :func:`spine_grids`) writes.
+* The f64 kernel (``csrc/sgp4_f64.cu``; not a TPU kernel: the f64
+  programs the JAX package jits around its Pallas kernels) computes
+  ``ops/sgp4.py:sgp4_propagate`` / ``ops/sdp4.py:sdp4_propagate`` at
+  independent points (:func:`sgp4_f64_dense`), the HEO escape's
+  ``ops/fast.py:sdp4_propagate_tables`` into K2's planes
+  (:func:`sgp4_f64_escape`) and ``ops/sdp4.py:sdp4_propagate_scan``
+  (:func:`sgp4_f64_scan`), on the elements packed by :func:`f64_staging`.
 
 K1-K3 propagate over the separable grid ``tsince[t, n] = t_time[t] -
 t_sat[n]`` minutes, K5 and K6 over a dense one. The planes-level
@@ -50,7 +57,10 @@ from ..constants import GravityModel
 from .fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                    RESONANCE_TABLE_NAMES, SPINE_FIELD_NAMES,
                    TAIL_FIELD_NAMES, deep_spine_f64, deep_tail_f32,
-                   shallow_staging, shallow_tail_f32, spine_f64)
+                   sdp4_propagate_tables, shallow_staging, shallow_tail_f32,
+                   spine_f64)
+from .sdp4 import DeepElements, sdp4_propagate, sdp4_propagate_scan
+from .sgp4 import Sgp4Elements, sgp4_propagate
 
 #: Newton trip counts K1 and K3 are built for (SatCatalog.kepler_iters)
 KEPLER_ITERS = (3, 4, 5, 8)
@@ -61,7 +71,8 @@ DEEP_KEPLER_ITERS = (6, 8)
 #: one to its kernel's entry
 LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
             "sgp4_shallow_dense": 0, "sgp4_shallow_grids": 0,
-            "sgp4_spine_grids": 0}
+            "sgp4_spine_grids": 0, "sgp4_f64_dense": 0, "sgp4_f64_escape": 0,
+            "sgp4_f64_scan": 0}
 
 F32 = torch.float32
 F64 = torch.float64
@@ -724,3 +735,298 @@ def propagate_fast_grids(els, tsince, grav: GravityModel,
     returns."""
     return _grids_tail(*spine_grids(els, tsince), grav, kepler_iters,
                        want_vel, time_major=True)
+
+
+# ---------------------------------------------------------------------------
+# The f64 kernel: SGP4/SDP4 in f64 at independent points
+# ---------------------------------------------------------------------------
+
+#: the f64 rows of :func:`f64_staging`: the float fields of
+#: ``Sgp4Elements``, then those of ``DeepElements``, in the order of
+#: ``csrc/sgp4_f64.cu``'s ``enum Field``
+SGP4_F64_FIELD_NAMES = tuple(n for n in Sgp4Elements._fields
+                             if n not in ("isimp", "is_deep", "error"))
+DEEP_F64_FIELD_NAMES = tuple(n for n in DeepElements._fields if n != "irez")
+F64_FIELD_NAMES = SGP4_F64_FIELD_NAMES + DEEP_F64_FIELD_NAMES
+#: the i32 rows of :func:`f64_staging` (``enum Flag``)
+F64_FLAG_NAMES = ("isimp", "is_deep", "irez", "error")
+
+
+class F64Staging(NamedTuple):
+    """A catalog's elements as the f64 kernel reads them."""
+
+    fields: torch.Tensor  # (F, S) f64 rows F64_FIELD_NAMES (37, or 83 with
+    #                       the deep rows)
+    flags: torch.Tensor  # (4, S) i32 rows F64_FLAG_NAMES
+
+
+def f64_staging(els, deep=None) -> F64Staging:
+    """Pack ``Sgp4Elements`` (and ``DeepElements``, where given) of
+    tensors on one device, each field (S,) or broadcast to it, into the
+    f64 kernel's matrices: every float field copied as it is, the masks
+    and codes as i32 (``irez`` 0 without ``deep``). :func:`f64_unstage`
+    gives the same elements back bit for bit."""
+    shape = torch.broadcast_shapes(*(x.shape for x in els))
+    rows = [getattr(els, n) for n in SGP4_F64_FIELD_NAMES]
+    if deep is not None:
+        rows += [getattr(deep, n) for n in DEEP_F64_FIELD_NAMES]
+    dev = els.no_kozai.device
+    irez = (torch.zeros(shape, dtype=I32, device=dev) if deep is None
+            else deep.irez)
+    flags = [els.isimp, els.is_deep, irez, els.error]
+    return F64Staging(
+        torch.stack([x.to(F64).expand(shape) for x in rows]).contiguous(),
+        torch.stack([x.to(I32).expand(shape) for x in flags]).contiguous())
+
+
+def f64_unstage(fields, flags):
+    """``(Sgp4Elements, DeepElements or None)`` of :func:`f64_staging`'s
+    matrices: views of their rows (bool masks, i32 codes and ``irez``);
+    the deep elements where the matrix holds their rows."""
+    if fields.shape[0] not in (len(SGP4_F64_FIELD_NAMES),
+                               len(F64_FIELD_NAMES)):
+        raise ValueError(f"fields: expected {len(SGP4_F64_FIELD_NAMES)} or "
+                         f"{len(F64_FIELD_NAMES)} rows, got "
+                         f"{fields.shape[0]}")
+    rows = dict(zip(F64_FIELD_NAMES, fields))
+    rows.update(isimp=flags[0] != 0, is_deep=flags[1] != 0, error=flags[3])
+    els = Sgp4Elements(*(rows[n] for n in Sgp4Elements._fields))
+    deep = None
+    if fields.shape[0] == len(F64_FIELD_NAMES):
+        rows["irez"] = flags[2]
+        deep = DeepElements(*(rows[n] for n in DeepElements._fields))
+    return els, deep
+
+
+def _f64_consts(grav: GravityModel):
+    """The gravity model's numbers as the plain f64 functions form them
+    in Python: xke, 1 / xke (``x / grav.xke`` multiplies by it on CUDA),
+    0.5 j2, the earth radius, km/s per earth radius per minute, -0.5
+    j3oj2 and -0.25 j3oj2."""
+    return (grav.xke, 1.0 / grav.xke, 0.5 * grav.j2, grav.radius_earth_km,
+            grav.radius_earth_km * grav.xke / 60.0, -0.5 * grav.j3oj2,
+            -0.25 * grav.j3oj2)
+
+
+def _check_f64(device, fields, flags, sdp4):
+    n_lanes = fields.shape[-1] if fields.dim() == 2 else -1
+    rows = len(F64_FIELD_NAMES) if sdp4 else fields.shape[0]
+    if n_lanes < 1 or rows not in (len(SGP4_F64_FIELD_NAMES),
+                                   len(F64_FIELD_NAMES)):
+        raise ValueError(
+            f"fields: expected ({len(F64_FIELD_NAMES)}, S) f64"
+            + ("" if sdp4 else f" or ({len(SGP4_F64_FIELD_NAMES)}, S)")
+            + f", got {tuple(fields.shape)}")
+    _check(device, ((fields, (rows, n_lanes), F64, "fields"),
+                    (flags, (len(F64_FLAG_NAMES), n_lanes), I32, "flags")))
+    return n_lanes
+
+
+def _launch_f64(name, fn, *args):
+    rc = getattr(_build.library(), fn)(*args)
+    _raise_on(rc, name)
+
+
+def sgp4_f64_dense_reference(tsince, fields, flags, *, grav: GravityModel,
+                             sdp4: bool, want_vel: bool = True):
+    """Plain torch version of :func:`sgp4_f64_dense`, on any device:
+    ``ops.sgp4.sgp4_propagate``, or with ``sdp4``
+    ``ops.sdp4.sdp4_propagate``, of the unstaged elements."""
+    _check_f64(tsince.device, fields, flags, sdp4)
+    els, deep = f64_unstage(fields, flags)
+    if sdp4:
+        r, v, err, _ = sdp4_propagate(els, deep, tsince, grav)
+    else:
+        r, v, err = sgp4_propagate(els, tsince, grav)
+    return r, v if want_vel else None, err
+
+
+def _grid_2d(tsince, n_lanes):
+    """``tsince`` as a (T, C) f64 grid and the (T, N) grid of the output,
+    whose shape is ``broadcast_shapes(tsince.shape, (S,))``: C is S or 1,
+    or S is 1 (one lane against any grid)."""
+    out_shape = torch.broadcast_shapes(tsince.shape, (n_lanes,))
+    t2 = tsince.reshape(1, -1) if tsince.dim() < 2 \
+        else tsince.reshape(-1, tsince.shape[-1])
+    return t2.contiguous(), out_shape, out_shape[-1] if out_shape else 1
+
+
+def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
+                   sdp4: bool, want_vel: bool = True):
+    """The f64 kernel's DENSE mode: SGP4/SDP4 in f64 at every point.
+
+    Args:
+      tsince: f64 minutes since each epoch, broadcasting against the S
+        lanes as ``ops.sgp4.sgp4_propagate``'s ``tsince`` does: (T, S),
+        (T, 1), (S,), a scalar, or any grid against one lane (S = 1, the
+        API's time-as-lanes fold).
+      fields, flags: :func:`f64_staging` of the elements (the deep rows
+        included where ``sdp4``).
+      grav: the gravity model the elements were initialized with.
+      sdp4: ``ops.sdp4.sdp4_propagate``'s semantics on every lane (a
+        catalog with deep lanes), else ``ops.sgp4.sgp4_propagate``'s.
+      want_vel: compute and return velocities.
+
+    Returns ``(r, v, err)``: r and v stacked ``(..., 3)`` f64 TEME km and
+    km/s (v None without velocities), err i32 python-sgp4 codes; failed
+    points zero-filled. On a CPU tensor the plain version runs.
+    """
+    n_lanes = _check_f64(tsince.device, fields, flags, sdp4)
+    dev = _device_of(tsince, "sgp4_f64_dense")
+    if tsince.dtype != F64:
+        raise ValueError(f"tsince: expected {F64}, got {tsince.dtype}")
+    if dev.type == "cpu":
+        return sgp4_f64_dense_reference(tsince, fields, flags, grav=grav,
+                                        sdp4=sdp4, want_vel=want_vel)
+    t2, out_shape, n_out = _grid_2d(tsince, n_lanes)
+    n_times, n_cols = t2.shape
+    if n_cols not in (1, n_out) or n_lanes not in (1, n_out):
+        raise ValueError(f"tsince: {tuple(tsince.shape)} against {n_lanes} "
+                         "lanes")
+    r = torch.empty(out_shape + (3,), dtype=F64, device=dev)
+    v = torch.empty_like(r) if want_vel else None
+    err = torch.empty(out_shape, dtype=I32, device=dev)
+    if r.numel():
+        with torch.cuda.device(dev):
+            _launch_f64(
+                "sgp4_f64_dense", "astroz_sgp4_f64_dense", t2.data_ptr(),
+                n_cols, int(n_cols > 1), fields.data_ptr(), flags.data_ptr(),
+                n_lanes, int(n_lanes > 1), n_times, n_out, int(sdp4),
+                int(want_vel), *_f64_consts(grav), r.data_ptr(), _ptr(v),
+                err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return r, v, err
+
+
+def sgp4_f64_scan_reference(times, fields, flags, *, grav: GravityModel,
+                            want_vel: bool = True):
+    """Plain torch version of :func:`sgp4_f64_scan`, on any device:
+    ``ops.sdp4.sdp4_propagate_scan`` of the unstaged elements."""
+    _check_f64(times.device, fields, flags, True)
+    els, deep = f64_unstage(fields, flags)
+    r, v, err = sdp4_propagate_scan(els, deep, times, grav)
+    return r, v if want_vel else None, err
+
+
+def sgp4_f64_scan(times, fields, flags, *, grav: GravityModel,
+                  want_vel: bool = True):
+    """The f64 kernel's SCAN mode: ``ops.sdp4.sdp4_propagate_scan``, the
+    rows of ``times`` one after the other, each resonant lane resuming its
+    resonance integration from the row before (the rows sorted in one
+    direction). One thread walks each resonant lane's rows; every other
+    point is computed on its own.
+
+    Args:
+      times: (T, S) or (T, 1) f64 minutes since each epoch (or (T,)).
+      fields, flags: :func:`f64_staging` with the deep rows.
+      grav, want_vel: as :func:`sgp4_f64_dense`.
+
+    Returns ``(r, v, err)``: (T, S, 3) f64, (T, S, 3) f64 or None, (T, S)
+    i32.
+    """
+    n_lanes = _check_f64(times.device, fields, flags, True)
+    dev = _device_of(times, "sgp4_f64_scan")
+    if times.dtype != F64 or times.dim() not in (1, 2) or (
+            times.dim() == 2 and times.shape[1] not in (1, n_lanes)):
+        raise ValueError(f"times: expected (T, {n_lanes}) or (T, 1) f64, "
+                         f"got {times.dtype} {tuple(times.shape)}")
+    if dev.type == "cpu":
+        return sgp4_f64_scan_reference(times, fields, flags, grav=grav,
+                                       want_vel=want_vel)
+    t2 = times.reshape(times.shape[0], -1).contiguous()
+    n_times, n_cols = t2.shape
+    r = torch.empty((n_times, n_lanes, 3), dtype=F64, device=dev)
+    v = torch.empty_like(r) if want_vel else None
+    err = torch.empty((n_times, n_lanes), dtype=I32, device=dev)
+    if n_times:
+        with torch.cuda.device(dev):
+            _launch_f64(
+                "sgp4_f64_scan", "astroz_sgp4_f64_scan", t2.data_ptr(),
+                n_cols, int(n_cols > 1), fields.data_ptr(), flags.data_ptr(),
+                n_lanes, n_times, int(want_vel), *_f64_consts(grav),
+                r.data_ptr(), _ptr(v), err.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    return r, v, err
+
+
+def _check_escape(t_time, t_sat, fields, flags, idx, tables, d_r3, d_v3,
+                  d_err, want_vel):
+    n_esc = _check_f64(t_time.device, fields, flags, True)
+    n_times = t_time.shape[0]
+    if tables.dim() != 3 or tables.shape[1] < 2 or tables.shape[1] % 2:
+        raise ValueError("tables: expected (5, 2 * (steps + 1), D), got "
+                         f"{tuple(tables.shape)}")
+    n_deep = tables.shape[2]
+    expected = [(t_time, (n_times,), F64, "t_time"),
+                (t_sat, (n_esc,), F64, "t_sat"),
+                (idx, (n_esc,), I32, "idx"),
+                (tables, (len(RESONANCE_TABLE_NAMES), tables.shape[1], n_deep),
+                 F64, "tables"),
+                (d_r3, (3, n_times, n_deep), F32, "d_r3"),
+                (d_err, (n_times, n_deep), I32, "d_err")]
+    if want_vel:
+        if d_v3 is None:
+            raise ValueError("d_v3: the deep velocity planes are needed "
+                             "with want_vel=True")
+        expected.append((d_v3, (3, n_times, n_deep), F32, "d_v3"))
+    _check(t_time.device, expected)
+    return n_times, n_esc, n_deep, tables.shape[1] // 2 - 1
+
+
+def sgp4_f64_escape_reference(t_time, t_sat, fields, flags, idx, tables,
+                              d_r3, d_v3, d_err, *, grav: GravityModel,
+                              want_vel: bool = True):
+    """Plain torch version of :func:`sgp4_f64_escape`, on any device:
+    ``ops.fast.sdp4_propagate_tables`` of the unstaged escape lanes on
+    their columns of ``tables``, cast to the planes' dtype and written
+    into their columns ``idx``."""
+    _check_escape(t_time, t_sat, fields, flags, idx, tables, d_r3, d_v3,
+                  d_err, want_vel)
+    els, deep = f64_unstage(fields, flags)
+    cols = idx.long()
+    ts = t_time[:, None] - t_sat[None, :]
+    xr, xv, xe = sdp4_propagate_tables(els, deep, ts, grav,
+                                       tables[:, :, cols])
+    d_r3[:, :, cols] = xr.permute(2, 0, 1).to(d_r3.dtype)
+    if want_vel:
+        d_v3[:, :, cols] = xv.permute(2, 0, 1).to(d_v3.dtype)
+    d_err[:, cols] = xe.to(d_err.dtype)
+
+
+def sgp4_f64_escape(t_time, t_sat, fields, flags, idx, tables, d_r3, d_v3,
+                    d_err, *, grav: GravityModel, want_vel: bool = True):
+    """The f64 kernel's ESCAPE mode: the HEO escape lanes of a deep
+    subset recomputed in full f64 (``ops.fast.sdp4_propagate_tables``)
+    over ``t_time[t] - t_sat[x]``, cast to f32 and written in place into
+    kernel K2's planes at the lanes' columns.
+
+    Args:
+      t_time: (T,) f64 minutes, on the same base as ``t_sat``.
+      t_sat: (X,) f64 epochs of the escape lanes in minutes.
+      fields, flags: :func:`f64_staging` of the escape lanes, deep rows
+        included.
+      idx: (X,) i32 column of each escape lane in the deep subset.
+      tables: (5, 2 * (steps + 1), D) f64 resonance tables of the whole
+        deep subset (``ops.fast.resonance_tables``), read at ``idx``.
+      d_r3, d_v3, d_err: K2's (3, T, D) f32 planes (d_v3 None without
+        velocities) and (T, D) i32 codes, written in place.
+      grav, want_vel: as :func:`sgp4_f64_dense`.
+    """
+    n_times, n_esc, n_deep, n_steps = _check_escape(
+        t_time, t_sat, fields, flags, idx, tables, d_r3, d_v3, d_err,
+        want_vel)
+    dev = _device_of(t_time, "sgp4_f64_escape")
+    if dev.type == "cpu":
+        return sgp4_f64_escape_reference(
+            t_time, t_sat, fields, flags, idx, tables, d_r3, d_v3, d_err,
+            grav=grav, want_vel=want_vel)
+    if n_times == 0:
+        return None
+    with torch.cuda.device(dev):
+        _launch_f64(
+            "sgp4_f64_escape", "astroz_sgp4_f64_escape", t_time.data_ptr(),
+            t_sat.data_ptr(), fields.data_ptr(), flags.data_ptr(),
+            idx.data_ptr(), tables.data_ptr(), n_times, n_esc, n_deep,
+            n_steps, int(want_vel), *_f64_consts(grav), d_r3.data_ptr(),
+            _ptr(d_v3) if want_vel else None, d_err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return None

@@ -8,16 +8,17 @@ separable grid ``tsince = t_time[t] - t_sat[s]``:
 
 * a near-earth catalog through kernel K1 (``ops/cuda_sgp4.py``);
 * a mixed catalog through kernel K2 over the deep subset, the full-f64
-  recompute of its extreme half-day lanes (the HEO escape, plain torch),
-  then kernel K3, which is K1 with the deep columns copied in from K2's
-  planes.
+  recompute of its extreme half-day lanes (the HEO escape: the f64
+  kernel's ESCAPE mode, which writes into K2's planes), then kernel K3,
+  which is K1 with the deep columns copied in from K2's planes.
 
 Frames and layouts are converted in plain torch on the kernels' (3, T, S)
 planes. ``propagate(method="f64")`` (the default, as in the JAX package)
-and :func:`propagate_tsince` run the f64 propagators of ``ops/sgp4.py``
-and ``ops/sdp4.py`` in plain torch on the catalog's device over the dense
-``(T, S)`` grid of minutes since each epoch, and ``scan_times=True``
-threads the SDP4 resonance carry along the time axis. The JAX package's
+and :func:`propagate_tsince` compute ``ops/sgp4.py:sgp4_propagate`` or
+``ops/sdp4.py:sdp4_propagate`` over the dense ``(T, S)`` grid of minutes
+since each epoch in one launch of the f64 kernel (``ops/cuda_sgp4.py:
+sgp4_f64_dense``), and ``scan_times=True`` threads the SDP4 resonance
+carry along the time axis (``sgp4_f64_scan``). The JAX package's
 small-grid route to its native host engine (item 11) is not ported: on a
 CUDA catalog every fast propagate goes through the kernels.
 """
@@ -32,14 +33,14 @@ import torch
 
 from .constants import MINUTES_PER_DAY, RAD2DEG, WGS72, GravityModel
 from .frames import ecef_to_geodetic, ecef_to_geodetic_xyz, teme_to_ecef
-from .ops.cuda_sgp4 import (MergeMaps, propagate_deep_sep,
-                             propagate_fast_sep, propagate_fast_sep_merge)
+from .ops.cuda_sgp4 import (F64Staging, MergeMaps, f64_staging,
+                             propagate_deep_sep, propagate_fast_sep,
+                             propagate_fast_sep_merge, sgp4_f64_dense,
+                             sgp4_f64_escape, sgp4_f64_scan)
 from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
-                       deep_f32_fields, resonance_tables,
-                       sdp4_propagate_tables, shallow_staging)
-from .ops.sdp4 import (DeepElements, sdp4_init_np, sdp4_propagate,
-                       sdp4_propagate_scan)
-from .ops.sgp4 import Sgp4Elements, _device, sgp4_init_np, sgp4_propagate
+                       deep_f32_fields, resonance_tables, shallow_staging)
+from .ops.sdp4 import DeepElements, sdp4_init_np
+from .ops.sgp4 import Sgp4Elements, _device, sgp4_init_np
 from .time import gstime
 from .tle import Tle, TleArrays, iter_tles, parse_omm
 
@@ -85,10 +86,10 @@ class FastStaging(NamedTuple):
 class HeoEscape(NamedTuple):
     """The extreme half-day lanes of the deep subset, on the device."""
 
-    els: Sgp4Elements  # f64 elements of the escape lanes
-    deep: DeepElements  # their deep-space coefficients
     t_sat: torch.Tensor  # (X,) f64 epochs, minutes from the earliest
-    idx: torch.Tensor  # (X,) i64 positions in the deep subset
+    idx: torch.Tensor  # (X,) i32 positions in the deep subset
+    staged: F64Staging  # their elements and deep-space coefficients as
+    #                     the f64 kernel reads them (f64_unstage: back)
 
 
 def _to_numpy(x):
@@ -258,16 +259,25 @@ class SatCatalog:
         idx = np.nonzero((irez == 2) & (ecc > HEO_ESCAPE_ECC))[0]
         if idx.size == 0 or idx.size > _HEO_ESCAPE_CAP:
             return None
-        idx_dev = torch.as_tensor(idx, device=self.device)
+        idx_dev = torch.as_tensor(idx.astype(np.int32), device=self.device)
         return HeoEscape(
-            els=Sgp4Elements(*(x[idx_dev] for x in self.els_deep)),
-            deep=DeepElements(*(x[idx_dev] for x in self.deep_sub)),
-            t_sat=self._t_sat(self.deep_epochs_jd[idx]), idx=idx_dev)
+            t_sat=self._t_sat(self.deep_epochs_jd[idx]), idx=idx_dev,
+            staged=f64_staging(
+                Sgp4Elements(*(x[idx_dev] for x in self.els_deep)),
+                DeepElements(*(x[idx_dev] for x in self.deep_sub))))
 
     def escape_tables(self, steps: int) -> torch.Tensor:
         """The resonance tables of the escape lanes: their columns of
         :meth:`resonance_tables` (each lane's integration is its own)."""
         return self.resonance_tables(steps)[:, :, self.heo_escape.idx]
+
+    @cached_property
+    def f64_staging(self) -> F64Staging:
+        """Every lane's elements, and the SDP4 coefficients where the
+        catalog has them, as the f64 kernel reads them
+        (``ops.cuda_sgp4.f64_staging``), built once per catalog on its
+        device."""
+        return f64_staging(self.els, self.deep)
 
     @cached_property
     def kepler_iters(self) -> int:
@@ -420,13 +430,12 @@ def _apply_escape(esc: HeoEscape, tables, t_time, grav,
                   want_vel: bool, d_r3, d_v3, d_err):
     """Overwrite the escape lanes' columns of K2's planes, in place, with
     their full-f64 recompute (``ops.fast.sdp4_propagate_tables``) cast
-    to f32."""
-    ts = t_time[:, None] - esc.t_sat[None, :]
-    xr, xv, xe = sdp4_propagate_tables(esc.els, esc.deep, ts, grav, tables)
-    d_r3[:, :, esc.idx] = xr.permute(2, 0, 1).to(d_r3.dtype)
-    if want_vel:
-        d_v3[:, :, esc.idx] = xv.permute(2, 0, 1).to(d_v3.dtype)
-    d_err[:, esc.idx] = xe.to(d_err.dtype)
+    to f32: one launch of the f64 kernel (``ops.cuda_sgp4.
+    sgp4_f64_escape``), which reads the lanes' columns of the deep
+    subset's resonance ``tables``."""
+    sgp4_f64_escape(t_time, esc.t_sat, *esc.staged, esc.idx, tables, d_r3,
+                    d_v3 if want_vel else None, d_err, grav=grav,
+                    want_vel=want_vel)
 
 
 def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
@@ -502,14 +511,15 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
     # runs at the magnitude of epoch differences (days), not of a JD
     tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
               + fr[:, None]) * MINUTES_PER_DAY
-    if cat.deep is None:
-        r, v, err = sgp4_propagate(cat.els, tsince, cat.grav)
-    elif scan_times:
+    kw = dict(grav=cat.grav, want_vel=velocities)
+    if cat.deep is not None and scan_times:
         # one time row after the other, each resuming the resonance
         # integration from the row before (the rows sorted one way)
-        r, v, err = sdp4_propagate_scan(cat.els, cat.deep, tsince, cat.grav)
+        r, v, err = sgp4_f64_scan(tsince, *cat.f64_staging, **kw)
     else:
-        r, v, err, _ = sdp4_propagate(cat.els, cat.deep, tsince, cat.grav)
+        # SDP4 on every lane of a catalog that has the coefficients
+        r, v, err = sgp4_f64_dense(tsince, *cat.f64_staging,
+                                   sdp4=cat.deep is not None, **kw)
     r, v, err = _finalize(r, v, err, jd_sum, output, velocities)
     # time-major stacked outputs; the other layouts are relaid here
     if layout == "sat_major":
@@ -557,8 +567,8 @@ def _fast_planes(cat: SatCatalog, t_time, steps: int, velocities: bool):
             cat.resonance_tables(steps), grav=cat.grav,
             kepler_iters=cat.deep_kepler_iters, want_vel=velocities)
         if cat.heo_escape is not None:
-            _apply_escape(cat.heo_escape, cat.escape_tables(steps), t_time,
-                          cat.grav, velocities, d_r3, d_v3, d_err)
+            _apply_escape(cat.heo_escape, cat.resonance_tables(steps),
+                          t_time, cat.grav, velocities, d_r3, d_v3, d_err)
         r3, v3, err = propagate_fast_sep_merge(
             t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, d_r3,
             d_v3, d_err, grav=cat.grav, kepler_iters=cat.kepler_iters,
@@ -575,10 +585,8 @@ def propagate_tsince(cat: SatCatalog, tsince_min, *,
     (n_times, n_sats) gives a dense grid, a scalar or (n_sats,) a single
     shot. Always TEME. Returns ``(r, v, error)`` on the catalog's
     device, r and v stacked ``(..., 3)`` f64 (v None with
-    ``velocities=False``)."""
+    ``velocities=False``). One launch of the f64 kernel
+    (``ops.cuda_sgp4.sgp4_f64_dense``)."""
     t = torch.as_tensor(tsince_min, dtype=torch.float64, device=cat.device)
-    if not cat.has_deep:
-        r, v, err = sgp4_propagate(cat.els, t, cat.grav)
-    else:
-        r, v, err, _ = sdp4_propagate(cat.els, cat.deep, t, cat.grav)
-    return r, v if velocities else None, err
+    return sgp4_f64_dense(t, *cat.f64_staging, grav=cat.grav,
+                          sdp4=cat.has_deep, want_vel=velocities)

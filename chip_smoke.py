@@ -13,7 +13,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 0. the card: ``torch.cuda.is_available()``, its name and power limit from
    nvidia-smi; the port imports without JAX;
-1. build kernels K1-K6 and the spine kernel
+1. build kernels K1-K6, the spine kernel and the f64 kernel
    (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one process per source,
    and print ptxas' registers and spills;
 2. K1 vs its plain torch version on the card, on a small ragged
@@ -38,6 +38,18 @@ Phases (any failure exits non-zero; nothing is caught):
    K6's time-major outputs (``propagate_fast_fused``, K6's time-major
    store, ``propagate_fast_grids``) must equal the (T, S, 3) layout of
    the plain planes bit for bit;
+2d. the f64 kernel (``csrc/sgp4_f64.cu``) in its three modes vs their
+   plain versions, bit for bit (r, v and codes; positions and codes with
+   and without velocities): DENSE in SDP4 mode on a small ragged mixed
+   catalog (spread epochs, failing and decaying lanes, Lyddane lanes,
+   irez 1 and 2) over a dense grid and a column of times of both signs
+   across several 720-minute steps, on the GEO golden TLE folded as the
+   API folds time into lanes, and on the headline mixed catalog x 1,440;
+   DENSE in SGP4 mode on a near-earth catalog, the ISS fold and one
+   1year_1s chunk; ESCAPE on the headline's 14 escape lanes inside a
+   real K2 call (the other columns untouched); SCAN over 240 rows across
+   epoch (+-3 days) sorted forward and backward, on the headline mixed
+   catalog and the small one; one launch a call;
 3. the near-earth main path: 13,478 synthetic near-earth TLEs as text ->
    ``Constellation(text, device="cuda")`` -> ``propagate`` over 1,440
    one-minute epochs, as planes, as ECEF planes and time-major. Each
@@ -48,7 +60,8 @@ Phases (any failure exits non-zero; nothing is caught):
    trajectory within 0.1 km;
 3b. the mixed main path: the headline catalog of bench.py (13,478 TLEs,
    667 deep lanes, 14 of them HEO-escape lanes) through the same calls.
-   Each call must launch K2 once and K3 once (and K1 never); outputs
+   Each call must launch K2, the f64 kernel's ESCAPE mode and K3 once
+   each (and K1 never); outputs
    finite CUDA tensors; healthy LEO, GEO and HEO/GPS columns in their
    radius bands; every column at 145 of the epochs equal to the plain
    path run on the CPU within those bounds; the python-sgp4 GEO
@@ -67,19 +80,24 @@ Phases (any failure exits non-zero; nothing is caught):
    largest distance printed);
 3d. the f64 main path: the headline mixed catalog x 1,440 through
    ``Constellation.propagate(method="f64")`` as planes, time-major and
-   with ``scan_times=True``, which launch no kernel: error codes equal
+   with ``scan_times=True``, each one launch of the f64 kernel (DENSE,
+   DENSE, SCAN): error codes equal
    the fast path's, the fast path within 0.05 km of f64 on healthy
    near-earth points, 0.1 km on deep ones (the worst lane of each regime
    printed) and 5e-3 km on the escape lanes, scan within 1e-6 km
-   and 1e-9 km/s of dense, the GEO and Molniya golden vectors within
-   0.01 km, and ``propagate_tsince`` on a (16, 1) grid equal to
-   ``sdp4_propagate``;
+   and 1e-9 km/s of dense and bit-equal (r, v, codes) to the plain
+   ``sdp4_propagate_scan`` on the same tsince, the GEO and Molniya
+   golden vectors within
+   0.01 km, and ``propagate_tsince`` on a (16, 1) grid (one DENSE launch)
+   equal to ``sdp4_propagate``;
 4. timings with CUDA events: K1 alone and its plain version on the card,
    in turns (the kernel launched back to back, host gaps included, and
    replayed from a CUDA graph, its own time), and the whole near-earth
    ``propagate`` call;
 4b. the same for K2 and K3, plus K2's wrapper's host time, the HEO
-   escape, the resonance tables and the whole mixed ``propagate`` call,
+   escape (the f64 kernel's ESCAPE mode in turns with its plain version,
+   with its bound), the resonance tables and the whole mixed
+   ``propagate`` call,
    and the peak device memory of a mixed sweep; K2's registers and
    spills, its persistent grid (blocks an SM, blocks launched, waves) and
    its issue estimate (the static SASS instructions of its row loop a
@@ -118,9 +136,12 @@ Phases (any failure exits non-zero; nothing is caught):
    ``propagate_fast_dense``, the planes; K6 in its time-major store, as
    ``propagate_fast_grids`` runs it, and in the planes), the whole
    ``propagate_fast_grids`` call a chunk, the whole 1year_1s sweep
-   through K5 and through the f64 ``sgp4_propagate``, the f64
-   ``propagate`` of the mixed catalog (planes, time-major,
-   ``scan_times=True``), and the peak device memory of each; K5's and
+   through K5, through the f64 kernel (DENSE, SGP4) and through the
+   plain f64 ``sgp4_propagate``, the f64 ``propagate`` of the mixed
+   catalog (planes, time-major, ``scan_times=True``), and the peak
+   device memory of each; the f64 kernel alone in turns with its plain
+   versions: DENSE on the mixed catalog x 1,440 and SCAN on its first
+   240 rows (the kernel alone also on all 1,440), with their bounds; K5's and
    K6's registers, spills, grid and issue estimate as K2's; and, under
    ``torch.profiler``, a second ``propagate_fast_fused`` call on the same
    elements must run K5 and no other device work (no staging, no copy),
@@ -130,7 +151,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the native scalar engine; ``Satrec.twoline2rv(..., device="cuda")``
    for every TLE of the mixed and of the near-earth catalog, then a
    ``SatrecArray`` of each (host clock). ``SatrecArray.sgp4`` over the
-   1,440 epochs must launch K2 and K3 once (mixed) or K1 once
+   1,440 epochs must launch K2, the escape and K3 once (mixed) or K1 once
    (near-earth) and equal ``propagate(fast, sat_major)`` cast to f64 bit
    for bit; the mixed one is held to phase 3d's fast-vs-f64 gates. Timed:
    the call, ``sgp4_into`` preallocated buffers, and the call's split
@@ -140,7 +161,7 @@ Phases (any failure exits non-zero; nothing is caught):
    timed a call (10,000 calls) on the native core, which must be the
    engine in use, the ctypes engine and the Python scalar, beside a
    one-point ``propagate_tsince`` on the card (100 calls);
-   ``Satrec.sgp4_array``'s two paths (ISS, GEO) over 4,096 to 524,288
+   ``Satrec.sgp4_array``'s two paths (ISS, GEO) over 1,024 to 524,288
    one-second points: the time-as-lanes f64 path on the card within
    2e-6 km of the native array engine, both timed in turns, and the path
    the API takes at each size the one its threshold gives
@@ -158,7 +179,8 @@ Phases (any failure exits non-zero; nothing is caught):
    planes)`` over 1,440 epochs, through each route in turns, with its
    split (parse, init, SDP4 init and device catalog, staging and
    resonance tables, sweep); the native route must call
-   ``native.parse_catalog``, each first sweep launch K2 and K3 once (K1
+   ``native.parse_catalog``, each first sweep launch K2, the escape and
+   K3 once (K1
    on the near-earth catalog), and the mixed sweeps pass phase 3b's
    gates; the frame scanner on ~64 MiB CCSDS and VITA-49 streams with
    corrupt bytes between frames, with and without the sync marker, equal
@@ -213,7 +235,8 @@ Phases (any failure exits non-zero; nothing is caught):
    with its bound.
 
 The last three lines of output are the card line from nvidia-smi, a
-JSON line describing the kernels (with each one's bound: the larger of
+JSON line describing the kernels (K1-K6, the spine kernel and the f64
+kernel's three modes, with each one's bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type; ``ms`` is the kernel launched back to back through
 its wrapper, ``device_ms`` the same calls replayed from a CUDA graph,
@@ -222,6 +245,7 @@ null for K4, whose candidate and rectangle modes fetch a count), and
 "device": ...}``.
 """
 
+import functools
 import json
 import os
 import re
@@ -367,32 +391,110 @@ _NOT_ARITHMETIC = frozenset((
     "unsqueeze", "view", "where", "zeros", "zeros_like"))
 
 
+def _kepler_frozen_trips(u, axnl, aynl, iters):
+    """The point-trips of ``ops.sgp4.solve_kepler``'s loop that come after
+    the trip that froze their point: its steps in the same order, each
+    point frozen once its step is under 1e-12."""
+    eo1 = u
+    done = torch.zeros(torch.broadcast_shapes(u.shape, axnl.shape,
+                                              aynl.shape),
+                       dtype=torch.bool, device=u.device)
+    sineo1, coseo1 = torch.sin(eo1), torch.cos(eo1)
+    frozen = 0
+    for _ in range(iters):
+        frozen += int(done.sum())
+        denom = 1.0 - coseo1 * axnl - sineo1 * aynl
+        tem5 = torch.clamp((u - aynl * coseo1 + axnl * sineo1 - eo1) / denom,
+                           -0.95, 0.95)
+        eo1 = torch.where(done, eo1, eo1 + tem5)
+        done = done | (torch.abs(tem5) < 1.0e-12)
+        sineo1, coseo1 = torch.sin(eo1), torch.cos(eo1)
+    return frozen, done.numel()
+
+
 def count_ops(fn):
     """Run ``fn``, a kernel's plain version, and count its floating-point
     arithmetic: the elements written by every aten op whose result is f32
     or f64, outside :data:`_NOT_ARITHMETIC`, by the result's type. Casts,
     selects and data movement are not counted, nor are comparisons and
     integer or boolean ops (their results are not floats). A divide, a
-    square root or an ``fmod`` counts as one operation. Returns
-    ``(f32_ops, f64_ops)``."""
+    square root or an ``fmod`` counts as one operation.
+
+    The f64 Kepler solve (``ops.sgp4.solve_kepler``) runs its 10 trips at
+    every point; the f64 kernel leaves a point's loop at the trip that
+    freezes it, so a point's trips after that one are not counted.
+    Returns ``(f32_ops, f64_ops)``."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
+    from astroz_tpu_torch.ops import sgp4 as sgp4_ops
+
     counts = {torch.float32: 0, torch.float64: 0}
+    counting = [True]
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             outs = [x for x in tree_flatten(out)[0]
                     if isinstance(x, torch.Tensor)]
-            if (outs and outs[0].dtype in counts
+            if (counting[0] and outs and outs[0].dtype in counts
                     and func.overloadpacket.__name__ not in _NOT_ARITHMETIC):
                 counts[outs[0].dtype] += outs[0].numel()
             return out
 
-    with Count():
-        fn()
+    solve = sgp4_ops.solve_kepler
+
+    def solve_needed(u, axnl, aynl, iters=10):
+        start = dict(counts)
+        solve(u, axnl, aynl, 0)  # the loop's head alone
+        head = {k: counts[k] - start[k] for k in counts}
+        mid = dict(counts)
+        out = solve(u, axnl, aynl, iters)
+        counting[0] = False
+        try:
+            frozen, points = _kepler_frozen_trips(u, axnl, aynl, iters)
+        finally:
+            counting[0] = True
+        for k in counts:
+            trips = counts[k] - mid[k] - head[k]
+            counts[k] = (start[k] + head[k]
+                         + trips * (1.0 - frozen / (iters * points)))
+        return out
+
+    sgp4_ops.solve_kepler = solve_needed
+    try:
+        with Count():
+            fn()
+    finally:
+        sgp4_ops.solve_kepler = solve
     return counts[torch.float32], counts[torch.float64]
+
+
+def f64_ops(plain_deep, tsince, fields, flags, grav):
+    """``count_ops`` of the f64 kernel's work on a mixed catalog: the
+    plain SGP4 path on its near-earth lanes and ``plain_deep(tsince,
+    fields, flags, grav=)`` (the SDP4 DENSE or SCAN version) on its deep
+    lanes. The plain SDP4 functions run the deep-space terms on every lane
+    and blend; the kernel runs them on the deep lanes alone. What is left
+    over-counted (both resonance branches, derivatives at non-resonant
+    deep lanes) matters only where the operations outweigh the bytes."""
+    from astroz_tpu_torch.ops import cuda_sgp4
+
+    deep = flags[1] != 0
+    near = ~deep
+    n_sgp4 = len(cuda_sgp4.SGP4_F64_FIELD_NAMES)
+    ops = [0, 0]
+    if near.any():
+        a = count_ops(lambda: cuda_sgp4.sgp4_f64_dense_reference(
+            tsince[:, near], fields[:n_sgp4, near].contiguous(),
+            flags[:, near].contiguous(), grav=grav, sdp4=False))
+        ops = [x + y for x, y in zip(ops, a)]
+    if deep.any():
+        b = count_ops(lambda: plain_deep(
+            tsince[:, deep], fields[:, deep].contiguous(),
+            flags[:, deep].contiguous(), grav=grav))
+        ops = [x + y for x, y in zip(ops, b)]
+    return tuple(ops)
 
 
 def nbytes(*tensors):
@@ -552,8 +654,10 @@ def phase1_build():
         path = _build.build()
         _build.library()
         print(f"# phase 1: nvcc built {path.name} in "
-              f"{time.perf_counter() - t0:.1f} s "
-              f"(flags: {' '.join(_build.NVCC_FLAGS)})")
+              f"{time.perf_counter() - t0:.1f} s")
+        for src in _build._sources()[0]:
+            print(f"# phase 1: flags of {src.name}: "
+                  f"{' '.join(_build._flags(src))}")
         print(f"# phase 1: g++ built {native.library_path().name} (TLE "
               f"parser, frame scanner, scalar engine, C ABI) in "
               f"{gxx.result():.1f} s")
@@ -882,6 +986,193 @@ def phase2c_dense_vs_twin():
     return tuple(max(w[k] for w in worst) for k in range(3))
 
 
+def _f64_vs_plain(label, kernel, plain, codes=None):
+    """One f64 kernel mode against its plain version: ``kernel(want_vel)``
+    and ``plain()`` return ``(r, v, err)``. Positions, velocities and
+    codes bit-equal (NaN where NaN), and the kernel's positions and codes
+    without velocities bit-equal to those with. Returns the largest
+    position and velocity differences."""
+    r, v, e = kernel(True)
+    r0, v0, e0 = kernel(False)
+    rr, vr, er = plain()
+    sync()
+    dr, dv = _max_diff(r, rr), _max_diff(v, vr)
+    found = sorted(set(torch.unique(e).tolist()))
+    print(f"# phase 2d: {label}: max|dr| {dr:.3e} km, max|dv| {dv:.3e} "
+          f"km/s, error codes {found}, r bit-equal without v: "
+          f"{torch.equal(r, r0)}")
+    check(v0 is None, f"{label}: want_vel=False returned velocities")
+    check(torch.equal(e, er) and torch.equal(e0, er),
+          f"{label}: error codes differ from the plain version")
+    check(_same_or_both_nan(r, rr) and _same_or_both_nan(v, vr),
+          f"{label}: not bit-equal to the plain version (|dr| {dr} km, "
+          f"|dv| {dv} km/s)")
+    check(_same_or_both_nan(r, r0), f"{label}: positions differ with and "
+          "without velocities")
+    check(codes is None or set(codes) <= set(found),
+          f"{label}: error codes {found} lack {codes}")
+    return dr, dv
+
+
+def _escape_vs_plain(cat, t_time, label):
+    """The f64 kernel's ESCAPE mode inside a real K2 call: K2's planes
+    over ``t_time``, then the escape lanes written by the kernel and by
+    its plain version into copies, with and without velocities, bit for
+    bit; the other columns stay K2's. Returns the largest position and
+    velocity differences."""
+    from astroz_tpu_torch.ops import cuda_sgp4
+    from astroz_tpu_torch.propagation import resonance_steps
+
+    ds, esc = cat.fast_staging.deep, cat.heo_escape
+    jd_sum = cat.epoch_min_jd + t_time.cpu().numpy() / 1440.0
+    tables = cat.resonance_tables(resonance_steps(jd_sum,
+                                                  cat.deep_epochs_jd))
+    args = (t_time, esc.t_sat, *esc.staged, esc.idx, tables)
+    keep = torch.ones(cat.n_deep, dtype=torch.bool, device=DEVICE)
+    keep[esc.idx] = False
+
+    def run(want_vel, fn):
+        planes = cuda_sgp4.propagate_deep_sep(
+            t_time, ds.t_sat, ds.spine, ds.tail, ds.flags, tables,
+            grav=cat.grav, kepler_iters=cat.deep_kepler_iters,
+            want_vel=want_vel)
+        k2 = planes[0].clone()
+        fn(*args, *planes, grav=cat.grav, want_vel=want_vel)
+        check(torch.equal(planes[0][:, :, keep], k2[:, :, keep]),
+              f"{label}: the escape wrote outside its columns")
+        return planes
+
+    kernel_calls = launches()["sgp4_f64_escape"]
+    worst = _f64_vs_plain(
+        f"ESCAPE, {label}",
+        lambda want_vel: run(want_vel, cuda_sgp4.sgp4_f64_escape),
+        lambda: run(True, cuda_sgp4.sgp4_f64_escape_reference))
+    check(launches()["sgp4_f64_escape"] == kernel_calls + 2,
+          f"{label}: the escape did not launch once a call")
+    return worst
+
+
+def phase2d_f64_vs_plain(headline_cat):
+    """The f64 kernel's three modes against their plain versions on the
+    card, bit for bit (r, v and codes; positions and codes with and
+    without velocities): DENSE in SDP4 mode on a small ragged mixed
+    catalog (spread epochs, failing and decaying lanes, Lyddane lanes,
+    irez 1 and 2) over a dense grid and a column of times of both signs
+    across several 720-minute steps, and on the GEO golden TLE folded as
+    the API folds time into lanes; DENSE in SGP4 mode on a near-earth
+    catalog, on the ISS fold and on one 1year_1s chunk; ESCAPE on the
+    headline catalog's escape lanes inside a real K2 call; SCAN over 240
+    rows across epoch (+-3 days) sorted forward and backward, on the
+    headline mixed catalog and the small one. Returns the largest
+    position difference of each mode."""
+    from astroz_tpu_torch import build_catalog
+    from astroz_tpu_torch.ops import cuda_sgp4
+    from astroz_tpu_torch.ops.cuda_sgp4 import f64_staging
+    from astroz_tpu_torch.tle import format_lines
+
+    decaying = format_lines(satnum=99999, epoch_jd=EPOCH_JD - 2.0,
+                            ecco=5e-4, inclo_deg=51.6, nodeo_deg=10.0,
+                            argpo_deg=20.0, mo_deg=30.0, no_rev_day=16.0,
+                            bstar=0.5)
+    failing = [format_lines(satnum=99990 + k, epoch_jd=EPOCH_JD - 1.5,
+                            ecco=ecc, inclo_deg=30.0, nodeo_deg=40.0,
+                            argpo_deg=50.0, mo_deg=60.0, no_rev_day=rev,
+                            bstar=bstar)
+               for k, (rev, ecc, bstar) in enumerate(((6.3, 0.75, 0.01),
+                                                      (6.0, 0.5, 5.0)))]
+    small = build_catalog(
+        mixed_catalog_text(1000, seed=7, epoch_spread_days=2.0) + "\n"
+        + "\n".join(line for pair in failing + [decaying] for line in pair),
+        device=DEVICE)
+    irez = np.asarray(small.deep_host.irez)
+    print(f"# phase 2d: small mixed catalog: {len(small)} sats, "
+          f"{small.n_deep} deep (irez 0/1/2: "
+          f"{[int((irez[small.is_deep] == k).sum()) for k in range(3)]}, "
+          f"Lyddane {int((small.host.inclo[small.is_deep] < 0.2).sum())})")
+    n = len(small)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    col = torch.linspace(-4320.0, 4320.0, 37, dtype=torch.float64,
+                         device=DEVICE)[:, None]
+    dense = col + (torch.rand((37, n), generator=gen, dtype=torch.float64,
+                              device=DEVICE) - 0.5) * 1800.0
+    worst = {"dense": 0.0, "escape": 0.0, "scan": 0.0}
+
+    def dense_case(cat, t, label, codes=None, staging=None):
+        st = staging or cat.f64_staging
+        kw = dict(grav=cat.grav, sdp4=st.fields.shape[0] == 83)
+        before = launches()["sgp4_f64_dense"]
+        dr, _ = _f64_vs_plain(
+            f"DENSE ({'SDP4' if kw['sdp4'] else 'SGP4'}), {label}",
+            lambda want_vel: cuda_sgp4.sgp4_f64_dense(
+                t, *st, **kw, want_vel=want_vel),
+            lambda: cuda_sgp4.sgp4_f64_dense_reference(t, *st, **kw),
+            codes)
+        check(launches()["sgp4_f64_dense"] == before + 2,
+              f"DENSE {label}: not one launch a call")
+        worst["dense"] = max(worst["dense"], dr)
+
+    dense_case(small, dense, f"{n} sats x 37 times (dense, +-3 days)",
+               codes={0, 1, 6})
+    dense_case(small, col.contiguous(), f"{n} sats x 37 times (column)")
+    deep_lines = GOLDEN_DEEP_TLES.splitlines()
+    geo = build_catalog("\n".join(deep_lines[:2]), device=DEVICE)
+    fold = (torch.arange(64 * 512, dtype=torch.float64, device=DEVICE)
+            .reshape(64, 512) * 60.0 - 10 * 1440.0)
+    dense_case(geo, fold, "GEO golden TLE folded to (64, 512), -10 .. +12 "
+               "days", codes={0})
+    near = build_catalog(near_earth_catalog_text(333, seed=7,
+                                                 epoch_spread_days=2.0)
+                         + "\n" + "\n".join(decaying), device=DEVICE)
+    dense_case(near, dense[:, :len(near)].contiguous(),
+               f"{len(near)} near-earth sats x 37 times", codes={0, 1})
+    iss = build_catalog(GOLDEN_L1 + "\n" + GOLDEN_L2, device=DEVICE)
+    dense_case(iss, fold, "ISS folded to (64, 512)", codes={0})
+    chunk = next(single_sat_chunks(*SINGLE_SAT_SCENARIOS[-1][1:]))
+    dense_case(iss, chunk, f"ISS x {tuple(chunk.shape)} (one 1year_1s "
+               "chunk)", codes={0},
+               staging=f64_staging(single_sat_elements(iss)))
+
+    # the main path's shape: the headline mixed catalog x N_TIMES minutes
+    # since each epoch, as _propagate_f64 forms them
+    t_head = torch.arange(N_TIMES, dtype=torch.float64, device=DEVICE)
+    dense_case(headline_cat,
+               ((EPOCH_JD + t_head / 1440.0)[:, None]
+                - headline_cat.els.epoch_jd[None, :]) * 1440.0,
+               f"the headline {N_SATS} sats x {N_TIMES} times")
+    worst["escape"] = _escape_vs_plain(
+        headline_cat, t_head, f"the headline's {len(headline_cat.heo_escape.idx)}"
+        f" escape lanes x {N_TIMES}")[0]
+    if small.heo_escape is not None:
+        worst["escape"] = max(worst["escape"], _escape_vs_plain(
+            small, col[:, 0] + 2880.0,
+            f"the small catalog's {len(small.heo_escape.idx)} escape lanes "
+            "x 37")[0])
+
+    rows = torch.linspace(-4320.0, 4320.0, SCREEN_TIMES, dtype=torch.float64,
+                          device=DEVICE)[:, None]
+    for cat, name in ((headline_cat, f"{N_SATS} headline sats"),
+                      (small, f"{n} small-catalog sats")):
+        # each lane's own epoch: the columns of a (T, S) grid sorted alike
+        offset = torch.as_tensor(
+            (cat.epoch_min_jd - cat.epochs_jd) * 1440.0, device=DEVICE)
+        for order in ("forward", "backward"):
+            t = rows + offset[None, :]
+            if order == "backward":
+                t = t.flip(0)
+            t = t.contiguous()
+            before = launches()["sgp4_f64_scan"]
+            dr, _ = _f64_vs_plain(
+                f"SCAN, {name} x {SCREEN_TIMES} rows {order}",
+                lambda want_vel: cuda_sgp4.sgp4_f64_scan(
+                    t, *cat.f64_staging, grav=cat.grav, want_vel=want_vel),
+                lambda: cuda_sgp4.sgp4_f64_scan_reference(
+                    t, *cat.f64_staging, grav=cat.grav))
+            check(launches()["sgp4_f64_scan"] == before + 2,
+                  f"SCAN {name}: not one launch a call")
+            worst["scan"] = max(worst["scan"], dr)
+    return worst
+
+
 def phase3_main_path(text):
     from astroz_tpu_torch import Constellation
     from astroz_tpu_torch.ops import cuda_sgp4
@@ -1053,9 +1344,10 @@ def phase3b_mixed_path(text):
     launches = dict(cuda_sgp4.LAUNCHES)
     calls.append(launches)
     print(f"# phase 3b: kernel launches after each call {calls}")
-    check([(n["sgp4_deep"], n["sgp4_shallow_merge"]) for n in calls]
-          == [(1, 1), (2, 2), (3, 3)],
-          "each mixed propagate call must launch K2 and K3 exactly once")
+    check([(n["sgp4_deep"], n["sgp4_f64_escape"], n["sgp4_shallow_merge"])
+           for n in calls] == [(1, 1, 1), (2, 2, 2), (3, 3, 3)],
+          "each mixed propagate call must launch K2, the f64 kernel's "
+          "escape and K3 exactly once")
     check(launches["sgp4_shallow"] == 0, "the mixed path launched K1")
 
     outs = (r_p, v_p, e_p, r_e, v_e, e_e, r_t, v_t, e_t)
@@ -1202,17 +1494,21 @@ def _fast_vs_f64_gates(cat, lane_worst, label, share):
 
 def phase3d_f64_path(mcon):
     """The f64 main path; returns the milliseconds of its scan_times call
-    (host clock around synchronized work) and that call's peak device
-    memory in bytes."""
+    (host clock around synchronized work), that call's peak device memory
+    in bytes and the launches of the three propagate calls by kernel."""
     from astroz_tpu_torch import propagate, propagate_tsince
-    from astroz_tpu_torch.ops import sdp4_propagate
+    from astroz_tpu_torch.constants import MINUTES_PER_DAY
+    from astroz_tpu_torch.ops import cuda_sgp4, sdp4_propagate
 
     cat = mcon.catalog
     times = np.arange(float(N_TIMES))
     kw = dict(start_time=EPOCH_JD, method="f64")
     reset_launches()
+    calls = []
     r_p, v_p, e_p = mcon.propagate(times, layout="planes", **kw)
+    calls.append({k: v for k, v in launches().items() if v})
     r_t, v_t, e_t = mcon.propagate(times, **kw)
+    calls.append({k: v for k, v in launches().items() if v})
     sync()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1223,11 +1519,15 @@ def phase3d_f64_path(mcon):
     sync()
     scan_ms = (time.perf_counter() - t0) * 1e3
     scan_peak = torch.cuda.max_memory_allocated()
+    calls.append({k: v for k, v in launches().items() if v})
     n = launches()
     print(f"# phase 3d: f64 propagate of {N_SATS} mixed x {N_TIMES}: planes, "
           f"time_major and scan_times=True ({scan_ms:.1f} ms); kernel "
-          f"launches {n}")
-    check(sum(n.values()) == 0, "the f64 path launched a kernel")
+          f"launches after each call {calls}")
+    check(calls == [{"sgp4_f64_dense": 1}, {"sgp4_f64_dense": 2},
+                    {"sgp4_f64_dense": 2, "sgp4_f64_scan": 1}],
+          "each f64 propagate call must launch the f64 kernel once (DENSE, "
+          "or SCAN with scan_times=True) and nothing else")
     outs = (r_p, v_p, r_t, v_t, r_s, v_s)
     check(all(x.device.type == DEVICE and x.dtype == torch.float64
               and torch.isfinite(x).all().item() for x in outs),
@@ -1243,7 +1543,27 @@ def phase3d_f64_path(mcon):
     print(f"# phase 3d: scan vs dense max|dr| {d_scan:.3e} km, max|dv| "
           f"{dv_scan:.3e} km/s")
     check(d_scan <= 1e-6 and dv_scan <= 1e-9, "scan differs from dense")
-    del r_t, v_t, r_s, v_s
+    # the scan call's output against the plain scan on the tsince that
+    # _propagate_f64 forms from the same jd (fr 0), bit for bit
+    jd = torch.as_tensor(EPOCH_JD + times / 1440.0, device=DEVICE)
+    tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
+              + torch.zeros_like(jd)[:, None]) * MINUTES_PER_DAY
+    t0 = time.perf_counter()
+    r_q, v_q, e_q = cuda_sgp4.sgp4_f64_scan_reference(
+        tsince, *cat.f64_staging, grav=cat.grav)
+    sync()
+    plain_s = time.perf_counter() - t0
+    r_q, v_q = r_q.permute(2, 0, 1), v_q.permute(2, 0, 1)
+    print(f"# phase 3d: scan_times=True vs the plain scan "
+          f"(sdp4_propagate_scan, {plain_s:.1f} s) on the same "
+          f"{N_TIMES} x {N_SATS} tsince: max|dr| "
+          f"{_max_diff(r_s, r_q):.3e} km, max|dv| {_max_diff(v_s, v_q):.3e} "
+          f"km/s, codes equal {torch.equal(e_s, e_q)}")
+    check(torch.equal(e_s, e_q) and _same_or_both_nan(r_s, r_q)
+          and _same_or_both_nan(v_s, v_q),
+          "scan_times=True differs from the plain scan at the main path's "
+          "shape")
+    del r_t, v_t, r_s, v_s, r_q, v_q, e_q
 
     r_f, _, e_f = mcon.propagate(times, start_time=EPOCH_JD,
                                  layout="planes", velocities=False)
@@ -1261,13 +1581,16 @@ def phase3d_f64_path(mcon):
     check(d_gold < 0.01, "f64 deep golden vectors off by more than 0.01 km")
     t = torch.linspace(0.0, 1440.0, 16, dtype=torch.float64,
                        device=DEVICE)[:, None]
+    before = launches()["sgp4_f64_dense"]
     a = propagate_tsince(cat, t)
+    check(launches()["sgp4_f64_dense"] == before + 1,
+          "propagate_tsince must launch the f64 kernel once")
     b = sdp4_propagate(cat.els, cat.deep, t, cat.grav)
     check(all(torch.equal(x, y) for x, y in zip(a, b[:3])),
           "propagate_tsince differs from sdp4_propagate")
-    print("# phase 3d: propagate_tsince on a (16, 1) grid equals "
-          "sdp4_propagate bit for bit")
-    return scan_ms, scan_peak
+    print("# phase 3d: propagate_tsince on a (16, 1) grid (one launch of the "
+          "f64 kernel) equals sdp4_propagate bit for bit")
+    return scan_ms, scan_peak, n
 
 
 def _cuda_ms(fn, reps, warm=True):
@@ -1415,9 +1738,16 @@ def phase4b_mixed_timings(con, smi):
     k2_host = _host_us(lambda: cuda_sgp4.propagate_deep_sep(*dargs, **dkw),
                        50)
     dr, dv, de = cuda_sgp4.propagate_deep_sep(*dargs, **dkw)
-    esc_ms = _cuda_ms(lambda: _apply_escape(
-        cat.heo_escape, cat.escape_tables(steps), t_time, cat.grav, True,
-        dr, dv, de), 10)
+    # the escape writes its columns of K2's planes in place, the same
+    # values every call
+    esc = cat.heo_escape
+    eargs = (t_time, esc.t_sat, *esc.staged, esc.idx, tables, dr, dv, de)
+    ekw = dict(grav=cat.grav)
+    escape = _in_turns(
+        lambda: cuda_sgp4.sgp4_f64_escape(*eargs, **ekw),
+        lambda: cuda_sgp4.sgp4_f64_escape_reference(*eargs, **ekw), 50, 3)
+    apply_ms = _cuda_ms(lambda: _apply_escape(
+        esc, tables, t_time, cat.grav, True, dr, dv, de), 50)
     margs = (t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, dr, dv,
              de)
     mkw = dict(grav=cat.grav, kepler_iters=cat.kepler_iters)
@@ -1443,9 +1773,11 @@ def phase4b_mixed_timings(con, smi):
           f"{N_TIMES}); its wrapper's host time {k2_host:.1f} us a call")
     print(f"# phase 4b [{smi}]: {k3.text('K3')} "
           f"({props / k3.ms / 1e6:.3f} G props/s)")
-    print(f"# phase 4b [{smi}]: HEO escape ({len(cat.heo_escape.idx)} "
-          f"lanes, plain f64 torch) {esc_ms:.4f} ms; resonance tables "
-          f"(depth {steps}, once per catalog and depth) {tables_ms:.4f} ms")
+    n_esc = len(esc.idx)
+    print(f"# phase 4b [{smi}]: HEO escape ({n_esc} lanes x {N_TIMES}): "
+          f"{escape.text('f64 ESCAPE')}; _apply_escape {apply_ms:.4f} ms; "
+          f"resonance tables (depth {steps}, once per catalog and depth) "
+          f"{tables_ms:.4f} ms")
     print(f"# phase 4b [{smi}]: mixed propagate() planes {call_planes:.4f} "
           f"ms ({props / call_planes / 1e6:.3f} G props/s), time_major "
           f"{call_tm:.4f} ms")
@@ -1462,10 +1794,21 @@ def phase4b_mixed_timings(con, smi):
     near = (N_SATS - cat.n_deep) / N_SATS
     k3_bound = bound(nbytes(*margs, *cuda_sgp4.propagate_fast_sep_merge(
         *margs, **mkw, **maps)), k1_ops[0] * near, k1_ops[1] * near)
+    esc_ops = count_ops(lambda: cuda_sgp4.sgp4_f64_escape_reference(
+        *eargs, **ekw))
+    # the escape reads its lanes' fields and table columns and writes its
+    # columns of the planes (r, v f32 and the code)
+    esc_bytes = (nbytes(t_time, esc.t_sat, *esc.staged, esc.idx)
+                 + tables.shape[0] * tables.shape[1] * n_esc * 8
+                 + 28 * n_esc * N_TIMES)
+    esc_bound = bound(esc_bytes, *esc_ops)
     print(f"# phase 4b: K2 bound {k2_bound[0]:.4f} ms by {k2_bound[1]} "
           f"({k2_ops[0] / (cat.n_deep * N_TIMES):.1f} f32 and "
           f"{k2_ops[1] / (cat.n_deep * N_TIMES):.1f} f64 operations a "
-          f"point); K3 bound {k3_bound[0]:.4f} ms by {k3_bound[1]}")
+          f"point); K3 bound {k3_bound[0]:.4f} ms by {k3_bound[1]}; f64 "
+          f"ESCAPE bound {esc_bound[0]:.5f} ms by {esc_bound[1]} "
+          f"({esc_ops[1] / (n_esc * N_TIMES):.1f} f64 operations a point, "
+          f"{escape.device_ms / esc_bound[0]:.1f}x its bound replayed)")
     kernel_report(
         f"phase 4b: K2 ({cat.n_deep} x {N_TIMES}, "
         f"{cat.deep_kepler_iters} trips)",
@@ -1473,7 +1816,7 @@ def phase4b_mixed_timings(con, smi):
         cuda_sgp4.launch_grid("sgp4_deep", N_TIMES, cat.n_deep,
                               kepler_iters=cat.deep_kepler_iters),
         cat.n_deep * N_TIMES, k2.device_ms, smi)
-    return (k2, k2_bound), (k3, k3_bound)
+    return (k2, k2_bound), (k3, k3_bound), (escape, esc_bound)
 
 
 def _same_or_both_nan(a, b):
@@ -1707,10 +2050,10 @@ def phase6b_mixed_screen(mcon):
     n = launches()
     print(f"# phase 6b: screen of the mixed catalog x {SCREEN_TIMES} at "
           f"{SCREEN_KM} km: {len(res[0])} pairs, kernel launches {n}")
-    check(n == {**dict.fromkeys(n, 0), "sgp4_deep": 1,
+    check(n == {**dict.fromkeys(n, 0), "sgp4_deep": 1, "sgp4_f64_escape": 1,
                 "sgp4_shallow_merge": 1, "screen_candidates": 1},
-          "the mixed screen must launch K2, K3 and K4 (candidate mode) "
-          "once each")
+          "the mixed screen must launch K2, the escape, K3 and K4 "
+          "(candidate mode) once each")
     _check_pairs(res, "mixed screen")
     dd = _screen_vs_plain(cat, jd, res, "mixed screen")
 
@@ -1991,6 +2334,7 @@ def _device_work(*fns):
 def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     from astroz_tpu_torch import build_catalog
     from astroz_tpu_torch.ops import cuda_sgp4, sgp4_propagate
+    from astroz_tpu_torch.ops.cuda_sgp4 import f64_staging
     from astroz_tpu_torch.ops.fast import shallow_staging
 
     cat = build_catalog(GOLDEN_L1 + "\n" + GOLDEN_L2, device=DEVICE)
@@ -2040,10 +2384,18 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     def fast(e, chunk, grav):
         return cuda_sgp4.propagate_fast_fused(e, chunk, grav, kepler_iters=5)
 
+    iss_f64 = f64_staging(els)
+
+    def f64_kernel(e, chunk, grav):
+        return cuda_sgp4.sgp4_f64_dense(chunk, *iss_f64, grav=grav,
+                                        sdp4=False)
+
     year_fast = _cuda_ms(lambda: sweep(fast), 5)
     year_f64 = _cuda_ms(lambda: sweep(sgp4_propagate), 2)
-    peak_fast, peak_f64 = _peak(lambda: sweep(fast)), _peak(
-        lambda: sweep(sgp4_propagate))
+    year_f64k = _cuda_ms(lambda: sweep(f64_kernel), 5)
+    peak_fast, peak_f64, peak_f64k = (_peak(lambda: sweep(fast)),
+                                      _peak(lambda: sweep(sgp4_propagate)),
+                                      _peak(lambda: sweep(f64_kernel)))
     device_work = _device_work(
         lambda: fast(els, t, cat.grav),
         lambda: cuda_sgp4.propagate_fast_grids(els, t, **kw))
@@ -2063,8 +2415,42 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     times = np.arange(float(N_TIMES))
     f64_kw = dict(start_time=EPOCH_JD, method="f64")
     f64_planes = _cuda_ms(lambda: mcon.propagate(times, layout="planes",
-                                                 **f64_kw), 3)
-    f64_tm = _cuda_ms(lambda: mcon.propagate(times, **f64_kw), 3)
+                                                 **f64_kw), 10)
+    f64_tm = _cuda_ms(lambda: mcon.propagate(times, **f64_kw), 10)
+    # the f64 kernel alone at the main path's shapes, in turns with its
+    # plain versions: DENSE over the mixed catalog x N_TIMES (minutes since
+    # each epoch, as _propagate_f64 forms them); SCAN over its first
+    # SCREEN_TIMES rows (the plain scan takes seconds at N_TIMES rows) and,
+    # kernel alone, over all N_TIMES
+    mcat = mcon.catalog
+    mst = mcat.f64_staging
+    tsince = ((torch.as_tensor(EPOCH_JD + times / 1440.0, device=DEVICE)
+               [:, None] - mcat.els.epoch_jd[None, :]) * 1440.0)
+    dkw = dict(grav=mcat.grav, sdp4=True)
+    f64_dense = _in_turns(
+        lambda: cuda_sgp4.sgp4_f64_dense(tsince, *mst, **dkw),
+        lambda: cuda_sgp4.sgp4_f64_dense_reference(tsince, *mst, **dkw),
+        10, 1)
+    t_scan = tsince[:SCREEN_TIMES].contiguous()
+    f64_scan = _in_turns(
+        lambda: cuda_sgp4.sgp4_f64_scan(t_scan, *mst, grav=mcat.grav),
+        lambda: cuda_sgp4.sgp4_f64_scan_reference(t_scan, *mst,
+                                                  grav=mcat.grav), 10, 1)
+    scan_full = _cuda_ms(lambda: cuda_sgp4.sgp4_f64_scan(
+        tsince, *mst, grav=mcat.grav), 5)
+    dense_ops = f64_ops(functools.partial(
+        cuda_sgp4.sgp4_f64_dense_reference, sdp4=True), tsince, *mst,
+        mcat.grav)
+    scan_ops = f64_ops(cuda_sgp4.sgp4_f64_scan_reference, t_scan, *mst,
+                       mcat.grav)
+    year_ops = count_ops(lambda: cuda_sgp4.sgp4_f64_dense_reference(
+        t, *iss_f64, grav=cat.grav, sdp4=False))
+    # r, v (T, S, 3) f64 and the i32 code a point
+    dense_bound = bound(nbytes(tsince, *mst) + 52 * tsince.numel(),
+                        *dense_ops)
+    scan_bound = bound(nbytes(t_scan, *mst) + 52 * t_scan.numel(),
+                       *scan_ops)
+    year_bound = bound(nbytes(t, *iss_f64) + 52 * t.numel(), *year_ops)
     peak_planes = _peak(lambda: mcon.propagate(times, layout="planes",
                                                **f64_kw))
     peak_tm = _peak(lambda: mcon.propagate(times, **f64_kw))
@@ -2086,9 +2472,13 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
           f"points): "
           f"propagate_fast_fused (K5) {year_fast:.3f} ms "
           f"({n_year / year_fast / 1e6:.3f} G props/s, peak "
-          f"{peak_fast:.3f} GiB); f64 sgp4_propagate {year_f64:.3f} ms "
-          f"({n_year / year_f64 / 1e6:.3f} G props/s, peak {peak_f64:.3f} "
-          f"GiB)")
+          f"{peak_fast:.3f} GiB); f64 kernel (DENSE, SGP4) "
+          f"{year_f64k:.3f} ms ({n_year / year_f64k / 1e6:.3f} G props/s, "
+          f"peak {peak_f64k:.3f} GiB); plain f64 sgp4_propagate "
+          f"{year_f64:.3f} ms ({n_year / year_f64 / 1e6:.3f} G props/s, "
+          f"peak {peak_f64:.3f} GiB); the kernel's bound a chunk "
+          f"{year_bound[0]:.4f} ms by {year_bound[1]} "
+          f"({year_ops[1] / props:.1f} f64 operations a point)")
     print(f"# phase 4c [{smi}]: f64 propagate of the mixed catalog x "
           f"{N_TIMES}: planes {f64_planes:.3f} ms "
           f"({mixed_props / f64_planes / 1e6:.4f} G props/s, peak "
@@ -2096,6 +2486,17 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
           f"{f64_tm:.3f} ms (peak {peak_tm:.3f} GiB), scan_times=True "
           f"{scan_ms:.1f} ms (host clock, one call; peak "
           f"{scan_peak / 2**30:.3f} GiB)")
+    print(f"# phase 4c [{smi}]: f64 DENSE (SDP4) of the mixed catalog x "
+          f"{N_TIMES}: {f64_dense.text('f64 DENSE')} "
+          f"({mixed_props / f64_dense.device_ms / 1e6:.4f} G props/s "
+          f"replayed); bound {dense_bound[0]:.4f} ms by {dense_bound[1]} "
+          f"({dense_ops[1] / tsince.numel():.1f} f64 operations a point), "
+          f"{f64_dense.device_ms / dense_bound[0]:.2f}x the bound")
+    print(f"# phase 4c [{smi}]: f64 SCAN of the mixed catalog x "
+          f"{SCREEN_TIMES} rows: {f64_scan.text('f64 SCAN')}; bound "
+          f"{scan_bound[0]:.4f} ms by {scan_bound[1]} "
+          f"({scan_ops[1] / t_scan.numel():.1f} f64 operations a point); "
+          f"the kernel alone x {N_TIMES} rows {scan_full:.3f} ms")
     k5_ops = count_ops(lambda: cuda_sgp4.propagate_fast_dense_reference(
         t, *staged, **kw))
     k5_out = cuda_sgp4.propagate_fast_dense(t, *staged, **kw)
@@ -2120,7 +2521,8 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
                       kernel.format(5),
                       cuda_sgp4.launch_grid(grid, *t.shape, kepler_iters=5),
                       props, turns.device_ms, smi)
-    return (k5, k5_bound), (k6, k6_bound), (spine, spine_bound)
+    return ((k5, k5_bound), (k6, k6_bound), (spine, spine_bound),
+            (f64_dense, dense_bound), (f64_scan, scan_bound))
 
 
 #: phase 8: timed calls of SatrecArray.sgp4 and its pieces, calls of a
@@ -2129,7 +2531,8 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
 API_REPS = 5
 SINGLE_POINT_CALLS = 10000
 CARD_POINT_CALLS = 100
-LANES_SIZES = (4096, 16384, 32768, 65536, 131072, 262144, 524288)
+LANES_SIZES = (1024, 2048, 4096, 16384, 32768, 65536, 131072, 262144,
+               524288)
 
 
 def _tle_pairs(text):
@@ -2356,7 +2759,8 @@ def phase8_api(con, mcon, text, mixed_text, smi):
     marr = _api_array(mixed_text, "mixed")
     mcat = mcon.catalog
     jd, fr, e, r, moved = _api_array_vs_propagate(
-        marr, mcat, {"sgp4_deep": 1, "sgp4_shallow_merge": 1}, "mixed")
+        marr, mcat, {"sgp4_deep": 1, "sgp4_f64_escape": 1,
+                     "sgp4_shallow_merge": 1}, "mixed")
     api_launches = {"mixed SatrecArray.sgp4": moved}
     r64, _, e64 = propagate(mcat, jd, fr, method="f64", layout="sat_major",
                             velocities=False)
@@ -2619,8 +3023,8 @@ def _ingest(kind, n, smi, cpu):
           f"{INGEST_TURNS} in turns); all 12 columns and the satellite "
           f"numbers bit-equal")
 
-    expect = ({"sgp4_deep": 1, "sgp4_shallow_merge": 1} if kind == "mixed"
-              else {"sgp4_shallow": 1})
+    expect = ({"sgp4_deep": 1, "sgp4_f64_escape": 1, "sgp4_shallow_merge": 1}
+              if kind == "mixed" else {"sgp4_shallow": 1})
     # one untimed run first (its outputs are gated), then the turns
     _, _, r, e, cat = _first_sweep(text, "native", expect)
     check(r.device.type == DEVICE and tuple(r.shape) == (3, N_TIMES, n)
@@ -3510,21 +3914,23 @@ def main():
     print(f"# synthetic catalog texts: 3 x {N_SATS} TLEs in "
           f"{time.perf_counter() - t0:.2f} s")
     k1_err = phase2_kernel_vs_twin(build_catalog(text, device=DEVICE))
-    deep_err = phase2b_deep_and_merge(build_catalog(mixed_text,
-                                                    device=DEVICE))
+    mixed_cat = build_catalog(mixed_text, device=DEVICE)
+    deep_err = phase2b_deep_and_merge(mixed_cat)
     dense_err = phase2c_dense_vs_twin()
+    f64_err = phase2d_f64_vs_plain(mixed_cat)
     con, k1_launches = phase3_main_path(text)
     mcon, mixed_launches = phase3b_mixed_path(mixed_text)
     dense_launches = phase3c_single_sat()
-    scan_ms, scan_peak = phase3d_f64_path(mcon)
+    scan_ms, scan_peak, f64_launches = phase3d_f64_path(mcon)
     k1 = phase4_timings(con, smi)
-    k2, k3 = phase4b_mixed_timings(mcon, smi)
+    k2, k3, f64_escape = phase4b_mixed_timings(mcon, smi)
     scon = Constellation(shell_text, device=DEVICE)
     k4_err, k4c_err, plain_pairs = phase5_coarse_vs_twin(scon)
     screen_launches = phase6_screen(scon, plain_pairs)
     phase6b_mixed_screen(mcon)
     k4, k4c = phase7_screen_timings(scon, smi)
-    k5, k6, spine = phase4c_dense_timings(mcon, smi, scan_ms, scan_peak)
+    k5, k6, spine, f64_dense, f64_scan = phase4c_dense_timings(
+        mcon, smi, scan_ms, scan_peak)
     phase8_api(con, mcon, text, mixed_text, smi)
     phase9_ingest(smi)
     rect = phase11_mesh(mcon, scon, smi)
@@ -3584,7 +3990,23 @@ def main():
         entry("sgp4_spine_grids (the f64 spine feeding K6)",
               "astroz_tpu_torch/csrc/sgp4_shallow.cu",
               "astroz_tpu/ops/pallas_sgp4.py:139",
-              dense_launches["sgp4_spine_grids"], dense_err[2], spine)]}))
+              dense_launches["sgp4_spine_grids"], dense_err[2], spine),
+        # not TPU kernels: the f64 XLA programs the JAX package jits around
+        # its Pallas kernels; launches of the main path's f64 calls (phase
+        # 3d: planes, time-major, scan_times) and mixed sweeps (phase 3b)
+        entry("sgp4_f64_dense (the f64 kernel, DENSE: f64 propagate)",
+              "astroz_tpu_torch/csrc/sgp4_f64.cu",
+              "astroz_tpu/propagation.py:822",
+              f64_launches["sgp4_f64_dense"], f64_err["dense"], f64_dense),
+        entry("sgp4_f64_escape (the f64 kernel, ESCAPE: the HEO escape)",
+              "astroz_tpu_torch/csrc/sgp4_f64.cu",
+              "astroz_tpu/propagation.py:918",
+              mixed_launches["sgp4_f64_escape"], f64_err["escape"],
+              f64_escape),
+        entry("sgp4_f64_scan (the f64 kernel, SCAN: scan_times=True)",
+              "astroz_tpu_torch/csrc/sgp4_f64.cu",
+              "astroz_tpu/ops/sdp4.py:841",
+              f64_launches["sgp4_f64_scan"], f64_err["scan"], f64_scan)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

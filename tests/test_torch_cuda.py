@@ -1,5 +1,6 @@
-"""Kernels K1 to K6 (K4 in its three modes) and the spine kernel on the
-card against their plain torch versions, a small all-vs-all screen on
+"""Kernels K1 to K6 (K4 in its three modes), the spine kernel and the f64
+kernel (its DENSE, SCAN and ESCAPE modes) on the card against their plain
+torch versions, a small all-vs-all screen on
 the card against the same call on the CPU, and the multi-device paths on
 a mesh of the card repeated against the single-device ones (marked
 ``cuda``; skips where ``torch.cuda.is_available()`` is False); and, on
@@ -220,6 +221,153 @@ def test_merge_kernel_matches_twin_on_cuda(cuda_device, want_vel):
 
 def _same_or_both_nan(a, b):
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _f64_grid(cat, device, form):
+    """Minutes since epoch of both signs across several 720-minute steps:
+    a (T, 1) column, a dense (T, S) grid, or a (T, 7) grid for one lane."""
+    col = torch.linspace(-3100.0, 3700.0, 11, dtype=torch.float64)[:, None]
+    gen = torch.Generator().manual_seed(3)
+    width = {"column": 1, "dense": len(cat), "fold": 7}[form]
+    jitter = torch.rand((11, width), generator=gen, dtype=torch.float64)
+    grid = col if form == "column" else col + (jitter - 0.5) * 1800.0
+    return grid.to(device)
+
+
+def _outputs_equal(got, ref):
+    return all(a is b is None or _same_or_both_nan(a, b)
+               for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["column", "dense", "fold"])
+@pytest.mark.parametrize("kind", ["mixed", "near"])
+def test_f64_dense_matches_plain_on_cuda(cuda_device, kind, form):
+    """The f64 kernel's DENSE mode against its plain version
+    (``sdp4_propagate`` on a catalog with deep lanes, ``sgp4_propagate``
+    on a near-earth one): positions, velocities and error codes bit-equal,
+    positions and codes bit-equal without velocities, one launch a call;
+    ``fold`` is one lane against a grid, as the API's time as lanes."""
+    cat = (_mixed_catalog(cuda_device) if kind == "mixed"
+           else build_catalog(synthetic_leo_text(), device=cuda_device))
+    if form == "fold":
+        cat = build_catalog("\n".join(
+            (synthetic_deep_text(3) if kind == "mixed"
+             else synthetic_leo_text(3)).splitlines()[6:9]),
+            device=cuda_device)
+    st = cat.f64_staging
+    t = _f64_grid(cat, cuda_device, form)
+    kw = dict(grav=cat.grav, sdp4=cat.deep is not None)
+    before = cuda_sgp4.LAUNCHES["sgp4_f64_dense"]
+    got = cuda_sgp4.sgp4_f64_dense(t, *st, **kw)
+    r0, v0, e0 = cuda_sgp4.sgp4_f64_dense(t, *st, **kw, want_vel=False)
+    torch.cuda.synchronize()
+    assert cuda_sgp4.LAUNCHES["sgp4_f64_dense"] == before + 2
+    ref = cuda_sgp4.sgp4_f64_dense_reference(t, *st, **kw)
+    assert tuple(got[0].shape) == tuple(ref[0].shape) and v0 is None
+    assert _outputs_equal(got, ref)
+    assert torch.equal(e0, ref[2]) and _same_or_both_nan(r0, ref[0])
+    if form != "fold":
+        assert (got[2] != 0).any() and (got[2] == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["forward", "backward"])
+def test_f64_scan_matches_plain_on_cuda(cuda_device, order):
+    """The f64 kernel's SCAN mode against ``sdp4_propagate_scan`` on rows
+    sorted either way across epoch, bit for bit, with and without
+    velocities, one launch a call."""
+    cat = _mixed_catalog(cuda_device)
+    t = torch.sort(_f64_grid(cat, cuda_device, "dense"), dim=0).values
+    if order == "backward":
+        t = t.flip(0).contiguous()
+    st = cat.f64_staging
+    before = cuda_sgp4.LAUNCHES["sgp4_f64_scan"]
+    got = cuda_sgp4.sgp4_f64_scan(t, *st, grav=cat.grav)
+    r0, v0, e0 = cuda_sgp4.sgp4_f64_scan(t, *st, grav=cat.grav,
+                                         want_vel=False)
+    torch.cuda.synchronize()
+    assert cuda_sgp4.LAUNCHES["sgp4_f64_scan"] == before + 2
+    ref = cuda_sgp4.sgp4_f64_scan_reference(t, *st, grav=cat.grav)
+    assert _outputs_equal(got, ref) and v0 is None
+    assert torch.equal(e0, ref[2]) and _same_or_both_nan(r0, ref[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_vel", [True, False])
+def test_f64_escape_matches_plain_on_cuda(cuda_device, want_vel):
+    """The f64 kernel's ESCAPE mode writes into K2's planes what its plain
+    version writes, bit for bit, and leaves the other columns as K2 wrote
+    them, in one launch."""
+    from astroz_tpu_torch.propagation import resonance_steps
+
+    cat = _mixed_catalog(cuda_device)
+    esc = cat.heo_escape
+    assert esc is not None
+    ds = cat.fast_staging.deep
+    jd = cat.epoch_min_jd + np.linspace(-2.5, 3.0, 13)
+    steps = resonance_steps(jd, cat.deep_epochs_jd)
+    tables = cat.resonance_tables(steps)
+    t = torch.as_tensor((jd - cat.epoch_min_jd) * 1440.0, device=cuda_device)
+    planes = cuda_sgp4.propagate_deep_sep(
+        t, ds.t_sat, ds.spine, ds.tail, ds.flags, tables, grav=cat.grav,
+        kepler_iters=cat.deep_kepler_iters, want_vel=want_vel)
+    k2 = [None if x is None else x.clone() for x in planes]
+    ref = [None if x is None else x.clone() for x in planes]
+    args = (t, esc.t_sat, *esc.staged, esc.idx, tables)
+    kw = dict(grav=cat.grav, want_vel=want_vel)
+    before = cuda_sgp4.LAUNCHES["sgp4_f64_escape"]
+    cuda_sgp4.sgp4_f64_escape(*args, *planes, **kw)
+    torch.cuda.synchronize()
+    assert cuda_sgp4.LAUNCHES["sgp4_f64_escape"] == before + 1
+    cuda_sgp4.sgp4_f64_escape_reference(*args, *ref, **kw)
+    assert _outputs_equal(planes, ref)
+    other = torch.ones(cat.n_deep, dtype=torch.bool, device=cuda_device)
+    other[esc.idx] = False
+    assert torch.equal(planes[0][:, :, other], k2[0][:, :, other])
+    assert not torch.equal(planes[0][:, :, esc.idx], k2[0][:, :, esc.idx])
+
+
+@pytest.mark.cuda
+def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
+    """On a catalog with escape lanes a fast propagate launches K2, the
+    escape and K3 once each; ``propagate(method="f64")`` with and without
+    ``scan_times``, ``propagate_tsince`` and ``Satrec.sgp4_array``'s time
+    as lanes launch the f64 kernel once each and never integrate the
+    resonance on the host."""
+    from astroz_tpu_torch import api, propagate_tsince
+    from astroz_tpu_torch.ops import sdp4
+
+    def no_host_loop(*args, **kwargs):
+        raise AssertionError("integrate_resonance ran")
+
+    monkeypatch.setattr(sdp4, "integrate_resonance", no_host_loop)
+    cat = _mixed_catalog(cuda_device)
+    assert cat.heo_escape is not None
+    jd = cat.epoch_min_jd + np.linspace(0.0, 1.0, 5)
+    calls = {
+        "fast": (lambda: propagate(cat, jd, method="fast"),
+                 {"sgp4_deep": 1, "sgp4_f64_escape": 1,
+                  "sgp4_shallow_merge": 1}),
+        "f64": (lambda: propagate(cat, jd), {"sgp4_f64_dense": 1}),
+        "scan": (lambda: propagate(cat, jd, scan_times=True),
+                 {"sgp4_f64_scan": 1}),
+        "tsince": (lambda: propagate_tsince(cat, torch.zeros(
+            (3, 1), dtype=torch.float64, device=cuda_device)),
+            {"sgp4_f64_dense": 1})}
+    monkeypatch.setattr(api, "_LANES_MIN_TIMES", {False: 600, True: 600})
+    lines = synthetic_deep_text(3).splitlines()
+    sat = api.Satrec.twoline2rv(lines[7], lines[8], device=cuda_device)
+    jd1 = np.full(700, sat.jdsatepoch)
+    calls["lanes"] = (lambda: sat.sgp4_array(jd1, np.linspace(0, 3, 700)),
+                      {"sgp4_f64_dense": 1})
+    for name, (call, expected) in calls.items():
+        before = dict(cuda_sgp4.LAUNCHES)
+        call()
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in cuda_sgp4.LAUNCHES.items()
+                 if n != before[k]}
+        assert moved == expected, name
 
 
 def _coarse_planes(device):
@@ -466,7 +614,7 @@ def test_merge_maps_of_another_deep_slot_raise():
 
 def test_cpu_runs_no_kernel():
     """On CPU tensors every wrapper runs its plain version and counts no
-    launch, and the f64 path launches nothing."""
+    launch, the f64 path's too."""
     before = dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES)
     cat = build_catalog(synthetic_leo_text(16) + "\n"
                         + synthetic_deep_text(6), device="cpu")
@@ -664,7 +812,8 @@ def _tle_pairs(text):
 def test_satrec_array_equals_propagate_on_cuda(cuda_device, kind):
     """``SatrecArray.sgp4`` of CUDA satrecs is ``propagate(fast,
     sat_major)`` cast to f64, bit for bit, with one launch of K1 (a
-    near-earth array) or of K2 and K3 (a mixed one) a call;
+    near-earth array) or of K2, the f64 kernel's escape and K3 (a mixed
+    one with escape lanes) a call;
     ``sgp4_into`` writes the same into the caller's buffers."""
     from astroz_tpu_torch.api import Satrec, SatrecArray
     text = synthetic_leo_text()
@@ -680,8 +829,10 @@ def test_satrec_array_equals_propagate_on_cuda(cuda_device, kind):
     torch.cuda.synchronize()
     moved = {k: n - before[k] for k, n in cuda_sgp4.LAUNCHES.items()
              if n != before[k]}
+    assert cat.heo_escape is not None or kind == "near"
     assert moved == ({"sgp4_shallow": 1} if kind == "near" else
-                     {"sgp4_deep": 1, "sgp4_shallow_merge": 1})
+                     {"sgp4_deep": 1, "sgp4_f64_escape": 1,
+                      "sgp4_shallow_merge": 1})
     rw, vw, ew = propagate(cat, jd, fr, method="fast", layout="sat_major")
     assert r.dtype == v.dtype == np.float64 and r.shape == (len(cat), 9, 3)
     np.testing.assert_array_equal(e, ew.cpu().numpy())

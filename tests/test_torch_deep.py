@@ -246,7 +246,8 @@ def test_sdp4_propagate_tables_matches_jax(cats):
         jesc[0], jesc[1], jnp.asarray(ts.numpy()), J_WGS72,
         resonance_steps=steps, tables=jcat.escape_tables(steps))
     rp, vp, ep = pfast.sdp4_propagate_tables(
-        esc.els, esc.deep, ts, WGS72, pcat.escape_tables(steps))
+        *cuda_sgp4.f64_unstage(*esc.staged), ts, WGS72,
+        pcat.escape_tables(steps))
     np.testing.assert_array_equal(np.asarray(ej), ep.numpy())
     assert np.abs(np.asarray(rj) - rp.numpy()).max() <= 1e-5
     assert np.abs(np.asarray(vj) - vp.numpy()).max() <= 1e-8

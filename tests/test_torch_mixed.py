@@ -95,7 +95,8 @@ def test_heo_escape_lanes(cats):
     np.testing.assert_array_equal(
         np.sort(pcat.deep_idx[esc.idx.numpy()]),
         np.sort(np.asarray(jcat.deep_idx)[np.asarray(jcat.heo_escape[4])]))
-    assert (esc.deep.irez == 2).all() and (esc.els.ecco > 0.7).all()
+    els, deep = cuda_sgp4.f64_unstage(*esc.staged)
+    assert (deep.irez == 2).all() and (els.ecco > 0.7).all()
     no_escape = P.build_catalog("\n".join(MIXED_TEXT.splitlines()[:6]),
                                 device="cpu")
     assert no_escape.n_deep == 2 and no_escape.heo_escape is None
@@ -148,8 +149,8 @@ def _port_planes(pcat, jd, fr):
         t_time, ds.t_sat, ds.spine, ds.tail, ds.flags,
         pcat.resonance_tables(steps), grav=WGS72,
         kepler_iters=pcat.deep_kepler_iters))
-    _apply_escape(pcat.heo_escape, pcat.escape_tables(steps), t_time, WGS72,
-                  True, *deep)
+    _apply_escape(pcat.heo_escape, pcat.resonance_tables(steps), t_time,
+                  WGS72, True, *deep)
     args = (t_time, st.t_sat, st.spine, st.tail, st.flags, ds.slot, *deep)
     return args, steps
 
