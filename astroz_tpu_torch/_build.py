@@ -84,6 +84,8 @@ SIGNATURES = {
     # constants, r, v, err, stream
     "astroz_sgp4_f64_scan": (_I, [_P, _L, _L, _P, _P, _L, _L, _I]
                              + [_D] * 7 + [_P] * 4),
+    # n_times, n_out, sdp4, want_vel, grid (3,) i32 out
+    "astroz_sgp4_f64_grid": (_I, [_L, _L, _I, _I, _P]),
     # t_time, t_sat, fields, flags, idx, tables, n_times, n_esc, n_deep,
     # n_steps, want_vel, 7 constants, r, v, err, stream
     "astroz_sgp4_f64_escape": (_I, [_P] * 6 + [_L, _L, _L, _I, _I]

@@ -9,18 +9,17 @@
 // the port's plain f64 functions compute, bit for bit on the card:
 //   DENSE   ops/sgp4.py sgp4_propagate (a near-earth catalog, remainder
 //           reductions) or ops/sdp4.py sdp4_propagate (a catalog with deep
-//           lanes: SDP4 semantics on every lane, fmod reductions, the
-//           resonance stepped from epoch per point) at tsince (T, C)
-//           minutes, C the catalog's S lanes or 1, or one lane against a
-//           (T, C) grid; r, v (T, N, 3) f64, err (T, N) i32
+//           lanes: SDP4 semantics on every lane, fmod reductions) at
+//           tsince (T, C) minutes, C the catalog's S lanes or 1, or one
+//           lane against a (T, C) grid; r, v (T, N, 3) f64, err (T, N) i32
 //   ESCAPE  ops/fast.py sdp4_propagate_tables over the HEO escape lanes,
 //           tsince = t_time[t] - t_sat[x], the resonance read from the
 //           deep subset's tables at column idx[x]; r, v cast to f32 and
 //           written straight into kernel K2's (3, T, D) planes at
 //           column idx[x], the codes into its (T, D) plane
-//   SCAN    ops/sdp4.py sdp4_propagate_scan: each resonant lane walks the
-//           rows in one thread, carrying (atime, xli, xni) as the plain
-//           loop does; every other lane takes DENSE's per-point path
+//   SCAN    ops/sdp4.py sdp4_propagate_scan over (T, S): DENSE's row
+//           walk in SDP4 mode (see below: every row of the plain scan is
+//           sdp4_propagate at that row alone)
 // Codes 2, 1 and 3 (each only where no code is set yet), then 4 and 6, over
 // the init error; failed points zero-filled.
 //
@@ -44,23 +43,80 @@
 //   under 1e-12, recomputing sin and cos of the frozen value: leaving the
 //   loop there gives the same bits.
 //
-// Bound. The plain versions count 806 f64 operations a point on the
-// headline mixed catalog in SDP4 mode and 344 on a near-earth catalog in
-// SGP4 mode (chip_smoke.count_ops; a divide, square root, sin or cos
-// counted as one; the plain SDP4 computes the deep terms on every lane);
-// a point stores 52 bytes (r, v, err; 28 for the escape's f32 planes). At
-// 34 TFLOP/s f64 against 3.35 TB/s the bound is the operations on the
-// mixed catalog. This first version is simple: one thread a point, the
-// fields read where they are used from the staged (F, S) matrix
-// (coalesced across a warp's lanes, cached in L1 and L2), no shared
-// memory. The resonant points of DENSE step from epoch, |t| / 720 steps
-// each, as the plain version does.
+// Bound. The plain versions count 262 f64 operations a point on the
+// headline mixed catalog in SDP4 mode and 238 on the 1year_1s grid in
+// SGP4 mode (chip_smoke.count_ops: a divide, square root, sin, cos or pow
+// counted as one, the Newton trips each point takes; SGP4 on near-earth
+// lanes, SDP4 on deep ones), and a point stores 52 bytes (r, v, err), so
+// the bound of chip_smoke.bound is the bytes: 0.350 ms at 13,478 x
+// 1,440. It is out of reach: libdevice's sin, cos, pow and atan2 and the
+// correctly rounded divides take tens of f64 instructions each, and the
+// f64 pipe (132 SMs x 64 lanes) is the real limit. chip_smoke.kernel_report
+// counts the row loop's f64 instructions (SASS) a point over that pipe.
+//
+// Design: DENSE and SCAN are one row walk (sgp4_f64_walk_kernel). Each
+// choice was timed in turns on an H100 80GB HBM3 at 700 W by
+// shallow_variants.py (kernels replayed from a CUDA graph, the mixed
+// catalog x 1,440 unless said), against the one-thread-a-point kernel it
+// replaces (9.45 ms):
+// - Slots by regime: the staging's flag row SLOT_LANE lists the lanes
+//   near-earth first, then the deep ones by Lyddane branch and irez, in
+//   catalog order within a group (ops/cuda_sgp4.py f64_slot_lanes), and
+//   thread slot s computes lane SLOT_LANE[s], so a warp's lanes take one
+//   side of the deep branch, of dpper's Lyddane branch and of the
+//   resonance series (in catalog order 81.5% of a row's warps held a
+//   deep lane): 2.76 ms against 5.78 in catalog order. The order only
+//   moves which thread computes a lane.
+// - A thread walks rows of one lane: the persistent balanced grid of
+//   sgp4_common.cuh (warp_run) gives each warp a run of (warp column of
+//   32 slots, time row) points; where the run enters a column, a thread
+//   stages its lane's flags and the 31 fields of the near-earth body that
+//   every point reads (and the per-lane products bstar * cc4 and
+//   bstar * cc5, which the plain chain forms before it meets t) in
+//   shared memory, 33 KB a block, read where they are used; the deep
+//   rows, read on the deep warps alone, come from the matrix through L1.
+// - Deep columns weigh 4: a warp column that holds a deep slot runs ~3x
+//   the hot SASS instructions of a near-earth one (6,373 in the row loop
+//   against ~2,000), so with every row weighing one unit its warps ran
+//   long after the others (5.70 ms); a row of such a column weighs
+//   F64_DEEP_WEIGHT units in the split, and their runs are that much
+//   shorter: 2.76 ms (weight 8: 3.23). The column where the deep slots
+//   start is found on the card (first_deep_column).
+// - The resonance is carried along the run: ops/sdp4.py
+//   integrate_resonance's state after k steps does not depend on the
+//   target time, and its restart rule resets the carry where t lies
+//   behind it or across epoch, so a carry resumed from the row before
+//   gives the bits of stepping from epoch (tests/test_torch_f64_kernel.py
+//   holds the plain functions to this); a run starts with a fresh carry.
+//   DENSE steps O(rows) a resonant lane, not O(rows x |t| / 720): with
+//   the epochs spread over +-7 days, 2.77 ms against 25.7. SCAN's rows
+//   are DENSE's on the same tsince: 0.478 ms at x 240 against the
+//   serial walkers' 3.99.
+// - Registers: __launch_bounds__ asks for 5 blocks an SM in SDP4 mode
+//   (96 registers, 2.76 ms; 4 blocks at 128 registers 2.77) and 6 in
+//   SGP4 mode (80 registers). SGP4 mode has nothing to carry and runs
+//   the 1year_1s grid in 3.49 ms against the one-point kernel's 3.04:
+//   the walk's state costs registers (80 and 116 B of spills against
+//   68), 6 blocks an SM against 7; 7 blocks (72 registers) spill more
+//   and take 3.61. A compiler fence at each row keeps the compiler from
+//   holding the staged fields in registers across the rows: SGP4 mode's
+//   spills 116 -> 32 B and 3.48 -> 3.40 ms, SDP4 mode unchanged.
+
+#include <climits>
 
 #include "sgp4_common.cuh"
 
 namespace {
 
 constexpr int BLOCK = 128;
+// blocks an SM that __launch_bounds__ asks registers for, in SDP4 and in
+// SGP4 mode (the body takes 33 KB of shared memory a block, so at most 6
+// fit)
+constexpr int F64_MIN_BLOCKS = 5;
+constexpr int F64_SGP4_MIN_BLOCKS = 6;
+// units a row of a warp column that holds a deep slot weighs in the
+// balanced split of the row walk (a row of near-earth slots weighs one)
+constexpr int F64_DEEP_WEIGHT = 4;
 
 // The rows of the staged field matrix: the f64 fields of Sgp4Elements,
 // then those of DeepElements, in their order (ops/cuda_sgp4.py
@@ -77,8 +133,10 @@ enum Field {
   D4410, D4422, D5220, D5232, D5421, D5433, XFACT, XLAMO,
   N_FIELDS
 };
-// the rows of the staged flags (ops/cuda_sgp4.py F64_FLAG_NAMES)
-enum Flag { ISIMP, IS_DEEP, IREZ, ERROR, N_FLAGS };
+// the rows of the staged flags (ops/cuda_sgp4.py F64_FLAG_NAMES): row k
+// < SLOT_LANE at the lane; row SLOT_LANE at the slot, the lane that slot
+// computes (the slot order)
+enum Flag { ISIMP, IS_DEEP, IREZ, ERROR, SLOT_LANE, N_FLAGS };
 
 // the three semantics
 enum Mode { SGP4, SDP4, TABLES };
@@ -145,12 +203,61 @@ struct Consts {
   double xlcof_c;    // -0.25 * grav.j3oj2
 };
 
-// one lane's fields: row k of the (F, stride) matrix at the lane
-struct Lane {
+// the near-earth body's fields, which every point of the row walk reads:
+// rows NO_UNKOZAI..BSTAR and MDOT..X7THM1 of the field matrix at body slots
+// 0..30, then the per-lane products bstar * cc4 and bstar * cc5
+constexpr int BSTAR_CC4 = 31, BSTAR_CC5 = 32, N_BODY = 33;
+__host__ __device__ constexpr int body_slot(int k) {
+  return k >= NO_UNKOZAI && k <= BSTAR ? k - NO_UNKOZAI
+         : k >= MDOT && k <= X7THM1    ? k - MDOT + (BSTAR - NO_UNKOZAI + 1)
+                                       : -1;
+}
+static_assert(body_slot(X7THM1) == BSTAR_CC4 - 1, "body slots");
+
+// one lane's fields read where they are used: row k of the (F, stride)
+// matrix at the lane (ESCAPE)
+struct GlobalLane {
   const double* f;
   size_t stride;
   __device__ __forceinline__ D operator[](int k) const {
     return __ldg(f + (size_t)k * stride);
+  }
+  __device__ __forceinline__ D bstar_cc4() const {
+    return (*this)[BSTAR] * (*this)[CC4];
+  }
+  __device__ __forceinline__ D bstar_cc5() const {
+    return (*this)[BSTAR] * (*this)[CC5];
+  }
+};
+
+// one lane's fields in the row walk: the body from the thread's column of
+// shared memory, staged once a run (only the thread that owns a column
+// writes and reads it, so no barrier is needed); the other rows from the
+// matrix at the lane
+struct StagedLane {
+  const double* f;
+  size_t stride;
+  double (*body)[BLOCK];
+  __device__ __forceinline__ D operator[](int k) const {
+    return body_slot(k) >= 0 ? D(body[body_slot(k)][threadIdx.x])
+                             : D(__ldg(f + (size_t)k * stride));
+  }
+  __device__ __forceinline__ D bstar_cc4() const {
+    return body[BSTAR_CC4][threadIdx.x];
+  }
+  __device__ __forceinline__ D bstar_cc5() const {
+    return body[BSTAR_CC5][threadIdx.x];
+  }
+  // the body of the lane at `f`
+  __device__ __forceinline__ void stage() {
+#pragma unroll
+    for (int k = NO_UNKOZAI; k <= BSTAR; ++k)
+      body[body_slot(k)][threadIdx.x] = __ldg(f + (size_t)k * stride);
+#pragma unroll
+    for (int k = MDOT; k <= X7THM1; ++k)
+      body[body_slot(k)][threadIdx.x] = __ldg(f + (size_t)k * stride);
+    body[BSTAR_CC4][threadIdx.x] = ((*this)[BSTAR] * (*this)[CC4]).v;
+    body[BSTAR_CC5][threadIdx.x] = ((*this)[BSTAR] * (*this)[CC5]).v;
   }
 };
 
@@ -177,7 +284,8 @@ struct Secular {
   D mm, argpm, nodem, tempa, tempe, templ;
 };
 
-__device__ __forceinline__ Secular update_secular(const Lane& L, bool isimp,
+template <class F>
+__device__ __forceinline__ Secular update_secular(const F& L, bool isimp,
                                                   D t) {
   const D xmdf = L[MO] + L[MDOT] * t;
   const D argpdf = L[ARGPO] + L[ARGPDOT] * t;
@@ -186,7 +294,7 @@ __device__ __forceinline__ Secular update_secular(const Lane& L, bool isimp,
   Secular s;
   s.nodem = nodedf + L[NODECF] * t2;
   D tempa = D(1.0) - L[CC1] * t;
-  const D tempe = L[BSTAR] * L[CC4] * t;
+  const D tempe = L.bstar_cc4() * t;
   const D templ = L[T2COF] * t2;
   // higher-order drag on the non-simplified lanes
   s.mm = xmdf;
@@ -203,7 +311,7 @@ __device__ __forceinline__ Secular update_secular(const Lane& L, bool isimp,
   const D t4 = t3 * t;
   s.tempa = tempa - L[D2] * t2 - L[D3] * t3 - L[D4] * t4;
   s.tempe = tempe + (isimp ? D(0.0)
-                           : L[BSTAR] * L[CC5] * (sin(s.mm) - L[SINMAO]));
+                           : L.bstar_cc5() * (sin(s.mm) - L[SINMAO]));
   s.templ = templ + L[T3COF] * t3 + L[T4COF] * t4 + t4 * t * L[T5COF];
   return s;
 }
@@ -213,7 +321,8 @@ struct Derivs {
   D xndt, xldot, xnddt;
 };
 
-__device__ __forceinline__ Derivs resonance_derivs(const Lane& L, int irez,
+template <class F>
+__device__ __forceinline__ Derivs resonance_derivs(const F& L, int irez,
                                                    D xli, D xni, D atime) {
   D xndt, xnddt;
   if (irez == 2) {
@@ -248,7 +357,8 @@ __device__ __forceinline__ Derivs resonance_derivs(const Lane& L, int irez,
 // ---- ops/sdp4.py integrate_resonance, resumed from (atime, xli, xni) -------
 // Returns the resonance mean motion and longitude at t; the carry moves to
 // the state after the last step.
-__device__ __forceinline__ void integrate_resonance(const Lane& L, int irez,
+template <class F>
+__device__ __forceinline__ void integrate_resonance(const F& L, int irez,
                                                     D t, D& atime, D& xli,
                                                     D& xni, D& nm_res,
                                                     D& xl) {
@@ -270,19 +380,13 @@ __device__ __forceinline__ void integrate_resonance(const Lane& L, int irez,
   xl = xli + d.xldot * ft + d.xndt * ft * ft * 0.5;
 }
 
-// The resonance of DENSE: stepped from epoch at every point
-struct FromEpoch {
-  __device__ __forceinline__ void operator()(const Lane& L, int irez, D t,
-                                             D& nm_res, D& xl) const {
-    D atime = 0.0, xli = L[XLAMO], xni = L[NO_UNKOZAI];
-    integrate_resonance(L, irez, t, atime, xli, xni, nm_res, xl);
-  }
-};
-
-// The resonance of SCAN: resumed from the lane's carry of the row before
+// The resonance of the row walk: resumed from the lane's carry of the row
+// before; atime 0 (a fresh carry, ops/sdp4.py fresh_carry) restarts from
+// epoch
 struct FromCarry {
   D atime, xli, xni;
-  __device__ __forceinline__ void operator()(const Lane& L, int irez, D t,
+  template <class F>
+  __device__ __forceinline__ void operator()(const F& L, int irez, D t,
                                              D& nm_res, D& xl) {
     integrate_resonance(L, irez, t, atime, xli, xni, nm_res, xl);
   }
@@ -295,8 +399,9 @@ struct FromTables {
   const double* tables;  // (5, 2 (n_steps + 1), n_deep) f64
   size_t col, n_deep;
   int n_steps;
-  __device__ __forceinline__ void operator()(const Lane&, int, D t,
-                                             D& nm_res, D& xl) const {
+  template <class F>
+  __device__ __forceinline__ void operator()(const F&, int, D t, D& nm_res,
+                                             D& xl) const {
     const D a = fabs(t);
     D k = (a - D(fmod_exact(a.v, STEPP, INV_STEPP))) * INV_STEPP;
     k = k > (double)n_steps ? D((double)n_steps) : k;
@@ -396,7 +501,8 @@ __device__ __forceinline__ Out kepler_and_posvel(
 }
 
 // ---- ops/sdp4.py dpper on a deep lane --------------------------------------
-__device__ __forceinline__ void dpper(const Lane& L, D t, D& ep, D& inclp,
+template <class F>
+__device__ __forceinline__ void dpper(const F& L, D t, D& ep, D& inclp,
                                       D& nodep, D& argpp, D& mp) {
   // solar periodics
   D zm = L[ZMOS] + ZNS * t;
@@ -466,8 +572,8 @@ __device__ __forceinline__ void dpper(const Lane& L, D t, D& ep, D& inclp,
 // SGP4: ops/sgp4.py sgp4_propagate. SDP4: ops/sdp4.py sdp4_propagate (dspace,
 // then sdp4_finish), the resonance from `res`. TABLES: ops/fast.py
 // sdp4_propagate_tables (then sdp4_finish), the resonance from `res`.
-template <int MODE, bool WANT_VEL, class Res>
-__device__ __forceinline__ Out f64_point(D t, const Lane& L, const Flags& fl,
+template <int MODE, bool WANT_VEL, class F, class Res>
+__device__ __forceinline__ Out f64_point(D t, const F& L, const Flags& fl,
                                          const Consts& c, Res& res) {
   const Secular s = update_secular(L, fl.isimp, t);
   D mm = s.mm, argpm = s.argpm, nodem = s.nodem, nm, em, inclm;
@@ -589,9 +695,9 @@ struct GridArgs {
   const double* tsince;  // point (t, n) at t * t_row + n * t_col
   long long t_row, t_col;
   const double* fields;  // (F, n_lanes) f64
-  const int* flags;      // (4, n_lanes) i32
+  const int* flags;      // (N_FLAGS, n_lanes) i32
   long long n_lanes;     // S
-  long long lane_step;   // lane of column n: n * lane_step (0 or 1)
+  long long lane_step;   // 1: column n is lane SLOT_LANE[slot n]; 0: lane 0
   long long n_times, n_out;  // T, N
   Consts c;
   double* r;  // (T, N, 3) f64
@@ -599,55 +705,79 @@ struct GridArgs {
   int* err;   // (T, N) i32
 };
 
-// DENSE: one thread a point
-template <int MODE, bool WANT_VEL>
-__global__ void __launch_bounds__(BLOCK) sgp4_f64_dense_kernel(
-    const GridArgs a) {
-  const long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= a.n_times * a.n_out) return;
-  const long long ti = p / a.n_out, n = p % a.n_out;
-  const size_t lane = (size_t)(n * a.lane_step);
-  const Lane L{a.fields + lane, (size_t)a.n_lanes};
-  const Flags fl = read_flags(a.flags, (size_t)a.n_lanes, lane);
-  FromEpoch res;
-  const Out o = f64_point<MODE, WANT_VEL>(
-      D(a.tsince[ti * a.t_row + n * a.t_col]), L, fl, a.c, res);
-  store_f64<WANT_VEL>(o, (size_t)p, a.r, a.v, a.err);
+// The first warp column of the slot order that holds a deep slot (the
+// order puts them last), or n_cols: the slot of each column's last thread
+// searched in halves
+__device__ __forceinline__ int first_deep_column(const GridArgs& a,
+                                                 int n_cols) {
+  const size_t S = (size_t)a.n_lanes;
+  int lo = 0, hi = n_cols;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    const int last = min(mid * WARP + WARP - 1, (int)a.n_out - 1);
+    const int lane = a.flags[SLOT_LANE * S + last];
+    if (a.flags[IS_DEEP * S + lane] != 0) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
 }
 
-// SCAN over (T, S): the first walk_blocks blocks give each resonant lane a
-// thread that walks the rows in order with the lane's carry; the rest give
-// each point of a non-resonant lane a thread
-template <bool WANT_VEL>
-__global__ void __launch_bounds__(BLOCK) sgp4_f64_scan_kernel(
-    const GridArgs a, long long walk_blocks) {
+// DENSE and SCAN: the points (warp column, time row), column after column,
+// are cut into balanced runs (sgp4_common.cuh: warp_run), a row of a
+// column that holds a deep slot weighing F64_DEEP_WEIGHT units, of the
+// others one, and each warp walks the points whose units start in its
+// run; thread slot s of a column computes the output column of its slot
+// at the column's rows in the run, staging the lane once and carrying the
+// resonance from row to row
+template <int MODE, bool WANT_VEL>
+__global__ void __launch_bounds__(
+    BLOCK, MODE == SGP4 ? F64_SGP4_MIN_BLOCKS : F64_MIN_BLOCKS)
+sgp4_f64_walk_kernel(const GridArgs a) {
+  __shared__ double body[N_BODY][BLOCK];
+  constexpr int W = F64_DEEP_WEIGHT;
+  const int n_times = (int)a.n_times, n_out = (int)a.n_out;
+  const int n_cols = (n_out + WARP - 1) / WARP;
+  const int heavy =
+      MODE == SDP4 && a.lane_step ? first_deep_column(a, n_cols) : n_cols;
+  const long long light = (long long)heavy * n_times;
+  const WarpRun run =
+      warp_run(light + (long long)(n_cols - heavy) * n_times * W);
+  const long long end = run.first + run.count;
+  // the first point whose units start at or after the run's first
+  const long long p = run.first <= light
+                          ? run.first
+                          : light + (run.first - light + W - 1) / W;
+  long long pos = p <= light ? p : light + (p - light) * W;
+  int col = (int)(p / max(n_times, 1));
+  int ti = (int)(p % max(n_times, 1));
   const size_t S = (size_t)a.n_lanes;
-  if (blockIdx.x < walk_blocks) {
-    const long long s = (long long)blockIdx.x * BLOCK + threadIdx.x;
-    if (s >= a.n_lanes) return;
-    const Flags fl = read_flags(a.flags, S, (size_t)s);
-    if (fl.irez == 0) return;
-    const Lane L{a.fields + s, S};
-    // ops/sdp4.py fresh_carry
-    FromCarry carry{D(0.0), L[XLAMO], L[NO_UNKOZAI] + 0.0};
-    for (long long ti = 0; ti < a.n_times; ++ti) {
-      const Out o = f64_point<SDP4, WANT_VEL>(
-          D(a.tsince[ti * a.t_row + s * a.t_col]), L, fl, a.c, carry);
-      store_f64<WANT_VEL>(o, (size_t)(ti * a.n_lanes + s), a.r, a.v, a.err);
+  for (; pos < end; ++col, ti = 0) {
+    const int w = col < heavy ? 1 : W;
+    // the column's rows whose units start in the run
+    const int rows =
+        (int)min((long long)(n_times - ti), (end - pos + w - 1) / w);
+    pos += (long long)rows * w;
+    const int slot = col * WARP + (int)(threadIdx.x % WARP);
+    if (slot >= n_out) continue;
+    const int n = a.lane_step ? a.flags[SLOT_LANE * S + slot] : slot;
+    const size_t lane = (size_t)n * (size_t)a.lane_step;
+    StagedLane L{a.fields + lane, S, body};
+    L.stage();
+    const Flags fl = read_flags(a.flags, S, lane);
+    FromCarry carry{D(0.0), D(0.0), D(0.0)};
+    const double* tp = a.tsince + ti * a.t_row + n * a.t_col;
+    size_t q = (size_t)ti * n_out + n;
+    for (int r = 0; r < rows; ++r, tp += a.t_row, q += n_out) {
+      // a compiler fence: the staged fields are read again at each row
+      // where they are used, not held in registers across the rows
+      asm volatile("" ::: "memory");
+      const Out o = f64_point<MODE, WANT_VEL>(D(*tp), L, fl, a.c, carry);
+      store_f64<WANT_VEL>(o, q, a.r, a.v, a.err);
     }
-    return;
   }
-  const long long p = (long long)(blockIdx.x - walk_blocks) * BLOCK +
-                      threadIdx.x;
-  if (p >= a.n_times * a.n_lanes) return;
-  const long long ti = p / a.n_lanes, s = p % a.n_lanes;
-  const Flags fl = read_flags(a.flags, S, (size_t)s);
-  if (fl.irez != 0) return;
-  const Lane L{a.fields + s, S};
-  FromEpoch res;  // not reached: the lane is not resonant
-  const Out o = f64_point<SDP4, WANT_VEL>(
-      D(a.tsince[ti * a.t_row + s * a.t_col]), L, fl, a.c, res);
-  store_f64<WANT_VEL>(o, (size_t)p, a.r, a.v, a.err);
 }
 
 // ESCAPE's inputs and outputs
@@ -655,7 +785,7 @@ struct EscapeArgs {
   const double* t_time;  // (T,) f64
   const double* t_sat;   // (X,) f64
   const double* fields;  // (F, X) f64
-  const int* flags;      // (4, X) i32
+  const int* flags;      // (N_FLAGS, X) i32
   const int* idx;        // (X,) i32: the lane's column of the deep subset
   const double* tables;  // (5, 2 (n_steps + 1), D) f64
   long long n_times, n_esc, n_deep;
@@ -672,7 +802,7 @@ __global__ void __launch_bounds__(BLOCK) sgp4_f64_escape_kernel(
   const long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (p >= a.n_times * a.n_esc) return;
   const long long ti = p / a.n_esc, x = p % a.n_esc;
-  const Lane L{a.fields + x, (size_t)a.n_esc};
+  const GlobalLane L{a.fields + x, (size_t)a.n_esc};
   const Flags fl = read_flags(a.flags, (size_t)a.n_esc, (size_t)x);
   const size_t col = (size_t)a.idx[x];
   FromTables res{a.tables, col, (size_t)a.n_deep, a.n_steps};
@@ -700,6 +830,42 @@ int launch(Kernel kernel, int blocks, const Args& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the row walk's persistent grid of one instantiation, then (with
+// `launch`) the launch on it
+template <int MODE, bool WANT_VEL>
+cudaError_t walk_run(const GridArgs& a, cudaStream_t stream, bool launch,
+                     Grid* g) {
+  static int per_sm = 0;  // this instantiation's blocks an SM
+  // the units of the walk with every column weighed as one that holds a
+  // deep slot (the kernel finds the columns that do)
+  const long long units = (a.n_out + WARP - 1) / WARP * a.n_times *
+                          (MODE == SDP4 && a.lane_step ? F64_DEEP_WEIGHT : 1);
+  const cudaError_t rc = persistent_grid(
+      sgp4_f64_walk_kernel<MODE, WANT_VEL>, BLOCK, per_sm, units, g);
+  if (rc != cudaSuccess || !launch || g->blocks == 0) return rc;
+  sgp4_f64_walk_kernel<MODE, WANT_VEL><<<g->blocks, BLOCK, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int walk(int sdp4, int want_vel, const GridArgs& a, void* stream,
+         bool launch, int* grid) {
+  Grid g{0, 0, 0};
+  // the walk counts rows and output columns in 32-bit ints
+  if (a.n_times > INT_MAX || a.n_out > INT_MAX) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      sdp4 ? (want_vel ? walk_run<SDP4, true>(a, st, launch, &g)
+                       : walk_run<SDP4, false>(a, st, launch, &g))
+           : (want_vel ? walk_run<SGP4, true>(a, st, launch, &g)
+                       : walk_run<SGP4, false>(a, st, launch, &g));
+  if (grid != nullptr) {
+    grid[0] = g.per_sm;
+    grid[1] = g.sms;
+    grid[2] = g.blocks;
+  }
+  return static_cast<int>(rc);
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes by astroz_tpu_torch/_build.py).
@@ -709,8 +875,9 @@ int launch(Kernel kernel, int blocks, const Args& a, void* stream) {
 
 // DENSE: tsince (T, C) f64 read at t * t_row + n * t_col; fields (F, S)
 // f64 (F = 37, or 83 with the deep rows, which sdp4 != 0 needs); flags
-// (4, S) i32; the lane of output column n is n * lane_step; r, v (T, N, 3)
-// f64 (v null when want_vel == 0), err (T, N) i32.
+// (N_FLAGS, S) i32; output column n computes lane SLOT_LANE[slot n] when
+// lane_step is 1, lane 0 when it is 0; r, v (T, N, 3) f64 (v null when
+// want_vel == 0), err (T, N) i32.
 extern "C" int astroz_sgp4_f64_dense(
     const double* tsince, long long t_row, long long t_col,
     const double* fields, const int* flags, long long n_lanes,
@@ -723,21 +890,12 @@ extern "C" int astroz_sgp4_f64_dense(
                    Consts{xke, inv_xke, half_j2, re, vkmpersec, aycof_c,
                           xlcof_c},
                    r, v, err};
-  const int blocks = blocks_of(n_times * n_out);
-  if (sdp4) {
-    return want_vel ? launch(sgp4_f64_dense_kernel<SDP4, true>, blocks, a,
-                             stream)
-                    : launch(sgp4_f64_dense_kernel<SDP4, false>, blocks, a,
-                             stream);
-  }
-  return want_vel
-             ? launch(sgp4_f64_dense_kernel<SGP4, true>, blocks, a, stream)
-             : launch(sgp4_f64_dense_kernel<SGP4, false>, blocks, a, stream);
+  return walk(sdp4, want_vel, a, stream, true, nullptr);
 }
 
 // SCAN: times (T, C) f64 read at t * t_row + s * t_col, C = S or 1;
-// fields (83, S) f64; flags (4, S) i32; r, v (T, S, 3) f64 (v null when
-// want_vel == 0), err (T, S) i32.
+// fields (83, S) f64; flags (N_FLAGS, S) i32; r, v (T, S, 3) f64 (v null
+// when want_vel == 0), err (T, S) i32: DENSE's walk in SDP4 mode.
 extern "C" int astroz_sgp4_f64_scan(
     const double* times, long long t_row, long long t_col,
     const double* fields, const int* flags, long long n_lanes,
@@ -749,20 +907,21 @@ extern "C" int astroz_sgp4_f64_scan(
                    Consts{xke, inv_xke, half_j2, re, vkmpersec, aycof_c,
                           xlcof_c},
                    r, v, err};
-  const long long walk = blocks_of(n_lanes);
-  const int blocks = (int)walk + blocks_of(n_times * n_lanes);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_times > 0 && n_lanes > 0) {
-    if (want_vel) {
-      sgp4_f64_scan_kernel<true><<<blocks, BLOCK, 0, st>>>(a, walk);
-    } else {
-      sgp4_f64_scan_kernel<false><<<blocks, BLOCK, 0, st>>>(a, walk);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return walk(1, want_vel, a, stream, true, nullptr);
 }
 
-// ESCAPE: t_time (T,) f64; t_sat (X,) f64; fields (83, X) f64; flags (4, X)
+// The row walk's grid at (n_times, n_out) without a launch: grid[0] blocks
+// an SM of the instantiation, grid[1] the card's SMs, grid[2] blocks
+// launched
+extern "C" int astroz_sgp4_f64_grid(long long n_times, long long n_out,
+                                    int sdp4, int want_vel, int* grid) {
+  GridArgs a{};
+  a.n_times = n_times;
+  a.n_out = n_out;
+  return walk(sdp4, want_vel, a, nullptr, false, grid);
+}
+
+// ESCAPE: t_time (T,) f64; t_sat (X,) f64; fields (83, X) f64; flags (5, X)
 // i32; idx (X,) i32 columns of the deep subset; tables (5, 2 (n_steps + 1),
 // D) f64; writes the columns idx of r, v (3, T, D) f32 (v null when
 // want_vel == 0) and err (T, D) i32 in place.

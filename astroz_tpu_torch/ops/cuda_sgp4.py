@@ -582,17 +582,22 @@ def propagate_fast_fused(els, tsince, grav: GravityModel,
                   kepler_iters, want_vel, time_major=True)
 
 
-def launch_grid(kernel, n_times, n_sats, *, kepler_iters, want_vel=True):
+def launch_grid(kernel, n_times, n_sats, *, kepler_iters=None,
+                want_vel=True, sdp4=False):
     """The persistent grid that K5 (``kernel="sgp4_shallow_dense"``), K6
-    (``"sgp4_shallow_grids"``) or K2 (``"sgp4_deep"``) launches on the
-    current CUDA device at ``n_times`` x ``n_sats``: ``{"per_sm": blocks
-    an SM (the instantiation's occupancy), "sms": the card's SMs,
-    "blocks": blocks launched, "waves": blocks / (per_sm * sms)}``."""
+    (``"sgp4_shallow_grids"``), K2 (``"sgp4_deep"``) or the f64 kernel's
+    row walk (``"sgp4_f64_dense"``, DENSE and SCAN, in SDP4 mode with
+    ``sdp4``; ``n_sats`` the output columns) launches on the current CUDA
+    device at ``n_times`` x ``n_sats``: ``{"per_sm": blocks an SM (the
+    instantiation's occupancy), "sms": the card's SMs, "blocks": blocks
+    launched, "waves": blocks / (per_sm * sms)}``."""
     fn = {"sgp4_shallow_dense": "astroz_sgp4_shallow_dense_grid",
           "sgp4_shallow_grids": "astroz_sgp4_shallow_grids_grid",
-          "sgp4_deep": "astroz_sgp4_deep_grid"}[kernel]
+          "sgp4_deep": "astroz_sgp4_deep_grid",
+          "sgp4_f64_dense": "astroz_sgp4_f64_grid"}[kernel]
+    mode = int(sdp4) if kernel == "sgp4_f64_dense" else kepler_iters
     grid = (ctypes.c_int * 3)()
-    rc = getattr(_build.library(), fn)(n_times, n_sats, kepler_iters,
+    rc = getattr(_build.library(), fn)(n_times, n_sats, mode,
                                        int(want_vel), ctypes.addressof(grid))
     if rc != 0:
         raise RuntimeError(f"{kernel} grid query failed: cudaError {rc}")
@@ -748,8 +753,12 @@ SGP4_F64_FIELD_NAMES = tuple(n for n in Sgp4Elements._fields
                              if n not in ("isimp", "is_deep", "error"))
 DEEP_F64_FIELD_NAMES = tuple(n for n in DeepElements._fields if n != "irez")
 F64_FIELD_NAMES = SGP4_F64_FIELD_NAMES + DEEP_F64_FIELD_NAMES
-#: the i32 rows of :func:`f64_staging` (``enum Flag``)
-F64_FLAG_NAMES = ("isimp", "is_deep", "irez", "error")
+#: the i32 rows of :func:`f64_staging` (``enum Flag``): the masks and
+#: codes of each lane, then the slot order (:func:`f64_slot_lanes`)
+F64_FLAG_NAMES = ("isimp", "is_deep", "irez", "error", "slot_lane")
+#: the lunisolar periodics take the Lyddane branch below this inclination
+#: (rad; ops/sdp4.py dpper, ops/fast.py _dpper_core)
+LYDDANE_INCL = 0.2
 
 
 class F64Staging(NamedTuple):
@@ -757,15 +766,30 @@ class F64Staging(NamedTuple):
 
     fields: torch.Tensor  # (F, S) f64 rows F64_FIELD_NAMES (37, or 83 with
     #                       the deep rows)
-    flags: torch.Tensor  # (4, S) i32 rows F64_FLAG_NAMES
+    flags: torch.Tensor  # (5, S) i32 rows F64_FLAG_NAMES
+
+
+def f64_slot_lanes(is_deep, irez, inclo):
+    """The f64 kernel's slot order: the lane that each slot computes,
+    (S,) i32. Near-earth lanes first, then the deep lanes grouped by
+    regime as K2's slots are (``propagation.deep_slots``: inclination at
+    or above :data:`LYDDANE_INCL`, then below; resonance irez 0, 1, 2),
+    in catalog order within a group, so that the 32 neighbouring slots of
+    a warp seldom take both sides of the kernel's deep, Lyddane or
+    resonance branches. The identity on a near-earth catalog. Each lane
+    is propagated on its own, so the order moves no output bit."""
+    key = torch.where(is_deep, 1 + 3 * (inclo < LYDDANE_INCL).to(I32)
+                      + irez.to(I32), 0)
+    return torch.sort(key, stable=True).indices.to(I32)
 
 
 def f64_staging(els, deep=None) -> F64Staging:
     """Pack ``Sgp4Elements`` (and ``DeepElements``, where given) of
     tensors on one device, each field (S,) or broadcast to it, into the
     f64 kernel's matrices: every float field copied as it is, the masks
-    and codes as i32 (``irez`` 0 without ``deep``). :func:`f64_unstage`
-    gives the same elements back bit for bit."""
+    and codes as i32 (``irez`` 0 without ``deep``), and the slot order
+    (:func:`f64_slot_lanes`) as the last row of the flags.
+    :func:`f64_unstage` gives the same elements back bit for bit."""
     shape = torch.broadcast_shapes(*(x.shape for x in els))
     rows = [getattr(els, n) for n in SGP4_F64_FIELD_NAMES]
     if deep is not None:
@@ -773,16 +797,20 @@ def f64_staging(els, deep=None) -> F64Staging:
     dev = els.no_kozai.device
     irez = (torch.zeros(shape, dtype=I32, device=dev) if deep is None
             else deep.irez)
-    flags = [els.isimp, els.is_deep, irez, els.error]
+    flags = [x.to(I32).expand(shape)
+             for x in (els.isimp, els.is_deep, irez, els.error)]
+    flags.append(f64_slot_lanes(flags[1] != 0, flags[2],
+                                els.inclo.expand(shape)))
     return F64Staging(
         torch.stack([x.to(F64).expand(shape) for x in rows]).contiguous(),
-        torch.stack([x.to(I32).expand(shape) for x in flags]).contiguous())
+        torch.stack(flags).contiguous())
 
 
 def f64_unstage(fields, flags):
     """``(Sgp4Elements, DeepElements or None)`` of :func:`f64_staging`'s
     matrices: views of their rows (bool masks, i32 codes and ``irez``);
-    the deep elements where the matrix holds their rows."""
+    the deep elements where the matrix holds their rows. The slot order
+    is not an element and is left out."""
     if fields.shape[0] not in (len(SGP4_F64_FIELD_NAMES),
                                len(F64_FIELD_NAMES)):
         raise ValueError(f"fields: expected {len(SGP4_F64_FIELD_NAMES)} or "
@@ -853,7 +881,8 @@ def _grid_2d(tsince, n_lanes):
 
 def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
                    sdp4: bool, want_vel: bool = True):
-    """The f64 kernel's DENSE mode: SGP4/SDP4 in f64 at every point.
+    """The f64 kernel's DENSE mode: SGP4/SDP4 in f64 at every point, one
+    launch of the kernel's row walk over the lanes in slot order.
 
     Args:
       tsince: f64 minutes since each epoch, broadcasting against the S
@@ -861,7 +890,8 @@ def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
         (T, 1), (S,), a scalar, or any grid against one lane (S = 1, the
         API's time-as-lanes fold).
       fields, flags: :func:`f64_staging` of the elements (the deep rows
-        included where ``sdp4``).
+        included where ``sdp4``); the kernel walks the lanes in the
+        flags' slot order.
       grav: the gravity model the elements were initialized with.
       sdp4: ``ops.sdp4.sdp4_propagate``'s semantics on every lane (a
         catalog with deep lanes), else ``ops.sgp4.sgp4_propagate``'s.
@@ -912,8 +942,9 @@ def sgp4_f64_scan(times, fields, flags, *, grav: GravityModel,
     """The f64 kernel's SCAN mode: ``ops.sdp4.sdp4_propagate_scan``, the
     rows of ``times`` one after the other, each resonant lane resuming its
     resonance integration from the row before (the rows sorted in one
-    direction). One thread walks each resonant lane's rows; every other
-    point is computed on its own.
+    direction). One launch of DENSE's row walk in SDP4 mode: every row of
+    the plain scan is ``sdp4_propagate`` at that row alone, and the walk
+    carries the resonance along each thread's run of rows.
 
     Args:
       times: (T, S) or (T, 1) f64 minutes since each epoch (or (T,)).

@@ -33,8 +33,9 @@ import torch
 
 from .constants import MINUTES_PER_DAY, RAD2DEG, WGS72, GravityModel
 from .frames import ecef_to_geodetic, ecef_to_geodetic_xyz, teme_to_ecef
-from .ops.cuda_sgp4 import (F64Staging, MergeMaps, f64_staging,
-                             propagate_deep_sep, propagate_fast_sep,
+from .ops.cuda_sgp4 import (LYDDANE_INCL, F64Staging, MergeMaps,
+                             f64_staging, propagate_deep_sep,
+                             propagate_fast_sep,
                              propagate_fast_sep_merge, sgp4_f64_dense,
                              sgp4_f64_escape, sgp4_f64_scan)
 from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
@@ -57,9 +58,6 @@ HEO_ESCAPE_ECC = 0.7
 #: with more escape lanes than this the f64 recompute would stop being a
 #: small part of a sweep; such a catalog keeps the f32 tail's accuracy
 _HEO_ESCAPE_CAP = 512
-#: kernel K2 takes the Lyddane branch of the lunisolar periodics below
-#: this inclination (rad; ops/fast.py:_dpper_core)
-LYDDANE_INCL = 0.2
 
 
 class DeepStaging(NamedTuple):
@@ -274,9 +272,9 @@ class SatCatalog:
     @cached_property
     def f64_staging(self) -> F64Staging:
         """Every lane's elements, and the SDP4 coefficients where the
-        catalog has them, as the f64 kernel reads them
-        (``ops.cuda_sgp4.f64_staging``), built once per catalog on its
-        device."""
+        catalog has them, as the f64 kernel reads them, with its slot
+        order (``ops.cuda_sgp4.f64_staging``), built once per catalog on
+        its device."""
         return f64_staging(self.els, self.deep)
 
     @cached_property

@@ -49,7 +49,10 @@ Phases (any failure exits non-zero; nothing is caught):
    1year_1s chunk; ESCAPE on the headline's 14 escape lanes inside a
    real K2 call (the other columns untouched); SCAN over 240 rows across
    epoch (+-3 days) sorted forward and backward, on the headline mixed
-   catalog and the small one; one launch a call;
+   catalog and the small one, and on the headline equal to DENSE on the
+   same tsince, bit for bit; DENSE on the headline generator's catalog
+   with epochs spread over +-7 days x 1,440 (each resonant point steps
+   up to ~16 times from epoch); one launch a call;
 3. the near-earth main path: 13,478 synthetic near-earth TLEs as text ->
    ``Constellation(text, device="cuda")`` -> ``propagate`` over 1,440
    one-minute epochs, as planes, as ECEF planes and time-major. Each
@@ -141,8 +144,11 @@ Phases (any failure exits non-zero; nothing is caught):
    catalog (planes, time-major, ``scan_times=True``), and the peak
    device memory of each; the f64 kernel alone in turns with its plain
    versions: DENSE on the mixed catalog x 1,440 and SCAN on its first
-   240 rows (the kernel alone also on all 1,440), with their bounds; K5's and
-   K6's registers, spills, grid and issue estimate as K2's; and, under
+   240 rows (the kernel alone also on all 1,440), with their bounds, and
+   DENSE on the +-7-day catalog x 1,440; K5's and K6's registers, spills,
+   grid and issue estimate as K2's, and the f64 kernel's row walk's
+   (SDP4 on the mixed catalog, SGP4 on the 1year_1s chunk) with its
+   f64-pipe estimate; and, under
    ``torch.profiler``, a second ``propagate_fast_fused`` call on the same
    elements must run K5 and no other device work (no staging, no copy),
    and a second ``propagate_fast_grids`` call the spine kernel and K6 and
@@ -315,6 +321,15 @@ K4_MODES = {"0": "matrix", "1": "candidate", "2": "rectangle"}
 DENSE_KERNEL = "sgp4_dense_kernelILb1ELi{}ELi0E"
 GRIDS_KERNEL = "sgp4_dense_kernelILb1ELi{}ELi1E"
 DEEP_KERNEL = "sgp4_deep_kernelILb1ELi{}E"
+#: the f64 kernel's row walk with velocities in SGP4 (0) or SDP4 (1) mode
+F64_KERNEL = "sgp4_f64_walk_kernelILi{}ELb1EE"
+#: the SASS opcodes that issue to the f64 pipe, which has 64 lanes an SM
+#: on an H100 (half the f32 lanes)
+F64_OPCODES = ("DADD", "DFMA", "DMUL", "DSETP", "DMNMX", "DSET")
+F64_LANES_PER_SM = 64
+#: the headline generator's epochs spread over +-this many days: a
+#: resonant point of DENSE steps up to ~16 times from its epoch
+SPREAD_DAYS = 7.0
 
 #: python-sgp4 v2.25 reference trajectory of the TLE below (WGS-72):
 #: (minutes since epoch, TEME position km)
@@ -1052,19 +1067,30 @@ def _escape_vs_plain(cat, t_time, label):
     return worst
 
 
-def phase2d_f64_vs_plain(headline_cat):
+def _headline_tsince(cat):
+    """The main path's minutes since each epoch: N_TIMES one-minute epochs
+    from EPOCH_JD, as ``_propagate_f64`` forms them, (T, S) f64."""
+    jd = torch.as_tensor(EPOCH_JD + np.arange(float(N_TIMES)) / 1440.0,
+                         device=DEVICE)
+    return (jd[:, None] - cat.els.epoch_jd[None, :]) * 1440.0
+
+
+def phase2d_f64_vs_plain(headline_cat, spread_cat):
     """The f64 kernel's three modes against their plain versions on the
     card, bit for bit (r, v and codes; positions and codes with and
     without velocities): DENSE in SDP4 mode on a small ragged mixed
     catalog (spread epochs, failing and decaying lanes, Lyddane lanes,
     irez 1 and 2) over a dense grid and a column of times of both signs
-    across several 720-minute steps, and on the GEO golden TLE folded as
-    the API folds time into lanes; DENSE in SGP4 mode on a near-earth
-    catalog, on the ISS fold and on one 1year_1s chunk; ESCAPE on the
-    headline catalog's escape lanes inside a real K2 call; SCAN over 240
-    rows across epoch (+-3 days) sorted forward and backward, on the
-    headline mixed catalog and the small one. Returns the largest
-    position difference of each mode."""
+    across several 720-minute steps, on the GEO golden TLE folded as the
+    API folds time into lanes, on the headline catalog and on the
+    headline generator's catalog with epochs spread over +-SPREAD_DAYS
+    (``spread_cat``); DENSE in SGP4 mode on a near-earth catalog, on the
+    ISS fold and on one 1year_1s chunk; ESCAPE on the headline catalog's
+    escape lanes inside a real K2 call; SCAN over 240 rows across epoch
+    (+-3 days) sorted forward and backward, on the headline mixed catalog
+    and the small one, and on the headline equal to DENSE on the same
+    tsince, bit for bit. Returns the largest position difference of each
+    mode."""
     from astroz_tpu_torch import build_catalog
     from astroz_tpu_torch.ops import cuda_sgp4
     from astroz_tpu_torch.ops.cuda_sgp4 import f64_staging
@@ -1133,12 +1159,14 @@ def phase2d_f64_vs_plain(headline_cat):
                staging=f64_staging(single_sat_elements(iss)))
 
     # the main path's shape: the headline mixed catalog x N_TIMES minutes
-    # since each epoch, as _propagate_f64 forms them
+    # since each epoch, as _propagate_f64 forms them; and the same with the
+    # epochs spread, where the carried resonance saves the most steps
     t_head = torch.arange(N_TIMES, dtype=torch.float64, device=DEVICE)
-    dense_case(headline_cat,
-               ((EPOCH_JD + t_head / 1440.0)[:, None]
-                - headline_cat.els.epoch_jd[None, :]) * 1440.0,
+    dense_case(headline_cat, _headline_tsince(headline_cat),
                f"the headline {N_SATS} sats x {N_TIMES} times")
+    dense_case(spread_cat, _headline_tsince(spread_cat),
+               f"the headline generator's {N_SATS} sats, epochs spread over "
+               f"+-{SPREAD_DAYS:g} days, x {N_TIMES} times")
     worst["escape"] = _escape_vs_plain(
         headline_cat, t_head, f"the headline's {len(headline_cat.heo_escape.idx)}"
         f" escape lanes x {N_TIMES}")[0]
@@ -1170,6 +1198,18 @@ def phase2d_f64_vs_plain(headline_cat):
             check(launches()["sgp4_f64_scan"] == before + 2,
                   f"SCAN {name}: not one launch a call")
             worst["scan"] = max(worst["scan"], dr)
+            if cat is headline_cat:
+                # one row walk: SCAN's rows are DENSE's on the same tsince
+                scan = cuda_sgp4.sgp4_f64_scan(t, *cat.f64_staging,
+                                               grav=cat.grav)
+                dense = cuda_sgp4.sgp4_f64_dense(t, *cat.f64_staging,
+                                                 grav=cat.grav, sdp4=True)
+                same = all(_same_or_both_nan(a, b)
+                           for a, b in zip(scan[:2], dense[:2]))
+                print(f"# phase 2d: SCAN equals DENSE on the same tsince "
+                      f"({name} x {SCREEN_TIMES} rows {order}): {same}")
+                check(same and torch.equal(scan[2], dense[2]),
+                      f"SCAN differs from DENSE on {name} {order}")
     return worst
 
 
@@ -2103,7 +2143,9 @@ def row_loop_instructions(lib_path, kernel):
     branch that ends the hot side before it. ``hot`` counts both sides of
     every other branch, so it is an upper estimate of the instructions a
     warp issues a row for its 32 points: a warp whose lanes all take one
-    side issues fewer. None if the dump shows no such loop."""
+    side issues fewer (an inner loop's body is counted once). Returns
+    ``(all, hot, hot_f64)``, ``hot_f64`` those of ``hot`` whose opcode is
+    one of F64_OPCODES. None if the dump shows no such loop."""
     from astroz_tpu_torch import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -2150,17 +2192,26 @@ def row_loop_instructions(lib_path, kernel):
                 cold.update(c for c, _ in ins if start <= c < end)
             break
     loop = [a for a, _ in ins if lo <= a <= hi]
-    return len(loop), sum(a not in cold for a in loop)
+    hot = [a for a in loop if a not in cold]
+
+    def opcode(t):
+        return re.sub(r"^@!?\w+\s+", "", t).split(None, 1)[0].split(".")[0]
+
+    return (len(loop), len(hot),
+            sum(opcode(text[a]) in F64_OPCODES for a in hot))
 
 
-def kernel_report(label, kernel, grid, points, ms, smi):
+def kernel_report(label, kernel, grid, points, ms, smi, f64=False):
     """Print a persistent kernel's registers and spills (ptxas), its grid
     (``cuda_sgp4.launch_grid``) and its issue estimate: the hot static
     instructions of its row loop a point (:func:`row_loop_instructions`,
     both sides of each branch, so an upper estimate) x ``points`` over
     the card's issue rate (its SMs x LANES_PER_SM lanes at its largest SM
     clock), and its share of the kernel's time ``ms``: an upper estimate
-    of the share of the SMs' issue slots the kernel fills."""
+    of the share of the SMs' issue slots the kernel fills. With ``f64``,
+    also its f64-pipe estimate: the hot f64 instructions a point
+    (F64_OPCODES) x ``points`` over the SMs x F64_LANES_PER_SM lanes at
+    that clock."""
     from astroz_tpu_torch import _build
 
     regs = [(rg, st, ld) for name, rg, st, ld in _build.ptxas_report()
@@ -2180,10 +2231,22 @@ def kernel_report(label, kernel, grid, points, ms, smi):
                   f"x {LANES_PER_SM} lanes at {clock / 1e9:.3f} GHz; "
                   f"{issue / ms:.1%} of the kernel's {ms:.4f} ms replayed "
                   f"from a CUDA graph)")
+    f64_ms = (None if loop is None or not f64 else
+              loop[2] * points / (sms * F64_LANES_PER_SM * clock) * 1e3)
+    f64_text = ("" if not f64 else
+                "; f64-pipe estimate not measured (no row loop found)"
+                if f64_ms is None else
+                f"; f64-pipe estimate {f64_ms:.4f} ms ({loop[2]} f64 "
+                f"instructions ({', '.join(F64_OPCODES)}) a point in the "
+                f"row loop's hot path, both sides of each branch, x "
+                f"{points} points over {sms} SMs x {F64_LANES_PER_SM} f64 "
+                f"lanes at {clock / 1e9:.3f} GHz; {f64_ms / ms:.1%} of the "
+                f"kernel's {ms:.4f} ms replayed)")
     print(f"# {label} [{smi}]: {rg} registers, spill stores {st} B, spill "
           f"loads {ld} B; grid: {grid['per_sm']} blocks an SM x "
           f"{grid['sms']} SMs, {grid['blocks']} blocks launched, "
-          f"{grid['waves']:.3f} waves; issue estimate (upper) {issue_text}")
+          f"{grid['waves']:.3f} waves; issue estimate (upper) {issue_text}"
+          f"{f64_text}")
 
 
 def phase7_screen_timings(con, smi):
@@ -2331,7 +2394,7 @@ def _device_work(*fns):
         if e.device_type == torch.autograd.DeviceType.CUDA)]
 
 
-def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
+def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
     from astroz_tpu_torch import build_catalog
     from astroz_tpu_torch.ops import cuda_sgp4, sgp4_propagate
     from astroz_tpu_torch.ops.cuda_sgp4 import f64_staging
@@ -2424,8 +2487,7 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
     # kernel alone, over all N_TIMES
     mcat = mcon.catalog
     mst = mcat.f64_staging
-    tsince = ((torch.as_tensor(EPOCH_JD + times / 1440.0, device=DEVICE)
-               [:, None] - mcat.els.epoch_jd[None, :]) * 1440.0)
+    tsince = _headline_tsince(mcat)
     dkw = dict(grav=mcat.grav, sdp4=True)
     f64_dense = _in_turns(
         lambda: cuda_sgp4.sgp4_f64_dense(tsince, *mst, **dkw),
@@ -2438,6 +2500,16 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
                                                   grav=mcat.grav), 10, 1)
     scan_full = _cuda_ms(lambda: cuda_sgp4.sgp4_f64_scan(
         tsince, *mst, grav=mcat.grav), 5)
+    # DENSE where the epochs spread over +-SPREAD_DAYS: the resonance the
+    # walk carries along a thread's rows would otherwise step from epoch
+    s_st = spread_cat.f64_staging
+    s_tsince = _headline_tsince(spread_cat)
+    f64_spread = _in_turns(
+        lambda: cuda_sgp4.sgp4_f64_dense(s_tsince, *s_st, **dkw),
+        lambda: cuda_sgp4.sgp4_f64_dense_reference(s_tsince, *s_st, **dkw),
+        10, 1)
+    # one 1year_1s chunk through DENSE in SGP4 mode, replayed
+    year_chunk_ms = _graph_ms(lambda: f64_kernel(els, t, cat.grav), 20)
     dense_ops = f64_ops(functools.partial(
         cuda_sgp4.sgp4_f64_dense_reference, sdp4=True), tsince, *mst,
         mcat.grav)
@@ -2497,6 +2569,13 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
           f"{scan_bound[0]:.4f} ms by {scan_bound[1]} "
           f"({scan_ops[1] / t_scan.numel():.1f} f64 operations a point); "
           f"the kernel alone x {N_TIMES} rows {scan_full:.3f} ms")
+    print(f"# phase 4c [{smi}]: f64 DENSE (SDP4) of the headline generator's "
+          f"catalog with epochs spread over +-{SPREAD_DAYS:g} days x "
+          f"{N_TIMES}: {f64_spread.text('f64 DENSE')}, "
+          f"{f64_spread.device_ms / f64_dense.device_ms:.3f}x the "
+          f"single-epoch headline replayed; one 1year_1s chunk "
+          f"{tuple(t.shape)} through DENSE (SGP4) {year_chunk_ms:.4f} ms "
+          f"replayed")
     k5_ops = count_ops(lambda: cuda_sgp4.propagate_fast_dense_reference(
         t, *staged, **kw))
     k5_out = cuda_sgp4.propagate_fast_dense(t, *staged, **kw)
@@ -2521,6 +2600,15 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak):
                       kernel.format(5),
                       cuda_sgp4.launch_grid(grid, *t.shape, kepler_iters=5),
                       props, turns.device_ms, smi)
+    for name, sdp4, shape, ms in (
+            ("f64 DENSE (SDP4), the mixed catalog", True,
+             tuple(tsince.shape), f64_dense.device_ms),
+            ("f64 DENSE (SGP4), one 1year_1s chunk", False, tuple(t.shape),
+             year_chunk_ms)):
+        kernel_report(f"phase 4c: {name} {shape}", F64_KERNEL.format(
+            int(sdp4)), cuda_sgp4.launch_grid(
+                "sgp4_f64_dense", *shape, sdp4=sdp4), shape[0] * shape[1],
+            ms, smi, f64=True)
     return ((k5, k5_bound), (k6, k6_bound), (spine, spine_bound),
             (f64_dense, dense_bound), (f64_scan, scan_bound))
 
@@ -3917,7 +4005,9 @@ def main():
     mixed_cat = build_catalog(mixed_text, device=DEVICE)
     deep_err = phase2b_deep_and_merge(mixed_cat)
     dense_err = phase2c_dense_vs_twin()
-    f64_err = phase2d_f64_vs_plain(mixed_cat)
+    spread_cat = build_catalog(mixed_catalog_text(
+        N_SATS, epoch_spread_days=SPREAD_DAYS), device=DEVICE)
+    f64_err = phase2d_f64_vs_plain(mixed_cat, spread_cat)
     con, k1_launches = phase3_main_path(text)
     mcon, mixed_launches = phase3b_mixed_path(mixed_text)
     dense_launches = phase3c_single_sat()
@@ -3930,7 +4020,7 @@ def main():
     phase6b_mixed_screen(mcon)
     k4, k4c = phase7_screen_timings(scon, smi)
     k5, k6, spine, f64_dense, f64_scan = phase4c_dense_timings(
-        mcon, smi, scan_ms, scan_peak)
+        mcon, smi, scan_ms, scan_peak, spread_cat)
     phase8_api(con, mcon, text, mixed_text, smi)
     phase9_ingest(smi)
     rect = phase11_mesh(mcon, scon, smi)

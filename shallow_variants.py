@@ -37,7 +37,14 @@ of the variants reversed on every other round:
 * K2: the mixed catalog's deep subset x 1,440, its slots grouped by
   regime (``propagation.deep_slots``); ``K2c``: the same with the slots
   in catalog order, so that warps mix the Lyddane branch with the
-  other.
+  other;
+* the f64 kernel (``csrc/sgp4_f64.cu``), each package's own staging
+  (``f64_staging``): ``f64``, DENSE in SDP4 mode on the mixed catalog x
+  1,440 minutes since each epoch (as ``propagate(method="f64")`` forms
+  them); ``f64s``, the same on ``chip_smoke.mixed_catalog_text(...,
+  epoch_spread_days=7.0)``, epochs spread over +-7 days; ``f64scan``,
+  SCAN on the mixed catalog's first 240 rows; ``f64year``, the whole
+  1year_1s grid (8 chunks) through DENSE in SGP4 mode, back to back.
 
 It prints, for each variant, ptxas' registers and spills of every
 kernel instantiation, the static SASS instructions of K5's and K2's row
@@ -86,9 +93,10 @@ VARIANT_DIR = ROOT / "astroz_tpu_torch" / "csrc" / "build" / "variants"
 N_SATS, N_TIMES = 13478, 1440
 K_REPS = {"K1": 20, "K3": 20, "K5": 50, "K6": 50, "K2": 50, "K5tm": 50,
           "K6tm": 50, "spine": 50, "grids": 50, "grids_b2b": 20,
-          "sweep": 5, "K2c": 50}
+          "sweep": 5, "K2c": 50, "f64": 10, "f64s": 10, "f64scan": 20,
+          "f64year": 3}
 #: workloads timed with CUDA events around calls launched back to back
-_BACK_TO_BACK = ("sweep", "grids_b2b")
+_BACK_TO_BACK = ("sweep", "grids_b2b", "f64year")
 #: mangled template arguments of the kernels: (velocities, trips, mode);
 #: in older trees K5 is mode 2 of the shallow kernel or the dense one
 #: without a source, K6 mode 3 of the shallow one
@@ -96,6 +104,9 @@ _SHALLOW = re.compile(r"sgp4_shallow_kernelILb(\d)ELi(\d+)ELi(\d)E")
 _DENSE = re.compile(r"sgp4_dense_kernelILb(\d)ELi(\d+)E(?:Li(\d)E)?")
 _DEEP = re.compile(r"sgp4_deep_kernelILb(\d)ELi(\d+)E")
 _SPINE = re.compile(r"sgp4_spine_grids_kernel")
+#: the f64 kernel's modes: the row walk (mode 0 SGP4, 1 SDP4) and, in
+#: older trees, the one-point DENSE kernel, the SCAN walkers and ESCAPE
+_F64 = re.compile(r"sgp4_f64_(\w+?)_kernelI(?:Li(\d)E)?Lb(\d)E")
 _MODES = ("K1", "K3", "K5", "K6")
 #: K5, K6 and K2 with velocities at the timed trips, in this tree and
 #: before (the first name a library has)
@@ -104,11 +115,16 @@ _LOOPS = {"K5": ("sgp4_dense_kernelILb1ELi5ELi0E",
                  "sgp4_shallow_kernelILb1ELi5ELi2E"),
           "K6": ("sgp4_dense_kernelILb1ELi5ELi1E",
                  "sgp4_shallow_kernelILb1ELi5ELi3E"),
-          "K2": ("sgp4_deep_kernelILb1ELi6E",)}
+          "K2": ("sgp4_deep_kernelILb1ELi6E",),
+          "f64": ("sgp4_f64_walk_kernelILi1ELb1EE",
+                  "sgp4_f64_dense_kernelILi1ELb1EE"),
+          "f64year": ("sgp4_f64_walk_kernelILi0ELb1EE",
+                      "sgp4_f64_dense_kernelILi0ELb1EE")}
 
 _SHALLOW_CU = "csrc/sgp4_shallow.cu"
 _DEEP_CU = "csrc/sgp4_deep.cu"
 _COMMON = "csrc/sgp4_common.cuh"
+_F64_CU = "csrc/sgp4_f64.cu"
 
 #: --fmad=true in place of --fmad=false: every multiply-add contracted
 #: (timing only; its bits are not the plain versions')
@@ -546,6 +562,24 @@ VARIANTS = {
        for n in (5, 6, 7)},
     **{f"k2_min{n}": _constant(_DEEP_CU, "DEEP_MIN_BLOCKS", n)
        for n in (4, 5, 7)},
+    # the f64 row walk's register caps in SDP4 and SGP4 mode
+    **{f"f64_min{n}": _constant(_F64_CU, "F64_MIN_BLOCKS", n)
+       for n in (4, 5, 6)},
+    **{f"f64_sgp4_min{n}": _constant(_F64_CU, "F64_SGP4_MIN_BLOCKS", n)
+       for n in (5, 6, 7, 8)},
+    # the weight of a row of a warp column with deep slots in the f64 row
+    # walk's split (the kept 4)
+    **{f"f64_w{n}": _constant(_F64_CU, "F64_DEEP_WEIGHT", n)
+       for n in (1, 2, 3, 5, 8)},
+    # the f64 row walk without the compiler fence at each row
+    "f64_no_fence": [(_F64_CU, '      asm volatile("" ::: "memory");\n',
+                      "", 1)],
+    # the f64 kernel's slots in catalog order, not grouped by regime
+    "f64_catalog_order": [(
+        "ops/cuda_sgp4.py",
+        "    return torch.sort(key, stable=True).indices.to(I32)",
+        "    return torch.arange(key.numel(), dtype=I32, device=key.device)",
+        1)],
 }
 
 
@@ -592,6 +626,10 @@ def ptxas_summary(report):
         m = _DEEP.search(name)
         if m:
             out[f"K2 v{m.group(1)} i{m.group(2)}"] = (regs, st, ld)
+        m = _F64.search(name)
+        if m:
+            mode = "" if m.group(2) is None else f" m{m.group(2)}"
+            out[f"f64 {m.group(1)}{mode} v{m.group(3)}"] = (regs, st, ld)
     return out
 
 
@@ -630,7 +668,20 @@ def inputs(chip_smoke, default_ops):
     k2c = (t_time, *(x[..., order].contiguous()
                      for x in (ds.t_sat, ds.spine, ds.tail, ds.flags,
                                k2[5])))
+    spread = build_catalog(chip_smoke.mixed_catalog_text(
+        N_SATS, epoch_spread_days=7.0))
+    jd = torch.as_tensor(chip_smoke.EPOCH_JD + np.arange(N_TIMES) / 1440.0,
+                         device="cuda")
+
+    def tsince(cat):
+        return ((jd[:, None] - cat.els.epoch_jd[None, :]) * 1440.0)
+
+    t_head = tsince(mixed)
+    f64 = dict(mixed=mixed, spread=spread, t_head=t_head,
+               t_spread=tsince(spread),
+               t_scan=t_head[:chip_smoke.SCREEN_TIMES].contiguous())
     return dict(
+        f64=f64,
         k1=((t_time, st.t_sat, st.spine, st.tail, st.flags),
             dict(grav=near.grav, kepler_iters=near.kepler_iters)),
         k2=(k2, k2_kw), k2c=k2c, order=order, chunks=chunks, els=els,
@@ -644,6 +695,11 @@ def inputs(chip_smoke, default_ops):
 
 def workloads(ops, x):
     """{kernel: fn()} through the wrappers of one variant's package."""
+    f = x["f64"]
+    m_st = ops.f64_staging(f["mixed"].els, f["mixed"].deep)
+    s_st = ops.f64_staging(f["spread"].els, f["spread"].deep)
+    y_st = ops.f64_staging(x["els"])
+    grav = f["mixed"].grav
     k3_kw = dict(x["k3"][1])
     if "maps" in inspect.signature(ops.propagate_fast_sep_merge).parameters:
         k3_kw["maps"] = x["maps"]
@@ -677,12 +733,21 @@ def workloads(ops, x):
         "grids": lambda: ops.propagate_fast_grids(x["els"], x["chunk"], **kw),
         "grids_b2b": lambda: ops.propagate_fast_grids(x["els"], x["chunk"],
                                                       **kw),
+        "f64": lambda: ops.sgp4_f64_dense(f["t_head"], *m_st, grav=grav,
+                                          sdp4=True),
+        "f64s": lambda: ops.sgp4_f64_dense(f["t_spread"], *s_st, grav=grav,
+                                           sdp4=True),
+        "f64scan": lambda: ops.sgp4_f64_scan(f["t_scan"], *m_st, grav=grav),
+        "f64year": lambda: [ops.sgp4_f64_dense(c, *y_st, grav=grav,
+                                               sdp4=False)
+                            for c in x["chunks"]][-1],
     }
 
 
 def loop_counts(build, chip_smoke):
-    """{"K5": n, "K6": n, "K2": n}: the static SASS instructions of each
-    kernel's row loop in one variant's library (None where not found)."""
+    """{"K5": n, "K6": n, "K2": n, "f64": n, "f64year": n}: the static
+    SASS instructions of each kernel's row loop in one variant's library
+    (:func:`chip_smoke.row_loop_instructions`; None where not found)."""
     out = {}
     for k, names in _LOOPS.items():
         counts = [chip_smoke.row_loop_instructions(build.library_path(), n)

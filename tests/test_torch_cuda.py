@@ -293,6 +293,44 @@ def test_f64_scan_matches_plain_on_cuda(cuda_device, order):
     assert torch.equal(e0, ref[2]) and _same_or_both_nan(r0, ref[0])
 
 
+def _walk_grid(cat, device, case):
+    """Minutes since epoch that the f64 row walk cuts into runs: ``long``
+    10,007 rows (a prime, so no run length divides it) from -5,000 to
+    +5,000 minutes with a jitter a lane, so that the runs near the middle
+    cross epoch; ``backward`` the same rows in descending order; ``one``
+    a single row."""
+    gen = torch.Generator().manual_seed(5)
+    rows = torch.linspace(-5000.0, 5000.0, 10007, dtype=torch.float64)
+    jitter = (torch.rand((1, len(cat)), generator=gen, dtype=torch.float64)
+              - 0.5) * 600.0
+    grid = {"long": rows[:, None], "backward": rows.flip(0)[:, None],
+            "one": torch.tensor([[-1234.5]], dtype=torch.float64)}[case]
+    return (grid + jitter).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long", "backward", "one"])
+def test_f64_walk_runs_match_plain_on_cuda(cuda_device, case):
+    """The f64 kernel's row walk on the mixed catalog where each warp takes
+    several rows (runs that do not divide T and cross epoch mid-run, rows
+    descending) and at T = 1: DENSE bit-equal to its plain version (r, v,
+    codes), and SCAN on the same tsince bit-equal to DENSE."""
+    cat = _mixed_catalog(cuda_device)
+    t = _walk_grid(cat, cuda_device, case)
+    st = cat.f64_staging
+    grid = cuda_sgp4.launch_grid("sgp4_f64_dense", *t.shape, sdp4=True)
+    assert case == "one" or (
+        -(-len(cat) // 32) * t.shape[0] > 4 * grid["blocks"])
+    dense = cuda_sgp4.sgp4_f64_dense(t, *st, grav=cat.grav, sdp4=True)
+    scan = cuda_sgp4.sgp4_f64_scan(t, *st, grav=cat.grav)
+    torch.cuda.synchronize()
+    ref = cuda_sgp4.sgp4_f64_dense_reference(t, *st, grav=cat.grav,
+                                             sdp4=True)
+    assert _outputs_equal(dense, ref)
+    assert _outputs_equal(scan, dense)
+    assert (dense[2] == 0).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_vel", [True, False])
 def test_f64_escape_matches_plain_on_cuda(cuda_device, want_vel):

@@ -6,9 +6,15 @@ f64 functions at independent points in three modes: DENSE
 (``ops/fast.py:sdp4_propagate_tables`` into kernel K2's planes) and SCAN
 (``ops/sdp4.py:sdp4_propagate_scan``). Here, where no card runs it:
 
-* the staged (F, S) f64 and (4, S) i32 matrices unpack to the elements
+* the staged (F, S) f64 and (5, S) i32 matrices unpack to the elements
   they were packed from, the JAX package's carried across, bit for bit,
-  and their rows are the kernel's ``enum Field``;
+  and their rows are the kernel's ``enum Field``; the last flag row, the
+  slot order, groups the lanes by regime;
+* the identity DENSE and SCAN's row walk rests on: every row of the plain
+  ``sdp4_propagate_scan`` is ``sdp4_propagate`` at that row alone, bit
+  for bit, and a scan started at any row equals the rest of the whole
+  scan; a Python model of the walk computes every point once, each
+  thread's run along consecutive rows of one lane from a fresh carry;
 * on CPU tensors each wrapper equals its plain function bit for bit and
   counts no launch;
 * DENSE, SCAN and ``propagate(method="f64")`` through the new routing
@@ -50,7 +56,8 @@ from astroz_tpu_torch.ops.cuda_sgp4 import (F64_FIELD_NAMES,
                                             f64_staging, f64_unstage)
 from astroz_tpu_torch.ops.fast import sdp4_propagate_tables
 from astroz_tpu_torch.ops.sdp4 import sdp4_propagate_scan
-from astroz_tpu_torch.propagation import _apply_escape, resonance_steps
+from astroz_tpu_torch.propagation import (_apply_escape, deep_slots,
+                                          resonance_steps)
 
 from test_escape import MIXED_TEXT
 from test_torch_cuda import synthetic_deep_text, synthetic_leo_text
@@ -155,6 +162,35 @@ def test_staging_unpacks_to_the_jax_elements_bit_for_bit(kind, mixed, near):
         assert not st.flags[2].any()
 
 
+@pytest.mark.parametrize("kind", ["mixed", "near"])
+def test_slot_order_groups_lanes_by_regime(kind, mixed, near):
+    """The staging's last flag row is a permutation of the lanes:
+    near-earth lanes first in catalog order, then the deep lanes in K2's
+    slot order (``propagation.deep_slots``: grouped by Lyddane branch and
+    irez, catalog order within a group); the identity on a near-earth
+    catalog."""
+    pcat = {"mixed": mixed, "near": near}[kind][1]
+    order = pcat.f64_staging.flags[4].numpy()
+    n = len(pcat)
+    assert pcat.f64_staging.flags.dtype == torch.int32
+    assert sorted(order) == list(range(n))
+    near_lanes = np.nonzero(~pcat.is_deep)[0]
+    assert np.array_equal(order[:len(near_lanes)], near_lanes)
+    if pcat.deep is None:
+        assert np.array_equal(order, np.arange(n))
+        return
+    deep = order[len(near_lanes):]
+    assert np.array_equal(deep, deep_slots(pcat.host, pcat.deep_host))
+    irez = np.asarray(pcat.deep_host.irez)[deep]
+    key = (pcat.host.inclo[deep] < cuda_sgp4.LYDDANE_INCL) * 3 + irez
+    assert np.all(np.diff(key) >= 0) and len(set(key)) >= 3
+    for k in set(key):
+        assert np.all(np.diff(deep[key == k]) > 0)
+    # the unstaged elements do not depend on the order
+    els, _ = f64_unstage(*pcat.f64_staging)
+    assert torch.equal(els.no_kozai, pcat.els.no_kozai)
+
+
 def test_staging_broadcasts_one_satellite():
     """Elements broadcast to many lanes (bench_single_sat's fold) stage as
     that many equal columns."""
@@ -206,6 +242,129 @@ def test_scan_wrapper_equals_plain_on_cpu(order, mixed):
     r0, v0, e0 = cuda_sgp4.sgp4_f64_scan(t, *pcat.f64_staging,
                                          grav=pcat.grav, want_vel=False)
     assert v0 is None and _equal(r0, out[0]) and _equal(e0, out[2])
+
+
+#: rows of the identity's grids: ascending, descending and in random order
+#: over -9,000 .. +9,700 minutes, across epoch and several 720-minute steps
+IDENTITY_ROWS = np.linspace(-9000.0, 9700.0, 40)
+
+
+def _identity_times(order, n_sats):
+    rng = np.random.default_rng(4)
+    rows = {"ascending": IDENTITY_ROWS, "descending": IDENTITY_ROWS[::-1],
+            "random": rng.permutation(IDENTITY_ROWS)}[order]
+    # each lane shifted by its own offset: every column ordered alike
+    return torch.from_numpy(rows[:, None] + rng.uniform(-400.0, 400.0,
+                                                        (1, n_sats)))
+
+
+@pytest.mark.parametrize("order", ["ascending", "descending", "random"])
+def test_scan_rows_are_sdp4_propagate_alone(order, mixed):
+    """The identity the f64 kernel's row walk rests on, on the ragged
+    mixed catalog (irez 1 and 2, epochs of both signs): every row of the
+    plain ``sdp4_propagate_scan`` equals ``sdp4_propagate`` at that row's
+    times alone (a fresh carry, stepped from epoch), bit for bit (r, v,
+    codes), and a scan started at a later row, with a fresh carry, equals
+    the rest of the whole scan. So a thread may resume the resonance from
+    the row before, or start afresh, and give the same bits."""
+    pcat = mixed[1]
+    irez = np.asarray(pcat.deep_host.irez)
+    assert (irez == 1).any() and (irez == 2).any()
+    t = _identity_times(order, len(pcat))
+    scan = sdp4_propagate_scan(pcat.els, pcat.deep, t, pcat.grav)
+    for k in range(len(t)):
+        alone = sdp4_propagate(pcat.els, pcat.deep, t[k], pcat.grav)
+        assert all(_equal(a[k], b) for a, b in zip(scan, alone[:3])), k
+    for k0 in (1, 17, len(t) - 1):
+        rest = sdp4_propagate_scan(pcat.els, pcat.deep, t[k0:], pcat.grav)
+        assert all(_equal(a[k0:], b) for a, b in zip(scan, rest)), k0
+
+
+# ---------------------------------------------------------------------------
+# The row walk of DENSE and SCAN (csrc/sgp4_f64.cu sgp4_f64_walk_kernel)
+# ---------------------------------------------------------------------------
+
+WARP, BLOCK = 32, 128
+
+
+def _f64_walk(n_times, n_out, blocks, slot_lane, lane_step, heavy, weight=4):
+    """Every point the row walk's threads compute on a grid of ``blocks``
+    blocks, thread by thread, as ``(row, output column, lane, fresh)``:
+    the points (warp column, row) column after column, a row of the
+    columns from ``heavy`` on weighing ``weight`` units and of the others
+    one, cut into ``warp_run``'s balanced runs of units, each warp
+    walking the points whose units start in its run; thread slot s of a
+    column computes output column ``slot_lane[s]`` (lane step 1) or s of
+    lane 0 (lane step 0), the lane staged and the carry fresh where the
+    run enters a column."""
+    n_cols = -(-n_out // WARP)
+    light = heavy * n_times
+    units = light + (n_cols - heavy) * n_times * weight
+    n_warps = blocks * (BLOCK // WARP)
+    q, rem = divmod(units, n_warps)
+    threads = []
+    for warp in range(n_warps):
+        first, count = warp * q + min(warp, rem), q + (warp < rem)
+        if count == 0:
+            continue
+        end = first + count
+        p = (first if first <= light
+             else light + -(-(first - light) // weight))
+        for lane_id in range(WARP):
+            pos = p if p <= light else light + (p - light) * weight
+            col, ti = divmod(p, n_times)
+            slot = col * WARP + lane_id
+            loaded, visits = -1, []
+            while pos < end:
+                fresh = False
+                if col != loaded:
+                    if slot < n_out:
+                        n = int(slot_lane[slot]) if lane_step else slot
+                        fresh = True
+                    loaded = col
+                if slot < n_out:
+                    visits.append((ti, n, n * lane_step, fresh))
+                pos += 1 if col < heavy else weight
+                ti += 1
+                if ti == n_times:
+                    ti, col, slot = 0, col + 1, slot + WARP
+            if visits:
+                threads.append(visits)
+    return threads
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 1000])
+@pytest.mark.parametrize("heavy", ["none", "half"])
+@pytest.mark.parametrize("lane_step", [1, 0])
+@pytest.mark.parametrize("shape", [(37, 100), (1, 33), (5, 1), (0, 10),
+                                   (10, 0), (13, 1000), (1440, 70)])
+def test_row_walk_visits_every_point_once(shape, lane_step, heavy, blocks):
+    """The row walk computes every (row, column) point of ragged T and N
+    exactly once, for any block count, with no column weighed as deep or
+    the later half of them, on a permuted slot order (lane step 1) or
+    against one lane (lane step 0); a thread's points are runs of
+    consecutive rows of one lane, each starting with a fresh carry, so
+    the carry it resumes is always the row before's; the host's grid,
+    sized as if every column were deep, fits the card at 4 to 6 blocks an
+    SM."""
+    n_times, n_out = shape
+    n_cols = -(-n_out // WARP)
+    first_heavy = n_cols if heavy == "none" else n_cols // 2
+    slot_lane = np.random.default_rng(n_out).permutation(n_out)
+    threads = _f64_walk(n_times, n_out, blocks, slot_lane, lane_step,
+                        first_heavy)
+    points = sorted((t, n) for visits in threads for t, n, _, _ in visits)
+    assert points == [(t, n) for t in range(n_times) for n in range(n_out)]
+    for visits in threads:
+        assert visits[0][3]
+        for (t0, n0, l0, _), (t1, n1, l1, fresh) in zip(visits, visits[1:]):
+            assert fresh or (t1 == t0 + 1 and n1 == n0 and l1 == l0)
+        assert all(lane == (n if lane_step else 0)
+                   for _, n, lane, _ in visits)
+    units = n_cols * n_times * 4
+    for per_sm in (4, 5, 6):
+        b = min(-(-units // (BLOCK // WARP)), per_sm * 132)
+        assert units == 0 or (b - 1) * (BLOCK // WARP) < units
 
 
 def _k2_planes(pcat, jd):
