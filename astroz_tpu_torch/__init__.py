@@ -18,8 +18,9 @@ the numerical stack: ``calculations`` (Kepler, element <-> state,
 transfers, TRIAD, quaternions, attitude), ``orbital_mechanics``,
 ``propagators`` (force models, RK4 and DP8(7), ``propagate_fixed``,
 ``Propagator``, ``propagate_numerical``), ``spacecraft`` and
-``montecarlo``, in plain torch on the card by default (no TPU kernel
-lies on that path), and multi-device: ``parallel`` (a mesh of devices
+``montecarlo``, on the card by default (no TPU kernel lies on that path;
+the integrators run in the integrator kernel, ``csrc/integrate_f64.cu``,
+for the force models it computes), and multi-device: ``parallel`` (a mesh of devices
 driven from one process, sharded propagation) with the mesh screens
 ``screen_all(mesh=)`` and ``screen_all_ring``. The package
 imports torch and numpy, never JAX.

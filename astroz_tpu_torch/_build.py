@@ -28,11 +28,11 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: sources built with contraction on, in place of NVCC_FLAGS' --fmad=false:
-#: the f64 kernel calls libdevice's f64 pow, which gives the bits of
-#: torch's pow only when built as torch's kernels are; its own arithmetic
-#: goes through rounded intrinsics, which are never contracted (see
-#: csrc/sgp4_f64.cu)
-FMAD_SOURCES = ("sgp4_f64.cu",)
+#: the f64 kernel and the integrator kernel call libdevice's f64 pow (and
+#: exp), which gives the bits of torch's only when built as torch's kernels
+#: are; their own arithmetic goes through rounded intrinsics, which are
+#: never contracted (see csrc/sgp4_f64.cu, csrc/integrate_f64.cu)
+FMAD_SOURCES = ("sgp4_f64.cu", "integrate_f64.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -90,6 +90,16 @@ SIGNATURES = {
     # n_steps, want_vel, 7 constants, r, v, err, stream
     "astroz_sgp4_f64_escape": (_I, [_P] * 6 + [_L, _L, _L, _I, _I]
                                + [_D] * 7 + [_P] * 4),
+    # state0, out, n_lanes, n_steps, substeps, h, dp87, n_terms, kinds,
+    # params (host arrays), stream
+    "astroz_integrate_fixed": (_I, [_P, _P, _L, _I, _I, _D, _I, _I, _P, _P,
+                                    _P]),
+    # state0, out, t0, t1, h0, direction, rtol, atol, h_min, h_max,
+    # max_substeps, n_terms, kinds, params (host arrays), stream
+    "astroz_integrate_adaptive": (_I, [_P, _P] + [_D] * 8 + [_L, _I, _P, _P,
+                                                            _P]),
+    # q0, w0, inertia, torque, q_out, w_out, n_bodies, n_steps, dt, stream
+    "astroz_integrate_attitude": (_I, [_P] * 6 + [_L, _L, _D, _P]),
     # r, n_times, n_sats, j0, width, out, stream
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
     # r, n_times, n_sats, thr2, cap, out_ij, count, stream

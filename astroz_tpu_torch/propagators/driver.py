@@ -6,9 +6,11 @@ return (times, states).
 
 Two execution styles:
 * :func:`propagate_fixed` — fixed steps, batched over arbitrary leading
-  axes (the Monte-Carlo path): a Python loop of device ops that writes
-  each sample into one preallocated ``(n, ..., 6)`` tensor and reads
-  nothing back to the host (JAX's ``lax.scan``).
+  axes (the Monte-Carlo path), as JAX's ``lax.scan``: on the card one
+  launch of the integrator kernel's FIXED mode for a model it computes
+  (``forces.kernel_terms``), else a Python loop of device ops that
+  writes each sample into one preallocated ``(n, ..., 6)`` tensor; no
+  host read either way.
 * :meth:`Propagator.propagate` — fixed outer sampling steps with an
   adaptive DP87 (or fixed) inner integrator, one trajectory.
 
@@ -26,8 +28,9 @@ import torch
 from ..calculations import _tensors
 from ..config import DEFAULT_DTYPE
 from ..constants import EARTH
-from .forces import Composite, Drag, J2, TwoBody
-from .integrators import DormandPrince87, dp87_step, make_deriv, rk4_step
+from ..ops import cuda_integrate
+from .forces import Composite, Drag, J2, TwoBody, kernel_terms
+from .integrators import DormandPrince87
 
 __all__ = ["Propagator", "propagate_fixed", "propagate_numerical"]
 
@@ -41,26 +44,24 @@ def propagate_fixed(accel, state0, t0: float, duration: float, dt: float,
     tensor (which runs on its own device, cast to f64) or numpy / floats
     (sent to ``device``). Returns (times (n,) numpy, states (n, ..., 6)
     f64 tensor) including the initial state, n = floor(duration/dt) + 1;
-    each sample is ``substeps`` integrator steps of dt/substeps."""
+    each sample is ``substeps`` integrator steps of dt/substeps.
+
+    On a CUDA state whose model the integrator kernel computes (TwoBody,
+    J2-J4, Drag, ImprovedDrag, SRP with its fixed sun, and Composites of
+    them) the whole loop is one kernel launch, bit-equal to the plain
+    loop on the card; a model that calls a python function of t
+    (ThirdBody, SRP with a ``sun_pos_fn``, any other callable) runs the
+    plain loop of torch ops, as every model does on the CPU."""
     if method not in ("rk4", "dp87"):
         raise ValueError(f"method must be 'rk4' or 'dp87', got "
                          f"{method!r}")
-    deriv = make_deriv(accel)
     n_steps = int(np.floor(duration / dt))
-    step_fn = rk4_step if method == "rk4" else \
-        (lambda d, s, t, h: dp87_step(d, s, t, h)[0])
     h = dt / substeps
-
     (state,) = _tensors(state0, device=device, dtype=DEFAULT_DTYPE)
-    states = torch.empty((n_steps + 1, *state.shape), dtype=state.dtype,
-                         device=state.device)
-    states[0] = state
-    t = float(t0)
-    for k in range(n_steps):
-        for _ in range(substeps):
-            state = step_fn(deriv, state, t, h)
-            t = t + h
-        states[k + 1] = state
+    run = cuda_integrate.fixed_reference if kernel_terms(accel) is None \
+        else cuda_integrate.fixed
+    states = run(accel, state, t0, n_steps, h, method=method,
+                 substeps=substeps)
     times = t0 + dt * np.arange(n_steps + 1)
     return times, states
 

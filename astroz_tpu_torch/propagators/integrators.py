@@ -8,9 +8,13 @@ State is a 6-vector (r km, v km/s) with arbitrary leading batch axes;
 The adaptive driver keeps the JAX package's control law: mixed
 rtol/atol error norm, safety 0.9, step clamp [1e-3 s, 3600 s], growth
 cap 5x, shrink floor 0.1x. JAX runs it as a ``lax.while_loop`` on the
-device; here the loop runs on the host, the state stays on its device,
-and each substep reads one number back, its error norm: the host then
-decides acceptance and the next step in f64 Python floats.
+device. Here, on a CUDA trajectory whose model the integrator kernel
+computes (``forces.kernel_terms``), one launch of the kernel's ADAPTIVE
+mode runs the whole loop and the host reads (h, steps) back once a call;
+otherwise (the CPU, a model of a python function of t, a batched state)
+the loop runs on the host, the state stays on its device, and each
+substep reads one number back, its error norm: the host then decides
+acceptance and the next step in f64 Python floats.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch
 
 from ..calculations import _tensors
 from ..config import DEFAULT_DTYPE
+from ..ops import cuda_integrate
+from .forces import kernel_terms
 
 __all__ = ["Deriv", "DormandPrince87", "Rk4", "Sgp4Integrator",
            "dp87_adaptive", "dp87_step", "make_deriv", "rk4_step"]
@@ -29,12 +35,15 @@ Deriv = Callable[[torch.Tensor, float], torch.Tensor]
 
 
 def make_deriv(accel) -> Deriv:
-    """[r, v] -> [v, a] derivative from a force model ``accel(r,v,t)``."""
+    """[r, v] -> [v, a] derivative from a force model ``accel(r,v,t)``;
+    it carries the model's ``terms`` (``forces.kernel_terms``), so that
+    :func:`dp87_adaptive` can run it in the integrator kernel."""
 
     def deriv(state, t):
         r, v = state[..., :3], state[..., 3:]
         return torch.cat([v, accel(r, v, t)], dim=-1)
 
+    deriv.terms = kernel_terms(accel)
     return deriv
 
 
@@ -135,8 +144,14 @@ def dp87_adaptive(deriv: Deriv, state, t0, t1, *, rtol: float = 1e-10,
     to [h_min, h_max]; a step that would overshoot ``t1`` ends on it.
 
     Scalar trajectory only (the error norm is the max over the whole
-    state): batched runs take the fixed-step path. One host read a
-    substep (the error norm). Returns (state, h_final, n_steps) with
+    state): batched runs take the fixed-step path. On a CUDA state of one
+    trajectory (6 values) whose ``deriv`` carries kernel terms
+    (:func:`make_deriv` of a model the kernel computes), one launch of
+    the integrator kernel's ADAPTIVE mode runs the loop and one read
+    brings (h, steps) back; otherwise the plain loop reads one number a
+    substep (the error norm). The kernel takes err^(-1/8) from the
+    device's pow, the plain loop from the host's: their step sizes may
+    part in the last bits. Returns (state, h_final, n_steps) with
     ``h_final`` a float and ``n_steps`` an int."""
     (state,) = _tensors(state, device=device, dtype=DEFAULT_DTYPE)
     t0, t1 = float(t0), float(t1)
@@ -145,20 +160,12 @@ def dp87_adaptive(deriv: Deriv, state, t0, t1, *, rtol: float = 1e-10,
     h = (min(abs(t1 - t0), h_max) if direction else h_max) * sign
     if h0 is not None:
         h = float(h0) * sign
-    t, steps = t0, 0
-    while (t - t1) * direction < 0 and steps < max_substeps:
-        # clamp h to not overshoot t1
-        hs = t1 - t if (t + h - t1) * direction > 0 else h
-        y8, err = dp87_step(deriv, state, t, hs)
-        scale = atol + rtol * torch.maximum(torch.abs(state), torch.abs(y8))
-        err_norm = float(torch.max(torch.abs(err) / scale))
-        factor = min(max(0.9 * max(err_norm, 1e-16) ** (-1.0 / 8.0), 0.1),
-                     5.0)
-        h = min(max(abs(hs * factor), h_min), h_max) * direction
-        if err_norm <= 1.0:
-            state, t = y8, t + hs
-        steps += 1
-    return state, h, steps
+    kw = dict(rtol=rtol, atol=atol, h_min=h_min, h_max=h_max,
+              max_substeps=max_substeps)
+    if kernel_terms(deriv) is None or state.numel() != 6:
+        return cuda_integrate.adaptive_reference(deriv, state, t0, t1, h,
+                                                 **kw)
+    return cuda_integrate.adaptive(deriv, state, t0, t1, h, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 0. the card: ``torch.cuda.is_available()``, its name and power limit from
    nvidia-smi; the port imports without JAX;
-1. build kernels K1-K6, the spine kernel and the f64 kernel
-   (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one process per source,
-   and print ptxas' registers and spills;
+1. build kernels K1-K6, the spine kernel, the f64 kernel and the
+   integrator kernel (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one
+   process per source, and print ptxas' registers and spills;
 2. K1 vs its plain torch version on the card, on a small ragged
    near-earth catalog with backward and forward times, over +-1 year
    (41 epochs: the reduction mod 2pi at quotients up to ~2^13) and at
@@ -198,28 +198,40 @@ Phases (any failure exits non-zero; nothing is caught):
    of 100 near-earth lanes x 100 epochs on the card against
    ``native.sgp4_grid`` on the same inputs, in turns (the small-grid host
    route the port leaves out);
-10. the numerical stack (plain f64 torch, no kernel), each device number
-   beside the host's: (a) 100,000 Monte-Carlo lanes around the ISS
-   golden TLE's state (``tle_to_elements`` + ``elements_to_state``; 1 km,
-   1 m/s of noise) through RK4 ``propagate_fixed`` of TwoBody + J2 + Drag
-   over a 5,400 s orbit at 30 s, a (181, 100000, 6) f64 output: CUDA
-   events, mean of 3, no host sync in the call (sync debug mode), the
-   device work a step (profiler, in a child process), the peak device
-   memory, the same call on the host once (its first 10,000 lanes where
-   the whole would take over 30 s) within 1e-6 km, TwoBody alone on 1,000
-   lanes with a relative energy drift under 1e-5; (b) one adaptive DP8(7)
+10. the numerical stack, each device number beside the host's, through
+   the integrator kernel (``csrc/integrate_f64.cu``; not a TPU kernel: the
+   XLA scan and while loop of the JAX package), each of its modes bit for
+   bit (ADAPTIVE within ADAPTIVE_TOL_KM) against its plain version on the
+   card and timed in turns with it: (a) 100,000 Monte-Carlo lanes around
+   the ISS golden TLE's state (``tle_to_elements`` + ``elements_to_state``;
+   1 km, 1 m/s of noise) through RK4 ``propagate_fixed`` of TwoBody + J2 +
+   Drag over a 5,400 s orbit at 30 s, a (181, 100000, 6) f64 output: one
+   launch of FIXED and no host sync in the call (sync debug mode), CUDA
+   events, mean of 3, the peak device memory, FIXED against its plain
+   version, and DP8(7) fixed steps on 10,000 of the lanes over 10 steps,
+   the same call on the host once (its first 10,000 lanes where the whole
+   would take over 30 s) within 1e-6 km, TwoBody alone on 1,000 lanes
+   with a relative energy drift under 1e-5; (b) one adaptive DP8(7)
    trajectory of TwoBody + J2 from the ISS state, rtol 1e-10, 6 h at 60 s
-   outer steps, on the host and on the card in turns: the same substep
-   count, the final states within 1e-5 km, the host reads a substep, and
-   a circular 500 km orbit back at its start within 1 m after one period;
+   outer steps (one ADAPTIVE launch and one read an outer step) on the
+   host, on the card and on the card through the plain version, in turns:
+   the same substep count, the final states within 1e-5 km, ADAPTIVE
+   against the plain version on each outer step (equal substep counts,
+   ``h_current`` within ADAPTIVE_H_RTOL), and from each of its states
+   over ADAPTIVE_BIND_S, where h binds: one substep of the trajectory's h
+   and one rejected, bit-equal with the next h within ADAPTIVE_H_RTOL, and
+   the whole outer step with equal counts, the host reads a call, a circular 500 km orbit back at its start
+   within 1 m after one period, and one outer step of each in turns;
    (c) ``run_hohmann_monte_carlo`` of 1,000,000 samples: the LEO->GEO
    mean total dv within 0.1 km/s of 3.85, ``n + n_failed`` the sample
    count, the host's mean within 4 standard errors; (d) the ISS as a
    ``Spacecraft`` over 6 h at 30 s with a prograde and a plane-change
-   burn (the orbit raised by over 100 km, the plane turned by the
-   commanded 5 deg within 0.5, the inclination moved; card within 1e-5
-   km of the host) and 10,000 ``propagate_attitude`` steps (card within
-   1e-12 of the host);
+   burn (FIXED once a segment, equal to the plain route bit for bit; the
+   orbit raised by over 100 km, the plane turned by the commanded 5 deg
+   within 0.5, the inclination moved; card within 1e-5 km of the host)
+   and 10,000 ``propagate_attitude`` steps (one ATTITUDE launch, card
+   within 1e-12 of the host); then, under ``torch.profiler``, 10 RK4
+   steps of 10a must run one kernel and a DP8(7) outer step of 10b one;
 11. the multi-device paths (``astroz_tpu_torch.parallel``, run after
    phase 9) on a mesh of every visible card, or of one card repeated
    MESH_SHARDS times (printed): (a) ``propagate_sharded_fast`` of the
@@ -241,8 +253,9 @@ Phases (any failure exits non-zero; nothing is caught):
    with its bound.
 
 The last three lines of output are the card line from nvidia-smi, a
-JSON line describing the kernels (K1-K6, the spine kernel and the f64
-kernel's three modes, with each one's bound: the larger of
+JSON line describing the kernels (K1-K6, the spine kernel, the f64
+kernel's three modes and the integrator kernel's three, with each one's
+bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type; ``ms`` is the kernel launched back to back through
 its wrapper, ``device_ms`` the same calls replayed from a CUDA graph,
@@ -381,18 +394,20 @@ def sync():
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4
+    from astroz_tpu_torch.ops import cuda_integrate, cuda_screen, cuda_sgp4
 
-    for counts in (cuda_sgp4.LAUNCHES, cuda_screen.LAUNCHES):
+    for counts in (cuda_sgp4.LAUNCHES, cuda_screen.LAUNCHES,
+                   cuda_integrate.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def launches():
     """Every kernel's launch count, by kernel."""
-    from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4
+    from astroz_tpu_torch.ops import cuda_integrate, cuda_screen, cuda_sgp4
 
-    return {**cuda_sgp4.LAUNCHES, **cuda_screen.LAUNCHES}
+    return {**cuda_sgp4.LAUNCHES, **cuda_screen.LAUNCHES,
+            **cuda_integrate.LAUNCHES}
 
 
 #: aten ops that write floats without arithmetic: they make, move,
@@ -3612,6 +3627,36 @@ NUMERICAL_DP87_S = 6 * 3600.0
 NUMERICAL_MC_SAMPLES = 1000000
 NUMERICAL_ATTITUDE_STEPS = 10000
 LAUNCH_STEPS = 10
+#: 10a's fixed-step DP8(7) case: the first NUMERICAL_DP87_FIXED_LANES
+#: lanes over NUMERICAL_DP87_FIXED_STEPS steps
+NUMERICAL_DP87_FIXED_LANES = 10000
+NUMERICAL_DP87_FIXED_STEPS = 10
+#: ADAPTIVE against its plain version over 10b's trajectory: the same
+#: substep count on every outer step, states within this (the two take
+#: err^(-1/8) from the device's and the host's pow). It holds where each
+#: outer step is one clamped substep, as in 10b's 60 s steps, and over one
+#: outer step where h binds; carried over outer steps of several substeps
+#: the two part further (1.2e-8 km after 1.5 h of 600 s steps)
+ADAPTIVE_TOL_KM = 1e-8
+#: the step h that ADAPTIVE's control law returns against its plain
+#: version's, relative, where the states are bit-equal: only the last bits
+#: of the two pows differ
+ADAPTIVE_H_RTOL = 1e-13
+#: the outer step over which 10b starts ADAPTIVE and its plain version from
+#: each of its trajectory's states with a step that binds
+ADAPTIVE_BIND_S = 600.0
+#: the integrator kernel's modes in the kernels line: (LAUNCHES key,
+#: name, the XLA program it replaces)
+INTEGRATE_MODES = (
+    ("integrate_fixed",
+     "integrate_fixed (the integrator kernel, FIXED: propagate_fixed)",
+     "astroz_tpu/propagators/driver.py:30"),
+    ("integrate_adaptive",
+     "integrate_adaptive (the integrator kernel, ADAPTIVE: dp87_adaptive)",
+     "astroz_tpu/propagators/integrators.py:131"),
+    ("integrate_attitude",
+     "integrate_attitude (the integrator kernel, ATTITUDE: "
+     "propagate_attitude)", "astroz_tpu/calculations.py:273"))
 
 
 def iss_state():
@@ -3647,18 +3692,52 @@ def _dp87_forces():
     return Composite([TwoBody(), J2()])
 
 
+def _dp87_deriv():
+    from astroz_tpu_torch.propagators import make_deriv
+
+    return make_deriv(_dp87_forces())
+
+
+def _plain_model(accel):
+    """``accel`` behind a lambda: the same arithmetic with no kernel
+    terms, so that the entry points run their plain loops on the card."""
+    return lambda r, v, t: accel(r, v, t)
+
+
+def _integrate_turns(call, launch, plain, reps, per_graph=10,
+                     plain_reps=1):
+    """:class:`Turns` of an integrator mode: ``call`` (its wrapper, back
+    to back), ``launch`` (the kernel alone, replayed from a CUDA graph)
+    and ``plain`` (its plain version on the card, ``plain_reps`` calls
+    each side, not warmed again)."""
+    return Turns((_cuda_ms(plain, plain_reps, warm=False),
+                  _cuda_ms(call, reps), _graph_ms(launch, reps, per_graph),
+                  _graph_ms(launch, reps, per_graph), _cuda_ms(call, reps),
+                  _cuda_ms(plain, plain_reps, warm=False)))
+
+
+def _integrate_entry(mode, n_launches, err, turns, bound_ms_by):
+    """The kernels line's entry of an integrator mode."""
+    key, name, replaces = next(m for m in INTEGRATE_MODES if m[0] == mode)
+    return {"name": name, "route": "cuda",
+            "source": "astroz_tpu_torch/csrc/integrate_f64.cu",
+            "replaces": replaces, "launches": n_launches,
+            "max_abs_err": err, "ms": turns.ms, "plain_ms": turns.plain_ms,
+            "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
+            "library_ms": None, "device_ms": turns.device_ms}
+
+
 def _numerical_launches():
     """The device activities (kernels, copies, fills) of LAUNCH_STEPS RK4
-    steps of 10a's lanes and model, and of one DP8(7) substep of 10b's
-    trajectory, from one ``torch.profiler`` session, split by a marker
-    kernel: a dict of counts."""
-    from astroz_tpu_torch.propagators import (dp87_adaptive, make_deriv,
-                                              propagate_fixed)
+    steps of 10a's lanes and model, and of one 60 s outer step of 10b's
+    DP8(7) trajectory, from one ``torch.profiler`` session, split by a
+    marker kernel: a dict of counts."""
+    from astroz_tpu_torch.propagators import dp87_adaptive, propagate_fixed
 
     accel = _mc_forces()
     lanes = torch.as_tensor(monte_carlo_lanes(NUMERICAL_LANES),
                             device=DEVICE)
-    deriv = make_deriv(_dp87_forces())
+    deriv = _dp87_deriv()
     one = torch.as_tensor(iss_state(), device=DEVICE)
 
     def rk4():
@@ -3666,7 +3745,7 @@ def _numerical_launches():
                         NUMERICAL_DT_S)
 
     def dp87():
-        dp87_adaptive(deriv, one, 0.0, 60.0, rtol=1e-10, max_substeps=1)
+        dp87_adaptive(deriv, one, 0.0, 60.0, rtol=1e-10)
 
     rk4()
     dp87()
@@ -3680,8 +3759,8 @@ def _numerical_launches():
     (rk4_k, rk4_all), (dp_k, dp_all) = counts(names[:cut]), \
         counts(names[cut + 1:])
     return {"rk4_steps": LAUNCH_STEPS, "rk4_kernels": rk4_k,
-            "rk4_activities": rk4_all, "dp87_substep_kernels": dp_k,
-            "dp87_substep_activities": dp_all}
+            "rk4_activities": rk4_all, "dp87_step_kernels": dp_k,
+            "dp87_step_activities": dp_all}
 
 
 def _op_us(device, n=2000):
@@ -3725,18 +3804,29 @@ def _energy(states):
 
 def _phase10a_lanes(smi):
     """Batched Monte-Carlo lanes through ``propagate_fixed`` on the card
-    and on the host."""
+    (the integrator kernel's FIXED mode) and on the host; FIXED against
+    its plain version on the card, RK4 on every lane and DP8(7) on some.
+    Returns FIXED's kernels-line entry and the card's ms a step."""
+    from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.propagators import TwoBody, propagate_fixed
 
     accel = _mc_forces()
     lanes = monte_carlo_lanes(NUMERICAL_LANES)
     state = torch.as_tensor(lanes, device=DEVICE)
+    n_steps = int(NUMERICAL_ORBIT_S // NUMERICAL_DT_S)
 
     def card():
         return propagate_fixed(accel, state, 0.0, NUMERICAL_ORBIT_S,
                                NUMERICAL_DT_S)[1]
 
+    card()  # the first call builds the kernel library where needed
+    sync()
+    reset_launches()
     out = card()
+    sync()
+    moved = {k: n for k, n in launches().items() if n}
+    check(moved == {"integrate_fixed": 1}, f"phase 10a: propagate_fixed "
+          f"launched {moved}, not the integrator kernel's FIXED mode once")
     n_syncs = _syncs(card)
     check(n_syncs == 0, f"phase 10a: propagate_fixed synced the host "
           f"{n_syncs} times on the card")
@@ -3744,9 +3834,48 @@ def _phase10a_lanes(smi):
     peak = _peak(card)
     n_samples = out.shape[0]
     check(tuple(out.shape) == (n_samples, NUMERICAL_LANES, 6)
-          and n_samples == int(NUMERICAL_ORBIT_S // NUMERICAL_DT_S) + 1
+          and n_samples == n_steps + 1
           and out.dtype == torch.float64 and bool(out.isfinite().all()),
           f"phase 10a: output {tuple(out.shape)} {out.dtype}")
+    # FIXED against its plain version on the card, then both in turns
+    def kernel():
+        return cuda_integrate.fixed(accel, state, 0.0, n_steps,
+                                    NUMERICAL_DT_S)
+
+    def plain():
+        return cuda_integrate.fixed_reference(accel, state, 0.0, n_steps,
+                                              NUMERICAL_DT_S)
+
+    want = plain()
+    err = float((out - want).abs().max())
+    check(torch.equal(out, want), f"phase 10a: FIXED (RK4) differs from "
+          f"its plain version on the card by {err} km")
+    del want
+    turns = _integrate_turns(kernel, kernel, plain, 5, per_graph=2)
+    f32, f64 = count_ops(lambda: cuda_integrate.fixed_reference(
+        accel, state[:1000], 0.0, 10, NUMERICAL_DT_S))
+    step_ops = f64 / (1000 * 10)  # f64 operations a lane-step
+    scale = NUMERICAL_LANES / 1000 * n_steps / 10
+    fixed_bound = bound(nbytes(state, out), f32 * scale, f64 * scale)
+    # DP8(7) fixed steps on some of the lanes
+    sub = state[:NUMERICAL_DP87_FIXED_LANES]
+
+    def dp_kernel():
+        return cuda_integrate.fixed(accel, sub, 0.0,
+                                    NUMERICAL_DP87_FIXED_STEPS,
+                                    NUMERICAL_DT_S, method="dp87")
+
+    def dp_plain():
+        return cuda_integrate.fixed_reference(
+            accel, sub, 0.0, NUMERICAL_DP87_FIXED_STEPS, NUMERICAL_DT_S,
+            method="dp87")
+
+    dp_out, dp_want = dp_kernel(), dp_plain()
+    dp_err = float((dp_out - dp_want).abs().max())
+    check(torch.equal(dp_out, dp_want), f"phase 10a: FIXED (DP8(7)) "
+          f"differs from its plain version on the card by {dp_err} km")
+    dp_turns = _integrate_turns(dp_kernel, dp_kernel, dp_plain, 10)
+    dp_bound = bound(nbytes(sub, dp_out), *count_ops(dp_plain))
     # the host: estimate from 10 steps, then the whole orbit once
     t0 = time.perf_counter()
     propagate_fixed(accel, lanes, 0.0, 10 * NUMERICAL_DT_S, NUMERICAL_DT_S,
@@ -3773,10 +3902,20 @@ def _phase10a_lanes(smi):
           f"Composite([TwoBody, J2, Drag]), {NUMERICAL_LANES} lanes x "
           f"{n_samples} samples ({NUMERICAL_ORBIT_S:.0f} s at "
           f"{NUMERICAL_DT_S:.0f} s), f64 output {out.numel() * 8 / 1e9:.3f} "
-          f"GB: card {card_ms:.2f} ms (CUDA events, mean of 3 after a "
-          f"warm-up: {', '.join(f'{x:.2f}' for x in ms)}), "
-          f"{card_ms / steps:.4f} ms a step, {n_syncs} host syncs a call; "
-          f"peak device memory {peak:.3f} GiB")
+          f"GB: card {card_ms:.3f} ms (CUDA events, mean of 3 after a "
+          f"warm-up: {', '.join(f'{x:.3f}' for x in ms)}), "
+          f"{card_ms / steps:.5f} ms a step, launches {moved}, {n_syncs} "
+          f"host syncs a call; peak device memory {peak:.3f} GiB")
+    print(f"# phase 10 [{smi}]: 10a: FIXED (RK4) bit-equal to its plain "
+          f"version on the card (max|diff| {err}); "
+          f"{turns.text('integrate_fixed')}; bound {fixed_bound[0]:.4f} ms "
+          f"({fixed_bound[1]}; {step_ops:.1f} f64 operations a lane-step "
+          f"by count_ops)")
+    print(f"# phase 10 [{smi}]: 10a: FIXED (DP8(7)), "
+          f"{NUMERICAL_DP87_FIXED_LANES} lanes x "
+          f"{NUMERICAL_DP87_FIXED_STEPS} steps: bit-equal to its plain "
+          f"version (max|diff| {dp_err}); {dp_turns.text('dp87')}; bound "
+          f"{dp_bound[0]:.5f} ms ({dp_bound[1]})")
     cut_note = "" if n_cpu == NUMERICAL_LANES else (
         f" (the first {n_cpu} lanes: all {NUMERICAL_LANES} were projected "
         f"at {projected:.1f} s, over {NUMERICAL_CPU_LIMIT_S:.0f} s; scaled "
@@ -3788,39 +3927,140 @@ def _phase10a_lanes(smi):
           f"by {max(host_ms, card_ms) / min(host_ms, card_ms):.1f}x; TwoBody "
           f"alone, {NUMERICAL_ENERGY_LANES} lanes: max relative energy "
           f"drift {drift:.3e} after the orbit")
-    return card_ms / steps
+    return (_integrate_entry("integrate_fixed", moved["integrate_fixed"],
+                             err, turns, fixed_bound), card_ms / steps)
+
+
+def _dp87_run(integ, start, n_outer, dt=60.0):
+    """``Propagator(integ).propagate``'s outer loop over ``n_outer`` steps
+    of ``dt`` from ``start``: the (n_outer + 1, 6) states, the substeps of
+    each outer step and the step ``h_current`` after each."""
+    state, states, subs, hs = start, [start], [], []
+    for k in range(n_outer):
+        before = integ.n_substeps
+        state = integ.step(state, k * dt, dt)
+        subs.append(integ.n_substeps - before)
+        hs.append(integ.h_current)
+        states.append(state)
+    return torch.stack([torch.as_tensor(x) for x in states]), subs, hs
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _dp87_binding(deriv, states, hs, dt=60.0):
+    """ADAPTIVE against its plain version from each of ``states`` (10b's
+    trajectory, at ``dt`` apart) over ADAPTIVE_BIND_S, where the step
+    binds and is not carried: one substep of ``hs``, the trajectory's h
+    after each outer step (mostly accepted), one of ADAPTIVE_BIND_S (rejected: the shrink law),
+    each with the state bit-equal and h within ADAPTIVE_H_RTOL, and the
+    whole outer step from h = ADAPTIVE_BIND_S, with the same substep count
+    and states within ADAPTIVE_TOL_KM. Returns a dict of what it saw."""
+    from astroz_tpu_torch.ops import cuda_integrate
+
+    kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0)
+    one = {**kw, "max_substeps": 1}
+    seen = {"starts": len(hs), "accepted": 0, "rejected": 0, "h_rel": 0.0,
+            "whole_bits": 0, "whole_dr": 0.0, "whole_h_rel": 0.0,
+            "substeps": 0}
+    for k, h in enumerate(hs):
+        y, t0 = states[k], k * dt
+        t1 = t0 + ADAPTIVE_BIND_S
+        for h0 in (h, ADAPTIVE_BIND_S):
+            got = cuda_integrate.adaptive(deriv, y, t0, t1, h0, **one)
+            want = cuda_integrate.adaptive_reference(deriv, y, t0, t1, h0,
+                                                     **one)
+            check(torch.equal(got[0], want[0]) and got[2] == want[2] == 1,
+                  f"phase 10b: ADAPTIVE's one substep of {h0} s from outer "
+                  f"step {k} differs from its plain version's")
+            rel = _rel(got[1], want[1])
+            check(rel <= ADAPTIVE_H_RTOL, f"phase 10b: ADAPTIVE's next h "
+                  f"{got[1]} after one substep of {h0} s from outer step "
+                  f"{k}, its plain version's {want[1]}")
+            seen["h_rel"] = max(seen["h_rel"], rel)
+            seen["rejected" if torch.equal(want[0], y) else "accepted"] += 1
+        got = cuda_integrate.adaptive(deriv, y, t0, t1, ADAPTIVE_BIND_S,
+                                      max_substeps=10000, **kw)
+        want = cuda_integrate.adaptive_reference(
+            deriv, y, t0, t1, ADAPTIVE_BIND_S, max_substeps=10000, **kw)
+        check(got[2] == want[2], f"phase 10b: from outer step {k} over "
+              f"{ADAPTIVE_BIND_S} s ADAPTIVE took {got[2]} substeps, its "
+              f"plain version {want[2]}")
+        dr = float((got[0] - want[0]).abs().max())
+        check(dr <= ADAPTIVE_TOL_KM, f"phase 10b: from outer step {k} over "
+              f"{ADAPTIVE_BIND_S} s ADAPTIVE vs its plain version {dr} km")
+        seen["whole_bits"] += bool(torch.equal(got[0], want[0]))
+        seen["whole_dr"] = max(seen["whole_dr"], dr)
+        seen["whole_h_rel"] = max(seen["whole_h_rel"], _rel(got[1], want[1]))
+        seen["substeps"] += want[2]
+    return seen
 
 
 def _phase10b_dp87(smi):
-    """One adaptive DP8(7) trajectory on the host and on the card."""
+    """One adaptive DP8(7) trajectory on the host, on the card through the
+    integrator kernel's ADAPTIVE mode and on the card through its plain
+    version, in turns; ADAPTIVE against the plain version outer step by
+    outer step; one outer step of each timed in turns. Returns ADAPTIVE's
+    kernels-line entry."""
     from astroz_tpu_torch.constants import EARTH
+    from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.propagators import (DormandPrince87, Propagator,
                                               TwoBody)
 
     accel = _dp87_forces()
     start = iss_state()
     on_card = torch.as_tensor(start, device=DEVICE)
+    n_outer = int(NUMERICAL_DP87_S // 60.0)
+    routes = {"cpu": ("cpu", accel), "kernel": (DEVICE, accel),
+              "plain": (DEVICE, _plain_model(accel))}
 
-    def run(device, duration=NUMERICAL_DP87_S):
-        integ = DormandPrince87(accel, rtol=1e-10, device=device)
-        state = on_card if device == DEVICE else start
+    def run(route, duration=NUMERICAL_DP87_S):
+        device, model = routes[route]
+        integ = DormandPrince87(model, rtol=1e-10, device=device)
+        state = start if device == "cpu" else on_card
         t0 = time.perf_counter()
         _, states = Propagator(integ).propagate(state, 0.0, duration, 60.0)
         end = states[-1].cpu()
         return (time.perf_counter() - t0) * 1e3, integ.n_substeps, end
 
-    ms = {"cpu": [], DEVICE: []}
-    subs, ends = {}, {}
-    for device in ("cpu", DEVICE, DEVICE, "cpu"):
-        t, subs[device], ends[device] = run(device)
-        ms[device].append(t)
+    run("kernel", 600.0)  # warm up the kernel
+    ms = {r: [] for r in routes}
+    subs, ends, moved = {}, {}, None
+    for route in ("cpu", "plain", "kernel", "kernel", "plain", "cpu"):
+        if route == "kernel" and moved is None:
+            reset_launches()
+            t, subs[route], ends[route] = run(route)
+            moved = {k: n for k, n in launches().items() if n}
+        else:
+            t, subs[route], ends[route] = run(route)
+        ms[route].append(t)
+    check(moved == {"integrate_adaptive": n_outer}, f"phase 10b: the "
+          f"trajectory launched {moved}, not ADAPTIVE once an outer step")
     # the host syncs of a shorter card call (1 h)
     short = {}
-    reads = _syncs(lambda: short.update(n=run(DEVICE, 3600.0)[1]))
-    check(subs["cpu"] == subs[DEVICE], f"phase 10b: substeps host "
-          f"{subs['cpu']} card {subs[DEVICE]}")
-    dr = float((ends[DEVICE] - ends["cpu"])[:3].abs().max())
+    reads = _syncs(lambda: short.update(n=run("kernel", 3600.0)[1]))
+    check(subs["cpu"] == subs["kernel"], f"phase 10b: substeps host "
+          f"{subs['cpu']} card {subs['kernel']}")
+    dr = float((ends["kernel"] - ends["cpu"])[:3].abs().max())
     check(dr <= 1e-5, f"phase 10b: card vs host final |dr| {dr} km")
+    # ADAPTIVE against its plain version on the card, outer step by step
+    k_states, k_subs, k_h = _dp87_run(DormandPrince87(accel, rtol=1e-10,
+                                                      device=DEVICE),
+                                      on_card, n_outer)
+    p_states, p_subs, p_h = _dp87_run(DormandPrince87(
+        _plain_model(accel), rtol=1e-10, device=DEVICE), on_card, n_outer)
+    err = float((k_states - p_states)[:, :3].abs().max())
+    bits = bool(torch.equal(k_states, p_states))
+    check(k_subs == p_subs, "phase 10b: ADAPTIVE and its plain version "
+          "took different substep counts on some outer step")
+    check(err <= ADAPTIVE_TOL_KM, f"phase 10b: ADAPTIVE vs its plain "
+          f"version max|dr| {err} km")
+    h_rel = max(_rel(a, b) for a, b in zip(k_h, p_h))
+    check(h_rel <= ADAPTIVE_H_RTOL, f"phase 10b: ADAPTIVE's h_current vs "
+          f"its plain version's, relative {h_rel} on some outer step")
+    # where h binds: from each state of the trajectory, not carried
+    bind = _dp87_binding(_dp87_deriv(), p_states[:-1], p_h)
     # a circular 500 km orbit returns to its start after one period
     r0 = EARTH.eq_radius + 500.0
     vc = np.sqrt(EARTH.mu / r0)
@@ -3831,25 +4071,63 @@ def _phase10b_dp87(smi):
         circ, 0.0, per, per).cpu().numpy()
     closure = float(np.linalg.norm(end[:3] - circ[:3]))
     check(closure < 1e-3, f"phase 10b: circular orbit closure {closure} km")
-    host_ms, card_ms = float(np.mean(ms["cpu"])), float(np.mean(ms[DEVICE]))
-    n = subs[DEVICE]
-    winner = "the host" if host_ms < card_ms else "the card"
-    turns = {d: ", ".join(f"{x:.1f}" for x in ms[d]) for d in ms}
+    # one outer step (0 -> 60 s from the ISS state) of each, in turns
+    deriv = _dp87_deriv()
+    kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0,
+              max_substeps=10000)
+    turns = _integrate_turns(
+        lambda: cuda_integrate.adaptive(deriv, on_card, 0.0, 60.0, 60.0,
+                                        **kw),
+        lambda: cuda_integrate.adaptive_launch(deriv, on_card, 0.0, 60.0,
+                                               60.0, **kw),
+        lambda: cuda_integrate.adaptive_reference(deriv, on_card, 0.0, 60.0,
+                                                  60.0, **kw),
+        200, plain_reps=20)
+    f32, f64 = count_ops(lambda: cuda_integrate.adaptive_reference(
+        deriv, on_card, 0.0, 60.0, 60.0, **kw))
+    step_bound = bound(nbytes(on_card) + 9 * 8, f32, f64)
+    mean = {r: float(np.mean(ms[r])) for r in ms}
+    n = subs["kernel"]
+    turns_text = {r: ", ".join(f"{x:.1f}" for x in ms[r]) for r in ms}
+    fastest = min(mean, key=mean.get)
     print(f"# phase 10 [{smi}]: 10b: Propagator(DormandPrince87(Composite("
           f"[TwoBody, J2]), rtol 1e-10)), ISS {NUMERICAL_DP87_S / 3600:.0f} h "
-          f"at 60 s outer steps: {n} substeps on both; host "
-          f"{host_ms:.1f} ms ({turns['cpu']}), card {card_ms:.1f} ms "
-          f"({turns[DEVICE]}) (host clock, in turns host, card, card, "
-          f"host); {host_ms / n:.3f} / {card_ms / n:.3f} ms a substep; "
-          f"{reads} host syncs in a card call of {short['n']} substeps "
-          f"over 1 h (one error-norm read a substep, and the final state's "
-          f"copy); "
-          f"{winner} wins by "
-          f"{max(host_ms, card_ms) / min(host_ms, card_ms):.1f}x")
-    print(f"# phase 10 [{smi}]: 10b: card vs host final |dr| {dr:.3e} km; a "
-          f"circular 500 km orbit, TwoBody, rtol 1e-12, back at its start "
-          f"after one period within {closure * 1e3:.3f} m on the card")
-    return host_ms, card_ms, n
+          f"at 60 s outer steps: {n} substeps on each route; host "
+          f"{mean['cpu']:.1f} ms ({turns_text['cpu']}), card through "
+          f"ADAPTIVE {mean['kernel']:.2f} ms ({turns_text['kernel']}), card "
+          f"through its plain version {mean['plain']:.1f} ms "
+          f"({turns_text['plain']}) (host clock, in turns host, plain, "
+          f"kernel, kernel, plain, host); {mean['cpu'] / n:.4f} / "
+          f"{mean['kernel'] / n:.4f} / {mean['plain'] / n:.4f} ms a "
+          f"substep; launches {moved}; {reads} host syncs in a card call "
+          f"of {short['n']} substeps over 1 h (one read an outer step, and "
+          f"the final state's copy); the fastest, {fastest}, wins by "
+          f"{sorted(mean.values())[1] / mean[fastest]:.1f}x over the next")
+    print(f"# phase 10 [{smi}]: 10b: ADAPTIVE vs its plain version on the "
+          f"card over the {n_outer} outer steps: substep counts equal on "
+          f"each, max|dr| {err:.3e} km (bit-equal: {bits}); card vs host "
+          f"final |dr| {dr:.3e} km; a circular 500 km orbit, TwoBody, rtol "
+          f"1e-12, back at its start after one period within "
+          f"{closure * 1e3:.3f} m on the card")
+    print(f"# phase 10 [{smi}]: 10b: ADAPTIVE's h_current vs its plain "
+          f"version's over the {n_outer} outer steps: max relative "
+          f"{h_rel!r}; where h binds, from each of the {bind['starts']} "
+          f"states over {ADAPTIVE_BIND_S:.0f} s: one substep of the "
+          f"trajectory's h and one of {ADAPTIVE_BIND_S:.0f} s "
+          f"({bind['accepted']} accepted, {bind['rejected']} rejected) "
+          f"bit-equal with the next h within {bind['h_rel']!r} relative; "
+          f"the whole {ADAPTIVE_BIND_S:.0f} s from h {ADAPTIVE_BIND_S:.0f} "
+          f"s ({bind['substeps']} substeps): counts equal on each, "
+          f"{bind['whole_bits']} of {bind['starts']} bit-equal, max|d| "
+          f"{bind['whole_dr']!r} km, h_final within {bind['whole_h_rel']!r} "
+          f"relative")
+    print(f"# phase 10 [{smi}]: 10b: one dp87_adaptive call (0 -> 60 s "
+          f"from the ISS state): {turns.text('integrate_adaptive')}; "
+          f"bound {step_bound[0]:.6f} ms ({step_bound[1]}; one thread's "
+          f"dependent chain, which no bound sees)")
+    return _integrate_entry("integrate_adaptive",
+                            moved["integrate_adaptive"], err, turns,
+                            step_bound)
 
 
 def _phase10c_hohmann(smi):
@@ -3889,8 +4167,12 @@ def _plane_angle_deg(a, b):
 
 def _phase10d_spacecraft(smi):
     """The ISS as a ``Spacecraft`` with a prograde and a plane-change
-    impulse, and attitude propagation, on the host and on the card."""
+    impulse, and attitude propagation: on the card through the integrator
+    kernel (FIXED, ATTITUDE), on the card through their plain versions,
+    and on the host. Returns ATTITUDE's kernels-line entry and FIXED's
+    launches on the spacecraft's path."""
     from astroz_tpu_torch.calculations import state_to_elements
+    from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.spacecraft import Impulse, ImpulseKind, Spacecraft
     from astroz_tpu_torch.tle import parse_lines
 
@@ -3899,21 +4181,39 @@ def _phase10d_spacecraft(smi):
     imps = [Impulse(time=3600.0, kind=ImpulseKind.PROGRADE, magnitude=0.1),
             Impulse(time=10800.0, kind=ImpulseKind.PLANE_CHANGE,
                     delta_inclination=burn)]
-    out, ms, att_ms, quat = {}, {}, {}, {}
-    for device in (DEVICE, "cpu"):
-        sc = Spacecraft.from_tle(tle, device=device)
+    w0, inertia = np.array([0.01, -0.02, 0.1]), np.array([10.0, 12.0, 20.0])
+
+    def craft(route):
+        sc = Spacecraft.from_tle(tle, device="cpu" if route == "cpu"
+                                 else DEVICE)
+        if route == "plain":  # the same model without kernel terms
+            forces = sc._forces()
+            sc._forces = lambda: _plain_model(forces)
+        return sc
+
+    def orbit(route):
+        sc = craft(route)
         start = sc.state.copy()
         t0 = time.perf_counter()
         times, states = sc.propagate(0.0, 0.25, 30.0, impulses=imps)
-        ms[device] = (time.perf_counter() - t0) * 1e3
-        out[device] = (start, times, states)
-        sc.angular_velocity = np.array([0.01, -0.02, 0.1])
-        sc.inertia_diag = np.array([10.0, 12.0, 20.0])
-        t0 = time.perf_counter()
-        sc.propagate_attitude(0.01, 0.01 * NUMERICAL_ATTITUDE_STEPS)
-        att_ms[device] = (time.perf_counter() - t0) * 1e3
-        quat[device] = np.concatenate([sc.quaternion, sc.angular_velocity])
-    start, times, states = out[DEVICE]
+        return (time.perf_counter() - t0) * 1e3, (start, times, states)
+
+    orbit("kernel")  # warm-up
+    out, ms = {}, {r: [] for r in ("cpu", "kernel", "plain")}
+    moved = None
+    for route in ("cpu", "plain", "kernel", "kernel", "plain"):
+        if route == "kernel" and moved is None:
+            reset_launches()
+            t, out[route] = orbit(route)
+            moved = {k: n for k, n in launches().items() if n}
+        else:
+            t, out[route] = orbit(route)
+        ms[route].append(t)
+    check(moved == {"integrate_fixed": 3}, f"phase 10d: the spacecraft "
+          f"launched {moved}, not FIXED once a segment (3)")
+    start, times, states = out["kernel"]
+    check(np.array_equal(states, out["plain"][2]), "phase 10d: the "
+          "spacecraft through FIXED differs from its plain version")
     check(np.array_equal(times, out["cpu"][1]), "phase 10d: sample times")
     dr = float(np.abs(states[:, :3] - out["cpu"][2][:, :3]).max())
     check(dr <= 1e-5, f"phase 10d: card vs host max|dr| {dr} km")
@@ -3927,20 +4227,73 @@ def _phase10d_spacecraft(smi):
     check(da > 100.0, f"phase 10d: the orbit was raised by {da} km only")
     check(abs(turn - np.degrees(burn)) < 0.5 and abs(di) > 0.1,
           f"phase 10d: the plane turned {turn} deg, inclination {di} deg")
+    # attitude: the Spacecraft on the card and on the host
+    quat, att_ms = {}, {}
+    for device in (DEVICE, "cpu"):
+        sc = Spacecraft.from_tle(tle, device=device)
+        q0 = sc.quaternion.copy()
+        sc.angular_velocity, sc.inertia_diag = w0.copy(), inertia.copy()
+        if device == DEVICE:
+            sc.propagate_attitude(0.01, 1.0)  # warm-up
+            sc.quaternion, sc.angular_velocity = q0.copy(), w0.copy()
+            reset_launches()
+        t0 = time.perf_counter()
+        sc.propagate_attitude(0.01, 0.01 * NUMERICAL_ATTITUDE_STEPS)
+        att_ms[device] = (time.perf_counter() - t0) * 1e3
+        if device == DEVICE:
+            att_moved = {k: n for k, n in launches().items() if n}
+        quat[device] = np.concatenate([sc.quaternion, sc.angular_velocity])
+    check(att_moved == {"integrate_attitude": 1}, f"phase 10d: attitude "
+          f"launched {att_moved}, not ATTITUDE once")
     dq = float(np.abs(quat[DEVICE] - quat["cpu"]).max())
     check(dq <= 1e-12, f"phase 10d: attitude card vs host {dq}")
+    # ATTITUDE against its plain version on the card, then in turns
+    args = [torch.as_tensor(x, device=DEVICE)
+            for x in (q0, w0, inertia, np.zeros(3))]
+
+    def att_kernel():
+        return cuda_integrate.attitude(*args, 0.01, NUMERICAL_ATTITUDE_STEPS)
+
+    def att_plain():
+        return cuda_integrate.attitude_reference(*args, 0.01,
+                                                 NUMERICAL_ATTITUDE_STEPS)
+
+    got, want = att_kernel(), att_plain()
+    att_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"phase 10d: ATTITUDE differs from its plain version by {att_err}")
+    att_turns = _integrate_turns(att_kernel, att_kernel, att_plain, 5,
+                                 per_graph=2)
+    f32, f64 = count_ops(lambda: cuda_integrate.attitude_reference(
+        *args, 0.01, 100))
+    att_bound = bound(nbytes(*args, *got), f32 * NUMERICAL_ATTITUDE_STEPS
+                      / 100, f64 * NUMERICAL_ATTITUDE_STEPS / 100)
+    mean = {r: float(np.mean(ms[r])) for r in ms}
     print(f"# phase 10 [{smi}]: 10d: Spacecraft.from_tle(ISS).propagate "
           f"over 6 h at 30 s ({len(times)} samples) with a 0.1 km/s "
           f"prograde burn at 1 h and a 5 deg plane change at 3 h: card "
-          f"{ms[DEVICE]:.1f} ms, host {ms['cpu']:.1f} ms (host clock, one "
-          f"run each); semi-major axis +{da:.1f} km, the plane turned "
-          f"{turn:.3f} deg, inclination {di:+.3f} deg; card vs host "
-          f"max|dr| {dr:.3e} km")
+          f"through FIXED {mean['kernel']:.2f} ms "
+          f"({', '.join(f'{x:.2f}' for x in ms['kernel'])}), card through "
+          f"its plain version {mean['plain']:.1f} ms "
+          f"({', '.join(f'{x:.1f}' for x in ms['plain'])}), host "
+          f"{mean['cpu']:.1f} ms (host clock, in turns host, plain, kernel, "
+          f"kernel, plain); launches {moved}; FIXED bit-equal to the plain "
+          f"version; semi-major axis +{da:.1f} km, the plane turned "
+          f"{turn:.3f} deg, inclination {di:+.3f} deg; card vs host max|dr| "
+          f"{dr:.3e} km")
     print(f"# phase 10 [{smi}]: 10d: propagate_attitude, "
-          f"{NUMERICAL_ATTITUDE_STEPS} RK4 steps: card {att_ms[DEVICE]:.1f} "
-          f"ms, host {att_ms['cpu']:.1f} ms (host clock, one run each); "
-          f"card vs host max diff {dq:.1e}")
-    return ms, att_ms
+          f"{NUMERICAL_ATTITUDE_STEPS} RK4 steps: card {att_ms[DEVICE]:.2f} "
+          f"ms, host {att_ms['cpu']:.1f} ms (host clock, one run each, "
+          f"Spacecraft.propagate_attitude); launches {att_moved}; card vs "
+          f"host max diff {dq:.1e}; ATTITUDE bit-equal to its plain version "
+          f"on the card (max diff {att_err}); "
+          f"{att_turns.text('integrate_attitude')}; bound "
+          f"{att_bound[0]:.6f} ms ({att_bound[1]}; one thread's dependent "
+          f"chain)")
+    return (_integrate_entry("integrate_attitude",
+                             att_moved["integrate_attitude"], att_err,
+                             att_turns, att_bound),
+            moved["integrate_fixed"])
 
 
 def numerical_phase():
@@ -3948,7 +4301,8 @@ def numerical_phase():
     fresh process, as phase 10 runs it: 10a-10d timed first, then one
     ``torch.profiler`` session for the device work a step, and the cost
     of one eager op on the card and on the host before and after that
-    session."""
+    session. Prints the integrator kernel's kernels-line entries as JSON
+    on a line of its own (``# phase 10 kernels: ...``)."""
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = card_line()
     ops = {"card": _op_us(DEVICE), "host": _op_us("cpu")}
@@ -3956,24 +4310,27 @@ def numerical_phase():
           f"{host_cpu()}, {torch.get_num_threads()} torch threads; one "
           f"eager f64 op {ops['card']:.2f} us on the card, {ops['host']:.2f} "
           f"us on the host")
-    step_ms = _phase10a_lanes(smi)
-    _phase10b_dp87(smi)
+    fixed, step_ms = _phase10a_lanes(smi)
+    adaptive = _phase10b_dp87(smi)
     _phase10c_hohmann(smi)
-    _phase10d_spacecraft(smi)
+    attitude, craft_launches = _phase10d_spacecraft(smi)
+    fixed["launches"] += craft_launches  # the main path: 10a and 10d
     launch = _numerical_launches()
-    per_step = {k: launch[f"rk4_{k}"] / launch["rk4_steps"]
-                for k in ("kernels", "activities")}
+    check(launch["rk4_kernels"] == 1 and launch["dp87_step_kernels"] == 1,
+          f"phase 10: the profiler saw {launch}: not one kernel for "
+          f"{LAUNCH_STEPS} RK4 steps and one for a DP8(7) outer step")
     after = {"card": _op_us(DEVICE), "host": _op_us("cpu")}
-    print(f"# phase 10 [{smi}]: device work (profiler, run last): an RK4 "
-          f"step of 10a {per_step['kernels']:.1f} kernels, "
-          f"{per_step['activities']:.1f} activities with copies and fills "
-          f"({step_ms / per_step['activities'] * 1e3:.2f} us an activity "
-          f"in 10a); a DP8(7) substep of 10b "
-          f"{launch['dp87_substep_kernels']} kernels, "
-          f"{launch['dp87_substep_activities']} activities; one eager op "
-          f"after the profiler session {after['card']:.2f} us on the card, "
-          f"{after['host']:.2f} us on the host")
+    print(f"# phase 10 [{smi}]: device work (profiler, run last): "
+          f"{LAUNCH_STEPS} RK4 steps of 10a {launch['rk4_kernels']} kernel, "
+          f"{launch['rk4_activities']} activities with copies and fills "
+          f"({step_ms * LAUNCH_STEPS * 1e3:.1f} us for them in 10a); a "
+          f"DP8(7) outer step of 10b {launch['dp87_step_kernels']} kernel, "
+          f"{launch['dp87_step_activities']} activities (the read of h and "
+          f"the substeps); one eager op after the profiler session "
+          f"{after['card']:.2f} us on the card, {after['host']:.2f} us on "
+          f"the host")
     check("jax" not in sys.modules, "phase 10 loaded jax")
+    print("# phase 10 kernels: " + json.dumps([fixed, adaptive, attitude]))
 
 
 def phase10_numerical():
@@ -3981,12 +4338,16 @@ def phase10_numerical():
     work is counted by ``torch.profiler``, and a second profiler session
     in one process lost kernel events (phase 4c holds the first); a
     fresh process also times the same whether phase 10 runs alone or
-    after phases 1-9."""
+    after phases 1-9. Returns the integrator kernel's kernels-line
+    entries."""
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--numerical"], capture_output=True, text=True,
                            timeout=900)
     sys.stdout.write(child.stdout)
     check(child.returncode == 0, f"phase 10: {child.stderr[-2000:]}")
+    tag = "# phase 10 kernels: "
+    line = next(x for x in child.stdout.splitlines() if x.startswith(tag))
+    return json.loads(line[len(tag):])
 
 
 def main():
@@ -4024,7 +4385,7 @@ def main():
     phase8_api(con, mcon, text, mixed_text, smi)
     phase9_ingest(smi)
     rect = phase11_mesh(mcon, scon, smi)
-    phase10_numerical()
+    integrate = phase10_numerical()
     print(f"# chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
@@ -4096,7 +4457,11 @@ def main():
         entry("sgp4_f64_scan (the f64 kernel, SCAN: scan_times=True)",
               "astroz_tpu_torch/csrc/sgp4_f64.cu",
               "astroz_tpu/ops/sdp4.py:841",
-              f64_launches["sgp4_f64_scan"], f64_err["scan"], f64_scan)]}))
+              f64_launches["sgp4_f64_scan"], f64_err["scan"], f64_scan),
+        # not TPU kernels: the XLA scan and while loop of the numerical
+        # stack (phase 10, whose launches are its main path's: 10a and the
+        # spacecraft of 10d, 10b's trajectory, 10d's attitude)
+        *integrate]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,7 @@ Run from the repository root::
         [--rounds N] [--tag TAG] [--kernels NAME ...]
     python3 shallow_variants.py --fma-ulps
     python3 shallow_variants.py --f64-routes [--rounds N]
+    python3 shallow_variants.py --torch-rounding
 
 A variant is a copy of the package ``astroz_tpu_torch`` with the named
 edits of :data:`VARIANTS` made to its sources, imported under a name of
@@ -61,6 +62,16 @@ timed with CUDA events around their calls, host gaps included.
 
 ``--f64-routes`` times on the card three routes of the python-sgp4
 API's f32 outputs to f64 numpy on the host (:func:`f64_routes`).
+
+``--torch-rounding`` finds on the card how torch's CUDA kernels round the
+reductions and products the integrator kernel (``csrc/integrate_f64.cu``)
+repeats: ``torch.linalg.vector_norm`` over 3 and 4 values, ``torch.sum``
+over 3 and ``torch.linalg.cross``, on strided, contiguous and 1-D inputs,
+each against candidate formulas evaluated exactly on the host
+(:func:`torch_rounding`).
+
+It ends with :func:`host_pow_rounding`: how often the host's pow misrounds
+the step-size law's ``err ** (-1/8)``.
 
 ``--fma-ulps`` runs on the CPU: sincos and angle_add of
 ``ops/fastmath.py`` with every multiply-add fused as ``--fmad=true``
@@ -952,6 +963,142 @@ def f64_routes(rounds):
     print(smi)
 
 
+def _exact_formulas():
+    """Candidate roundings of torch's CUDA reductions and products, each
+    evaluated exactly (``fractions.Fraction``) and rounded once where the
+    formula says: R is one rounding to f64, F a fused multiply-add."""
+    import math
+    from fractions import Fraction as Q
+
+    def R(x):
+        return float(x)
+
+    def sq(x):
+        return Q(x) * Q(x)
+
+    def F(a, b, c):
+        return R(Q(a) * Q(b) + Q(c))
+
+    def rs(x):  # a rounded square
+        return R(sq(x))
+
+    norm3 = {
+        "(0+2)+1": lambda a, b, c: math.sqrt(R(Q(R(Q(rs(a)) + Q(rs(c))))
+                                                + Q(rs(b)))),
+        "(0+1)+2": lambda a, b, c: math.sqrt(R(Q(R(Q(rs(a)) + Q(rs(b))))
+                                                + Q(rs(c)))),
+        "fma 0,1,2": lambda a, b, c: math.sqrt(F(c, c, F(b, b, rs(a)))),
+        "fma 0,2 then +1": lambda a, b, c: math.sqrt(R(Q(F(c, c, rs(a)))
+                                                        + Q(rs(b)))),
+        "fma 0,2,1": lambda a, b, c: math.sqrt(F(b, b, F(c, c, rs(a)))),
+    }
+    norm4 = {
+        "(0+2)+(1+3)": lambda a, b, c, d: math.sqrt(R(
+            Q(R(Q(rs(a)) + Q(rs(c)))) + Q(R(Q(rs(b)) + Q(rs(d)))))),
+        "(0+1)+(2+3)": lambda a, b, c, d: math.sqrt(R(
+            Q(R(Q(rs(a)) + Q(rs(b)))) + Q(R(Q(rs(c)) + Q(rs(d)))))),
+        "((0+1)+2)+3": lambda a, b, c, d: math.sqrt(R(Q(R(Q(R(
+            Q(rs(a)) + Q(rs(b)))) + Q(rs(c)))) + Q(rs(d)))),
+        "fma 0,1,2,3": lambda a, b, c, d: math.sqrt(
+            F(d, d, F(c, c, F(b, b, rs(a))))),
+    }
+    sum3 = {
+        "(0+2)+1": lambda a, b, c: R(Q(R(Q(a) + Q(c))) + Q(b)),
+        "(0+1)+2": lambda a, b, c: R(Q(R(Q(a) + Q(b))) + Q(c)),
+    }
+    # one component a*b - c*d of a cross product
+    cross = {
+        "fma(a,b,-(c*d))": lambda a, b, c, d: F(a, b, -R(Q(c) * Q(d))),
+        "fma(-c,d,a*b)": lambda a, b, c, d: F(-c, d, R(Q(a) * Q(b))),
+        "a*b - c*d": lambda a, b, c, d: R(Q(R(Q(a) * Q(b)))
+                                          - Q(R(Q(c) * Q(d)))),
+    }
+    return norm3, norm4, sum3, cross
+
+
+def torch_rounding(n=4000):
+    """``--torch-rounding`` (needs a card): for each case, the share of
+    ``n`` random inputs (magnitudes 1e-3 to 1e4, both signs) on which
+    each candidate of :func:`_exact_formulas` gives torch's bits on the
+    card."""
+    if not torch.cuda.is_available():
+        raise SystemExit("shallow_variants: no CUDA device")
+    norm3, norm4, sum3, cross = _exact_formulas()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, 8)) * 10.0 ** rng.uniform(-3.0, 4.0, (n, 8))
+    dev = torch.device("cuda")
+    t = torch.as_tensor(x, device=dev)
+    one = min(n, 500)  # 1-D cases, one launch a row
+
+    def vn(a):
+        return torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+
+    def rows_1d(fn, width):
+        return np.stack([fn(t[i, :width]).cpu().numpy() for i in range(one)])
+
+    cases = [
+        ("vector_norm, 3 of a (N, 6) row", vn(t[:, :6][..., :3]), norm3, 3),
+        ("vector_norm, 3 of a (N, 6) row, the second half",
+         vn(t[:, :6][..., 3:]), norm3, 3, 3),
+        ("vector_norm, (N, 3) contiguous", vn(t[:, :3].contiguous()), norm3,
+         3),
+        ("vector_norm, (3,)", rows_1d(vn, 3), norm3, 3),
+        ("vector_norm, (N, 4) contiguous", vn(t[:, :4].contiguous()), norm4,
+         4),
+        ("vector_norm, (4,)", rows_1d(vn, 4), norm4, 4),
+        ("sum, (N, 3) contiguous",
+         torch.sum(t[:, :3].contiguous(), dim=-1, keepdim=True), sum3, 3),
+    ]
+    print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    for case in cases:
+        label, got, forms, width = case[:4]
+        off = case[4] if len(case) > 4 else 0
+        got = np.asarray(got.cpu() if isinstance(got, torch.Tensor) else got
+                         ).reshape(-1)
+        rows = x[:len(got), off:off + width]
+        share = {name: np.mean([f(*map(float, r)) == g
+                                for r, g in zip(rows, got)])
+                 for name, f in forms.items()}
+        print(f"# {label}: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in share.items()))
+    a, b = t[:, :3].contiguous(), t[:, 3:6].contiguous()
+    for label, got in (("cross, (N, 3)", torch.linalg.cross(a, b, dim=-1)),
+                       ("cross, (3,)", torch.stack([torch.linalg.cross(
+                           a[i], b[i], dim=-1) for i in range(one)]))):
+        got = got.cpu().numpy()
+        xa, xb = x[:len(got), :3], x[:len(got), 3:6]
+        share = {}
+        for name, f in cross.items():
+            hit = 0
+            for ra, rb, g in zip(xa, xb, got):
+                want = (f(ra[1], rb[2], ra[2], rb[1]),
+                        f(ra[2], rb[0], ra[0], rb[2]),
+                        f(ra[0], rb[1], ra[1], rb[0]))
+                hit += all(w == v for w, v in zip(want, g))
+            share[name] = hit / len(got)
+        print(f"# {label}: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in share.items()))
+    host_pow_rounding()
+
+
+def host_pow_rounding(n=50000):
+    """The host's ``x ** (-1 / 8)`` (the C library's pow, as
+    ``dp87_adaptive``'s plain loop takes it) against the correctly rounded
+    value (a 60-digit ``decimal`` power, then one rounding) on ``n`` inputs
+    spread log-uniformly over [1e-16, 1e3], the range of its error norms."""
+    import decimal
+    import platform
+
+    decimal.getcontext().prec = 60
+    xs = 10.0 ** np.random.default_rng(8).uniform(-16.0, 3.0, n)
+    e = decimal.Decimal(-0.125)
+    off = sum(float(decimal.Decimal(float(x)) ** e) != float(x) ** -0.125
+              for x in xs)
+    print(f"# host pow ({platform.libc_ver()}): x ** (-1/8) differs from "
+          f"the correctly rounded value on {off} of {n} inputs")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", nargs="+", default=["default"],
@@ -963,7 +1110,11 @@ def main():
                     choices=list(K_REPS))
     ap.add_argument("--fma-ulps", action="store_true")
     ap.add_argument("--f64-routes", action="store_true")
+    ap.add_argument("--torch-rounding", action="store_true")
     args = ap.parse_args()
+    if args.torch_rounding:
+        torch_rounding()
+        return
     if args.fma_ulps:
         fma_ulps()
         return

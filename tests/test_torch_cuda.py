@@ -1011,3 +1011,192 @@ def test_dp87_adaptive_on_cuda_matches_cpu(cuda_device):
     assert card.device.type == "cuda" and card.dtype == torch.float64
     assert n == n_host > 10
     assert float((card.cpu() - host)[:3].abs().max()) <= 1e-6
+
+
+def _integrate_models():
+    from astroz_tpu_torch.propagators import (Composite, Drag, ImprovedDrag,
+                                              J2, J3, J4,
+                                              SolarRadiationPressure,
+                                              TwoBody)
+    return {
+        "TwoBody": TwoBody(),
+        "TwoBody+J2+Drag": Composite([TwoBody(), J2(), Drag()]),
+        "every kind": Composite([TwoBody(), J2(), J3(), J4(),
+                                 ImprovedDrag(f107=220.0),
+                                 SolarRadiationPressure()]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["TwoBody", "TwoBody+J2+Drag",
+                                   "every kind"])
+@pytest.mark.parametrize("method,substeps", [("rk4", 1), ("rk4", 2),
+                                             ("dp87", 1)])
+def test_integrate_fixed_matches_plain_on_cuda(cuda_device, model, method,
+                                               substeps):
+    """The integrator kernel's FIXED mode against its plain version on
+    the card, bit for bit, over 300 ragged lanes (some in the Earth's
+    shadow for SRP, some below 500 km for the layered drag), one launch a
+    call; ``propagate_fixed`` launches it once."""
+    from astroz_tpu_torch.ops import cuda_integrate
+    from astroz_tpu_torch.propagators import propagate_fixed
+    accel = _integrate_models()[model]
+    lanes = _circular_lanes(300, seed=3)
+    lanes[:20, :3] *= -1.0                  # anti-sunward
+    lanes[20:40, :3] *= 6700.0 / 6928.137   # ~320 km
+    state = torch.as_tensor(lanes, device=cuda_device)
+    before = dict(cuda_integrate.LAUNCHES)
+    got = cuda_integrate.fixed(accel, state, 10.0, 12, 60.0 / substeps,
+                               method=method, substeps=substeps)
+    assert cuda_integrate.LAUNCHES["integrate_fixed"] == \
+        before["integrate_fixed"] + 1
+    want = cuda_integrate.fixed_reference(accel, state, 10.0, 12,
+                                          60.0 / substeps, method=method,
+                                          substeps=substeps)
+    assert cuda_integrate.LAUNCHES == {**before, "integrate_fixed":
+                                       before["integrate_fixed"] + 1}
+    assert got.shape == (13, 300, 6) and torch.equal(got, want)
+    _, via = propagate_fixed(accel, state.reshape(3, 100, 6), 10.0, 720.0,
+                             60.0, method=method, substeps=substeps)
+    assert via.shape == (13, 3, 100, 6)
+    assert torch.equal(via.reshape(13, 300, 6), got)
+    assert cuda_integrate.LAUNCHES["integrate_fixed"] == \
+        before["integrate_fixed"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_integrate_adaptive_matches_plain_on_cuda(cuda_device, sign):
+    """ADAPTIVE against its plain version on the card, one launch a
+    call. Where every outer step is one clamped substep (60 s outer steps
+    of a LEO orbit, h carried as ``DormandPrince87`` carries it) the two
+    are bit-equal with equal substep counts. One substep from 32 states:
+    the state bit-equal, the next h within a few ulps (the kernel's
+    err^(-1/8) is the device's pow, the plain loop's the host's). A call
+    with rejected steps (h0 = 3600 s over 1 h): the same count, 1e-8 km.
+    The substep cap stops both at the same count."""
+    from astroz_tpu_torch.ops import cuda_integrate
+    from astroz_tpu_torch.propagators import (Composite, J2, TwoBody,
+                                              dp87_adaptive, make_deriv)
+    deriv = make_deriv(Composite([TwoBody(), J2()]))
+    lanes = torch.as_tensor(_circular_lanes(32, seed=4), device=cuda_device)
+    kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0,
+              max_substeps=10000)
+    y_k = y_p = lanes[0]
+    h_k = h_p = None
+    for k in range(60):
+        t0, t1 = 60.0 * k * sign, 60.0 * (k + 1) * sign
+        n0 = cuda_integrate.LAUNCHES["integrate_adaptive"]
+        y_k, h_kn, n_k = dp87_adaptive(deriv, y_k, t0, t1, rtol=1e-10,
+                                       h0=h_k)
+        assert cuda_integrate.LAUNCHES["integrate_adaptive"] == n0 + 1
+        h = (h_p if h_p is not None else 60.0) * sign
+        y_p, h_pn, n_p = cuda_integrate.adaptive_reference(
+            deriv, y_p, t0, t1, h, **kw)
+        assert n_k == n_p == 1 and y_k.shape == (6,)
+        assert torch.equal(y_k, y_p)
+        h_k, h_p = abs(h_kn), abs(h_pn)
+    for y in lanes:
+        one = {**kw, "max_substeps": 1}
+        got = cuda_integrate.adaptive(deriv, y, 0.0, 600.0 * sign,
+                                      600.0 * sign, **one)
+        want = cuda_integrate.adaptive_reference(
+            deriv, y, 0.0, 600.0 * sign, 600.0 * sign, **one)
+        assert torch.equal(got[0], want[0]) and got[2] == want[2] == 1
+        assert abs(got[1] - want[1]) <= 1e-14 * abs(want[1])
+    got = cuda_integrate.adaptive(deriv, lanes[1], 0.0, 3600.0 * sign,
+                                  3600.0 * sign, **kw)
+    want = cuda_integrate.adaptive_reference(deriv, lanes[1], 0.0,
+                                             3600.0 * sign, 3600.0 * sign,
+                                             **kw)
+    assert got[2] == want[2] > 5
+    assert float((got[0] - want[0])[:3].abs().max()) <= 1e-8
+    capped = dp87_adaptive(deriv, lanes[2], 0.0, 3600.0 * sign,
+                           rtol=1e-10, h0=7.0, max_substeps=3)
+    plain = cuda_integrate.adaptive_reference(
+        deriv, lanes[2], 0.0, 3600.0 * sign, 7.0 * sign,
+        **{**kw, "max_substeps": 3})
+    assert capped[2] == plain[2] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [(), (5,)])
+def test_integrate_attitude_matches_plain_on_cuda(cuda_device, batch):
+    """ATTITUDE against its plain version on the card, bit for bit, with
+    a torque, one body and a batch of five; ``propagate_attitude``
+    launches it once."""
+    from astroz_tpu_torch.calculations import propagate_attitude
+    from astroz_tpu_torch.ops import cuda_integrate
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(*batch, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    w = rng.normal(0.0, 0.05, (*batch, 3))
+    dev = cuda_device
+    args = [torch.as_tensor(x, device=dev) for x in
+            (q, w, np.array([10.0, 12.0, 20.0]), np.array([1e-3, 0.0, -2e-3]))]
+    n0 = cuda_integrate.LAUNCHES["integrate_attitude"]
+    got = propagate_attitude(*args, 0.01, 700)
+    assert cuda_integrate.LAUNCHES["integrate_attitude"] == n0 + 1
+    want = cuda_integrate.attitude_reference(*args, 0.01, 700)
+    assert got[0].shape == (*batch, 4) and got[1].shape == (*batch, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_models_past_max_terms_run_plain_on_cuda(cuda_device):
+    """A Composite of MAX_TERMS + 1 terms runs the plain loop on a CUDA
+    tensor, launches nothing and equals the plain versions; one of
+    MAX_TERMS terms launches FIXED and ADAPTIVE once each, bit-equal to
+    the plain loops over one clamped substep."""
+    from astroz_tpu_torch.ops import cuda_integrate
+    from astroz_tpu_torch.propagators import (Composite, Drag, J2, TwoBody,
+                                              dp87_adaptive, make_deriv,
+                                              propagate_fixed)
+
+    members = [TwoBody(), J2()] + [Drag()] * (cuda_integrate.MAX_TERMS - 1)
+    state = torch.as_tensor(_circular_lanes(8), device=cuda_device)
+    kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0,
+              max_substeps=10000)
+    for model, n in ((Composite(members), 0), (Composite(members[:-1]), 1)):
+        before = dict(cuda_integrate.LAUNCHES)
+        _, got = propagate_fixed(model, state, 0.0, 120.0, 30.0)
+        deriv = make_deriv(model)
+        y, h, steps = dp87_adaptive(deriv, state[0], 0.0, 60.0, h0=60.0)
+        assert cuda_integrate.LAUNCHES["integrate_fixed"] == \
+            before["integrate_fixed"] + n
+        assert cuda_integrate.LAUNCHES["integrate_adaptive"] == \
+            before["integrate_adaptive"] + n
+        assert torch.equal(got, cuda_integrate.fixed_reference(
+            model, state, 0.0, 4, 30.0))
+        y_p, h_p, steps_p = cuda_integrate.adaptive_reference(
+            deriv, state[0], 0.0, 60.0, 60.0, **kw)
+        assert torch.equal(y, y_p) and steps == steps_p == 1
+        assert abs(h - h_p) <= 1e-13 * abs(h_p)
+
+
+@pytest.mark.cuda
+def test_models_without_terms_launch_nothing_on_cuda(cuda_device):
+    """A model of a python function of t (ThirdBody, SRP with a
+    ``sun_pos_fn``, a lambda) runs the plain loop on a CUDA tensor and
+    launches no kernel; so does a batched ``dp87_adaptive``."""
+    from astroz_tpu_torch.ops import cuda_integrate
+    from astroz_tpu_torch.propagators import (Composite,
+                                              SolarRadiationPressure,
+                                              ThirdBody, TwoBody,
+                                              dp87_adaptive, make_deriv,
+                                              propagate_fixed)
+
+    def moon(t):
+        return torch.tensor([384400.0, 1000.0, -2000.0],
+                            dtype=torch.float64, device=cuda_device)
+
+    state = torch.as_tensor(_circular_lanes(8), device=cuda_device)
+    before = dict(cuda_integrate.LAUNCHES)
+    for accel in (Composite([TwoBody(), ThirdBody(4902.800066, moon)]),
+                  SolarRadiationPressure(sun_pos_fn=moon),
+                  lambda r, v, t: -r):
+        _, s = propagate_fixed(accel, state, 0.0, 120.0, 60.0)
+        assert s.device.type == "cuda" and s.shape == (3, 8, 6)
+        dp87_adaptive(make_deriv(accel), state[0], 0.0, 1.0)
+    dp87_adaptive(make_deriv(TwoBody()), state[:2], 0.0, 60.0)
+    assert cuda_integrate.LAUNCHES == before
