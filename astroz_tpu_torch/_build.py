@@ -94,12 +94,15 @@ SIGNATURES = {
     # params (host arrays), stream
     "astroz_integrate_fixed": (_I, [_P, _P, _L, _I, _I, _D, _I, _I, _P, _P,
                                     _P]),
-    # state0, out, t0, t1, h0, direction, rtol, atol, h_min, h_max,
-    # max_substeps, n_terms, kinds, params (host arrays), stream
-    "astroz_integrate_adaptive": (_I, [_P, _P] + [_D] * 8 + [_L, _I, _P, _P,
-                                                            _P]),
+    # state0, states, substeps, hs, info, t0, dt, t_last, n_outer,
+    # h_carried, rtol, atol, h_min, h_max, max_substeps, n_terms, kinds,
+    # params (host arrays), stream
+    "astroz_integrate_trajectory": (_I, [_P] * 5 + [_D, _D, _D, _L]
+                                    + [_D] * 5 + [_L, _I, _P, _P, _P]),
     # q0, w0, inertia, torque, q_out, w_out, n_bodies, n_steps, dt, stream
     "astroz_integrate_attitude": (_I, [_P] * 6 + [_L, _L, _D, _P]),
+    # a, b, got, want, rcp, rcp_want, n, stream
+    "astroz_integrate_divide_probe": (_I, [_P] * 6 + [_L, _P]),
     # r, n_times, n_sats, j0, width, out, stream
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
     # r, n_times, n_sats, thr2, cap, out_ij, count, stream

@@ -27,7 +27,8 @@ from .constants import EARTH, TWO_PI
 from .ops import cuda_integrate
 from .ops.sgp4 import _device
 
-__all__ = ["MU_EARTH", "OrbitalElements", "eccentric_from_true",
+__all__ = ["MU_EARTH", "OrbitalElements", "attitude_reference",
+           "eccentric_from_true",
            "elements_to_state", "hohmann_transfer", "impulse",
            "mean_elements_to_state", "mean_from_eccentric",
            "propagate_attitude", "quaternion_derivative",
@@ -328,7 +329,33 @@ def propagate_attitude(q0, omega0, inertia_diag, torque, dt, n_steps: int,
     equations by RK4 over ``n_steps`` fixed steps of ``dt`` seconds (a
     python float), as JAX's ``lax.scan``: on CUDA (f64) one launch of the
     integrator kernel's ATTITUDE mode, bit-equal to the plain loop of
-    device ops that runs on the CPU; no host read. Returns (q, omega)."""
+    device ops (:func:`attitude_reference`) that runs on the CPU; no host
+    read. Returns (q, omega)."""
     q, w, inertia, torque = _tensors(q0, omega0, inertia_diag, torque,
                                      device=device)
-    return cuda_integrate.attitude(q, w, inertia, torque, dt, n_steps)
+    if q.is_cuda:
+        return cuda_integrate.attitude(q, w, inertia, torque, dt, n_steps)
+    return attitude_reference(q, w, inertia, torque, dt, n_steps)
+
+
+def attitude_reference(q, w, inertia, torque, dt, n_steps: int):
+    """The plain attitude loop: ``n_steps`` RK4 steps of ``dt`` of
+    quaternion kinematics and Euler's equations, ``q`` renormalized each
+    step. Returns (q, omega)."""
+
+    def deriv(q, w):
+        qd = quaternion_derivative(q, w)
+        # Euler: I wdot = T - w x (I w)
+        iw = inertia * w
+        wd = (torque - _cross(w, iw)) / inertia
+        return qd, wd
+
+    for _ in range(n_steps):
+        k1q, k1w = deriv(q, w)
+        k2q, k2w = deriv(q + 0.5 * dt * k1q, w + 0.5 * dt * k1w)
+        k3q, k3w = deriv(q + 0.5 * dt * k2q, w + 0.5 * dt * k2w)
+        k4q, k4w = deriv(q + dt * k3q, w + dt * k3w)
+        q = q + dt / 6.0 * (k1q + 2 * k2q + 2 * k3q + k4q)
+        w = w + dt / 6.0 * (k1w + 2 * k2w + 2 * k3w + k4w)
+        q = q / _norm(q, keepdim=True)
+    return q, w

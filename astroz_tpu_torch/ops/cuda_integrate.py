@@ -1,27 +1,33 @@
-"""The integrator kernel (``csrc/integrate_f64.cu``) and its plain versions.
+"""The integrator kernel (``csrc/integrate_f64.cu``): its launches.
 
 Not a TPU kernel: the JAX package compiles its integrators into one XLA
-program each, which the port's plain versions run as Python loops of
-small f64 torch ops. Three modes:
+program each; the port's plain versions run them as Python loops of
+small f64 torch ops and stay beside their callers, which choose the
+route once (``kernel if state.is_cuda and terms else plain``). Modes:
 
-* FIXED, :func:`fixed` (plain :func:`fixed_reference`): the fixed-step
-  loop of ``propagators.propagate_fixed`` (JAX's ``lax.scan``,
-  ``astroz_tpu/propagators/driver.py:30``), RK4 or DP8(7), over (L, 6)
-  lanes, one launch a call;
-* ADAPTIVE, :func:`adaptive` (plain :func:`adaptive_reference`): the
-  adaptive DP8(7) loop of ``propagators.dp87_adaptive`` (JAX's
-  ``lax.while_loop``, ``astroz_tpu/propagators/integrators.py:131``) on
-  one trajectory, one launch and one read back a call;
-* ATTITUDE, :func:`attitude` (plain :func:`attitude_reference`): the RK4
-  loop of ``calculations.propagate_attitude`` (JAX's ``lax.scan``,
+* FIXED, :func:`fixed`: the fixed-step loop of
+  ``propagators.propagate_fixed`` (plain ``driver.fixed_reference``; JAX's
+  ``lax.scan``, ``astroz_tpu/propagators/driver.py:30``), RK4 or DP8(7),
+  over (L, 6) lanes, one launch a call;
+* TRAJECTORY, :func:`trajectory`: ``Propagator.propagate`` over a
+  ``DormandPrince87`` (plain ``integrators.adaptive_trajectory_reference``;
+  JAX's Python loop of ``dp87_adaptive`` calls,
+  ``astroz_tpu/propagators/driver.py:76``), every outer step in one
+  launch, no read; and :func:`adaptive`, ``propagators.dp87_adaptive``
+  on one trajectory (plain ``integrators.adaptive_reference``; JAX's
+  ``lax.while_loop``, ``astroz_tpu/propagators/integrators.py:131``) as
+  TRAJECTORY's one outer step, one launch and one read back a call,
+  counted as ``integrate_adaptive``;
+* ATTITUDE, :func:`attitude`: the RK4 loop of
+  ``calculations.propagate_attitude`` (plain
+  ``calculations.attitude_reference``; JAX's ``lax.scan``,
   ``astroz_tpu/calculations.py:273``), one thread a body.
 
-FIXED and ADAPTIVE take a force model whose ``terms`` (see
-``propagators/forces.py``) the kernel computes. On a CUDA tensor a
-wrapper launches its kernel or raises, and adds one to its entry of
-:data:`LAUNCHES`; on a CPU tensor it runs its ``*_reference``. The plain
-versions are the port's torch loops as they were, here so that the
-kernel and the tests hold them side by side.
+FIXED and TRAJECTORY take a force model whose ``terms`` (see
+``propagators/forces.py``) the kernel computes. Each wrapper takes CUDA
+tensors only: it launches its kernel or raises, and adds one to its entry
+of :data:`LAUNCHES`. :func:`divide_probe` holds the kernel's divides
+through a reciprocal to ``__ddiv_rn`` on the card.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from .. import _build
 
 #: kernel launches so far in this process, by mode
 LAUNCHES = {"integrate_fixed": 0, "integrate_adaptive": 0,
-            "integrate_attitude": 0}
+            "integrate_trajectory": 0, "integrate_attitude": 0,
+            "integrate_divide_probe": 0}
 
 #: the term kinds in the order of the kernel's ``enum Kind``, and the
 #: number of parameters each takes
@@ -83,6 +90,12 @@ def _check_f64(name, x, shape_tail):
                          f"{tuple(x.shape)}")
 
 
+def _check_cuda(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the integrator kernel takes a CUDA "
+                         f"tensor, got one on {x.device}")
+
+
 def _launch(mode, fn, *args):
     rc = getattr(_build.library(), fn)(*args)
     if rc != 0:
@@ -94,45 +107,26 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-# ---------------------------------------------------------------------------
-# FIXED
-# ---------------------------------------------------------------------------
-
-
-def fixed_reference(accel, state, t0: float, n_steps: int, h: float, *,
-                    method: str = "rk4", substeps: int = 1):
-    """The plain fixed-step loop: ``n_steps`` samples of ``substeps`` RK4
-    (or fixed DP8(7)) steps of ``h`` from ``state`` (..., 6) at ``t0``;
-    returns (n_steps + 1, ..., 6), the first sample ``state``. No host
-    read."""
-    from ..propagators.integrators import dp87_step, make_deriv, rk4_step
-
-    deriv = make_deriv(accel)
-    step_fn = rk4_step if method == "rk4" else \
-        (lambda d, s, t, h: dp87_step(d, s, t, h)[0])
-    states = torch.empty((n_steps + 1, *state.shape), dtype=state.dtype,
-                         device=state.device)
-    states[0] = state
-    t = float(t0)
-    for k in range(n_steps):
-        for _ in range(substeps):
-            state = step_fn(deriv, state, t, h)
-            t = t + h
-        states[k + 1] = state
-    return states
+def _one_trajectory(state):
+    _check_f64("state", state, (6,))
+    if state.numel() != 6:
+        raise ValueError(f"state: the adaptive kernel takes one trajectory "
+                         f"of 6 values, got {tuple(state.shape)}")
+    _check_cuda("state", state)
+    return state.reshape(6).contiguous()
 
 
 def fixed(accel, state, t0: float, n_steps: int, h: float, *,
           method: str = "rk4", substeps: int = 1):
-    """:func:`fixed_reference` in one launch of FIXED on a CUDA ``state``
-    (f64, (..., 6)); ``accel.terms`` must not be ``None``. No kernel term
-    reads t, so the launch does not take ``t0``."""
-    if state.device.type == "cpu":
-        return fixed_reference(accel, state, t0, n_steps, h, method=method,
-                               substeps=substeps)
+    """``n_steps`` samples of ``substeps`` RK4 (or fixed DP8(7)) steps of
+    ``h`` from ``state`` (f64, (..., 6), CUDA) in one launch of FIXED;
+    returns (n_steps + 1, ..., 6), the first sample ``state``.
+    ``accel.terms`` must not be ``None``; no kernel term reads t, so the
+    launch does not take ``t0`` (the plain loop's signature)."""
     _check_f64("state", state, (6,))
     if method not in ("rk4", "dp87"):
         raise ValueError(f"method must be 'rk4' or 'dp87', got {method!r}")
+    _check_cuda("state", state)
     lanes = state.reshape(-1, 6).contiguous()
     out = torch.empty((n_steps + 1, *state.shape), dtype=F64,
                       device=state.device)
@@ -143,112 +137,77 @@ def fixed(accel, state, t0: float, n_steps: int, h: float, *,
     return out
 
 
-# ---------------------------------------------------------------------------
-# ADAPTIVE
-# ---------------------------------------------------------------------------
-
-
-def _direction(t0: float, t1: float) -> float:
-    return float((t1 > t0) - (t1 < t0))
-
-
-def adaptive_reference(deriv, state, t0: float, t1: float, h: float, *,
-                       rtol: float, atol: float, h_min: float, h_max: float,
-                       max_substeps: int):
-    """The plain adaptive DP8(7) loop from ``t0`` to ``t1`` (floats),
-    starting with the signed step ``h``: the loop runs on the host and
-    reads one number a substep, its error norm. Returns (state, h, steps)
-    with ``h`` a float and ``steps`` an int."""
-    from ..propagators.integrators import dp87_step
-
-    direction = _direction(t0, t1)
-    t, steps = t0, 0
-    while (t - t1) * direction < 0 and steps < max_substeps:
-        # clamp h to not overshoot t1
-        hs = t1 - t if (t + h - t1) * direction > 0 else h
-        y8, err = dp87_step(deriv, state, t, hs)
-        scale = atol + rtol * torch.maximum(torch.abs(state), torch.abs(y8))
-        err_norm = float(torch.max(torch.abs(err) / scale))
-        factor = min(max(0.9 * max(err_norm, 1e-16) ** (-1.0 / 8.0), 0.1),
-                     5.0)
-        h = min(max(abs(hs * factor), h_min), h_max) * direction
-        if err_norm <= 1.0:
-            state, t = y8, t + hs
-        steps += 1
-    return state, h, steps
-
-
-def adaptive_launch(deriv, state, t0: float, t1: float, h: float, *,
-                    rtol: float, atol: float, h_min: float, h_max: float,
-                    max_substeps: int):
-    """One launch of ADAPTIVE on a CUDA ``state`` of 6 f64 values;
-    returns its (9,) f64 output on the card, [state, t, h, steps], with
-    no host read. ``deriv.terms`` must not be ``None``."""
-    _check_f64("state", state, (6,))
-    if state.numel() != 6:
-        raise ValueError(f"state: the adaptive kernel takes one trajectory "
-                         f"of 6 values, got {tuple(state.shape)}")
-    y = state.reshape(6).contiguous()
-    out = torch.empty(9, dtype=F64, device=state.device)
-    _launch("integrate_adaptive", "astroz_integrate_adaptive", y.data_ptr(),
-            out.data_ptr(), float(t0), float(t1), float(h),
-            _direction(t0, t1), float(rtol), float(atol), float(h_min),
+def _trajectory_launch(mode, deriv, state, t0, dt, t_last, n, h_in, *,
+                       rtol, atol, h_min, h_max, max_substeps):
+    """One launch of TRAJECTORY, counted under ``mode``; ``h_in`` NaN for
+    no carried |h|."""
+    y = _one_trajectory(state)
+    n_outer = max(int(n) - 1, 0)
+    dev = state.device
+    states = torch.empty((n_outer + 1, *state.shape), dtype=F64, device=dev)
+    subs = torch.empty(n_outer, dtype=torch.int64, device=dev)
+    hs = torch.empty(n_outer, dtype=F64, device=dev)
+    info = torch.empty(4, dtype=F64, device=dev)
+    _launch(mode, "astroz_integrate_trajectory", y.data_ptr(),
+            states.data_ptr(), subs.data_ptr(), hs.data_ptr(),
+            info.data_ptr(), float(t0), float(dt), float(t_last), n_outer,
+            float(h_in), float(rtol), float(atol), float(h_min),
             float(h_max), int(max_substeps), *_model_args(deriv),
             _stream(state))
-    return out
+    return states, subs, hs, info
+
+
+def trajectory(deriv, state, t0: float, dt: float, n: int, *, rtol: float,
+               atol: float, h_carried, h_min: float, h_max: float,
+               max_substeps: int):
+    """``Propagator.propagate``'s ``n - 1`` outer steps of ``dt`` from
+    ``t0`` over a ``DormandPrince87`` in one launch of TRAJECTORY, on a
+    CUDA ``state`` of 6 f64 values, the integrator's |h| ``h_carried``
+    (``None`` for none) carried across them; no host read. Returns
+    (states (n, *state.shape), substeps (n - 1,) i64, hs (n - 1,) f64,
+    info (4,) f64), all on the card: each outer step's state, substeps
+    and |h| after it (the state of a step that took ``max_substeps``
+    where the cap left it, rows past it NaN), and [outer steps
+    completed, |h| carried out (NaN for none), substeps in all, the
+    signed h after the last outer step run]."""
+    t0, dt = float(t0), float(dt)
+    # the last outer step's end as the loop forms it: numpy's t0 + dt * k,
+    # then a float add
+    t_last = (t0 + dt * float(max(int(n) - 2, 0))) + dt
+    h_in = float("nan") if h_carried is None else float(h_carried)
+    return _trajectory_launch(
+        "integrate_trajectory", deriv, state, t0, dt, t_last, n, h_in,
+        rtol=rtol, atol=atol, h_min=h_min, h_max=h_max,
+        max_substeps=max_substeps)
 
 
 def adaptive(deriv, state, t0: float, t1: float, h: float, *, rtol: float,
              atol: float, h_min: float, h_max: float, max_substeps: int):
-    """:func:`adaptive_reference` in one launch of ADAPTIVE on a CUDA
-    ``state``, then one read of (h, steps)."""
-    kw = dict(rtol=rtol, atol=atol, h_min=h_min, h_max=h_max,
-              max_substeps=max_substeps)
-    if state.device.type == "cpu":
-        return adaptive_reference(deriv, state, t0, t1, h, **kw)
-    out = adaptive_launch(deriv, state, t0, t1, h, **kw)
-    h_final, steps = out[7:9].tolist()
-    return out[:6].view(state.shape), h_final, int(steps)
-
-
-# ---------------------------------------------------------------------------
-# ATTITUDE
-# ---------------------------------------------------------------------------
-
-
-def attitude_reference(q, w, inertia, torque, dt, n_steps: int):
-    """The plain attitude loop: ``n_steps`` RK4 steps of ``dt`` of
-    quaternion kinematics and Euler's equations, ``q`` renormalized each
-    step. Returns (q, omega)."""
-    from ..calculations import _cross, _norm, quaternion_derivative
-
-    def deriv(q, w):
-        qd = quaternion_derivative(q, w)
-        # Euler: I wdot = T - w x (I w)
-        iw = inertia * w
-        wd = (torque - _cross(w, iw)) / inertia
-        return qd, wd
-
-    for _ in range(n_steps):
-        k1q, k1w = deriv(q, w)
-        k2q, k2w = deriv(q + 0.5 * dt * k1q, w + 0.5 * dt * k1w)
-        k3q, k3w = deriv(q + 0.5 * dt * k2q, w + 0.5 * dt * k2w)
-        k4q, k4w = deriv(q + dt * k3q, w + dt * k3w)
-        q = q + dt / 6.0 * (k1q + 2 * k2q + 2 * k3q + k4q)
-        w = w + dt / 6.0 * (k1w + 2 * k2w + 2 * k3w + k4w)
-        q = q / _norm(q, keepdim=True)
-    return q, w
+    """``dp87_adaptive`` from ``t0`` to ``t1`` on a CUDA ``state`` of 6 f64
+    values with the signed step ``h``: one launch of TRAJECTORY for one
+    outer step (its |h| is ``h`` times the direction of time, which gives
+    ``h`` back), then one read of (substeps, h). Returns (state, h,
+    steps) as ``integrators.adaptive_reference`` does. ``deriv.terms``
+    must not be ``None``."""
+    t0, t1, h = float(t0), float(t1), float(h)
+    sign = float((t1 > t0) - (t1 < t0)) or 1.0
+    states, _, _, info = _trajectory_launch(
+        "integrate_adaptive", deriv, state, t0, 0.0, t1, 2, h * sign,
+        rtol=rtol, atol=atol, h_min=h_min, h_max=h_max,
+        max_substeps=max_substeps)
+    _, _, steps, h_final = info.tolist()
+    return states[1], h_final, int(steps)
 
 
 def attitude(q, w, inertia, torque, dt: float, n_steps: int):
-    """:func:`attitude_reference` in one launch of ATTITUDE on CUDA
-    tensors (f64; ``q`` (..., 4), the others (..., 3), broadcast to one
-    batch), ``dt`` a float."""
-    if q.device.type == "cpu":
-        return attitude_reference(q, w, inertia, torque, dt, n_steps)
+    """``n_steps`` RK4 steps of ``dt`` (a float) of quaternion kinematics
+    and Euler's equations in one launch of ATTITUDE on CUDA tensors (f64;
+    ``q`` (..., 4), the others (..., 3), broadcast to one batch); returns
+    (q, omega)."""
     for name, x, n in (("q", q, 4), ("omega", w, 3), ("inertia", inertia, 3),
                        ("torque", torque, 3)):
         _check_f64(name, x, (n,))
+        _check_cuda(name, x)
     if n_steps <= 0:
         return q, w
     batch = torch.broadcast_shapes(q.shape[:-1], w.shape[:-1],
@@ -262,3 +221,21 @@ def attitude(q, w, inertia, torque, dt: float, n_steps: int):
             w_out.data_ptr(), q0.shape[0], int(n_steps), float(dt),
             _stream(q))
     return q_out, w_out
+
+
+def divide_probe(a, b):
+    """The kernel's quotients a / b (through y = RN(1/b) and two
+    corrections where a and b lie in its window, ``__ddiv_rn`` elsewhere)
+    and ``__ddiv_rn``'s, and its reciprocals of b and ``__ddiv_rn(1,
+    b)``'s, on CUDA f64 tensors of one shape: (got, want, rcp,
+    rcp_want)."""
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype != F64:
+            raise ValueError(f"{name}: the divide probe takes f64")
+        _check_cuda(name, x)
+    a, b = (x.contiguous() for x in torch.broadcast_tensors(a, b))
+    out = [torch.empty_like(a) for _ in range(4)]
+    _launch("integrate_divide_probe", "astroz_integrate_divide_probe",
+            a.data_ptr(), b.data_ptr(), *(x.data_ptr() for x in out),
+            a.numel(), _stream(a))
+    return tuple(out)

@@ -12,7 +12,13 @@ Two execution styles:
   writes each sample into one preallocated ``(n, ..., 6)`` tensor; no
   host read either way.
 * :meth:`Propagator.propagate` — fixed outer sampling steps with an
-  adaptive DP87 (or fixed) inner integrator, one trajectory.
+  adaptive DP87 (or fixed) inner integrator, one trajectory: over a
+  ``DormandPrince87`` on the card, every outer step in one launch of the
+  integrator kernel's TRAJECTORY mode and one read; otherwise a Python
+  loop of the integrator's ``step``.
+
+The route is chosen once, by ``forces.kernel_route``: the kernel for a
+CUDA state and a model it computes, else the plain loop.
 
 States come back as f64 tensors on the device they ran on; sample times
 as a numpy array (the host knows them).
@@ -29,10 +35,32 @@ from ..calculations import _tensors
 from ..config import DEFAULT_DTYPE
 from ..constants import EARTH
 from ..ops import cuda_integrate
-from .forces import Composite, Drag, J2, TwoBody, kernel_terms
-from .integrators import DormandPrince87
+from .forces import Composite, Drag, J2, TwoBody, kernel_route
+from .integrators import DormandPrince87, dp87_step, make_deriv, rk4_step
 
-__all__ = ["Propagator", "propagate_fixed", "propagate_numerical"]
+__all__ = ["Propagator", "fixed_reference", "propagate_fixed",
+           "propagate_numerical"]
+
+
+def fixed_reference(accel, state, t0: float, n_steps: int, h: float, *,
+                    method: str = "rk4", substeps: int = 1):
+    """The plain fixed-step loop: ``n_steps`` samples of ``substeps`` RK4
+    (or fixed DP8(7)) steps of ``h`` from ``state`` (..., 6) at ``t0``;
+    returns (n_steps + 1, ..., 6), the first sample ``state``. No host
+    read."""
+    deriv = make_deriv(accel)
+    step_fn = rk4_step if method == "rk4" else \
+        (lambda d, s, t, h: dp87_step(d, s, t, h)[0])
+    states = torch.empty((n_steps + 1, *state.shape), dtype=state.dtype,
+                         device=state.device)
+    states[0] = state
+    t = float(t0)
+    for k in range(n_steps):
+        for _ in range(substeps):
+            state = step_fn(deriv, state, t, h)
+            t = t + h
+        states[k + 1] = state
+    return states
 
 
 def propagate_fixed(accel, state0, t0: float, duration: float, dt: float,
@@ -58,8 +86,8 @@ def propagate_fixed(accel, state0, t0: float, duration: float, dt: float,
     n_steps = int(np.floor(duration / dt))
     h = dt / substeps
     (state,) = _tensors(state0, device=device, dtype=DEFAULT_DTYPE)
-    run = cuda_integrate.fixed_reference if kernel_terms(accel) is None \
-        else cuda_integrate.fixed
+    run = cuda_integrate.fixed if kernel_route(state, accel) \
+        else fixed_reference
     states = run(accel, state, t0, n_steps, h, method=method,
                  substeps=substeps)
     times = t0 + dt * np.arange(n_steps + 1)
@@ -69,7 +97,12 @@ def propagate_fixed(accel, state0, t0: float, duration: float, dt: float,
 class Propagator:
     """Fixed outer sampling steps, adaptive (or fixed) inner
     integration. A numpy or float initial state goes to the
-    integrator's ``device``."""
+    integrator's ``device``. Over a ``DormandPrince87`` whose model the
+    integrator kernel computes, a CUDA trajectory of 6 values runs every
+    outer step in one launch (``DormandPrince87.trajectory``): the states,
+    ``h_current``, ``n_substeps`` and the ``RuntimeError`` of the substep
+    cap are those of the loop of ``step`` calls that every other case
+    runs."""
 
     def __init__(self, integrator):
         self.integrator = integrator
@@ -78,13 +111,17 @@ class Propagator:
                   dt: float) -> Tuple[np.ndarray, torch.Tensor]:
         n = int(np.floor(duration / dt)) + 1
         times = t0 + dt * np.arange(n)
-        (state,) = _tensors(initial_state, device=self.integrator.device,
+        integ = self.integrator
+        (state,) = _tensors(initial_state, device=integ.device,
                             dtype=DEFAULT_DTYPE)
+        if isinstance(integ, DormandPrince87) and \
+                integ.takes_trajectory(state):
+            return times, integ.trajectory(state, t0, dt, n)
         states = torch.empty((n, *state.shape), dtype=state.dtype,
                              device=state.device)
         states[0] = state
         for k in range(1, n):
-            state = self.integrator.step(state, float(times[k - 1]), dt)
+            state = integ.step(state, float(times[k - 1]), dt)
             states[k] = state
         return times, states
 

@@ -33,7 +33,7 @@ from ..ops.cuda_integrate import MAX_TERMS
 
 __all__ = ["Accel", "Composite", "Drag", "ImprovedDrag", "J2", "J3", "J4",
            "SolarRadiationPressure", "ThirdBody", "TwoBody",
-           "earth_default_forces", "kernel_terms"]
+           "earth_default_forces", "kernel_route", "kernel_terms"]
 
 Accel = Callable[..., torch.Tensor]
 
@@ -345,6 +345,13 @@ def kernel_terms(accel) -> Optional[tuple]:
     if terms is not None and len(terms) > MAX_TERMS:
         return None
     return terms
+
+
+def kernel_route(state, accel) -> bool:
+    """The integrators' one choice of route: the integrator kernel for a
+    CUDA ``state`` and a model it computes (``kernel_terms`` not
+    ``None``), else the plain loop of torch ops."""
+    return state.is_cuda and kernel_terms(accel) is not None
 
 
 def earth_default_forces(j2: bool = True, drag: bool = False,

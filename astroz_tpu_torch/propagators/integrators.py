@@ -9,26 +9,30 @@ The adaptive driver keeps the JAX package's control law: mixed
 rtol/atol error norm, safety 0.9, step clamp [1e-3 s, 3600 s], growth
 cap 5x, shrink floor 0.1x. JAX runs it as a ``lax.while_loop`` on the
 device. Here, on a CUDA trajectory whose model the integrator kernel
-computes (``forces.kernel_terms``), one launch of the kernel's ADAPTIVE
-mode runs the whole loop and the host reads (h, steps) back once a call;
-otherwise (the CPU, a model of a python function of t, a batched state)
-the loop runs on the host, the state stays on its device, and each
-substep reads one number back, its error norm: the host then decides
-acceptance and the next step in f64 Python floats.
+computes (``forces.kernel_route``), one launch of the kernel's TRAJECTORY
+mode runs the whole loop as its one outer step and the host reads (h,
+steps) back once a call; ``Propagator.propagate`` over a
+:class:`DormandPrince87` runs all its outer steps in one launch of it. Otherwise (the CPU, a
+model of a python function of t, a batched state) the loop runs on the
+host (:func:`adaptive_reference`), the state stays on its device, and
+each substep reads one number back, its error norm: the host then
+decides acceptance and the next step in f64 Python floats.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..calculations import _tensors
 from ..config import DEFAULT_DTYPE
 from ..ops import cuda_integrate
-from .forces import kernel_terms
+from .forces import kernel_route, kernel_terms
 
 __all__ = ["Deriv", "DormandPrince87", "Rk4", "Sgp4Integrator",
+           "adaptive_reference", "adaptive_trajectory_reference",
            "dp87_adaptive", "dp87_step", "make_deriv", "rk4_step"]
 
 Deriv = Callable[[torch.Tensor, float], torch.Tensor]
@@ -134,10 +138,55 @@ def dp87_step(deriv: Deriv, state, t, h):
     return y8, y8 - y7
 
 
+#: ``dp87_adaptive``'s defaults, which ``DormandPrince87`` keeps: the
+#: step's limits (s) and the substep cap
+H_MIN = 1e-3
+H_MAX = 3600.0
+MAX_SUBSTEPS = 10000
+
+
+def _direction(t0: float, t1: float) -> float:
+    return float((t1 > t0) - (t1 < t0))
+
+
+def _first_h(t0: float, t1: float, h0, h_max: float) -> float:
+    """``dp87_adaptive``'s starting step: ``h0`` (a magnitude) or, with
+    none, min(|t1 - t0|, h_max), signed by the direction of time."""
+    direction = _direction(t0, t1)
+    sign = direction if direction else 1.0
+    if h0 is not None:
+        return float(h0) * sign
+    return (min(abs(t1 - t0), h_max) if direction else h_max) * sign
+
+
+def adaptive_reference(deriv, state, t0: float, t1: float, h: float, *,
+                       rtol: float, atol: float, h_min: float, h_max: float,
+                       max_substeps: int):
+    """The plain adaptive DP8(7) loop from ``t0`` to ``t1`` (floats),
+    starting with the signed step ``h``: the loop runs on the host and
+    reads one number a substep, its error norm. Returns (state, h, steps)
+    with ``h`` a float and ``steps`` an int."""
+    direction = _direction(t0, t1)
+    t, steps = t0, 0
+    while (t - t1) * direction < 0 and steps < max_substeps:
+        # clamp h to not overshoot t1
+        hs = t1 - t if (t + h - t1) * direction > 0 else h
+        y8, err = dp87_step(deriv, state, t, hs)
+        scale = atol + rtol * torch.maximum(torch.abs(state), torch.abs(y8))
+        err_norm = float(torch.max(torch.abs(err) / scale))
+        factor = min(max(0.9 * max(err_norm, 1e-16) ** (-1.0 / 8.0), 0.1),
+                     5.0)
+        h = min(max(abs(hs * factor), h_min), h_max) * direction
+        if err_norm <= 1.0:
+            state, t = y8, t + hs
+        steps += 1
+    return state, h, steps
+
+
 def dp87_adaptive(deriv: Deriv, state, t0, t1, *, rtol: float = 1e-10,
                   atol: float = 1e-12, h0: Optional[float] = None,
-                  h_min: float = 1e-3, h_max: float = 3600.0,
-                  max_substeps: int = 10000, device="cuda"):
+                  h_min: float = H_MIN, h_max: float = H_MAX,
+                  max_substeps: int = MAX_SUBSTEPS, device="cuda"):
     """Integrate from ``t0`` to ``t1`` with the JAX package's step
     control: err_norm = max(|err| / (atol + rtol*max(|y|, |y8|)));
     accept if <= 1; h *= clip(0.9 * err^(-1/8), 0.1, 5), then clip |h|
@@ -147,25 +196,65 @@ def dp87_adaptive(deriv: Deriv, state, t0, t1, *, rtol: float = 1e-10,
     state): batched runs take the fixed-step path. On a CUDA state of one
     trajectory (6 values) whose ``deriv`` carries kernel terms
     (:func:`make_deriv` of a model the kernel computes), one launch of
-    the integrator kernel's ADAPTIVE mode runs the loop and one read
-    brings (h, steps) back; otherwise the plain loop reads one number a
-    substep (the error norm). The kernel takes err^(-1/8) from the
-    device's pow, the plain loop from the host's: their step sizes may
-    part in the last bits. Returns (state, h_final, n_steps) with
-    ``h_final`` a float and ``n_steps`` an int."""
+    the integrator kernel's TRAJECTORY mode for one outer step runs the
+    loop and one read brings (h, steps) back; otherwise :func:`adaptive_reference` reads
+    one number a substep (the error norm). The kernel takes err^(-1/8)
+    from the device's pow, the plain loop from the host's: their step
+    sizes may part in the last bits. Returns (state, h_final, n_steps)
+    with ``h_final`` a float and ``n_steps`` an int."""
     (state,) = _tensors(state, device=device, dtype=DEFAULT_DTYPE)
     t0, t1 = float(t0), float(t1)
-    direction = float((t1 > t0) - (t1 < t0))
-    sign = direction if direction else 1.0
-    h = (min(abs(t1 - t0), h_max) if direction else h_max) * sign
-    if h0 is not None:
-        h = float(h0) * sign
+    h = _first_h(t0, t1, h0, h_max)
     kw = dict(rtol=rtol, atol=atol, h_min=h_min, h_max=h_max,
               max_substeps=max_substeps)
-    if kernel_terms(deriv) is None or state.numel() != 6:
-        return cuda_integrate.adaptive_reference(deriv, state, t0, t1, h,
-                                                 **kw)
-    return cuda_integrate.adaptive(deriv, state, t0, t1, h, **kw)
+    if state.numel() == 6 and kernel_route(state, deriv):
+        return cuda_integrate.adaptive(deriv, state, t0, t1, h, **kw)
+    return adaptive_reference(deriv, state, t0, t1, h, **kw)
+
+
+def adaptive_trajectory_reference(deriv, state, t0: float, dt: float,
+                                  n: int, *, rtol: float, atol: float,
+                                  h_carried: Optional[float] = None,
+                                  h_min: float = H_MIN, h_max: float = H_MAX,
+                                  max_substeps: int = MAX_SUBSTEPS):
+    """The plain version of the integrator kernel's TRAJECTORY mode:
+    ``Propagator.propagate``'s ``n - 1`` outer steps of ``dt`` from ``t0``
+    over a ``DormandPrince87`` whose |h| is ``h_carried`` (``None`` for
+    none), each outer step :func:`adaptive_reference` from ``t0 + dt *
+    (k - 1)`` (numpy's arange, as the driver forms it) to that plus
+    ``dt``, |h| carried from one to the next. It stops after the first
+    outer step that takes ``max_substeps`` (where ``DormandPrince87.step``
+    raises). Returns what the kernel writes: (states (n, *state.shape),
+    the stop's row where the cap left it and NaN rows past it, substeps
+    (n - 1,) i64, |h| after each outer step (n - 1,) f64, info [outer
+    steps completed, |h| carried out (NaN for none), substeps in all, the
+    signed h after the last outer step run (NaN for none)] (4,) f64), on
+    ``state``'s device."""
+    n_outer = max(int(n) - 1, 0)
+    times = t0 + dt * np.arange(n_outer + 1)
+    states = torch.full((n_outer + 1, *state.shape), float("nan"),
+                        dtype=state.dtype, device=state.device)
+    states[0] = state
+    subs, hs = [0] * n_outer, [float("nan")] * n_outer
+    done, total, h_abs, h_last = 0, 0, h_carried, float("nan")
+    for k in range(1, n_outer + 1):
+        ta = float(times[k - 1])
+        tb = ta + dt
+        h = _first_h(ta, tb, h_abs, h_max)
+        state, h_next, steps = adaptive_reference(
+            deriv, state, ta, tb, h, rtol=rtol, atol=atol, h_min=h_min,
+            h_max=h_max, max_substeps=max_substeps)
+        total += steps
+        subs[k - 1], hs[k - 1], h_last = steps, abs(h_next), h_next
+        states[k] = state
+        if steps >= max_substeps:
+            break
+        h_abs, done = abs(h_next), k
+    info = [done, float("nan") if h_abs is None else h_abs, total, h_last]
+    dev = state.device
+    return (states, torch.tensor(subs, dtype=torch.int64, device=dev),
+            torch.tensor(hs, dtype=torch.float64, device=dev),
+            torch.tensor(info, dtype=torch.float64, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -199,21 +288,51 @@ class DormandPrince87:
         self.h_current: Optional[float] = None
         self.n_substeps = 0
 
-    def step(self, state, t, h):
-        """Advance exactly h seconds (internally sub-stepping)."""
-        out, h_next, n_sub = dp87_adaptive(
-            self.deriv, state, t, t + h, rtol=self.rtol, atol=self.atol,
-            h0=self.h_current, device=self.device)
-        self.n_substeps += n_sub
-        if n_sub >= 10000:
+    @staticmethod
+    def _check_converged(n_sub: int):
+        if n_sub >= MAX_SUBSTEPS:
             # the loop exited on the substep cap, not on reaching t+h:
             # the returned state is NOT at the requested epoch
             raise RuntimeError(
                 "DormandPrince87: step did not converge within the "
                 "substep cap (tolerances too tight for f64, or h_min "
                 "too large) — state has not reached t + h")
+
+    def step(self, state, t, h):
+        """Advance exactly h seconds (internally sub-stepping)."""
+        out, h_next, n_sub = dp87_adaptive(
+            self.deriv, state, t, t + h, rtol=self.rtol, atol=self.atol,
+            h0=self.h_current, max_substeps=MAX_SUBSTEPS,
+            device=self.device)
+        self.n_substeps += n_sub
+        self._check_converged(n_sub)
         self.h_current = abs(h_next)
         return out
+
+    def takes_trajectory(self, state) -> bool:
+        """Whether ``Propagator.propagate`` runs its outer steps from
+        ``state`` in one launch (:meth:`trajectory`): one trajectory of 6
+        values on the integrator kernel's route."""
+        return state.numel() == 6 and kernel_route(state, self.deriv)
+
+    def trajectory(self, state, t0: float, dt: float, n: int):
+        """``Propagator.propagate``'s outer loop, ``n - 1`` calls of
+        :meth:`step` of ``dt`` from ``t0``, in one launch of the
+        integrator kernel's TRAJECTORY mode and one read: the same states,
+        ``h_current`` and ``n_substeps`` as those calls, and the same
+        ``RuntimeError`` at the same outer step. Returns the (n, 6)
+        states."""
+        states, _, _, info = cuda_integrate.trajectory(
+            self.deriv, state, float(t0), float(dt), n, rtol=self.rtol,
+            atol=self.atol, h_carried=self.h_current, h_min=H_MIN,
+            h_max=H_MAX, max_substeps=MAX_SUBSTEPS)
+        done, h_out, total, _ = info.tolist()
+        self.n_substeps += int(total)
+        if h_out == h_out:
+            self.h_current = h_out
+        if int(done) < n - 1:
+            self._check_converged(MAX_SUBSTEPS)
+        return states
 
 
 class Sgp4Integrator:

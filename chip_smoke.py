@@ -213,15 +213,24 @@ Phases (any failure exits non-zero; nothing is caught):
    would take over 30 s) within 1e-6 km, TwoBody alone on 1,000 lanes
    with a relative energy drift under 1e-5; (b) one adaptive DP8(7)
    trajectory of TwoBody + J2 from the ISS state, rtol 1e-10, 6 h at 60 s
-   outer steps (one ADAPTIVE launch and one read an outer step) on the
-   host, on the card and on the card through the plain version, in turns:
-   the same substep count, the final states within 1e-5 km, ADAPTIVE
-   against the plain version on each outer step (equal substep counts,
-   ``h_current`` within ADAPTIVE_H_RTOL), and from each of its states
-   over ADAPTIVE_BIND_S, where h binds: one substep of the trajectory's h
-   and one rejected, bit-equal with the next h within ADAPTIVE_H_RTOL, and
-   the whole outer step with equal counts, the host reads a call, a circular 500 km orbit back at its start
-   within 1 m after one period, and one outer step of each in turns;
+   outer steps: ``Propagator.propagate`` (one TRAJECTORY launch and one
+   read a call, one host sync), the same outer steps through
+   ``DormandPrince87.step`` (one ADAPTIVE launch and one read each:
+   ``dp87_adaptive``'s TRAJECTORY of one outer step), the
+   plain loop on the card and the host, in turns: TRAJECTORY bit-equal to
+   the ADAPTIVE launches (every state, each outer step's substeps and h,
+   ``h_current``, ``n_substeps``), within ADAPTIVE_TOL_KM of its plain
+   version (``adaptive_trajectory_reference``) with the same counts, and
+   so for 1 h of a model of each other signature (TwoBody; TwoBody + J2 +
+   Drag; every kind, through the run-time dispatch); the
+   final states within 1e-5 km of the host's; ADAPTIVE against its plain
+   version on each outer step (equal substep counts, ``h_current`` within
+   ADAPTIVE_H_RTOL), and from each of its states over ADAPTIVE_BIND_S,
+   where h binds: one substep of the trajectory's h and one rejected,
+   bit-equal with the next h within ADAPTIVE_H_RTOL, and the whole outer
+   step with equal counts; a circular 500 km orbit back at its start
+   within 1 m after one period; one outer step of ADAPTIVE and the whole
+   TRAJECTORY timed in turns with their plain versions;
    (c) ``run_hohmann_monte_carlo`` of 1,000,000 samples: the LEO->GEO
    mean total dv within 0.1 km/s of 3.85, ``n + n_failed`` the sample
    count, the host's mean within 4 standard errors; (d) the ISS as a
@@ -230,8 +239,11 @@ Phases (any failure exits non-zero; nothing is caught):
    orbit raised by over 100 km, the plane turned by the commanded 5 deg
    within 0.5, the inclination moved; card within 1e-5 km of the host)
    and 10,000 ``propagate_attitude`` steps (one ATTITUDE launch, card
-   within 1e-12 of the host); then, under ``torch.profiler``, 10 RK4
-   steps of 10a must run one kernel and a DP8(7) outer step of 10b one;
+   within 1e-12 of the host; ATTITUDE bit-equal to its plain version,
+   its cycles a step at the card's SM clock); then, under
+   ``torch.profiler``, 10 RK4 steps of 10a must run one kernel, a DP8(7)
+   outer step of 10b one, and a whole ``Propagator.propagate`` of 10b
+   one kernel and one read;
 11. the multi-device paths (``astroz_tpu_torch.parallel``, run after
    phase 9) on a mesh of every visible card, or of one card repeated
    MESH_SHARDS times (printed): (a) ``propagate_sharded_fast`` of the
@@ -254,7 +266,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (K1-K6, the spine kernel, the f64
-kernel's three modes and the integrator kernel's three, with each one's
+kernel's three modes and the integrator kernel's four, with each one's
 bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type; ``ms`` is the kernel launched back to back through
@@ -3624,6 +3636,8 @@ NUMERICAL_CPU_LIMIT_S = 30.0
 NUMERICAL_CPU_CUT = 10000
 NUMERICAL_ENERGY_LANES = 1000
 NUMERICAL_DP87_S = 6 * 3600.0
+#: 10b: the other models' trajectories, one of each signature, over this
+NUMERICAL_SIGNATURE_S = 3600.0
 NUMERICAL_MC_SAMPLES = 1000000
 NUMERICAL_ATTITUDE_STEPS = 10000
 LAUNCH_STEPS = 10
@@ -3652,8 +3666,13 @@ INTEGRATE_MODES = (
      "integrate_fixed (the integrator kernel, FIXED: propagate_fixed)",
      "astroz_tpu/propagators/driver.py:30"),
     ("integrate_adaptive",
-     "integrate_adaptive (the integrator kernel, ADAPTIVE: dp87_adaptive)",
+     "integrate_adaptive (the integrator kernel, TRAJECTORY for one outer "
+     "step: dp87_adaptive)",
      "astroz_tpu/propagators/integrators.py:131"),
+    ("integrate_trajectory",
+     "integrate_trajectory (the integrator kernel, TRAJECTORY: "
+     "Propagator.propagate over a DormandPrince87)",
+     "astroz_tpu/propagators/driver.py:76"),
     ("integrate_attitude",
      "integrate_attitude (the integrator kernel, ATTITUDE: "
      "propagate_attitude)", "astroz_tpu/calculations.py:273"))
@@ -3729,10 +3748,12 @@ def _integrate_entry(mode, n_launches, err, turns, bound_ms_by):
 
 def _numerical_launches():
     """The device activities (kernels, copies, fills) of LAUNCH_STEPS RK4
-    steps of 10a's lanes and model, and of one 60 s outer step of 10b's
-    DP8(7) trajectory, from one ``torch.profiler`` session, split by a
-    marker kernel: a dict of counts."""
-    from astroz_tpu_torch.propagators import dp87_adaptive, propagate_fixed
+    steps of 10a's lanes and model, of one 60 s outer step of 10b's DP8(7)
+    trajectory (``dp87_adaptive``), and of a whole 1 h ``Propagator.
+    propagate`` of it, from one ``torch.profiler`` session, split by
+    marker kernels: a dict of counts."""
+    from astroz_tpu_torch.propagators import (DormandPrince87, Propagator,
+                                              dp87_adaptive, propagate_fixed)
 
     accel = _mc_forces()
     lanes = torch.as_tensor(monte_carlo_lanes(NUMERICAL_LANES),
@@ -3747,20 +3768,32 @@ def _numerical_launches():
     def dp87():
         dp87_adaptive(deriv, one, 0.0, 60.0, rtol=1e-10)
 
+    def trajectory():
+        Propagator(DormandPrince87(_dp87_forces(), rtol=1e-10)).propagate(
+            one, 0.0, 3600.0, 60.0)
+
+    def spin():
+        torch.cuda._sleep(1000)
+
     rk4()
     dp87()
-    names = _device_work(rk4, lambda: torch.cuda._sleep(1000), dp87)
-    cut = next(i for i, n in enumerate(names) if "spin" in n)
+    trajectory()
+    names = _device_work(rk4, spin, dp87, spin, trajectory)
+    cuts = [i for i, n in enumerate(names) if "spin" in n]
+    check(len(cuts) == 2, f"phase 10: the profiler saw {names}")
 
     def counts(part):
         kernels = [n for n in part if not n.startswith(("Memcpy", "Memset"))]
-        return len(kernels), len(part)
+        reads = [n for n in part if n.startswith("Memcpy DtoH")]
+        return len(kernels), len(part), len(reads)
 
-    (rk4_k, rk4_all), (dp_k, dp_all) = counts(names[:cut]), \
-        counts(names[cut + 1:])
+    (rk4_k, rk4_all, _), (dp_k, dp_all, _), (tr_k, tr_all, tr_reads) = (
+        counts(names[:cuts[0]]), counts(names[cuts[0] + 1:cuts[1]]),
+        counts(names[cuts[1] + 1:]))
     return {"rk4_steps": LAUNCH_STEPS, "rk4_kernels": rk4_k,
             "rk4_activities": rk4_all, "dp87_step_kernels": dp_k,
-            "dp87_step_activities": dp_all}
+            "dp87_step_activities": dp_all, "trajectory_kernels": tr_k,
+            "trajectory_activities": tr_all, "trajectory_reads": tr_reads}
 
 
 def _op_us(device, n=2000):
@@ -3809,6 +3842,7 @@ def _phase10a_lanes(smi):
     Returns FIXED's kernels-line entry and the card's ms a step."""
     from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.propagators import TwoBody, propagate_fixed
+    from astroz_tpu_torch.propagators.driver import fixed_reference
 
     accel = _mc_forces()
     lanes = monte_carlo_lanes(NUMERICAL_LANES)
@@ -3843,8 +3877,7 @@ def _phase10a_lanes(smi):
                                     NUMERICAL_DT_S)
 
     def plain():
-        return cuda_integrate.fixed_reference(accel, state, 0.0, n_steps,
-                                              NUMERICAL_DT_S)
+        return fixed_reference(accel, state, 0.0, n_steps, NUMERICAL_DT_S)
 
     want = plain()
     err = float((out - want).abs().max())
@@ -3852,7 +3885,7 @@ def _phase10a_lanes(smi):
           f"its plain version on the card by {err} km")
     del want
     turns = _integrate_turns(kernel, kernel, plain, 5, per_graph=2)
-    f32, f64 = count_ops(lambda: cuda_integrate.fixed_reference(
+    f32, f64 = count_ops(lambda: fixed_reference(
         accel, state[:1000], 0.0, 10, NUMERICAL_DT_S))
     step_ops = f64 / (1000 * 10)  # f64 operations a lane-step
     scale = NUMERICAL_LANES / 1000 * n_steps / 10
@@ -3866,9 +3899,8 @@ def _phase10a_lanes(smi):
                                     NUMERICAL_DT_S, method="dp87")
 
     def dp_plain():
-        return cuda_integrate.fixed_reference(
-            accel, sub, 0.0, NUMERICAL_DP87_FIXED_STEPS, NUMERICAL_DT_S,
-            method="dp87")
+        return fixed_reference(accel, sub, 0.0, NUMERICAL_DP87_FIXED_STEPS,
+                               NUMERICAL_DT_S, method="dp87")
 
     dp_out, dp_want = dp_kernel(), dp_plain()
     dp_err = float((dp_out - dp_want).abs().max())
@@ -3945,6 +3977,84 @@ def _dp87_run(integ, start, n_outer, dt=60.0):
     return torch.stack([torch.as_tensor(x) for x in states]), subs, hs
 
 
+def _signature_models():
+    """10b's other models: one of each signature the one-thread modes are
+    compiled for besides the main path's TwoBody + J2 (TwoBody; TwoBody +
+    J2 + Drag) and one of none (every kind, through the kernel's run-time
+    dispatch)."""
+    from astroz_tpu_torch.propagators import (
+        Composite, Drag, ImprovedDrag, J2, J3, J4, SolarRadiationPressure,
+        TwoBody)
+
+    return {"TwoBody": TwoBody(),
+            "TwoBody + J2 + Drag": Composite([TwoBody(), J2(), Drag()]),
+            "every kind": Composite([TwoBody(), J2(), J3(), J4(),
+                                     ImprovedDrag(f107=220.0),
+                                     SolarRadiationPressure()])}
+
+
+def _dp87_signatures(start):
+    """``Propagator.propagate`` over a ``DormandPrince87`` (rtol 1e-10) of
+    each of :func:`_signature_models` on the card from ``start`` over
+    NUMERICAL_SIGNATURE_S at 60 s outer steps: one TRAJECTORY launch, bit
+    for bit the loop of ``step`` calls (one launch each: states, each
+    outer step's substeps and |h|, ``h_current``, ``n_substeps``), and
+    against the plain trajectory on the card
+    (``adaptive_trajectory_reference``) the same counts, states within
+    ADAPTIVE_TOL_KM, and |h| within ADAPTIVE_H_RTOL after each outer step
+    that starts from bit-equal states and takes one substep (where h
+    binds, as across the Earth's shadow for SRP, the kernel's err^(-1/8)
+    from the device's pow and the plain loop's from the host's carry the
+    two apart, as ADAPTIVE_TOL_KM says). Returns {model: (substeps, outer
+    steps of several substeps, the first outer step after which the
+    states differ or None, max|dr| km, |h| relative, outer steps whose
+    |h| was held)}."""
+    from astroz_tpu_torch.ops import cuda_integrate
+    from astroz_tpu_torch.propagators import DormandPrince87, Propagator
+    from astroz_tpu_torch.propagators.integrators import (
+        adaptive_trajectory_reference)
+
+    n_outer = int(NUMERICAL_SIGNATURE_S // 60.0)
+    seen = {}
+    for name, accel in _signature_models().items():
+        one = DormandPrince87(accel, rtol=1e-10, device=DEVICE)
+        before = cuda_integrate.LAUNCHES["integrate_trajectory"]
+        got = Propagator(one).propagate(start, 0.0, NUMERICAL_SIGNATURE_S,
+                                        60.0)[1]
+        check(cuda_integrate.LAUNCHES["integrate_trajectory"] == before + 1,
+              f"phase 10b: {name}: Propagator.propagate did not launch "
+              f"TRAJECTORY once")
+        loop = DormandPrince87(accel, rtol=1e-10, device=DEVICE)
+        k_states, k_subs, k_h = _dp87_run(loop, start, n_outer)
+        t_states, t_subs, t_h, _ = cuda_integrate.trajectory(
+            one.deriv, start, 0.0, 60.0, n_outer + 1, rtol=1e-10,
+            atol=1e-12, h_carried=None, h_min=1e-3, h_max=3600.0,
+            max_substeps=10000)
+        check(torch.equal(got, k_states) and torch.equal(t_states, k_states)
+              and t_subs.tolist() == k_subs and t_h.tolist() == k_h
+              and (one.h_current, one.n_substeps)
+              == (loop.h_current, loop.n_substeps),
+              f"phase 10b: {name}: TRAJECTORY differs from the loop of "
+              f"step calls")
+        p_states, p_subs, p_h, _ = adaptive_trajectory_reference(
+            one.deriv, start, 0.0, 60.0, n_outer + 1, rtol=1e-10,
+            atol=1e-12)
+        dr = float((t_states - p_states)[:, :3].abs().max())
+        same = [bool(torch.equal(a, b)) for a, b in zip(t_states, p_states)]
+        held = [k for k in range(n_outer) if same[k] and p_subs[k] == 1]
+        h_rel = max((_rel(float(t_h[k]), float(p_h[k])) for k in held),
+                    default=0.0)
+        check(t_subs.tolist() == p_subs.tolist() and dr <= ADAPTIVE_TOL_KM
+              and h_rel <= ADAPTIVE_H_RTOL, f"phase 10b: {name}: TRAJECTORY "
+              f"vs its plain version: counts equal "
+              f"{t_subs.tolist() == p_subs.tolist()}, max|dr| {dr} km, h "
+              f"relative {h_rel} over {len(held)} outer steps")
+        seen[name] = (one.n_substeps, int((p_subs > 1).sum()),
+                      same.index(False) if False in same else None, dr,
+                      h_rel, len(held))
+    return seen
+
+
 def _rel(a, b):
     return abs(a - b) / abs(b)
 
@@ -3958,6 +4068,7 @@ def _dp87_binding(deriv, states, hs, dt=60.0):
     whole outer step from h = ADAPTIVE_BIND_S, with the same substep count
     and states within ADAPTIVE_TOL_KM. Returns a dict of what it saw."""
     from astroz_tpu_torch.ops import cuda_integrate
+    from astroz_tpu_torch.propagators.integrators import adaptive_reference
 
     kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0)
     one = {**kw, "max_substeps": 1}
@@ -3969,8 +4080,7 @@ def _dp87_binding(deriv, states, hs, dt=60.0):
         t1 = t0 + ADAPTIVE_BIND_S
         for h0 in (h, ADAPTIVE_BIND_S):
             got = cuda_integrate.adaptive(deriv, y, t0, t1, h0, **one)
-            want = cuda_integrate.adaptive_reference(deriv, y, t0, t1, h0,
-                                                     **one)
+            want = adaptive_reference(deriv, y, t0, t1, h0, **one)
             check(torch.equal(got[0], want[0]) and got[2] == want[2] == 1,
                   f"phase 10b: ADAPTIVE's one substep of {h0} s from outer "
                   f"step {k} differs from its plain version's")
@@ -3982,8 +4092,8 @@ def _dp87_binding(deriv, states, hs, dt=60.0):
             seen["rejected" if torch.equal(want[0], y) else "accepted"] += 1
         got = cuda_integrate.adaptive(deriv, y, t0, t1, ADAPTIVE_BIND_S,
                                       max_substeps=10000, **kw)
-        want = cuda_integrate.adaptive_reference(
-            deriv, y, t0, t1, ADAPTIVE_BIND_S, max_substeps=10000, **kw)
+        want = adaptive_reference(deriv, y, t0, t1, ADAPTIVE_BIND_S,
+                                  max_substeps=10000, **kw)
         check(got[2] == want[2], f"phase 10b: from outer step {k} over "
               f"{ADAPTIVE_BIND_S} s ADAPTIVE took {got[2]} substeps, its "
               f"plain version {want[2]}")
@@ -3998,21 +4108,26 @@ def _dp87_binding(deriv, states, hs, dt=60.0):
 
 
 def _phase10b_dp87(smi):
-    """One adaptive DP8(7) trajectory on the host, on the card through the
-    integrator kernel's ADAPTIVE mode and on the card through its plain
-    version, in turns; ADAPTIVE against the plain version outer step by
-    outer step; one outer step of each timed in turns. Returns ADAPTIVE's
-    kernels-line entry."""
+    """One adaptive DP8(7) trajectory through ``Propagator.propagate``:
+    on the card in one TRAJECTORY launch, through ``DormandPrince87.step``
+    (one ADAPTIVE launch an outer step), through the plain loop on the
+    card, and on the host, in turns; TRAJECTORY bit for bit against the
+    ADAPTIVE launches, both against their plain versions; one outer step
+    of ADAPTIVE and the whole TRAJECTORY timed in turns with theirs.
+    Returns ADAPTIVE's and TRAJECTORY's kernels-line entries."""
     from astroz_tpu_torch.constants import EARTH
     from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.propagators import (DormandPrince87, Propagator,
                                               TwoBody)
+    from astroz_tpu_torch.propagators.integrators import (
+        adaptive_reference, adaptive_trajectory_reference)
 
     accel = _dp87_forces()
     start = iss_state()
     on_card = torch.as_tensor(start, device=DEVICE)
     n_outer = int(NUMERICAL_DP87_S // 60.0)
     routes = {"cpu": ("cpu", accel), "kernel": (DEVICE, accel),
+              "steps": (DEVICE, accel),
               "plain": (DEVICE, _plain_model(accel))}
 
     def run(route, duration=NUMERICAL_DP87_S):
@@ -4020,34 +4135,67 @@ def _phase10b_dp87(smi):
         integ = DormandPrince87(model, rtol=1e-10, device=device)
         state = start if device == "cpu" else on_card
         t0 = time.perf_counter()
-        _, states = Propagator(integ).propagate(state, 0.0, duration, 60.0)
+        if route == "steps":  # the outer loop of step calls
+            states = _dp87_run(integ, state, int(duration // 60.0))[0]
+        else:
+            states = Propagator(integ).propagate(state, 0.0, duration,
+                                                 60.0)[1]
         end = states[-1].cpu()
         return (time.perf_counter() - t0) * 1e3, integ.n_substeps, end
 
     run("kernel", 600.0)  # warm up the kernel
+    run("steps", 600.0)
+    # the main path: the trajectory through Propagator and through step
+    reset_launches()
+    Propagator(DormandPrince87(accel, rtol=1e-10)).propagate(
+        on_card, 0.0, NUMERICAL_DP87_S, 60.0)
+    _dp87_run(DormandPrince87(accel, rtol=1e-10), on_card, n_outer)
+    sync()
+    moved = {k: n for k, n in launches().items() if n}
+    check(moved == {"integrate_trajectory": 1,
+                    "integrate_adaptive": n_outer},
+          f"phase 10b: Propagator.propagate and the loop of step calls "
+          f"launched {moved}, not TRAJECTORY once and ADAPTIVE once an "
+          f"outer step")
     ms = {r: [] for r in routes}
-    subs, ends, moved = {}, {}, None
-    for route in ("cpu", "plain", "kernel", "kernel", "plain", "cpu"):
-        if route == "kernel" and moved is None:
-            reset_launches()
-            t, subs[route], ends[route] = run(route)
-            moved = {k: n for k, n in launches().items() if n}
-        else:
-            t, subs[route], ends[route] = run(route)
+    subs, ends = {}, {}
+    for route in ("cpu", "plain", "steps", "kernel", "kernel", "steps",
+                  "plain", "cpu"):
+        t, subs[route], ends[route] = run(route)
         ms[route].append(t)
-    check(moved == {"integrate_adaptive": n_outer}, f"phase 10b: the "
-          f"trajectory launched {moved}, not ADAPTIVE once an outer step")
-    # the host syncs of a shorter card call (1 h)
-    short = {}
-    reads = _syncs(lambda: short.update(n=run("kernel", 3600.0)[1]))
-    check(subs["cpu"] == subs["kernel"], f"phase 10b: substeps host "
-          f"{subs['cpu']} card {subs['kernel']}")
+    # the host syncs of one Propagator.propagate call on the card (1 h)
+    reads = _syncs(lambda: Propagator(DormandPrince87(
+        accel, rtol=1e-10)).propagate(on_card, 0.0, 3600.0, 60.0))
+    check(reads == 1, f"phase 10b: Propagator.propagate synced the host "
+          f"{reads} times, not once")
+    check(subs["cpu"] == subs["kernel"] == subs["steps"], f"phase 10b: "
+          f"substeps host {subs['cpu']} card {subs['kernel']} through step "
+          f"{subs['steps']}")
     dr = float((ends["kernel"] - ends["cpu"])[:3].abs().max())
     check(dr <= 1e-5, f"phase 10b: card vs host final |dr| {dr} km")
+    # TRAJECTORY against the ADAPTIVE launches, bit for bit
+    steps_integ = DormandPrince87(accel, rtol=1e-10, device=DEVICE)
+    k_states, k_subs, k_h = _dp87_run(steps_integ, on_card, n_outer)
+    deriv = _dp87_deriv()
+    kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0,
+              max_substeps=10000)
+    t_states, t_subs, t_h, t_info = cuda_integrate.trajectory(
+        deriv, on_card, 0.0, 60.0, n_outer + 1, h_carried=None, **kw)
+    one = DormandPrince87(accel, rtol=1e-10)
+    p_one = Propagator(one).propagate(on_card, 0.0, NUMERICAL_DP87_S,
+                                      60.0)[1]
+    traj_bits = (torch.equal(t_states, k_states) and torch.equal(p_one,
+                                                                 k_states)
+                 and t_subs.tolist() == k_subs and t_h.tolist() == k_h
+                 and t_info.tolist() == [n_outer, steps_integ.h_current,
+                                         steps_integ.n_substeps,
+                                         steps_integ.h_current]
+                 and (one.h_current, one.n_substeps)
+                 == (steps_integ.h_current, steps_integ.n_substeps))
+    check(traj_bits, "phase 10b: TRAJECTORY differs from the ADAPTIVE "
+          "launches of step (states, substeps, h or the integrator's "
+          "h_current and n_substeps)")
     # ADAPTIVE against its plain version on the card, outer step by step
-    k_states, k_subs, k_h = _dp87_run(DormandPrince87(accel, rtol=1e-10,
-                                                      device=DEVICE),
-                                      on_card, n_outer)
     p_states, p_subs, p_h = _dp87_run(DormandPrince87(
         _plain_model(accel), rtol=1e-10, device=DEVICE), on_card, n_outer)
     err = float((k_states - p_states)[:, :3].abs().max())
@@ -4059,8 +4207,20 @@ def _phase10b_dp87(smi):
     h_rel = max(_rel(a, b) for a, b in zip(k_h, p_h))
     check(h_rel <= ADAPTIVE_H_RTOL, f"phase 10b: ADAPTIVE's h_current vs "
           f"its plain version's, relative {h_rel} on some outer step")
+    # TRAJECTORY against its plain version on the card
+    r_states, r_subs, r_h, r_info = adaptive_trajectory_reference(
+        deriv, on_card, 0.0, 60.0, n_outer + 1, rtol=1e-10, atol=1e-12)
+    t_err = float((t_states - r_states)[:, :3].abs().max())
+    t_h_rel = float(((t_h - r_h).abs() / r_h.abs()).max())
+    check(t_subs.tolist() == r_subs.tolist()
+          and t_err <= ADAPTIVE_TOL_KM and t_h_rel <= ADAPTIVE_H_RTOL,
+          f"phase 10b: TRAJECTORY vs its plain version: counts equal "
+          f"{t_subs.tolist() == r_subs.tolist()}, max|dr| {t_err} km, h "
+          f"relative {t_h_rel}")
     # where h binds: from each state of the trajectory, not carried
-    bind = _dp87_binding(_dp87_deriv(), p_states[:-1], p_h)
+    bind = _dp87_binding(deriv, p_states[:-1], p_h)
+    # a model of each other signature
+    sigs = _dp87_signatures(on_card)
     # a circular 500 km orbit returns to its start after one period
     r0 = EARTH.eq_radius + 500.0
     vc = np.sqrt(EARTH.mu / r0)
@@ -4071,41 +4231,59 @@ def _phase10b_dp87(smi):
         circ, 0.0, per, per).cpu().numpy()
     closure = float(np.linalg.norm(end[:3] - circ[:3]))
     check(closure < 1e-3, f"phase 10b: circular orbit closure {closure} km")
-    # one outer step (0 -> 60 s from the ISS state) of each, in turns
-    deriv = _dp87_deriv()
-    kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0,
-              max_substeps=10000)
+    # one outer step (0 -> 60 s from the ISS state) of ADAPTIVE, and the
+    # whole trajectory through TRAJECTORY, each in turns with its plain
+    # version
+    step_kw = dict(kw, max_substeps=10000)
     turns = _integrate_turns(
         lambda: cuda_integrate.adaptive(deriv, on_card, 0.0, 60.0, 60.0,
-                                        **kw),
-        lambda: cuda_integrate.adaptive_launch(deriv, on_card, 0.0, 60.0,
-                                               60.0, **kw),
-        lambda: cuda_integrate.adaptive_reference(deriv, on_card, 0.0, 60.0,
-                                                  60.0, **kw),
+                                        **step_kw),
+        lambda: cuda_integrate.trajectory(deriv, on_card, 0.0, 60.0, 2,
+                                          h_carried=60.0, **step_kw),
+        lambda: adaptive_reference(deriv, on_card, 0.0, 60.0, 60.0,
+                                   **step_kw),
         200, plain_reps=20)
-    f32, f64 = count_ops(lambda: cuda_integrate.adaptive_reference(
-        deriv, on_card, 0.0, 60.0, 60.0, **kw))
+    f32, f64 = count_ops(lambda: adaptive_reference(
+        deriv, on_card, 0.0, 60.0, 60.0, **step_kw))
     step_bound = bound(nbytes(on_card) + 9 * 8, f32, f64)
-    mean = {r: float(np.mean(ms[r])) for r in ms}
+    traj_turns = _integrate_turns(
+        lambda: Propagator(DormandPrince87(accel, rtol=1e-10)).propagate(
+            on_card, 0.0, NUMERICAL_DP87_S, 60.0),
+        lambda: cuda_integrate.trajectory(deriv, on_card, 0.0, 60.0,
+                                          n_outer + 1, h_carried=None, **kw),
+        lambda: adaptive_trajectory_reference(
+            deriv, on_card, 0.0, 60.0, n_outer + 1, rtol=1e-10, atol=1e-12),
+        5, per_graph=1)
+    f32, f64 = count_ops(lambda: adaptive_trajectory_reference(
+        deriv, on_card, 0.0, 60.0, n_outer + 1, rtol=1e-10, atol=1e-12))
+    traj_bound = bound(nbytes(on_card, t_states, t_subs, t_h, t_info), f32,
+                       f64)
+    clock = _max_sm_clock_hz()
     n = subs["kernel"]
-    turns_text = {r: ", ".join(f"{x:.1f}" for x in ms[r]) for r in ms}
+    traj_cycles = traj_turns.device_ms * 1e-3 * clock / n
+    mean = {r: float(np.mean(ms[r])) for r in ms}
+    turns_text = {r: ", ".join(f"{x:.2f}" for x in ms[r]) for r in ms}
     fastest = min(mean, key=mean.get)
     print(f"# phase 10 [{smi}]: 10b: Propagator(DormandPrince87(Composite("
           f"[TwoBody, J2]), rtol 1e-10)), ISS {NUMERICAL_DP87_S / 3600:.0f} h "
           f"at 60 s outer steps: {n} substeps on each route; host "
           f"{mean['cpu']:.1f} ms ({turns_text['cpu']}), card through "
-          f"ADAPTIVE {mean['kernel']:.2f} ms ({turns_text['kernel']}), card "
-          f"through its plain version {mean['plain']:.1f} ms "
-          f"({turns_text['plain']}) (host clock, in turns host, plain, "
-          f"kernel, kernel, plain, host); {mean['cpu'] / n:.4f} / "
-          f"{mean['kernel'] / n:.4f} / {mean['plain'] / n:.4f} ms a "
-          f"substep; launches {moved}; {reads} host syncs in a card call "
-          f"of {short['n']} substeps over 1 h (one read an outer step, and "
-          f"the final state's copy); the fastest, {fastest}, wins by "
+          f"TRAJECTORY {mean['kernel']:.3f} ms ({turns_text['kernel']}), "
+          f"card through step (ADAPTIVE an outer step) {mean['steps']:.2f} "
+          f"ms ({turns_text['steps']}), card through the plain loop "
+          f"{mean['plain']:.1f} ms ({turns_text['plain']}) (host clock, the "
+          f"final state's copy included, in turns host, plain, step, "
+          f"TRAJECTORY, TRAJECTORY, step, plain, host); launches of "
+          f"Propagator.propagate and the loop of step calls {moved}; "
+          f"{reads} host sync in a Propagator.propagate call of 1 h; the "
+          f"fastest, {fastest}, wins by "
           f"{sorted(mean.values())[1] / mean[fastest]:.1f}x over the next")
-    print(f"# phase 10 [{smi}]: 10b: ADAPTIVE vs its plain version on the "
-          f"card over the {n_outer} outer steps: substep counts equal on "
-          f"each, max|dr| {err:.3e} km (bit-equal: {bits}); card vs host "
+    print(f"# phase 10 [{smi}]: 10b: TRAJECTORY bit-equal to the ADAPTIVE "
+          f"launches over the {n_outer} outer steps (states, substeps, h, "
+          f"h_current, n_substeps: {traj_bits}); against its plain version "
+          f"counts equal, max|dr| {t_err!r} km, h within {t_h_rel!r} "
+          f"relative; ADAPTIVE vs its plain version: substep counts equal "
+          f"on each, max|dr| {err:.3e} km (bit-equal: {bits}); card vs host "
           f"final |dr| {dr:.3e} km; a circular 500 km orbit, TwoBody, rtol "
           f"1e-12, back at its start after one period within "
           f"{closure * 1e3:.3f} m on the card")
@@ -4121,13 +4299,29 @@ def _phase10b_dp87(smi):
           f"{bind['whole_bits']} of {bind['starts']} bit-equal, max|d| "
           f"{bind['whole_dr']!r} km, h_final within {bind['whole_h_rel']!r} "
           f"relative")
+    print(f"# phase 10 [{smi}]: 10b: the other signatures, "
+          f"{NUMERICAL_SIGNATURE_S / 3600:.0f} h at 60 s outer steps: "
+          f"TRAJECTORY bit-equal to the loop of step calls and, against its "
+          f"plain version, counts equal; " + "; ".join(
+              f"{k}: {v[0]} substeps ({v[1]} outer steps of several), "
+              f"states bit-equal up to {'the end' if v[2] is None else v[2]}"
+              f", max|dr| {v[3]!r} km, h within {v[4]!r} relative over "
+              f"{v[5]} outer steps" for k, v in sigs.items()))
     print(f"# phase 10 [{smi}]: 10b: one dp87_adaptive call (0 -> 60 s "
-          f"from the ISS state): {turns.text('integrate_adaptive')}; "
-          f"bound {step_bound[0]:.6f} ms ({step_bound[1]}; one thread's "
-          f"dependent chain, which no bound sees)")
-    return _integrate_entry("integrate_adaptive",
-                            moved["integrate_adaptive"], err, turns,
-                            step_bound)
+          f"from the ISS state, one substep): "
+          f"{turns.text('integrate_adaptive')}; bound "
+          f"{step_bound[0]:.6f} ms ({step_bound[1]})")
+    print(f"# phase 10 [{smi}]: 10b: the whole trajectory ({n_outer} outer "
+          f"steps, {n} substeps): {traj_turns.text('integrate_trajectory')}; "
+          f"{traj_cycles:.0f} cycles a substep replayed at "
+          f"{clock / 1e9:.3f} GHz; bound {traj_bound[0]:.6f} ms "
+          f"({traj_bound[1]})")
+    return (_integrate_entry("integrate_adaptive",
+                             moved["integrate_adaptive"], err, turns,
+                             step_bound),
+            _integrate_entry("integrate_trajectory",
+                             moved["integrate_trajectory"], t_err,
+                             traj_turns, traj_bound))
 
 
 def _phase10c_hohmann(smi):
@@ -4171,7 +4365,8 @@ def _phase10d_spacecraft(smi):
     kernel (FIXED, ATTITUDE), on the card through their plain versions,
     and on the host. Returns ATTITUDE's kernels-line entry and FIXED's
     launches on the spacecraft's path."""
-    from astroz_tpu_torch.calculations import state_to_elements
+    from astroz_tpu_torch.calculations import (attitude_reference,
+                                               state_to_elements)
     from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.spacecraft import Impulse, ImpulseKind, Spacecraft
     from astroz_tpu_torch.tle import parse_lines
@@ -4255,8 +4450,7 @@ def _phase10d_spacecraft(smi):
         return cuda_integrate.attitude(*args, 0.01, NUMERICAL_ATTITUDE_STEPS)
 
     def att_plain():
-        return cuda_integrate.attitude_reference(*args, 0.01,
-                                                 NUMERICAL_ATTITUDE_STEPS)
+        return attitude_reference(*args, 0.01, NUMERICAL_ATTITUDE_STEPS)
 
     got, want = att_kernel(), att_plain()
     att_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -4264,10 +4458,11 @@ def _phase10d_spacecraft(smi):
           f"phase 10d: ATTITUDE differs from its plain version by {att_err}")
     att_turns = _integrate_turns(att_kernel, att_kernel, att_plain, 5,
                                  per_graph=2)
-    f32, f64 = count_ops(lambda: cuda_integrate.attitude_reference(
-        *args, 0.01, 100))
+    f32, f64 = count_ops(lambda: attitude_reference(*args, 0.01, 100))
     att_bound = bound(nbytes(*args, *got), f32 * NUMERICAL_ATTITUDE_STEPS
                       / 100, f64 * NUMERICAL_ATTITUDE_STEPS / 100)
+    clock = _max_sm_clock_hz()
+    att_cycles = att_turns.device_ms * 1e-3 * clock / NUMERICAL_ATTITUDE_STEPS
     mean = {r: float(np.mean(ms[r])) for r in ms}
     print(f"# phase 10 [{smi}]: 10d: Spacecraft.from_tle(ISS).propagate "
           f"over 6 h at 30 s ({len(times)} samples) with a 0.1 km/s "
@@ -4287,13 +4482,69 @@ def _phase10d_spacecraft(smi):
           f"Spacecraft.propagate_attitude); launches {att_moved}; card vs "
           f"host max diff {dq:.1e}; ATTITUDE bit-equal to its plain version "
           f"on the card (max diff {att_err}); "
-          f"{att_turns.text('integrate_attitude')}; bound "
-          f"{att_bound[0]:.6f} ms ({att_bound[1]}; one thread's dependent "
-          f"chain)")
+          f"{att_turns.text('integrate_attitude')}; {att_cycles:.1f} "
+          f"cycles a step replayed at {clock / 1e9:.3f} GHz; bound "
+          f"{att_bound[0]:.6f} ms ({att_bound[1]})")
     return (_integrate_entry("integrate_attitude",
                              att_moved["integrate_attitude"], att_err,
                              att_turns, att_bound),
             moved["integrate_fixed"])
+
+
+#: the divide probe's random pairs: significands, signs and exponents
+#: over +-DIVIDE_EXPONENTS
+DIVIDE_PAIRS = 10 ** 7
+DIVIDE_EXPONENTS = 60
+
+
+def _divide_probe(smi):
+    """The integrator kernel's divides through a reciprocal (TwoBody's,
+    ATTITUDE's) and its reciprocals against ``__ddiv_rn`` on the card, bit
+    for bit: DIVIDE_PAIRS random pairs, as many with a / b just below a
+    power of two (where a RN(1/b) is furthest from a / b), and the edges
+    (zeros, subnormals, inf, NaN, the window's bounds, quotients that
+    under- or overflow). Returns the mismatches."""
+    from astroz_tpu_torch.ops import cuda_integrate
+
+    gen = torch.Generator(device=DEVICE).manual_seed(NUMERICAL_SEED)
+
+    def randoms(n, e):
+        m = 1.0 + torch.rand(n, generator=gen, device=DEVICE,
+                             dtype=torch.float64)
+        x = torch.ldexp(m, torch.randint(-e, e + 1, (n,), generator=gen,
+                                         device=DEVICE))
+        return x * (torch.randint(0, 2, (n,), generator=gen,
+                                  device=DEVICE) * 2 - 1)
+
+    b = 1.5 + 0.5 * torch.rand(DIVIDE_PAIRS, generator=gen, device=DEVICE,
+                               dtype=torch.float64)
+    d = torch.ldexp(torch.ones_like(b), torch.randint(
+        -52, -7, (DIVIDE_PAIRS,), generator=gen, device=DEVICE))
+    edges = torch.tensor([0.0, -0.0, 5e-324, -5e-324, 1e-310, 2.2e-308,
+                          float("inf"), -float("inf"), float("nan"),
+                          2.0 ** -400, 2.0 ** -401, 2.0 ** 400, 2.0 ** 401,
+                          1e300, -1e300, 1e-300, 3.0, -7.5, 1.0],
+                         dtype=torch.float64, device=DEVICE)
+    ea, eb = torch.meshgrid(edges, edges, indexing="ij")
+    sets = {"random": (randoms(DIVIDE_PAIRS, DIVIDE_EXPONENTS),
+                       randoms(DIVIDE_PAIRS, DIVIDE_EXPONENTS)),
+            "a/b just below a power of two": (b * (1.0 - d), b),
+            "edges": (ea.reshape(-1), eb.reshape(-1))}
+    miss = {}
+    for name, (x, y) in sets.items():
+        got, want, rcp, rcp_want = cuda_integrate.divide_probe(x, y)
+        miss[name] = (int((got.view(torch.int64)
+                           != want.view(torch.int64)).sum()),
+                      int((rcp.view(torch.int64)
+                           != rcp_want.view(torch.int64)).sum()), x.numel())
+    check(all(m[0] == m[1] == 0 for m in miss.values()),
+          f"phase 10d: the integrator kernel's divides differ from "
+          f"__ddiv_rn: {miss}")
+    print(f"# phase 10 [{smi}]: 10d: the divides through a reciprocal "
+          f"(RN(1/b), two corrections) and the reciprocals against "
+          f"__ddiv_rn, mismatches (quotients, reciprocals, pairs): "
+          + "; ".join(f"{k} {v}" for k, v in miss.items()))
+    return miss
 
 
 def numerical_phase():
@@ -4311,14 +4562,18 @@ def numerical_phase():
           f"eager f64 op {ops['card']:.2f} us on the card, {ops['host']:.2f} "
           f"us on the host")
     fixed, step_ms = _phase10a_lanes(smi)
-    adaptive = _phase10b_dp87(smi)
+    adaptive, trajectory = _phase10b_dp87(smi)
     _phase10c_hohmann(smi)
     attitude, craft_launches = _phase10d_spacecraft(smi)
     fixed["launches"] += craft_launches  # the main path: 10a and 10d
+    _divide_probe(smi)
     launch = _numerical_launches()
-    check(launch["rk4_kernels"] == 1 and launch["dp87_step_kernels"] == 1,
+    check(launch["rk4_kernels"] == 1 and launch["dp87_step_kernels"] == 1
+          and launch["trajectory_kernels"] == 1
+          and launch["trajectory_reads"] == 1,
           f"phase 10: the profiler saw {launch}: not one kernel for "
-          f"{LAUNCH_STEPS} RK4 steps and one for a DP8(7) outer step")
+          f"{LAUNCH_STEPS} RK4 steps, one for a DP8(7) outer step, and one "
+          f"kernel and one read for a Propagator.propagate call")
     after = {"card": _op_us(DEVICE), "host": _op_us("cpu")}
     print(f"# phase 10 [{smi}]: device work (profiler, run last): "
           f"{LAUNCH_STEPS} RK4 steps of 10a {launch['rk4_kernels']} kernel, "
@@ -4326,11 +4581,15 @@ def numerical_phase():
           f"({step_ms * LAUNCH_STEPS * 1e3:.1f} us for them in 10a); a "
           f"DP8(7) outer step of 10b {launch['dp87_step_kernels']} kernel, "
           f"{launch['dp87_step_activities']} activities (the read of h and "
-          f"the substeps); one eager op after the profiler session "
-          f"{after['card']:.2f} us on the card, {after['host']:.2f} us on "
-          f"the host")
+          f"the substeps); a Propagator.propagate of 10b over 1 h (60 outer "
+          f"steps) {launch['trajectory_kernels']} kernel, "
+          f"{launch['trajectory_reads']} read, "
+          f"{launch['trajectory_activities']} activities; one eager op "
+          f"after the profiler session {after['card']:.2f} us on the card, "
+          f"{after['host']:.2f} us on the host")
     check("jax" not in sys.modules, "phase 10 loaded jax")
-    print("# phase 10 kernels: " + json.dumps([fixed, adaptive, attitude]))
+    print("# phase 10 kernels: " + json.dumps([fixed, adaptive, trajectory,
+                                               attitude]))
 
 
 def phase10_numerical():
@@ -4460,7 +4719,8 @@ def main():
               f64_launches["sgp4_f64_scan"], f64_err["scan"], f64_scan),
         # not TPU kernels: the XLA scan and while loop of the numerical
         # stack (phase 10, whose launches are its main path's: 10a and the
-        # spacecraft of 10d, 10b's trajectory, 10d's attitude)
+        # spacecraft of 10d, 10b's trajectory through step and through
+        # Propagator.propagate, 10d's attitude)
         *integrate]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1099,6 +1099,814 @@ def host_pow_rounding(n=50000):
           f"the correctly rounded value on {off} of {n} inputs")
 
 
+# ---------------------------------------------------------------------------
+# --integrate-probes: where the integrator kernel's serial modes spend their
+# cycles
+# ---------------------------------------------------------------------------
+
+_INTEGRATE_CU = "csrc/integrate_f64.cu"
+
+#: dependent-latency microbenchmarks on one thread, and the divide
+#: corrections against __ddiv_rn; built with --fmad=true, as the integrator
+#: kernel is
+_LATENCY_CU = r"""
+#include <cstdint>
+
+namespace {
+
+// Markstein's correction of q0 = a * y, y = RN(1/b): RN(a / b) when q0 is
+// within an ulp of a / b
+__device__ __forceinline__ double div1(double a, double b, double y) {
+  const double q0 = __dmul_rn(a, y);
+  return __fma_rn(__fma_rn(-q0, b, a), y, q0);
+}
+// the same correction twice
+__device__ __forceinline__ double div2(double a, double b, double y) {
+  const double q1 = div1(a, b, y);
+  return __fma_rn(__fma_rn(-q1, b, a), y, q1);
+}
+
+enum { ADD, MUL, FMA, RESET, DIV, RCP, SQRT, POW5, EXP, DIV1, DIV2 };
+
+template <int OP>
+__device__ __forceinline__ double op(double a, double x, double b,
+                                     double yb) {
+  if (OP == ADD) return __dadd_rn(a, b);
+  if (OP == MUL) return __dmul_rn(a, b);
+  if (OP == FMA) return __fma_rn(a, b, x);
+  const double t = __fma_rn(a, 0.0, x);  // x again, once a is known
+  if (OP == RESET) return t;
+  if (OP == DIV) return __ddiv_rn(t, b);
+  if (OP == RCP) return __drcp_rn(t);
+  if (OP == SQRT) return __dsqrt_rn(t);
+  if (OP == POW5) return pow(t, 5.0);
+  if (OP == EXP) return exp(t);
+  if (OP == DIV1) return div1(t, b, yb);
+  return div2(t, b, yb);
+}
+
+template <int OP>
+__global__ void __launch_bounds__(1)
+    latency_kernel(double x, double b, long long n, double* out,
+                   long long* cycles) {
+  double a = x;
+  const double yb = __drcp_rn(b);
+  const long long c0 = clock64();
+#pragma unroll 1
+  for (long long i = 0; i < n; ++i) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) a = op<OP>(a, x, b, yb);
+  }
+  const long long c1 = clock64();
+  out[0] = a;
+  cycles[0] = c1 - c0;
+}
+
+__device__ __forceinline__ uint64_t mix(uint64_t z) {
+  z += 0x9e3779b97f4a7c15ull;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+// a double in [1, 2) with the 52 low bits of r as its mantissa
+__device__ __forceinline__ double unit(uint64_t r) {
+  return __longlong_as_double(
+      (long long)((r & 0xfffffffffffffull) | 0x3ff0000000000000ull));
+}
+
+// pair k of a set: 0 random significands, signs and exponents in
+// [-40, 40]; 1 a / b just below a power of two (b in [1.5, 2), a = b (1 -
+// d), d in [2^-52, 2^-8]), where RN(a RN(1/b)) is furthest from a / b; 2
+// a / b near a midpoint (a = RN((q + 2^-53) b)); sets 1 and 2 scaled by
+// powers of two in [-30, 30]
+__device__ __forceinline__ void pair(int set, uint64_t seed, long long k,
+                                     double& a, double& b) {
+  const uint64_t r1 = mix(seed ^ (2 * k)), r2 = mix(seed ^ (2 * k + 1));
+  const uint64_t r3 = mix(r1 ^ r2);
+  const int e1 = (int)(r3 % 61) - 30, e2 = (int)((r3 >> 16) % 61) - 30;
+  if (set == 0) {
+    a = ldexp(unit(r1), (int)(r3 % 81) - 40) * ((r3 >> 40) & 1 ? -1 : 1);
+    b = ldexp(unit(r2), (int)((r3 >> 8) % 81) - 40) *
+        ((r3 >> 41) & 1 ? -1 : 1);
+    return;
+  }
+  if (set == 1) {
+    b = 1.5 + 0.5 * (unit(r2) - 1.0);
+    const double d = ldexp(unit(r1), -52 + (int)((r3 >> 24) % 45));
+    a = __dmul_rn(b, __dsub_rn(1.0, d));
+  } else {
+    const double q = unit(r1);
+    b = unit(r2);
+    a = __fma_rn(q, b, ldexp(b, -53));
+  }
+  a = ldexp(a, e1);
+  b = ldexp(b, e2);
+}
+
+__global__ void divide_probe_kernel(int set, long long n, uint64_t seed,
+                                    unsigned long long* miss,
+                                    double* example) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       k < n; k += stride) {
+    double a, b;
+    pair(set, seed, k, a, b);
+    const double want = __ddiv_rn(a, b), y = __drcp_rn(b);
+    const double got[2] = {div1(a, b, y), div2(a, b, y)};
+    for (int v = 0; v < 2; ++v) {
+      if (__double_as_longlong(got[v]) != __double_as_longlong(want)) {
+        if (atomicAdd(&miss[v], 1ull) == 0) {
+          example[2 * v] = a;
+          example[2 * v + 1] = b;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int astroz_latency(int op, double x, double b, long long n,
+                              double* out, long long* cycles) {
+  switch (op) {
+#define CASE(k) \
+  case k:       \
+    latency_kernel<k><<<1, 1>>>(x, b, n, out, cycles); \
+    break;
+    CASE(ADD) CASE(MUL) CASE(FMA) CASE(RESET) CASE(DIV) CASE(RCP)
+    CASE(SQRT) CASE(POW5) CASE(EXP) CASE(DIV1) CASE(DIV2)
+#undef CASE
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int astroz_divide_probe(int set, long long n,
+                                   unsigned long long seed,
+                                   unsigned long long* miss,
+                                   double* example) {
+  divide_probe_kernel<<<264, 256>>>(set, n, seed, miss, example);
+  return (int)cudaGetLastError();
+}
+"""
+#: the microbenchmarks' ops in the order of the source's enum, with the
+#: divisor ``b`` each takes; those from RESET on run after a reset (an FMA
+#: by 0), whose latency is taken off theirs
+LATENCY_OPS = (("DADD", 1.0), ("DMUL", 1.0), ("DFMA", 1.0),
+               ("reset", 3.0), ("__ddiv_rn", 3.0), ("__drcp_rn", 3.0),
+               ("__dsqrt_rn", 3.0), ("pow(x, 5.0)", 3.0), ("exp", 3.0),
+               ("one correction", 3.0), ("two corrections", 3.0))
+DIVIDE_SETS = ("random", "a/b just below a power of two",
+               "a/b near a midpoint")
+
+#: clock64() probes in the integrator kernel as it stood before its
+#: one-launch trajectory mode: a region's cycles accumulate in shared
+#: memory between two probes, and are copied out when the kernel ends.
+#: Regions: 0 a DP8(7) stage's sum, 3 deriv's |r| (norm3's sqrt), 4
+#: TwoBody (three divides by |r|^3), 7 J2's z / |r|, 5 J2's pow(|r|, 5)
+#: and its reciprocal, 6 the rest of J2, 1 the terms' sum, 2 the stage's
+#: store and its 8th and 7th order sums, 8 the error norm, 9 the
+#: step-size law and the accept, 10 the loop's head and the clamp;
+#: ATTITUDE: 11 the four stages, 12 the weighted sum, 13 the
+#: normalisation; 15 back-to-back probes (a probe's own cost)
+_PROBE_HEAD = r"""#include <cstdint>
+__shared__ long long PROBE_ACC[16];
+__shared__ long long PROBE_LAST;
+__device__ long long PROBE_OUT[16];
+#define PROBE(k)                              \
+  do {                                        \
+    const long long _c = clock64();           \
+    PROBE_ACC[k] += _c - PROBE_LAST;          \
+    PROBE_LAST = _c;                          \
+  } while (0)
+#define PROBE_START()                                  \
+  do {                                                 \
+    for (int _k = 0; _k < 16; ++_k) PROBE_ACC[_k] = 0; \
+    PROBE_LAST = clock64();                            \
+    _Pragma("unroll") for (int _k = 0; _k < 64; ++_k) PROBE(15); \
+  } while (0)
+#define PROBE_END() \
+  for (int _k = 0; _k < 16; ++_k) PROBE_OUT[_k] = PROBE_ACC[_k]
+"""
+INTEGRATE_PROBES = [
+    (_INTEGRATE_CU, "#include <cstdint>\n", _PROBE_HEAD, 1),
+    (_INTEGRATE_CU, "  const D rn = norm3(r[0], r[1], r[2]);\n  D a[3];\n",
+     "  const D rn = norm3(r[0], r[1], r[2]);\n  PROBE(3);\n  D a[3];\n", 1),
+    (_INTEGRATE_CU, "      for (int i = 0; i < 3; ++i) a[i] = (r[i] * "
+     "D(p[0])) / c;\n      break;", "      for (int i = 0; i < 3; ++i) "
+     "a[i] = (r[i] * D(p[0])) / c;\n      PROBE(4);\n      break;", 1),
+    (_INTEGRATE_CU, "      const D z2 = zr * zr;\n      const D k = recip("
+     "pow(rn, 5.0)) * D(p[0]);\n", "      const D z2 = zr * zr;\n      "
+     "PROBE(7);\n      const D k = recip(pow(rn, 5.0)) * D(p[0]);\n      "
+     "PROBE(5);\n", 1),
+    (_INTEGRATE_CU, "      const D zt = D(3.0) - D(5.0) * z2;\n      a[0] = "
+     "k * (r[0] * xy);\n      a[1] = k * (r[1] * xy);\n      a[2] = k * "
+     "(r[2] * zt);\n      break;", "      const D zt = D(3.0) - D(5.0) * "
+     "z2;\n      a[0] = k * (r[0] * xy);\n      a[1] = k * (r[1] * xy);\n"
+     "      a[2] = k * (r[2] * zt);\n      PROBE(6);\n      break;", 1),
+    (_INTEGRATE_CU, "    deriv(m, s, k);\n#pragma unroll\n    for (int c = 0; "
+     "c < 6; ++c) ks[i][c][me] = k[c].v;", "    PROBE(0);\n    deriv(m, s, "
+     "k);\n    PROBE(1);\n#pragma unroll\n    for (int c = 0; c < 6; ++c) "
+     "ks[i][c][me] = k[c].v;", 1),
+    (_INTEGRATE_CU, "y7[c] = y7[c] + hb * k[c];\n    }\n  }\n}",
+     "y7[c] = y7[c] + hb * k[c];\n    }\n    PROBE(2);\n  }\n}", 1),
+    (_INTEGRATE_CU, "  stage_model(m, model);\n  D y[6];\n",
+     "  stage_model(m, model);\n  PROBE_START();\n  D y[6];\n", 1),
+    (_INTEGRATE_CU, "    dp87_step<1, true>(m, ks, y, hs, y8, y7);",
+     "    PROBE(10);\n    dp87_step<1, true>(m, ks, y, hs, y8, y7);", 1),
+    (_INTEGRATE_CU, "      err_norm = c == 0 ? e : maximum(err_norm, e);\n"
+     "    }\n", "      err_norm = c == 0 ? e : maximum(err_norm, e);\n    }"
+     "\n    PROBE(8);\n", 1),
+    (_INTEGRATE_CU, "    ++steps;\n  }\n", "    PROBE(9);\n    ++steps;\n  }"
+     "\n  PROBE_END();\n", 1),
+    (_INTEGRATE_CU, "  const D h = dt, half = D(0.5) * h, sixth = h / D(6.0);"
+     "\n", "  const D h = dt, half = D(0.5) * h, sixth = h / D(6.0);\n  "
+     "PROBE_START();\n", 1),
+    (_INTEGRATE_CU, "#pragma unroll\n    for (int c = 0; c < 4; ++c) q[c] = "
+     "q[c] + sixth * aq[c];", "    PROBE(11);\n#pragma unroll\n    for (int "
+     "c = 0; c < 4; ++c) q[c] = q[c] + sixth * aq[c];", 1),
+    (_INTEGRATE_CU, "    const D n4 = norm4(q[0], q[1], q[2], q[3]);",
+     "    PROBE(12);\n    const D n4 = norm4(q[0], q[1], q[2], q[3]);", 1),
+    (_INTEGRATE_CU, "for (int c = 0; c < 4; ++c) q[c] = q[c] / n4;\n  }\n",
+     "for (int c = 0; c < 4; ++c) q[c] = q[c] / n4;\n    PROBE(13);\n  }\n"
+     "  PROBE_END();\n", 1),
+    (_INTEGRATE_CU, "n_bodies, n_steps, dt);\n  }\n  return static_cast<int>("
+     "cudaGetLastError());\n}\n", "n_bodies, n_steps, dt);\n  }\n  return "
+     "static_cast<int>(cudaGetLastError());\n}\n\nextern \"C\" int "
+     "astroz_probe_read(long long* out) {\n  return static_cast<int>("
+     "cudaMemcpyFromSymbol(out, PROBE_OUT, sizeof(PROBE_OUT)));\n}\n", 1)]
+#: the same regions in the integrator kernel with the one-launch
+#: trajectory mode (``dp87_adaptive`` one outer step of it): DP8(7)'s
+#: stages written out, the derivative of a fixed signature (TwoBody + J2)
+#: inlined, TwoBody's divides through one reciprocal; ATTITUDE: 0-3 its
+#: four stages, 4 the weighted sum, 5 the normalisation and the
+#: fallback's test. INTEGRATE_PROBES stays for the kernel before it, whose
+#: regions PERF.md's step 0 gives (``--tree`` a checkout of it)
+INTEGRATE_PROBES_V2 = [
+    INTEGRATE_PROBES[0],
+    (_INTEGRATE_CU, "    const D rn = norm3(r[0], r[1], r[2]);\n    D a[3];\n"
+     "    kind_accel<sig_kind(SIG, 0)>", "    const D rn = norm3(r[0], r[1], "
+     "r[2]);\n    PROBE(3);\n    D a[3];\n    kind_accel<sig_kind(SIG, 0)>",
+     1),
+    (_INTEGRATE_CU, "    divide3(n, c, a);\n  } else if constexpr (KIND == J2)",
+     "    divide3(n, c, a);\n    PROBE(4);\n  } else if constexpr (KIND == "
+     "J2)", 1),
+    (_INTEGRATE_CU, "    const D z2 = zr * zr;\n    const D k = recip(pow(rn, "
+     "5.0)) * D(p[0]);\n", "    const D z2 = zr * zr;\n    PROBE(7);\n    "
+     "const D k = recip(pow(rn, 5.0)) * D(p[0]);\n    PROBE(5);\n", 1),
+    (_INTEGRATE_CU, "    a[2] = k * (r[2] * zt);\n  } else if constexpr (KIND "
+     "== J3)", "    a[2] = k * (r[2] * zt);\n    PROBE(6);\n  } else if "
+     "constexpr (KIND == J3)", 1),
+    (_INTEGRATE_CU, "    sig_terms<SIG, 1>(m, r, v, rn, a);\n",
+     "    sig_terms<SIG, 1>(m, r, v, rn, a);\n    PROBE(1);\n", 1),
+    (_INTEGRATE_CU, "    stage_sum<I, 0>(s, h, ks);\n    deriv_sig<SIG>(m, s, "
+     "k);\n", "    stage_sum<I, 0>(s, h, ks);\n    PROBE(0);\n    deriv_sig"
+     "<SIG>(m, s, k);\n", 1),
+    (_INTEGRATE_CU, "    dp87_stages<I + 1, SIG, EMBEDDED>(m, y, h, ks, y8, "
+     "y7);", "    PROBE(2);\n    dp87_stages<I + 1, SIG, EMBEDDED>(m, y, h, "
+     "ks, y8, y7);", 1),
+    (_INTEGRATE_CU, "    dp87_step<SIG, true>(m, ks, y, hs, y8, y7);",
+     "    PROBE(10);\n    dp87_step<SIG, true>(m, ks, y, hs, y8, y7);", 1),
+    (_INTEGRATE_CU, "      err_norm = i == 0 ? e : maximum(err_norm, e);\n"
+     "    }\n", "      err_norm = i == 0 ? e : maximum(err_norm, e);\n    }"
+     "\n    PROBE(8);\n", 1),
+    (_INTEGRATE_CU, "    ++steps;\n  }\n  return steps;",
+     "    PROBE(9);\n    ++steps;\n  }\n  return steps;", 1),
+    (_INTEGRATE_CU, "    states[c] = y[c].v;\n  }\n  const double nan",
+     "    states[c] = y[c].v;\n  }\n  PROBE_START();\n  const double nan",
+     1),
+    (_INTEGRATE_CU, "  info[3] = h_last.v;\n", "  info[3] = h_last.v;\n"
+     "  PROBE_END();\n", 1),
+    INTEGRATE_PROBES[11],
+    *[(_INTEGRATE_CU, f"  attitude_stage<{k}, FAST>(q, w, sq, sw, aq, aw, I, "
+       f"y, T, half, h, ok);\n", f"  attitude_stage<{k}, FAST>(q, w, sq, sw, "
+       f"aq, aw, I, y, T, half, h, ok);\n  PROBE({k});\n", 1)
+      for k in range(4)],
+    (_INTEGRATE_CU, "  const D n4 = norm4(qn[0], qn[1], qn[2], qn[3]);",
+     "  PROBE(4);\n  const D n4 = norm4(qn[0], qn[1], qn[2], qn[3]);", 1),
+    (_INTEGRATE_CU, "    for (int c = 0; c < 3; ++c) w[c] = wn[c];\n  }\n",
+     "    for (int c = 0; c < 3; ++c) w[c] = wn[c];\n    PROBE(5);\n  }\n"
+     "  PROBE_END();\n", 1),
+    INTEGRATE_PROBES[-1]]
+#: the ATTITUDE regions of each set: slot -> name
+ATTITUDE_REGIONS = {"v1": {11: "4 stages", 12: "weighted sum",
+                           13: "normalisation (sqrt, 4 divides)"},
+                    "v2": {0: "stage 1", 1: "stage 2", 2: "stage 3",
+                           3: "stage 4", 4: "weighted sum",
+                           5: "normalisation (sqrt, one reciprocal, 4 "
+                              "corrections) and the fallback's test"}}
+#: region names of INTEGRATE_PROBES by slot
+PROBE_REGIONS = {0: "stage sum", 3: "deriv: norm3 (sqrt)",
+                 4: "deriv: TwoBody (3 divides)", 7: "deriv: J2 z/|r|",
+                 5: "deriv: J2 pow(|r|, 5) and recip",
+                 6: "deriv: J2 rest", 1: "deriv: terms' sum",
+                 2: "stage store, 8th/7th sums", 8: "error norm",
+                 9: "step-size law, accept", 10: "loop head, clamp",
+                 11: "ATTITUDE: 4 stages", 12: "ATTITUDE: weighted sum",
+                 13: "ATTITUDE: normalisation (sqrt, 4 divides)"}
+
+
+# The chain bound of the serial modes: the integrator kernel's arithmetic
+# of one DP8(7) substep (TwoBody + J2, adaptive_run) and of one ATTITUDE
+# step (attitude_step<true>), mirrored on the cycle at which each value is
+# ready on one thread: an operation starts when its last operand is ready
+# and takes its dependent latency. A compare or select (torch.maximum,
+# Python's min and max) counts as one f64 add; a sign change or |x| as
+# nothing (an operand modifier); the divides' window tests overlap. No
+# schedule beats the result: it is the dataflow's critical path.
+
+
+def _dp87_substep_times(lat, y, h, t):
+    """Ready cycles of (y, h, t) after one DP8(7) substep of TwoBody + J2
+    from ready cycles ``y`` (6), ``h`` and ``t``, at latencies ``lat``."""
+    from astroz_tpu_torch.propagators.integrators import _A, _B7, _B8
+
+    add, mul, fma = lat["DADD"], lat["DMUL"], lat["DFMA"]
+    div, rcp, sqrt = lat["__ddiv_rn"], lat["__drcp_rn"], lat["__dsqrt_rn"]
+    pow_, cmp = lat["pow(x, 5.0)"], lat["DADD"]
+    # the loop's test (t - end) * dir < 0, then the clamp's select between
+    # end - t and h on ((t + h) - end) * dir > 0
+    test = t + add + mul + cmp
+    hs = max(test, max(t, h) + add + add + mul + cmp, t + add)
+
+    def by_rcp(n, b, yb):  # div_by_rcp: a product, four FMAs
+        return max(max(n, yb) + mul, b) + 4 * fma
+
+    def deriv(s):
+        r, v = s[:3], s[3:]
+        rn = max(max(r[0], r[2]) + mul + add, r[1] + mul) + add + sqrt
+        # TwoBody: -mu r / rn^3 through one reciprocal
+        c3 = rn + mul + mul
+        tb = [by_rcp(x + mul, c3, c3 + rcp) for x in r]
+        # J2: zr = z / rn, k = recip(rn^5) * p, a = k * (r * xy)
+        z2 = max(r[2], rn) + div + mul
+        k = rn + pow_ + rcp + mul
+        poly = z2 + mul + add
+        j2 = [max(k, max(x, poly) + mul) + mul for x in r]
+        return list(v) + [max(a, b) + add for a, b in zip(tb, j2)]
+
+    ks, y8, y7 = [], list(y), list(y)
+    for i in range(13):
+        s = list(y)
+        for j, a in enumerate(_A[i]):
+            if a != 0:
+                ha = hs + mul
+                s = [max(x, max(ha, k) + mul) + add
+                     for x, k in zip(s, ks[j])]
+        ks.append(deriv(s))
+        if _B8[i] != 0:
+            y8 = [max(x, max(hs + mul, k) + mul) + add
+                  for x, k in zip(y8, ks[i])]
+        if _B7[i] != 0:
+            y7 = [max(x, max(hs + mul, k) + mul) + add
+                  for x, k in zip(y7, ks[i])]
+    # err = max(|y8 - y7| / (rtol * maximum(|y|, |y8|) + atol))
+    err = None
+    for a, b, c in zip(y, y8, y7):
+        e = max(max(b, c) + add, max(a, b) + cmp + mul + add) + div
+        err = e if err is None else max(err, e) + cmp
+    factor = err + cmp + pow_ + mul + cmp + cmp
+    h_new = max(hs, factor) + mul + cmp + cmp + mul
+    accept = err + cmp
+    y_new = [max(accept, b, a) for a, b in zip(y, y8)]
+    return y_new, h_new, max(accept, t, hs) + add
+
+
+def _attitude_step_times(lat, q, w):
+    """Ready cycles of (q, w) after one ATTITUDE step from ready cycles
+    ``q`` (4) and ``w`` (3), the inertia, its reciprocals and the torque
+    ready before, at latencies ``lat``."""
+    add, mul, fma = lat["DADD"], lat["DMUL"], lat["DFMA"]
+    rcp, sqrt = lat["__drcp_rn"], lat["__dsqrt_rn"]
+
+    def by_rcp(n, b, yb):
+        return max(max(n, yb) + mul, b) + 4 * fma
+
+    def deriv(sq, sw):
+        # qd = 0.5 q * [0, w]: three products summed left to right, then
+        # the half; each component's operands in attitude_deriv's order
+        order = (((0, None), (1, 0), (2, 1), (3, 2)),
+                 ((0, 0), (1, None), (2, 2), (3, 1)),
+                 ((0, 1), (1, 2), (2, None), (3, 0)),
+                 ((0, 2), (1, 1), (2, 0), (3, None)))
+        qd = []
+        for terms in order:
+            acc = None
+            for qi, wi in terms:
+                p = (sq[qi] if wi is None else max(sq[qi], sw[wi])) + mul
+                acc = p if acc is None else max(acc, p) + add
+            qd.append(acc + mul)
+        # wd = (T - w x (I w)) / I, the divide through 1 / I
+        iw = [x + mul for x in sw]
+        wd = []
+        for a, b in ((1, 2), (2, 0), (0, 1)):
+            cross = max(sw[a], iw[b], max(sw[b], iw[a]) + mul) + fma
+            wd.append(by_rcp(cross + add, 0.0, 0.0))
+        return qd, wd
+
+    sq, sw = list(q), list(w)
+    aq = aw = None
+    for st in range(4):
+        kq, kw = deriv(sq, sw)
+        if st == 0:
+            aq, aw = kq, kw
+        else:
+            wgt = mul if st in (1, 2) else 0.0
+            aq = [max(a, k + wgt) + add for a, k in zip(aq, kq)]
+            aw = [max(a, k + wgt) + add for a, k in zip(aw, kw)]
+        if st < 3:
+            sq = [max(x, k + mul) + add for x, k in zip(q, kq)]
+            sw = [max(x, k + mul) + add for x, k in zip(w, kw)]
+    qn = [max(x, a + mul) + add for x, a in zip(q, aq)]
+    wn = [max(x, a + mul) + add for x, a in zip(w, aw)]
+    n4 = max(max(qn[0], qn[2]) + mul + add,
+             max(qn[1], qn[3]) + mul + add) + add + sqrt
+    return [by_rcp(x, n4, n4 + rcp) for x in qn], wn
+
+
+def chain_cycles(lat, steps=64):
+    """The serial modes' chain bounds in cycles at latencies ``lat`` (the
+    keys of :func:`latencies`): for a DP8(7) substep of TwoBody + J2 and
+    an ATTITUDE step, the critical path of one step from inputs ready
+    together (``one``: a schedule that ends each step before the next,
+    as the kernel's loops do) and the steady-state cycles a step over
+    ``steps`` steps (``dataflow``: where values that do not wait for the
+    others, such as ATTITUDE's w, run steps ahead)."""
+    out = {}
+    for name, fn, init in (
+            ("dp87_substep",
+             lambda st: (lambda y, h, t: (*_dp87_substep_times(lat, y, h,
+                                                               t),))(*st),
+             ([0.0] * 6, 0.0, 0.0)),
+            ("attitude_step",
+             lambda st: _attitude_step_times(lat, *st),
+             ([0.0] * 4, [0.0] * 3))):
+        def ready(st):
+            return max(max(x) if isinstance(x, list) else x for x in st)
+
+        st = fn(init)
+        one = ready(st)
+        half = None
+        for k in range(1, steps):
+            if k == steps // 2:
+                half = ready(st)
+            st = fn(st)
+        out[name] = {"one": one,
+                     "dataflow": (ready(st) - half) / (steps - steps // 2)}
+    return out
+
+
+def _latency_library():
+    """The microbenchmarks of :data:`_LATENCY_CU`, built and bound."""
+    import ctypes
+
+    from astroz_tpu_torch import _build
+
+    d = VARIANT_DIR / "latency"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "latency.cu").write_text(_LATENCY_CU)
+    out = d / "liblatency.so"
+    flags = [f.replace("=false", "=true") for f in _build.NVCC_FLAGS]
+    subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(out),
+                    str(d / "latency.cu")], check=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    P, L, D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
+    lib.astroz_latency.argtypes = [ctypes.c_int, D, D, L, P, P]
+    lib.astroz_divide_probe.argtypes = [ctypes.c_int, L, ctypes.c_ulonglong,
+                                        P, P]
+    return lib
+
+
+def latencies(lib, n=1 << 14):
+    """Cycles of one dependent op on one thread (clock64 over 16 n ops),
+    by op; an op run after a reset has the reset's cycles taken off."""
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    cyc = torch.empty(1, dtype=torch.int64, device="cuda")
+    raw = {}
+    for k, (name, b) in enumerate(LATENCY_OPS):
+        for _ in range(2):  # the second run is kept
+            rc = lib.astroz_latency(k, 1.7, b, n, out.data_ptr(),
+                                    cyc.data_ptr())
+            if rc != 0:
+                raise RuntimeError(f"latency kernel {name}: cudaError {rc}")
+            torch.cuda.synchronize()
+        raw[name] = int(cyc.item()) / (16 * n)
+    reset = raw["reset"]
+    return {name: (c - reset if k > 3 else c)
+            for k, (name, c) in enumerate(raw.items())}
+
+
+def divide_probes(lib, n):
+    """Mismatches of one and of two corrections against __ddiv_rn over
+    ``n`` pairs of each of :data:`DIVIDE_SETS`."""
+    out = {}
+    for s, name in enumerate(DIVIDE_SETS):
+        miss = torch.zeros(2, dtype=torch.int64, device="cuda")
+        ex = torch.zeros(4, dtype=torch.float64, device="cuda")
+        rc = lib.astroz_divide_probe(s, n, 0x5eed + s, miss.data_ptr(),
+                                     ex.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"divide probe: cudaError {rc}")
+        torch.cuda.synchronize()
+        m, e = miss.tolist(), ex.tolist()
+        out[name] = {"pairs": n, "one correction": m[0],
+                     "two corrections": m[1],
+                     "example": [e[:2] if m[0] else None,
+                                 e[2:] if m[1] else None]}
+    return out
+
+
+def sass_summary(lib_path, kernel, tag):
+    """The SASS of the kernel whose mangled name contains ``kernel``
+    (``cuobjdump -sass``), written to ``chiprun_out/sass_<tag>_<kernel>.txt``,
+    and a count of what sits in it: the divide and reciprocal sequences
+    (MUFU.RCP64H), square roots (MUFU.RSQ64H), calls, f64 adds,
+    multiplies and fused multiply-adds, and its backward branches (loops)
+    with their spans in instructions."""
+    from astroz_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", dump)[1:]
+                 if kernel in f.split(None, 1)[0]), None)
+    if body is None:
+        return None
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    (ROOT / "chiprun_out" / f"sass_{tag}_{kernel}.txt").write_text(body)
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+    def n(pattern):
+        return sum(bool(re.search(pattern, t)) for _, t in ins)
+
+    loops = []
+    for a, t in ins:
+        m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            loops.append((int(m.group(1), 16), a,
+                          sum(int(m.group(1), 16) <= b <= a for b, _ in ins)))
+    return {"instructions": len(ins), "MUFU.RCP64H": n(r"MUFU\.RCP64H"),
+            "MUFU.RSQ64H": n(r"MUFU\.RSQ64H"), "CALL": n(r"\bCALL\b"),
+            "DADD": n(r"^(@!?P\d+\s+)?DADD"),
+            "DMUL": n(r"^(@!?P\d+\s+)?DMUL"),
+            "DFMA": n(r"^(@!?P\d+\s+)?DFMA"), "loops": loops}
+
+
+def integrate_probes(args):
+    """``--integrate-probes`` (needs a card): the dependent latencies of
+    one thread, the divide corrections against __ddiv_rn over
+    ``--divide-pairs`` pairs a set, the clock64 regions of
+    :data:`INTEGRATE_PROBES` over 10b's trajectory (``chip_smoke``'s ISS,
+    TwoBody + J2, rtol 1e-10, 360 outer steps of 60 s) and 10d's 10,000
+    attitude steps, in a variant of the package of ``--tree`` (this
+    checkout without it), and the SASS of its one-thread and ATTITUDE
+    kernels."""
+    import ctypes
+
+    if not torch.cuda.is_available():
+        raise SystemExit("shallow_variants: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    smi = chip_smoke.card_line()
+    src = (Path(args.tree).resolve() if args.tree else ROOT) / \
+        "astroz_tpu_torch"
+    version = "v2" if "deriv_sig" in (src / _INTEGRATE_CU).read_text() \
+        else "v1"
+    plain_build, _ = make_variant("unprobed", src)
+    probe_build, _ = make_variant("probed", src, {
+        "v1": INTEGRATE_PROBES, "v2": INTEGRATE_PROBES_V2}[version])
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(b.build) for b in (plain_build, probe_build)]
+        jobs.append(pool.submit(_latency_library))
+        lat_lib = jobs[2].result()
+        for j in jobs[:2]:
+            j.result()
+    print(f"# integrate probes: built in {time.perf_counter() - t0:.1f} s")
+    result = {"tag": args.tag, "card": smi, "tree": args.tree,
+              "sm_clock_max_hz": chip_smoke._max_sm_clock_hz()}
+    result["latency_cycles"] = latencies(lat_lib)
+    print(f"# integrate probes [{smi}]: dependent latency, cycles an op on "
+          f"one thread: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in result["latency_cycles"].items()))
+    result["chain_cycles"] = chain_cycles(result["latency_cycles"])
+    print(f"# integrate probes [{smi}]: chain bounds at these latencies, "
+          f"cycles a step (one: a step from inputs ready together; "
+          f"dataflow: the steady state over steps): "
+          f"{json.dumps(result['chain_cycles'])}")
+    result["divide"] = divide_probes(lat_lib, args.divide_pairs)
+    print(f"# integrate probes [{smi}]: divide corrections against "
+          f"__ddiv_rn: {json.dumps(result['divide'])}")
+    for build, tag in ((plain_build, "unprobed"), (probe_build, "probed")):
+        result[f"ptxas_{tag}"] = [r for r in build.ptxas_report()
+                                  if "integrate" in r[0]]
+    for kernel in ("integrate_adaptive_kernel", "integrate_attitude_kernel",
+                   "integrate_trajectory_kernel"):
+        result[f"sass_{kernel}"] = sass_summary(plain_build.library_path(),
+                                                kernel, args.tag)
+        print(f"# integrate probes: SASS of {kernel}: "
+              f"{json.dumps(result[f'sass_{kernel}'])}")
+    pkg = "astroz_variant_probed"
+    props = importlib.import_module(f"{pkg}.propagators")
+    calc = importlib.import_module(f"{pkg}.calculations")
+    lib = probe_build.library()
+    read = lib.astroz_probe_read
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    buf = np.zeros(16, np.int64)
+
+    def probe_sums():
+        torch.cuda.synchronize()
+        if read(buf.ctypes.data) != 0:
+            raise RuntimeError("astroz_probe_read failed")
+        return buf.copy()
+
+    # dp87_adaptive (an older tree's ADAPTIVE kernel, else TRAJECTORY for
+    # one outer step): 10b's trajectory, one launch an outer step
+    integ = props.DormandPrince87(props.Composite([props.TwoBody(),
+                                                   props.J2()]),
+                                  rtol=1e-10, device="cuda")
+    state = torch.as_tensor(chip_smoke.iss_state(), device="cuda")
+    acc = np.zeros(16, np.int64)
+    launches = 360
+    for k in range(launches):
+        state = integ.step(state, 60.0 * k, 60.0)
+        acc += probe_sums()
+    subs = integ.n_substeps
+    over = acc[15] / (64 * launches)  # one probe's own cycles
+    # a substep's regions: 13 stages of slots 0, 3, 4, 7, 5, 6, 1, 2; one
+    # of 8, 9, 10
+    per = {}
+    for slot, name in PROBE_REGIONS.items():
+        if slot > 10:
+            continue
+        count = subs * (13 if slot <= 7 else 1)
+        per[name] = (acc[slot] / count - over) * (13 if slot <= 7 else 1)
+    result["adaptive"] = {"launches": launches, "substeps": subs,
+                          "probe_cycles": over,
+                          "cycles_a_substep_by_region": per,
+                          "cycles_a_substep": sum(per.values()),
+                          "probes_a_substep": 13 * 8 + 3}
+    print(f"# integrate probes [{smi}]: ADAPTIVE, {subs} substeps in "
+          f"{launches} outer steps; a probe {over:.1f} cycles (taken off "
+          f"each region); cycles a substep by region: " + ", ".join(
+              f"{k} {v:.0f}" for k, v in per.items())
+          + f"; total {sum(per.values()):.0f}")
+    # ATTITUDE: 10d's 10,000 steps of one body
+    q0 = torch.tensor([0.6, 0.0, 0.8, 0.0], dtype=torch.float64,
+                      device="cuda")
+    args_att = [q0] + [torch.as_tensor(x, device="cuda") for x in (
+        np.array([0.01, -0.02, 0.1]), np.array([10.0, 12.0, 20.0]),
+        np.zeros(3))]
+    calc.propagate_attitude(*args_att, 0.01, 10000, device="cuda")
+    acc = probe_sums()
+    over = acc[15] / 64
+    per = {name: acc[slot] / 10000 - over
+           for slot, name in ATTITUDE_REGIONS[version].items()}
+    result["attitude"] = {"steps": 10000, "probe_cycles": over,
+                          "cycles_a_step_by_region": per,
+                          "cycles_a_step": sum(per.values())}
+    print(f"# integrate probes [{smi}]: ATTITUDE, 10,000 steps; a probe "
+          f"{over:.1f} cycles; cycles a step by region: " + ", ".join(
+              f"{k} {v:.0f}" for k, v in per.items())
+          + f"; total {sum(per.values()):.0f}")
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / f"integrate_probes_{args.tag}.json",
+              "w") as fh:
+        json.dump(result, fh, indent=1, default=float)
+    print(smi)
+
+
+#: --integrate-turns: the numerical stack's entry points at phase 10's
+#: shapes, each tree's package on the same inputs: (workload, calls a
+#: timing, replayed from a CUDA graph)
+INTEGRATE_WORKLOADS = (("trajectory", 3, False), ("adaptive_step", 50, False),
+                       ("attitude", 3, True), ("fixed", 3, True),
+                       ("fixed_dp87", 10, True), ("spacecraft", 3, False))
+
+
+def _integrate_workloads(pkg, chip_smoke):
+    """The workloads of INTEGRATE_WORKLOADS through the entry points of
+    the package ``pkg`` (a variant's import name): each a function that
+    returns the tensors it computes (numpy for the spacecraft)."""
+    props = importlib.import_module(f"{pkg}.propagators")
+    calc = importlib.import_module(f"{pkg}.calculations")
+    craft = importlib.import_module(f"{pkg}.spacecraft")
+    tle = importlib.import_module(f"{pkg}.tle")
+    dev = "cuda"
+    one = torch.as_tensor(chip_smoke.iss_state(), device=dev)
+    lanes = torch.as_tensor(chip_smoke.monte_carlo_lanes(
+        chip_smoke.NUMERICAL_LANES), device=dev)
+    mc = props.Composite([props.TwoBody(), props.J2(), props.Drag()])
+    dp = props.Composite([props.TwoBody(), props.J2()])
+    deriv = props.make_deriv(dp)
+    att = [torch.as_tensor(x, device=dev) for x in (
+        np.array([0.6, 0.0, 0.8, 0.0]), np.array([0.01, -0.02, 0.1]),
+        np.array([10.0, 12.0, 20.0]), np.zeros(3))]
+    elements = tle.parse_lines(chip_smoke.GOLDEN_L1, chip_smoke.GOLDEN_L2)
+    burns = [craft.Impulse(time=3600.0, kind=craft.ImpulseKind.PROGRADE,
+                           magnitude=0.1),
+             craft.Impulse(time=10800.0, kind=craft.ImpulseKind.PLANE_CHANGE,
+                           delta_inclination=np.deg2rad(5.0))]
+
+    def trajectory():
+        integ = props.DormandPrince87(dp, rtol=1e-10, device=dev)
+        states = props.Propagator(integ).propagate(
+            one, 0.0, chip_smoke.NUMERICAL_DP87_S, 60.0)[1]
+        return states, torch.tensor([integ.h_current, integ.n_substeps],
+                                    dtype=torch.float64)
+
+    def adaptive_step():
+        y, h, n = props.dp87_adaptive(deriv, one, 0.0, 60.0, rtol=1e-10)
+        return y, torch.tensor([h, n], dtype=torch.float64)
+
+    def attitude():
+        return calc.propagate_attitude(*att, 0.01,
+                                       chip_smoke.NUMERICAL_ATTITUDE_STEPS)
+
+    def fixed():
+        return (props.propagate_fixed(mc, lanes, 0.0,
+                                      chip_smoke.NUMERICAL_ORBIT_S,
+                                      chip_smoke.NUMERICAL_DT_S)[1],)
+
+    def fixed_dp87():
+        return (props.propagate_fixed(
+            mc, lanes[:chip_smoke.NUMERICAL_DP87_FIXED_LANES], 0.0,
+            chip_smoke.NUMERICAL_DP87_FIXED_STEPS * chip_smoke.NUMERICAL_DT_S,
+            chip_smoke.NUMERICAL_DT_S, method="dp87")[1],)
+
+    def spacecraft():
+        sc = craft.Spacecraft.from_tle(elements, device=dev)
+        return (torch.as_tensor(sc.propagate(0.0, 0.25, 30.0,
+                                             impulses=burns)[1]),)
+
+    return {"trajectory": trajectory, "adaptive_step": adaptive_step,
+            "attitude": attitude, "fixed": fixed, "fixed_dp87": fixed_dp87,
+            "spacecraft": spacecraft}
+
+
+def integrate_turns(args):
+    """``--integrate-turns`` (needs a card): the numerical stack's entry
+    points (INTEGRATE_WORKLOADS) through this checkout's package and the
+    package of ``--tree``, on the same inputs, round after round in turns
+    (the order reversed on every other round): whether each output equals
+    the tree's bit for bit, and each one's ms (CUDA events; the replayed
+    ones from a CUDA graph of one call, the others back to back, host
+    time included)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("shallow_variants: no CUDA device")
+    if not args.tree:
+        raise SystemExit("shallow_variants: --integrate-turns needs --tree")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    smi = chip_smoke.card_line()
+    pkgs = {"change": make_variant("change"),
+            "tree": make_variant("tree", Path(args.tree).resolve()
+                                 / "astroz_tpu_torch")}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(b.build) for b, _ in pkgs.values()]:
+            job.result()
+    print(f"# integrate turns: built in {time.perf_counter() - t0:.1f} s")
+    fns = {v: _integrate_workloads(f"astroz_variant_{v}", chip_smoke)
+           for v in pkgs}
+    outs = {v: {k: fn() for k, fn in f.items()} for v, f in fns.items()}
+    equal = {k: all(torch.equal(a, b) for a, b in zip(outs["change"][k],
+                                                       outs["tree"][k]))
+             for k in fns["change"]}
+    print(f"# integrate turns [{smi}]: this checkout bit-equal to "
+          f"{args.tree}: {equal}")
+    ms = {v: {k: [] for k in fns[v]} for v in pkgs}
+    for rnd in range(args.rounds):
+        for v in (list(pkgs) if rnd % 2 == 0 else list(pkgs)[::-1]):
+            for k, reps, replay in INTEGRATE_WORKLOADS:
+                fn = fns[v][k]
+                ms[v][k].append(chip_smoke._graph_ms(fn, reps, per_graph=1)
+                                if replay else chip_smoke._cuda_ms(fn, reps))
+    for v in pkgs:
+        for (k, _, replay) in INTEGRATE_WORKLOADS:
+            xs = ms[v][k]
+            print(f"# integrate turns {v} [{smi}]: {k} "
+                  f"{np.mean(xs):.4f} ms ({', '.join(f'{x:.4f}' for x in xs)}"
+                  f"; {'replayed' if replay else 'back to back'})")
+    for build, tag in ((pkgs["change"][0], "change"),
+                       (pkgs["tree"][0], "tree")):
+        for name, regs, st, ld in build.ptxas_report():
+            if "integrate" in name or "deriv" in name:
+                print(f"# integrate turns {tag}: ptxas {name}: {regs} "
+                      f"registers, spill stores {st} B, spill loads {ld} B")
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / f"integrate_turns_{args.tag}.json",
+              "w") as fh:
+        json.dump({"card": smi, "tree": args.tree, "equal": equal, "ms": ms},
+                  fh, indent=1)
+    print(smi)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", nargs="+", default=["default"],
@@ -1111,7 +1919,16 @@ def main():
     ap.add_argument("--fma-ulps", action="store_true")
     ap.add_argument("--f64-routes", action="store_true")
     ap.add_argument("--torch-rounding", action="store_true")
+    ap.add_argument("--integrate-probes", action="store_true")
+    ap.add_argument("--integrate-turns", action="store_true")
+    ap.add_argument("--divide-pairs", type=int, default=10 ** 7)
     args = ap.parse_args()
+    if args.integrate_probes:
+        integrate_probes(args)
+        return
+    if args.integrate_turns:
+        integrate_turns(args)
+        return
     if args.torch_rounding:
         torch_rounding()
         return

@@ -14,6 +14,8 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 other ``test_torch_*`` files.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1020,6 +1022,7 @@ def _integrate_models():
                                               TwoBody)
     return {
         "TwoBody": TwoBody(),
+        "TwoBody+J2": Composite([TwoBody(), J2()]),
         "TwoBody+J2+Drag": Composite([TwoBody(), J2(), Drag()]),
         "every kind": Composite([TwoBody(), J2(), J3(), J4(),
                                  ImprovedDrag(f107=220.0),
@@ -1040,6 +1043,7 @@ def test_integrate_fixed_matches_plain_on_cuda(cuda_device, model, method,
     call; ``propagate_fixed`` launches it once."""
     from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.propagators import propagate_fixed
+    from astroz_tpu_torch.propagators.driver import fixed_reference
     accel = _integrate_models()[model]
     lanes = _circular_lanes(300, seed=3)
     lanes[:20, :3] *= -1.0                  # anti-sunward
@@ -1050,9 +1054,8 @@ def test_integrate_fixed_matches_plain_on_cuda(cuda_device, model, method,
                                method=method, substeps=substeps)
     assert cuda_integrate.LAUNCHES["integrate_fixed"] == \
         before["integrate_fixed"] + 1
-    want = cuda_integrate.fixed_reference(accel, state, 10.0, 12,
-                                          60.0 / substeps, method=method,
-                                          substeps=substeps)
+    want = fixed_reference(accel, state, 10.0, 12, 60.0 / substeps,
+                           method=method, substeps=substeps)
     assert cuda_integrate.LAUNCHES == {**before, "integrate_fixed":
                                        before["integrate_fixed"] + 1}
     assert got.shape == (13, 300, 6) and torch.equal(got, want)
@@ -1064,21 +1067,29 @@ def test_integrate_fixed_matches_plain_on_cuda(cuda_device, model, method,
         before["integrate_fixed"] + 2
 
 
+#: the one-thread modes' models: one of each signature the kernel is
+#: compiled for (TwoBody, TwoBody + J2, TwoBody + J2 + Drag) and one of
+#: none (every kind, through the run-time dispatch)
+SIGNATURE_MODELS = ["TwoBody", "TwoBody+J2", "TwoBody+J2+Drag", "every kind"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("model", SIGNATURE_MODELS)
 @pytest.mark.parametrize("sign", [1.0, -1.0])
-def test_integrate_adaptive_matches_plain_on_cuda(cuda_device, sign):
-    """ADAPTIVE against its plain version on the card, one launch a
-    call. Where every outer step is one clamped substep (60 s outer steps
-    of a LEO orbit, h carried as ``DormandPrince87`` carries it) the two
-    are bit-equal with equal substep counts. One substep from 32 states:
-    the state bit-equal, the next h within a few ulps (the kernel's
-    err^(-1/8) is the device's pow, the plain loop's the host's). A call
-    with rejected steps (h0 = 3600 s over 1 h): the same count, 1e-8 km.
-    The substep cap stops both at the same count."""
+def test_integrate_adaptive_matches_plain_on_cuda(cuda_device, sign, model):
+    """``dp87_adaptive`` on the card (TRAJECTORY for one outer step)
+    against its plain version on the card, one launch a call, for a model
+    of each signature. Where every outer step is one clamped substep (60
+    s outer steps of a LEO orbit, h carried as ``DormandPrince87`` carries
+    it) the two are bit-equal with equal substep counts. One substep from
+    32 states: the state bit-equal, the next h within a few ulps (the
+    kernel's err^(-1/8) is the device's pow, the plain loop's the
+    host's). A call with rejected steps (h0 = 3600 s over 1 h): the same
+    count, 1e-8 km. The substep cap stops both at the same count."""
     from astroz_tpu_torch.ops import cuda_integrate
-    from astroz_tpu_torch.propagators import (Composite, J2, TwoBody,
-                                              dp87_adaptive, make_deriv)
-    deriv = make_deriv(Composite([TwoBody(), J2()]))
+    from astroz_tpu_torch.propagators import dp87_adaptive, make_deriv
+    from astroz_tpu_torch.propagators.integrators import adaptive_reference
+    deriv = make_deriv(_integrate_models()[model])
     lanes = torch.as_tensor(_circular_lanes(32, seed=4), device=cuda_device)
     kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0,
               max_substeps=10000)
@@ -1091,8 +1102,7 @@ def test_integrate_adaptive_matches_plain_on_cuda(cuda_device, sign):
                                        h0=h_k)
         assert cuda_integrate.LAUNCHES["integrate_adaptive"] == n0 + 1
         h = (h_p if h_p is not None else 60.0) * sign
-        y_p, h_pn, n_p = cuda_integrate.adaptive_reference(
-            deriv, y_p, t0, t1, h, **kw)
+        y_p, h_pn, n_p = adaptive_reference(deriv, y_p, t0, t1, h, **kw)
         assert n_k == n_p == 1 and y_k.shape == (6,)
         assert torch.equal(y_k, y_p)
         h_k, h_p = abs(h_kn), abs(h_pn)
@@ -1100,58 +1110,216 @@ def test_integrate_adaptive_matches_plain_on_cuda(cuda_device, sign):
         one = {**kw, "max_substeps": 1}
         got = cuda_integrate.adaptive(deriv, y, 0.0, 600.0 * sign,
                                       600.0 * sign, **one)
-        want = cuda_integrate.adaptive_reference(
-            deriv, y, 0.0, 600.0 * sign, 600.0 * sign, **one)
+        want = adaptive_reference(deriv, y, 0.0, 600.0 * sign,
+                                  600.0 * sign, **one)
         assert torch.equal(got[0], want[0]) and got[2] == want[2] == 1
         assert abs(got[1] - want[1]) <= 1e-14 * abs(want[1])
     got = cuda_integrate.adaptive(deriv, lanes[1], 0.0, 3600.0 * sign,
                                   3600.0 * sign, **kw)
-    want = cuda_integrate.adaptive_reference(deriv, lanes[1], 0.0,
-                                             3600.0 * sign, 3600.0 * sign,
-                                             **kw)
+    want = adaptive_reference(deriv, lanes[1], 0.0, 3600.0 * sign,
+                              3600.0 * sign, **kw)
     assert got[2] == want[2] > 5
     assert float((got[0] - want[0])[:3].abs().max()) <= 1e-8
     capped = dp87_adaptive(deriv, lanes[2], 0.0, 3600.0 * sign,
                            rtol=1e-10, h0=7.0, max_substeps=3)
-    plain = cuda_integrate.adaptive_reference(
-        deriv, lanes[2], 0.0, 3600.0 * sign, 7.0 * sign,
-        **{**kw, "max_substeps": 3})
+    plain = adaptive_reference(deriv, lanes[2], 0.0, 3600.0 * sign,
+                               7.0 * sign, **{**kw, "max_substeps": 3})
     assert capped[2] == plain[2] == 3
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [(), (5,)])
+@pytest.mark.parametrize("batch", [(), (5,), "zeros"])
 def test_integrate_attitude_matches_plain_on_cuda(cuda_device, batch):
     """ATTITUDE against its plain version on the card, bit for bit, with
     a torque, one body and a batch of five; ``propagate_attitude``
-    launches it once."""
-    from astroz_tpu_torch.calculations import propagate_attitude
+    launches it once. "zeros": a body at rest in the identity attitude
+    with no torque, then one spinning about one axis (quotients of zero,
+    the divides' fallback), and one of tiny inertia."""
+    from astroz_tpu_torch.calculations import (attitude_reference,
+                                               propagate_attitude)
     from astroz_tpu_torch.ops import cuda_integrate
     rng = np.random.default_rng(6)
-    q = rng.normal(size=(*batch, 4))
-    q /= np.linalg.norm(q, axis=-1, keepdims=True)
-    w = rng.normal(0.0, 0.05, (*batch, 3))
+    if batch == "zeros":
+        batch = (3,)
+        q = np.array([[1.0, 0.0, 0.0, 0.0]] * 3)
+        w = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 0.2], [0.01, 0.02, 0.0]])
+        inertia = np.array([[10.0, 12.0, 20.0], [10.0, 12.0, 20.0],
+                            [1e-130, 2e-130, 3e-130]])
+        torque = np.zeros((3, 3))
+    else:
+        q = rng.normal(size=(*batch, 4))
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+        w = rng.normal(0.0, 0.05, (*batch, 3))
+        inertia = np.array([10.0, 12.0, 20.0])
+        torque = np.array([1e-3, 0.0, -2e-3])
     dev = cuda_device
-    args = [torch.as_tensor(x, device=dev) for x in
-            (q, w, np.array([10.0, 12.0, 20.0]), np.array([1e-3, 0.0, -2e-3]))]
+    args = [torch.as_tensor(x, device=dev) for x in (q, w, inertia, torque)]
     n0 = cuda_integrate.LAUNCHES["integrate_attitude"]
     got = propagate_attitude(*args, 0.01, 700)
     assert cuda_integrate.LAUNCHES["integrate_attitude"] == n0 + 1
-    want = cuda_integrate.attitude_reference(*args, 0.01, 700)
+    want = attitude_reference(*args, 0.01, 700)
     assert got[0].shape == (*batch, 4) and got[1].shape == (*batch, 3)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _steps_on_card(integ, state, t0, dt, n):
+    """``Propagator(integ).propagate``'s loop of ``step`` calls (one launch
+    and one read an outer step): states, each outer step's substeps and
+    ``h_current`` after it."""
+    times = t0 + dt * np.arange(n)
+    states, subs, hs = [state], [], []
+    for k in range(1, n):
+        before = integ.n_substeps
+        state = integ.step(state, float(times[k - 1]), dt)
+        subs.append(integ.n_substeps - before)
+        hs.append(integ.h_current)
+        states.append(state)
+    return torch.stack(states), subs, hs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", SIGNATURE_MODELS)
+@pytest.mark.parametrize("dt,n,h_carried", [(60.0, 61, None),
+                                            (600.0, 13, None),
+                                            (-300.0, 13, 150.0)])
+def test_integrate_trajectory_equals_per_step_launches_on_cuda(
+        cuda_device, dt, n, h_carried, model):
+    """TRAJECTORY (``Propagator.propagate`` over a ``DormandPrince87`` on
+    the card: one launch, one read) against the loop of launches, one an
+    outer step, that ``step`` makes, bit for bit, for a model of each
+    signature: every state, each outer step's substeps and |h| after it,
+    ``h_current`` and ``n_substeps``; forward with one substep an outer
+    step and several, backward from a carried |h|. Against the plain
+    trajectory where each outer step is one substep (60 s): the same
+    counts, states within 1e-8 km, |h| within 1e-13 relative. Not where
+    outer steps take several substeps: the kernel's err^(-1/8) is the
+    device's pow, the plain loop's the host's, so where h binds and is
+    carried their counts and states part (1.2e-8 km and a count apart
+    over nine 600 s steps on the H100)."""
+    from astroz_tpu_torch.ops import cuda_integrate
+    from astroz_tpu_torch.propagators import DormandPrince87, Propagator
+    from astroz_tpu_torch.propagators.integrators import (
+        adaptive_trajectory_reference)
+    accel = _integrate_models()[model]
+    state = torch.as_tensor(_circular_lanes(1, seed=5)[0],
+                            device=cuda_device)
+
+    def integ():
+        out = DormandPrince87(accel, rtol=1e-10)
+        out.h_current = h_carried
+        return out
+
+    steps = integ()
+    want, subs, hs = _steps_on_card(steps, state, 30.0, dt, n)
+    one = integ()
+    before = dict(cuda_integrate.LAUNCHES)
+    times, got = Propagator(one).propagate(state, 30.0, dt * (n - 1), dt)
+    assert cuda_integrate.LAUNCHES == {
+        **before, "integrate_trajectory": before["integrate_trajectory"] + 1}
+    assert len(times) == n and torch.equal(got, want)
+    assert (one.h_current, one.n_substeps) == (steps.h_current,
+                                               steps.n_substeps)
+    states, g_subs, g_hs, info = cuda_integrate.trajectory(
+        one.deriv, state, 30.0, dt, n, rtol=1e-10, atol=1e-12,
+        h_carried=h_carried, h_min=1e-3, h_max=3600.0, max_substeps=10000)
+    assert torch.equal(states, want)
+    assert g_subs.tolist() == subs and g_hs.tolist() == hs
+    assert info.tolist() == [n - 1, steps.h_current, steps.n_substeps,
+                             math.copysign(steps.h_current, dt)]
+    if dt == 60.0:
+        p_states, p_subs, p_hs, _ = adaptive_trajectory_reference(
+            one.deriv, state, 30.0, dt, n, rtol=1e-10, atol=1e-12,
+            h_carried=h_carried)
+        assert p_subs.tolist() == subs
+        assert float((p_states - want)[:, :3].abs().max()) <= 1e-8
+        rel = ((p_hs - g_hs).abs() / p_hs.abs()).max()
+        assert float(rel) <= 1e-13
+
+
+@pytest.mark.cuda
+def test_integrate_trajectory_substep_cap_on_cuda(cuda_device, monkeypatch):
+    """With a cap of 3 substeps and a carried |h| the one-launch
+    ``Propagator.propagate`` raises the cap's ``RuntimeError`` at the
+    outer step where the loop of ``step`` calls does, and leaves
+    ``h_current`` and ``n_substeps`` as that loop does."""
+    from astroz_tpu_torch.propagators import (Composite, DormandPrince87, J2,
+                                              Propagator, TwoBody)
+    import astroz_tpu_torch.propagators.integrators as integrators
+    accel = Composite([TwoBody(), J2()])
+    state = torch.as_tensor(_circular_lanes(1, seed=5)[0],
+                            device=cuda_device)
+
+    def warmed():
+        integ = DormandPrince87(accel, rtol=1e-10)
+        _, s = Propagator(integ).propagate(state, 0.0, 600.0, 60.0)
+        return integ, s[-1]
+
+    loop, start = warmed()
+    one, _ = warmed()
+    monkeypatch.setattr(integrators, "MAX_SUBSTEPS", 3)
+    with pytest.raises(RuntimeError, match="substep cap"):
+        _steps_on_card(loop, start, 600.0, 300.0, 13)
+    with pytest.raises(RuntimeError, match="substep cap"):
+        Propagator(one).propagate(start, 600.0, 3600.0, 300.0)
+    assert (one.h_current, one.n_substeps) == (loop.h_current,
+                                               loop.n_substeps)
+    assert one.n_substeps > 10
+
+
+@pytest.mark.cuda
+def test_integrate_divide_probe_on_cuda(cuda_device):
+    """The integrator kernel's divides through a reciprocal (y = RN(1/b)
+    and two corrections where a and b lie in its window, ``__ddiv_rn``
+    elsewhere) and its reciprocals (``__drcp_rn``) against ``__ddiv_rn``,
+    bit for bit: 10^7 random pairs (random significands, signs, exponents
+    over +-60), 10^6 with a / b just below a power of two, and the edges
+    (zeros of both signs, subnormals, inf, NaN, the window's bounds
+    2^-400 and 2^401, quotients that under- or overflow)."""
+    from astroz_tpu_torch.ops import cuda_integrate
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+
+    def randoms(n, lo, hi):
+        m = 1.0 + torch.rand(n, generator=gen, device=cuda_device,
+                             dtype=torch.float64)
+        e = torch.randint(lo, hi + 1, (n,), generator=gen,
+                          device=cuda_device)
+        sign = torch.randint(0, 2, (n,), generator=gen,
+                             device=cuda_device) * 2 - 1
+        return torch.ldexp(m, e) * sign
+
+    def same(x, y):
+        return torch.equal(x.view(torch.int64), y.view(torch.int64))
+
+    a, b = randoms(10 ** 7, -60, 60), randoms(10 ** 7, -60, 60)
+    near_b = 1.5 + 0.5 * torch.rand(10 ** 6, generator=gen,
+                                    device=cuda_device, dtype=torch.float64)
+    d = torch.ldexp(torch.ones_like(near_b), torch.randint(
+        -52, -7, (10 ** 6,), generator=gen, device=cuda_device))
+    edges = torch.tensor([0.0, -0.0, 5e-324, -5e-324, 2.2e-308, 1e-310,
+                          float("inf"), -float("inf"), float("nan"),
+                          2.0 ** -400, 2.0 ** -401, 2.0 ** 400, 2.0 ** 401,
+                          1e300, -1e300, 1e-300, 3.0, -7.5, 1.0],
+                         dtype=torch.float64, device=cuda_device)
+    ea, eb = torch.meshgrid(edges, edges, indexing="ij")
+    for x, y in ((a, b), (near_b * (1.0 - d), near_b),
+                 (ea.reshape(-1), eb.reshape(-1))):
+        got, want, rcp, rcp_want = cuda_integrate.divide_probe(x, y)
+        assert same(got, want) and same(rcp, rcp_want)
+        assert same(want, x / y)  # torch's CUDA divide: __ddiv_rn too
 
 
 @pytest.mark.cuda
 def test_models_past_max_terms_run_plain_on_cuda(cuda_device):
     """A Composite of MAX_TERMS + 1 terms runs the plain loop on a CUDA
     tensor, launches nothing and equals the plain versions; one of
-    MAX_TERMS terms launches FIXED and ADAPTIVE once each, bit-equal to
-    the plain loops over one clamped substep."""
+    MAX_TERMS terms launches FIXED and ``dp87_adaptive``'s TRAJECTORY
+    once each, bit-equal to the plain loops over one clamped substep."""
     from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.propagators import (Composite, Drag, J2, TwoBody,
                                               dp87_adaptive, make_deriv,
                                               propagate_fixed)
+    from astroz_tpu_torch.propagators.driver import fixed_reference
+    from astroz_tpu_torch.propagators.integrators import adaptive_reference
 
     members = [TwoBody(), J2()] + [Drag()] * (cuda_integrate.MAX_TERMS - 1)
     state = torch.as_tensor(_circular_lanes(8), device=cuda_device)
@@ -1166,10 +1334,9 @@ def test_models_past_max_terms_run_plain_on_cuda(cuda_device):
             before["integrate_fixed"] + n
         assert cuda_integrate.LAUNCHES["integrate_adaptive"] == \
             before["integrate_adaptive"] + n
-        assert torch.equal(got, cuda_integrate.fixed_reference(
-            model, state, 0.0, 4, 30.0))
-        y_p, h_p, steps_p = cuda_integrate.adaptive_reference(
-            deriv, state[0], 0.0, 60.0, 60.0, **kw)
+        assert torch.equal(got, fixed_reference(model, state, 0.0, 4, 30.0))
+        y_p, h_p, steps_p = adaptive_reference(deriv, state[0], 0.0, 60.0,
+                                               60.0, **kw)
         assert torch.equal(y, y_p) and steps == steps_p == 1
         assert abs(h - h_p) <= 1e-13 * abs(h_p)
 

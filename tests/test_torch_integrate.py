@@ -1,6 +1,6 @@
 """The integrator kernel's CPU side (``ops/cuda_integrate.py``,
-``csrc/integrate_f64.cu`` of astroz_tpu_torch) against astroz_tpu on the
-CPU.
+``csrc/integrate_f64.cu`` of astroz_tpu_torch) and the plain loops beside
+its callers, against astroz_tpu on the CPU.
 
 * every force model object equals, bit for bit on the CPU, the closure it
   replaced (copied below as it stood), and JAX's model within the
@@ -8,21 +8,32 @@ CPU.
   1e-12 km/s^2);
 * ``terms`` and ``kernel_terms`` of every model, of nested Composites and
   of the models no kernel computes (``None``);
-* each mode's plain version against JAX: ``fixed_reference`` (RK4 and
-  fixed DP8(7), 1 and 2 substeps, batch shapes (), (7,) and (3, 5)) within
-  1e-8 km of ``propagate_fixed``; ``adaptive_reference`` with JAX's
-  substep count and within 1e-6 km of ``dp87_adaptive`` (the tolerance of
-  ``tests/test_torch_propagators.py``: XLA's fused loop rounds the error
-  estimate otherwise); ``attitude_reference`` within 1e-12 of
-  ``propagate_attitude``;
-* the wrappers on CPU tensors run their plain versions and count no
-  launch; the kernel's ``enum Kind`` and DP8(7) tableau against the
-  python lists they mirror; the model packing and its errors.
+* each mode's plain version against JAX: ``driver.fixed_reference`` (RK4
+  and fixed DP8(7), 1 and 2 substeps, batch shapes (), (7,) and (3, 5))
+  within 1e-8 km of ``propagate_fixed``; ``integrators.adaptive_reference``
+  with JAX's substep count and within 1e-6 km of ``dp87_adaptive`` (the
+  tolerance of ``tests/test_torch_propagators.py``: XLA's fused loop
+  rounds the error estimate otherwise); ``calculations.attitude_reference``
+  within 1e-12 of ``propagate_attitude``;
+* TRAJECTORY's plain version, ``integrators.adaptive_trajectory_reference``:
+  bit for bit the loop of ``Propagator(DormandPrince87)`` on the CPU
+  (states, ``h_current``, ``n_substeps``), within 1e-6 km of JAX's
+  ``Propagator`` with its substep counts, and the substep cap's
+  ``RuntimeError`` at the same outer step as the loop's;
+* the route, chosen once (``forces.kernel_route``): the CPU runs the plain
+  loops and counts no launch; a CUDA state of a model with kernel terms
+  takes the kernel, one without terms or a batched state the loop (a
+  tensor that says it is on CUDA stands in for the card); the launch
+  wrappers take CUDA tensors only; the kernel's ``enum Kind`` and DP8(7)
+  tableau against the python lists they mirror; the model packing and its
+  errors.
 
-The card's side (each mode bit for bit against its plain version, launch
+The card's side (each mode bit for bit against its plain version, the
+trajectory against the per-step launches, the divide probe, launch
 counts) is in ``tests/test_torch_cuda.py``.
 """
 
+import math
 import re
 from fractions import Fraction
 from pathlib import Path
@@ -38,6 +49,7 @@ import astroz_tpu.propagators as JP
 
 import astroz_tpu_torch.calculations as C
 import astroz_tpu_torch.propagators as P
+import astroz_tpu_torch.propagators.driver as PD
 import astroz_tpu_torch.propagators.integrators as PI
 from astroz_tpu_torch.constants import AU_KM, EARTH, SOLAR_PRESSURE
 from astroz_tpu_torch.ops import cuda_integrate as CI
@@ -335,7 +347,7 @@ def test_models_past_max_terms_take_the_plain_route():
         [7000.0, 0.0, 0.0, 0.0, 7.5, 0.0], [50.0, 50.0, 50.0, 0.01, 0.01,
                                             0.01], (3, 6)))
     _, got = P.propagate_fixed(over, state, 0.0, 120.0, 30.0, device="cpu")
-    want = CI.fixed_reference(over, state, 0.0, 4, 30.0)
+    want = PD.fixed_reference(over, state, 0.0, 4, 30.0)
     assert torch.equal(got, want)
 
 
@@ -402,17 +414,18 @@ def _lanes(batch, seed=0):
 @pytest.mark.parametrize("substeps", [1, 2])
 @pytest.mark.parametrize("method", ["rk4", "dp87"])
 def test_fixed_reference_matches_jax(method, substeps, batch):
-    """``fixed_reference`` (and ``fixed`` on the CPU, with no launch) of
-    TwoBody + J2 + Drag, 12 samples of 120 s, against JAX's
+    """``fixed_reference`` (and ``propagate_fixed`` on the CPU, with no
+    launch) of TwoBody + J2 + Drag, 12 samples of 120 s, against JAX's
     ``propagate_fixed``: 1e-8 km."""
     state = _lanes(batch, seed=len(batch) + substeps)
     accel = P.earth_default_forces(drag=True)
     before = dict(CI.LAUNCHES)
-    got = CI.fixed_reference(accel, torch.from_numpy(state), 10.0, 12,
+    got = PD.fixed_reference(accel, torch.from_numpy(state), 10.0, 12,
                              120.0 / substeps, method=method,
                              substeps=substeps)
-    via = CI.fixed(accel, torch.from_numpy(state), 10.0, 12,
-                   120.0 / substeps, method=method, substeps=substeps)
+    _, via = P.propagate_fixed(accel, torch.from_numpy(state), 10.0, 1440.0,
+                               120.0, method=method, substeps=substeps,
+                               device="cpu")
     assert CI.LAUNCHES == before and torch.equal(got, via)
     _, ref = JP.propagate_fixed(JP.earth_default_forces(drag=True), state,
                                 10.0, 1440.0, 120.0, method=method,
@@ -424,18 +437,19 @@ def test_fixed_reference_matches_jax(method, substeps, batch):
 
 @pytest.mark.parametrize("t1", [3 * 5553.6, -5553.6])
 def test_adaptive_reference_matches_jax(t1):
-    """``adaptive_reference`` (and ``adaptive`` on the CPU, with no
-    launch) of TwoBody + J2 from a 400 km orbit: JAX's substep count and
-    within 1e-6 km; ``dp87_adaptive`` on the CPU is the plain loop."""
+    """``adaptive_reference`` of TwoBody + J2 from a 400 km orbit: JAX's
+    substep count and within 1e-6 km; ``dp87_adaptive`` on the CPU (a
+    numpy state and a tensor) is the plain loop, with no launch."""
     state = _lanes((), seed=9)
     deriv = P.make_deriv(P.Composite([P.TwoBody(), P.J2()]))
     kw = dict(rtol=1e-10, atol=1e-12, h_min=1e-3, h_max=3600.0,
               max_substeps=10000)
     h = min(abs(t1), 3600.0) * np.sign(t1)
     before = dict(CI.LAUNCHES)
-    out, h_out, n = CI.adaptive_reference(deriv, torch.from_numpy(state),
+    out, h_out, n = PI.adaptive_reference(deriv, torch.from_numpy(state),
                                           0.0, t1, h, **kw)
-    via = CI.adaptive(deriv, torch.from_numpy(state), 0.0, t1, h, **kw)
+    via = P.dp87_adaptive(deriv, torch.from_numpy(state), 0.0, t1,
+                          rtol=1e-10)
     api = P.dp87_adaptive(deriv, state, 0.0, t1, rtol=1e-10, device="cpu")
     assert CI.LAUNCHES == before
     assert torch.equal(via[0], out) and via[1:] == (h_out, n)
@@ -450,8 +464,9 @@ def test_adaptive_reference_matches_jax(t1):
 
 @pytest.mark.parametrize("batch", [(), (4,)])
 def test_attitude_reference_matches_jax(batch):
-    """``attitude_reference`` (and ``attitude`` on the CPU, with no
-    launch) with a torque against JAX's ``propagate_attitude``: 1e-12."""
+    """``attitude_reference`` (and ``propagate_attitude`` on the CPU, a
+    tensor and numpy, with no launch) with a torque against JAX's
+    ``propagate_attitude``: 1e-12."""
     rng = np.random.default_rng(3)
     q0 = rng.normal(size=(*batch, 4))
     q0 /= np.linalg.norm(q0, axis=-1, keepdims=True)
@@ -459,8 +474,8 @@ def test_attitude_reference_matches_jax(batch):
     inertia, torque = np.array([10.0, 12.0, 20.0]), np.array([1e-3, 0, -2e-3])
     args = [torch.from_numpy(x) for x in (q0, w0, inertia, torque)]
     before = dict(CI.LAUNCHES)
-    q, w = CI.attitude_reference(*args, 0.05, 400)
-    via = CI.attitude(*args, 0.05, 400)
+    q, w = C.attitude_reference(*args, 0.05, 400)
+    via = C.propagate_attitude(*args, 0.05, 400)
     api = C.propagate_attitude(q0, w0, inertia, torque, 0.05, 400,
                                device="cpu")
     assert CI.LAUNCHES == before
@@ -481,9 +496,9 @@ def test_attitude_reference_matches_jax(batch):
 
 def test_wrappers_check_their_inputs():
     """A kernel wrapper refuses what its kernel does not take before any
-    launch: a state that is not f64 or (..., 6), an adaptive state of
-    more than one trajectory, an unknown method; the CPU route does not
-    check (it runs the plain loop)."""
+    launch: a state that is not f64 or (..., 6), an adaptive or
+    trajectory state of more than one trajectory, an unknown method, a
+    tensor on the CPU (the route sends those to the plain loops)."""
     accel = P.TwoBody()
     bad32 = torch.zeros((2, 6), dtype=torch.float32)
     with pytest.raises(ValueError, match="f64"):
@@ -493,9 +508,209 @@ def test_wrappers_check_their_inputs():
                       (6,))
     deriv = P.make_deriv(accel)
     with pytest.raises(ValueError, match="one trajectory"):
-        CI.adaptive_launch(deriv, torch.zeros((2, 6), dtype=torch.float64),
-                           0.0, 1.0, 1.0, rtol=1e-10, atol=1e-12,
-                           h_min=1e-3, h_max=3600.0, max_substeps=10)
+        CI.adaptive(deriv, torch.zeros((2, 6), dtype=torch.float64), 0.0,
+                    1.0, 1.0, rtol=1e-10, atol=1e-12, h_min=1e-3,
+                    h_max=3600.0, max_substeps=10)
+    with pytest.raises(ValueError, match="one trajectory"):
+        CI.trajectory(deriv, torch.zeros((2, 6), dtype=torch.float64), 0.0,
+                      60.0, 3, rtol=1e-10, atol=1e-12, h_carried=None,
+                      h_min=1e-3, h_max=3600.0, max_substeps=10)
     with pytest.raises(ValueError, match="method"):
         P.propagate_fixed(accel, _lanes((2,)), 0.0, 60.0, 60.0,
                           method="euler", device="cpu")
+    one = torch.from_numpy(_lanes(()))
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float64)
+    w = torch.zeros(3, dtype=torch.float64)
+    before = dict(CI.LAUNCHES)
+    for launch in (
+            lambda: CI.fixed(accel, one, 0.0, 2, 60.0),
+            lambda: CI.adaptive(deriv, one, 0.0, 60.0, 60.0, rtol=1e-10,
+                                atol=1e-12, h_min=1e-3, h_max=3600.0,
+                                max_substeps=10),
+            lambda: CI.trajectory(deriv, one, 0.0, 60.0, 3, rtol=1e-10,
+                                  atol=1e-12, h_carried=None, h_min=1e-3,
+                                  h_max=3600.0, max_substeps=10),
+            lambda: CI.attitude(q, w, w + 1.0, w, 0.1, 3),
+            lambda: CI.divide_probe(w + 1.0, w + 3.0)):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch()
+    assert CI.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# TRAJECTORY's plain version and the one route
+# ---------------------------------------------------------------------------
+
+
+def _dp87_loop(integ, state, t0, dt, n):
+    """``Propagator(integ).propagate``'s loop of ``step`` calls, with each
+    outer step's substeps and ``h_current`` after it."""
+    times = t0 + dt * np.arange(n)
+    states, subs, hs = [state], [], []
+    for k in range(1, n):
+        before = integ.n_substeps
+        state = integ.step(state, float(times[k - 1]), dt)
+        subs.append(integ.n_substeps - before)
+        hs.append(integ.h_current)
+        states.append(state)
+    return torch.stack(states), subs, hs
+
+
+@pytest.mark.parametrize("dt,n,h_carried", [(60.0, 25, None),
+                                            (600.0, 7, None),
+                                            (-300.0, 7, 150.0)])
+def test_trajectory_reference_equals_the_propagator_loop(dt, n, h_carried):
+    """``adaptive_trajectory_reference`` of TwoBody + J2 equals, bit for
+    bit, the loop of ``DormandPrince87.step`` calls that
+    ``Propagator.propagate`` runs on the CPU: every state, each outer
+    step's substeps and |h| after it, and the integrator's ``h_current``
+    and ``n_substeps``; forward with one substep an outer step (60 s) and
+    several (600 s), and backward from a carried |h|."""
+    state = torch.from_numpy(_lanes((), seed=9))
+    accel = P.Composite([P.TwoBody(), P.J2()])
+    integ = P.DormandPrince87(accel, rtol=1e-10, device="cpu")
+    integ.h_current = h_carried
+    want, subs, hs = _dp87_loop(integ, state, 30.0, dt, n)
+    got, g_subs, g_hs, info = PI.adaptive_trajectory_reference(
+        integ.deriv, state, 30.0, dt, n, rtol=1e-10, atol=1e-12,
+        h_carried=h_carried)
+    assert torch.equal(got, want)
+    assert g_subs.tolist() == subs and g_hs.tolist() == hs
+    assert info.tolist() == [n - 1, integ.h_current, integ.n_substeps,
+                             math.copysign(integ.h_current, dt)]
+    via = P.DormandPrince87(accel, rtol=1e-10, device="cpu")
+    via.h_current = h_carried
+    times, states = P.Propagator(via).propagate(state, 30.0, dt * (n - 1),
+                                                dt)
+    assert torch.equal(states, want) and len(times) == n
+    assert (via.h_current, via.n_substeps) == (integ.h_current,
+                                               integ.n_substeps)
+
+
+@pytest.mark.parametrize("dt,n", [(60.0, 16), (600.0, 7)])
+def test_trajectory_reference_matches_jax(dt, n):
+    """``adaptive_trajectory_reference`` of TwoBody + J2 against JAX's
+    ``Propagator(DormandPrince87)``: within 1e-6 km
+    (``test_adaptive_reference_matches_jax``'s tolerance) over outer steps
+    of one substep (60 s; JAX's substep count, its ``dp87_adaptive``
+    called as its ``DormandPrince87.step`` calls it) and of several (600
+    s, where the carried h parts in its last bits and a count may
+    differ)."""
+    state = _lanes((), seed=9)
+    deriv = P.make_deriv(P.Composite([P.TwoBody(), P.J2()]))
+    got, subs, _, info = PI.adaptive_trajectory_reference(
+        deriv, torch.from_numpy(state), 0.0, dt, n, rtol=1e-10, atol=1e-12)
+    _, ref = JP.Propagator(JP.DormandPrince87(
+        JP.Composite([JP.TwoBody(), JP.J2()]), rtol=1e-10)).propagate(
+        state, 0.0, dt * (n - 1), dt)
+    assert got.shape == ref.shape == (n, 6) and info[0] == n - 1
+    assert float(np.abs(got.numpy()[:, :3] - ref[:, :3]).max()) <= 1e-6
+    if dt == 60.0:
+        jderiv = JP.make_deriv(JP.Composite([JP.TwoBody(), JP.J2()]))
+        y, h = jnp.asarray(state), None
+        for k in range(n - 1):
+            y, h_next, jn = JP.dp87_adaptive(jderiv, y, dt * k,
+                                             dt * (k + 1), rtol=1e-10, h0=h)
+            h = float(jnp.abs(h_next))
+            assert int(jn) == int(subs[k]) == 1, k
+
+
+def test_substep_cap_raises_at_the_same_outer_step(monkeypatch):
+    """With an impossible cap (3 substeps) and a carried |h|, the loop of
+    ``step`` calls raises the cap's ``RuntimeError`` at its third outer
+    step of 300 s; the plain trajectory stops there, and
+    ``DormandPrince87.trajectory`` (its launch replaced by the plain
+    trajectory) raises the same error and leaves ``h_current`` and
+    ``n_substeps`` as the loop does: |h| after the second outer step and
+    every substep counted, those of the third too."""
+    state = torch.from_numpy(_lanes((), seed=9))
+    accel = P.Composite([P.TwoBody(), P.J2()])
+
+    def warmed():
+        integ = P.DormandPrince87(accel, rtol=1e-10, device="cpu")
+        _, s = P.Propagator(integ).propagate(state, 0.0, 600.0, 60.0)
+        return integ, s[-1]
+
+    loop, start = warmed()
+    h0, n0 = loop.h_current, loop.n_substeps
+    monkeypatch.setattr(PI, "MAX_SUBSTEPS", 3)
+    with pytest.raises(RuntimeError, match="substep cap"):
+        _dp87_loop(loop, start, 600.0, 300.0, 13)
+    _, subs, hs, info = PI.adaptive_trajectory_reference(
+        loop.deriv, start, 600.0, 300.0, 13, rtol=1e-10, atol=1e-12,
+        h_carried=h0, max_substeps=3)
+    done = int(info[0])
+    assert 0 < done < 12 and int(subs[done]) == 3
+    assert (info[1].item(), n0 + int(info[2])) == (loop.h_current,
+                                                   loop.n_substeps)
+    monkeypatch.setattr(CI, "trajectory",
+                        lambda deriv, y, *a, **kw:
+                        PI.adaptive_trajectory_reference(deriv, y, *a, **kw))
+    via, _ = warmed()
+    with pytest.raises(RuntimeError, match="substep cap"):
+        via.trajectory(start, 600.0, 300.0, 13)
+    assert (via.h_current, via.n_substeps) == (loop.h_current,
+                                               loop.n_substeps)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on CUDA: it takes the kernel's route,
+    whose launch the route test replaces."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_the_route_is_chosen_once(monkeypatch):
+    """``forces.kernel_route`` picks the route for every integrator entry
+    point: on the CPU ``Propagator.propagate``, ``dp87_adaptive`` and
+    ``propagate_fixed`` run their plain loops and launch nothing; a state
+    on CUDA (``_OnCard``) with a model of kernel terms takes the kernel
+    (TRAJECTORY once a ``Propagator`` call, then once a ``dp87_adaptive``
+    call, FIXED), with the
+    plain loop's results where the launch is replaced by the plain
+    version; a model without terms, a batched state, or an integrator
+    other than ``DormandPrince87`` keeps the loop."""
+    accel = P.Composite([P.TwoBody(), P.J2()])
+    lanes = _lanes((2,), seed=4)
+    calls = []
+
+    def record(name, plain):
+        def fn(*args, **kw):
+            calls.append(name)
+            args = [a.as_subclass(torch.Tensor)
+                    if isinstance(a, torch.Tensor) else a for a in args]
+            return plain(*args, **kw)
+        return fn
+
+    def run(state, model, integ=None):
+        integ = integ or P.DormandPrince87(model, rtol=1e-10, device="cpu")
+        _, s = P.Propagator(integ).propagate(state, 0.0, 180.0, 60.0)
+        a = P.dp87_adaptive(P.make_deriv(model), state, 0.0, 60.0)[0]
+        _, f = P.propagate_fixed(model, state, 0.0, 120.0, 60.0)
+        return s, a, f, integ
+
+    base = torch.from_numpy(lanes[0])
+    want = run(base, accel)
+    before = dict(CI.LAUNCHES)
+    monkeypatch.setattr(CI, "trajectory", record(
+        "trajectory", lambda deriv, y, t0, dt, n, **kw:
+        PI.adaptive_trajectory_reference(deriv, y, t0, dt, n, **kw)))
+    monkeypatch.setattr(CI, "adaptive",
+                        record("adaptive", PI.adaptive_reference))
+    monkeypatch.setattr(CI, "fixed", record("fixed", PD.fixed_reference))
+    got = run(base.as_subclass(_OnCard), accel)
+    assert calls == ["trajectory", "adaptive", "fixed"]
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.as_subclass(torch.Tensor), w)
+    assert (got[3].h_current, got[3].n_substeps) == (want[3].h_current,
+                                                     want[3].n_substeps)
+    calls.clear()
+    # a model of a python function of t has no terms
+    run(base.as_subclass(_OnCard), lambda r, v, t: accel(r, v, t))
+    run(torch.from_numpy(lanes).as_subclass(_OnCard), accel)
+    rk4 = P.Rk4(accel, device="cpu")
+    P.Propagator(rk4).propagate(base.as_subclass(_OnCard), 0.0, 120.0, 60.0)
+    assert calls == ["fixed"]  # the batched state's propagate_fixed
+    assert CI.LAUNCHES == before
