@@ -29,10 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: sources built with contraction on, in place of NVCC_FLAGS' --fmad=false:
 #: the f64 kernel and the integrator kernel call libdevice's f64 pow (and
-#: exp), which gives the bits of torch's only when built as torch's kernels
-#: are; their own arithmetic goes through rounded intrinsics, which are
-#: never contracted (see csrc/sgp4_f64.cu, csrc/integrate_f64.cu)
-FMAD_SOURCES = ("sgp4_f64.cu", "integrate_f64.cu")
+#: exp), the epilogue kernel its sin, cos and atan2, which give the bits of
+#: torch's only when built as torch's kernels are; their own arithmetic
+#: goes through rounded intrinsics, which are never contracted (see
+#: csrc/sgp4_f64.cu, csrc/integrate_f64.cu, csrc/finalize.cu)
+FMAD_SOURCES = ("sgp4_f64.cu", "integrate_f64.cu", "finalize.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,6 +76,8 @@ SIGNATURES = {
                               _F, _F, _F, _F, _F, _P, _P, _P, _P]),
     # n_times, n_deep, kepler_iters, want_vel, grid (3,) i32 out
     "astroz_sgp4_deep_grid": (_I, [_I, _I, _I, _I, _P]),
+    # fields, n_deep, n_steps, shifts (host array), tables, stream
+    "astroz_resonance_tables": (_I, [_P, _I, _I, _P, _P, _P]),
     # tsince, t_row, t_col, fields, flags, n_lanes, lane_step, n_times,
     # n_out, sdp4, want_vel, 7 constants (ops/cuda_sgp4.py _f64_consts), r,
     # v, err, stream
@@ -103,6 +106,12 @@ SIGNATURES = {
     "astroz_integrate_attitude": (_I, [_P] * 6 + [_L, _L, _D, _P]),
     # a, b, got, want, rcp, rcp_want, n, stream
     "astroz_integrate_divide_probe": (_I, [_P] * 6 + [_L, _P]),
+    # r, v, err, sg, cg, mask, n_times, n_sats, source, layout, frame,
+    # r_out, v_out, err_out, a_km, e2, rad2deg, stream
+    "astroz_finalize_f32": (_I, [_P] * 6 + [_L, _L, _I, _I, _I]
+                            + [_P] * 3 + [_D] * 3 + [_P]),
+    "astroz_finalize_f64": (_I, [_P] * 6 + [_L, _L, _I, _I, _I]
+                            + [_P] * 3 + [_D] * 3 + [_P]),
     # r, n_times, n_sats, j0, width, out, stream
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
     # r, n_times, n_sats, thr2, cap, out_ij, count, stream

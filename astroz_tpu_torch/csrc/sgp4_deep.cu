@@ -55,6 +55,18 @@
 // lanes take neighbouring slots, so field loads, table reads and plane
 // stores are contiguous across a warp. Outputs are exact-shape; the ragged
 // edges are masked.
+//
+// TABLES, the resonance tables K2 and the f64 kernel's ESCAPE mode read:
+// not a TPU kernel. The JAX package builds them in one lax.scan
+// (astroz_tpu/ops/fast.py:138 _resonance_tables); the plain version
+// (ops/fast.py:resonance_tables_reference) steps n_steps + 1 times through
+// ~60 small torch ops. One thread a (deep lane, direction) walks the
+// dependent 720-minute steps with the f64 state in registers and writes
+// its rows of the (5, 2 (n_steps + 1), D) table: the same operations in
+// the same order, the f32 series on K2's polynomial sincos. Bound: the
+// steps are a chain on one thread, ~150 f32 and ~20 f64 operations each,
+// over ~1,300 threads at the headline catalog: microseconds of work, so a
+// launch is latency and launch overhead, not bytes (267 KB out at depth 4).
 
 #include "sgp4_common.cuh"
 
@@ -400,6 +412,139 @@ int deep(int want_vel, int kepler_iters, const DeepArgs& a, void* stream,
   return static_cast<int>(rc);
 }
 
+
+// ---- TABLES: the resonance tables ------------------------------------------
+
+constexpr int TABLE_BLOCK = 128;  // (lane, direction) walkers per block
+constexpr double STEP2 = 259200.0;
+
+// rows of the fields matrix, ops/cuda_sgp4.py RESONANCE_FIELD_NAMES
+enum ResonanceField {
+  RF_XLAMO, RF_NO_UNKOZAI, RF_ARGPO, RF_ARGPDOT, RF_XFACT, RF_DEL1, RF_DEL2,
+  RF_DEL3, RF_D2201, RF_D2211, RF_D3210, RF_D3222, RF_D4410, RF_D4422,
+  RF_D5220, RF_D5232, RF_D5421, RF_D5433, RF_IREZ, N_RESONANCE_FIELDS
+};
+
+// the phase constants of fast._resonance_derivs_fast's sc_shift, in the
+// order FASX2, 2 FASX4, 3 FASX6, G22, G32, G44, G52, G54: the f32 rounding
+// of the host's sin and cos of each (ops/cuda_sgp4.py RESONANCE_SHIFTS)
+enum Shift { SH_FASX2, SH_FASX4, SH_FASX6, SH_G22, SH_G32, SH_G44, SH_G52,
+             SH_G54, N_SHIFTS };
+struct Shifts {
+  float s[N_SHIFTS];
+  float c[N_SHIFTS];
+};
+
+// sin/cos of (a + b)
+__device__ __forceinline__ void sc_sum(float sa, float ca, float sb, float cb,
+                                       float& s, float& c) {
+  s = sa * cb + ca * sb;
+  c = ca * cb - sa * sb;
+}
+
+// sin/cos of (x - the shift's constant)
+__device__ __forceinline__ void sc_shift(float s, float c, const Shifts& k,
+                                         int i, float& so, float& co) {
+  so = s * k.c[i] - c * k.s[i];
+  co = c * k.c[i] + s * k.s[i];
+}
+
+// fast._resonance_derivs_fast at (xli, xni, atime): xndt, xldot and
+// xnddt * xldot
+__device__ __forceinline__ void resonance_derivs(
+    const double* f, long long stride, const Shifts& k, double xli,
+    double xni, double atime, double& xndt, double& xldot, double& xnddt) {
+  const float xli32 = __double2float_rn(rem_two_pi(xli));
+  const float xomi32 = __double2float_rn(
+      rem_two_pi(f[RF_ARGPO * stride] + f[RF_ARGPDOT * stride] * atime));
+  float s_li, c_li, s_omi, c_omi;
+  sincos_poly(xli32, s_li, c_li);
+  const float s_2li = 2.0f * s_li * c_li;
+  const float c_2li = 1.0f - 2.0f * s_li * s_li;
+  sincos_poly(xomi32, s_omi, c_omi);
+  const float s_2omi = 2.0f * s_omi * c_omi;
+  const float c_2omi = 1.0f - 2.0f * s_omi * s_omi;
+  float xndt32, xnddt32;
+  if (f[RF_IREZ * stride] != 2.0) {
+    // geosynchronous 3-term series (irez 1; irez 0 takes it too, its
+    // del terms zero)
+    float s_3li, c_3li, s1, c1, s2, c2, s3, c3;
+    sc_sum(s_2li, c_2li, s_li, c_li, s_3li, c_3li);
+    sc_shift(s_li, c_li, k, SH_FASX2, s1, c1);
+    sc_shift(s_2li, c_2li, k, SH_FASX4, s2, c2);
+    sc_shift(s_3li, c_3li, k, SH_FASX6, s3, c3);
+    const float del1 = __double2float_rn(f[RF_DEL1 * stride]);
+    const float del2 = __double2float_rn(f[RF_DEL2 * stride]);
+    const float del3 = __double2float_rn(f[RF_DEL3 * stride]);
+    xndt32 = del1 * s1 + del2 * s2 + del3 * s3;
+    xnddt32 = del1 * c1 + 2.0f * del2 * c2 + 3.0f * del3 * c3;
+  } else {
+    // half-day 10-term series (irez 2), summed from 0 as Python's sum
+    float s_[10], c_[10], s_ol, c_ol, s_nol, c_nol, s_2ol, c_2ol, s_2o2l,
+        c_2o2l, s_o2l, c_o2l, s_no2l, c_no2l;
+    sc_sum(s_omi, c_omi, s_li, c_li, s_ol, c_ol);
+    sc_sum(-s_omi, c_omi, s_li, c_li, s_nol, c_nol);
+    sc_sum(s_2omi, c_2omi, s_li, c_li, s_2ol, c_2ol);
+    sc_sum(s_2omi, c_2omi, s_2li, c_2li, s_2o2l, c_2o2l);
+    sc_sum(s_omi, c_omi, s_2li, c_2li, s_o2l, c_o2l);
+    sc_sum(-s_omi, c_omi, s_2li, c_2li, s_no2l, c_no2l);
+    sc_shift(s_2ol, c_2ol, k, SH_G22, s_[0], c_[0]);
+    sc_shift(s_li, c_li, k, SH_G22, s_[1], c_[1]);
+    sc_shift(s_ol, c_ol, k, SH_G32, s_[2], c_[2]);
+    sc_shift(s_nol, c_nol, k, SH_G32, s_[3], c_[3]);
+    sc_shift(s_2o2l, c_2o2l, k, SH_G44, s_[4], c_[4]);
+    sc_shift(s_2li, c_2li, k, SH_G44, s_[5], c_[5]);
+    sc_shift(s_ol, c_ol, k, SH_G52, s_[6], c_[6]);
+    sc_shift(s_nol, c_nol, k, SH_G52, s_[7], c_[7]);
+    sc_shift(s_o2l, c_o2l, k, SH_G54, s_[8], c_[8]);
+    sc_shift(s_no2l, c_no2l, k, SH_G54, s_[9], c_[9]);
+    xndt32 = 0.0f;
+    xnddt32 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      const float d = __double2float_rn(f[(RF_D2201 + i) * stride]);
+      xndt32 = __fadd_rn(xndt32, d * s_[i]);
+      // terms 4, 5, 8, 9 carry 2 li: their derivative takes 2.0
+      const float dc = d * c_[i];
+      xnddt32 = __fadd_rn(xnddt32, (i == 4 || i == 5 || i == 8 || i == 9)
+                                       ? dc * 2.0f : dc);
+    }
+  }
+  xndt = static_cast<double>(xndt32);
+  xldot = xni + f[RF_XFACT * stride];
+  xnddt = static_cast<double>(xnddt32) * xldot;
+}
+
+__global__ void __launch_bounds__(TABLE_BLOCK)
+    resonance_tables_kernel(const double* fields, int n_deep, int n_steps,
+                            const Shifts k, double* tables) {
+  const int i = blockIdx.x * TABLE_BLOCK + threadIdx.x;
+  if (i >= 2 * n_deep) return;
+  const int lane = i % n_deep, dir = i / n_deep;
+  const long long D = n_deep, rows = 2LL * (n_steps + 1);
+  const double* f = fields + lane;
+  const double delt = dir == 0 ? STEPP : -STEPP;
+  double xli = __dadd_rn(f[RF_XLAMO * D], 0.0);
+  double xni = __dadd_rn(f[RF_NO_UNKOZAI * D], 0.0);
+  double atime = 0.0;
+  double* out = tables + static_cast<long long>(dir) * (n_steps + 1) * D
+                + lane;
+  for (int s = 0; s <= n_steps; ++s) {
+    double xndt, xldot, xnddt;
+    resonance_derivs(f, D, k, xli, xni, atime, xndt, xldot, xnddt);
+    double* o = out + s * D;
+    o[0] = xli;
+    o[rows * D] = xni;
+    o[2 * rows * D] = xndt;
+    o[3 * rows * D] = xldot;
+    o[4 * rows * D] = xnddt;
+    const double xli_next = xli + xldot * delt + xndt * STEP2;
+    xni = xni + xndt * delt + xnddt * STEP2;
+    xli = xli_next;
+    atime = atime + delt;
+  }
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes by astroz_tpu_torch/_build.py).
@@ -431,4 +576,26 @@ extern "C" int astroz_sgp4_deep_grid(int n_times, int n_deep,
   a.n_times = n_times;
   a.n_deep = n_deep;
   return deep(want_vel, kepler_iters, a, nullptr, false, grid);
+}
+
+// TABLES. fields (19, D) f64, rows ops/cuda_sgp4.py RESONANCE_FIELD_NAMES
+// (irez as f64); shifts: a host array of 16 f32, the sines of the 8 phase
+// constants, then their cosines; tables (5, 2 * (n_steps + 1), D) f64,
+// rows ops/fast.py RESONANCE_TABLE_NAMES, forward steps first. Launches on
+// `stream` and returns the launch's cudaError_t.
+extern "C" int astroz_resonance_tables(const double* fields, int n_deep,
+                                       int n_steps, const float* shifts,
+                                       double* tables, void* stream) {
+  if (n_deep <= 0) return 0;
+  if (n_steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Shifts k;
+  for (int i = 0; i < N_SHIFTS; ++i) {
+    k.s[i] = shifts[i];
+    k.c[i] = shifts[N_SHIFTS + i];
+  }
+  const int blocks = (2 * n_deep + TABLE_BLOCK - 1) / TABLE_BLOCK;
+  resonance_tables_kernel<<<blocks, TABLE_BLOCK, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      fields, n_deep, n_steps, k, tables);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 engine, and the CUDA kernels with their plain torch versions."""
 
 from . import fastmath
-from .fast import propagate_fast, solve_kepler_fast
+from .cuda_sgp4 import propagate_fast
+from .fast import solve_kepler_fast
 from .sdp4 import (DeepElements, ResonanceCarry, fresh_carry, sdp4_init,
                    sdp4_propagate, sdp4_propagate_scan)
 from .sgp4 import (Sgp4Elements, kepler_and_posvel, sgp4_init,

@@ -17,6 +17,11 @@ kernel that feeds K6, the f64 kernel, and their plain versions.
   ``propagate_fast_pallas``): K1's tail on the six f32 grids of the f64
   spine (``ops/fast.py:spine_f64``), which the spine kernel
   (:func:`spine_f64_grids`, over elements :func:`spine_grids`) writes.
+* TABLES, :func:`resonance_tables` (``csrc/sgp4_deep.cu``; not a TPU
+  kernel: the ``lax.scan`` of ``astroz_tpu/ops/fast.py:138``), builds the
+  resonance tables K2, the HEO escape and the mixed tail of
+  :func:`propagate_fast` (the unified dense entry point) read, one thread
+  a (deep lane, direction).
 * The f64 kernel (``csrc/sgp4_f64.cu``; not a TPU kernel: the f64
   programs the JAX package jits around its Pallas kernels) computes
   ``ops/sgp4.py:sgp4_propagate`` / ``ops/sdp4.py:sdp4_propagate`` at
@@ -46,6 +51,7 @@ to its entry of :data:`LAUNCHES`. On a CPU tensor it runs its
 from __future__ import annotations
 
 import ctypes
+import math
 import weakref
 from typing import NamedTuple
 
@@ -57,9 +63,11 @@ from ..constants import GravityModel
 from .fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                    RESONANCE_TABLE_NAMES, SPINE_FIELD_NAMES,
                    TAIL_FIELD_NAMES, deep_spine_f64, deep_tail_f32,
+                   propagate_fast_mixed, resonance_tables_reference,
                    sdp4_propagate_tables, shallow_staging, shallow_tail_f32,
                    spine_f64)
-from .sdp4 import DeepElements, sdp4_propagate, sdp4_propagate_scan
+from .sdp4 import (FASX2, FASX4, FASX6, G22, G32, G44, G52, G54,
+                   DeepElements, sdp4_propagate, sdp4_propagate_scan)
 from .sgp4 import Sgp4Elements, sgp4_propagate
 
 #: Newton trip counts K1 and K3 are built for (SatCatalog.kepler_iters)
@@ -72,7 +80,7 @@ DEEP_KEPLER_ITERS = (6, 8)
 LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
             "sgp4_shallow_dense": 0, "sgp4_shallow_grids": 0,
             "sgp4_spine_grids": 0, "sgp4_f64_dense": 0, "sgp4_f64_escape": 0,
-            "sgp4_f64_scan": 0}
+            "sgp4_f64_scan": 0, "resonance_tables": 0}
 
 F32 = torch.float32
 F64 = torch.float64
@@ -274,7 +282,7 @@ def propagate_deep_sep(t_time, t_sat, spine, tail, flags, tables, *,
       tail: (33, D) f32 rows ``ops.fast.DEEP_FIELD_NAMES``.
       flags: (2, D) i32 rows ``[irez, init error]``.
       tables: (5, 2 * (steps + 1), D) f64 resonance tables
-        (``ops.fast.resonance_tables``).
+        (:func:`resonance_tables`).
       grav: the gravity model the elements were initialized with.
       kepler_iters: Newton trips, one of :data:`DEEP_KEPLER_ITERS` on
         CUDA.
@@ -306,6 +314,67 @@ def propagate_deep_sep(t_time, t_sat, spine, tail, flags, tables, *,
             err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "sgp4_deep")
     return r, v, err
+
+
+# ---------------------------------------------------------------------------
+# TABLES: the resonance tables of a deep subset
+# ---------------------------------------------------------------------------
+
+#: rows of the matrix TABLES reads: ``DeepElements`` and ``Sgp4Elements``
+#: fields (``irez`` as f64), in kernel order (csrc/sgp4_deep.cu
+#: ResonanceField)
+RESONANCE_FIELD_NAMES = ("xlamo", "no_unkozai", "argpo", "argpdot", "xfact",
+                         "del1", "del2", "del3", "d2201", "d2211", "d3210",
+                         "d3222", "d4410", "d4422", "d5220", "d5232",
+                         "d5421", "d5433", "irez")
+#: the phase constants of ``fast._resonance_derivs_fast``'s shifts, in
+#: kernel order (csrc/sgp4_deep.cu Shift)
+RESONANCE_SHIFTS = (FASX2, 2.0 * FASX4, 3.0 * FASX6, G22, G32, G44, G52, G54)
+
+
+def _resonance_fields(deep, els) -> torch.Tensor:
+    """The (19, D) f64 matrix of :data:`RESONANCE_FIELD_NAMES`."""
+    return torch.stack([
+        (getattr(els, n) if n in Sgp4Elements._fields
+         else getattr(deep, n)).to(F64) for n in RESONANCE_FIELD_NAMES])
+
+
+def resonance_tables(deep, els, n_steps: int) -> torch.Tensor:
+    """TABLES: the resonance tables of ``ops/fast.py:
+    resonance_tables_reference`` (the same arguments and result: ``(5, 2 *
+    (n_steps + 1), D)`` f64, forward steps first), one thread a (lane,
+    direction) walking its ``n_steps + 1`` steps.
+
+    ``deep`` and ``els`` hold the lanes' DeepElements and Sgp4Elements as
+    (D,) tensors on one device; the phase constants' sines and cosines go
+    to the kernel as the host computes them, rounded to f32
+    (:data:`RESONANCE_SHIFTS`), as the plain version's python floats are.
+    """
+    xlamo = deep.xlamo
+    dev = _device_of(xlamo, "resonance_tables")
+    if dev.type == "cpu":
+        return resonance_tables_reference(deep, els, n_steps)
+    if xlamo.dim() != 1 or n_steps < 0:
+        raise ValueError(f"resonance_tables: expected (D,) lanes and "
+                         f"n_steps >= 0, got {tuple(xlamo.shape)}, {n_steps}")
+    n_deep = xlamo.shape[0]
+    fields = _resonance_fields(deep, els)
+    _check(dev, ((fields, (len(RESONANCE_FIELD_NAMES), n_deep), F64,
+                  "fields"),))
+    tables = torch.empty((len(RESONANCE_TABLE_NAMES), 2 * (n_steps + 1),
+                          n_deep), dtype=F64, device=dev)
+    if n_deep == 0:
+        return tables
+    shifts = np.array([[math.sin(c) for c in RESONANCE_SHIFTS],
+                       [math.cos(c) for c in RESONANCE_SHIFTS]], np.float32)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_resonance_tables(
+            fields.data_ptr(), n_deep, n_steps,
+            shifts.ctypes.data_as(ctypes.c_void_p), tables.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "resonance_tables")
+    return tables
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +649,37 @@ def propagate_fast_fused(els, tsince, grav: GravityModel,
     (v None with ``want_vel=False``), err (T, S) i32 python-sgp4 codes."""
     return _dense(_tsince_for(els, tsince), *_staged(els), grav,
                   kepler_iters, want_vel, time_major=True)
+
+
+def propagate_fast(els, deep, tsince, grav: GravityModel, carry=None,
+                   kepler_iters: int = 8, resonance_steps=None):
+    """Split-precision propagate of a catalog to ``tsince`` minutes from
+    each epoch (f64, broadcasting against the ``(n_sats,)`` elements): the
+    JAX package's unified dense entry point (``astroz_tpu/ops/fast.py:644``).
+
+    Returns ``(r, v, error)``: f32 TEME km and km/s stacked ``(..., 3)``,
+    int32 python-sgp4 codes. With ``deep`` None (a near-earth catalog)
+    this is :func:`propagate_fast_fused` (K5). Otherwise the plain mixed
+    tail ``ops/fast.py:propagate_fast_mixed`` runs over every lane, its
+    resonance read from :func:`resonance_tables` (TABLES,
+    ``resonance_steps`` deep, 64 by default) or, with a
+    :class:`~.sdp4.ResonanceCarry`, stepped from ``carry`` per point."""
+    if deep is not None:
+        tables = None
+        if carry is None:
+            tables = resonance_tables(deep, els, resonance_steps or 64)
+        return propagate_fast_mixed(els, deep, tsince, grav, tables=tables,
+                                    carry=carry, kepler_iters=kepler_iters)
+    t = torch.as_tensor(tsince, dtype=els.no_kozai.dtype,
+                        device=els.no_kozai.device)
+    n_sats = els.no_kozai.shape[0]
+    shape = torch.broadcast_shapes(t.shape, (n_sats,))
+    if t.dim() != 2 or t.shape[1] not in (1, n_sats):
+        t = t.expand(shape).reshape(-1, n_sats)
+    r, v, err = propagate_fast_fused(els, t.contiguous(), grav,
+                                     kepler_iters=kepler_iters)
+    return (r.reshape(shape + (3,)), v.reshape(shape + (3,)),
+            err.reshape(shape))
 
 
 def launch_grid(kernel, n_times, n_sats, *, kepler_iters=None,
@@ -1037,7 +1137,7 @@ def sgp4_f64_escape(t_time, t_sat, fields, flags, idx, tables, d_r3, d_v3,
         included.
       idx: (X,) i32 column of each escape lane in the deep subset.
       tables: (5, 2 * (steps + 1), D) f64 resonance tables of the whole
-        deep subset (``ops.fast.resonance_tables``), read at ``idx``.
+        deep subset (:func:`resonance_tables`), read at ``idx``.
       d_r3, d_v3, d_err: K2's (3, T, D) f32 planes (d_v3 None without
         velocities) and (T, D) i32 codes, written in place.
       grav, want_vel: as :func:`sgp4_f64_dense`.

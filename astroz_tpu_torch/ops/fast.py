@@ -10,16 +10,18 @@ the plain versions of the CUDA kernels in ``csrc/``: the kernels run the
 same operations in the same order.
 
 Deep-space resonance (the 720-minute Euler-Maclaurin integrator) is
-integrated once per satellite into tables (:func:`resonance_tables`);
-each grid point reads its row by a direct index
+integrated once per satellite into tables (:func:`resonance_tables_reference`,
+the plain version of ``ops/cuda_sgp4.py:resonance_tables``, the TABLES
+kernel); each grid point reads its row by a direct index
 (:func:`resonance_from_tables`). :func:`sdp4_propagate_tables` is the
 full-f64 SDP4 on those tables, the accuracy escape of extreme half-day
 lanes.
 
-:func:`propagate_fast` is the JAX package's unified dense entry point
-(``astroz_tpu/ops/fast.py:644``): near-earth elements go through kernel
-K5 (``ops/cuda_sgp4.py:propagate_fast_fused``), a mixed catalog through
-the plain torch tail here, which the JAX package runs in XLA.
+:func:`propagate_fast_mixed` is the mixed branch of the JAX package's
+unified dense entry point (``astroz_tpu/ops/fast.py:644``), which the
+JAX package runs in XLA, in plain torch; the entry point itself is
+``ops/cuda_sgp4.py:propagate_fast`` (near-earth elements through kernel
+K5, a mixed catalog through this tail on the TABLES kernel's tables).
 
 The JAX package spells the reciprocal square roots of the tail as
 ``lax.rsqrt``; here they are ``1 / sqrt(x)`` (:func:`fastmath.rsqrt`),
@@ -356,7 +358,7 @@ def _resonance_derivs_fast(deep, els, xli, xni, atime):
     return xndt, xldot, xnddt * xldot
 
 
-def resonance_tables(deep, els, n_steps: int) -> torch.Tensor:
+def resonance_tables_reference(deep, els, n_steps: int) -> torch.Tensor:
     """Per-satellite resonance integration tables, f64, shaped
     ``(5, 2 * (n_steps + 1), n_sats)``: rows ``RESONANCE_TABLE_NAMES`` of
     the integrator state and its derivatives after k 720-minute steps,
@@ -364,7 +366,9 @@ def resonance_tables(deep, els, n_steps: int) -> torch.Tensor:
 
     ``deep`` and ``els`` hold the satellites' DeepElements and
     Sgp4Elements as tensors; the forward and backward integrations step
-    together on a (2, n_sats) state."""
+    together on a (2, n_sats) state. The plain version of
+    ``ops/cuda_sgp4.py:resonance_tables`` (the TABLES kernel of
+    ``csrc/sgp4_deep.cu``)."""
     xlamo = deep.xlamo
     delt = torch.stack([torch.full_like(xlamo, STEPP),
                         torch.full_like(xlamo, -STEPP)])
@@ -386,7 +390,8 @@ def resonance_tables(deep, els, n_steps: int) -> torch.Tensor:
 
 def resonance_from_tables(t: torch.Tensor, tables: torch.Tensor):
     """The resonance integral at ``t`` minutes from epoch (f64, shape
-    (..., n_sats)), read from :func:`resonance_tables`: row k =
+    (..., n_sats)), read from :func:`resonance_tables_reference`'s
+    tables: row k =
     min(floor(|t| / 720), n_steps), plus n_steps + 1 when t < 0, then the
     Euler-Maclaurin quadratic over the remaining ``t - atime``. Returns
     ``(nm_res, xl)``, meaningful on resonant lanes."""
@@ -589,10 +594,10 @@ def deep_tail_f32(grav: GravityModel, kepler_iters: int, t32, u_base, mm,
 def sdp4_propagate_tables(els, deep, t: torch.Tensor, grav: GravityModel,
                           tables: torch.Tensor):
     """Full-f64 SDP4 of an all-deep subset at ``t`` minutes from each
-    epoch (shape (..., n_sats)), the resonance read from
-    :func:`resonance_tables` instead of stepped per point. The accuracy
-    escape of extreme half-day lanes. Returns ``(r, v, error)``, r and v
-    stacked ``(..., 3)`` f64."""
+    epoch (shape (..., n_sats)), the resonance read from the tables of
+    :func:`resonance_tables_reference` instead of stepped per point. The
+    accuracy escape of extreme half-day lanes. Returns ``(r, v,
+    error)``, r and v stacked ``(..., 3)`` f64."""
     mm, argpm, nodem, tempa, tempe, templ = update_secular(els, t)
     theta = torch.fmod(els.gsto + t * RPTIM, TWO_PI)
     em = els.ecco + deep.dedt * t
@@ -631,38 +636,24 @@ def _dpper_fast(deep, t32, ep, inclp, sin_node, cos_node, nodep, mp, argpp,
     return tuple(torch.where(apply_mask, a, b) for a, b in zip(new, old))
 
 
-def propagate_fast(els, deep, tsince, grav: GravityModel, carry=None,
-                   kepler_iters: int = 8, resonance_steps=None):
-    """Split-precision propagate of a catalog to ``tsince`` minutes from
-    each epoch (f64, broadcasting against the ``(n_sats,)`` elements).
+def propagate_fast_mixed(els, deep, tsince, grav: GravityModel,
+                         tables=None, carry=None, kepler_iters: int = 8):
+    """Split-precision propagate of a mixed catalog to ``tsince`` minutes
+    from each epoch (f64, broadcasting against the ``(n_sats,)``
+    elements), in plain torch over every lane, the deep coefficients zero
+    on near-earth lanes.
 
-    Returns ``(r, v, error)``: f32 TEME km and km/s stacked ``(..., 3)``,
-    int32 python-sgp4 codes. With ``deep`` None (a near-earth catalog)
-    this is :func:`~.cuda_sgp4.propagate_fast_fused`: kernel K5 on a CUDA
-    tensor, its plain version on a CPU one. Otherwise the mixed tail
-    below runs in plain torch over every lane, the deep coefficients
-    zero on near-earth lanes; the resonance comes from
-    :func:`resonance_tables` (``resonance_steps`` deep, 64 by default)
-    read by :func:`resonance_from_tables`, or with a
-    :class:`~.sdp4.ResonanceCarry`, from a masked 720-minute loop resumed
-    from ``carry`` per point. The drag term takes cos(xmdf), as SGP4
-    does (the JAX package's mixed tail takes the sine; ROADMAP queue
-    3)."""
+    The resonance is read from ``tables`` (:func:`resonance_tables_reference`'s
+    over every lane) by :func:`resonance_from_tables`, or with a
+    :class:`~.sdp4.ResonanceCarry` in place of the tables, from a masked
+    720-minute loop resumed from ``carry`` per point. Returns ``(r, v,
+    error)``: f32 TEME km and km/s stacked ``(..., 3)``, int32
+    python-sgp4 codes. The drag term takes cos(xmdf), as SGP4 does (the
+    JAX package's mixed tail takes the sine; ROADMAP queue 3)."""
     t = torch.as_tensor(tsince, dtype=els.no_kozai.dtype,
                         device=els.no_kozai.device)
     n_sats = els.no_kozai.shape[0]
     shape = torch.broadcast_shapes(t.shape, (n_sats,))
-
-    if deep is None:
-        # cuda_sgp4 imports this module, so it is imported here
-        from .cuda_sgp4 import propagate_fast_fused
-
-        if t.dim() != 2 or t.shape[1] not in (1, n_sats):
-            t = t.expand(shape).reshape(-1, n_sats)
-        r, v, err = propagate_fast_fused(els, t.contiguous(), grav,
-                                         kepler_iters=kepler_iters)
-        return (r.reshape(shape + (3,)), v.reshape(shape + (3,)),
-                err.reshape(shape))
 
     # ---- f64 spine ---------------------------------------------------------
     xmdf = els.mo + els.mdot * t
@@ -680,7 +671,6 @@ def propagate_fast(els, deep, tsince, grav: GravityModel, carry=None,
     nm_res64 = els.no_unkozai + torch.zeros_like(xmdf)
     resonant = deep.irez != 0
     if carry is None:
-        tables = resonance_tables(deep, els, resonance_steps or 64)
         nm_res, xl = resonance_from_tables(t.expand(shape), tables)
     else:
         nm_res, xl, _ = integrate_resonance(deep, els, t, carry,

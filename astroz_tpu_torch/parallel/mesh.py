@@ -32,11 +32,11 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.cuda_finalize import finalize
 from ..ops.sdp4 import DeepElements
 from ..ops.sgp4 import Sgp4Elements
 from ..propagation import (LAYOUTS, OUTPUT_MODES, SatCatalog, _fast_planes,
-                           _finalize_planes, _propagate_f64, _t_time,
-                           resonance_steps)
+                           _propagate_f64, _t_time, resonance_steps)
 
 
 class Mesh:
@@ -313,9 +313,9 @@ def stage_sharded_fast(cat: SatCatalog, jd, fr=None, *, mesh: Mesh,
                             dtype=torch.float64, device=sub.device)))
 
     def sweep(*shards: _FastShard):
-        return [_finalize_planes(*_fast_planes(s.cat, s.t_time, steps,
-                                               want_vel),
-                                 s.jd_sum, output, want_vel, layout)
+        return [finalize(*_fast_planes(s.cat, s.t_time, steps, want_vel),
+                         s.jd_sum, source="planes", output=output,
+                         layout=layout, velocities=want_vel)
                 for s in shards]
 
     return sweep, tuple(shards), (n_times, n_real)

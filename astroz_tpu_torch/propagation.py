@@ -12,13 +12,19 @@ separable grid ``tsince = t_time[t] - t_sat[s]``:
   kernel's ESCAPE mode, which writes into K2's planes), then kernel K3,
   which is K1 with the deep columns copied in from K2's planes.
 
-Frames and layouts are converted in plain torch on the kernels' (3, T, S)
-planes. ``propagate(method="f64")`` (the default, as in the JAX package)
+Frames, layouts and the satellite mask are one launch of the epilogue
+kernel (``ops/cuda_finalize.py:finalize``) on the kernels' (3, T, S)
+planes, or none where the caller asks for TEME planes.
+``propagate(method="f64")`` (the default, as in the JAX package)
 and :func:`propagate_tsince` compute ``ops/sgp4.py:sgp4_propagate`` or
 ``ops/sdp4.py:sdp4_propagate`` over the dense ``(T, S)`` grid of minutes
 since each epoch in one launch of the f64 kernel (``ops/cuda_sgp4.py:
 sgp4_f64_dense``), and ``scan_times=True`` threads the SDP4 resonance
-carry along the time axis (``sgp4_f64_scan``). The JAX package's
+carry along the time axis (``sgp4_f64_scan``); the epilogue kernel
+turns its time-major outputs into the caller's frame and layout. The
+deep subset's resonance tables are one launch of TABLES
+(``ops/cuda_sgp4.py:resonance_tables``) per catalog and depth. The JAX
+package's
 small-grid route to its native host engine (item 11) is not ported: on a
 CUDA catalog every fast propagate goes through the kernels.
 """
@@ -31,25 +37,18 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .constants import MINUTES_PER_DAY, RAD2DEG, WGS72, GravityModel
-from .frames import ecef_to_geodetic, ecef_to_geodetic_xyz, teme_to_ecef
+from .constants import MINUTES_PER_DAY, WGS72, GravityModel
+from .ops.cuda_finalize import LAYOUTS, OUTPUT_MODES, finalize
 from .ops.cuda_sgp4 import (LYDDANE_INCL, F64Staging, MergeMaps,
                              f64_staging, propagate_deep_sep,
                              propagate_fast_sep,
-                             propagate_fast_sep_merge, sgp4_f64_dense,
-                             sgp4_f64_escape, sgp4_f64_scan)
+                             propagate_fast_sep_merge, resonance_tables,
+                             sgp4_f64_dense, sgp4_f64_escape, sgp4_f64_scan)
 from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
-                       deep_f32_fields, resonance_tables, shallow_staging)
+                       deep_f32_fields, shallow_staging)
 from .ops.sdp4 import DeepElements, sdp4_init_np
 from .ops.sgp4 import Sgp4Elements, _device, sgp4_init_np
-from .time import gstime
 from .tle import Tle, TleArrays, iter_tles, parse_omm
-
-#: output frame names
-OUTPUT_MODES = ("teme", "ecef", "geodetic", "geodetic_deg")
-#: ``time_major`` -> (T, S, 3), ``sat_major`` -> (S, T, 3), ``planes`` ->
-#: (3, T, S), the kernel's own layout
-LAYOUTS = ("time_major", "sat_major", "planes")
 
 #: half-day resonant (irez == 2) lanes above this eccentricity are
 #: recomputed in f64 by the fast path (SatCatalog.heo_escape): the f32
@@ -229,8 +228,8 @@ class SatCatalog:
 
     def resonance_tables(self, steps: int) -> torch.Tensor:
         """The deep subset's resonance tables at depth ``steps``
-        (``ops.fast.resonance_tables``), integrated once per catalog and
-        depth on the device and kept."""
+        (``ops.cuda_sgp4.resonance_tables``: one launch of TABLES on the
+        card), integrated once per catalog and depth and kept."""
         if steps not in self._tables:
             self._tables[steps] = resonance_tables(self.deep_sub,
                                                    self.els_deep, steps)
@@ -368,52 +367,6 @@ def catalog_from_elements(els: Sgp4Elements, grav: GravityModel,
     return SatCatalog(els, grav, satnum, names, deep=deep, device=device)
 
 
-def _finalize_planes(r3, v3, err, jd_sum, output: str, want_vel: bool,
-                     layout: str):
-    """Frame conversion and layout assembly on the kernel's (3, T, S)
-    planes; ``jd_sum`` is (T, 1) f64. GMST is computed in f64 and cast
-    to the planes' dtype."""
-    if output != "teme":
-        x, y, z = r3[0], r3[1], r3[2]
-        gmst = gstime(jd_sum).to(x.dtype)
-        sg, cg = torch.sin(gmst), torch.cos(gmst)
-        x, y = cg * x + sg * y, -sg * x + cg * y
-        if want_vel:
-            vx, vy, vz = v3[0], v3[1], v3[2]
-            v3 = torch.stack([cg * vx + sg * vy, -sg * vx + cg * vy, vz])
-        if output in ("geodetic", "geodetic_deg"):
-            lat, lon, alt = ecef_to_geodetic_xyz(x, y, z)
-            if output == "geodetic_deg":
-                lat, lon = lat * RAD2DEG, lon * RAD2DEG
-            x, y, z = lat, lon, alt
-        r3 = torch.stack([x, y, z])
-    if layout == "planes":
-        return r3, v3 if want_vel else None, err
-    if layout == "sat_major":
-        r = r3.permute(2, 1, 0).contiguous()
-        v = v3.permute(2, 1, 0).contiguous() if want_vel else None
-        return r, v, err.T.contiguous()
-    r = r3.permute(1, 2, 0).contiguous()
-    v = v3.permute(1, 2, 0).contiguous() if want_vel else None
-    return r, v, err
-
-
-def _finalize(r, v, err, jd_sum, output: str, want_vel: bool):
-    """Frame conversion of the f64 path's time-major stacked ``(T, S, 3)``
-    outputs; ``jd_sum`` is (T, 1) f64."""
-    if output != "teme":
-        gmst = gstime(jd_sum).to(r.dtype)
-        r = teme_to_ecef(r, gmst)
-        if want_vel:
-            v = teme_to_ecef(v, gmst)
-        if output in ("geodetic", "geodetic_deg"):
-            r = ecef_to_geodetic(r)
-            if output == "geodetic_deg":
-                r = torch.stack([r[..., 0] * RAD2DEG, r[..., 1] * RAD2DEG,
-                                 r[..., 2]], dim=-1)
-    return r, v if want_vel else None, err
-
-
 def resonance_steps(jd_sum: np.ndarray, deep_epochs_jd: np.ndarray) -> int:
     """Depth of the resonance tables for a sweep: the 720-minute steps to
     the farthest point from a deep epoch, plus one, rounded up to a
@@ -464,7 +417,10 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
         zero-filled with error code -1.
 
     Returns ``(r, v, error)`` as tensors on the catalog's device; error
-    is int32 with python-sgp4 codes, 0 = ok.
+    is int32 with python-sgp4 codes, 0 = ok. The frame, the layout and
+    the mask are one launch of the epilogue kernel
+    (``ops.cuda_finalize.finalize``), none for TEME in the sweep's own
+    layout (planes fast, time-major f64) without a mask.
     """
     if output not in OUTPUT_MODES:
         raise ValueError(f"output must be one of {OUTPUT_MODES}")
@@ -479,29 +435,20 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
     jd_h, fr_h = np.broadcast_arrays(jd_h, fr_h)
     jd_sum = torch.as_tensor((jd_h + fr_h)[:, None], dtype=torch.float64,
                              device=dev)
+    mask = (None if satellite_mask is None else
+            torch.as_tensor(satellite_mask, dtype=torch.bool, device=dev))
     if method == "f64":
-        r, v, err = _propagate_f64(cat, jd_h, fr_h, jd_sum, output,
-                                   velocities, layout, scan_times)
-    else:
-        r, v, err = _propagate_fast(cat, jd_h, fr_h, jd_sum, output,
-                                    velocities, layout)
-
-    if satellite_mask is not None:
-        m = torch.as_tensor(satellite_mask, dtype=torch.bool, device=dev)
-        # the satellite axis is axis 1 of err for time_major/planes and
-        # axis 0 for sat_major
-        me = m[:, None] if layout == "sat_major" else m[None, :]
-        mr = m[None, None, :] if layout == "planes" else me[..., None]
-        r = torch.where(mr, r, 0.0)
-        if v is not None:
-            v = torch.where(mr, v, 0.0)
-        err = torch.where(me, err, -1)
-    return r, v, err
+        return _propagate_f64(cat, jd_h, fr_h, jd_sum, output, velocities,
+                              layout, scan_times, mask)
+    return _propagate_fast(cat, jd_h, fr_h, jd_sum, output, velocities,
+                           layout, mask)
 
 
 def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
-                   velocities: bool, layout: str, scan_times: bool):
-    """The f64 branch of :func:`propagate`."""
+                   velocities: bool, layout: str, scan_times: bool,
+                   mask=None):
+    """The f64 branch of :func:`propagate`: the f64 kernel's time-major
+    outputs through the epilogue."""
     dev = cat.device
     jd = torch.as_tensor(jd_h, dtype=torch.float64, device=dev)
     fr = torch.as_tensor(fr_h, dtype=torch.float64, device=dev)
@@ -518,28 +465,20 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
         # SDP4 on every lane of a catalog that has the coefficients
         r, v, err = sgp4_f64_dense(tsince, *cat.f64_staging,
                                    sdp4=cat.deep is not None, **kw)
-    r, v, err = _finalize(r, v, err, jd_sum, output, velocities)
-    # time-major stacked outputs; the other layouts are relaid here
-    if layout == "sat_major":
-        r = r.transpose(0, 1).contiguous()
-        v = None if v is None else v.transpose(0, 1).contiguous()
-        err = err.T.contiguous()
-    elif layout == "planes":
-        r = r.permute(2, 0, 1).contiguous()
-        v = None if v is None else v.permute(2, 0, 1).contiguous()
-    return r, v, err
+    return finalize(r, v, err, jd_sum, source="time_major", output=output,
+                    layout=layout, velocities=velocities, mask=mask)
 
 
 def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
-                    velocities: bool, layout: str):
+                    velocities: bool, layout: str, mask=None):
     """The fast branch of :func:`propagate`: the kernels over the
-    separable grid."""
+    separable grid, their planes through the epilogue."""
     t_time = _t_time(cat.epoch_min_jd, jd_h, fr_h, cat.device)
     steps = (resonance_steps(jd_h + fr_h, cat.deep_epochs_jd)
              if cat.has_deep else 0)
-    r3, v3, err = _fast_planes(cat, t_time, steps, velocities)
-    return _finalize_planes(r3, v3, err, jd_sum, output, velocities,
-                            layout)
+    return finalize(*_fast_planes(cat, t_time, steps, velocities), jd_sum,
+                    source="planes", output=output, layout=layout,
+                    velocities=velocities, mask=mask)
 
 
 def _t_time(epoch_min_jd: float, jd_h, fr_h, device) -> torch.Tensor:

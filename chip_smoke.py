@@ -13,9 +13,10 @@ Phases (any failure exits non-zero; nothing is caught):
 
 0. the card: ``torch.cuda.is_available()``, its name and power limit from
    nvidia-smi; the port imports without JAX;
-1. build kernels K1-K6, the spine kernel, the f64 kernel and the
-   integrator kernel (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one
-   process per source, and print ptxas' registers and spills;
+1. build kernels K1-K6, the spine kernel, the f64 kernel, the
+   integrator kernel, the epilogue kernel and TABLES
+   (``astroz_tpu_torch/csrc/*.cu``) with nvcc, one process per source,
+   and print ptxas' registers and spills;
 2. K1 vs its plain torch version on the card, on a small ragged
    near-earth catalog with backward and forward times, over +-1 year
    (41 epochs: the reduction mod 2pi at quotients up to ~2^13) and at
@@ -53,10 +54,21 @@ Phases (any failure exits non-zero; nothing is caught):
    same tsince, bit for bit; DENSE on the headline generator's catalog
    with epochs spread over +-7 days x 1,440 (each resonant point steps
    up to ~16 times from epoch); one launch a call;
+2e. the epilogue kernel (``csrc/finalize.cu``: frames, layouts, mask) vs
+   its plain version, bit for bit (NaN where NaN), in every output x
+   layout x velocities x mask (every third lane), on the headline
+   near-earth and mixed planes (13,478 x 1,440) and on the mixed f64 DENSE
+   output, each with a failed lane and two points on the pole axis
+   planted: one launch a call, none for TEME in the sweep's own layout
+   without a mask; and TABLES (the resonance tables, ``csrc/
+   sgp4_deep.cu``) vs its plain version bit for bit at depths 4 and 8 on
+   the mixed and the +-7-day catalogs;
 3. the near-earth main path: 13,478 synthetic near-earth TLEs as text ->
    ``Constellation(text, device="cuda")`` -> ``propagate`` over 1,440
    one-minute epochs, as planes, as ECEF planes and time-major. Each
-   call must launch K1 once (and K2, K3 never); outputs must be finite
+   call must launch K1 once, the epilogue kernel once for the ECEF planes
+   and the time-major call (never for TEME planes), and nothing else;
+   outputs must be finite
    CUDA tensors, |r| in the LEO band on healthy lanes, a 512-column
    sample equal to the plain version run on the CPU within POS_TOL_KM
    and VEL_TOL_KMS (the host's torch), and the python-sgp4 golden
@@ -64,7 +76,8 @@ Phases (any failure exits non-zero; nothing is caught):
 3b. the mixed main path: the headline catalog of bench.py (13,478 TLEs,
    667 deep lanes, 14 of them HEO-escape lanes) through the same calls.
    Each call must launch K2, the f64 kernel's ESCAPE mode and K3 once
-   each (and K1 never); outputs
+   each, the epilogue kernel as in phase 3, TABLES at the first call only
+   (and K1 never); outputs
    finite CUDA tensors; healthy LEO, GEO and HEO/GPS columns in their
    radius bands; every column at 145 of the epochs equal to the plain
    path run on the CPU within those bounds; the python-sgp4 GEO
@@ -84,7 +97,8 @@ Phases (any failure exits non-zero; nothing is caught):
 3d. the f64 main path: the headline mixed catalog x 1,440 through
    ``Constellation.propagate(method="f64")`` as planes, time-major and
    with ``scan_times=True``, each one launch of the f64 kernel (DENSE,
-   DENSE, SCAN): error codes equal
+   DENSE, SCAN) and of the epilogue kernel for the two planes calls:
+   error codes equal
    the fast path's, the fast path within 0.05 km of f64 on healthy
    near-earth points, 0.1 km on deep ones (the worst lane of each regime
    printed) and 5e-3 km on the escape lanes, scan within 1e-6 km
@@ -99,12 +113,19 @@ Phases (any failure exits non-zero; nothing is caught):
    ``propagate`` call;
 4b. the same for K2 and K3, plus K2's wrapper's host time, the HEO
    escape (the f64 kernel's ESCAPE mode in turns with its plain version,
-   with its bound), the resonance tables and the whole mixed
-   ``propagate`` call,
+   with its bound), TABLES in turns with its plain version (with its
+   bound) and the whole mixed ``propagate`` call,
    and the peak device memory of a mixed sweep; K2's registers and
    spills, its persistent grid (blocks an SM, blocks launched, waves) and
    its issue estimate (the static SASS instructions of its row loop a
    point over the card's issue rate);
+4d. the epilogue kernel alone on the mixed planes and f64 DENSE output,
+   every output x layout but the identity, in turns with its plain
+   version, each with its bound and the ``permute(...).contiguous()`` of r
+   and v that computes the TEME relayout; then ``propagate()`` of both
+   catalogs, fast and f64, in every output x layout, through the kernel
+   and through the plain epilogue route (the parent commit's), in turns:
+   outputs bit-equal, one epilogue launch a call, none for the identity;
 5. K4 (the coarse screening pass) vs its plain version on the card, in
    both modes. Matrix mode bit for bit on every entry checked (NaN where
    NaN, +inf at and below the diagonal): a ragged 1,002-satellite x
@@ -157,8 +178,9 @@ Phases (any failure exits non-zero; nothing is caught):
    the native scalar engine; ``Satrec.twoline2rv(..., device="cuda")``
    for every TLE of the mixed and of the near-earth catalog, then a
    ``SatrecArray`` of each (host clock). ``SatrecArray.sgp4`` over the
-   1,440 epochs must launch K2, the escape and K3 once (mixed) or K1 once
-   (near-earth) and equal ``propagate(fast, sat_major)`` cast to f64 bit
+   1,440 epochs must launch K2, the escape and K3 once and TABLES at its
+   first call (mixed) or K1 once (near-earth), and the epilogue kernel
+   once (the sat_major relayout), and equal ``propagate(fast, sat_major)`` cast to f64 bit
    for bit; the mixed one is held to phase 3d's fast-vs-f64 gates. Timed:
    the call, ``sgp4_into`` preallocated buffers, and the call's split
    (propagate, relayout, copy to the host, cast on the host). A
@@ -185,9 +207,9 @@ Phases (any failure exits non-zero; nothing is caught):
    planes)`` over 1,440 epochs, through each route in turns, with its
    split (parse, init, SDP4 init and device catalog, staging and
    resonance tables, sweep); the native route must call
-   ``native.parse_catalog``, each first sweep launch K2, the escape and
-   K3 once (K1
-   on the near-earth catalog), and the mixed sweeps pass phase 3b's
+   ``native.parse_catalog``, each first sweep launch K2, the escape, K3
+   and TABLES once (K1 on the near-earth catalog; TEME planes: no
+   epilogue launch), and the mixed sweeps pass phase 3b's
    gates; the frame scanner on ~64 MiB CCSDS and VITA-49 streams with
    corrupt bytes between frames, with and without the sync marker, equal
    to the Python walk, both timed; the C ABI through ctypes (ISS and GEO
@@ -208,7 +230,12 @@ Phases (any failure exits non-zero; nothing is caught):
    Drag over a 5,400 s orbit at 30 s, a (181, 100000, 6) f64 output: one
    launch of FIXED and no host sync in the call (sync debug mode), CUDA
    events, mean of 3, the peak device memory, FIXED against its plain
-   version, and DP8(7) fixed steps on 10,000 of the lanes over 10 steps,
+   version, its bound the larger of its bytes and its f64 work (the f64
+   operations a lane-step of the kernel's RK4 step, counted from its
+   source by :func:`fixed_rk4_ops`, each at the card's rate for it, the
+   rates of pow, exp, the divide, square root and reciprocal measured by
+   :func:`f64_op_seconds`), and DP8(7) fixed steps on 10,000 of the lanes
+   over 10 steps,
    the same call on the host once (its first 10,000 lanes where the whole
    would take over 30 s) within 1e-6 km, TwoBody alone on 1,000 lanes
    with a relative energy drift under 1e-5; (b) one adaptive DP8(7)
@@ -266,8 +293,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (K1-K6, the spine kernel, the f64
-kernel's three modes and the integrator kernel's four, with each one's
-bound: the larger of
+kernel's three modes, the epilogue kernel in f32 and f64, TABLES and the
+integrator kernel's four, with each one's bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type; ``ms`` is the kernel launched back to back through
 its wrapper, ``device_ms`` the same calls replayed from a CUDA graph,
@@ -406,20 +433,22 @@ def sync():
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    from astroz_tpu_torch.ops import cuda_integrate, cuda_screen, cuda_sgp4
+    from astroz_tpu_torch.ops import (cuda_finalize, cuda_integrate,
+                                      cuda_screen, cuda_sgp4)
 
     for counts in (cuda_sgp4.LAUNCHES, cuda_screen.LAUNCHES,
-                   cuda_integrate.LAUNCHES):
+                   cuda_integrate.LAUNCHES, cuda_finalize.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def launches():
     """Every kernel's launch count, by kernel."""
-    from astroz_tpu_torch.ops import cuda_integrate, cuda_screen, cuda_sgp4
+    from astroz_tpu_torch.ops import (cuda_finalize, cuda_integrate,
+                                      cuda_screen, cuda_sgp4)
 
     return {**cuda_sgp4.LAUNCHES, **cuda_screen.LAUNCHES,
-            **cuda_integrate.LAUNCHES}
+            **cuda_integrate.LAUNCHES, **cuda_finalize.LAUNCHES}
 
 
 #: aten ops that write floats without arithmetic: they make, move,
@@ -454,7 +483,7 @@ def _kepler_frozen_trips(u, axnl, aynl, iters):
     return frozen, done.numel()
 
 
-def count_ops(fn):
+def count_ops(fn, by_op=None):
     """Run ``fn``, a kernel's plain version, and count its floating-point
     arithmetic: the elements written by every aten op whose result is f32
     or f64, outside :data:`_NOT_ARITHMETIC`, by the result's type. Casts,
@@ -465,7 +494,9 @@ def count_ops(fn):
     The f64 Kepler solve (``ops.sgp4.solve_kepler``) runs its 10 trips at
     every point; the f64 kernel leaves a point's loop at the trip that
     freezes it, so a point's trips after that one are not counted.
-    Returns ``(f32_ops, f64_ops)``."""
+    Returns ``(f32_ops, f64_ops)``; with ``by_op`` (a dict), also adds
+    each op's f64 elements under ``(name, scalar exponent or None)``
+    (outside the Kepler solve)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
@@ -479,9 +510,14 @@ def count_ops(fn):
             out = func(*args, **(kwargs or {}))
             outs = [x for x in tree_flatten(out)[0]
                     if isinstance(x, torch.Tensor)]
+            name = func.overloadpacket.__name__
             if (counting[0] and outs and outs[0].dtype in counts
-                    and func.overloadpacket.__name__ not in _NOT_ARITHMETIC):
+                    and name not in _NOT_ARITHMETIC):
                 counts[outs[0].dtype] += outs[0].numel()
+                if by_op is not None and outs[0].dtype == torch.float64:
+                    key = (name, args[1] if name == "pow" and isinstance(
+                        args[1], (int, float)) else None)
+                    by_op[key] = by_op.get(key, 0) + outs[0].numel()
             return out
 
     solve = sgp4_ops.solve_kepler
@@ -1240,6 +1276,123 @@ def phase2d_f64_vs_plain(headline_cat, spread_cat):
     return worst
 
 
+def _with_failed_lane_and_poles(r, v, err, source):
+    """Copies of a sweep's outputs with a lane failing from the middle row
+    on (zero-filled, code 6, as the kernels write it) and two points on
+    the pole axis (x = y = 0)."""
+    r, v, err = r.clone(), v.clone(), err.clone()
+    n_times, n_sats = err.shape
+    lane, pole = n_sats // 3, n_sats // 2
+    if source == "planes":
+        r[:, n_times // 2:, lane] = v[:, n_times // 2:, lane] = 0.0
+        r[:2, 7, pole] = r[:2, 11, pole + 1] = 0.0
+    else:
+        r[n_times // 2:, lane] = v[n_times // 2:, lane] = 0.0
+        r[7, pole, :2] = r[11, pole + 1, :2] = 0.0
+    err[n_times // 2:, lane] = 6
+    return r, v, err
+
+
+def _epilogue_vs_plain(r, v, err, jd_sum, source, label):
+    """The epilogue kernel against its plain version in every output x
+    layout x velocities x mask (every third lane masked), bit for bit,
+    one launch a call and none in the identity cases; returns the
+    largest difference (0 where both are NaN)."""
+    from astroz_tpu_torch.ops import cuda_finalize as cf
+
+    name = "finalize_f32" if r.dtype == torch.float32 else "finalize_f64"
+    mask = torch.arange(err.shape[1], device=DEVICE) % 3 != 0
+    worst, forms = 0.0, 0
+    for output in cf.OUTPUT_MODES:
+        for layout in cf.LAYOUTS:
+            for velocities in (True, False):
+                for m in (None, mask):
+                    kw = dict(source=source, output=output, layout=layout,
+                              velocities=velocities, mask=m)
+                    what = (f"phase 2e: {name} on {label}, {output} "
+                            f"{layout} velocities={velocities} "
+                            f"mask={m is not None}")
+                    before = cf.LAUNCHES[name]
+                    got = cf.finalize(r, v, err, jd_sum, **kw)
+                    sync()
+                    identity = cf.is_identity(source, output, layout, m)
+                    check(cf.LAUNCHES[name] == before + (not identity),
+                          f"{what}: launches")
+                    want = cf.finalize_reference(r, v, err, jd_sum, **kw)
+                    for a, b in zip(got, want):
+                        check((a is None) == (b is None), f"{what}: v")
+                        if b is None:
+                            continue
+                        check(a.shape == b.shape and a.dtype == b.dtype
+                              and _same_or_both_nan(a, b),
+                              f"{what}: differs from the plain version")
+                        both = ~(torch.isnan(a) | torch.isnan(b)) \
+                            if a.is_floating_point() else None
+                        d = (a - b) if both is None else (a - b)[both]
+                        worst = max(worst, float(d.abs().max().item())
+                                    if d.numel() else 0.0)
+                    forms += 1
+                    del got, want
+    print(f"# phase 2e: the epilogue kernel ({name}) on {label}: {forms} "
+          f"forms (4 frames x 3 layouts x velocities x mask), a failed "
+          f"lane and two pole-axis points planted, bit-equal to the plain "
+          f"version (max diff {worst:.1e}); one launch a call, none for "
+          f"TEME in the sweep's own layout without a mask")
+    return worst
+
+
+def phase2e_epilogue_and_tables(near_cat, mixed_cat, spread_cat):
+    """The epilogue kernel (csrc/finalize.cu) on the headline near-earth
+    and mixed planes (K1; K2, the escape and K3) and on the f64 DENSE
+    output of the mixed catalog, and TABLES (csrc/sgp4_deep.cu) at depths
+    4 and 8 on the mixed and the +-7-day catalogs, bit for bit against
+    their plain versions. Returns the largest differences."""
+    from astroz_tpu_torch.ops import cuda_sgp4, fast
+    from astroz_tpu_torch.propagation import _fast_planes, resonance_steps
+
+    times = np.arange(float(N_TIMES))
+    t_time = torch.as_tensor(times, dtype=torch.float64, device=DEVICE)
+    jd_sum = torch.as_tensor((EPOCH_JD + times / 1440.0)[:, None],
+                             dtype=torch.float64, device=DEVICE)
+    err = {"f32": 0.0}
+    for cat, label in ((near_cat, "the near-earth planes"),
+                       (mixed_cat, "the mixed planes")):
+        steps = (resonance_steps(EPOCH_JD + times / 1440.0,
+                                 cat.deep_epochs_jd) if cat.has_deep else 0)
+        planes = _with_failed_lane_and_poles(
+            *_fast_planes(cat, t_time, steps, True), "planes")
+        err["f32"] = max(err["f32"], _epilogue_vs_plain(
+            *planes, jd_sum, "planes", f"{label} ({N_SATS} x {N_TIMES})"))
+        del planes
+    dense = cuda_sgp4.sgp4_f64_dense(
+        _headline_tsince(mixed_cat), *mixed_cat.f64_staging,
+        grav=mixed_cat.grav, sdp4=True, want_vel=True)
+    dense = _with_failed_lane_and_poles(*dense, "time_major")
+    err["f64"] = _epilogue_vs_plain(
+        *dense, jd_sum, "time_major",
+        f"the mixed f64 DENSE output ({N_TIMES} x {N_SATS} x 3)")
+    del dense
+    err["tables"] = 0.0
+    for cat, label in ((mixed_cat, "mixed"), (spread_cat, "+-7-day")):
+        for steps in (4, 8):
+            before = cuda_sgp4.LAUNCHES["resonance_tables"]
+            got = cuda_sgp4.resonance_tables(cat.deep_sub, cat.els_deep,
+                                             steps)
+            sync()
+            check(cuda_sgp4.LAUNCHES["resonance_tables"] == before + 1,
+                  f"phase 2e: TABLES {label} depth {steps}: launches")
+            want = fast.resonance_tables_reference(cat.deep_sub,
+                                                   cat.els_deep, steps)
+            check(torch.equal(got, want), f"phase 2e: TABLES on the "
+                  f"{label} catalog at depth {steps} differs from its "
+                  f"plain version by {_max_diff(got, want)}")
+            err["tables"] = max(err["tables"], _max_diff(got, want))
+    print(f"# phase 2e: TABLES bit-equal to its plain version on the "
+          f"mixed and the +-7-day catalogs' {mixed_cat.n_deep} deep lanes "
+          f"at depths 4 and 8, one launch a call")
+    return err
+
+
 def phase3_main_path(text):
     from astroz_tpu_torch import Constellation
     from astroz_tpu_torch.ops import cuda_sgp4
@@ -1257,18 +1410,20 @@ def phase3_main_path(text):
     reset_launches()
     r_p, v_p, e_p = con.propagate(times, start_time=EPOCH_JD,
                                   layout="planes")
-    n1 = dict(cuda_sgp4.LAUNCHES)
+    n1 = {k: n for k, n in launches().items() if n}
     r_e, v_e, e_e = con.propagate(times, start_time=EPOCH_JD,
                                   layout="planes", output="ecef")
-    n2 = dict(cuda_sgp4.LAUNCHES)
+    n2 = {k: n for k, n in launches().items() if n}
     r_t, v_t, e_t = con.propagate(times, start_time=EPOCH_JD)
     sync()
-    launches = dict(cuda_sgp4.LAUNCHES)
-    print(f"# phase 3: kernel launches after each call {[n1, n2, launches]}")
-    check([n["sgp4_shallow"] for n in (n1, n2, launches)] == [1, 2, 3],
-          "each propagate call must launch K1 exactly once")
-    check(launches["sgp4_deep"] == launches["sgp4_shallow_merge"] == 0,
-          "the near-earth path launched K2 or K3")
+    n3 = {k: n for k, n in launches().items() if n}
+    print(f"# phase 3: kernel launches after each call {[n1, n2, n3]}")
+    check([n1, n2, n3] == [
+        {"sgp4_shallow": 1}, {"sgp4_shallow": 2, "finalize_f32": 1},
+        {"sgp4_shallow": 3, "finalize_f32": 2}],
+        "each propagate call must launch K1 exactly once, and the epilogue "
+        "kernel once for ECEF and time-major (never for TEME planes); "
+        "nothing else")
 
     outs = (r_p, v_p, e_p, r_e, v_e, e_e, r_t, v_t, e_t)
     check(all(x.device.type == DEVICE for x in outs),
@@ -1326,7 +1481,7 @@ def phase3_main_path(text):
     print(f"# phase 3: golden trajectory max|dr| {d_gold * 1e3:.2f} m")
     check((eg == 0).all().item() and d_gold < 0.1,
           "golden trajectory off by more than 0.1 km")
-    return con, launches["sgp4_shallow"]
+    return con, n3
 
 
 def _golden_deep(method="fast"):
@@ -1402,20 +1557,24 @@ def phase3b_mixed_path(text):
     calls = []
     r_p, v_p, e_p = con.propagate(times, start_time=EPOCH_JD,
                                   layout="planes")
-    calls.append(dict(cuda_sgp4.LAUNCHES))
+    calls.append(launches())
     r_e, v_e, e_e = con.propagate(times, start_time=EPOCH_JD,
                                   layout="planes", output="ecef")
-    calls.append(dict(cuda_sgp4.LAUNCHES))
+    calls.append(launches())
     r_t, v_t, e_t = con.propagate(times, start_time=EPOCH_JD)
     sync()
-    launches = dict(cuda_sgp4.LAUNCHES)
-    calls.append(launches)
+    calls.append(launches())
+    calls = [{k: n for k, n in c.items() if n} for c in calls]
     print(f"# phase 3b: kernel launches after each call {calls}")
-    check([(n["sgp4_deep"], n["sgp4_f64_escape"], n["sgp4_shallow_merge"])
-           for n in calls] == [(1, 1, 1), (2, 2, 2), (3, 3, 3)],
+    check([(n["sgp4_deep"], n["sgp4_f64_escape"], n["sgp4_shallow_merge"],
+            n["resonance_tables"], n.get("finalize_f32", 0))
+           for n in calls] == [(1, 1, 1, 1, 0), (2, 2, 2, 1, 1),
+                               (3, 3, 3, 1, 2)],
           "each mixed propagate call must launch K2, the f64 kernel's "
-          "escape and K3 exactly once")
-    check(launches["sgp4_shallow"] == 0, "the mixed path launched K1")
+          "escape and K3 exactly once, the epilogue kernel once for ECEF "
+          "and time-major (never for TEME planes), TABLES at the catalog's "
+          "first sweep only")
+    check("sgp4_shallow" not in calls[-1], "the mixed path launched K1")
 
     outs = (r_p, v_p, e_p, r_e, v_e, e_e, r_t, v_t, e_t)
     check(all(x.device.type == DEVICE for x in outs),
@@ -1457,7 +1616,7 @@ def phase3b_mixed_path(text):
     print(f"# phase 3b: GEO and Molniya golden vectors max|dr| "
           f"{d_gold * 1e3:.2f} m")
     check(d_gold < 0.1, "deep golden vectors off by more than 0.1 km")
-    return con, launches
+    return con, calls[-1]
 
 
 def phase3c_single_sat():
@@ -1591,10 +1750,13 @@ def phase3d_f64_path(mcon):
     print(f"# phase 3d: f64 propagate of {N_SATS} mixed x {N_TIMES}: planes, "
           f"time_major and scan_times=True ({scan_ms:.1f} ms); kernel "
           f"launches after each call {calls}")
-    check(calls == [{"sgp4_f64_dense": 1}, {"sgp4_f64_dense": 2},
-                    {"sgp4_f64_dense": 2, "sgp4_f64_scan": 1}],
+    check(calls == [{"sgp4_f64_dense": 1, "finalize_f64": 1},
+                    {"sgp4_f64_dense": 2, "finalize_f64": 1},
+                    {"sgp4_f64_dense": 2, "sgp4_f64_scan": 1,
+                     "finalize_f64": 2}],
           "each f64 propagate call must launch the f64 kernel once (DENSE, "
-          "or SCAN with scan_times=True) and nothing else")
+          "or SCAN with scan_times=True), the epilogue kernel once for "
+          "planes (never for TEME time-major) and nothing else")
     outs = (r_p, v_p, r_t, v_t, r_s, v_s)
     check(all(x.device.type == DEVICE and x.dtype == torch.float64
               and torch.isfinite(x).all().item() for x in outs),
@@ -1823,8 +1985,10 @@ def phase4b_mixed_timings(con, smi):
         lambda: cuda_sgp4.propagate_fast_sep_merge(*margs, **mkw, **maps),
         lambda: cuda_sgp4.propagate_fast_sep_merge_reference(*margs, **mkw),
         20, 3)
-    tables_ms = _cuda_ms(lambda: fast.resonance_tables(
-        cat.deep_sub, cat.els_deep, steps), 3)
+    tab_turns = _in_turns(
+        lambda: cuda_sgp4.resonance_tables(cat.deep_sub, cat.els_deep, steps),
+        lambda: fast.resonance_tables_reference(cat.deep_sub, cat.els_deep,
+                                                steps), 50, 3)
     call_planes = _cuda_ms(lambda: con.propagate(
         times, start_time=EPOCH_JD, layout="planes"), 10)
     call_tm = _cuda_ms(lambda: con.propagate(times, start_time=EPOCH_JD), 10)
@@ -1842,9 +2006,9 @@ def phase4b_mixed_timings(con, smi):
           f"({props / k3.ms / 1e6:.3f} G props/s)")
     n_esc = len(esc.idx)
     print(f"# phase 4b [{smi}]: HEO escape ({n_esc} lanes x {N_TIMES}): "
-          f"{escape.text('f64 ESCAPE')}; _apply_escape {apply_ms:.4f} ms; "
-          f"resonance tables (depth {steps}, once per catalog and depth) "
-          f"{tables_ms:.4f} ms")
+          f"{escape.text('f64 ESCAPE')}; _apply_escape {apply_ms:.4f} ms")
+    print(f"# phase 4b [{smi}]: resonance tables (depth {steps}, once per "
+          f"catalog and depth): {tab_turns.text('TABLES')}")
     print(f"# phase 4b [{smi}]: mixed propagate() planes {call_planes:.4f} "
           f"ms ({props / call_planes / 1e6:.3f} G props/s), time_major "
           f"{call_tm:.4f} ms")
@@ -1869,13 +2033,24 @@ def phase4b_mixed_timings(con, smi):
                  + tables.shape[0] * tables.shape[1] * n_esc * 8
                  + 28 * n_esc * N_TIMES)
     esc_bound = bound(esc_bytes, *esc_ops)
+    # TABLES reads its field matrix and writes the tables
+    tab_ops = count_ops(lambda: fast.resonance_tables_reference(
+        cat.deep_sub, cat.els_deep, steps))
+    tab_bound = bound(
+        nbytes(cuda_sgp4._resonance_fields(cat.deep_sub, cat.els_deep),
+               cuda_sgp4.resonance_tables(cat.deep_sub, cat.els_deep,
+                                          steps)), *tab_ops)
     print(f"# phase 4b: K2 bound {k2_bound[0]:.4f} ms by {k2_bound[1]} "
           f"({k2_ops[0] / (cat.n_deep * N_TIMES):.1f} f32 and "
           f"{k2_ops[1] / (cat.n_deep * N_TIMES):.1f} f64 operations a "
           f"point); K3 bound {k3_bound[0]:.4f} ms by {k3_bound[1]}; f64 "
           f"ESCAPE bound {esc_bound[0]:.5f} ms by {esc_bound[1]} "
           f"({esc_ops[1] / (n_esc * N_TIMES):.1f} f64 operations a point, "
-          f"{escape.device_ms / esc_bound[0]:.1f}x its bound replayed)")
+          f"{escape.device_ms / esc_bound[0]:.1f}x its bound replayed); "
+          f"TABLES bound {tab_bound[0]:.5f} ms by {tab_bound[1]} "
+          f"({tab_ops[0]:.0f} f32 and {tab_ops[1]:.0f} f64 operations in "
+          f"its plain version; {tab_turns.device_ms / tab_bound[0]:.1f}x its "
+          f"bound replayed)")
     kernel_report(
         f"phase 4b: K2 ({cat.n_deep} x {N_TIMES}, "
         f"{cat.deep_kepler_iters} trips)",
@@ -1883,7 +2058,147 @@ def phase4b_mixed_timings(con, smi):
         cuda_sgp4.launch_grid("sgp4_deep", N_TIMES, cat.n_deep,
                               kepler_iters=cat.deep_kepler_iters),
         cat.n_deep * N_TIMES, k2.device_ms, smi)
-    return (k2, k2_bound), (k3, k3_bound), (escape, esc_bound)
+    return ((k2, k2_bound), (k3, k3_bound), (escape, esc_bound),
+            (tab_turns, tab_bound))
+
+
+#: phase 4d: calls of the epilogue kernel and of its plain version a turn,
+#: and of propagate() a turn through each epilogue route
+EPILOGUE_REPS = (20, 3)
+PROPAGATE_REPS = 5
+#: the one PyTorch call that computes the TEME relayout, by (the sweep's
+#: layout, the caller's): permute(...).contiguous()
+RELAYOUT = {("planes", "time_major"): (1, 2, 0),
+            ("planes", "sat_major"): (2, 1, 0),
+            ("time_major", "sat_major"): (1, 0, 2),
+            ("time_major", "planes"): (2, 0, 1)}
+
+
+def _epilogue_turns(r, v, err, jd_sum, source, label, smi):
+    """The epilogue kernel in every form but the identity (velocities, no
+    mask) in turns with its plain version, each with its bound (bytes
+    read and written once, or the plain version's operations) and the
+    time of the permute(...).contiguous() of r and v where the layout
+    changes. Returns ``{(output, layout): (Turns, bound, library_ms)}``."""
+    from astroz_tpu_torch.ops import cuda_finalize as cf
+
+    out = {}
+    for output in cf.OUTPUT_MODES:
+        for layout in cf.LAYOUTS:
+            if cf.is_identity(source, output, layout, None):
+                continue
+            kw = dict(source=source, output=output, layout=layout,
+                      velocities=True)
+            turns = _in_turns(
+                lambda: cf.finalize(r, v, err, jd_sum, **kw),
+                lambda: cf.finalize_reference(r, v, err, jd_sum, **kw),
+                *EPILOGUE_REPS)
+            got = cf.finalize(r, v, err, jd_sum, **kw)
+            moved = nbytes(r, v, got[0], got[1])
+            if got[2] is not err:
+                moved += nbytes(err, got[2])
+            del got
+            ops = count_ops(lambda: cf.finalize_reference(r, v, err, jd_sum,
+                                                          **kw))
+            b = bound(moved, *ops)
+            perm = RELAYOUT.get((source, layout))
+            lib_ms = None
+            if perm is not None:
+                lib_ms = _cuda_ms(lambda: (r.permute(*perm).contiguous(),
+                                           v.permute(*perm).contiguous()),
+                                  EPILOGUE_REPS[0])
+            lib_text = ("no relayout" if lib_ms is None else
+                        f"permute{perm}.contiguous() of r and v "
+                        f"{lib_ms:.4f} ms")
+            print(f"# phase 4d [{smi}]: {label} -> {output} {layout}: "
+                  f"{turns.text('finalize')}; bound {b[0]:.4f} ms by "
+                  f"{b[1]} ({ops[0] / err.numel():.1f} f32 and "
+                  f"{ops[1] / err.numel():.1f} f64 operations a point in "
+                  f"the plain version, {turns.device_ms / b[0]:.2f}x the "
+                  f"bound replayed); {lib_text}")
+            out[(output, layout)] = (turns, b, lib_ms)
+    return out
+
+
+def _propagate_routes(cat, jd, label, smi):
+    """propagate() of ``cat`` in every output x layout, fast and f64,
+    through the epilogue kernel and through the plain epilogue route (the
+    parent commit's: ``finalize_reference`` in place of ``finalize``), in
+    turns (plain, kernel, kernel, plain; CUDA events, PROPAGATE_REPS calls
+    each): the two routes' outputs bit-equal, the epilogue launched once
+    a call (never in the identity forms). Returns ``{(method, output,
+    layout): (kernel_ms, plain_ms)}``."""
+    from astroz_tpu_torch import propagate, propagation
+    from astroz_tpu_torch.ops import cuda_finalize as cf
+
+    def plain_route(call):
+        def run():
+            propagation.finalize = cf.finalize_reference
+            try:
+                return call()
+            finally:
+                propagation.finalize = cf.finalize
+        return run
+
+    out = {}
+    for method, source in (("fast", "planes"), ("f64", "time_major")):
+        name = "finalize_f32" if method == "fast" else "finalize_f64"
+        line = []
+        for output in cf.OUTPUT_MODES:
+            for layout in cf.LAYOUTS:
+                def call():
+                    return propagate(cat, jd, method=method, output=output,
+                                     layout=layout)
+                what = f"phase 4d: {label} {method} {output} {layout}"
+                before = cf.LAUNCHES[name]
+                got = call()
+                sync()
+                n = cf.LAUNCHES[name] - before
+                check(n == (0 if cf.is_identity(source, output, layout, None)
+                            else 1), f"{what}: {n} epilogue launches")
+                want = plain_route(call)()
+                check(all(_same_or_both_nan(a, b) for a, b in zip(got, want)),
+                      f"{what}: the kernel route differs from the plain "
+                      f"epilogue route")
+                del got, want
+                t = [_cuda_ms(f, PROPAGATE_REPS) for f in
+                     (plain_route(call), call, call, plain_route(call))]
+                out[(method, output, layout)] = ((t[1] + t[2]) / 2,
+                                                 (t[0] + t[3]) / 2)
+                line.append(f"{output} {layout} {t[1]:.3f}, {t[2]:.3f} / "
+                            f"{t[0]:.3f}, {t[3]:.3f}")
+        print(f"# phase 4d [{smi}]: {label} propagate(method={method!r}) x "
+              f"{N_TIMES}, ms through the epilogue kernel / the plain "
+              f"epilogue route, in turns (outputs bit-equal, one epilogue "
+              f"launch a call, none for the identity): " + "; ".join(line))
+    return out
+
+
+def phase4d_epilogue_timings(con, mcon, smi):
+    """The epilogue kernel alone on the mixed catalog's planes and f64
+    DENSE output, every output x layout, in turns with its plain version
+    (:func:`_epilogue_turns`); then propagate() of both catalogs through
+    each epilogue route (:func:`_propagate_routes`). Returns the kernels
+    line's forms: f32 TEME time-major (propagate's default) and f64 TEME
+    planes, each ``(Turns, bound, library_ms)``."""
+    from astroz_tpu_torch import propagate
+
+    mcat = mcon.catalog
+    jd = EPOCH_JD + np.arange(float(N_TIMES)) / 1440.0
+    jd_sum = torch.as_tensor(jd[:, None], dtype=torch.float64,
+                             device=DEVICE)
+    # the identity forms hand back the sweeps' own outputs
+    planes = propagate(mcat, jd, method="fast", layout="planes")
+    f32 = _epilogue_turns(*planes, jd_sum, "planes",
+                          f"mixed {N_SATS} x {N_TIMES} f32 planes", smi)
+    del planes
+    dense = propagate(mcat, jd, method="f64")
+    f64 = _epilogue_turns(*dense, jd_sum, "time_major",
+                          f"mixed {N_TIMES} x {N_SATS} f64 time-major", smi)
+    del dense
+    for cat, label in ((con.catalog, "near-earth"), (mcat, "mixed")):
+        _propagate_routes(cat, jd, f"{label} {N_SATS}", smi)
+    return f32[("teme", "time_major")], f64[("teme", "planes")]
 
 
 def _same_or_both_nan(a, b):
@@ -2109,18 +2424,23 @@ def phase6b_mixed_screen(mcon):
     from astroz_tpu_torch import Constellation, screen_all, screen_target
     from astroz_tpu_torch.ops.fastmath import sqrt_rn
 
+    from astroz_tpu_torch.propagation import resonance_steps
+
     cat = mcon.catalog
     times = np.arange(float(SCREEN_TIMES))
     jd = EPOCH_JD + times / 1440.0
+    # the catalog's tables at this grid's depth are built once (TABLES)
+    fresh = resonance_steps(jd, cat.deep_epochs_jd) not in cat._tables
     reset_launches()
     res = screen_all(cat, jd, threshold_km=SCREEN_KM)
     n = launches()
     print(f"# phase 6b: screen of the mixed catalog x {SCREEN_TIMES} at "
           f"{SCREEN_KM} km: {len(res[0])} pairs, kernel launches {n}")
     check(n == {**dict.fromkeys(n, 0), "sgp4_deep": 1, "sgp4_f64_escape": 1,
-                "sgp4_shallow_merge": 1, "screen_candidates": 1},
+                "sgp4_shallow_merge": 1, "screen_candidates": 1,
+                "resonance_tables": int(fresh)},
           "the mixed screen must launch K2, the escape, K3 and K4 "
-          "(candidate mode) once each")
+          "(candidate mode) once each, TABLES at a new depth")
     _check_pairs(res, "mixed screen")
     dd = _screen_vs_plain(cat, jd, res, "mixed screen")
 
@@ -2873,9 +3193,12 @@ def phase8_api(con, mcon, text, mixed_text, smi):
     # the mixed headline catalog
     marr = _api_array(mixed_text, "mixed")
     mcat = mcon.catalog
+    # the array's own catalog: TABLES at its first sweep; sat_major: the
+    # epilogue kernel
     jd, fr, e, r, moved = _api_array_vs_propagate(
         marr, mcat, {"sgp4_deep": 1, "sgp4_f64_escape": 1,
-                     "sgp4_shallow_merge": 1}, "mixed")
+                     "sgp4_shallow_merge": 1, "resonance_tables": 1,
+                     "finalize_f32": 1}, "mixed")
     api_launches = {"mixed SatrecArray.sgp4": moved}
     r64, _, e64 = propagate(mcat, jd, fr, method="f64", layout="sat_major",
                             velocities=False)
@@ -2893,7 +3216,8 @@ def phase8_api(con, mcon, text, mixed_text, smi):
     # the near-earth catalog
     narr = _api_array(text, "near-earth")
     api_launches["near-earth SatrecArray.sgp4"] = _api_array_vs_propagate(
-        narr, con.catalog, {"sgp4_shallow": 1}, "near-earth")[-1]
+        narr, con.catalog, {"sgp4_shallow": 1, "finalize_f32": 1},
+        "near-earth")[-1]
     _api_array_timings(narr, con.catalog, jd, fr, (N_SATS, N_TIMES, 3),
                        "near-earth", smi)
     del narr, marr
@@ -2910,8 +3234,9 @@ def phase8_api(con, mcon, text, mixed_text, smi):
     ge, gr, gv = garr.sgp4(jd, fr)
     moved = {k: n for k, n in launches().items() if n}
     api_launches["mixed-gravity SatrecArray.sgp4"] = moved
-    check(moved == {"sgp4_shallow": 2},
-          "mixed gravity: not one propagate (K1 launch) a model")
+    check(moved == {"sgp4_shallow": 2, "finalize_f32": 2},
+          "mixed gravity: not one propagate (K1 and epilogue launch) a "
+          "model")
     for rows, part in ((slice(0, 500), sats[:500]),
                        (slice(500, 1000), sats[500:])):
         pe, pr, pv = SatrecArray(part).sgp4(jd, fr)
@@ -3138,7 +3463,9 @@ def _ingest(kind, n, smi, cpu):
           f"{INGEST_TURNS} in turns); all 12 columns and the satellite "
           f"numbers bit-equal")
 
-    expect = ({"sgp4_deep": 1, "sgp4_f64_escape": 1, "sgp4_shallow_merge": 1}
+    # a fresh catalog: TABLES once; TEME planes: no epilogue launch
+    expect = ({"sgp4_deep": 1, "sgp4_f64_escape": 1, "sgp4_shallow_merge": 1,
+               "resonance_tables": 1}
               if kind == "mixed" else {"sgp4_shallow": 1})
     # one untimed run first (its outputs are gated), then the turns
     _, _, r, e, cat = _first_sweep(text, "native", expect)
@@ -3835,6 +4162,150 @@ def _energy(states):
     return 0.5 * v * v - EARTH.mu / r
 
 
+#: f64 routines whose throughput on the card phase 10a measures, in the
+#: order of F64_RATE_CU's OP: an add, a multiply, a correctly rounded
+#: divide, square root and reciprocal, libdevice's pow(x, 5.0) and exp
+F64_RATE_OPS = ("add", "mul", "div", "sqrt", "rcp", "pow5", "exp")
+F64_RATE_CU = r"""
+#include <cuda_runtime.h>
+// one step of chain k of a thread: x = op(x), kept finite and away from
+// the routines' special cases (pow(1, y), exp's underflow); sqrt, pow and
+// exp carry one add or FMA beside the routine (the add's own cost is
+// taken off on the host)
+template <int OP>
+__device__ __forceinline__ double step(double x) {
+  switch (OP) {
+    case 0: return __dadd_rn(x, 1e-300);
+    case 1: return __dmul_rn(x, 0.9999999999999999);
+    case 2: return __ddiv_rn(1.7, x);
+    case 3: return __dadd_rn(__dsqrt_rn(x), 0.5);
+    case 4: return __drcp_rn(x);
+    case 5: return __fma_rn(pow(x, 5.0), 0.01, 1.2);
+    default: return __dadd_rn(exp(-x), 0.3);
+  }
+}
+template <int OP>
+__global__ void op_rate_kernel(double* out, int iters) {
+  double x[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) x[k] = 1.3 + 0.01 * k + threadIdx.x * 1e-7;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = step<OP>(x[k]);
+  }
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s += x[k];
+  if (s == 12345.678) out[0] = s;
+}
+extern "C" int astroz_op_rate(int op, int blocks, int threads, int iters,
+                              double* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (op) {
+    case 0: op_rate_kernel<0><<<blocks, threads, 0, st>>>(out, iters); break;
+    case 1: op_rate_kernel<1><<<blocks, threads, 0, st>>>(out, iters); break;
+    case 2: op_rate_kernel<2><<<blocks, threads, 0, st>>>(out, iters); break;
+    case 3: op_rate_kernel<3><<<blocks, threads, 0, st>>>(out, iters); break;
+    case 4: op_rate_kernel<4><<<blocks, threads, 0, st>>>(out, iters); break;
+    case 5: op_rate_kernel<5><<<blocks, threads, 0, st>>>(out, iters); break;
+    default: op_rate_kernel<6><<<blocks, threads, 0, st>>>(out, iters);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def f64_op_seconds():
+    """Seconds the whole card takes for one of each F64_RATE_OPS routine
+    at its throughput: F64_RATE_CU built as the integrator kernel is
+    (``--fmad=true``), 16 blocks of 256 threads an SM, each thread 8
+    independent chains, timed with CUDA events; the scaffold's add taken
+    off sqrt's, pow's and exp's."""
+    import ctypes
+
+    from astroz_tpu_torch import _build
+
+    d = _build.BUILD_DIR / "probes"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "f64_rate.cu").write_text(F64_RATE_CU)
+    lib_path = d / "libf64_rate.so"
+    flags = [f.replace("=false", "=true") for f in _build.NVCC_FLAGS]
+    subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(lib_path),
+                    str(d / "f64_rate.cu")], check=True, timeout=600,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.astroz_op_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    out = torch.empty(1, dtype=torch.float64, device=DEVICE)
+    blocks = 16 * torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 256, 2048
+    secs = {}
+    for k, name in enumerate(F64_RATE_OPS):
+        def run():
+            rc = lib.astroz_op_rate(k, blocks, threads, iters,
+                                    out.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"f64 rate probe {name}: cudaError {rc}")
+        ms = min(_cuda_ms(run, 3) for _ in range(3))
+        secs[name] = ms * 1e-3 / (blocks * threads * iters * 8)
+    for name in ("sqrt", "pow5", "exp"):
+        secs[name] -= secs["add"]
+    return secs
+
+
+#: f64 operations of the integrator kernel's RK4 FIXED mode, counted from
+#: csrc/integrate_f64.cu as the function needs them: each + - * and FMA
+#: one op (negations fold into their operands, and divide3's window tests
+#: are integer work), the routines by name; a product the code repeats
+#: (J2's 5 z2) once, and none for stage 4's weight of 1. A derivative
+#: computes |r| once (norm3: 3 mul, 2 add, a square root) ...
+FIXED_DERIV_OPS = {"mul": 3, "add": 2, "sqrt": 1}
+#: ... then each term (kind_accel), the terms summed left to right (3 adds
+#: a term after the first)
+FIXED_TERM_OPS = {
+    # |r|^3, mu r, and the three quotients through one reciprocal
+    # (divide3: q0 and two FMA corrections each)
+    "TWO_BODY": {"mul": 8, "fma": 12, "rcp": 1},
+    # r_z / |r| (a divide), recip(pow(|r|, 5)) mu', 1 - 5 z2, 3 - 5 z2
+    # and the three products of two
+    "J2": {"div": 1, "pow5": 1, "rcp": 1, "mul": 9, "add": 2},
+    # the altitude, rho (an exp), |v| (norm3), its coefficient and c v
+    "DRAG": {"mul": 13, "add": 3, "exp": 1, "sqrt": 1},
+}
+#: rk4_step's own a step: h / 2 and h / 6 (a divide), the stage states y
+#: + off k of stages 1-3, the weighted sum of k1..k4, y + (h / 6) acc
+FIXED_RK4_OPS = {"mul": 37, "add": 42, "div": 1}
+
+
+def fixed_rk4_ops(kinds):
+    """The f64 operations a lane-step of the integrator kernel's RK4 FIXED
+    mode does for a model of the term kinds ``kinds`` (``ops.
+    cuda_integrate.KINDS`` names), ``{op: count}``: four derivatives and
+    the step's own arithmetic (:data:`FIXED_RK4_OPS`)."""
+    deriv = dict(FIXED_DERIV_OPS)
+    deriv["add"] += 3 * (len(kinds) - 1)
+    for kind in kinds:
+        check(kind in FIXED_TERM_OPS, f"fixed_rk4_ops: no count for {kind}")
+        for op, n in FIXED_TERM_OPS[kind].items():
+            deriv[op] = deriv.get(op, 0) + n
+    ops = dict(FIXED_RK4_OPS)
+    for op, n in deriv.items():
+        ops[op] = ops.get(op, 0) + 4 * n
+    return ops
+
+
+def f64_work_ms(ops, lane_steps, secs):
+    """The least time, ms, of ``lane_steps`` times the f64 operations
+    ``ops`` (``{op: count}``, :func:`fixed_rk4_ops`), each at the card's
+    rate for it (``secs``, :func:`f64_op_seconds`; an FMA at the
+    multiply's)."""
+    unit = dict(secs, fma=secs["mul"])
+    total = 0.0
+    for op, n in ops.items():
+        check(op in unit, f"f64_work_ms: no rate for {op}")
+        total += n * unit[op]
+    return total * lane_steps * 1e3
+
+
 def _phase10a_lanes(smi):
     """Batched Monte-Carlo lanes through ``propagate_fixed`` on the card
     (the integrator kernel's FIXED mode) and on the host; FIXED against
@@ -3843,6 +4314,7 @@ def _phase10a_lanes(smi):
     from astroz_tpu_torch.ops import cuda_integrate
     from astroz_tpu_torch.propagators import TwoBody, propagate_fixed
     from astroz_tpu_torch.propagators.driver import fixed_reference
+    from astroz_tpu_torch.propagators.forces import kernel_terms
 
     accel = _mc_forces()
     lanes = monte_carlo_lanes(NUMERICAL_LANES)
@@ -3885,11 +4357,23 @@ def _phase10a_lanes(smi):
           f"its plain version on the card by {err} km")
     del want
     turns = _integrate_turns(kernel, kernel, plain, 5, per_graph=2)
-    f32, f64 = count_ops(lambda: fixed_reference(
-        accel, state[:1000], 0.0, 10, NUMERICAL_DT_S))
-    step_ops = f64 / (1000 * 10)  # f64 operations a lane-step
-    scale = NUMERICAL_LANES / 1000 * n_steps / 10
-    fixed_bound = bound(nbytes(state, out), f32 * scale, f64 * scale)
+    # the bound: the larger of the bytes and the f64 work the kernel's
+    # RK4 step needs, each op at the card's measured rate for it (pow,
+    # exp and the correctly rounded divides and square roots are tens of
+    # f64 instructions each)
+    secs = f64_op_seconds()
+    by_op = fixed_rk4_ops([kind for kind, _ in kernel_terms(accel)])
+    work_ms = f64_work_ms(by_op, NUMERICAL_LANES * n_steps, secs)
+    step_ops = sum(by_op.values())  # f64 operations a lane-step
+    bytes_ms = nbytes(state, out) / PEAK_BYTES_S * 1e3
+    fixed_bound = ((work_ms, "operations") if work_ms > bytes_ms
+                   else (bytes_ms, "bytes"))
+    f64_lane = (torch.cuda.get_device_properties(0).multi_processor_count
+                * F64_LANES_PER_SM * _max_sm_clock_hz())  # f64 lane-cycles a s
+    rate_text = ", ".join(f"{k} {v * f64_lane:.1f}" for k, v in secs.items())
+    step_cycles = work_ms * 1e-3 / (NUMERICAL_LANES * n_steps) * f64_lane
+    ops_text = ", ".join(f"{op} {n}" for op, n in
+                         sorted(by_op.items(), key=lambda x: -x[1]))
     # DP8(7) fixed steps on some of the lanes
     sub = state[:NUMERICAL_DP87_FIXED_LANES]
 
@@ -3941,8 +4425,12 @@ def _phase10a_lanes(smi):
     print(f"# phase 10 [{smi}]: 10a: FIXED (RK4) bit-equal to its plain "
           f"version on the card (max|diff| {err}); "
           f"{turns.text('integrate_fixed')}; bound {fixed_bound[0]:.4f} ms "
-          f"({fixed_bound[1]}; {step_ops:.1f} f64 operations a lane-step "
-          f"by count_ops)")
+          f"by {fixed_bound[1]} (bytes {bytes_ms:.4f} ms, f64 work "
+          f"{work_ms:.4f} ms: {step_ops} f64 operations a lane-step of the "
+          f"kernel's RK4 step, counted from its source ({ops_text}), each "
+          f"at the card's rate for it: {step_cycles:.1f} f64-lane cycles a "
+          f"lane-step, in f64-lane cycles an op: {rate_text}; "
+          f"{turns.device_ms / fixed_bound[0]:.2f}x the bound replayed)")
     print(f"# phase 10 [{smi}]: 10a: FIXED (DP8(7)), "
           f"{NUMERICAL_DP87_FIXED_LANES} lanes x "
           f"{NUMERICAL_DP87_FIXED_STEPS} steps: bit-equal to its plain "
@@ -4621,19 +5109,22 @@ def main():
     shell_text = screening_shell_text(N_SATS)
     print(f"# synthetic catalog texts: 3 x {N_SATS} TLEs in "
           f"{time.perf_counter() - t0:.2f} s")
-    k1_err = phase2_kernel_vs_twin(build_catalog(text, device=DEVICE))
+    near_cat = build_catalog(text, device=DEVICE)
+    k1_err = phase2_kernel_vs_twin(near_cat)
     mixed_cat = build_catalog(mixed_text, device=DEVICE)
     deep_err = phase2b_deep_and_merge(mixed_cat)
     dense_err = phase2c_dense_vs_twin()
     spread_cat = build_catalog(mixed_catalog_text(
         N_SATS, epoch_spread_days=SPREAD_DAYS), device=DEVICE)
     f64_err = phase2d_f64_vs_plain(mixed_cat, spread_cat)
+    fin_err = phase2e_epilogue_and_tables(near_cat, mixed_cat, spread_cat)
     con, k1_launches = phase3_main_path(text)
     mcon, mixed_launches = phase3b_mixed_path(mixed_text)
     dense_launches = phase3c_single_sat()
     scan_ms, scan_peak, f64_launches = phase3d_f64_path(mcon)
     k1 = phase4_timings(con, smi)
-    k2, k3, f64_escape = phase4b_mixed_timings(mcon, smi)
+    k2, k3, f64_escape, tables = phase4b_mixed_timings(mcon, smi)
+    fin32, fin64 = phase4d_epilogue_timings(con, mcon, smi)
     scon = Constellation(shell_text, device=DEVICE)
     k4_err, k4c_err, plain_pairs = phase5_coarse_vs_twin(scon)
     screen_launches = phase6_screen(scon, plain_pairs)
@@ -4665,7 +5156,8 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("sgp4_shallow (K1)", "astroz_tpu_torch/csrc/sgp4_shallow.cu",
-              "astroz_tpu/ops/pallas_sgp4.py:286", k1_launches, k1_err[0],
+              "astroz_tpu/ops/pallas_sgp4.py:286",
+              k1_launches["sgp4_shallow"], k1_err[0],
               k1),
         entry("sgp4_deep (K2)", "astroz_tpu_torch/csrc/sgp4_deep.cu",
               "astroz_tpu/ops/pallas_sgp4.py:410",
@@ -4717,6 +5209,28 @@ def main():
               "astroz_tpu_torch/csrc/sgp4_f64.cu",
               "astroz_tpu/ops/sdp4.py:841",
               f64_launches["sgp4_f64_scan"], f64_err["scan"], f64_scan),
+        # not TPU kernels: the epilogue XLA fuses into the jitted sweeps,
+        # and the resonance tables' lax.scan; launches of the main path's
+        # calls (phases 3 and 3b: the f32 epilogue for ECEF planes and
+        # time-major, TABLES at the mixed catalog's first sweep; phase
+        # 3d: the f64 epilogue for planes); timed (phase 4d) as the
+        # default propagate's TEME time-major and the f64 TEME planes,
+        # beside the one permute(...).contiguous() of r and v
+        entry("finalize (f32) (the epilogue kernel: frames, layouts, mask)",
+              "astroz_tpu_torch/csrc/finalize.cu",
+              "astroz_tpu/propagation.py:773",
+              k1_launches.get("finalize_f32", 0)
+              + mixed_launches.get("finalize_f32", 0), fin_err["f32"],
+              fin32[:2], fin32[2]),
+        entry("finalize (f64) (the epilogue kernel on the f64 path)",
+              "astroz_tpu_torch/csrc/finalize.cu",
+              "astroz_tpu/propagation.py:752",
+              f64_launches["finalize_f64"], fin_err["f64"], fin64[:2],
+              fin64[2]),
+        entry("resonance_tables (TABLES)",
+              "astroz_tpu_torch/csrc/sgp4_deep.cu",
+              "astroz_tpu/ops/fast.py:138",
+              mixed_launches["resonance_tables"], fin_err["tables"], tables),
         # not TPU kernels: the XLA scan and while loop of the numerical
         # stack (phase 10, whose launches are its main path's: 10a and the
         # spacecraft of 10d, 10b's trajectory through step and through

@@ -68,7 +68,8 @@ reductions and products the integrator kernel (``csrc/integrate_f64.cu``)
 repeats: ``torch.linalg.vector_norm`` over 3 and 4 values, ``torch.sum``
 over 3 and ``torch.linalg.cross``, on strided, contiguous and 1-D inputs,
 each against candidate formulas evaluated exactly on the host
-(:func:`torch_rounding`).
+(:func:`torch_rounding`); then the f32 chains the epilogue kernel
+(``csrc/finalize.cu``) repeats (:func:`epilogue_rounding`).
 
 It ends with :func:`host_pow_rounding`: how often the host's pow misrounds
 the step-size law's ``err ** (-1/8)``.
@@ -1079,7 +1080,64 @@ def torch_rounding(n=4000):
             share[name] = hit / len(got)
         print(f"# {label}: " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in share.items()))
+    epilogue_rounding()
     host_pow_rounding()
+
+
+def epilogue_rounding(n=4000):
+    """The f32 roundings the epilogue kernel (``csrc/finalize.cu``) repeats:
+    torch's result on the card of each chain of ``ops/cuda_finalize.py``'s
+    rotation and ``frames.ecef_to_geodetic_xyz`` against candidates
+    evaluated on the host (numpy f32, each op correctly rounded; a fused
+    multiply-add through ``cuda_screen.fma_f32``), the share of ``n``
+    random inputs on which each gives torch's bits."""
+    from astroz_tpu_torch.constants import RAD2DEG, WGS84, WGS84_ECC_SQ
+    from astroz_tpu_torch.ops.cuda_screen import fma_f32
+
+    f32 = np.float32
+    rng = np.random.default_rng(6)
+    x, y = (rng.uniform(-8000.0, 8000.0, n).astype(f32) for _ in range(2))
+    ang = rng.uniform(-1.6, 1.6, n).astype(f32)
+    sg, cg = np.sin(ang), np.cos(ang)
+    nn = rng.uniform(6378.0, 6400.0, n).astype(f32)
+    alt = rng.uniform(-100.0, 30000.0, n).astype(f32)
+    w = rng.uniform(0.99, 1.0, n).astype(f32)
+    e2, a, one_m_e2 = f32(WGS84_ECC_SQ), f32(WGS84.radius_earth_km), \
+        f32(1.0 - WGS84_ECC_SQ)
+
+    def dev(v):
+        return torch.as_tensor(v, device="cuda")
+
+    def fma(p, q, r):
+        return fma_f32(*(torch.as_tensor(np.asarray(v, f32)).expand(n)
+                         for v in (p, q, r))).numpy()
+
+    a_dev = torch.tensor(WGS84.radius_earth_km, dtype=torch.float32,
+                         device="cuda")
+    cases = [
+        ("cg * x + sg * y", dev(cg) * dev(x) + dev(sg) * dev(y),
+         {"three roundings": cg * x + sg * y,
+          "fma(cg, x, sg * y)": fma(cg, x, sg * y)}),
+        ("1.0 - e2 * s * s", 1.0 - WGS84_ECC_SQ * dev(sg) * dev(sg),
+         {"op by op, f32(e2)": f32(1.0) - (e2 * sg) * sg,
+          "fma(-(e2 * s), s, 1)": fma(-(e2 * sg), sg, f32(1.0))}),
+        ("a / sqrt(w), a 0-dim", a_dev / torch.sqrt(dev(w)),
+         {"true divide": a / np.sqrt(w),
+          "reciprocal, multiply": a * (f32(1.0) / np.sqrt(w))}),
+        ("e2 * n / (n + alt)", WGS84_ECC_SQ * dev(nn) / (dev(nn) + dev(alt)),
+         {"(f32(e2) * n) / (n + alt)": (e2 * nn) / (nn + alt)}),
+        ("p * (1.0 - e2)", dev(x) * (1.0 - WGS84_ECC_SQ),
+         {"p * f32(1 - e2)": x * one_m_e2}),
+        ("lat * RAD2DEG", dev(ang) * RAD2DEG,
+         {"lat * f32(RAD2DEG)": ang * f32(RAD2DEG),
+          "f64 product, rounded": (ang.astype(np.float64)
+                                   * RAD2DEG).astype(f32)}),
+    ]
+    for label, got, forms in cases:
+        got = got.cpu().numpy()
+        print(f"# epilogue, {label}: " + ", ".join(
+            f"{k} {np.mean(np.asarray(v, f32) == got):.4f}"
+            for k, v in forms.items()))
 
 
 def host_pow_rounding(n=50000):

@@ -1,6 +1,7 @@
-"""Kernels K1 to K6 (K4 in its three modes), the spine kernel and the f64
-kernel (its DENSE, SCAN and ESCAPE modes) on the card against their plain
-torch versions, a small all-vs-all screen on
+"""Kernels K1 to K6 (K4 in its three modes), the spine kernel, the f64
+kernel (its DENSE, SCAN and ESCAPE modes), the epilogue kernel and TABLES
+on the card against their plain torch versions, a small all-vs-all
+screen on
 the card against the same call on the CPU, and the multi-device paths on
 a mesh of the card repeated against the single-device ones (marked
 ``cuda``; skips where ``torch.cuda.is_available()`` is False); and, on
@@ -21,7 +22,8 @@ import pytest
 import torch
 
 from astroz_tpu_torch import build_catalog, propagate, screen_all
-from astroz_tpu_torch.ops import cuda_screen, cuda_sgp4, propagate_fast
+from astroz_tpu_torch.ops import (cuda_finalize, cuda_screen, cuda_sgp4,
+                                  fast, propagate_fast)
 from astroz_tpu_torch.screening import _positions_planes_f32
 from astroz_tpu_torch.tle import format_lines
 
@@ -371,7 +373,8 @@ def test_f64_escape_matches_plain_on_cuda(cuda_device, want_vel):
 @pytest.mark.cuda
 def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
     """On a catalog with escape lanes a fast propagate launches K2, the
-    escape and K3 once each; ``propagate(method="f64")`` with and without
+    escape and K3 once each (and TABLES, the catalog's first sweep);
+    ``propagate(method="f64")`` with and without
     ``scan_times``, ``propagate_tsince`` and ``Satrec.sgp4_array``'s time
     as lanes launch the f64 kernel once each and never integrate the
     resonance on the host."""
@@ -388,7 +391,7 @@ def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
     calls = {
         "fast": (lambda: propagate(cat, jd, method="fast"),
                  {"sgp4_deep": 1, "sgp4_f64_escape": 1,
-                  "sgp4_shallow_merge": 1}),
+                  "sgp4_shallow_merge": 1, "resonance_tables": 1}),
         "f64": (lambda: propagate(cat, jd), {"sgp4_f64_dense": 1}),
         "scan": (lambda: propagate(cat, jd, scan_times=True),
                  {"sgp4_f64_scan": 1}),
@@ -408,6 +411,81 @@ def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
         moved = {k: n - before[k] for k, n in cuda_sgp4.LAUNCHES.items()
                  if n != before[k]}
         assert moved == expected, name
+
+
+def _sweep_outputs(source, device, n_times, n_sats=203):
+    """Seeded sweep outputs as a sweep hands them to the epilogue (f32
+    planes, or f64 time-major), ragged against the kernel's sat_major
+    tiles: a lane failing from row 20 (zero-filled, code 6), points on the
+    pole axis, a NaN, jd_sum and a mask of every third lane."""
+    rng = np.random.default_rng(23)
+    u = rng.normal(size=(n_times, n_sats, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    r = u * rng.uniform(6600.0, 42200.0, (n_times, n_sats, 1))
+    v = rng.normal(size=(n_times, n_sats, 3)) * 4.0
+    err = np.zeros((n_times, n_sats), np.int32)
+    r[20:, 7] = v[20:, 7] = 0.0
+    err[20:, 7] = 6
+    r[5, 11], r[9, 12] = (0.0, 0.0, 7000.0), (0.0, 0.0, -6800.0)
+    r[3, 40, 1] = float("nan")
+    if source == "planes":
+        r, v = (np.ascontiguousarray(x.transpose(2, 0, 1), np.float32)
+                for x in (r, v))
+    jd_sum = (2460310.5 + np.linspace(-1.0, 2.0, n_times))[:, None]
+    mask = np.arange(n_sats) % 3 != 0
+    return ([torch.as_tensor(x, device=device) for x in (r, v, err, jd_sum)],
+            torch.as_tensor(mask, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_times", [45, 44])
+@pytest.mark.parametrize("source", cuda_finalize.SOURCES)
+@pytest.mark.parametrize("output", cuda_finalize.OUTPUT_MODES)
+@pytest.mark.parametrize("layout", cuda_finalize.LAYOUTS)
+def test_finalize_kernel_matches_plain_on_cuda(cuda_device, source, output,
+                                               layout, n_times):
+    """The epilogue kernel against its plain version, bit for bit (NaN
+    where NaN), with and without velocities and the mask: one launch a
+    call, none in the identity cases (the sweep's own tensors back). 44 x
+    203 points (a multiple of 4) take the flat walk in whole 16-byte
+    vectors; 45 x 203 end in a partial vector, and their planes after the
+    first start off a vector."""
+    (r, v, err, jd_sum), mask = _sweep_outputs(source, cuda_device, n_times)
+    name = "finalize_f32" if source == "planes" else "finalize_f64"
+    for velocities in (True, False):
+        for m in (None, mask):
+            kw = dict(source=source, output=output, layout=layout,
+                      velocities=velocities, mask=m)
+            before = cuda_finalize.LAUNCHES[name]
+            got = cuda_finalize.finalize(r, v, err, jd_sum, **kw)
+            torch.cuda.synchronize()
+            identity = cuda_finalize.is_identity(source, output, layout, m)
+            assert cuda_finalize.LAUNCHES[name] == before + (not identity)
+            want = cuda_finalize.finalize_reference(r, v, err, jd_sum, **kw)
+            assert (got[1] is None) == (want[1] is None) == (not velocities)
+            for a, b in zip(got, want):
+                if b is not None:
+                    assert a.shape == b.shape and a.dtype == b.dtype
+                    assert _same_or_both_nan(a, b), (velocities, m is None)
+            if identity:
+                assert got[0] is r and got[2] is err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [4, 8, 64])
+def test_resonance_tables_kernel_matches_plain_on_cuda(cuda_device, steps):
+    """TABLES against its plain version, bit for bit, on the deep subset
+    of a mixed catalog (irez 0, 1 and 2) and on every lane of it (the
+    near-earth lanes' coefficients zero), one launch a call."""
+    cat = _mixed_catalog(cuda_device)
+    assert set(cat.deep_host.irez[cat.deep_idx]) == {0, 1, 2}
+    for deep, els in ((cat.deep_sub, cat.els_deep), (cat.deep, cat.els)):
+        before = cuda_sgp4.LAUNCHES["resonance_tables"]
+        got = cuda_sgp4.resonance_tables(deep, els, steps)
+        torch.cuda.synchronize()
+        assert cuda_sgp4.LAUNCHES["resonance_tables"] == before + 1
+        want = fast.resonance_tables_reference(deep, els, steps)
+        assert got.shape == want.shape and torch.equal(got, want)
 
 
 def _coarse_planes(device):
@@ -654,8 +732,9 @@ def test_merge_maps_of_another_deep_slot_raise():
 
 def test_cpu_runs_no_kernel():
     """On CPU tensors every wrapper runs its plain version and counts no
-    launch, the f64 path's too."""
-    before = dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES)
+    launch, the f64 path's and the epilogue's too."""
+    before = (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES),
+              dict(cuda_finalize.LAUNCHES))
     cat = build_catalog(synthetic_leo_text(16) + "\n"
                         + synthetic_deep_text(6), device="cpu")
     st = cat.fast_staging
@@ -673,11 +752,14 @@ def test_cpu_runs_no_kernel():
     jd = cat.epoch_min_jd + np.linspace(0.0, 0.5, 4)
     for method in ("fast", "f64"):
         propagate(cat, jd, method=method)
+        propagate(cat, jd, method=method, output="geodetic",
+                  layout="sat_major")
     screen_all(near, jd, threshold_km=50.0)
     from astroz_tpu_torch.parallel import make_mesh
     from astroz_tpu_torch.screening import screen_all_ring
     screen_all_ring(near, jd, threshold_km=50.0, mesh=make_mesh(["cpu"] * 2))
-    assert (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES)) == before
+    assert (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES),
+            dict(cuda_finalize.LAUNCHES)) == before
 
 
 @pytest.mark.cuda
@@ -853,7 +935,7 @@ def test_satrec_array_equals_propagate_on_cuda(cuda_device, kind):
     """``SatrecArray.sgp4`` of CUDA satrecs is ``propagate(fast,
     sat_major)`` cast to f64, bit for bit, with one launch of K1 (a
     near-earth array) or of K2, the f64 kernel's escape and K3 (a mixed
-    one with escape lanes) a call;
+    one with escape lanes, and TABLES at its first call) a call;
     ``sgp4_into`` writes the same into the caller's buffers."""
     from astroz_tpu_torch.api import Satrec, SatrecArray
     text = synthetic_leo_text()
@@ -872,7 +954,7 @@ def test_satrec_array_equals_propagate_on_cuda(cuda_device, kind):
     assert cat.heo_escape is not None or kind == "near"
     assert moved == ({"sgp4_shallow": 1} if kind == "near" else
                      {"sgp4_deep": 1, "sgp4_f64_escape": 1,
-                      "sgp4_shallow_merge": 1})
+                      "sgp4_shallow_merge": 1, "resonance_tables": 1})
     rw, vw, ew = propagate(cat, jd, fr, method="fast", layout="sat_major")
     assert r.dtype == v.dtype == np.float64 and r.shape == (len(cat), 9, 3)
     np.testing.assert_array_equal(e, ew.cpu().numpy())

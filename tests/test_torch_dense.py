@@ -1,5 +1,5 @@
 """The dense-tsince paths against astroz_tpu: kernels K5 and K6 (plain
-versions and CPU wrappers), the unified ``ops.fast.propagate_fast`` and
+versions and CPU wrappers), the unified ``ops.propagate_fast`` and
 the single-satellite time grid of ``benchmarks/bench_single_sat.py``.
 
 The JAX fast tail takes sin(xmdf) in its drag term where SGP4 takes the
@@ -282,7 +282,7 @@ def test_wrappers_reject_bad_inputs(cats):
 
 
 # ---------------------------------------------------------------------------
-# ops.fast.propagate_fast against the JAX package's
+# ops.propagate_fast against the JAX package's
 # ---------------------------------------------------------------------------
 
 
