@@ -112,6 +112,9 @@ SIGNATURES = {
                             + [_P] * 3 + [_D] * 3 + [_P]),
     "astroz_finalize_f64": (_I, [_P] * 6 + [_L, _L, _I, _I, _I]
                             + [_P] * 3 + [_D] * 3 + [_P]),
+    # n_times, n_sats, want_vel, want_err, grid (4,) i32 out
+    "astroz_finalize_grid_f32": (_I, [_L, _L, _I, _I, _P]),
+    "astroz_finalize_grid_f64": (_I, [_L, _L, _I, _I, _P]),
     # r, n_times, n_sats, j0, width, out, stream
     "astroz_screen_coarse": (_I, [_P, _I, _I, _I, _I, _P, _P]),
     # r, n_times, n_sats, thr2, cap, out_ij, count, stream

@@ -14,10 +14,13 @@ layout once. On a CUDA tensor :func:`finalize` launches the kernel or
 raises, and adds one to its entry of :data:`LAUNCHES`, except in the
 identity cases (``teme`` in the sweep's own layout, no mask), where it
 returns the sweep's tensors and launches nothing; on a CPU tensor it runs
-:func:`finalize_reference`.
+:func:`finalize_reference`. :func:`launch_grid` is the persistent grid of
+the ``sat_major`` tile walk.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -233,3 +236,23 @@ def finalize(r, v, err, jd_sum, *, source: str, output: str, layout: str,
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
     return r_out, v_out, err if err_out is None else err_out
+
+
+def launch_grid(dtype, n_times: int, n_sats: int, *, velocities: bool = True,
+                codes: bool = True):
+    """The persistent grid of the ``sat_major`` tile walk of the epilogue
+    kernel for ``dtype`` on the current CUDA device at ``n_times`` x
+    ``n_sats``, with or without velocities and codes: ``{"per_sm": blocks
+    an SM, "sms": the card's SMs, "blocks": blocks launched, "items":
+    items walked (whole tiles in f64, one field of a tile in f32)}``."""
+    if dtype not in _KERNELS:
+        raise ValueError(f"no epilogue kernel for {dtype}")
+    grid = (ctypes.c_int * 4)()
+    rc = getattr(_build.library(), "astroz_finalize_grid_"
+                 + _KERNELS[dtype].removeprefix("finalize_"))(
+        n_times, n_sats, int(velocities), int(codes), ctypes.addressof(grid))
+    if rc != 0:
+        raise RuntimeError(f"{_KERNELS[dtype]} grid query failed: "
+                           f"cudaError {rc}")
+    per_sm, sms, blocks, items = grid
+    return {"per_sm": per_sm, "sms": sms, "blocks": blocks, "items": items}

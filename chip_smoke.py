@@ -55,11 +55,13 @@ Phases (any failure exits non-zero; nothing is caught):
    with epochs spread over +-7 days x 1,440 (each resonant point steps
    up to ~16 times from epoch); one launch a call;
 2e. the epilogue kernel (``csrc/finalize.cu``: frames, layouts, mask) vs
-   its plain version, bit for bit (NaN where NaN), in every output x
-   layout x velocities x mask (every third lane), on the headline
+   its plain version, bit for bit (bit patterns, NaN where NaN), in every
+   output x layout x velocities x mask (every third lane), on the headline
    near-earth and mixed planes (13,478 x 1,440) and on the mixed f64 DENSE
-   output, each with a failed lane and two points on the pole axis
-   planted: one launch a call, none for TEME in the sweep's own layout
+   output, each with a failed lane, two points on the pole axis, two on
+   the equator (z = +0.0, -0.0), one under the clamp of p and up to 256
+   points that end the latitude iteration in a two-value cycle on the
+   card planted: one launch a call, none for TEME in the sweep's own layout
    without a mask; and TABLES (the resonance tables, ``csrc/
    sgp4_deep.cu``) vs its plain version bit for bit at depths 4 and 8 on
    the mixed and the +-7-day catalogs;
@@ -119,10 +121,14 @@ Phases (any failure exits non-zero; nothing is caught):
    spills, its persistent grid (blocks an SM, blocks launched, waves) and
    its issue estimate (the static SASS instructions of its row loop a
    point over the card's issue rate);
-4d. the epilogue kernel alone on the mixed planes and f64 DENSE output,
-   every output x layout but the identity, in turns with its plain
-   version, each with its bound and the ``permute(...).contiguous()`` of r
-   and v that computes the TEME relayout; then ``propagate()`` of both
+4d. the trips of the latitude iteration that the epilogue kernel's
+   geodetic takes on the mixed catalog's f32 and f64 ECEF points x 1,440
+   (``trips_report``: a histogram, the two-value cycles, the trips a
+   point its warps run); the epilogue kernel alone on the mixed planes
+   and f64 DENSE output, every output x layout but the identity, in
+   turns with its plain version, each with its bound and torch's copies
+   of the TEME relayout (``permute(...).contiguous()`` of r and v, and
+   for sat_major ``err.t().contiguous()``); then ``propagate()`` of both
    catalogs, fast and f64, in every output x layout, through the kernel
    and through the plain epilogue route (the parent commit's), in turns:
    outputs bit-equal, one epilogue launch a call, none for the identity;
@@ -1276,31 +1282,142 @@ def phase2d_f64_vs_plain(headline_cat, spread_cat):
     return worst
 
 
-def _with_failed_lane_and_poles(r, v, err, source):
+def geodetic_trips(x, y, z, trips=10):
+    """The latitude iteration of ``frames.ecef_to_geodetic_xyz`` as the
+    epilogue kernel ends it (``csrc/finalize.cu`` ``geodetic``: where lat
+    repeats its bit pattern), in plain torch on the points' device:
+    ``(stop, cycle)``, the trips (next lats) each point takes, at most
+    ``trips``, and where a two-value cycle ends it. Each trip runs the
+    plain version's ops on the whole tensors, so on the card its lats are
+    the plain version's bits, and the kernel's."""
+    from astroz_tpu_torch.constants import WGS84, WGS84_ECC_SQ
+
+    a = torch.tensor(WGS84.radius_earth_km, dtype=x.dtype, device=x.device)
+    e2 = WGS84_ECC_SQ
+    ity = torch.int32 if x.dtype == torch.float32 else torch.int64
+    p = torch.sqrt(x * x + y * y)
+    p_safe = torch.where(p > 1e-12, p, torch.full_like(p, 1e-12))
+    lat = torch.atan2(z, p_safe * (1.0 - e2))
+    prev = lat
+    stop = torch.full(lat.shape, trips, dtype=torch.int64, device=x.device)
+    live = torch.ones(lat.shape, dtype=torch.bool, device=x.device)
+    cycle = torch.zeros_like(live)
+    for i in range(trips):
+        sin_lat = torch.sin(lat)
+        n = a / torch.sqrt(1.0 - e2 * sin_lat * sin_lat)
+        alt = p_safe / torch.cos(lat) - n
+        nxt = torch.atan2(z, p_safe * (1.0 - e2 * n / (n + alt)))
+        fixed = live & (nxt.view(ity) == lat.view(ity))
+        two = live & ~fixed & (nxt.view(ity) == prev.view(ity))
+        stop = torch.where(fixed | two, i + 1, stop)
+        cycle |= two
+        live &= ~(fixed | two)
+        prev, lat = lat, nxt
+    return stop, cycle
+
+
+def trips_report(ecef, label, smi=None):
+    """Prints the trips of the latitude iteration (:func:`geodetic_trips`)
+    over the (3, T, S) ECEF planes ``ecef``: a histogram of the points, the
+    two-value cycles, and the trips a point that the kernel's warps run:
+    the flat walk's (a thread VEC neighbouring points one after another,
+    each point of a warp's 32 threads as long as the longest) and the tile
+    walk's (a thread VEC times of a lane, 32 neighbouring lanes a warp).
+    Returns them as a dict."""
+    stop, cycle = geodetic_trips(*ecef)
+    n_times, n_sats = stop.shape
+    vec = 16 // ecef.element_size()
+    flat = stop.reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, -flat.numel() % (32 * vec)))
+    flat_warp = flat.view(-1, 32, vec).amax(1).double().sum().item()
+    tile = torch.nn.functional.pad(stop, (0, -n_sats % 32))
+    tile_warp = tile.view(n_times, -1, 32).amax(-1).double().sum().item()
+    hist = torch.bincount(stop.reshape(-1), minlength=11).tolist()
+    out = {"histogram": hist, "cycles": int(cycle.sum().item()),
+           "mean": stop.double().mean().item(),
+           "flat_warp": 32 * flat_warp / stop.numel(),
+           "tile_warp": 32 * tile_warp / stop.numel()}
+    where = f" [{smi}]" if smi else ""
+    print(f"# trips{where}: {label}: trips of the latitude iteration a "
+          f"point (1-10: {hist[1:]}), mean {out['mean']:.3f}; "
+          f"{out['cycles']} two-value cycles; the warps run "
+          f"{out['flat_warp']:.3f} trips a point in the flat walk, "
+          f"{out['tile_warp']:.3f} in the tile walk (10 before)")
+    return out
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (a signed zero too), NaN where NaN."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    if a.dtype != b.dtype or not torch.equal(nan, torch.isnan(b)):
+        return False
+    ity = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.equal(a.view(ity)[~nan], b.view(ity)[~nan])
+
+
+def cycle_points(source, dtype, jd, n=1 << 20, seed=5):
+    """TEME points (k, 3) whose ECEF images at Julian date ``jd``, as the
+    plain epilogue rotates them on the card, end the latitude iteration in
+    a two-value cycle there: found among ``n`` seeded points at
+    6,600-42,300 km."""
+    from astroz_tpu_torch.ops import cuda_finalize as cf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    u = torch.randn((3, 1, n), generator=gen, device=DEVICE,
+                    dtype=torch.float64)
+    u = u / u.norm(dim=0)
+    r = (u * (6600.0 + 35700.0 * torch.rand(
+        (1, 1, n), generator=gen, device=DEVICE,
+        dtype=torch.float64))).to(dtype)
+    src = r if source == "planes" else r.permute(1, 2, 0).contiguous()
+    err = torch.zeros((1, n), dtype=torch.int32, device=DEVICE)
+    jd_sum = torch.tensor([[jd]], dtype=torch.float64, device=DEVICE)
+    ecef = cf.finalize_reference(src, None, err, jd_sum, source=source,
+                                 output="ecef", layout="planes",
+                                 velocities=False)[0]
+    cycle = geodetic_trips(*ecef)[1].reshape(-1)
+    return r[:, 0, cycle].T
+
+
+def _with_planted_points(r, v, err, jd_sum, source):
     """Copies of a sweep's outputs with a lane failing from the middle row
-    on (zero-filled, code 6, as the kernels write it) and two points on
-    the pole axis (x = y = 0)."""
+    on (zero-filled, code 6, as the kernels write it), two points on the
+    pole axis (x = y = 0), two on the equator (z = +0.0 and -0.0), one
+    under the 1e-12 clamp of p, and up to 256 points of row 13 that end
+    the latitude iteration in a two-value cycle on the card
+    (:func:`cycle_points`); returns them and the cycles planted."""
     r, v, err = r.clone(), v.clone(), err.clone()
     n_times, n_sats = err.shape
     lane, pole = n_sats // 3, n_sats // 2
+    cycles = cycle_points(source, r.dtype, jd_sum[13, 0].item())[:256]
+    k = len(cycles)
+    rows = r if source == "planes" else r.permute(2, 0, 1)
     if source == "planes":
         r[:, n_times // 2:, lane] = v[:, n_times // 2:, lane] = 0.0
-        r[:2, 7, pole] = r[:2, 11, pole + 1] = 0.0
     else:
         r[n_times // 2:, lane] = v[n_times // 2:, lane] = 0.0
-        r[7, pole, :2] = r[11, pole + 1, :2] = 0.0
+    rows[:2, 7, pole] = rows[:2, 11, pole + 1] = 0.0
+    rows[2, 12, pole] = 0.0
+    rows[2, 12, pole + 1] = -0.0
+    rows[:2, 12, pole + 2] = 1e-13
+    rows[:, 13, pole:pole + k] = cycles.T
     err[n_times // 2:, lane] = 6
-    return r, v, err
+    return r, v, err, k
 
 
 def _epilogue_vs_plain(r, v, err, jd_sum, source, label):
     """The epilogue kernel against its plain version in every output x
-    layout x velocities x mask (every third lane masked), bit for bit,
-    one launch a call and none in the identity cases; returns the
-    largest difference (0 where both are NaN)."""
+    layout x velocities x mask (every third lane masked), bit for bit
+    (NaN where NaN), one launch a call and none in the identity cases;
+    returns the largest difference (0 where both are NaN)."""
     from astroz_tpu_torch.ops import cuda_finalize as cf
 
     name = "finalize_f32" if r.dtype == torch.float32 else "finalize_f64"
+    r, v, err, n_cycles = _with_planted_points(r, v, err, jd_sum, source)
+    check(n_cycles > 0, f"phase 2e: no two-value-cycle point found for "
+          f"{name}")
     mask = torch.arange(err.shape[1], device=DEVICE) % 3 != 0
     worst, forms = 0.0, 0
     for output in cf.OUTPUT_MODES:
@@ -1324,7 +1441,7 @@ def _epilogue_vs_plain(r, v, err, jd_sum, source, label):
                         if b is None:
                             continue
                         check(a.shape == b.shape and a.dtype == b.dtype
-                              and _same_or_both_nan(a, b),
+                              and _same_bits(a, b),
                               f"{what}: differs from the plain version")
                         both = ~(torch.isnan(a) | torch.isnan(b)) \
                             if a.is_floating_point() else None
@@ -1335,9 +1452,11 @@ def _epilogue_vs_plain(r, v, err, jd_sum, source, label):
                     del got, want
     print(f"# phase 2e: the epilogue kernel ({name}) on {label}: {forms} "
           f"forms (4 frames x 3 layouts x velocities x mask), a failed "
-          f"lane and two pole-axis points planted, bit-equal to the plain "
-          f"version (max diff {worst:.1e}); one launch a call, none for "
-          f"TEME in the sweep's own layout without a mask")
+          f"lane, pole-axis, signed-zero-equator and clamped points and "
+          f"{n_cycles} points of two-value cycles planted, bit-equal to "
+          f"the plain version (bit patterns, NaN where NaN; max diff "
+          f"{worst:.1e}); one launch a call, none for TEME in the sweep's "
+          f"own layout without a mask")
     return worst
 
 
@@ -1359,15 +1478,13 @@ def phase2e_epilogue_and_tables(near_cat, mixed_cat, spread_cat):
                        (mixed_cat, "the mixed planes")):
         steps = (resonance_steps(EPOCH_JD + times / 1440.0,
                                  cat.deep_epochs_jd) if cat.has_deep else 0)
-        planes = _with_failed_lane_and_poles(
-            *_fast_planes(cat, t_time, steps, True), "planes")
+        planes = _fast_planes(cat, t_time, steps, True)
         err["f32"] = max(err["f32"], _epilogue_vs_plain(
             *planes, jd_sum, "planes", f"{label} ({N_SATS} x {N_TIMES})"))
         del planes
     dense = cuda_sgp4.sgp4_f64_dense(
         _headline_tsince(mixed_cat), *mixed_cat.f64_staging,
         grav=mixed_cat.grav, sdp4=True, want_vel=True)
-    dense = _with_failed_lane_and_poles(*dense, "time_major")
     err["f64"] = _epilogue_vs_plain(
         *dense, jd_sum, "time_major",
         f"the mixed f64 DENSE output ({N_TIMES} x {N_SATS} x 3)")
@@ -2074,12 +2191,20 @@ RELAYOUT = {("planes", "time_major"): (1, 2, 0),
             ("time_major", "planes"): (2, 0, 1)}
 
 
+def _relayout(r, v, err, perm, layout):
+    """torch's copies of a relayout, like for like with the kernel's TEME
+    form: r and v permuted, and the codes transposed for sat_major."""
+    out = (r.permute(*perm).contiguous(), v.permute(*perm).contiguous())
+    return out + (err.t().contiguous(),) if layout == "sat_major" else out
+
+
 def _epilogue_turns(r, v, err, jd_sum, source, label, smi):
     """The epilogue kernel in every form but the identity (velocities, no
     mask) in turns with its plain version, each with its bound (bytes
     read and written once, or the plain version's operations) and the
-    time of the permute(...).contiguous() of r and v where the layout
-    changes. Returns ``{(output, layout): (Turns, bound, library_ms)}``."""
+    time of torch's copies of the relayout where the layout changes
+    (:func:`_relayout`). Returns ``{(output, layout): (Turns, bound,
+    library_ms)}``."""
     from astroz_tpu_torch.ops import cuda_finalize as cf
 
     out = {}
@@ -2104,11 +2229,11 @@ def _epilogue_turns(r, v, err, jd_sum, source, label, smi):
             perm = RELAYOUT.get((source, layout))
             lib_ms = None
             if perm is not None:
-                lib_ms = _cuda_ms(lambda: (r.permute(*perm).contiguous(),
-                                           v.permute(*perm).contiguous()),
+                lib_ms = _cuda_ms(lambda: _relayout(r, v, err, perm, layout),
                                   EPILOGUE_REPS[0])
+            codes = " and err.t().contiguous()" * (layout == "sat_major")
             lib_text = ("no relayout" if lib_ms is None else
-                        f"permute{perm}.contiguous() of r and v "
+                        f"permute{perm}.contiguous() of r and v{codes} "
                         f"{lib_ms:.4f} ms")
             print(f"# phase 4d [{smi}]: {label} -> {output} {layout}: "
                   f"{turns.text('finalize')}; bound {b[0]:.4f} ms by "
@@ -2175,24 +2300,37 @@ def _propagate_routes(cat, jd, label, smi):
 
 
 def phase4d_epilogue_timings(con, mcon, smi):
-    """The epilogue kernel alone on the mixed catalog's planes and f64
-    DENSE output, every output x layout, in turns with its plain version
+    """The sat_major tile walk's grids; the trips of the latitude iteration
+    on the mixed catalog's ECEF points (:func:`trips_report`); the epilogue
+    kernel alone on the mixed catalog's planes and f64 DENSE output, every
+    output x layout, in turns with its plain version
     (:func:`_epilogue_turns`); then propagate() of both catalogs through
     each epilogue route (:func:`_propagate_routes`). Returns the kernels
     line's forms: f32 TEME time-major (propagate's default) and f64 TEME
     planes, each ``(Turns, bound, library_ms)``."""
     from astroz_tpu_torch import propagate
+    from astroz_tpu_torch.ops import cuda_finalize as cf
 
     mcat = mcon.catalog
     jd = EPOCH_JD + np.arange(float(N_TIMES)) / 1440.0
+    for dtype in (torch.float32, torch.float64):
+        print(f"# phase 4d: the sat_major tile walk's grid, {dtype} "
+              f"{N_TIMES} x {N_SATS}: "
+              f"{cf.launch_grid(dtype, N_TIMES, N_SATS)}")
     jd_sum = torch.as_tensor(jd[:, None], dtype=torch.float64,
                              device=DEVICE)
     # the identity forms hand back the sweeps' own outputs
     planes = propagate(mcat, jd, method="fast", layout="planes")
+    trips_report(propagate(mcat, jd, method="fast", output="ecef",
+                           layout="planes")[0],
+                 f"phase 4d: mixed {N_SATS} x {N_TIMES} f32 ECEF", smi)
     f32 = _epilogue_turns(*planes, jd_sum, "planes",
                           f"mixed {N_SATS} x {N_TIMES} f32 planes", smi)
     del planes
     dense = propagate(mcat, jd, method="f64")
+    trips_report(propagate(mcat, jd, method="f64", output="ecef",
+                           layout="planes")[0],
+                 f"phase 4d: mixed {N_SATS} x {N_TIMES} f64 ECEF", smi)
     f64 = _epilogue_turns(*dense, jd_sum, "time_major",
                           f"mixed {N_TIMES} x {N_SATS} f64 time-major", smi)
     del dense

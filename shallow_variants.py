@@ -9,6 +9,8 @@ Run from the repository root::
     python3 shallow_variants.py --fma-ulps
     python3 shallow_variants.py --f64-routes [--rounds N]
     python3 shallow_variants.py --torch-rounding
+    python3 shallow_variants.py --epilogue-turns [--tree DIR]
+        [--variants NAME ...] [--forms TEXT ...] [--rounds N] [--tag TAG]
 
 A variant is a copy of the package ``astroz_tpu_torch`` with the named
 edits of :data:`VARIANTS` made to its sources, imported under a name of
@@ -59,6 +61,13 @@ calls are replayed from a CUDA graph between CUDA events
 where it is longer than the kernel's; the sweep and ``grids_b2b`` are
 timed with CUDA events around their calls, host gaps included.
 ``--kernels`` times only the named workloads.
+
+``--epilogue-turns`` times the epilogue kernel (``csrc/finalize.cu``) of
+this checkout, of its variants and of ``--tree`` in every form on the
+headline mixed sweeps, in turns, with the trips of the latitude
+iteration and torch's like-for-like relayout copies
+(:func:`epilogue_turns`); ``--forms`` keeps the forms whose names hold
+one of its texts (e.g. ``sat_major``).
 
 ``--f64-routes`` times on the card three routes of the python-sgp4
 API's f32 outputs to f64 numpy on the host (:func:`f64_routes`).
@@ -137,6 +146,7 @@ _SHALLOW_CU = "csrc/sgp4_shallow.cu"
 _DEEP_CU = "csrc/sgp4_deep.cu"
 _COMMON = "csrc/sgp4_common.cuh"
 _F64_CU = "csrc/sgp4_f64.cu"
+_FINALIZE_CU = "csrc/finalize.cu"
 
 #: --fmad=true in place of --fmad=false: every multiply-add contracted
 #: (timing only; its bits are not the plain versions')
@@ -586,6 +596,51 @@ VARIANTS = {
     # the f64 row walk without the compiler fence at each row
     "f64_no_fence": [(_F64_CU, '      asm volatile("" ::: "memory");\n',
                       "", 1)],
+    # the epilogue kernel (--epilogue-turns): sin and cos of lat by two
+    # calls in place of one sincos; one point a thread in the flat walk
+    # (and one time of a lane in f64's tile walk) in place of a 16-byte
+    # vector's; f32's tile walk 4 times of a lane a thread (a 16-byte
+    # vector's) in place of one; the tile walk with its f64 items one
+    # field each (3 blocks an SM) or its f32 items whole tiles (2 blocks
+    # an SM), f64 on 3 blocks an SM, f32 rows in 16-byte pieces, 3 stages,
+    # the tiles walked lanes first
+    "sin_cos_calls": [
+        (_FINALIZE_CU, "{ sincosf(a, s, c); }",
+         "{ *s = sinf(a); *c = cosf(a); }", 1),
+        (_FINALIZE_CU, "{ sincos(a, s, c); }",
+         "{ *s = sin(a); *c = cos(a); }", 1)],
+    "one_point": [(_FINALIZE_CU, "constexpr int VEC = 16 / sizeof(T);",
+                   "constexpr int VEC = 1;", 1)],
+    "f32_tile_vec": [(_FINALIZE_CU,
+                      "constexpr int TILE_TIMES = sizeof(T) == 4 ? 1 : VEC<T>;",
+                      "constexpr int TILE_TIMES = VEC<T>;", 1)],
+    "stages3": _constant(_FINALIZE_CU, "STAGES", 3),
+    "f32_pieces16": [(_FINALIZE_CU,
+                      "constexpr int PIECE = sizeof(T) == 4 ? 4 : 16;",
+                      "constexpr int PIECE = 16;", 1)],
+    "f64_fields": [
+        (_FINALIZE_CU, "constexpr bool WHOLE_TILES = sizeof(T) == 8;",
+         "constexpr bool WHOLE_TILES = false;", 1),
+        (_FINALIZE_CU, "constexpr int TILE_BLOCKS = sizeof(T) == 4 ? 4 : 2;",
+         "constexpr int TILE_BLOCKS = sizeof(T) == 4 ? 4 : 3;", 1)],
+    "f32_whole": [
+        (_FINALIZE_CU, "constexpr bool WHOLE_TILES = sizeof(T) == 8;",
+         "constexpr bool WHOLE_TILES = true;", 1),
+        (_FINALIZE_CU, "constexpr int TILE_BLOCKS = sizeof(T) == 4 ? 4 : 2;",
+         "constexpr int TILE_BLOCKS = 2;", 1)],
+    "f64_blocks3": [(_FINALIZE_CU,
+                     "constexpr int TILE_BLOCKS = sizeof(T) == 4 ? 4 : 2;",
+                     "constexpr int TILE_BLOCKS = sizeof(T) == 4 ? 4 : 3;",
+                     1)],
+    "lanes_first": [(_FINALIZE_CU, """\
+  const long long tiles_t = (a.n_times + TILE_T - 1) / TILE_T;
+  Tile g;
+  g.t0 = (tile % tiles_t) * TILE_T;
+  g.s0 = (tile / tiles_t) * TILE_S<T>;""", """\
+  const long long tiles_s = (a.n_sats + TILE_S<T> - 1) / TILE_S<T>;
+  Tile g;
+  g.t0 = (tile / tiles_s) * TILE_T;
+  g.s0 = (tile % tiles_s) * TILE_S<T>;""", 1)],
     # the f64 kernel's slots in catalog order, not grouped by regime
     "f64_catalog_order": [(
         "ops/cuda_sgp4.py",
@@ -1965,6 +2020,141 @@ def integrate_turns(args):
     print(smi)
 
 
+#: --epilogue-turns: calls of the epilogue kernel a timing (replayed from a
+#: CUDA graph)
+EPILOGUE_REPS = 20
+
+
+def _bits_differ(a, b):
+    """The values of ``a`` and ``b`` whose bit patterns differ (NaN where
+    NaN counts as equal)."""
+    if a is None or b is None:
+        return 0 if a is b else -1
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    if not a.is_floating_point():
+        return int((a != b).sum().item())
+    ity = torch.int32 if a.dtype == torch.float32 else torch.int64
+    nan = torch.isnan(a) & torch.isnan(b)
+    return int(((a.view(ity) != b.view(ity)) & ~nan).sum().item())
+
+
+def epilogue_turns(args):
+    """``--epilogue-turns`` (needs a card): the epilogue kernel
+    (``csrc/finalize.cu``) of this checkout (``change``), of each variant
+    named by ``--variants`` and of ``--tree``'s package, on the same
+    inputs: the mixed catalog's f32 planes and f64 DENSE output x 1,440
+    (``propagate(..., layout="planes")`` and ``propagate(..., method=
+    "f64")`` of this checkout), every frame x layout but the identity,
+    with velocities. Prints how many values of each differ from the
+    tree's (or the change's) bit for bit, the trips of the latitude
+    iteration on both sweeps (``chip_smoke.trips_report``), each kernel's
+    ptxas report and the tile walk's grid, then each form's ms replayed
+    from a CUDA graph, round after round in turns (the order reversed on
+    every other round), beside torch's copies of the relayout
+    (``chip_smoke._relayout``: r, v and, for sat_major, the codes) timed
+    in the same rounds."""
+    if not torch.cuda.is_available():
+        raise SystemExit("shallow_variants: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from astroz_tpu_torch import build_catalog, propagate
+
+    smi = chip_smoke.card_line()
+    names = ["change"] + [v for v in args.variants if v != "default"]
+    pkgs = {v: make_variant(v, edits=VARIANTS.get(v, ())) for v in names}
+    if args.tree:
+        pkgs["tree"] = make_variant(
+            "tree", Path(args.tree).resolve() / "astroz_tpu_torch")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for job in [pool.submit(b.build) for b, _ in pkgs.values()]:
+            job.result()
+    print(f"# epilogue turns: built {len(pkgs)} packages in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fins = {v: importlib.import_module(f"astroz_variant_{v}.ops.cuda_finalize")
+            for v in pkgs}
+    mixed = build_catalog(chip_smoke.mixed_catalog_text(N_SATS))
+    jd = chip_smoke.EPOCH_JD + np.arange(N_TIMES) / 1440.0
+    jd_sum = torch.as_tensor(jd[:, None], device="cuda")
+    sweeps = {"f32": (propagate(mixed, jd, method="fast", layout="planes"),
+                      "planes"),
+              "f64": (propagate(mixed, jd, method="f64"), "time_major")}
+    # the other source of each type, for its sat_major forms
+    other = {"f32 time-major": (propagate(mixed, jd, method="fast"),
+                                "time_major"),
+             "f64 planes": (propagate(mixed, jd, method="f64",
+                                      layout="planes"), "planes")}
+    trips = {k: chip_smoke.trips_report(
+        propagate(mixed, jd, method="fast" if k == "f32" else "f64",
+                  output="ecef", layout="planes")[0],
+        f"mixed {N_SATS} x {N_TIMES} {k} ECEF", smi) for k in sweeps}
+    forms = {}
+    for k, ((r, v, err), source) in sweeps.items():
+        for output in fins["change"].OUTPUT_MODES:
+            for layout in fins["change"].LAYOUTS:
+                if not fins["change"].is_identity(source, output, layout,
+                                                  None):
+                    forms[f"{k} {output} {layout}"] = (
+                        (r, v, err, jd_sum),
+                        dict(source=source, output=output, layout=layout,
+                             velocities=True))
+    for k, ((r, v, err), source) in other.items():
+        for output in ("teme", "geodetic"):
+            forms[f"{k} {output} sat_major"] = (
+                (r, v, err, jd_sum),
+                dict(source=source, output=output, layout="sat_major",
+                     velocities=True))
+    if args.forms:
+        forms = {k: x for k, x in forms.items()
+                 if any(f in k for f in args.forms)}
+    ref_pkg = "tree" if "tree" in pkgs else "change"
+    differ = {v: {} for v in pkgs}
+    for name, (xs, kw) in forms.items():
+        want = fins[ref_pkg].finalize(*xs, **kw)
+        for v in pkgs:
+            got = fins[v].finalize(*xs, **kw)
+            differ[v][name] = sum(_bits_differ(a, b)
+                                  for a, b in zip(got, want))
+            del got
+        del want
+    for v in pkgs:
+        print(f"# epilogue turns: {v}: values differing bit for bit from "
+              f"{ref_pkg}: {differ[v]}")
+        for name, regs, st, ld in pkgs[v][0].ptxas_report():
+            if "flat_kernel" in name or "tile_kernel" in name:
+                print(f"# epilogue turns: {v}: ptxas {name}: {regs} "
+                      f"registers, spill stores {st} B, spill loads {ld} B")
+        if hasattr(fins[v], "launch_grid"):
+            for dt in (torch.float32, torch.float64):
+                print(f"# epilogue turns: {v}: tile walk grid {dt} "
+                      f"{fins[v].launch_grid(dt, N_TIMES, N_SATS)}")
+    fns = {v: {name: (lambda f=fins[v], xs=xs, kw=kw: f.finalize(*xs, **kw))
+               for name, (xs, kw) in forms.items()} for v in pkgs}
+    lib = {}
+    for name, ((r, v, err, _), kw) in forms.items():
+        perm = chip_smoke.RELAYOUT.get((kw["source"], kw["layout"]))
+        if perm is not None and kw["output"] == "teme":
+            lib[name] = (lambda r=r, v=v, err=err, perm=perm, kw=kw:
+                         chip_smoke._relayout(r, v, err, perm, kw["layout"]))
+    fns["torch"] = lib
+    ms = {v: {name: [] for name in fns[v]} for v in fns}
+    for rnd in range(args.rounds):
+        for v in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+            for name, fn in fns[v].items():
+                ms[v][name].append(chip_smoke._graph_ms(fn, EPILOGUE_REPS))
+    for v in fns:
+        print(f"# epilogue turns {v} [{smi}]: " + "; ".join(
+            f"{name} {np.mean(xs):.4f} ms ({', '.join(f'{x:.4f}' for x in xs)})"
+            for name, xs in ms[v].items()))
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / f"epilogue_turns_{args.tag}.json",
+              "w") as fh:
+        json.dump({"card": smi, "tree": args.tree, "differ": differ,
+                   "trips": trips, "ms": ms}, fh, indent=1)
+    print(smi)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", nargs="+", default=["default"],
@@ -1979,6 +2169,8 @@ def main():
     ap.add_argument("--torch-rounding", action="store_true")
     ap.add_argument("--integrate-probes", action="store_true")
     ap.add_argument("--integrate-turns", action="store_true")
+    ap.add_argument("--epilogue-turns", action="store_true")
+    ap.add_argument("--forms", nargs="+", default=None)
     ap.add_argument("--divide-pairs", type=int, default=10 ** 7)
     args = ap.parse_args()
     if args.integrate_probes:
@@ -1986,6 +2178,9 @@ def main():
         return
     if args.integrate_turns:
         integrate_turns(args)
+        return
+    if args.epilogue_turns:
+        epilogue_turns(args)
         return
     if args.torch_rounding:
         torch_rounding()

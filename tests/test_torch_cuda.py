@@ -11,8 +11,10 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-``synthetic_leo_text`` and ``synthetic_deep_text`` are shared with the
-other ``test_torch_*`` files.
+``synthetic_leo_text``, ``synthetic_deep_text``, ``geodetic_early_exit``
+(the epilogue kernel's end of the latitude iteration in torch),
+``GEODETIC_PLANTS`` and ``_same_bits`` are shared with the other
+``test_torch_*`` files.
 """
 
 import math
@@ -413,11 +415,109 @@ def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
         assert moved == expected, name
 
 
+def geodetic_early_exit(x, y, z, trips=10):
+    """``frames.ecef_to_geodetic_xyz`` as the epilogue kernel runs it, in
+    plain torch: the latitude iteration of each point stops where lat
+    repeats its bit pattern (the next lat is this one: this one ends it;
+    the next lat is the one before: the two alternate, and the one the
+    ``trips``-th trip would end on ends it), else after ``trips`` trips.
+    Every trip runs on the whole tensors, as the plain version's do, so
+    that each point's ops are the plain version's on any host. Returns
+    ``(lat, lon, alt, stop, cycle)``: ``stop`` the trips taken (next lats
+    computed) at each point, ``cycle`` where a two-value cycle ended it."""
+    from astroz_tpu_torch.constants import WGS84, WGS84_ECC_SQ
+
+    a = torch.tensor(WGS84.radius_earth_km, dtype=x.dtype, device=x.device)
+    e2 = WGS84_ECC_SQ
+    ity = torch.int32 if x.dtype == torch.float32 else torch.int64
+    lon = torch.atan2(y, x)
+    p = torch.sqrt(x * x + y * y)
+    p_safe = torch.where(p > 1e-12, p, torch.full_like(p, 1e-12))
+    lat = torch.atan2(z, p_safe * (1.0 - e2))
+    prev, alt_prev = lat, torch.zeros_like(lat)
+    out_lat, out_alt = torch.zeros_like(lat), torch.zeros_like(lat)
+    live = torch.ones(lat.shape, dtype=torch.bool, device=x.device)
+    stop = torch.full(lat.shape, trips, dtype=torch.int64, device=x.device)
+    cycle = torch.zeros_like(live)
+    for i in range(trips + 1):
+        sin_lat = torch.sin(lat)
+        n = a / torch.sqrt(1.0 - e2 * sin_lat * sin_lat)
+        alt = p_safe / torch.cos(lat) - n
+        if i == trips:
+            out_lat = torch.where(live, lat, out_lat)
+            out_alt = torch.where(live, alt, out_alt)
+            break
+        nxt = torch.atan2(z, p_safe * (1.0 - e2 * n / (n + alt)))
+        fixed = live & (nxt.view(ity) == lat.view(ity))
+        two = live & ~fixed & (nxt.view(ity) == prev.view(ity))
+        # the trips left after this one: even ends on nxt (= prev)
+        on_next = two if (trips - i - 1) % 2 == 0 else torch.zeros_like(two)
+        ends = fixed | two
+        out_lat = torch.where(on_next, nxt, torch.where(ends, lat, out_lat))
+        out_alt = torch.where(on_next, alt_prev,
+                              torch.where(ends, alt, out_alt))
+        stop = torch.where(ends, i + 1, stop)
+        cycle |= two
+        live &= ~ends
+        prev, alt_prev, lat = lat, alt, nxt
+    return out_lat, lon, out_alt, stop, cycle
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (a signed zero too), NaN where NaN."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    if a.dtype != b.dtype or not torch.equal(nan, torch.isnan(b)):
+        return False
+    ity = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.equal(a.view(ity)[~nan], b.view(ity)[~nan])
+
+
+#: (row, lane) -> TEME point (km) planted in _sweep_outputs: both poles,
+#: the equator with z = +0.0 and -0.0, p under the 1e-12 clamp, GEO and
+#: a Molniya apogee (46,000 km at 63.4 deg)
+GEODETIC_PLANTS = {
+    (5, 11): (0.0, 0.0, 7000.0), (9, 12): (0.0, 0.0, -6800.0),
+    (6, 13): (7000.0, 100.0, 0.0), (6, 14): (-6900.0, 50.0, -0.0),
+    (7, 15): (1e-13, -1e-13, 6800.0), (7, 16): (1e-13, 1e-13, -7100.0),
+    (8, 17): (42164.0 * math.cos(1.0), 42164.0 * math.sin(1.0), 12.0),
+    (8, 18): (46000.0 * math.cos(math.radians(63.4)) * math.cos(2.0),
+              46000.0 * math.cos(math.radians(63.4)) * math.sin(2.0),
+              46000.0 * math.sin(math.radians(63.4)))}
+
+
+def cycle_points(source, device, jd, n=20000, seed=5):
+    """TEME points (k, 3) (numpy f64 for the f64 path, f32 values for the
+    fast path) whose ECEF images at Julian date ``jd``, as the plain
+    epilogue rotates them on ``device``, end the latitude iteration in a
+    two-value cycle there (:func:`geodetic_early_exit`): found among
+    ``n`` seeded points at 6,600-42,300 km."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(1, n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    r = u * rng.uniform(6600.0, 42300.0, (1, n, 1))
+    if source == "planes":
+        r = r.astype(np.float32)
+    planes = source == "planes"
+    rt = torch.as_tensor(np.ascontiguousarray(
+        r.transpose(2, 0, 1)) if planes else r, device=device)
+    err = torch.zeros((1, n), dtype=torch.int32, device=device)
+    jd_sum = torch.tensor([[jd]], dtype=torch.float64, device=device)
+    ecef = cuda_finalize.finalize_reference(
+        rt, None, err, jd_sum, source=source, output="ecef",
+        layout="planes", velocities=False)[0]
+    cycle = geodetic_early_exit(*ecef)[4].reshape(-1).cpu().numpy()
+    return r[0, cycle].astype(np.float64)
+
+
 def _sweep_outputs(source, device, n_times, n_sats=203):
     """Seeded sweep outputs as a sweep hands them to the epilogue (f32
     planes, or f64 time-major), ragged against the kernel's sat_major
-    tiles: a lane failing from row 20 (zero-filled, code 6), points on the
-    pole axis, a NaN, jd_sum and a mask of every third lane."""
+    tiles: a lane failing from row 20 (zero-filled, code 6), the points of
+    GEODETIC_PLANTS, a NaN, up to 16 points of row 10 that end the
+    latitude iteration in a two-value cycle on the card (lanes 100-115),
+    jd_sum and a mask of every third lane."""
     rng = np.random.default_rng(23)
     u = rng.normal(size=(n_times, n_sats, 3))
     u /= np.linalg.norm(u, axis=-1, keepdims=True)
@@ -426,31 +526,25 @@ def _sweep_outputs(source, device, n_times, n_sats=203):
     err = np.zeros((n_times, n_sats), np.int32)
     r[20:, 7] = v[20:, 7] = 0.0
     err[20:, 7] = 6
-    r[5, 11], r[9, 12] = (0.0, 0.0, 7000.0), (0.0, 0.0, -6800.0)
+    for (t, s), point in GEODETIC_PLANTS.items():
+        r[t, s] = point
     r[3, 40, 1] = float("nan")
+    jd_sum = (2460310.5 + np.linspace(-1.0, 2.0, n_times))[:, None]
+    cycles = cycle_points(source, device, float(jd_sum[10, 0]))[:16]
+    assert len(cycles), "no two-value-cycle point found"
+    r[10, 100:100 + len(cycles)] = cycles
     if source == "planes":
         r, v = (np.ascontiguousarray(x.transpose(2, 0, 1), np.float32)
                 for x in (r, v))
-    jd_sum = (2460310.5 + np.linspace(-1.0, 2.0, n_times))[:, None]
     mask = np.arange(n_sats) % 3 != 0
     return ([torch.as_tensor(x, device=device) for x in (r, v, err, jd_sum)],
             torch.as_tensor(mask, device=device))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_times", [45, 44])
-@pytest.mark.parametrize("source", cuda_finalize.SOURCES)
-@pytest.mark.parametrize("output", cuda_finalize.OUTPUT_MODES)
-@pytest.mark.parametrize("layout", cuda_finalize.LAYOUTS)
-def test_finalize_kernel_matches_plain_on_cuda(cuda_device, source, output,
-                                               layout, n_times):
+def _finalize_vs_plain(r, v, err, jd_sum, mask, source, output, layout):
     """The epilogue kernel against its plain version, bit for bit (NaN
     where NaN), with and without velocities and the mask: one launch a
-    call, none in the identity cases (the sweep's own tensors back). 44 x
-    203 points (a multiple of 4) take the flat walk in whole 16-byte
-    vectors; 45 x 203 end in a partial vector, and their planes after the
-    first start off a vector."""
-    (r, v, err, jd_sum), mask = _sweep_outputs(source, cuda_device, n_times)
+    call, none in the identity cases (the sweep's own tensors back)."""
     name = "finalize_f32" if source == "planes" else "finalize_f64"
     for velocities in (True, False):
         for m in (None, mask):
@@ -466,9 +560,53 @@ def test_finalize_kernel_matches_plain_on_cuda(cuda_device, source, output,
             for a, b in zip(got, want):
                 if b is not None:
                     assert a.shape == b.shape and a.dtype == b.dtype
-                    assert _same_or_both_nan(a, b), (velocities, m is None)
+                    assert _same_bits(a, b), (velocities, m is None)
             if identity:
                 assert got[0] is r and got[2] is err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_times", [45, 44])
+@pytest.mark.parametrize("source", cuda_finalize.SOURCES)
+@pytest.mark.parametrize("output", cuda_finalize.OUTPUT_MODES)
+@pytest.mark.parametrize("layout", cuda_finalize.LAYOUTS)
+def test_finalize_kernel_matches_plain_on_cuda(cuda_device, source, output,
+                                               layout, n_times):
+    """The epilogue kernel against its plain version (:func:`_finalize_vs_
+    plain`) on :func:`_sweep_outputs`, whose planted points reach the
+    latitude iteration's early ends, its two-value cycles, both poles,
+    signed zeros and the clamp of p. 44 x 203 points (a multiple of 4) take
+    the flat walk in whole 16-byte vectors; 45 x 203 end in a partial
+    vector, and their planes after the first start off a vector; in
+    sat_major, odd n_sats and n_times put odd lanes' runs and rows off
+    16 bytes."""
+    (r, v, err, jd_sum), mask = _sweep_outputs(source, cuda_device, n_times)
+    _finalize_vs_plain(r, v, err, jd_sum, mask, source, output, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", cuda_finalize.SOURCES)
+@pytest.mark.parametrize("output", cuda_finalize.OUTPUT_MODES)
+def test_finalize_tile_walk_matches_plain_on_cuda(cuda_device, source,
+                                                  output):
+    """sat_major on a sweep of odd n_times and n_sats whose items (whole
+    tiles, or fields of tiles) outnumber the persistent grid's blocks and
+    are no multiple of them (with and without velocities), so that blocks
+    walk different numbers of items and the ring of stages wraps: bit for
+    bit against the plain version."""
+    dtype = torch.float32 if source == "planes" else torch.float64
+    n_times, n_sats = 333, 2001
+    while True:
+        grids = [cuda_finalize.launch_grid(dtype, n_times, n_sats,
+                                           velocities=vel)
+                 for vel in (True, False)]
+        if all(g["items"] > g["blocks"] and g["items"] % g["blocks"]
+               for g in grids):
+            break
+        n_sats += 2
+    (r, v, err, jd_sum), mask = _sweep_outputs(source, cuda_device, n_times,
+                                               n_sats)
+    _finalize_vs_plain(r, v, err, jd_sum, mask, source, output, "sat_major")
 
 
 @pytest.mark.cuda

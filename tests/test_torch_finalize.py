@@ -21,6 +21,19 @@ rotation, geodetic angles 1e-9 rad); error codes identical. The wrapper's
 CPU route equals ``finalize_reference`` bit for bit, returns the sweep's
 own tensors in the identity cases and counts no launch.
 
+The latitude iteration as the epilogue kernel ends it (``csrc/finalize.cu``
+``geodetic``: where lat repeats its bit pattern, a two-value cycle by the
+parity of the trips left): its torch version
+(``test_torch_cuda.geodetic_early_exit``) equals
+``frames.ecef_to_geodetic_xyz``'s fixed trips bit for bit, at 10 trips and
+at 9 (the other parity), in f32 and f64, on the small mixed sweep's ECEF
+points, the points of ``test_torch_cuda.GEODETIC_PLANTS`` (both poles, the
+equator with z = +0.0 and -0.0, p under the 1e-12 clamp, GEO and a Molniya
+apogee), a NaN and the two-value-cycle points among 20,000 seeded LEO
+points (LEO, the radii those tolerances were set for); at 10 trips it is
+within the tolerances above of JAX's ``frames.ecef_to_geodetic_xyz``, NaN
+where NaN. The points hold early ends and cycles.
+
 The resonance tables (``ops/cuda_sgp4.py:resonance_tables``, the TABLES
 kernel): the wrapper's CPU route equals ``resonance_tables_reference`` bit
 for bit; ``tests/test_torch_deep.py::test_resonance_tables_match_jax``
@@ -38,6 +51,7 @@ import numpy as np
 import pytest
 import torch
 
+from astroz_tpu import frames as jframes
 from astroz_tpu import propagation as jprop
 import astroz_tpu_torch as P
 from astroz_tpu_torch.ops import cuda_finalize, cuda_sgp4, fast
@@ -46,10 +60,14 @@ from astroz_tpu_torch.ops.cuda_finalize import (LAYOUTS, OUTPUT_MODES,
 from astroz_tpu_torch.ops.sdp4 import DeepElements
 from astroz_tpu_torch.ops.sgp4 import Sgp4Elements
 
-from test_torch_cuda import synthetic_deep_text, synthetic_leo_text
-from test_torch_f64 import FIXED_VEL_TOL_KMS, _assert_output_close
+from test_torch_cuda import (GEODETIC_PLANTS, _same_bits,
+                             geodetic_early_exit, synthetic_deep_text,
+                             synthetic_leo_text)
+from test_torch_f64 import (FIXED_POS_TOL_KM, FIXED_VEL_TOL_KMS,
+                            _assert_output_close)
 from test_torch_f64 import VEL_TOL_KMS as F64_VEL_TOL_KMS
-from test_torch_propagation import VEL_TOL_KMS, _assert_r_close
+from test_torch_propagation import (ALT_TOL_KM, ANGLE_TOL, VEL_TOL_KMS,
+                                    _assert_r_close)
 
 torch.set_num_threads(1)
 
@@ -237,6 +255,56 @@ def test_kernel_enums_are_the_wrappers_names():
 def mixed():
     return P.build_catalog(synthetic_leo_text(16) + "\n"
                            + synthetic_deep_text(12), device="cpu")
+
+
+def _geodetic_points(cat, dtype):
+    """(3, n) ECEF points of ``dtype``: the small mixed sweep's (fast for
+    f32, f64 for f64; 21 epochs over a day), GEODETIC_PLANTS, a NaN, and
+    the points among 20,000 seeded LEO ones (6,600-8,300 km) whose
+    latitude iteration ends in a two-value cycle."""
+    jd = cat.epoch_min_jd + np.linspace(0.0, 1.0, 21)
+    method = "fast" if dtype == torch.float32 else "f64"
+    sweep = P.propagate(cat, jd, method=method, output="ecef",
+                        layout="planes")[0].reshape(3, -1)
+    planted = torch.tensor(list(GEODETIC_PLANTS.values())
+                           + [(float("nan"), 7000.0, 10.0)],
+                           dtype=dtype).T
+    rng = np.random.default_rng(5)
+    u = rng.normal(size=(3, 20000))
+    u /= np.linalg.norm(u, axis=0)
+    leo = torch.tensor(u * rng.uniform(6600.0, 8300.0, 20000), dtype=dtype)
+    cycles = leo[:, geodetic_early_exit(*leo)[4]]
+    return torch.cat([sweep, planted, cycles], dim=1).contiguous()
+
+
+@pytest.mark.parametrize("trips", [10, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_geodetic_early_exit_is_the_fixed_trips(mixed, dtype, trips):
+    """The kernel's end of the latitude iteration, in torch, against the
+    plain version's fixed trips bit for bit, and (10 trips) JAX's within
+    the epilogue's tolerances; the points end early, and in cycles."""
+    x, y, z = _geodetic_points(mixed, dtype)
+    lat, lon, alt, stop, cycle = geodetic_early_exit(x, y, z, trips)
+    want = P.frames.ecef_to_geodetic_xyz(x, y, z, trips)
+    for got, ref in zip((lat, lon, alt), want):
+        assert _same_bits(got, ref)
+    ends = stop < trips
+    assert (ends & ~cycle).any() and cycle.any() and not (cycle & ~ends).any()
+    if trips != 10:
+        return
+    f32 = dtype == torch.float32
+    ref = jframes.ecef_to_geodetic_xyz(*(jnp.asarray(c.numpy()) for c in
+                                         (x, y, z)))
+    tols = ((ANGLE_TOL["geodetic"],) * 2 + (ALT_TOL_KM,) if f32
+            else (1e-9, 1e-9, FIXED_POS_TOL_KM))
+    for c, (got, jax_c, tol) in enumerate(zip((lat, lon, alt), ref, tols)):
+        got, jax_c = got.numpy(), np.asarray(jax_c)
+        assert jax_c.dtype == got.dtype
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(jax_c))
+        d = np.abs(got - jax_c)[~np.isnan(got)]
+        if c == 1:  # longitude wraps at +-pi
+            d = np.minimum(d, 2 * np.pi - d)
+        assert d.max() <= tol, (dtype, c, d.max())
 
 
 def test_resonance_fields_are_the_named_elements(mixed):
