@@ -27,6 +27,7 @@ import torch
 from .. import _build
 from ..constants import RAD2DEG, WGS84, WGS84_ECC_SQ
 from ..frames import ecef_to_geodetic, ecef_to_geodetic_xyz, teme_to_ecef
+from ..profiling import span
 from ..time import gstime
 from .cuda_sgp4 import _ptr
 
@@ -207,14 +208,15 @@ def finalize(r, v, err, jd_sum, *, source: str, output: str, layout: str,
     out_shape = {"time_major": (n_times, n_sats, 3),
                  "sat_major": (n_sats, n_times, 3),
                  "planes": (3, n_times, n_sats)}[layout]
-    r_out = torch.empty(out_shape, dtype=r.dtype, device=dev)
-    v_out = None if v is None else torch.empty_like(r_out)
-    err_out = None
-    if layout == "sat_major":
-        err_out = torch.empty((n_sats, n_times), dtype=torch.int32,
-                              device=dev)
-    elif mask is not None:
-        err_out = torch.empty_like(err)
+    with span("astroz.alloc"):
+        r_out = torch.empty(out_shape, dtype=r.dtype, device=dev)
+        v_out = None if v is None else torch.empty_like(r_out)
+        err_out = None
+        if layout == "sat_major":
+            err_out = torch.empty((n_sats, n_times), dtype=torch.int32,
+                                  device=dev)
+        elif mask is not None:
+            err_out = torch.empty_like(err)
     if n_times == 0 or n_sats == 0:
         return r_out, v_out, err if err_out is None else err_out
     sg = cg = None

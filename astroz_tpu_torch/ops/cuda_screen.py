@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..profiling import span
 
 #: kernel launches so far in this process, by mode; each launch adds one
 LAUNCHES = {"screen_coarse": 0, "screen_candidates": 0,
@@ -281,10 +282,12 @@ def coarse_candidates(r_planes, thr2: float, *, cap: int = CANDIDATE_CAP):
         return empty, empty
     count = torch.zeros(1, dtype=torch.int64, device=dev)
     pairs = _launch_candidates(r_planes, thr2, cap, count)
-    hits = int(count.item())
+    with span("astroz.wait.count"):
+        hits = int(count.item())
     if hits > cap:
-        count.zero_()
-        pairs = _launch_candidates(r_planes, thr2, hits, count)
+        with span("astroz.retry.candidates"):
+            count.zero_()
+            pairs = _launch_candidates(r_planes, thr2, hits, count)
     pairs = pairs[:hits]
     return _sorted_pairs(pairs[:, 0], pairs[:, 1], n_sats)
 
@@ -368,9 +371,11 @@ def coarse_candidates_rect(rows, cols, thr2: float, *,
         return empty, empty
     count = torch.zeros(1, dtype=torch.int64, device=dev)
     pairs = _launch_rect(rows, cols, thr2, cap, count)
-    hits = int(count.item())
+    with span("astroz.wait.count"):
+        hits = int(count.item())
     if hits > cap:
-        count.zero_()
-        pairs = _launch_rect(rows, cols, thr2, hits, count)
+        with span("astroz.retry.candidates"):
+            count.zero_()
+            pairs = _launch_rect(rows, cols, thr2, hits, count)
     pairs = pairs[:hits]
     return _sorted_pairs(pairs[:, 0], pairs[:, 1], n_cols)

@@ -60,6 +60,7 @@ import torch
 
 from .. import _build
 from ..constants import GravityModel
+from ..profiling import span
 from .fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                    RESONANCE_TABLE_NAMES, SPINE_FIELD_NAMES,
                    TAIL_FIELD_NAMES, deep_spine_f64, deep_tail_f32,
@@ -129,10 +130,25 @@ def _launch_device(x, kepler_iters, name):
 
 
 def _outputs(dev, n_times, n, want_vel, time_major=False):
+    """A fast kernel's new f32 r and v (v None without velocities), (3,
+    T, S) planes or with ``time_major`` (T, S, 3), and its (T, S) codes;
+    one ``astroz.alloc`` span under a profiler."""
     shape = (n_times, n, 3) if time_major else (3, n_times, n)
-    r = torch.empty(shape, dtype=F32, device=dev)
-    v = torch.empty_like(r) if want_vel else None
-    err = torch.empty((n_times, n), dtype=I32, device=dev)
+    with span("astroz.alloc"):
+        r = torch.empty(shape, dtype=F32, device=dev)
+        v = torch.empty_like(r) if want_vel else None
+        err = torch.empty((n_times, n), dtype=I32, device=dev)
+    return r, v, err
+
+
+def _outputs_f64(dev, shape, want_vel):
+    """The f64 kernel's new ``shape + (3,)`` f64 r and v (v None without
+    velocities) and its ``shape`` codes; one ``astroz.alloc`` span under
+    a profiler."""
+    with span("astroz.alloc"):
+        r = torch.empty(tuple(shape) + (3,), dtype=F64, device=dev)
+        v = torch.empty_like(r) if want_vel else None
+        err = torch.empty(shape, dtype=I32, device=dev)
     return r, v, err
 
 
@@ -1013,9 +1029,7 @@ def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
     if n_cols not in (1, n_out) or n_lanes not in (1, n_out):
         raise ValueError(f"tsince: {tuple(tsince.shape)} against {n_lanes} "
                          "lanes")
-    r = torch.empty(out_shape + (3,), dtype=F64, device=dev)
-    v = torch.empty_like(r) if want_vel else None
-    err = torch.empty(out_shape, dtype=I32, device=dev)
+    r, v, err = _outputs_f64(dev, out_shape, want_vel)
     if r.numel():
         with torch.cuda.device(dev):
             _launch_f64(
@@ -1065,9 +1079,7 @@ def sgp4_f64_scan(times, fields, flags, *, grav: GravityModel,
                                        want_vel=want_vel)
     t2 = times.reshape(times.shape[0], -1).contiguous()
     n_times, n_cols = t2.shape
-    r = torch.empty((n_times, n_lanes, 3), dtype=F64, device=dev)
-    v = torch.empty_like(r) if want_vel else None
-    err = torch.empty((n_times, n_lanes), dtype=I32, device=dev)
+    r, v, err = _outputs_f64(dev, (n_times, n_lanes), want_vel)
     if n_times:
         with torch.cuda.device(dev):
             _launch_f64(

@@ -6,6 +6,21 @@ layer: its benchmarks time by hand and guard dead-code elimination with
 card (viewable in ui.perfetto.dev or chrome://tracing), and the
 throughput harness waits on the device of each call's outputs (that
 wait is our doNotOptimizeAway).
+
+The package names its own stages in such a trace with :func:`span`, a
+host-side record function while a profiler records and a shared no-op
+while none does. The spans are a closed set:
+
+* ``astroz.propagate``: the whole host path of one ``propagate`` or
+  ``propagate_tsince`` call; ``astroz.screen_all``: of one
+  ``screen_all`` or ``screen_all_ring`` call;
+* ``astroz.wait.<what>``: one call that blocks the host until the card
+  has finished its queued work: ``epochs`` (a numpy-to-card copy of
+  epochs or of the mask), ``count`` (K4's candidate count),
+  ``pairs`` (a screen's pairs copied to the host);
+* ``astroz.alloc``: a sweep's output allocation;
+* ``astroz.retry.candidates``: K4's relaunch when its hits pass the
+  room it was given.
 """
 
 from __future__ import annotations
@@ -18,6 +33,25 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Set
 
 import torch
+
+#: what :func:`span` returns while no profiler records: one shared
+#: context manager that does nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that names a stage of the program in a trace.
+
+    While a ``torch.profiler`` records on this thread it is a record
+    function of the operator kind (``_RecordFunctionFast``): a host span
+    on the clock of the device trace, and only a host span. A
+    ``torch.profiler.record_function`` is a user annotation, which the
+    profiler also copies onto the card's timeline over the kernels it
+    launched, where it would read as device work. While nothing records
+    it is a shared no-op, so that a span costs one check."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

@@ -48,6 +48,7 @@ from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                        deep_f32_fields, shallow_staging)
 from .ops.sdp4 import DeepElements, sdp4_init_np
 from .ops.sgp4 import Sgp4Elements, _device, sgp4_init_np
+from .profiling import span
 from .tle import Tle, TleArrays, iter_tles, parse_omm
 
 #: half-day resonant (irez == 2) lanes above this eccentricity are
@@ -421,27 +422,38 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
     the mask are one launch of the epilogue kernel
     (``ops.cuda_finalize.finalize``), none for TEME in the sweep's own
     layout (planes fast, time-major f64) without a mask.
+
+    Under a ``torch.profiler`` the call is one ``astroz.propagate`` span,
+    with an ``astroz.wait.epochs`` span around each copy of numpy epochs
+    (or of the mask) to the card, which waits for the card's queued work,
+    and ``astroz.alloc`` spans around the output allocations
+    (``profiling``).
     """
-    if output not in OUTPUT_MODES:
-        raise ValueError(f"output must be one of {OUTPUT_MODES}")
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS}")
-    if method not in ("fast", "f64"):
-        raise ValueError("method must be 'fast' or 'f64'")
-    dev = cat.device
-    jd_h = np.atleast_1d(np.asarray(jd, np.float64))
-    fr_h = (np.zeros_like(jd_h) if fr is None
-            else np.atleast_1d(np.asarray(fr, np.float64)))
-    jd_h, fr_h = np.broadcast_arrays(jd_h, fr_h)
-    jd_sum = torch.as_tensor((jd_h + fr_h)[:, None], dtype=torch.float64,
-                             device=dev)
-    mask = (None if satellite_mask is None else
-            torch.as_tensor(satellite_mask, dtype=torch.bool, device=dev))
-    if method == "f64":
-        return _propagate_f64(cat, jd_h, fr_h, jd_sum, output, velocities,
-                              layout, scan_times, mask)
-    return _propagate_fast(cat, jd_h, fr_h, jd_sum, output, velocities,
-                           layout, mask)
+    with span("astroz.propagate"):
+        if output not in OUTPUT_MODES:
+            raise ValueError(f"output must be one of {OUTPUT_MODES}")
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}")
+        if method not in ("fast", "f64"):
+            raise ValueError("method must be 'fast' or 'f64'")
+        dev = cat.device
+        jd_h = np.atleast_1d(np.asarray(jd, np.float64))
+        fr_h = (np.zeros_like(jd_h) if fr is None
+                else np.atleast_1d(np.asarray(fr, np.float64)))
+        jd_h, fr_h = np.broadcast_arrays(jd_h, fr_h)
+        with span("astroz.wait.epochs"):
+            jd_sum = torch.as_tensor((jd_h + fr_h)[:, None],
+                                     dtype=torch.float64, device=dev)
+        mask = None
+        if satellite_mask is not None:
+            with span("astroz.wait.epochs"):
+                mask = torch.as_tensor(satellite_mask, dtype=torch.bool,
+                                       device=dev)
+        if method == "f64":
+            return _propagate_f64(cat, jd_h, fr_h, jd_sum, output, velocities,
+                                  layout, scan_times, mask)
+        return _propagate_fast(cat, jd_h, fr_h, jd_sum, output, velocities,
+                               layout, mask)
 
 
 def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
@@ -450,8 +462,10 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
     """The f64 branch of :func:`propagate`: the f64 kernel's time-major
     outputs through the epilogue."""
     dev = cat.device
-    jd = torch.as_tensor(jd_h, dtype=torch.float64, device=dev)
-    fr = torch.as_tensor(fr_h, dtype=torch.float64, device=dev)
+    with span("astroz.wait.epochs"):
+        jd = torch.as_tensor(jd_h, dtype=torch.float64, device=dev)
+    with span("astroz.wait.epochs"):
+        fr = torch.as_tensor(fr_h, dtype=torch.float64, device=dev)
     # minutes since each epoch, from the jd/fr split: the subtraction
     # runs at the magnitude of epoch differences (days), not of a JD
     tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
@@ -484,8 +498,10 @@ def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
 def _t_time(epoch_min_jd: float, jd_h, fr_h, device) -> torch.Tensor:
     """The fast path's time factor: minutes of the epochs ``jd_h + fr_h``
     from a catalog's earliest epoch, f64 on ``device``."""
-    return torch.as_tensor(((jd_h - epoch_min_jd) + fr_h) * MINUTES_PER_DAY,
-                           dtype=torch.float64, device=device)
+    with span("astroz.wait.epochs"):
+        return torch.as_tensor(
+            ((jd_h - epoch_min_jd) + fr_h) * MINUTES_PER_DAY,
+            dtype=torch.float64, device=device)
 
 
 def _fast_planes(cat: SatCatalog, t_time, steps: int, velocities: bool):
@@ -523,7 +539,11 @@ def propagate_tsince(cat: SatCatalog, tsince_min, *,
     shot. Always TEME. Returns ``(r, v, error)`` on the catalog's
     device, r and v stacked ``(..., 3)`` f64 (v None with
     ``velocities=False``). One launch of the f64 kernel
-    (``ops.cuda_sgp4.sgp4_f64_dense``)."""
-    t = torch.as_tensor(tsince_min, dtype=torch.float64, device=cat.device)
-    return sgp4_f64_dense(t, *cat.f64_staging, grav=cat.grav,
-                          sdp4=cat.has_deep, want_vel=velocities)
+    (``ops.cuda_sgp4.sgp4_f64_dense``); one ``astroz.propagate`` span
+    under a profiler, as :func:`propagate`'s."""
+    with span("astroz.propagate"):
+        with span("astroz.wait.epochs"):
+            t = torch.as_tensor(tsince_min, dtype=torch.float64,
+                                device=cat.device)
+        return sgp4_f64_dense(t, *cat.f64_staging, grav=cat.grav,
+                              sdp4=cat.has_deep, want_vel=velocities)

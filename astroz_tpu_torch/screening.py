@@ -46,6 +46,7 @@ from .ops import cuda_screen
 from .ops.fastmath import sqrt_rn
 from .parallel.mesh import (Mesh, _sharded_f64, make_mesh,
                             stage_sharded_fast)
+from .profiling import span
 from .propagation import SatCatalog, build_catalog, propagate
 from .tle import Tle
 
@@ -175,8 +176,10 @@ def _screen_planes(r_planes, threshold_km: float, max_pairs: int,
     if len(ii) == 0:
         return _no_pairs()
     dmin, tmin = _refine(r_planes, ii, jj)
-    ci, cj, t = torch.stack([ii, jj, tmin]).cpu().numpy()
-    d = dmin.cpu().numpy()
+    with span("astroz.wait.pairs"):
+        ci, cj, t = torch.stack([ii, jj, tmin]).cpu().numpy()
+    with span("astroz.wait.pairs"):
+        d = dmin.cpu().numpy()
     hit = d < threshold_km
     return ci[hit], cj[hit], d[hit].astype(np.float64), t[hit]
 
@@ -222,11 +225,12 @@ def screen_all(cat: SatCatalog, jd, fr=None, *, threshold_km: float = 5.0,
     the catalog's device. The result is that of the screen without a
     mesh.
     """
-    r_planes = _positions_planes_f32(cat, jd, fr, method)
-    coarse = None
-    if mesh is not None and mesh.devices.size > 1:
-        coarse = _coarse_time_sharded(list(mesh.devices.flat))
-    return _screen_planes(r_planes, threshold_km, max_pairs, coarse=coarse)
+    with span("astroz.screen_all"):
+        r_planes = _positions_planes_f32(cat, jd, fr, method)
+        coarse = None
+        if mesh is not None and mesh.devices.size > 1:
+            coarse = _coarse_time_sharded(list(mesh.devices.flat))
+        return _screen_planes(r_planes, threshold_km, max_pairs, coarse=coarse)
 
 
 # ---------------------------------------------------------------------------
@@ -277,50 +281,54 @@ def screen_all_ring(cat: SatCatalog, jd, fr=None, *,
     Returns ``(i, j, min_dist_km, t_index)`` numpy arrays like
     :func:`screen_all`, and the same pairs.
     """
-    devs = list(mesh.devices.flat)
-    n_dev, n = len(devs), len(cat)
-    planes = _ring_planes(cat, jd, fr, make_mesh(devs), method)
-    block = planes[0].shape[2]
-    thr2 = _thr2(threshold_km)
-    keys = [np.empty(0, np.int64)]
-    visiting = planes
-    for k in range(n_dev):
-        if k:
-            visiting = [visiting[(me - 1) % n_dev].to(devs[me],
-                                                      non_blocking=True)
-                        for me in range(n_dev)]
-        for me in range(n_dev):
-            if k == 0:
-                ii, jj = cuda_screen.coarse_candidates(planes[me], thr2)
-            else:
-                ii, jj = cuda_screen.coarse_candidates_rect(
-                    planes[me], visiting[me], thr2)
-            ci = ii + me * block
-            cj = jj + ((me - k) % n_dev) * block
-            keep = (ci < cj) & (cj < n)
-            keys.append((ci[keep] * n + cj[keep]).cpu().numpy())
-    key = np.sort(np.concatenate(keys))
-    ci, cj = _cap(key // n, key % n, max_pairs, "screen_all_ring", 3)
-    if len(ci) == 0:
-        return _no_pairs()
+    with span("astroz.screen_all"):
+        devs = list(mesh.devices.flat)
+        n_dev, n = len(devs), len(cat)
+        planes = _ring_planes(cat, jd, fr, make_mesh(devs), method)
+        block = planes[0].shape[2]
+        thr2 = _thr2(threshold_km)
+        keys = [np.empty(0, np.int64)]
+        visiting = planes
+        for k in range(n_dev):
+            if k:
+                visiting = [visiting[(me - 1) % n_dev].to(devs[me],
+                                                          non_blocking=True)
+                            for me in range(n_dev)]
+            for me in range(n_dev):
+                if k == 0:
+                    ii, jj = cuda_screen.coarse_candidates(planes[me], thr2)
+                else:
+                    ii, jj = cuda_screen.coarse_candidates_rect(
+                        planes[me], visiting[me], thr2)
+                ci = ii + me * block
+                cj = jj + ((me - k) % n_dev) * block
+                keep = (ci < cj) & (cj < n)
+                with span("astroz.wait.pairs"):
+                    keys.append((ci[keep] * n + cj[keep]).cpu().numpy())
+        key = np.sort(np.concatenate(keys))
+        ci, cj = _cap(key // n, key % n, max_pairs, "screen_all_ring", 3)
+        if len(ci) == 0:
+            return _no_pairs()
 
-    n_times = planes[0].shape[1]
-    chunk_cap = max(1 << 12, (1 << 26) // max(n_times, 1))
-    pending = []
-    for c_idx, c0 in enumerate(range(0, len(ci), chunk_cap)):
-        c1 = min(c0 + chunk_cap, len(ci))
-        cols, inv = np.unique(np.concatenate([ci[c0:c1], cj[c0:c1]]),
-                              return_inverse=True)
-        dev = devs[c_idx % n_dev]
-        owner = cols // block
-        r_sub = torch.cat([
-            planes[s][:, :, torch.as_tensor(cols[owner == s] % block,
-                                            device=planes[s].device)]
-            .to(dev, non_blocking=True) for s in np.unique(owner)], dim=2)
-        inv = torch.as_tensor(inv, device=dev)
-        d, t = _refine_pairs_planes(r_sub, inv[:c1 - c0], inv[c1 - c0:])
-        pending.append((d, t))
-    d = torch.cat([x.cpu() for x, _ in pending]).numpy()
-    t = torch.cat([x.cpu() for _, x in pending]).numpy()
-    hit = d < threshold_km
-    return ci[hit], cj[hit], d[hit].astype(np.float64), t[hit]
+        n_times = planes[0].shape[1]
+        chunk_cap = max(1 << 12, (1 << 26) // max(n_times, 1))
+        pending = []
+        for c_idx, c0 in enumerate(range(0, len(ci), chunk_cap)):
+            c1 = min(c0 + chunk_cap, len(ci))
+            cols, inv = np.unique(np.concatenate([ci[c0:c1], cj[c0:c1]]),
+                                  return_inverse=True)
+            dev = devs[c_idx % n_dev]
+            owner = cols // block
+            r_sub = torch.cat([
+                planes[s][:, :, torch.as_tensor(cols[owner == s] % block,
+                                                device=planes[s].device)]
+                .to(dev, non_blocking=True) for s in np.unique(owner)], dim=2)
+            inv = torch.as_tensor(inv, device=dev)
+            d, t = _refine_pairs_planes(r_sub, inv[:c1 - c0], inv[c1 - c0:])
+            pending.append((d, t))
+        with span("astroz.wait.pairs"):
+            d = torch.cat([x.cpu() for x, _ in pending]).numpy()
+        with span("astroz.wait.pairs"):
+            t = torch.cat([x.cpu() for _, x in pending]).numpy()
+        hit = d < threshold_km
+        return ci[hit], cj[hit], d[hit].astype(np.float64), t[hit]
