@@ -36,7 +36,8 @@ from ..ops.cuda_finalize import finalize
 from ..ops.sdp4 import DeepElements
 from ..ops.sgp4 import Sgp4Elements
 from ..propagation import (LAYOUTS, OUTPUT_MODES, SatCatalog, _fast_planes,
-                           _propagate_f64, _t_time, resonance_steps)
+                           _propagate_f64, _stage_epochs, _t_time,
+                           resonance_steps)
 
 
 class Mesh:
@@ -233,9 +234,7 @@ def _sharded_f64(cat: SatCatalog, jd, fr, mesh: Mesh, output: str,
     outs = []
     for (ti, _), sub in np.ndenumerate(scat.shards):
         sl = slice(ti * t_block, (ti + 1) * t_block)
-        jd_sum = torch.as_tensor((jd_p[sl] + fr_p[sl])[:, None],
-                                 dtype=torch.float64, device=sub.device)
-        outs.append(_propagate_f64(sub, jd_p[sl], fr_p[sl], jd_sum, output,
+        outs.append(_propagate_f64(sub, jd_p[sl], fr_p[sl], output,
                                    velocities, "time_major", False))
     return outs, (n_times, n_real)
 
@@ -307,10 +306,10 @@ def stage_sharded_fast(cat: SatCatalog, jd, fr=None, *, mesh: Mesh,
             sub._tables[steps] = tables[:, :, torch.as_tensor(
                 cols, device=tables.device)].to(sub.device)
         sub.fast_staging  # staged here, once
-        shards.append(_FastShard(
-            sub, _t_time(cat.epoch_min_jd, jd_p[sl], fr_p[sl], sub.device),
-            torch.as_tensor((jd_p[sl] + fr_p[sl])[:, None],
-                            dtype=torch.float64, device=sub.device)))
+        (t_time, jd_sum), _ = _stage_epochs(
+            sub.device, [_t_time(cat.epoch_min_jd, jd_p[sl], fr_p[sl]),
+                         jd_p[sl] + fr_p[sl]])
+        shards.append(_FastShard(sub, t_time, jd_sum[:, None]))
 
     def sweep(*shards: _FastShard):
         return [finalize(*_fast_planes(s.cat, s.t_time, steps, want_vel),

@@ -14,9 +14,14 @@ while none does. The spans are a closed set:
 * ``astroz.propagate``: the whole host path of one ``propagate`` or
   ``propagate_tsince`` call; ``astroz.screen_all``: of one
   ``screen_all`` or ``screen_all_ring`` call;
+* ``astroz.stage.epochs``: the host epochs of one ``propagate`` or
+  ``propagate_tsince`` call (and the mask) written into page-locked
+  memory and their copy to the card queued; host time only, since the
+  copy does not wait for the card. A sweep thus returns with its work
+  queued and no host wait, as torch's own ops do;
 * ``astroz.wait.<what>``: one call that blocks the host until the card
-  has finished its queued work: ``epochs`` (a numpy-to-card copy of
-  epochs or of the mask), ``count`` (K4's candidate count),
+  has finished its queued work: ``epochs`` (a copy of epochs that
+  blocks; no CUDA sweep has one), ``count`` (K4's candidate count),
   ``pairs`` (a screen's pairs copied to the host);
 * ``astroz.alloc``: a sweep's output allocation;
 * ``astroz.retry.candidates``: K4's relaunch when its hits pass the

@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from .constants import MINUTES_PER_DAY, WGS72, GravityModel
-from .ops.cuda_finalize import LAYOUTS, OUTPUT_MODES, finalize
+from .ops.cuda_finalize import (LAYOUTS, OUTPUT_MODES, finalize,
+                                 is_identity)
 from .ops.cuda_sgp4 import (LYDDANE_INCL, F64Staging, MergeMaps,
                              f64_staging, propagate_deep_sep,
                              propagate_fast_sep,
@@ -423,11 +424,16 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
     (``ops.cuda_finalize.finalize``), none for TEME in the sweep's own
     layout (planes fast, time-major f64) without a mask.
 
+    The call returns with its work queued on the card and no host wait,
+    as torch's own ops do: its epochs (and the mask) reach the card
+    through one page-locked staging (:func:`_stage_epochs`), and the
+    caller's arrays are read before it returns, so the caller may
+    overwrite them at once.
+
     Under a ``torch.profiler`` the call is one ``astroz.propagate`` span,
-    with an ``astroz.wait.epochs`` span around each copy of numpy epochs
-    (or of the mask) to the card, which waits for the card's queued work,
-    and ``astroz.alloc`` spans around the output allocations
-    (``profiling``).
+    with one ``astroz.stage.epochs`` span around the staging of its
+    epochs and mask, and ``astroz.alloc`` spans around the output
+    allocations (``profiling``).
     """
     with span("astroz.propagate"):
         if output not in OUTPUT_MODES:
@@ -436,36 +442,61 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
             raise ValueError(f"layout must be one of {LAYOUTS}")
         if method not in ("fast", "f64"):
             raise ValueError("method must be 'fast' or 'f64'")
-        dev = cat.device
         jd_h = np.atleast_1d(np.asarray(jd, np.float64))
         fr_h = (np.zeros_like(jd_h) if fr is None
                 else np.atleast_1d(np.asarray(fr, np.float64)))
         jd_h, fr_h = np.broadcast_arrays(jd_h, fr_h)
-        with span("astroz.wait.epochs"):
-            jd_sum = torch.as_tensor((jd_h + fr_h)[:, None],
-                                     dtype=torch.float64, device=dev)
-        mask = None
-        if satellite_mask is not None:
-            with span("astroz.wait.epochs"):
-                mask = torch.as_tensor(satellite_mask, dtype=torch.bool,
-                                       device=dev)
         if method == "f64":
-            return _propagate_f64(cat, jd_h, fr_h, jd_sum, output, velocities,
-                                  layout, scan_times, mask)
-        return _propagate_fast(cat, jd_h, fr_h, jd_sum, output, velocities,
-                               layout, mask)
+            return _propagate_f64(cat, jd_h, fr_h, output, velocities,
+                                  layout, scan_times, satellite_mask)
+        return _propagate_fast(cat, jd_h, fr_h, output, velocities, layout,
+                               satellite_mask)
 
 
-def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
+def _stage_epochs(device: torch.device, rows, mask=None):
+    """One call's host epochs on ``device``: ``rows`` (arrays of one
+    shape) as f64 tensors, and ``mask`` as a bool tensor (None stays
+    None). One ``astroz.stage.epochs`` span under a profiler.
+
+    On a CUDA device the rows are written into one page-locked buffer
+    from torch's caching host allocator and cross in one non-blocking
+    copy (the mask in a second), so the host does not wait for the
+    card's queued work; the rows come back as views of the copy. The
+    allocator records each copy on its stream and hands the buffer out
+    again only once that copy has finished. On the CPU the rows become
+    tensors as they are."""
+    with span("astroz.stage.epochs"):
+        if device.type != "cuda":
+            return ([torch.as_tensor(x, dtype=torch.float64, device=device)
+                     for x in rows],
+                    None if mask is None else torch.as_tensor(
+                        mask, dtype=torch.bool, device=device))
+        staged = torch.empty((len(rows),) + np.shape(rows[0]),
+                             dtype=torch.float64, pin_memory=True)
+        host = staged.numpy()
+        for i, x in enumerate(rows):
+            host[i] = x
+        card = staged.to(device, non_blocking=True)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool)
+            if mask.device.type == "cpu":
+                mask = torch.empty(mask.shape, dtype=torch.bool,
+                                   pin_memory=True).copy_(mask)
+            mask = mask.to(device, non_blocking=True)
+        return list(card), mask
+
+
+def _propagate_f64(cat: SatCatalog, jd_h, fr_h, output: str,
                    velocities: bool, layout: str, scan_times: bool,
-                   mask=None):
+                   satellite_mask=None):
     """The f64 branch of :func:`propagate`: the f64 kernel's time-major
-    outputs through the epilogue."""
-    dev = cat.device
-    with span("astroz.wait.epochs"):
-        jd = torch.as_tensor(jd_h, dtype=torch.float64, device=dev)
-    with span("astroz.wait.epochs"):
-        fr = torch.as_tensor(fr_h, dtype=torch.float64, device=dev)
+    outputs through the epilogue. One staging of jd, fr and, where the
+    epilogue is not the identity (``cuda_finalize.is_identity``), of
+    jd_sum, which only the epilogue reads."""
+    identity = is_identity("time_major", output, layout, satellite_mask)
+    (jd, fr, *jd_sum), mask = _stage_epochs(
+        cat.device, [jd_h, fr_h] if identity else [jd_h, fr_h, jd_h + fr_h],
+        satellite_mask)
     # minutes since each epoch, from the jd/fr split: the subtraction
     # runs at the magnitude of epoch differences (days), not of a JD
     tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
@@ -479,29 +510,33 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
         # SDP4 on every lane of a catalog that has the coefficients
         r, v, err = sgp4_f64_dense(tsince, *cat.f64_staging,
                                    sdp4=cat.deep is not None, **kw)
-    return finalize(r, v, err, jd_sum, source="time_major", output=output,
+    if identity:
+        return r, v, err
+    return finalize(r, v, err, jd_sum[0][:, None], source="time_major",
+                    output=output, layout=layout, velocities=velocities,
+                    mask=mask)
+
+
+def _propagate_fast(cat: SatCatalog, jd_h, fr_h, output: str,
+                    velocities: bool, layout: str, satellite_mask=None):
+    """The fast branch of :func:`propagate`: the kernels over the
+    separable grid, their planes through the epilogue. One staging of
+    the time factor and jd_sum."""
+    jd_sum_h = jd_h + fr_h
+    (t_time, jd_sum), mask = _stage_epochs(
+        cat.device, [_t_time(cat.epoch_min_jd, jd_h, fr_h), jd_sum_h],
+        satellite_mask)
+    steps = (resonance_steps(jd_sum_h, cat.deep_epochs_jd)
+             if cat.has_deep else 0)
+    return finalize(*_fast_planes(cat, t_time, steps, velocities),
+                    jd_sum[:, None], source="planes", output=output,
                     layout=layout, velocities=velocities, mask=mask)
 
 
-def _propagate_fast(cat: SatCatalog, jd_h, fr_h, jd_sum, output: str,
-                    velocities: bool, layout: str, mask=None):
-    """The fast branch of :func:`propagate`: the kernels over the
-    separable grid, their planes through the epilogue."""
-    t_time = _t_time(cat.epoch_min_jd, jd_h, fr_h, cat.device)
-    steps = (resonance_steps(jd_h + fr_h, cat.deep_epochs_jd)
-             if cat.has_deep else 0)
-    return finalize(*_fast_planes(cat, t_time, steps, velocities), jd_sum,
-                    source="planes", output=output, layout=layout,
-                    velocities=velocities, mask=mask)
-
-
-def _t_time(epoch_min_jd: float, jd_h, fr_h, device) -> torch.Tensor:
-    """The fast path's time factor: minutes of the epochs ``jd_h + fr_h``
-    from a catalog's earliest epoch, f64 on ``device``."""
-    with span("astroz.wait.epochs"):
-        return torch.as_tensor(
-            ((jd_h - epoch_min_jd) + fr_h) * MINUTES_PER_DAY,
-            dtype=torch.float64, device=device)
+def _t_time(epoch_min_jd: float, jd_h, fr_h) -> np.ndarray:
+    """The fast path's time factor on the host: minutes of the epochs
+    ``jd_h + fr_h`` from a catalog's earliest epoch, f64."""
+    return ((jd_h - epoch_min_jd) + fr_h) * MINUTES_PER_DAY
 
 
 def _fast_planes(cat: SatCatalog, t_time, steps: int, velocities: bool):
@@ -539,11 +574,16 @@ def propagate_tsince(cat: SatCatalog, tsince_min, *,
     shot. Always TEME. Returns ``(r, v, error)`` on the catalog's
     device, r and v stacked ``(..., 3)`` f64 (v None with
     ``velocities=False``). One launch of the f64 kernel
-    (``ops.cuda_sgp4.sgp4_f64_dense``); one ``astroz.propagate`` span
-    under a profiler, as :func:`propagate`'s."""
+    (``ops.cuda_sgp4.sgp4_f64_dense``). As :func:`propagate`, the call
+    returns with its work queued and no host wait: host offsets cross in
+    one page-locked staging (:func:`_stage_epochs`), offsets already on
+    a card are moved as they are. Under a profiler, one
+    ``astroz.propagate`` span holding the ``astroz.stage.epochs`` of
+    host offsets."""
     with span("astroz.propagate"):
-        with span("astroz.wait.epochs"):
-            t = torch.as_tensor(tsince_min, dtype=torch.float64,
-                                device=cat.device)
+        if isinstance(tsince_min, torch.Tensor) and tsince_min.is_cuda:
+            t = tsince_min.to(cat.device, torch.float64)
+        else:
+            (t,), _ = _stage_epochs(cat.device, [tsince_min])
         return sgp4_f64_dense(t, *cat.f64_staging, grav=cat.grav,
                               sdp4=cat.has_deep, want_vel=velocities)

@@ -1,9 +1,9 @@
 """The port's spans (``profiling.span``) on the sweep and screen paths:
 under a ``torch.profiler`` each ``propagate`` is one ``astroz.propagate``
-span holding one ``astroz.wait.epochs`` span a numpy-to-card copy (two
-fast, three f64, one more with a mask), ``propagate_tsince`` and
-``screen_all`` give their roots and the screen its ``astroz.wait.pairs``
-copies, the output allocations give ``astroz.alloc``; a span is a host
+span holding one ``astroz.stage.epochs`` span (its epochs and mask
+staged for the card, fast or f64, masked or not) and no
+``astroz.wait.epochs``, ``propagate_tsince`` and ``screen_all`` give
+their roots and the screen its ``astroz.wait.pairs`` copies, the output allocations give ``astroz.alloc``; a span is a host
 operation, never a user annotation that the profiler would copy onto the
 card's timeline; with no profiler recording, a span is one shared no-op
 and no record function is built or entered. The card's own spans (the
@@ -34,9 +34,9 @@ torch.set_num_threads(1)
 #: epochs of a sweep: the catalog's mid epoch and 8 more over a day
 JD = np.full(9, 2460310.5)
 FR = np.linspace(0.0, 1.0, 9)
-#: ``astroz.wait.epochs`` spans a propagate: jd_sum and the fast path's
-#: time factor, or jd_sum, jd and fr on the f64 path; one more for a mask
-WAITS = {"fast": 2, "f64": 3}
+#: the one span a propagate holds around its epochs (and mask), fast or
+#: f64; ``astroz.wait.epochs``, a copy that blocks, it holds none of
+STAGE, WAIT = "astroz.stage.epochs", "astroz.wait.epochs"
 
 
 @pytest.fixture(scope="module")
@@ -79,9 +79,9 @@ def _inside(spans, root):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("method", ["fast", "f64"])
 def test_propagate_spans(cat, method, masked):
-    """Two calls, two ``astroz.propagate`` spans; each holds its waits,
-    one a copy of epochs (or of the mask), and nothing lies outside a
-    root."""
+    """Two calls, two ``astroz.propagate`` spans; each holds one
+    staging of its epochs (and mask) and no wait, and nothing lies
+    outside a root."""
     mask = np.arange(len(cat)) % 3 != 0 if masked else None
 
     def sweep():
@@ -94,18 +94,17 @@ def test_propagate_spans(cat, method, masked):
     held = _inside(spans, "astroz.propagate")
     assert all(root is not None for _, root in held)
     for r0, r1 in [(a, b) for _, a, b in roots]:
-        waits = [n for n, root in held
-                 if root == (r0, r1) and n == "astroz.wait.epochs"]
-        assert len(waits) == WAITS[method] + masked
-    assert {n for n, _ in held} == {"astroz.wait.epochs"}
+        names = [n for n, root in held if root == (r0, r1)]
+        assert names.count(STAGE) == 1 and WAIT not in names
+    assert {n for n, _ in held} == {STAGE}
 
 
 def test_propagate_tsince_spans(cat):
-    """``propagate_tsince``: one root holding its one copy."""
+    """``propagate_tsince``: one root holding its one staging and no
+    wait."""
     _, spans = _traced(lambda: propagate_tsince(
         cat, np.linspace(0.0, 1440.0, 5)[:, None]))
-    assert [s[0] for s in spans] == ["astroz.propagate",
-                                     "astroz.wait.epochs"]
+    assert [s[0] for s in spans] == ["astroz.propagate", STAGE]
     assert _inside(spans, "astroz.propagate")[0][1] is not None
 
 
@@ -148,8 +147,7 @@ def test_spans_are_host_operations(cat, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     kinds = {(e["name"], e.get("cat")) for e in events
              if str(e.get("name", "")).startswith("astroz.")}
-    assert kinds == {("astroz.propagate", "cpu_op"),
-                     ("astroz.wait.epochs", "cpu_op")}
+    assert kinds == {("astroz.propagate", "cpu_op"), (STAGE, "cpu_op")}
 
 
 def test_span_is_a_shared_no_op_when_nothing_records(cat, monkeypatch):
@@ -200,7 +198,8 @@ def test_sweep_spans_on_cuda(cuda_device, method, output, allocs):
     """On the card, time-major: the kernel's outputs are one
     ``astroz.alloc`` and the epilogue's one more, where it is not the
     identity (fast TEME planes -> time-major is not; f64 TEME time-major
-    is); the waits as on the CPU; no span leaves its root."""
+    is); one staging and no wait, as on the CPU; no span leaves its
+    root."""
     cat = build_catalog(synthetic_leo_text(64), device=cuda_device)
     _, spans = _traced(lambda: propagate(
         cat, JD, FR, method=method, output=output, layout="time_major"),
@@ -209,7 +208,7 @@ def test_sweep_spans_on_cuda(cuda_device, method, output, allocs):
     names = [n for n, _ in held]
     assert [s[0] for s in spans].count("astroz.propagate") == 1
     assert all(root is not None for _, root in held)
-    assert names.count("astroz.wait.epochs") == WAITS[method]
+    assert names.count(STAGE) == 1 and WAIT not in names
     assert names.count("astroz.alloc") == allocs
 
 
