@@ -83,6 +83,10 @@ SIGNATURES = {
     # v, err, stream
     "astroz_sgp4_f64_dense": (_I, [_P, _L, _L, _P, _P, _L, _L, _L, _L, _I,
                                    _I] + [_D] * 7 + [_P] * 4),
+    # jd, fr, fields, flags, n_lanes, n_times, sdp4, want_vel, 7
+    # constants, r, v, err, stream
+    "astroz_sgp4_f64_dense_epochs": (_I, [_P, _P, _P, _P, _L, _L, _I, _I]
+                                     + [_D] * 7 + [_P] * 4),
     # times, t_row, t_col, fields, flags, n_lanes, n_times, want_vel, 7
     # constants, r, v, err, stream
     "astroz_sgp4_f64_scan": (_I, [_P, _L, _L, _P, _P, _L, _L, _I]

@@ -11,7 +11,11 @@
 //           reductions) or ops/sdp4.py sdp4_propagate (a catalog with deep
 //           lanes: SDP4 semantics on every lane, fmod reductions) at
 //           tsince (T, C) minutes, C the catalog's S lanes or 1, or one
-//           lane against a (T, C) grid; r, v (T, N, 3) f64, err (T, N) i32
+//           lane against a (T, C) grid; or, from a sweep's (T,) jd and fr
+//           rows, at the tsince ((jd[t] - epoch_jd) + fr[t]) * 1440 of
+//           each lane's epoch_jd, formed in the walk point by point (no
+//           (T, S) grid is written or read); r, v (T, N, 3) f64, err
+//           (T, N) i32
 //   ESCAPE  ops/fast.py sdp4_propagate_tables over the HEO escape lanes,
 //           tsince = t_time[t] - t_sat[x], the resonance read from the
 //           deep subset's tables at column idx[x]; r, v cast to f32 and
@@ -37,6 +41,10 @@
 //   float divided by a tensor is Tensor.__rtruediv__, reciprocal then
 //   multiply: xke / x is (1 / x) * xke;
 // - x ** 3 is (x * x) * x, x ** 1.5 and x ** (2/3) are pow;
+// - DENSE's tsince from the jd and fr rows is torch's grid of
+//   ops/cuda_sgp4.py epoch_tsince, ((jd - epoch_jd) + fr) * 1440: a
+//   subtract, an add and a multiply by 1440, each rounded once, in that
+//   order, so every point gets the bits of the grid torch would write;
 // - torch.remainder is fmod, then + 2pi where the result is below zero
 //   (sgp4_common.cuh rem_two_pi), torch.fmod is exact (fmod_exact);
 // - torch's Newton loop runs 10 trips and freezes a lane once its step is
@@ -70,11 +78,12 @@
 // - A thread walks rows of one lane: the persistent balanced grid of
 //   sgp4_common.cuh (warp_run) gives each warp a run of (warp column of
 //   32 slots, time row) points; where the run enters a column, a thread
-//   stages its lane's flags and the 31 fields of the near-earth body that
-//   every point reads (and the per-lane products bstar * cc4 and
-//   bstar * cc5, which the plain chain forms before it meets t) in
-//   shared memory, 33 KB a block, read where they are used; the deep
-//   rows, read on the deep warps alone, come from the matrix through L1.
+//   stages its lane's flags and the 32 fields of the near-earth body that
+//   every point reads (epoch_jd among them, for the tsince of the jd and
+//   fr rows, and the per-lane products bstar * cc4 and bstar * cc5,
+//   which the plain chain forms before it meets t) in shared memory, 34
+//   KB a block, read where they are used; the deep rows, read on the deep
+//   warps alone, come from the matrix through L1.
 // - Deep columns weigh 4: a warp column that holds a deep slot runs ~3x
 //   the hot SASS instructions of a near-earth one (6,373 in the row loop
 //   against ~2,000), so with every row weighing one unit its warps ran
@@ -101,6 +110,15 @@
 //   and take 3.61. A compiler fence at each row keeps the compiler from
 //   holding the staged fields in registers across the rows: SGP4 mode's
 //   spills 116 -> 32 B and 3.48 -> 3.40 ms, SDP4 mode unchanged.
+// - DENSE on a sweep's jd and fr rows (propagate(method="f64")): the
+//   walk reads jd[t] and fr[t], one address across a warp, and the
+//   lane's epoch_jd from the staged body, in place of a (T, S) grid that
+//   torch wrote in three passes (155 MB at 13,478 x 1,440) and the walk
+//   read back: 2.689 ms a day's sweep against 3.055 for torch's grid and
+//   DENSE on it (2.774 DENSE alone). The row source is a runtime field,
+//   not a template axis: SDP4 mode keeps 96 registers (spill stores 456
+//   -> 412 B with velocities, 436 -> 424 without), SGP4 mode 80 (32 B
+//   with velocities, 16 -> 32 without).
 
 #include <climits>
 
@@ -110,7 +128,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 // blocks an SM that __launch_bounds__ asks registers for, in SDP4 and in
-// SGP4 mode (the body takes 33 KB of shared memory a block, so at most 6
+// SGP4 mode (the body takes 34 KB of shared memory a block, so at most 6
 // fit)
 constexpr int F64_MIN_BLOCKS = 5;
 constexpr int F64_SGP4_MIN_BLOCKS = 6;
@@ -190,6 +208,7 @@ constexpr double G22 = 5.7686396, G32 = 0.95240898, G44 = 1.8014998;
 constexpr double G52 = 1.0508330, G54 = 4.4108898;
 constexpr double STEPP = 720.0, STEP2 = 259200.0;
 constexpr double INV_STEPP = 1.0 / 720.0;  // "/ STEPP" on CUDA
+constexpr double MINUTES_PER_DAY = 1440.0;
 
 // The gravity model's numbers as the plain code forms them in Python
 // (ops/cuda_sgp4.py _f64_consts)
@@ -204,13 +223,16 @@ struct Consts {
 };
 
 // the near-earth body's fields, which every point of the row walk reads:
-// rows NO_UNKOZAI..BSTAR and MDOT..X7THM1 of the field matrix at body slots
-// 0..30, then the per-lane products bstar * cc4 and bstar * cc5
-constexpr int BSTAR_CC4 = 31, BSTAR_CC5 = 32, N_BODY = 33;
+// rows NO_UNKOZAI..EPOCH_JD and MDOT..X7THM1 of the field matrix at body
+// slots 0..31, then the per-lane products bstar * cc4 and bstar * cc5
+// (EPOCH_JD for the points whose tsince the walk forms from the sweep's
+// epochs)
+constexpr int BSTAR_CC4 = 32, BSTAR_CC5 = 33, N_BODY = 34;
 __host__ __device__ constexpr int body_slot(int k) {
-  return k >= NO_UNKOZAI && k <= BSTAR ? k - NO_UNKOZAI
-         : k >= MDOT && k <= X7THM1    ? k - MDOT + (BSTAR - NO_UNKOZAI + 1)
-                                       : -1;
+  return k >= NO_UNKOZAI && k <= EPOCH_JD
+             ? k - NO_UNKOZAI
+         : k >= MDOT && k <= X7THM1 ? k - MDOT + (EPOCH_JD - NO_UNKOZAI + 1)
+                                    : -1;
 }
 static_assert(body_slot(X7THM1) == BSTAR_CC4 - 1, "body slots");
 
@@ -251,7 +273,7 @@ struct StagedLane {
   // the body of the lane at `f`
   __device__ __forceinline__ void stage() {
 #pragma unroll
-    for (int k = NO_UNKOZAI; k <= BSTAR; ++k)
+    for (int k = NO_UNKOZAI; k <= EPOCH_JD; ++k)
       body[body_slot(k)][threadIdx.x] = __ldg(f + (size_t)k * stride);
 #pragma unroll
     for (int k = MDOT; k <= X7THM1; ++k)
@@ -692,8 +714,13 @@ __device__ __forceinline__ void store_f64(const Out& o, size_t p, double* r,
 
 // DENSE and SCAN's inputs and outputs
 struct GridArgs {
-  const double* tsince;  // point (t, n) at t * t_row + n * t_col
+  // point (t, n) at t * t_row + n * t_col: its tsince, or with `fr` the
+  // jd of its epoch (t_row 1, t_col 0)
+  const double* tsince;
   long long t_row, t_col;
+  // null, or the (T,) fr row of the sweep's epochs: point (t, n) then takes
+  // tsince ((jd[t] - epoch_jd) + fr[t]) * 1440 of its lane's epoch_jd
+  const double* fr;
   const double* fields;  // (F, n_lanes) f64
   const int* flags;      // (N_FLAGS, n_lanes) i32
   long long n_lanes;     // S
@@ -774,7 +801,13 @@ sgp4_f64_walk_kernel(const GridArgs a) {
       // a compiler fence: the staged fields are read again at each row
       // where they are used, not held in registers across the rows
       asm volatile("" ::: "memory");
-      const Out o = f64_point<MODE, WANT_VEL>(D(*tp), L, fl, a.c, carry);
+      // the minutes since epoch of ops/cuda_sgp4.py epoch_tsince, torch's
+      // three ops in their order
+      const D t = a.fr == nullptr
+                      ? D(*tp)
+                      : (D(*tp) - L[EPOCH_JD] + D(a.fr[tp - a.tsince])) *
+                            MINUTES_PER_DAY;
+      const Out o = f64_point<MODE, WANT_VEL>(t, L, fl, a.c, carry);
       store_f64<WANT_VEL>(o, q, a.r, a.v, a.err);
     }
   }
@@ -885,8 +918,26 @@ extern "C" int astroz_sgp4_f64_dense(
     int want_vel, double xke, double inv_xke, double half_j2, double re,
     double vkmpersec, double aycof_c, double xlcof_c, double* r, double* v,
     int* err, void* stream) {
-  const GridArgs a{tsince, t_row, t_col, fields, flags, n_lanes, lane_step,
-                   n_times, n_out,
+  const GridArgs a{tsince, t_row, t_col, nullptr, fields, flags, n_lanes,
+                   lane_step, n_times, n_out,
+                   Consts{xke, inv_xke, half_j2, re, vkmpersec, aycof_c,
+                          xlcof_c},
+                   r, v, err};
+  return walk(sdp4, want_vel, a, stream, true, nullptr);
+}
+
+// DENSE on the sweep's epochs: jd, fr (T,) f64; point (t, n) at tsince
+// ((jd[t] - epoch_jd) + fr[t]) * 1440 of the epoch_jd row of its lane,
+// formed in the walk (no tsince grid); fields, flags, r, v, err as DENSE's
+// with output column n computing lane SLOT_LANE[slot n] (N = S).
+extern "C" int astroz_sgp4_f64_dense_epochs(
+    const double* jd, const double* fr, const double* fields,
+    const int* flags, long long n_lanes, long long n_times, int sdp4,
+    int want_vel, double xke, double inv_xke, double half_j2, double re,
+    double vkmpersec, double aycof_c, double xlcof_c, double* r, double* v,
+    int* err, void* stream) {
+  const GridArgs a{jd, 1, 0, fr, fields, flags, n_lanes, 1, n_times,
+                   n_lanes,
                    Consts{xke, inv_xke, half_j2, re, vkmpersec, aycof_c,
                           xlcof_c},
                    r, v, err};
@@ -902,8 +953,8 @@ extern "C" int astroz_sgp4_f64_scan(
     long long n_times, int want_vel, double xke, double inv_xke,
     double half_j2, double re, double vkmpersec, double aycof_c,
     double xlcof_c, double* r, double* v, int* err, void* stream) {
-  const GridArgs a{times, t_row, t_col, fields, flags, n_lanes, 1, n_times,
-                   n_lanes,
+  const GridArgs a{times, t_row, t_col, nullptr, fields, flags, n_lanes, 1,
+                   n_times, n_lanes,
                    Consts{xke, inv_xke, half_j2, re, vkmpersec, aycof_c,
                           xlcof_c},
                    r, v, err};

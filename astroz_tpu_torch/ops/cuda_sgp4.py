@@ -25,8 +25,9 @@ kernel that feeds K6, the f64 kernel, and their plain versions.
 * The f64 kernel (``csrc/sgp4_f64.cu``; not a TPU kernel: the f64
   programs the JAX package jits around its Pallas kernels) computes
   ``ops/sgp4.py:sgp4_propagate`` / ``ops/sdp4.py:sdp4_propagate`` at
-  independent points (:func:`sgp4_f64_dense`), the HEO escape's
-  ``ops/fast.py:sdp4_propagate_tables`` into K2's planes
+  independent points (:func:`sgp4_f64_dense` on a tsince grid,
+  :func:`sgp4_f64_dense_epochs` on a sweep's jd and fr rows), the HEO
+  escape's ``ops/fast.py:sdp4_propagate_tables`` into K2's planes
   (:func:`sgp4_f64_escape`) and ``ops/sdp4.py:sdp4_propagate_scan``
   (:func:`sgp4_f64_scan`), on the elements packed by :func:`f64_staging`.
 
@@ -59,7 +60,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..constants import GravityModel
+from ..constants import MINUTES_PER_DAY, GravityModel
 from ..profiling import span
 from .fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                    RESONANCE_TABLE_NAMES, SPINE_FIELD_NAMES,
@@ -77,10 +78,13 @@ KEPLER_ITERS = (3, 4, 5, 8)
 DEEP_KEPLER_ITERS = (6, 8)
 
 #: kernel launches so far in this process, by kernel; each launch adds
-#: one to its kernel's entry
+#: one to its kernel's entry (a DENSE launch on a sweep's epochs,
+#: :func:`sgp4_f64_dense_epochs`, to ``"sgp4_f64_dense"`` and to
+#: ``"sgp4_f64_dense_epochs"``)
 LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
             "sgp4_shallow_dense": 0, "sgp4_shallow_grids": 0,
-            "sgp4_spine_grids": 0, "sgp4_f64_dense": 0, "sgp4_f64_escape": 0,
+            "sgp4_spine_grids": 0, "sgp4_f64_dense": 0,
+            "sgp4_f64_dense_epochs": 0, "sgp4_f64_escape": 0,
             "sgp4_f64_scan": 0, "resonance_tables": 0}
 
 F32 = torch.float32
@@ -1038,6 +1042,63 @@ def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
                 n_lanes, int(n_lanes > 1), n_times, n_out, int(sdp4),
                 int(want_vel), *_f64_consts(grav), r.data_ptr(), _ptr(v),
                 err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return r, v, err
+
+
+def epoch_tsince(jd, fr, epoch_jd):
+    """Minutes since each lane's epoch at a sweep's epochs: the (T, S)
+    f64 grid ``((jd[t] - epoch_jd[s]) + fr[t]) * 1440`` of the (T,) rows
+    ``jd``, ``fr`` (the python-sgp4 split) and the (S,) ``epoch_jd``. The
+    subtraction runs at the magnitude of epoch differences (days), not of
+    a JD. :func:`sgp4_f64_dense_epochs` forms each point so in the kernel,
+    with these ops' roundings in this order."""
+    return ((jd[:, None] - epoch_jd[None, :]) + fr[:, None]) \
+        * MINUTES_PER_DAY
+
+
+def sgp4_f64_dense_epochs(jd, fr, fields, flags, *, grav: GravityModel,
+                          sdp4: bool, want_vel: bool = True):
+    """The f64 kernel's DENSE mode on a sweep's epochs: every lane at the
+    epochs ``jd + fr``, each point's minutes since its lane's epoch formed
+    in the kernel's row walk from the rows, as :func:`epoch_tsince` forms
+    the grid, so no (T, S) grid is written or read. The outputs are
+    :func:`sgp4_f64_dense`'s on :func:`epoch_tsince`'s grid bit for bit.
+    One launch, counted under ``"sgp4_f64_dense"`` and
+    ``"sgp4_f64_dense_epochs"`` in :data:`LAUNCHES`.
+
+    Args:
+      jd, fr: (T,) f64 rows of one length, on the elements' device.
+      fields, flags, grav, sdp4, want_vel: as :func:`sgp4_f64_dense`.
+
+    Returns ``(r, v, err)``: (T, S, 3) f64, (T, S, 3) f64 or None, (T, S)
+    i32. On a CPU tensor the plain version runs on
+    :func:`epoch_tsince`'s grid.
+    """
+    n_lanes = _check_f64(jd.device, fields, flags, sdp4)
+    dev = _device_of(jd, "sgp4_f64_dense_epochs")
+    if (jd.dtype != F64 or fr.dtype != F64 or jd.dim() != 1
+            or fr.shape != jd.shape or fr.device != dev):
+        raise ValueError("jd, fr: expected two (T,) f64 rows of one length "
+                         f"on one device, got {jd.dtype} {tuple(jd.shape)} "
+                         f"on {jd.device} and {fr.dtype} {tuple(fr.shape)} "
+                         f"on {fr.device}")
+    if dev.type == "cpu":
+        epoch_jd = fields[F64_FIELD_NAMES.index("epoch_jd")]
+        return sgp4_f64_dense_reference(epoch_tsince(jd, fr, epoch_jd),
+                                        fields, flags, grav=grav, sdp4=sdp4,
+                                        want_vel=want_vel)
+    jd, fr = jd.contiguous(), fr.contiguous()
+    n_times = jd.shape[0]
+    r, v, err = _outputs_f64(dev, (n_times, n_lanes), want_vel)
+    if n_times:
+        with torch.cuda.device(dev):
+            _launch_f64(
+                "sgp4_f64_dense", "astroz_sgp4_f64_dense_epochs",
+                jd.data_ptr(), fr.data_ptr(), fields.data_ptr(),
+                flags.data_ptr(), n_lanes, n_times, int(sdp4), int(want_vel),
+                *_f64_consts(grav), r.data_ptr(), _ptr(v), err.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        LAUNCHES["sgp4_f64_dense_epochs"] += 1
     return r, v, err
 
 

@@ -18,11 +18,13 @@ planes, or none where the caller asks for TEME planes.
 ``propagate(method="f64")`` (the default, as in the JAX package)
 and :func:`propagate_tsince` compute ``ops/sgp4.py:sgp4_propagate`` or
 ``ops/sdp4.py:sdp4_propagate`` over the dense ``(T, S)`` grid of minutes
-since each epoch in one launch of the f64 kernel (``ops/cuda_sgp4.py:
-sgp4_f64_dense``), and ``scan_times=True`` threads the SDP4 resonance
-carry along the time axis (``sgp4_f64_scan``); the epilogue kernel
-turns its time-major outputs into the caller's frame and layout. The
-deep subset's resonance tables are one launch of TABLES
+since each epoch in one launch of the f64 kernel: ``propagate`` hands it
+the sweep's jd and fr rows, and the kernel forms each point's minutes
+(``ops/cuda_sgp4.py:sgp4_f64_dense_epochs``), ``propagate_tsince`` its
+own grid (``sgp4_f64_dense``); ``scan_times=True`` threads the SDP4
+resonance carry along the time axis of that grid (``sgp4_f64_scan``);
+the epilogue kernel turns its time-major outputs into the caller's frame
+and layout. The deep subset's resonance tables are one launch of TABLES
 (``ops/cuda_sgp4.py:resonance_tables``) per catalog and depth. The JAX
 package's
 small-grid route to its native host engine (item 11) is not ported: on a
@@ -41,10 +43,11 @@ from .constants import MINUTES_PER_DAY, WGS72, GravityModel
 from .ops.cuda_finalize import (LAYOUTS, OUTPUT_MODES, finalize,
                                  is_identity)
 from .ops.cuda_sgp4 import (LYDDANE_INCL, F64Staging, MergeMaps,
-                             f64_staging, propagate_deep_sep,
+                             epoch_tsince, f64_staging, propagate_deep_sep,
                              propagate_fast_sep,
                              propagate_fast_sep_merge, resonance_tables,
-                             sgp4_f64_dense, sgp4_f64_escape, sgp4_f64_scan)
+                             sgp4_f64_dense, sgp4_f64_dense_epochs,
+                             sgp4_f64_escape, sgp4_f64_scan)
 from .ops.fast import (DEEP_FIELD_NAMES, DEEP_SPINE_FIELD_NAMES,
                        deep_f32_fields, shallow_staging)
 from .ops.sdp4 import DeepElements, sdp4_init_np
@@ -419,10 +422,14 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
         zero-filled with error code -1.
 
     Returns ``(r, v, error)`` as tensors on the catalog's device; error
-    is int32 with python-sgp4 codes, 0 = ok. The frame, the layout and
-    the mask are one launch of the epilogue kernel
-    (``ops.cuda_finalize.finalize``), none for TEME in the sweep's own
-    layout (planes fast, time-major f64) without a mask.
+    is int32 with python-sgp4 codes, 0 = ok. With ``method="f64"`` the
+    f64 kernel forms each point's minutes since its epoch from jd and fr
+    itself (``ops.cuda_sgp4.sgp4_f64_dense_epochs``); with
+    ``scan_times=True`` on a catalog with deep lanes it reads a (T, S)
+    grid of them. The frame, the layout and the mask are one launch of
+    the epilogue kernel (``ops.cuda_finalize.finalize``), none for TEME
+    in the sweep's own layout (planes fast, time-major f64) without a
+    mask.
 
     The call returns with its work queued on the card and no host wait,
     as torch's own ops do: its epochs (and the mask) reach the card
@@ -492,24 +499,24 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, output: str,
     """The f64 branch of :func:`propagate`: the f64 kernel's time-major
     outputs through the epilogue. One staging of jd, fr and, where the
     epilogue is not the identity (``cuda_finalize.is_identity``), of
-    jd_sum, which only the epilogue reads."""
+    jd_sum, which only the epilogue reads. DENSE forms each point's
+    minutes since its lane's epoch from the jd and fr rows
+    (``ops.cuda_sgp4.sgp4_f64_dense_epochs``); SCAN reads the (T, S) grid
+    of ``ops.cuda_sgp4.epoch_tsince``, which torch writes."""
     identity = is_identity("time_major", output, layout, satellite_mask)
     (jd, fr, *jd_sum), mask = _stage_epochs(
         cat.device, [jd_h, fr_h] if identity else [jd_h, fr_h, jd_h + fr_h],
         satellite_mask)
-    # minutes since each epoch, from the jd/fr split: the subtraction
-    # runs at the magnitude of epoch differences (days), not of a JD
-    tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
-              + fr[:, None]) * MINUTES_PER_DAY
     kw = dict(grav=cat.grav, want_vel=velocities)
     if cat.deep is not None and scan_times:
         # one time row after the other, each resuming the resonance
         # integration from the row before (the rows sorted one way)
-        r, v, err = sgp4_f64_scan(tsince, *cat.f64_staging, **kw)
+        r, v, err = sgp4_f64_scan(epoch_tsince(jd, fr, cat.els.epoch_jd),
+                                  *cat.f64_staging, **kw)
     else:
         # SDP4 on every lane of a catalog that has the coefficients
-        r, v, err = sgp4_f64_dense(tsince, *cat.f64_staging,
-                                   sdp4=cat.deep is not None, **kw)
+        r, v, err = sgp4_f64_dense_epochs(jd, fr, *cat.f64_staging,
+                                          sdp4=cat.deep is not None, **kw)
     if identity:
         return r, v, err
     return finalize(r, v, err, jd_sum[0][:, None], source="time_major",

@@ -53,7 +53,13 @@ Phases (any failure exits non-zero; nothing is caught):
    catalog and the small one, and on the headline equal to DENSE on the
    same tsince, bit for bit; DENSE on the headline generator's catalog
    with epochs spread over +-7 days x 1,440 (each resonant point steps
-   up to ~16 times from epoch); one launch a call;
+   up to ~16 times from epoch); DENSE on the jd and fr rows (each
+   point's tsince formed in the kernel, as ``propagate(method="f64")``
+   runs it) against the plain functions on torch's grid of the same rows:
+   the headline and the spread catalogs x a day of 1,440 epochs, the
+   small and the near-earth catalogs x 37 epochs, the small one x 1; one
+   launch a call; the row walk's registers and spills beside those it
+   had on a tsince grid;
 2e. the epilogue kernel (``csrc/finalize.cu``: frames, layouts, mask) vs
    its plain version, bit for bit (bit patterns, NaN where NaN), in every
    output x layout x velocities x mask (every third lane), on the headline
@@ -1144,6 +1150,31 @@ def _headline_tsince(cat):
     return (jd[:, None] - cat.els.epoch_jd[None, :]) * 1440.0
 
 
+#: the f64 row walk's ptxas report before DENSE formed tsince from the jd
+#: and fr rows (parent build of csrc/sgp4_f64.cu on an H100, CUDA 12.8):
+#: (registers, spill store bytes) by (SDP4 mode, velocities)
+F64_WALK_PTXAS_GRID = {(1, 1): (96, 456), (1, 0): (96, 436),
+                       (0, 1): (80, 32), (0, 0): (80, 16)}
+
+
+def f64_walk_ptxas():
+    """Print the f64 row walk's registers and spills of each instantiation
+    (ptxas) beside :data:`F64_WALK_PTXAS_GRID`."""
+    from astroz_tpu_torch import _build
+
+    for name, regs, st, ld in _build.ptxas_report():
+        m = re.search(r"sgp4_f64_walk_kernelILi(\d)ELb(\d)E", name)
+        if m:
+            key = (int(m.group(1)), int(m.group(2)))
+            was = F64_WALK_PTXAS_GRID.get(key)
+            print(f"# phase 2d: ptxas row walk "
+                  f"({'SDP4' if key[0] else 'SGP4'} mode, velocities "
+                  f"{bool(key[1])}): {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B (on a tsince grid before: "
+                  f"{'not measured' if was is None else was[0]} registers, "
+                  f"{'' if was is None else was[1]} B of spill stores)")
+
+
 def phase2d_f64_vs_plain(headline_cat, spread_cat):
     """The f64 kernel's three modes against their plain versions on the
     card, bit for bit (r, v and codes; positions and codes with and
@@ -1158,13 +1189,17 @@ def phase2d_f64_vs_plain(headline_cat, spread_cat):
     escape lanes inside a real K2 call; SCAN over 240 rows across epoch
     (+-3 days) sorted forward and backward, on the headline mixed catalog
     and the small one, and on the headline equal to DENSE on the same
-    tsince, bit for bit. Returns the largest position difference of each
-    mode."""
+    tsince, bit for bit; DENSE on the jd and fr rows against the plain
+    functions on torch's grid of the rows, on the headline and spread
+    catalogs x a day, the small and near-earth ones x 37 epochs and x 1.
+    Prints the row walk's ptxas report first. Returns the largest
+    position difference of each mode."""
     from astroz_tpu_torch import build_catalog
     from astroz_tpu_torch.ops import cuda_sgp4
     from astroz_tpu_torch.ops.cuda_sgp4 import f64_staging
     from astroz_tpu_torch.tle import format_lines
 
+    f64_walk_ptxas()
     decaying = format_lines(satnum=99999, epoch_jd=EPOCH_JD - 2.0,
                             ecco=5e-4, inclo_deg=51.6, nodeo_deg=10.0,
                             argpo_deg=20.0, mo_deg=30.0, no_rev_day=16.0,
@@ -1227,15 +1262,49 @@ def phase2d_f64_vs_plain(headline_cat, spread_cat):
                "chunk)", codes={0},
                staging=f64_staging(single_sat_elements(iss)))
 
-    # the main path's shape: the headline mixed catalog x N_TIMES minutes
-    # since each epoch, as _propagate_f64 forms them; and the same with the
-    # epochs spread, where the carried resonance saves the most steps
+    # the headline mixed catalog x N_TIMES minutes since each epoch; and
+    # the same with the epochs spread, where the carried resonance saves
+    # the most steps
     t_head = torch.arange(N_TIMES, dtype=torch.float64, device=DEVICE)
     dense_case(headline_cat, _headline_tsince(headline_cat),
                f"the headline {N_SATS} sats x {N_TIMES} times")
     dense_case(spread_cat, _headline_tsince(spread_cat),
                f"the headline generator's {N_SATS} sats, epochs spread over "
                f"+-{SPREAD_DAYS:g} days, x {N_TIMES} times")
+
+    def epochs_case(cat, jd, fr, label):
+        # DENSE as _propagate_f64 runs it: the tsince of each point formed
+        # in the kernel from the jd and fr rows, against the plain
+        # function on the grid torch forms from the same rows
+        st = cat.f64_staging
+        kw = dict(grav=cat.grav, sdp4=cat.deep is not None)
+        before = launches()
+        dr, _ = _f64_vs_plain(
+            f"DENSE from the jd and fr rows "
+            f"({'SDP4' if kw['sdp4'] else 'SGP4'}), {label}",
+            lambda want_vel: cuda_sgp4.sgp4_f64_dense_epochs(
+                jd, fr, *st, **kw, want_vel=want_vel),
+            lambda: cuda_sgp4.sgp4_f64_dense_reference(
+                cuda_sgp4.epoch_tsince(jd, fr, cat.els.epoch_jd), *st, **kw))
+        after = launches()
+        check(all(after[k] == before[k] + 2 for k in (
+            "sgp4_f64_dense", "sgp4_f64_dense_epochs")),
+              f"DENSE from the rows, {label}: not one launch a call")
+        worst["dense"] = max(worst["dense"], dr)
+
+    # the main path's shape: a day of N_TIMES one-minute epochs as the
+    # benchmark's sweeps send them (the day in jd, the minutes in fr)
+    day_fr = t_head / 1440.0
+    for cat, name in ((headline_cat, f"the headline {N_SATS} sats"),
+                      (spread_cat, f"the headline generator's {N_SATS} "
+                       f"sats, epochs spread over +-{SPREAD_DAYS:g} days")):
+        epochs_case(cat, torch.full_like(day_fr, EPOCH_JD + 1.0), day_fr,
+                    f"{name} x {N_TIMES} epochs")
+    days = col[:, 0] / 1440.0
+    jd, fr = EPOCH_JD + days.floor(), days - days.floor()
+    epochs_case(small, jd, fr, f"{n} sats x 37 epochs (+-3 days)")
+    epochs_case(near, jd, fr, f"{len(near)} near-earth sats x 37 epochs")
+    epochs_case(small, jd[:1], fr[:1], f"{n} sats x 1 epoch")
     worst["escape"] = _escape_vs_plain(
         headline_cat, t_head, f"the headline's {len(headline_cat.heo_escape.idx)}"
         f" escape lanes x {N_TIMES}")[0]
@@ -1867,13 +1936,16 @@ def phase3d_f64_path(mcon):
     print(f"# phase 3d: f64 propagate of {N_SATS} mixed x {N_TIMES}: planes, "
           f"time_major and scan_times=True ({scan_ms:.1f} ms); kernel "
           f"launches after each call {calls}")
-    check(calls == [{"sgp4_f64_dense": 1, "finalize_f64": 1},
-                    {"sgp4_f64_dense": 2, "finalize_f64": 1},
-                    {"sgp4_f64_dense": 2, "sgp4_f64_scan": 1,
-                     "finalize_f64": 2}],
-          "each f64 propagate call must launch the f64 kernel once (DENSE, "
-          "or SCAN with scan_times=True), the epilogue kernel once for "
-          "planes (never for TEME time-major) and nothing else")
+    check(calls == [{"sgp4_f64_dense": 1, "sgp4_f64_dense_epochs": 1,
+                     "finalize_f64": 1},
+                    {"sgp4_f64_dense": 2, "sgp4_f64_dense_epochs": 2,
+                     "finalize_f64": 1},
+                    {"sgp4_f64_dense": 2, "sgp4_f64_dense_epochs": 2,
+                     "sgp4_f64_scan": 1, "finalize_f64": 2}],
+          "each f64 propagate call must launch the f64 kernel once (DENSE "
+          "on the jd and fr rows, or SCAN with scan_times=True), the "
+          "epilogue kernel once for planes (never for TEME time-major) and "
+          "nothing else")
     outs = (r_p, v_p, r_t, v_t, r_s, v_s)
     check(all(x.device.type == DEVICE and x.dtype == torch.float64
               and torch.isfinite(x).all().item() for x in outs),

@@ -47,7 +47,11 @@ of the variants reversed on every other round:
   them); ``f64s``, the same on ``chip_smoke.mixed_catalog_text(...,
   epoch_spread_days=7.0)``, epochs spread over +-7 days; ``f64scan``,
   SCAN on the mixed catalog's first 240 rows; ``f64year``, the whole
-  1year_1s grid (8 chunks) through DENSE in SGP4 mode, back to back.
+  1year_1s grid (8 chunks) through DENSE in SGP4 mode, back to back;
+  ``f64day``, the f64 kernel's part of ``propagate(method="f64")`` on
+  the mixed catalog x a day of 1,440 epochs (the day in jd, the minutes
+  in fr): DENSE on the rows (``sgp4_f64_dense_epochs``), or in a tree
+  without it torch's tsince grid and DENSE on it.
 
 It prints, for each variant, ptxas' registers and spills of every
 kernel instantiation, the static SASS instructions of K5's and K2's row
@@ -115,7 +119,7 @@ N_SATS, N_TIMES = 13478, 1440
 K_REPS = {"K1": 20, "K3": 20, "K5": 50, "K6": 50, "K2": 50, "K5tm": 50,
           "K6tm": 50, "spine": 50, "grids": 50, "grids_b2b": 20,
           "sweep": 5, "K2c": 50, "f64": 10, "f64s": 10, "f64scan": 20,
-          "f64year": 3}
+          "f64year": 3, "f64day": 10}
 #: workloads timed with CUDA events around calls launched back to back
 _BACK_TO_BACK = ("sweep", "grids_b2b", "f64year")
 #: mangled template arguments of the kernels: (velocities, trips, mode);
@@ -744,9 +748,13 @@ def inputs(chip_smoke, default_ops):
         return ((jd[:, None] - cat.els.epoch_jd[None, :]) * 1440.0)
 
     t_head = tsince(mixed)
+    # a day's epochs as the benchmark's f64 sweeps send them: the day in
+    # jd, the minutes in fr
+    fr = torch.arange(N_TIMES, dtype=torch.float64, device="cuda") / 1440.0
     f64 = dict(mixed=mixed, spread=spread, t_head=t_head,
                t_spread=tsince(spread),
-               t_scan=t_head[:chip_smoke.SCREEN_TIMES].contiguous())
+               t_scan=t_head[:chip_smoke.SCREEN_TIMES].contiguous(),
+               jd=torch.full_like(fr, chip_smoke.EPOCH_JD + 1.0), fr=fr)
     return dict(
         f64=f64,
         k1=((t_time, st.t_sat, st.spine, st.tail, st.flags),
@@ -768,6 +776,15 @@ def workloads(ops, x):
     y_st = ops.f64_staging(x["els"])
     grav = f["mixed"].grav
     k3_kw = dict(x["k3"][1])
+    if hasattr(ops, "sgp4_f64_dense_epochs"):
+        def f64day():
+            return ops.sgp4_f64_dense_epochs(f["jd"], f["fr"], *m_st,
+                                             grav=grav, sdp4=True)
+    else:  # a tree whose DENSE reads a tsince grid that torch writes
+        def f64day():
+            tsince = ((f["jd"][:, None] - f["mixed"].els.epoch_jd[None, :])
+                      + f["fr"][:, None]) * 1440.0
+            return ops.sgp4_f64_dense(tsince, *m_st, grav=grav, sdp4=True)
     if "maps" in inspect.signature(ops.propagate_fast_sep_merge).parameters:
         k3_kw["maps"] = x["maps"]
     grids, tail, flags = x["grids"]
@@ -808,6 +825,7 @@ def workloads(ops, x):
         "f64year": lambda: [ops.sgp4_f64_dense(c, *y_st, grav=grav,
                                                sdp4=False)
                             for c in x["chunks"]][-1],
+        "f64day": f64day,
     }
 
 

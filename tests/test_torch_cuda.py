@@ -17,7 +17,11 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 ``test_torch_*`` files.
 """
 
+import json
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,9 +37,11 @@ torch.set_num_threads(1)
 
 
 def synthetic_leo_text(n: int = 64, seed: int = 7,
-                       decaying: bool = True) -> str:
+                       decaying: bool = True,
+                       spread_days: float = 2.0) -> str:
     """3-line text of ``n`` random near-earth satellites (rev/day 12-16,
-    e up to 0.02, epochs spread over +-2 days around JD 2460310.5), of
+    e up to 0.02, epochs spread over +-``spread_days`` around JD
+    2460310.5), of
     which the first is a low-perigee lane on simplified drag and, with
     ``decaying``, the second decays (error 6, then error 1) from the
     earliest epoch, JD 2460308.5."""
@@ -45,7 +51,7 @@ def synthetic_leo_text(n: int = 64, seed: int = 7,
     inc = rng.uniform(17.0, 103.0, n)
     ang = rng.uniform(0.0, 360.0, (3, n))
     bstar = rng.uniform(-1e-4, 1e-3, n)
-    epoch = 2460310.5 + rng.uniform(-2.0, 2.0, n)
+    epoch = 2460310.5 + rng.uniform(-spread_days, spread_days, n)
     rev[0], ecc[0] = 16.2, 0.012          # perigee < 220 km: isimp
     if decaying:
         rev[1], ecc[1], bstar[1] = 16.0, 5e-4, 0.5
@@ -62,9 +68,10 @@ def synthetic_leo_text(n: int = 64, seed: int = 7,
 
 
 def synthetic_deep_text(n: int = 48, seed: int = 11,
-                        failing: bool = True) -> str:
+                        failing: bool = True,
+                        spread_days: float = 2.0) -> str:
     """3-line text of ``n`` random deep-space satellites, epochs spread
-    over +-2 days around JD 2460310.5: GEO lanes (rev/day ~1.0027,
+    over +-``spread_days`` around JD 2460310.5: GEO lanes (rev/day ~1.0027,
     e < 5e-4, i < 5.7 deg: geosynchronous resonance and the Lyddane
     branch), 12-hour lanes (rev/day 1.9-2.1, e 0.01-0.74, i 17-103 deg:
     half-day resonant where e >= 0.5) and Molniya-class lanes (rev/day
@@ -84,7 +91,7 @@ def synthetic_deep_text(n: int = 48, seed: int = 11,
                    np.where(kind == 1, rng.uniform(17.0, 103.0, n), 63.4))
     ang = rng.uniform(0.0, 360.0, (3, n))
     bstar = rng.uniform(-1e-4, 1e-3, n)
-    epoch = 2460310.5 + rng.uniform(-2.0, 2.0, n)
+    epoch = 2460310.5 + rng.uniform(-spread_days, spread_days, n)
     if failing:
         rev[:2], ecc[:2], bstar[:2] = (6.3, 6.0), (0.75, 0.5), (0.01, 5.0)
     lines = []
@@ -277,6 +284,94 @@ def test_f64_dense_matches_plain_on_cuda(cuda_device, kind, form):
         assert (got[2] != 0).any() and (got[2] == 0).any()
 
 
+def _epoch_case(device, case):
+    """A catalog and a sweep's (T,) jd and fr rows on the card: ``spread``
+    the mixed catalog with epochs over +-7 days x 301 epochs (not a
+    multiple of 32) over -3 .. +4 days, whole days in jd; ``near`` a
+    near-earth catalog x the same; ``one`` the mixed catalog at T = 1;
+    ``lane`` a one-lane catalog (a GEO lane, SDP4) x the same 301."""
+    if case in ("spread", "one"):
+        text = (synthetic_leo_text(spread_days=7.0) + "\n"
+                + synthetic_deep_text(spread_days=7.0))
+    elif case == "near":
+        text = synthetic_leo_text(spread_days=7.0)
+    else:
+        text = "\n".join(synthetic_deep_text(3).splitlines()[6:9])
+    x = np.linspace(-3.0, 4.0, 301)
+    if case == "one":
+        x = x[150:151]
+    jd = torch.as_tensor(2460310.5 + np.floor(x), device=device)
+    fr = torch.as_tensor(x - np.floor(x), device=device)
+    return build_catalog(text, device=device), jd, fr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spread", "near", "one", "lane"])
+def test_f64_dense_epochs_matches_grid_on_cuda(cuda_device, case):
+    """DENSE on a sweep's jd and fr rows gives, bit for bit, DENSE's
+    outputs on the tsince grid that torch forms on the card from the same
+    rows (and its plain version's), with and without velocities; one
+    launch a call, counted under both counters."""
+    cat, jd, fr = _epoch_case(cuda_device, case)
+    st = cat.f64_staging
+    kw = dict(grav=cat.grav, sdp4=cat.deep is not None)
+    tsince = ((jd[:, None] - cat.els.epoch_jd[None, :]) + fr[:, None]) \
+        * 1440.0
+    before = dict(cuda_sgp4.LAUNCHES)
+    got = cuda_sgp4.sgp4_f64_dense_epochs(jd, fr, *st, **kw)
+    r0, v0, e0 = cuda_sgp4.sgp4_f64_dense_epochs(jd, fr, *st, **kw,
+                                                 want_vel=False)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in cuda_sgp4.LAUNCHES.items()
+             if n != before[k]}
+    assert moved == {"sgp4_f64_dense": 2, "sgp4_f64_dense_epochs": 2}
+    grid = cuda_sgp4.sgp4_f64_dense(tsince, *st, **kw)
+    ref = cuda_sgp4.sgp4_f64_dense_reference(tsince, *st, **kw)
+    assert tuple(got[0].shape) == (len(jd), len(cat), 3) and v0 is None
+    assert _outputs_equal(got, grid) and _outputs_equal(got, ref)
+    assert torch.equal(e0, grid[2]) and _same_or_both_nan(r0, grid[0])
+
+
+def sweep_kernel_names():
+    """The card's kernels, by name, under ``torch.profiler`` in an f64
+    TEME time-major sweep of ``_epoch_case``'s spread mixed catalog (the
+    second sweep: the first builds and stages); copies left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cat, jd, fr = _epoch_case(torch.device("cuda"), "spread")
+    jd_h, fr_h = jd.cpu().numpy(), fr.cpu().numpy()
+    propagate(cat, jd_h, fr_h)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        propagate(cat, jd_h, fr_h)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.cuda
+def test_f64_sweep_is_one_kernel_on_cuda(cuda_device):
+    """Under ``torch.profiler``, an f64 TEME time-major sweep runs one
+    kernel on the card, DENSE's row walk, and no torch elementwise kernel
+    (the tsince grid is formed inside it). The profiler runs in a child
+    process: on the H100 a session that recorded the card's kernels here
+    left the later sessions of this process (``test_torch_staging.py``'s)
+    without the card's events."""
+    here = Path(__file__).resolve().parent
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:]; "
+            "import test_torch_cuda as t; "
+            "print(json.dumps(t.sweep_kernel_names()))")
+    child = subprocess.run([sys.executable, "-c", code, str(here.parent),
+                            str(here)], capture_output=True, text=True,
+                           timeout=600)
+    assert child.returncode == 0, child.stderr[-4000:]
+    kernels = json.loads(child.stdout.strip().splitlines()[-1])
+    assert len(kernels) == 1 and "sgp4_f64_walk_kernel" in kernels[0], \
+        kernels
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ["forward", "backward"])
 def test_f64_scan_matches_plain_on_cuda(cuda_device, order):
@@ -379,7 +474,9 @@ def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
     ``propagate(method="f64")`` with and without
     ``scan_times``, ``propagate_tsince`` and ``Satrec.sgp4_array``'s time
     as lanes launch the f64 kernel once each and never integrate the
-    resonance on the host."""
+    resonance on the host; only ``propagate(method="f64")`` without
+    ``scan_times`` hands it the jd and fr rows
+    (``"sgp4_f64_dense_epochs"``)."""
     from astroz_tpu_torch import api, propagate_tsince
     from astroz_tpu_torch.ops import sdp4
 
@@ -394,7 +491,8 @@ def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
         "fast": (lambda: propagate(cat, jd, method="fast"),
                  {"sgp4_deep": 1, "sgp4_f64_escape": 1,
                   "sgp4_shallow_merge": 1, "resonance_tables": 1}),
-        "f64": (lambda: propagate(cat, jd), {"sgp4_f64_dense": 1}),
+        "f64": (lambda: propagate(cat, jd),
+                {"sgp4_f64_dense": 1, "sgp4_f64_dense_epochs": 1}),
         "scan": (lambda: propagate(cat, jd, scan_times=True),
                  {"sgp4_f64_scan": 1}),
         "tsince": (lambda: propagate_tsince(cat, torch.zeros(

@@ -224,6 +224,84 @@ def test_dense_wrapper_equals_plain_on_cpu(kind, form, want_vel, mixed,
     assert _equal(out[1], plain[1] if want_vel else None)
 
 
+#: a sweep's epochs as the python-sgp4 split, whole days in jd and the
+#: rest in fr, over -3.2 .. +4.1 days from the catalogs' middle epoch;
+#: fr is not a multiple of jd's ulp, so jd + fr would round
+EPOCH_DAYS = np.linspace(-3.2, 4.1, 11)
+
+
+def _epoch_rows(form):
+    """(T,) f64 jd and fr rows: ``rows`` the split of EPOCH_DAYS, ``jd`` a
+    scalar jd broadcast against fr rows (stride 0), ``fr`` the other way
+    round, ``one`` a single epoch."""
+    days = np.floor(EPOCH_DAYS)
+    jd, fr = 2460310.5 + days, EPOCH_DAYS - days
+    jd, fr = {"rows": (jd, fr), "jd": (np.array(2460311.0), EPOCH_DAYS - 0.5),
+              "fr": (jd, np.array(0.3)), "one": (jd[3:4], fr[3:4])}[form]
+    n = max(np.size(jd), np.size(fr))
+    return tuple(torch.from_numpy(np.asarray(a, np.float64)).expand(n)
+                 for a in (jd, fr))
+
+
+def _grid_plain(pcat, jd, fr):
+    """The plain function on the tsince grid that ``_propagate_f64``
+    formed in torch before DENSE took the jd and fr rows."""
+    tsince = ((jd[:, None] - pcat.els.epoch_jd[None, :]) + fr[:, None]) \
+        * 1440.0
+    if pcat.deep is not None:
+        return sdp4_propagate(pcat.els, pcat.deep, tsince, pcat.grav)[:3]
+    return sgp4_propagate(pcat.els, tsince, pcat.grav)
+
+
+@pytest.mark.parametrize("want_vel", [True, False])
+@pytest.mark.parametrize("form", ["rows", "jd", "fr", "one"])
+@pytest.mark.parametrize("kind", ["mixed", "near"])
+def test_dense_epochs_wrapper_equals_plain_on_cpu(kind, form, want_vel,
+                                                  mixed, near):
+    """DENSE on a sweep's jd and fr rows, on CPU tensors, is the plain
+    function on the tsince grid formed in torch, bit for bit, with rows
+    that broadcast from a scalar too, and counts no launch."""
+    pcat = {"mixed": mixed, "near": near}[kind][1]
+    jd, fr = _epoch_rows(form)
+    before = dict(cuda_sgp4.LAUNCHES)
+    out = cuda_sgp4.sgp4_f64_dense_epochs(
+        jd, fr, *pcat.f64_staging, grav=pcat.grav,
+        sdp4=pcat.deep is not None, want_vel=want_vel)
+    plain = _grid_plain(pcat, jd, fr)
+    assert dict(cuda_sgp4.LAUNCHES) == before
+    assert tuple(out[0].shape) == (len(jd), len(pcat), 3)
+    assert _equal(out[0], plain[0]) and _equal(out[2], plain[2])
+    assert _equal(out[1], plain[1] if want_vel else None)
+
+
+@pytest.mark.parametrize("scalar", ["jd", "fr"])
+@pytest.mark.parametrize("kind", ["mixed", "near"])
+def test_propagate_f64_equals_plain_on_the_epoch_grid(kind, scalar, mixed,
+                                                      near):
+    """``propagate(method="f64")`` with jd or fr a python scalar gives the
+    plain function's bits on the grid formed from the broadcast rows."""
+    pcat = {"mixed": mixed, "near": near}[kind][1]
+    jd, fr = _epoch_rows(scalar)
+    args = (float(jd[0]), fr.numpy()) if scalar == "jd" else (
+        jd.numpy(), float(fr[0]))
+    out = P.propagate(pcat, *args, method="f64")
+    assert all(_equal(a, b) for a, b in zip(out, _grid_plain(pcat, jd, fr)))
+
+
+@pytest.mark.parametrize("case", ["lengths", "f32", "grid", "device"])
+def test_dense_epochs_raises_on_rows_it_does_not_take(case, mixed):
+    """Rows of unequal length, not f64, not one-dimensional or on another
+    device than the elements raise on any device."""
+    pcat = mixed[1]
+    jd, fr = _epoch_rows("rows")
+    jd, fr = {"lengths": (jd, fr[1:]), "f32": (jd, fr.float()),
+              "grid": (jd[:, None], fr[:, None]),
+              "device": (jd, fr.to("meta"))}[case]
+    with pytest.raises(ValueError, match="jd, fr"):
+        cuda_sgp4.sgp4_f64_dense_epochs(jd, fr, *pcat.f64_staging,
+                                        grav=pcat.grav, sdp4=True)
+
+
 @pytest.mark.parametrize("order", ["forward", "backward"])
 def test_scan_wrapper_equals_plain_on_cpu(order, mixed):
     """SCAN on CPU tensors is ``sdp4_propagate_scan`` bit for bit, on
