@@ -2,7 +2,8 @@
 
 Ported so far: near-earth and mixed near-earth / deep-space catalogs
 from TLE/OMM text through SGP4/SDP4 init to ``propagate`` (the fast and
-the f64 methods, ``scan_times``, ``propagate_tsince``), the dense-tsince
+the f64 methods, ``scan_times``, which takes the f64 method's own launch
+on the card, ``propagate_tsince``), the dense-tsince
 entry points of ``ops`` (``propagate_fast``, ``sgp4_init``,
 ``sdp4_init``, ``sgp4_propagate``, ``sdp4_propagate``,
 ``sdp4_propagate_scan``), conjunction screening (``screen_all``,

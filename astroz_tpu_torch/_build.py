@@ -53,16 +53,14 @@ SIGNATURES = {
                                        _F, _F, _F, _P, _I, _P, _P, _P, _P,
                                        _I, _P, _P, _P, _P]),
     # tsince, sat_stride, spine, tail, flags, n_times, n_sats,
-    # kepler_iters, want_vel, time_major, j2, re, vkmpersec, r, v, err,
-    # stream
+    # kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
     "astroz_sgp4_shallow_dense": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _F, _F, _F, _P, _P, _P, _P]),
+                                       _F, _F, _F, _P, _P, _P, _P]),
     # n_times, n_sats, kepler_iters, want_vel, grid (3,) i32 out
     "astroz_sgp4_shallow_dense_grid": (_I, [_I, _I, _I, _I, _P]),
     # t32, u_base, mm, argp32, node32, xmdf32, tail, flags, n_times,
-    # n_sats, kepler_iters, want_vel, time_major, j2, re, vkmpersec, r, v,
-    # err, stream
-    "astroz_sgp4_shallow_grids": (_I, [_P] * 8 + [_I] * 5 + [_F] * 3
+    # n_sats, kepler_iters, want_vel, j2, re, vkmpersec, r, v, err, stream
+    "astroz_sgp4_shallow_grids": (_I, [_P] * 8 + [_I] * 4 + [_F] * 3
                                   + [_P] * 4),
     # n_times, n_sats, kepler_iters, want_vel, grid (3,) i32 out
     "astroz_sgp4_shallow_grids_grid": (_I, [_I, _I, _I, _I, _P]),
@@ -87,10 +85,6 @@ SIGNATURES = {
     # constants, r, v, err, stream
     "astroz_sgp4_f64_dense_epochs": (_I, [_P, _P, _P, _P, _L, _L, _I, _I]
                                      + [_D] * 7 + [_P] * 4),
-    # times, t_row, t_col, fields, flags, n_lanes, n_times, want_vel, 7
-    # constants, r, v, err, stream
-    "astroz_sgp4_f64_scan": (_I, [_P, _L, _L, _P, _P, _L, _L, _I]
-                             + [_D] * 7 + [_P] * 4),
     # n_times, n_out, sdp4, want_vel, grid (3,) i32 out
     "astroz_sgp4_f64_grid": (_I, [_L, _L, _I, _I, _P]),
     # t_time, t_sat, fields, flags, idx, tables, n_times, n_esc, n_deep,

@@ -21,11 +21,13 @@
 //           deep subset's tables at column idx[x]; r, v cast to f32 and
 //           written straight into kernel K2's (3, T, D) planes at
 //           column idx[x], the codes into its (T, D) plane
-//   SCAN    ops/sdp4.py sdp4_propagate_scan over (T, S): DENSE's row
-//           walk in SDP4 mode (see below: every row of the plain scan is
-//           sdp4_propagate at that row alone)
 // Codes 2, 1 and 3 (each only where no code is set yet), then 4 and 6, over
-// the init error; failed points zero-filled.
+// the init error; failed points zero-filled. ops/sdp4.py
+// sdp4_propagate_scan (propagate's scan_times=True) has no mode of its
+// own: every row of the plain scan is sdp4_propagate at that row alone,
+// and the row walk carries the resonance along each thread's run of rows
+// (see below), so DENSE in SDP4 mode on the sweep's jd and fr rows gives
+// the scan's bits in one launch (ops/cuda_sgp4.py sgp4_f64_scan).
 //
 // How the bits are kept. The plain versions are chains of torch ops, one
 // rounding each, on CUDA:
@@ -62,7 +64,7 @@
 // f64 pipe (132 SMs x 64 lanes) is the real limit. chip_smoke.kernel_report
 // counts the row loop's f64 instructions (SASS) a point over that pipe.
 //
-// Design: DENSE and SCAN are one row walk (sgp4_f64_walk_kernel). Each
+// Design: DENSE is one row walk (sgp4_f64_walk_kernel). Each
 // choice was timed in turns on an H100 80GB HBM3 at 700 W by
 // shallow_variants.py (kernels replayed from a CUDA graph, the mixed
 // catalog x 1,440 unless said), against the one-thread-a-point kernel it
@@ -98,8 +100,8 @@
 //   gives the bits of stepping from epoch (tests/test_torch_f64_kernel.py
 //   holds the plain functions to this); a run starts with a fresh carry.
 //   DENSE steps O(rows) a resonant lane, not O(rows x |t| / 720): with
-//   the epochs spread over +-7 days, 2.77 ms against 25.7. SCAN's rows
-//   are DENSE's on the same tsince: 0.478 ms at x 240 against the
+//   the epochs spread over +-7 days, 2.77 ms against 25.7. The scan's
+//   rows are DENSE's on the same tsince: 0.478 ms at x 240 against the
 //   serial walkers' 3.99.
 // - Registers: __launch_bounds__ asks for 5 blocks an SM in SDP4 mode
 //   (96 registers, 2.76 ms; 4 blocks at 128 registers 2.77) and 6 in
@@ -712,7 +714,7 @@ __device__ __forceinline__ void store_f64(const Out& o, size_t p, double* r,
   err[p] = o.error;
 }
 
-// DENSE and SCAN's inputs and outputs
+// DENSE's inputs and outputs
 struct GridArgs {
   // point (t, n) at t * t_row + n * t_col: its tsince, or with `fr` the
   // jd of its epoch (t_row 1, t_col 0)
@@ -752,7 +754,7 @@ __device__ __forceinline__ int first_deep_column(const GridArgs& a,
   return lo;
 }
 
-// DENSE and SCAN: the points (warp column, time row), column after column,
+// DENSE: the points (warp column, time row), column after column,
 // are cut into balanced runs (sgp4_common.cuh: warp_run), a row of a
 // column that holds a deep slot weighing F64_DEEP_WEIGHT units, of the
 // others one, and each warp walks the points whose units start in its
@@ -942,23 +944,6 @@ extern "C" int astroz_sgp4_f64_dense_epochs(
                           xlcof_c},
                    r, v, err};
   return walk(sdp4, want_vel, a, stream, true, nullptr);
-}
-
-// SCAN: times (T, C) f64 read at t * t_row + s * t_col, C = S or 1;
-// fields (83, S) f64; flags (N_FLAGS, S) i32; r, v (T, S, 3) f64 (v null
-// when want_vel == 0), err (T, S) i32: DENSE's walk in SDP4 mode.
-extern "C" int astroz_sgp4_f64_scan(
-    const double* times, long long t_row, long long t_col,
-    const double* fields, const int* flags, long long n_lanes,
-    long long n_times, int want_vel, double xke, double inv_xke,
-    double half_j2, double re, double vkmpersec, double aycof_c,
-    double xlcof_c, double* r, double* v, int* err, void* stream) {
-  const GridArgs a{times, t_row, t_col, nullptr, fields, flags, n_lanes, 1,
-                   n_times, n_lanes,
-                   Consts{xke, inv_xke, half_j2, re, vkmpersec, aycof_c,
-                          xlcof_c},
-                   r, v, err};
-  return walk(1, want_vel, a, stream, true, nullptr);
 }
 
 // The row walk's grid at (n_times, n_out) without a launch: grid[0] blocks

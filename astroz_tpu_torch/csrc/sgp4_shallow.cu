@@ -38,8 +38,8 @@
 // spine of K5 (spine_f64) on a (T, S) or (T, 1) f64 tsince, one pass. On
 // the TPU XLA fused that spine around the Pallas call
 // (pallas_sgp4.py:139); it is not a Pallas kernel.
-// K5 and K6 write the (3, T, S) planes or, for the element-level
-// wrappers, the time-major (T, S, 3) r and v that their callers return.
+// K5 and K6 write the time-major (T, S, 3) r and v that their callers
+// return (store_point_time_major), and nothing else.
 //
 // The plain torch version is astroz_tpu_torch/ops/fast.py (spine_f64 +
 // shallow_tail_f32); this file runs the same operations in the same order
@@ -88,14 +88,13 @@
 //   K6 has no spine fields: its 21 tail fields fit in registers at 64
 //   without a spill, 8 blocks an SM, and it loads a unit's six grid
 //   values at the head of the unit: 742 hot instructions a point, 0.159
-//   ms a chunk in either store (on K1's blocked layout of 8 rows a
-//   thread: 644, 0.159 ms, planes only). In shared memory the fields cost 52 more instructions a
-//   point (+0.8%); loading the next unit's values ahead cost 26 more and
-//   +4.9% (both: +3.5%), so K6 does not wait on those loads; a cp.async
-//   ring of 2 units (+3.8%), 8-byte loads of satellite pairs (a spill)
-//   and 6, 7 or 10 blocks an SM were no better (PERF.md). K6 writes the
-//   time-major store as fast as the planes, so its element-level path
-//   copies nothing;
+//   ms a chunk, time-major as in planes (on K1's blocked layout of 8
+//   rows a thread: 644, 0.159 ms, planes only). In shared memory the
+//   fields cost 52 more instructions a point (+0.8%); loading the next
+//   unit's values ahead cost 26 more and +4.9% (both: +3.5%), so K6 does
+//   not wait on those loads; a cp.async ring of 2 units (+3.8%), 8-byte
+//   loads of satellite pairs (a spill) and 6, 7 or 10 blocks an SM were
+//   no better (PERF.md);
 // - the spine kernel keeps each satellite's 12 spine fields in registers
 //   over SPINE_ROWS = 4 time rows of its column (2 rows +0.5%, 8 +2.2%,
 //   16 +4.3%, 64 +34%: at 64 a chunk has 512 blocks, under half of what
@@ -317,11 +316,10 @@ struct DenseArgs {
   const float* tail;
   const int* flags;
   int n_times, n_sats;
-  int time_major;  // 1: r, v (T, S, 3); 0: (3, T, S) planes
   float j2, re, vkmpersec;
-  float* r;
-  float* v;
-  int* err;
+  float* r;  // (T, S, 3) f32
+  float* v;  // (T, S, 3) f32, or null
+  int* err;  // (T, S) i32
 };
 
 // what a thread loads for one unit, and the unit's spine from it: K5
@@ -382,7 +380,6 @@ sgp4_dense_kernel(const DenseArgs a) {
   }();
   const int n_times = a.n_times, n_sats = a.n_sats;
   const size_t ns = (size_t)n_sats;
-  const size_t plane = (size_t)n_times * ns;
   const size_t row_stride = a.sat_stride ? ns : 1;
   const WarpRun run =
       warp_run((long long)((n_sats + WARP - 1) / WARP) * n_times);
@@ -420,11 +417,8 @@ sgp4_dense_kernel(const DenseArgs a) {
     if (t_sat < n_sats) {
       const PosVel o = shallow_tail<WANT_VEL, ITERS>(
           cur.spine(sp), tf, not_simp, error0, a.j2, a.re, a.vkmpersec);
-      const size_t idx = (size_t)t_row * ns + t_sat;
-      if (a.time_major)
-        store_point_time_major<WANT_VEL>(o, idx, a.r, a.v, a.err);
-      else
-        store_point<WANT_VEL>(o, idx, plane, a.r, a.v, a.err);
+      store_point_time_major<WANT_VEL>(o, (size_t)t_row * ns + t_sat, a.r,
+                                       a.v, a.err);
     }
   }
 }
@@ -609,16 +603,14 @@ extern "C" int astroz_sgp4_shallow_merge(
 
 // K5: K1 on tsince (T, S) f64 minutes since each satellite's epoch, or a
 // (T, 1) column shared by every satellite (sat_stride 0; 1 for (T, S)).
-// time_major 1: r and v are (T, S, 3) f32 (the element-level wrappers'
-// layout); 0: (3, T, S) planes.
+// r and v are (T, S, 3) f32 (v null when want_vel == 0), err (T, S) i32.
 extern "C" int astroz_sgp4_shallow_dense(
     const double* tsince, int sat_stride, const double* spine,
     const float* tail, const int* flags, int n_times, int n_sats,
-    int kepler_iters, int want_vel, int time_major, float j2, float re,
-    float vkmpersec, float* r, float* v, int* err, void* stream) {
-  const DenseArgs a{tsince, sat_stride, spine,     {},   tail, flags,
-                    n_times, n_sats,    time_major, j2,  re,   vkmpersec,
-                    r,       v,         err};
+    int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
+    float* r, float* v, int* err, void* stream) {
+  const DenseArgs a{tsince, sat_stride, spine, {}, tail, flags, n_times,
+                    n_sats, j2,         re,    vkmpersec, r, v,  err};
   return dense<TSINCE>(want_vel, kepler_iters, a, stream, true, nullptr);
 }
 
@@ -632,18 +624,17 @@ extern "C" int astroz_sgp4_shallow_dense_grid(int n_times, int n_sats,
 
 // K6: the tail on six (T, S) f32 spine grids t32, u_base, mm, argp32,
 // node32, xmdf32 (ops/fast.py:spine_f64's returns); no spine rows.
-// time_major as K5's.
+// r, v and err as K5's.
 extern "C" int astroz_sgp4_shallow_grids(
     const float* t32, const float* u_base, const float* mm,
     const float* argp32, const float* node32, const float* xmdf32,
     const float* tail, const int* flags, int n_times, int n_sats,
-    int kepler_iters, int want_vel, int time_major, float j2, float re,
-    float vkmpersec, float* r, float* v, int* err, void* stream) {
+    int kepler_iters, int want_vel, float j2, float re, float vkmpersec,
+    float* r, float* v, int* err, void* stream) {
   const DenseArgs a{nullptr, 1,      nullptr,
                     {t32, u_base, mm, argp32, node32, xmdf32},
-                    tail,    flags,  n_times,   n_sats, time_major,
-                    j2,      re,     vkmpersec, r,      v,
-                    err};
+                    tail,    flags,  n_times, n_sats, j2, re, vkmpersec,
+                    r,       v,      err};
   return dense<GRIDS>(want_vel, kepler_iters, a, stream, true, nullptr);
 }
 

@@ -26,18 +26,19 @@ kernel that feeds K6, the f64 kernel, and their plain versions.
   programs the JAX package jits around its Pallas kernels) computes
   ``ops/sgp4.py:sgp4_propagate`` / ``ops/sdp4.py:sdp4_propagate`` at
   independent points (:func:`sgp4_f64_dense` on a tsince grid,
-  :func:`sgp4_f64_dense_epochs` on a sweep's jd and fr rows), the HEO
+  :func:`sgp4_f64_dense_epochs` on a sweep's jd and fr rows) and the HEO
   escape's ``ops/fast.py:sdp4_propagate_tables`` into K2's planes
-  (:func:`sgp4_f64_escape`) and ``ops/sdp4.py:sdp4_propagate_scan``
-  (:func:`sgp4_f64_scan`), on the elements packed by :func:`f64_staging`.
+  (:func:`sgp4_f64_escape`), on the elements packed by
+  :func:`f64_staging`. ``ops/sdp4.py:sdp4_propagate_scan``
+  (:func:`sgp4_f64_scan`) is DENSE on a sweep's rows on the card.
 
 K1-K3 propagate over the separable grid ``tsince[t, n] = t_time[t] -
-t_sat[n]`` minutes, K5 and K6 over a dense one. The planes-level
-functions return the grouped planes ``r (3, T, N)`` f32, ``v (3, T, N)``
-f32 (``None`` with ``want_vel=False``) and ``err (T, N)`` i32; the
-element-level ones ``r``, ``v`` (T, N, 3) and ``err`` (T, N), as the JAX
-wrappers do (K5 and K6 write that layout themselves). The element-level
-ones stage their elements once per element set (:func:`_staged`). The
+t_sat[n]`` minutes and return the grouped planes ``r (3, T, N)`` f32,
+``v (3, T, N)`` f32 (``None`` with ``want_vel=False``) and ``err (T, N)``
+i32. K5 and K6 propagate over a dense grid and write ``r``, ``v`` (T, N,
+3) and ``err`` (T, N), the layout of the JAX wrappers, themselves; their
+element-level callers stage the elements once per element set
+(:func:`_staged`). The
 kernels are ``csrc/sgp4_shallow.cu`` (K1, K3, K5, K6, the spine kernel)
 and ``csrc/sgp4_deep.cu`` (K2); their source notes say what bounds them
 on Hopper and what the design does about that; :func:`launch_grid` gives
@@ -79,13 +80,13 @@ DEEP_KEPLER_ITERS = (6, 8)
 
 #: kernel launches so far in this process, by kernel; each launch adds
 #: one to its kernel's entry (a DENSE launch on a sweep's epochs,
-#: :func:`sgp4_f64_dense_epochs`, to ``"sgp4_f64_dense"`` and to
-#: ``"sgp4_f64_dense_epochs"``)
+#: :func:`sgp4_f64_dense_epochs` and :func:`sgp4_f64_scan`, to
+#: ``"sgp4_f64_dense"`` and to ``"sgp4_f64_dense_epochs"``)
 LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
             "sgp4_shallow_dense": 0, "sgp4_shallow_grids": 0,
             "sgp4_spine_grids": 0, "sgp4_f64_dense": 0,
             "sgp4_f64_dense_epochs": 0, "sgp4_f64_escape": 0,
-            "sgp4_f64_scan": 0, "resonance_tables": 0}
+            "resonance_tables": 0}
 
 F32 = torch.float32
 F64 = torch.float64
@@ -133,24 +134,24 @@ def _launch_device(x, kepler_iters, name):
     return dev
 
 
-def _outputs(dev, n_times, n, want_vel, time_major=False):
-    """A fast kernel's new f32 r and v (v None without velocities), (3,
-    T, S) planes or with ``time_major`` (T, S, 3), and its (T, S) codes;
-    one ``astroz.alloc`` span under a profiler."""
-    shape = (n_times, n, 3) if time_major else (3, n_times, n)
+def _outputs(dev, n_times, n, want_vel):
+    """K1's, K2's or K3's new (3, T, S) f32 planes r and v (v None
+    without velocities) and its (T, S) codes; one ``astroz.alloc`` span
+    under a profiler."""
     with span("astroz.alloc"):
-        r = torch.empty(shape, dtype=F32, device=dev)
+        r = torch.empty((3, n_times, n), dtype=F32, device=dev)
         v = torch.empty_like(r) if want_vel else None
         err = torch.empty((n_times, n), dtype=I32, device=dev)
     return r, v, err
 
 
-def _outputs_f64(dev, shape, want_vel):
-    """The f64 kernel's new ``shape + (3,)`` f64 r and v (v None without
-    velocities) and its ``shape`` codes; one ``astroz.alloc`` span under
-    a profiler."""
+def _outputs_rows(dev, shape, want_vel, dtype):
+    """A kernel's new time-major ``shape + (3,)`` r and v of ``dtype``
+    (v None without velocities) and its ``shape`` codes: K5's and K6's
+    f32, the f64 kernel's f64; one ``astroz.alloc`` span under a
+    profiler."""
     with span("astroz.alloc"):
-        r = torch.empty(tuple(shape) + (3,), dtype=F64, device=dev)
+        r = torch.empty(tuple(shape) + (3,), dtype=dtype, device=dev)
         v = torch.empty_like(r) if want_vel else None
         err = torch.empty(shape, dtype=I32, device=dev)
     return r, v, err
@@ -551,16 +552,6 @@ def _check_dense(tsince, spine, tail, flags):
     return n_times, n_sats
 
 
-def propagate_fast_dense_reference(tsince, spine, tail, flags, *,
-                                   grav: GravityModel, kepler_iters: int,
-                                   want_vel: bool = True):
-    """Plain torch version of K5, on any device: the same arguments and
-    returns as :func:`propagate_fast_dense`."""
-    _check_dense(tsince, spine, tail, flags)
-    return _tail_reference(_spine_grids(tsince, spine), tail, flags, grav,
-                           kepler_iters, want_vel)
-
-
 def _time_major(r3, v3, err):
     """The JAX wrappers' (T, S, 3) layout from the (3, T, S) planes."""
     r = r3.permute(1, 2, 0).contiguous()
@@ -568,30 +559,14 @@ def _time_major(r3, v3, err):
     return r, v, err
 
 
-def _dense(tsince, spine, tail, flags, grav, kepler_iters, want_vel,
-           time_major):
-    """K5 (or its plain version on a CPU tensor) into the (3, T, S)
-    planes, or with ``time_major`` into (T, S, 3) r and v."""
-    n_times, n_sats = _check_dense(tsince, spine, tail, flags)
-    dev = _launch_device(tsince, kepler_iters, "propagate_fast_dense")
-    if dev.type == "cpu":
-        out = propagate_fast_dense_reference(
-            tsince, spine, tail, flags, grav=grav, kepler_iters=kepler_iters,
-            want_vel=want_vel)
-        return _time_major(*out) if time_major else out
-    r, v, err = _outputs(dev, n_times, n_sats, want_vel, time_major)
-    if n_times == 0 or n_sats == 0:
-        return r, v, err
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.astroz_sgp4_shallow_dense(
-            tsince.data_ptr(), int(tsince.shape[1] == n_sats),
-            spine.data_ptr(), tail.data_ptr(), flags.data_ptr(), n_times,
-            n_sats, kepler_iters, int(want_vel), int(time_major),
-            *_grav_args(grav), r.data_ptr(), _ptr(v), err.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "sgp4_shallow_dense")
-    return r, v, err
+def propagate_fast_dense_reference(tsince, spine, tail, flags, *,
+                                   grav: GravityModel, kepler_iters: int,
+                                   want_vel: bool = True):
+    """Plain torch version of K5, on any device: the same arguments and
+    returns as :func:`propagate_fast_dense`."""
+    _check_dense(tsince, spine, tail, flags)
+    return _time_major(*_tail_reference(_spine_grids(tsince, spine), tail,
+                                        flags, grav, kepler_iters, want_vel))
 
 
 def propagate_fast_dense(tsince, spine, tail, flags, *, grav: GravityModel,
@@ -605,10 +580,29 @@ def propagate_fast_dense(tsince, spine, tail, flags, *, grav: GravityModel,
       spine, tail, flags, grav, kepler_iters, want_vel: as
         :func:`propagate_fast_sep` (``ops.fast.shallow_staging``).
 
-    Returns ``(r, v, err)`` as :func:`propagate_fast_sep`.
+    Returns ``(r, v, err)``: r and v (T, S, 3) f32 TEME km and km/s,
+    contiguous (v None with ``want_vel=False``), err (T, S) i32
+    python-sgp4 codes. On a CPU tensor the plain version runs.
     """
-    return _dense(tsince, spine, tail, flags, grav, kepler_iters, want_vel,
-                  time_major=False)
+    n_times, n_sats = _check_dense(tsince, spine, tail, flags)
+    dev = _launch_device(tsince, kepler_iters, "propagate_fast_dense")
+    if dev.type == "cpu":
+        return propagate_fast_dense_reference(
+            tsince, spine, tail, flags, grav=grav, kepler_iters=kepler_iters,
+            want_vel=want_vel)
+    r, v, err = _outputs_rows(dev, (n_times, n_sats), want_vel, F32)
+    if n_times == 0 or n_sats == 0:
+        return r, v, err
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_sgp4_shallow_dense(
+            tsince.data_ptr(), int(tsince.shape[1] == n_sats),
+            spine.data_ptr(), tail.data_ptr(), flags.data_ptr(), n_times,
+            n_sats, kepler_iters, int(want_vel), *_grav_args(grav),
+            r.data_ptr(), _ptr(v), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sgp4_shallow_dense")
+    return r, v, err
 
 
 def _tsince_for(els, tsince):
@@ -652,23 +646,23 @@ def propagate_fast_fused_reference(els, tsince, grav: GravityModel,
                                    want_vel: bool = True):
     """Plain torch version of :func:`propagate_fast_fused`, on any
     device (``ops.fast.spine_f64`` + ``shallow_tail_f32``)."""
-    return _time_major(*propagate_fast_dense_reference(
+    return propagate_fast_dense_reference(
         _tsince_for(els, tsince), *shallow_staging(els), grav=grav,
-        kepler_iters=kepler_iters, want_vel=want_vel))
+        kepler_iters=kepler_iters, want_vel=want_vel)
 
 
 def propagate_fast_fused(els, tsince, grav: GravityModel,
                          kepler_iters: int = 5, want_vel: bool = True):
     """Near-earth propagate of elements (``Sgp4Elements`` of tensors,
-    broadcast satellites too) to a dense ``tsince`` grid through K5,
-    which writes the time-major layout; the elements are staged once per
+    broadcast satellites too) to a dense ``tsince`` grid through K5
+    (:func:`propagate_fast_dense`); the elements are staged once per
     element set (:func:`_staged`).
 
     ``tsince``: (T, S) or (T, 1) f64 minutes since each epoch. Returns
-    ``(r, v, err)``: r and v (T, S, 3) f32 TEME km and km/s, contiguous
-    (v None with ``want_vel=False``), err (T, S) i32 python-sgp4 codes."""
-    return _dense(_tsince_for(els, tsince), *_staged(els), grav,
-                  kepler_iters, want_vel, time_major=True)
+    ``(r, v, err)`` as :func:`propagate_fast_dense`."""
+    return propagate_fast_dense(_tsince_for(els, tsince), *_staged(els),
+                                grav=grav, kepler_iters=kepler_iters,
+                                want_vel=want_vel)
 
 
 def propagate_fast(els, deep, tsince, grav: GravityModel, carry=None,
@@ -706,8 +700,8 @@ def launch_grid(kernel, n_times, n_sats, *, kepler_iters=None,
                 want_vel=True, sdp4=False):
     """The persistent grid that K5 (``kernel="sgp4_shallow_dense"``), K6
     (``"sgp4_shallow_grids"``), K2 (``"sgp4_deep"``) or the f64 kernel's
-    row walk (``"sgp4_f64_dense"``, DENSE and SCAN, in SDP4 mode with
-    ``sdp4``; ``n_sats`` the output columns) launches on the current CUDA
+    row walk (``"sgp4_f64_dense"``, in SDP4 mode with ``sdp4``; ``n_sats``
+    the output columns) launches on the current CUDA
     device at ``n_times`` x ``n_sats``: ``{"per_sm": blocks an SM (the
     instantiation's occupancy), "sms": the card's SMs, "blocks": blocks
     launched, "waves": blocks / (per_sm * sms)}``."""
@@ -787,33 +781,8 @@ def propagate_fast_spine_grids_reference(grids, tail, flags, *,
     """Plain torch version of K6, on any device: the same arguments and
     returns as :func:`propagate_fast_spine_grids`."""
     _check_grids(grids, tail, flags)
-    return _tail_reference(grids, tail, flags, grav, kepler_iters, want_vel)
-
-
-def _grids_tail(grids, tail, flags, grav, kepler_iters, want_vel,
-                time_major):
-    """K6 (or its plain version on a CPU tensor) into the (3, T, S)
-    planes, or with ``time_major`` into (T, S, 3) r and v."""
-    n_times, n_sats = _check_grids(grids, tail, flags)
-    dev = _launch_device(grids[0], kepler_iters,
-                         "propagate_fast_spine_grids")
-    if dev.type == "cpu":
-        out = propagate_fast_spine_grids_reference(
-            grids, tail, flags, grav=grav, kepler_iters=kepler_iters,
-            want_vel=want_vel)
-        return _time_major(*out) if time_major else out
-    r, v, err = _outputs(dev, n_times, n_sats, want_vel, time_major)
-    if n_times == 0 or n_sats == 0:
-        return r, v, err
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.astroz_sgp4_shallow_grids(
-            *(g.data_ptr() for g in grids), tail.data_ptr(),
-            flags.data_ptr(), n_times, n_sats, kepler_iters, int(want_vel),
-            int(time_major), *_grav_args(grav), r.data_ptr(), _ptr(v),
-            err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "sgp4_shallow_grids")
-    return r, v, err
+    return _time_major(*_tail_reference(grids, tail, flags, grav,
+                                        kepler_iters, want_vel))
 
 
 def propagate_fast_spine_grids(grids, tail, flags, *, grav: GravityModel,
@@ -826,10 +795,27 @@ def propagate_fast_spine_grids(grids, tail, flags, *, grav: GravityModel,
       tail, flags, grav, kepler_iters, want_vel: as
         :func:`propagate_fast_sep`.
 
-    Returns ``(r, v, err)`` as :func:`propagate_fast_sep`.
+    Returns ``(r, v, err)`` as :func:`propagate_fast_dense`.
     """
-    return _grids_tail(grids, tail, flags, grav, kepler_iters, want_vel,
-                       time_major=False)
+    n_times, n_sats = _check_grids(grids, tail, flags)
+    dev = _launch_device(grids[0], kepler_iters,
+                         "propagate_fast_spine_grids")
+    if dev.type == "cpu":
+        return propagate_fast_spine_grids_reference(
+            grids, tail, flags, grav=grav, kepler_iters=kepler_iters,
+            want_vel=want_vel)
+    r, v, err = _outputs_rows(dev, (n_times, n_sats), want_vel, F32)
+    if n_times == 0 or n_sats == 0:
+        return r, v, err
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.astroz_sgp4_shallow_grids(
+            *(g.data_ptr() for g in grids), tail.data_ptr(),
+            flags.data_ptr(), n_times, n_sats, kepler_iters, int(want_vel),
+            *_grav_args(grav), r.data_ptr(), _ptr(v), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sgp4_shallow_grids")
+    return r, v, err
 
 
 def spine_grids(els, tsince):
@@ -847,19 +833,20 @@ def propagate_fast_grids_reference(els, tsince, grav: GravityModel,
     device: the plain spine, then K6's plain version."""
     spine, tail, flags = shallow_staging(els)
     grids = spine_f64_grids_reference(_tsince_for(els, tsince), spine)
-    return _time_major(*propagate_fast_spine_grids_reference(
+    return propagate_fast_spine_grids_reference(
         grids, tail, flags, grav=grav, kepler_iters=kepler_iters,
-        want_vel=want_vel))
+        want_vel=want_vel)
 
 
 def propagate_fast_grids(els, tsince, grav: GravityModel,
                          kepler_iters: int = 5, want_vel: bool = True):
     """:func:`propagate_fast_fused`'s function in two kernels: the spine
     kernel writes the f64 spine's grids (:func:`spine_grids`) and K6 runs
-    the tail on them into the time-major layout. The same arguments and
-    returns."""
-    return _grids_tail(*spine_grids(els, tsince), grav, kepler_iters,
-                       want_vel, time_major=True)
+    the tail on them (:func:`propagate_fast_spine_grids`). The same
+    arguments and returns."""
+    return propagate_fast_spine_grids(*spine_grids(els, tsince), grav=grav,
+                                      kepler_iters=kepler_iters,
+                                      want_vel=want_vel)
 
 
 # ---------------------------------------------------------------------------
@@ -1033,7 +1020,7 @@ def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
     if n_cols not in (1, n_out) or n_lanes not in (1, n_out):
         raise ValueError(f"tsince: {tuple(tsince.shape)} against {n_lanes} "
                          "lanes")
-    r, v, err = _outputs_f64(dev, out_shape, want_vel)
+    r, v, err = _outputs_rows(dev, out_shape, want_vel, F64)
     if r.numel():
         with torch.cuda.device(dev):
             _launch_f64(
@@ -1043,6 +1030,15 @@ def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
                 int(want_vel), *_f64_consts(grav), r.data_ptr(), _ptr(v),
                 err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return r, v, err
+
+
+def _check_rows(jd, fr):
+    if (jd.dtype != F64 or fr.dtype != F64 or jd.dim() != 1
+            or fr.shape != jd.shape or fr.device != jd.device):
+        raise ValueError("jd, fr: expected two (T,) f64 rows of one length "
+                         f"on one device, got {jd.dtype} {tuple(jd.shape)} "
+                         f"on {jd.device} and {fr.dtype} {tuple(fr.shape)} "
+                         f"on {fr.device}")
 
 
 def epoch_tsince(jd, fr, epoch_jd):
@@ -1076,12 +1072,7 @@ def sgp4_f64_dense_epochs(jd, fr, fields, flags, *, grav: GravityModel,
     """
     n_lanes = _check_f64(jd.device, fields, flags, sdp4)
     dev = _device_of(jd, "sgp4_f64_dense_epochs")
-    if (jd.dtype != F64 or fr.dtype != F64 or jd.dim() != 1
-            or fr.shape != jd.shape or fr.device != dev):
-        raise ValueError("jd, fr: expected two (T,) f64 rows of one length "
-                         f"on one device, got {jd.dtype} {tuple(jd.shape)} "
-                         f"on {jd.device} and {fr.dtype} {tuple(fr.shape)} "
-                         f"on {fr.device}")
+    _check_rows(jd, fr)
     if dev.type == "cpu":
         epoch_jd = fields[F64_FIELD_NAMES.index("epoch_jd")]
         return sgp4_f64_dense_reference(epoch_tsince(jd, fr, epoch_jd),
@@ -1089,7 +1080,7 @@ def sgp4_f64_dense_epochs(jd, fr, fields, flags, *, grav: GravityModel,
                                         want_vel=want_vel)
     jd, fr = jd.contiguous(), fr.contiguous()
     n_times = jd.shape[0]
-    r, v, err = _outputs_f64(dev, (n_times, n_lanes), want_vel)
+    r, v, err = _outputs_rows(dev, (n_times, n_lanes), want_vel, F64)
     if n_times:
         with torch.cuda.device(dev):
             _launch_f64(
@@ -1102,54 +1093,45 @@ def sgp4_f64_dense_epochs(jd, fr, fields, flags, *, grav: GravityModel,
     return r, v, err
 
 
-def sgp4_f64_scan_reference(times, fields, flags, *, grav: GravityModel,
+def sgp4_f64_scan_reference(jd, fr, fields, flags, *, grav: GravityModel,
                             want_vel: bool = True):
     """Plain torch version of :func:`sgp4_f64_scan`, on any device:
-    ``ops.sdp4.sdp4_propagate_scan`` of the unstaged elements."""
-    _check_f64(times.device, fields, flags, True)
+    ``ops.sdp4.sdp4_propagate_scan`` of the unstaged elements on
+    :func:`epoch_tsince`'s grid."""
+    _check_f64(jd.device, fields, flags, True)
+    _check_rows(jd, fr)
     els, deep = f64_unstage(fields, flags)
-    r, v, err = sdp4_propagate_scan(els, deep, times, grav)
+    r, v, err = sdp4_propagate_scan(
+        els, deep, epoch_tsince(jd, fr, els.epoch_jd), grav)
     return r, v if want_vel else None, err
 
 
-def sgp4_f64_scan(times, fields, flags, *, grav: GravityModel,
+def sgp4_f64_scan(jd, fr, fields, flags, *, grav: GravityModel,
                   want_vel: bool = True):
-    """The f64 kernel's SCAN mode: ``ops.sdp4.sdp4_propagate_scan``, the
-    rows of ``times`` one after the other, each resonant lane resuming its
-    resonance integration from the row before (the rows sorted in one
-    direction). One launch of DENSE's row walk in SDP4 mode: every row of
-    the plain scan is ``sdp4_propagate`` at that row alone, and the walk
-    carries the resonance along each thread's run of rows.
+    """``ops.sdp4.sdp4_propagate_scan`` at a sweep's epochs (sorted in one
+    direction), on :func:`epoch_tsince`'s minutes since each lane's epoch.
+
+    On the card this is one launch of DENSE in SDP4 mode on the rows
+    (:func:`sgp4_f64_dense_epochs`), whose row walk carries the resonance
+    along each thread's run of rows; as every row of the plain scan is
+    ``sdp4_propagate`` at that row alone, it gives the plain scan's bits
+    (``tests/test_torch_cuda.py``). On a CPU tensor the plain scan runs
+    (:func:`sgp4_f64_scan_reference`): there torch's kernels round by
+    tensor shape, and the plain dense differs from it in the last bits.
 
     Args:
-      times: (T, S) or (T, 1) f64 minutes since each epoch (or (T,)).
+      jd, fr: (T,) f64 rows of one length, on the elements' device.
       fields, flags: :func:`f64_staging` with the deep rows.
       grav, want_vel: as :func:`sgp4_f64_dense`.
 
     Returns ``(r, v, err)``: (T, S, 3) f64, (T, S, 3) f64 or None, (T, S)
     i32.
     """
-    n_lanes = _check_f64(times.device, fields, flags, True)
-    dev = _device_of(times, "sgp4_f64_scan")
-    if times.dtype != F64 or times.dim() not in (1, 2) or (
-            times.dim() == 2 and times.shape[1] not in (1, n_lanes)):
-        raise ValueError(f"times: expected (T, {n_lanes}) or (T, 1) f64, "
-                         f"got {times.dtype} {tuple(times.shape)}")
-    if dev.type == "cpu":
-        return sgp4_f64_scan_reference(times, fields, flags, grav=grav,
+    if _device_of(jd, "sgp4_f64_scan").type == "cpu":
+        return sgp4_f64_scan_reference(jd, fr, fields, flags, grav=grav,
                                        want_vel=want_vel)
-    t2 = times.reshape(times.shape[0], -1).contiguous()
-    n_times, n_cols = t2.shape
-    r, v, err = _outputs_f64(dev, (n_times, n_lanes), want_vel)
-    if n_times:
-        with torch.cuda.device(dev):
-            _launch_f64(
-                "sgp4_f64_scan", "astroz_sgp4_f64_scan", t2.data_ptr(),
-                n_cols, int(n_cols > 1), fields.data_ptr(), flags.data_ptr(),
-                n_lanes, n_times, int(want_vel), *_f64_consts(grav),
-                r.data_ptr(), _ptr(v), err.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    return r, v, err
+    return sgp4_f64_dense_epochs(jd, fr, fields, flags, grav=grav,
+                                 sdp4=True, want_vel=want_vel)
 
 
 def _check_escape(t_time, t_sat, fields, flags, idx, tables, d_r3, d_v3,

@@ -21,9 +21,10 @@ and :func:`propagate_tsince` compute ``ops/sgp4.py:sgp4_propagate`` or
 since each epoch in one launch of the f64 kernel: ``propagate`` hands it
 the sweep's jd and fr rows, and the kernel forms each point's minutes
 (``ops/cuda_sgp4.py:sgp4_f64_dense_epochs``), ``propagate_tsince`` its
-own grid (``sgp4_f64_dense``); ``scan_times=True`` threads the SDP4
-resonance carry along the time axis of that grid (``sgp4_f64_scan``);
-the epilogue kernel turns its time-major outputs into the caller's frame
+own grid (``sgp4_f64_dense``). ``scan_times=True`` (``sgp4_f64_scan``,
+the plain ``sdp4_propagate_scan`` on the CPU) takes that same launch on
+the card, whose row walk carries the resonance from row to row; the
+epilogue kernel turns the time-major outputs into the caller's frame
 and layout. The deep subset's resonance tables are one launch of TABLES
 (``ops/cuda_sgp4.py:resonance_tables``) per catalog and depth. The JAX
 package's
@@ -43,7 +44,7 @@ from .constants import MINUTES_PER_DAY, WGS72, GravityModel
 from .ops.cuda_finalize import (LAYOUTS, OUTPUT_MODES, finalize,
                                  is_identity)
 from .ops.cuda_sgp4 import (LYDDANE_INCL, F64Staging, MergeMaps,
-                             epoch_tsince, f64_staging, propagate_deep_sep,
+                             f64_staging, propagate_deep_sep,
                              propagate_fast_sep,
                              propagate_fast_sep_merge, resonance_tables,
                              sgp4_f64_dense, sgp4_f64_dense_epochs,
@@ -412,9 +413,12 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
       layout: ``"time_major"`` (T, S, 3), ``"sat_major"`` (S, T, 3) or
         ``"planes"`` (3, T, S).
       scan_times: with ``method="f64"``, thread the SDP4 resonance carry
-        along the time axis, which must be sorted in one direction (for
-        long monotone grids with many deep lanes). The fast method
-        ignores it, as the JAX package's does.
+        along the time axis, which must be sorted in one direction (the
+        JAX package's option for long monotone grids with many deep
+        lanes). On the card it takes the same launch as without it, whose
+        row walk carries the resonance already, and gives the same bits;
+        on the CPU it runs the plain scan (``sdp4_propagate_scan``). The
+        fast method ignores it, as the JAX package's does.
       method: ``"f64"`` (full double precision, f64 outputs) or
         ``"fast"`` (f64 angle spine + f32 tail in the kernels, f32
         outputs).
@@ -424,12 +428,11 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
     Returns ``(r, v, error)`` as tensors on the catalog's device; error
     is int32 with python-sgp4 codes, 0 = ok. With ``method="f64"`` the
     f64 kernel forms each point's minutes since its epoch from jd and fr
-    itself (``ops.cuda_sgp4.sgp4_f64_dense_epochs``); with
-    ``scan_times=True`` on a catalog with deep lanes it reads a (T, S)
-    grid of them. The frame, the layout and the mask are one launch of
-    the epilogue kernel (``ops.cuda_finalize.finalize``), none for TEME
-    in the sweep's own layout (planes fast, time-major f64) without a
-    mask.
+    itself (``ops.cuda_sgp4.sgp4_f64_dense_epochs``), with or without
+    ``scan_times``, so the card holds no (T, S) grid of them. The frame,
+    the layout and the mask are one launch of the epilogue kernel
+    (``ops.cuda_finalize.finalize``), none for TEME in the sweep's own
+    layout (planes fast, time-major f64) without a mask.
 
     The call returns with its work queued on the card and no host wait,
     as torch's own ops do: its epochs (and the mask) reach the card
@@ -501,8 +504,9 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, output: str,
     epilogue is not the identity (``cuda_finalize.is_identity``), of
     jd_sum, which only the epilogue reads. DENSE forms each point's
     minutes since its lane's epoch from the jd and fr rows
-    (``ops.cuda_sgp4.sgp4_f64_dense_epochs``); SCAN reads the (T, S) grid
-    of ``ops.cuda_sgp4.epoch_tsince``, which torch writes."""
+    (``ops.cuda_sgp4.sgp4_f64_dense_epochs``); with ``scan_times`` on a
+    catalog with deep lanes ``ops.cuda_sgp4.sgp4_f64_scan`` takes the same
+    rows (on the card the same launch in SDP4 mode)."""
     identity = is_identity("time_major", output, layout, satellite_mask)
     (jd, fr, *jd_sum), mask = _stage_epochs(
         cat.device, [jd_h, fr_h] if identity else [jd_h, fr_h, jd_h + fr_h],
@@ -511,8 +515,7 @@ def _propagate_f64(cat: SatCatalog, jd_h, fr_h, output: str,
     if cat.deep is not None and scan_times:
         # one time row after the other, each resuming the resonance
         # integration from the row before (the rows sorted one way)
-        r, v, err = sgp4_f64_scan(epoch_tsince(jd, fr, cat.els.epoch_jd),
-                                  *cat.f64_staging, **kw)
+        r, v, err = sgp4_f64_scan(jd, fr, *cat.f64_staging, **kw)
     else:
         # SDP4 on every lane of a catalog that has the coefficients
         r, v, err = sgp4_f64_dense_epochs(jd, fr, *cat.f64_staging,

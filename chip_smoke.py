@@ -35,11 +35,11 @@ Phases (any failure exits non-zero; nothing is caught):
    bench_single_sat's ISS at one full (4,096, 1,024) chunk, at 3 and 8
    trips, with and without velocities; K5 on ``t_time - t_sat`` must
    equal K1, K6 on the spine kernel's grids must equal K5, and their
-   positions must not change without velocities, bit for bit; K5's and
-   K6's time-major outputs (``propagate_fast_fused``, K6's time-major
-   store, ``propagate_fast_grids``) must equal the (T, S, 3) layout of
-   the plain planes bit for bit;
-2d. the f64 kernel (``csrc/sgp4_f64.cu``) in its three modes vs their
+   positions must not change without velocities, bit for bit; both
+   write the time-major (T, S, 3) rows, and the element-level calls
+   (``propagate_fast_fused``, ``propagate_fast_grids``) must equal K5
+   bit for bit;
+2d. the f64 kernel (``csrc/sgp4_f64.cu``) in its two modes vs their
    plain versions, bit for bit (r, v and codes; positions and codes with
    and without velocities): DENSE in SDP4 mode on a small ragged mixed
    catalog (spread epochs, failing and decaying lanes, Lyddane lanes,
@@ -48,10 +48,12 @@ Phases (any failure exits non-zero; nothing is caught):
    API folds time into lanes, and on the headline mixed catalog x 1,440;
    DENSE in SGP4 mode on a near-earth catalog, the ISS fold and one
    1year_1s chunk; ESCAPE on the headline's 14 escape lanes inside a
-   real K2 call (the other columns untouched); SCAN over 240 rows across
-   epoch (+-3 days) sorted forward and backward, on the headline mixed
-   catalog and the small one, and on the headline equal to DENSE on the
-   same tsince, bit for bit; DENSE on the headline generator's catalog
+   real K2 call (the other columns untouched); ``propagate(scan_times=
+   True)`` (DENSE on the jd and fr rows) over 240 epochs across epoch
+   (+-3 days) sorted forward and backward, on the headline mixed catalog
+   and the small one, against the plain ``sdp4_propagate_scan`` and
+   ``propagate(scan_times=False)``, bit for bit; DENSE on the headline
+   generator's catalog
    with epochs spread over +-7 days x 1,440 (each resonant point steps
    up to ~16 times from epoch); DENSE on the jd and fr rows (each
    point's tsince formed in the kernel, as ``propagate(method="f64")``
@@ -104,8 +106,9 @@ Phases (any failure exits non-zero; nothing is caught):
    largest distance printed);
 3d. the f64 main path: the headline mixed catalog x 1,440 through
    ``Constellation.propagate(method="f64")`` as planes, time-major and
-   with ``scan_times=True``, each one launch of the f64 kernel (DENSE,
-   DENSE, SCAN) and of the epilogue kernel for the two planes calls:
+   with ``scan_times=True``, each one launch of the f64 kernel (DENSE on
+   the jd and fr rows, the scan too) and of the epilogue kernel for the
+   two planes calls:
    error codes equal
    the fast path's, the fast path within 0.05 km of f64 on healthy
    near-earth points, 0.1 km on deep ones (the worst lane of each regime
@@ -167,18 +170,19 @@ Phases (any failure exits non-zero; nothing is caught):
    and the peak device memory of a screen;
 4c. timings with CUDA events: K5, the spine kernel and K6 alone at one
    (4,096, 1,024) chunk and their plain versions, in turns as in phase 4
-   (K5 through ``propagate_fast_fused`` on elements already staged, the
-   time-major store its callers use, and through
-   ``propagate_fast_dense``, the planes; K6 in its time-major store, as
-   ``propagate_fast_grids`` runs it, and in the planes), the whole
-   ``propagate_fast_grids`` call a chunk, the whole 1year_1s sweep
-   through K5, through the f64 kernel (DENSE, SGP4) and through the
-   plain f64 ``sgp4_propagate``, the f64 ``propagate`` of the mixed
-   catalog (planes, time-major, ``scan_times=True``), and the peak
-   device memory of each; the f64 kernel alone in turns with its plain
-   versions: DENSE on the mixed catalog x 1,440 and SCAN on its first
-   240 rows (the kernel alone also on all 1,440), with their bounds, and
-   DENSE on the +-7-day catalog x 1,440; K5's and K6's registers, spills,
+   (K5 through ``propagate_fast_fused`` on elements already staged; K6
+   as ``propagate_fast_grids`` runs it; both in their one time-major
+   store), the whole ``propagate_fast_grids`` call a chunk, the whole
+   1year_1s sweep through K5, through the f64 kernel (DENSE, SGP4) and
+   through the plain f64 ``sgp4_propagate``, the f64 ``propagate`` of
+   the mixed catalog (planes, time-major, ``scan_times=True``), and the
+   peak device memory of each; the f64 kernel alone in turns with its
+   plain versions: DENSE on the mixed catalog x 1,440 and the scan
+   (DENSE on the jd and fr rows) on its first 240 epochs, with their
+   bounds, and DENSE on the +-7-day catalog x 1,440; ``scan_times=True``
+   on the mixed catalog x 1,440 against the route it replaced (torch's
+   (T, S) tsince grid, then DENSE on it), time and peak memory, bit for
+   bit; K5's and K6's registers, spills,
    grid and issue estimate as K2's, and the f64 kernel's row walk's
    (SDP4 on the mixed catalog, SGP4 on the 1year_1s chunk) with its
    f64-pipe estimate; and, under
@@ -305,7 +309,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (K1-K6, the spine kernel, the f64
-kernel's three modes, the epilogue kernel in f32 and f64, TABLES and the
+kernel's two modes and the scan on DENSE, the epilogue kernel in f32 and
+f64, TABLES and the
 integrator kernel's four, with each one's bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type; ``ms`` is the kernel launched back to back through
@@ -563,9 +568,9 @@ def count_ops(fn, by_op=None):
 def f64_ops(plain_deep, tsince, fields, flags, grav):
     """``count_ops`` of the f64 kernel's work on a mixed catalog: the
     plain SGP4 path on its near-earth lanes and ``plain_deep(tsince,
-    fields, flags, grav=)`` (the SDP4 DENSE or SCAN version) on its deep
-    lanes. The plain SDP4 functions run the deep-space terms on every lane
-    and blend; the kernel runs them on the deep lanes alone. What is left
+    fields, flags, grav=)`` (the SDP4 DENSE version or the scan) on its
+    deep lanes. The plain SDP4 functions run the deep-space terms on every
+    lane and blend; the kernel runs them on the deep lanes alone. What is left
     over-counted (both resonance branches, derivatives at non-resonant
     deep lanes) matters only where the operations outweigh the bytes."""
     from astroz_tpu_torch.ops import cuda_sgp4
@@ -585,6 +590,15 @@ def f64_ops(plain_deep, tsince, fields, flags, grav):
             flags[:, deep].contiguous(), grav=grav))
         ops = [x + y for x, y in zip(ops, b)]
     return tuple(ops)
+
+
+def _plain_scan(tsince, fields, flags, *, grav):
+    """``sdp4_propagate_scan`` of staged elements on a tsince grid, as
+    :func:`f64_ops` counts it."""
+    from astroz_tpu_torch.ops import cuda_sgp4, sdp4_propagate_scan
+
+    els, deep = cuda_sgp4.f64_unstage(fields, flags)
+    return sdp4_propagate_scan(els, deep, tsince, grav)
 
 
 def nbytes(*tensors):
@@ -935,8 +949,10 @@ def phase2b_deep_and_merge(headline_cat):
 
 def _dense_vs_twin(els, tsince, grav, label, codes=None):
     """K5, the spine kernel and K6 vs their plain versions at one shape,
-    both Newton rungs, with and without velocities, bit for bit; K6 on
-    the spine kernel's grids must equal K5 bit for bit, in both stores.
+    both Newton rungs, with and without velocities, bit for bit, in the
+    time-major store both write; K6 on the spine kernel's grids must
+    equal K5 bit for bit, and the element-level calls
+    (``propagate_fast_fused``, ``propagate_fast_grids``) the staged ones.
     Returns the largest K5 and K6 position and velocity differences and
     the spine kernel's largest difference."""
     from astroz_tpu_torch.ops import cuda_sgp4
@@ -967,30 +983,18 @@ def _dense_vs_twin(els, tsince, grav, label, codes=None):
                                                   want_vel=False)
         gr = cuda_sgp4.propagate_fast_spine_grids_reference(grids, tail,
                                                             flags, **kw)
-        # K5's and K6's own time-major stores against the layout of the
-        # plain planes
+        # the element-level calls, K5's and K6's staged elements
         tm = cuda_sgp4.propagate_fast_fused(els, tsince, grav,
                                             kepler_iters=iters)
-        tm0 = cuda_sgp4.propagate_fast_fused(els, tsince, grav,
-                                             kepler_iters=iters,
-                                             want_vel=False)
-        gtm = cuda_sgp4._grids_tail(grids, tail, flags, grav, iters, True,
-                                    time_major=True)
-        gtm0 = cuda_sgp4._grids_tail(grids, tail, flags, grav, iters, False,
-                                     time_major=True)
         path = cuda_sgp4.propagate_fast_grids(els, tsince, grav,
                                               kepler_iters=iters)
         sync()
-        layout, layout0 = (cuda_sgp4._time_major(rr, vr, er),
-                           cuda_sgp4._time_major(rr, None, er))
-        for name, out, out0 in (("K5", tm, tm0), ("K6", gtm, gtm0)):
-            check(all(a is b is None or torch.equal(a, b)
-                      for a, b in zip(out, layout))
-                  and all(a is b is None or torch.equal(a, b)
-                          for a, b in zip(out0, layout0))
-                  and out[0].is_contiguous() and out[1].is_contiguous(),
-                  f"{name} {label} iters={iters}: its time-major output is "
-                  "not the (T, S, 3) layout of the plain planes")
+        check(all(torch.equal(a, b) for a, b in zip(tm, (r, v, e)))
+              and r.is_contiguous() and v.is_contiguous()
+              and r.shape == e.shape + (3,),
+              f"K5 {label} iters={iters}: propagate_fast_fused differs "
+              "from propagate_fast_dense, or its rows are not a contiguous "
+              "(T, S, 3)")
         check(all(torch.equal(a, b) for a, b in zip(path, tm)),
               f"{label} iters={iters}: propagate_fast_grids differs from "
               "propagate_fast_fused")
@@ -1007,9 +1011,9 @@ def _dense_vs_twin(els, tsince, grav, label, codes=None):
               f"max|dv| {dv:.3e} km/s; K6 max|dr| {gdr:.3e} km, max|dv| "
               f"{gdv:.3e} km/s; error codes {codes_seen}; K6 bit-equal to "
               f"K5: {same}; r bit-equal without v: K5 {torch.equal(r, r0)}, "
-              f"K6 {torch.equal(g[0], g0[0])}; K5's and K6's time-major "
-              "stores bit-equal to the planes' layout, propagate_fast_grids "
-              "to propagate_fast_fused: True")
+              f"K6 {torch.equal(g[0], g0[0])}; propagate_fast_fused "
+              "bit-equal to K5, propagate_fast_grids to propagate_fast_fused: "
+              "True")
         check(torch.equal(r, rr) and torch.equal(v, vr),
               f"K5 {label}: not bit-equal to the plain version (|dr| {dr} "
               f"km, |dv| {dv} km/s)")
@@ -1069,7 +1073,9 @@ def phase2c_dense_vs_twin():
     k5 = cuda_sgp4.propagate_fast_dense(tsince, st.spine, st.tail, st.flags,
                                         **kw)
     sync()
-    same = all(torch.equal(a, b) for a, b in zip(k1, k5))
+    same = (torch.equal(k5[0], k1[0].permute(1, 2, 0))
+            and torch.equal(k5[1], k1[1].permute(1, 2, 0))
+            and torch.equal(k5[2], k1[2]))
     print(f"# phase 2c: K5 on t_time - t_sat bit-equal to K1 ({n} sats x "
           f"37 times, {small.kepler_iters} trips): {same}")
     check(same, "K5 on a separable grid differs from K1")
@@ -1176,7 +1182,7 @@ def f64_walk_ptxas():
 
 
 def phase2d_f64_vs_plain(headline_cat, spread_cat):
-    """The f64 kernel's three modes against their plain versions on the
+    """The f64 kernel's two modes against their plain versions on the
     card, bit for bit (r, v and codes; positions and codes with and
     without velocities): DENSE in SDP4 mode on a small ragged mixed
     catalog (spread epochs, failing and decaying lanes, Lyddane lanes,
@@ -1186,15 +1192,16 @@ def phase2d_f64_vs_plain(headline_cat, spread_cat):
     headline generator's catalog with epochs spread over +-SPREAD_DAYS
     (``spread_cat``); DENSE in SGP4 mode on a near-earth catalog, on the
     ISS fold and on one 1year_1s chunk; ESCAPE on the headline catalog's
-    escape lanes inside a real K2 call; SCAN over 240 rows across epoch
-    (+-3 days) sorted forward and backward, on the headline mixed catalog
-    and the small one, and on the headline equal to DENSE on the same
-    tsince, bit for bit; DENSE on the jd and fr rows against the plain
-    functions on torch's grid of the rows, on the headline and spread
+    escape lanes inside a real K2 call; ``propagate(scan_times=True)``
+    over 240 epochs across epoch (+-3 days) sorted forward and backward,
+    on the headline mixed catalog and the small one, against the plain
+    scan and ``propagate(scan_times=False)``, bit for bit, one launch of
+    DENSE on the rows a call; DENSE on the jd and fr rows against the
+    plain functions on torch's grid of the rows, on the headline and spread
     catalogs x a day, the small and near-earth ones x 37 epochs and x 1.
     Prints the row walk's ptxas report first. Returns the largest
     position difference of each mode."""
-    from astroz_tpu_torch import build_catalog
+    from astroz_tpu_torch import build_catalog, propagate
     from astroz_tpu_torch.ops import cuda_sgp4
     from astroz_tpu_torch.ops.cuda_sgp4 import f64_staging
     from astroz_tpu_torch.tle import format_lines
@@ -1314,40 +1321,39 @@ def phase2d_f64_vs_plain(headline_cat, spread_cat):
             f"the small catalog's {len(small.heo_escape.idx)} escape lanes "
             "x 37")[0])
 
-    rows = torch.linspace(-4320.0, 4320.0, SCREEN_TIMES, dtype=torch.float64,
-                          device=DEVICE)[:, None]
+    # propagate(scan_times=True): DENSE on the jd and fr rows, one launch
+    # a call, against the plain scan on torch's grid of the same rows and
+    # against propagate(scan_times=False)
+    days = np.linspace(-3.0, 3.0, SCREEN_TIMES)
     for cat, name in ((headline_cat, f"{N_SATS} headline sats"),
                       (small, f"{n} small-catalog sats")):
-        # each lane's own epoch: the columns of a (T, S) grid sorted alike
-        offset = torch.as_tensor(
-            (cat.epoch_min_jd - cat.epochs_jd) * 1440.0, device=DEVICE)
         for order in ("forward", "backward"):
-            t = rows + offset[None, :]
-            if order == "backward":
-                t = t.flip(0)
-            t = t.contiguous()
-            before = launches()["sgp4_f64_scan"]
+            d = days if order == "forward" else days[::-1].copy()
+            jd_h, fr_h = EPOCH_JD + np.floor(d), d - np.floor(d)
+            jd, fr = (torch.as_tensor(a, device=DEVICE) for a in (jd_h, fr_h))
+            before = launches()
             dr, _ = _f64_vs_plain(
-                f"SCAN, {name} x {SCREEN_TIMES} rows {order}",
-                lambda want_vel: cuda_sgp4.sgp4_f64_scan(
-                    t, *cat.f64_staging, grav=cat.grav, want_vel=want_vel),
+                f"propagate(scan_times=True), {name} x {SCREEN_TIMES} epochs "
+                f"{order}",
+                lambda want_vel: propagate(cat, jd_h, fr_h, method="f64",
+                                           scan_times=True,
+                                           velocities=want_vel),
                 lambda: cuda_sgp4.sgp4_f64_scan_reference(
-                    t, *cat.f64_staging, grav=cat.grav))
-            check(launches()["sgp4_f64_scan"] == before + 2,
-                  f"SCAN {name}: not one launch a call")
+                    jd, fr, *cat.f64_staging, grav=cat.grav))
+            after = launches()
+            check(all(after[k] == before[k] + 2 for k in (
+                "sgp4_f64_dense", "sgp4_f64_dense_epochs")),
+                  f"scan_times=True, {name}: not one launch of DENSE on the "
+                  "rows a call")
             worst["scan"] = max(worst["scan"], dr)
-            if cat is headline_cat:
-                # one row walk: SCAN's rows are DENSE's on the same tsince
-                scan = cuda_sgp4.sgp4_f64_scan(t, *cat.f64_staging,
-                                               grav=cat.grav)
-                dense = cuda_sgp4.sgp4_f64_dense(t, *cat.f64_staging,
-                                                 grav=cat.grav, sdp4=True)
-                same = all(_same_or_both_nan(a, b)
-                           for a, b in zip(scan[:2], dense[:2]))
-                print(f"# phase 2d: SCAN equals DENSE on the same tsince "
-                      f"({name} x {SCREEN_TIMES} rows {order}): {same}")
-                check(same and torch.equal(scan[2], dense[2]),
-                      f"SCAN differs from DENSE on {name} {order}")
+            scan = propagate(cat, jd_h, fr_h, method="f64", scan_times=True)
+            dense = propagate(cat, jd_h, fr_h, method="f64")
+            same = all(_same_or_both_nan(a, b)
+                       for a, b in zip(scan[:2], dense[:2]))
+            print(f"# phase 2d: scan_times=True equals scan_times=False "
+                  f"({name} x {SCREEN_TIMES} epochs {order}): {same}")
+            check(same and torch.equal(scan[2], dense[2]),
+                  f"scan_times=True differs from DENSE on {name} {order}")
     return worst
 
 
@@ -1907,9 +1913,9 @@ def _fast_vs_f64_gates(cat, lane_worst, label, share):
 def phase3d_f64_path(mcon):
     """The f64 main path; returns the milliseconds of its scan_times call
     (host clock around synchronized work), that call's peak device memory
-    in bytes and the launches of the three propagate calls by kernel."""
+    in bytes, its launches of the f64 kernel and the launches of the
+    three propagate calls by kernel."""
     from astroz_tpu_torch import propagate, propagate_tsince
-    from astroz_tpu_torch.constants import MINUTES_PER_DAY
     from astroz_tpu_torch.ops import cuda_sgp4, sdp4_propagate
 
     cat = mcon.catalog
@@ -1940,12 +1946,13 @@ def phase3d_f64_path(mcon):
                      "finalize_f64": 1},
                     {"sgp4_f64_dense": 2, "sgp4_f64_dense_epochs": 2,
                      "finalize_f64": 1},
-                    {"sgp4_f64_dense": 2, "sgp4_f64_dense_epochs": 2,
-                     "sgp4_f64_scan": 1, "finalize_f64": 2}],
+                    {"sgp4_f64_dense": 3, "sgp4_f64_dense_epochs": 3,
+                     "finalize_f64": 2}],
           "each f64 propagate call must launch the f64 kernel once (DENSE "
-          "on the jd and fr rows, or SCAN with scan_times=True), the "
-          "epilogue kernel once for planes (never for TEME time-major) and "
-          "nothing else")
+          "on the jd and fr rows, with scan_times=True too), the epilogue "
+          "kernel once for planes (never for TEME time-major) and nothing "
+          "else")
+    scan_launches = calls[2]["sgp4_f64_dense"] - calls[1]["sgp4_f64_dense"]
     outs = (r_p, v_p, r_t, v_t, r_s, v_s)
     check(all(x.device.type == DEVICE and x.dtype == torch.float64
               and torch.isfinite(x).all().item() for x in outs),
@@ -1960,15 +1967,14 @@ def phase3d_f64_path(mcon):
     dv_scan = _max_diff(v_s, v_p)
     print(f"# phase 3d: scan vs dense max|dr| {d_scan:.3e} km, max|dv| "
           f"{dv_scan:.3e} km/s")
-    check(d_scan <= 1e-6 and dv_scan <= 1e-9, "scan differs from dense")
-    # the scan call's output against the plain scan on the tsince that
-    # _propagate_f64 forms from the same jd (fr 0), bit for bit
+    check(_same_or_both_nan(r_s, r_p) and _same_or_both_nan(v_s, v_p),
+          "scan differs from dense")
+    # the scan call's output against the plain scan on the tsince grid
+    # of the same jd (fr 0), bit for bit
     jd = torch.as_tensor(EPOCH_JD + times / 1440.0, device=DEVICE)
-    tsince = ((jd[:, None] - cat.els.epoch_jd[None, :])
-              + torch.zeros_like(jd)[:, None]) * MINUTES_PER_DAY
     t0 = time.perf_counter()
     r_q, v_q, e_q = cuda_sgp4.sgp4_f64_scan_reference(
-        tsince, *cat.f64_staging, grav=cat.grav)
+        jd, torch.zeros_like(jd), *cat.f64_staging, grav=cat.grav)
     sync()
     plain_s = time.perf_counter() - t0
     r_q, v_q = r_q.permute(2, 0, 1), v_q.permute(2, 0, 1)
@@ -2008,7 +2014,7 @@ def phase3d_f64_path(mcon):
           "propagate_tsince differs from sdp4_propagate")
     print("# phase 3d: propagate_tsince on a (16, 1) grid (one launch of the "
           "f64 kernel) equals sdp4_propagate bit for bit")
-    return scan_ms, scan_peak, n
+    return scan_ms, scan_peak, scan_launches, n
 
 
 def _cuda_ms(fn, reps, warm=True):
@@ -2952,7 +2958,7 @@ def _device_work(*fns):
 
 
 def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
-    from astroz_tpu_torch import build_catalog
+    from astroz_tpu_torch import build_catalog, propagate
     from astroz_tpu_torch.ops import cuda_sgp4, sgp4_propagate
     from astroz_tpu_torch.ops.cuda_sgp4 import f64_staging
     from astroz_tpu_torch.ops.fast import shallow_staging
@@ -2963,19 +2969,14 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
     t = next(single_sat_chunks(n_year, step_year))
     staged = shallow_staging(els)
     kw = dict(grav=cat.grav, kepler_iters=5)
-    # the main path's K5: the elements staged by the first call, then the
-    # time-major store
+    # the main path's K5: the elements staged by the first call, then
+    # K5's time-major store
     k5 = _in_turns(
         lambda: cuda_sgp4.propagate_fast_fused(els, t, **kw),
         lambda: cuda_sgp4.propagate_fast_fused_reference(els, t, **kw),
         50, 3)
-    k5_planes = _in_turns(
-        lambda: cuda_sgp4.propagate_fast_dense(t, *staged, **kw),
-        lambda: cuda_sgp4.propagate_fast_dense_reference(t, *staged, **kw),
-        50, 3)
 
-    # the spine kernel, then K6 in the time-major store of the main path
-    # and in the planes, then the two through propagate_fast_grids
+    # the spine kernel, then K6, then the two through propagate_fast_grids
     spine = _in_turns(
         lambda: cuda_sgp4.spine_f64_grids(t, staged[0]),
         lambda: cuda_sgp4.spine_f64_grids_reference(t, staged[0]), 50, 3)
@@ -2986,10 +2987,6 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
             grids, tail, flags, **kw)
 
     k6 = _in_turns(
-        lambda: cuda_sgp4._grids_tail(grids, tail, flags, cat.grav, 5, True,
-                                      time_major=True),
-        lambda: cuda_sgp4._time_major(*k6_plain()), 50, 3)
-    k6_planes = _in_turns(
         lambda: cuda_sgp4.propagate_fast_spine_grids(grids, tail, flags,
                                                      **kw), k6_plain, 50, 3)
     grids_path = _in_turns(
@@ -3039,9 +3036,9 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
     f64_tm = _cuda_ms(lambda: mcon.propagate(times, **f64_kw), 10)
     # the f64 kernel alone at the main path's shapes, in turns with its
     # plain versions: DENSE over the mixed catalog x N_TIMES (minutes since
-    # each epoch, as _propagate_f64 forms them); SCAN over its first
-    # SCREEN_TIMES rows (the plain scan takes seconds at N_TIMES rows) and,
-    # kernel alone, over all N_TIMES
+    # each epoch, as _propagate_f64 forms them); the scan (DENSE on the jd
+    # and fr rows) over the first SCREEN_TIMES epochs (the plain scan takes
+    # seconds at N_TIMES rows)
     mcat = mcon.catalog
     mst = mcat.f64_staging
     tsince = _headline_tsince(mcat)
@@ -3050,13 +3047,37 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
         lambda: cuda_sgp4.sgp4_f64_dense(tsince, *mst, **dkw),
         lambda: cuda_sgp4.sgp4_f64_dense_reference(tsince, *mst, **dkw),
         10, 1)
+    jd_day = torch.as_tensor(EPOCH_JD + times / 1440.0, device=DEVICE)
+    fr_day = torch.zeros_like(jd_day)
+    jd_s, fr_s = jd_day[:SCREEN_TIMES], fr_day[:SCREEN_TIMES]
     t_scan = tsince[:SCREEN_TIMES].contiguous()
     f64_scan = _in_turns(
-        lambda: cuda_sgp4.sgp4_f64_scan(t_scan, *mst, grav=mcat.grav),
-        lambda: cuda_sgp4.sgp4_f64_scan_reference(t_scan, *mst,
+        lambda: cuda_sgp4.sgp4_f64_scan(jd_s, fr_s, *mst, grav=mcat.grav),
+        lambda: cuda_sgp4.sgp4_f64_scan_reference(jd_s, fr_s, *mst,
                                                   grav=mcat.grav), 10, 1)
-    scan_full = _cuda_ms(lambda: cuda_sgp4.sgp4_f64_scan(
-        tsince, *mst, grav=mcat.grav), 5)
+    # scan_times=True over all N_TIMES epochs against the route it replaced:
+    # torch's (T, S) tsince grid of the rows, then the same row walk on it
+    jd_h = EPOCH_JD + times / 1440.0
+
+    def scan_rows():
+        return propagate(mcat, jd_h, method="f64", scan_times=True)
+
+    def scan_grid():
+        jd = torch.as_tensor(jd_h, device=DEVICE)
+        return cuda_sgp4.sgp4_f64_dense(
+            cuda_sgp4.epoch_tsince(jd, torch.zeros_like(jd),
+                                   mcat.els.epoch_jd), *mst, **dkw)
+
+    a, b = scan_rows(), scan_grid()
+    sync()
+    check(all(_same_or_both_nan(x, y) for x, y in zip(a[:2], b[:2]))
+          and torch.equal(a[2], b[2]),
+          "scan_times=True differs from DENSE on torch's grid of its rows")
+    del a, b
+    rows_ms, grid_ms = _cuda_ms(scan_rows, 5), _cuda_ms(scan_grid, 5)
+    rows_ms = (rows_ms + _cuda_ms(scan_rows, 5)) / 2
+    grid_ms = (grid_ms + _cuda_ms(scan_grid, 5)) / 2
+    rows_peak, grid_peak = _peak(scan_rows), _peak(scan_grid)
     # DENSE where the epochs spread over +-SPREAD_DAYS: the resonance the
     # walk carries along a thread's rows would otherwise step from epoch
     s_st = spread_cat.f64_staging
@@ -3070,8 +3091,7 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
     dense_ops = f64_ops(functools.partial(
         cuda_sgp4.sgp4_f64_dense_reference, sdp4=True), tsince, *mst,
         mcat.grav)
-    scan_ops = f64_ops(cuda_sgp4.sgp4_f64_scan_reference, t_scan, *mst,
-                       mcat.grav)
+    scan_ops = f64_ops(_plain_scan, t_scan, *mst, mcat.grav)
     year_ops = count_ops(lambda: cuda_sgp4.sgp4_f64_dense_reference(
         t, *iss_f64, grav=cat.grav, sdp4=False))
     # r, v (T, S, 3) f64 and the i32 code a point
@@ -3087,13 +3107,9 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
     print(f"# phase 4c [{smi}]: time-major, propagate_fast_fused: "
           f"{k5.text('K5')} ({tuple(t.shape)}, "
           f"{props / k5.ms / 1e6:.3f} G props/s)")
-    print(f"# phase 4c [{smi}]: planes, propagate_fast_dense: "
-          f"{k5_planes.text('K5')}")
     print(f"# phase 4c [{smi}]: {spine.text('spine')}")
     print(f"# phase 4c [{smi}]: time-major, as propagate_fast_grids runs "
           f"it: {k6.text('K6')}")
-    print(f"# phase 4c [{smi}]: planes, propagate_fast_spine_grids: "
-          f"{k6_planes.text('K6')}")
     print(f"# phase 4c [{smi}]: the whole propagate_fast_grids call (spine "
           f"kernel + K6 into (T, S, 3)): {grids_path.text('path')} "
           f"({props / grids_path.ms / 1e6:.3f} G props/s)")
@@ -3121,11 +3137,15 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
           f"replayed); bound {dense_bound[0]:.4f} ms by {dense_bound[1]} "
           f"({dense_ops[1] / tsince.numel():.1f} f64 operations a point), "
           f"{f64_dense.device_ms / dense_bound[0]:.2f}x the bound")
-    print(f"# phase 4c [{smi}]: f64 SCAN of the mixed catalog x "
-          f"{SCREEN_TIMES} rows: {f64_scan.text('f64 SCAN')}; bound "
-          f"{scan_bound[0]:.4f} ms by {scan_bound[1]} "
-          f"({scan_ops[1] / t_scan.numel():.1f} f64 operations a point); "
-          f"the kernel alone x {N_TIMES} rows {scan_full:.3f} ms")
+    print(f"# phase 4c [{smi}]: the scan (DENSE on the jd and fr rows) of "
+          f"the mixed catalog x {SCREEN_TIMES} epochs: "
+          f"{f64_scan.text('f64 scan')}; bound {scan_bound[0]:.4f} ms by "
+          f"{scan_bound[1]} ({scan_ops[1] / t_scan.numel():.1f} f64 "
+          f"operations a point)")
+    print(f"# phase 4c [{smi}]: scan_times=True x {N_TIMES} epochs, back to "
+          f"back: {rows_ms:.4f} ms, peak {rows_peak:.4f} GiB; the grid route "
+          f"it replaced (torch's tsince grid, then DENSE on it) "
+          f"{grid_ms:.4f} ms, peak {grid_peak:.4f} GiB; bit-equal")
     print(f"# phase 4c [{smi}]: f64 DENSE (SDP4) of the headline generator's "
           f"catalog with epochs spread over +-{SPREAD_DAYS:g} days x "
           f"{N_TIMES}: {f64_spread.text('f64 DENSE')}, "
@@ -5331,7 +5351,7 @@ def main():
     con, k1_launches = phase3_main_path(text)
     mcon, mixed_launches = phase3b_mixed_path(mixed_text)
     dense_launches = phase3c_single_sat()
-    scan_ms, scan_peak, f64_launches = phase3d_f64_path(mcon)
+    scan_ms, scan_peak, scan_launches, f64_launches = phase3d_f64_path(mcon)
     k1 = phase4_timings(con, smi)
     k2, k3, f64_escape, tables = phase4b_mixed_timings(mcon, smi)
     fin32, fin64 = phase4d_epilogue_timings(con, mcon, smi)
@@ -5415,10 +5435,11 @@ def main():
               "astroz_tpu/propagation.py:918",
               mixed_launches["sgp4_f64_escape"], f64_err["escape"],
               f64_escape),
-        entry("sgp4_f64_scan (the f64 kernel, SCAN: scan_times=True)",
+        entry("sgp4_f64_scan (scan_times=True: the f64 kernel's DENSE "
+              "launch on the jd and fr rows)",
               "astroz_tpu_torch/csrc/sgp4_f64.cu",
-              "astroz_tpu/ops/sdp4.py:841",
-              f64_launches["sgp4_f64_scan"], f64_err["scan"], f64_scan),
+              "astroz_tpu/ops/sdp4.py:841", scan_launches, f64_err["scan"],
+              f64_scan),
         # not TPU kernels: the epilogue XLA fuses into the jitted sweeps,
         # and the resonance tables' lax.scan; launches of the main path's
         # calls (phases 3 and 3b: the f32 epilogue for ECEF planes and

@@ -28,11 +28,11 @@ of the variants reversed on every other round:
 * K3 (``propagate_fast_sep_merge``): ``chip_smoke.mixed_catalog_text`` x
   1,440, on the default build's K2 planes;
 * K5 and K6: one (4,096, 1,024) chunk of bench_single_sat's 1year_1s
-  grid (the ISS x 1,024 lanes, 5 trips), into the (3, T, S) planes;
-  ``K5tm``: the same through ``propagate_fast_fused`` (time-major, the
-  elements staged); ``K6tm``: K6 into the time-major layout, as
-  ``propagate_fast_grids`` runs it (a tree without K6's time-major store:
-  K6's planes and their relayout); ``spine``: the f64 spine's six grids
+  grid (the ISS x 1,024 lanes, 5 trips), into their time-major (T, S, 3)
+  store (in a tree whose K5 and K6 also write (3, T, S) planes, their
+  time-major branch); ``K5tm``: the same through
+  ``propagate_fast_fused`` (the elements staged); ``K6tm``: K6 again,
+  as ``propagate_fast_grids`` runs it; ``spine``: the f64 spine's six grids
   of the chunk (``spine_grids``: the spine kernel, or a tree's torch
   spine); ``grids``: the whole ``propagate_fast_grids`` call, replayed,
   and ``grids_b2b`` launched back to back; ``sweep``: the whole 1year_1s
@@ -46,7 +46,9 @@ of the variants reversed on every other round:
   1,440 minutes since each epoch (as ``propagate(method="f64")`` forms
   them); ``f64s``, the same on ``chip_smoke.mixed_catalog_text(...,
   epoch_spread_days=7.0)``, epochs spread over +-7 days; ``f64scan``,
-  SCAN on the mixed catalog's first 240 rows; ``f64year``, the whole
+  the scan on the mixed catalog's first 240 epochs (``sgp4_f64_scan`` on
+  the jd and fr rows, DENSE's launch; in a tree with a SCAN entry, that
+  entry on the tsince grid); ``f64year``, the whole
   1year_1s grid (8 chunks) through DENSE in SGP4 mode, back to back;
   ``f64day``, the f64 kernel's part of ``propagate(method="f64")`` on
   the mixed catalog x a day of 1,440 epochs (the day in jd, the minutes
@@ -228,7 +230,8 @@ K6_SHARED = [
 
 # the end of the dense kernel: its walk, after the fields and the run
 _DENSE_WALK_END = """\
-        store_point<WANT_VEL>(o, idx, plane, a.r, a.v, a.err);
+      store_point_time_major<WANT_VEL>(o, (size_t)t_row * ns + t_sat, a.r,
+                                       a.v, a.err);
     }
   }
 }
@@ -312,11 +315,8 @@ def _k6_ring(stages):
       if (t_sat < n_sats) {{
         const PosVel o = shallow_tail<WANT_VEL, ITERS>(
             g, tf, not_simp, error0, a.j2, a.re, a.vkmpersec);
-        const size_t idx = (size_t)t_row * ns + t_sat;
-        if (a.time_major)
-          store_point_time_major<WANT_VEL>(o, idx, a.r, a.v, a.err);
-        else
-          store_point<WANT_VEL>(o, idx, plane, a.r, a.v, a.err);
+        store_point_time_major<WANT_VEL>(o, (size_t)t_row * ns + t_sat,
+                                         a.r, a.v, a.err);
       }}
     }}
   }} else {{
@@ -347,7 +347,6 @@ sgp4_dense_kernel(const DenseArgs a) {
     __shared__ float pair_rows[N_TAIL][2 * BLOCK];
     const int n_times = a.n_times, n_pairs = a.n_sats / 2;
     const size_t ns = (size_t)a.n_sats, np = (size_t)n_pairs;
-    const size_t plane = (size_t)n_times * ns;
     const WarpRun run =
         warp_run((long long)((n_pairs + WARP - 1) / WARP) * n_times);
     if (run.count == 0) return;
@@ -411,26 +410,15 @@ sgp4_dense_kernel(const DenseArgs a) {
               a.j2, a.re, a.vkmpersec);
         }
         const size_t idx = (size_t)t_row * ns + 2 * (size_t)t_pair;
-        if (a.time_major) {
-          float2* rp = reinterpret_cast<float2*>(a.r + 3 * idx);
-          rp[0] = make_float2(o[0].r[0], o[0].r[1]);
-          rp[1] = make_float2(o[0].r[2], o[1].r[0]);
-          rp[2] = make_float2(o[1].r[1], o[1].r[2]);
-          if (WANT_VEL) {
-            float2* vp = reinterpret_cast<float2*>(a.v + 3 * idx);
-            vp[0] = make_float2(o[0].v[0], o[0].v[1]);
-            vp[1] = make_float2(o[0].v[2], o[1].v[0]);
-            vp[2] = make_float2(o[1].v[1], o[1].v[2]);
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            *reinterpret_cast<float2*>(a.r + c * plane + idx) =
-                make_float2(o[0].r[c], o[1].r[c]);
-            if (WANT_VEL)
-              *reinterpret_cast<float2*>(a.v + c * plane + idx) =
-                  make_float2(o[0].v[c], o[1].v[c]);
-          }
+        float2* rp = reinterpret_cast<float2*>(a.r + 3 * idx);
+        rp[0] = make_float2(o[0].r[0], o[0].r[1]);
+        rp[1] = make_float2(o[0].r[2], o[1].r[0]);
+        rp[2] = make_float2(o[1].r[1], o[1].r[2]);
+        if (WANT_VEL) {
+          float2* vp = reinterpret_cast<float2*>(a.v + 3 * idx);
+          vp[0] = make_float2(o[0].v[0], o[0].v[1]);
+          vp[1] = make_float2(o[0].v[2], o[1].v[0]);
+          vp[2] = make_float2(o[1].v[1], o[1].v[2]);
         }
         *reinterpret_cast<int2*>(a.err + idx) =
             make_int2(o[0].error, o[1].error);
@@ -754,6 +742,9 @@ def inputs(chip_smoke, default_ops):
     f64 = dict(mixed=mixed, spread=spread, t_head=t_head,
                t_spread=tsince(spread),
                t_scan=t_head[:chip_smoke.SCREEN_TIMES].contiguous(),
+               jd_scan=jd[:chip_smoke.SCREEN_TIMES],
+               fr_scan=torch.zeros(chip_smoke.SCREEN_TIMES,
+                                   dtype=torch.float64, device="cuda"),
                jd=torch.full_like(fr, chip_smoke.EPOCH_JD + 1.0), fr=fr)
     return dict(
         f64=f64,
@@ -790,21 +781,33 @@ def workloads(ops, x):
     grids, tail, flags = x["grids"]
     kw = x["dense_kw"]
     if hasattr(ops, "_grids_tail"):
-        def k6_time_major():
+        # a tree whose K5 and K6 also write planes: their time-major store
+        def k5():
+            return ops._dense(x["chunk"], *x["staged"], kw["grav"],
+                              kw["kepler_iters"], True, time_major=True)
+
+        def k6():
             return ops._grids_tail(grids, tail, flags, kw["grav"],
                                    kw["kepler_iters"], True,
                                    time_major=True)
-    else:  # a tree whose K6 writes planes only
-        def k6_time_major():
-            return ops._time_major(*ops.propagate_fast_spine_grids(
-                grids, tail, flags, **kw))
+    else:
+        def k5():
+            return ops.propagate_fast_dense(x["chunk"], *x["staged"], **kw)
+
+        def k6():
+            return ops.propagate_fast_spine_grids(grids, tail, flags, **kw)
+    if "jd" in inspect.signature(ops.sgp4_f64_scan).parameters:
+        def f64scan():
+            return ops.sgp4_f64_scan(f["jd_scan"], f["fr_scan"], *m_st,
+                                     grav=grav)
+    else:  # a tree whose scan reads a tsince grid
+        def f64scan():
+            return ops.sgp4_f64_scan(f["t_scan"], *m_st, grav=grav)
     return {
         "K1": lambda: ops.propagate_fast_sep(*x["k1"][0], **x["k1"][1]),
         "K3": lambda: ops.propagate_fast_sep_merge(*x["k3"][0], **k3_kw),
-        "K5": lambda: ops.propagate_fast_dense(x["chunk"], *x["staged"],
-                                               **x["dense_kw"]),
-        "K6": lambda: ops.propagate_fast_spine_grids(grids, tail, flags,
-                                                     **x["dense_kw"]),
+        "K5": k5,
+        "K6": k6,
         "K2": lambda: ops.propagate_deep_sep(*x["k2"][0], **x["k2"][1]),
         "K5tm": lambda: ops.propagate_fast_fused(x["els"], x["chunk"],
                                                  **x["dense_kw"]),
@@ -812,7 +815,7 @@ def workloads(ops, x):
                                                    **x["dense_kw"])
                           for c in x["chunks"]][-1],
         "K2c": lambda: ops.propagate_deep_sep(*x["k2c"], **x["k2"][1]),
-        "K6tm": k6_time_major,
+        "K6tm": k6,
         "spine": lambda: tuple(ops.spine_grids(x["els"], x["chunk"])[0]),
         "grids": lambda: ops.propagate_fast_grids(x["els"], x["chunk"], **kw),
         "grids_b2b": lambda: ops.propagate_fast_grids(x["els"], x["chunk"],
@@ -821,7 +824,7 @@ def workloads(ops, x):
                                           sdp4=True),
         "f64s": lambda: ops.sgp4_f64_dense(f["t_spread"], *s_st, grav=grav,
                                            sdp4=True),
-        "f64scan": lambda: ops.sgp4_f64_scan(f["t_scan"], *m_st, grav=grav),
+        "f64scan": f64scan,
         "f64year": lambda: [ops.sgp4_f64_dense(c, *y_st, grav=grav,
                                                sdp4=False)
                             for c in x["chunks"]][-1],

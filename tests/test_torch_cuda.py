@@ -1,11 +1,11 @@
 """Kernels K1 to K6 (K4 in its three modes), the spine kernel, the f64
-kernel (its DENSE, SCAN and ESCAPE modes), the epilogue kernel and TABLES
-on the card against their plain torch versions, a small all-vs-all
-screen on
-the card against the same call on the CPU, and the multi-device paths on
-a mesh of the card repeated against the single-device ones (marked
-``cuda``; skips where ``torch.cuda.is_available()`` is False); and, on
-the CPU, that no wrapper counts a launch there.
+kernel (its DENSE and ESCAPE modes, and the scan on DENSE), the epilogue
+kernel and TABLES on the card against their plain torch versions, a
+small all-vs-all screen on the card against the same call on the CPU,
+and the multi-device paths on a mesh of the card repeated against the
+single-device ones (marked ``cuda``; skips where
+``torch.cuda.is_available()`` is False); and, on the CPU, that no
+wrapper counts a launch there.
 
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -29,7 +29,7 @@ import torch
 
 from astroz_tpu_torch import build_catalog, propagate, screen_all
 from astroz_tpu_torch.ops import (cuda_finalize, cuda_screen, cuda_sgp4,
-                                  fast, propagate_fast)
+                                  fast, propagate_fast, sdp4_propagate_scan)
 from astroz_tpu_torch.screening import _positions_planes_f32
 from astroz_tpu_torch.tle import format_lines
 
@@ -375,23 +375,31 @@ def test_f64_sweep_is_one_kernel_on_cuda(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ["forward", "backward"])
 def test_f64_scan_matches_plain_on_cuda(cuda_device, order):
-    """The f64 kernel's SCAN mode against ``sdp4_propagate_scan`` on rows
-    sorted either way across epoch, bit for bit, with and without
-    velocities, one launch a call."""
+    """``propagate(scan_times=True)`` on the mixed catalog, its epochs
+    sorted either way across the lanes' epochs, against the plain
+    ``sdp4_propagate_scan`` run on the card on ``epoch_tsince``'s grid
+    and against ``propagate(scan_times=False)``: bit for bit, with and
+    without velocities; one launch of DENSE on the jd and fr rows a
+    call."""
     cat = _mixed_catalog(cuda_device)
-    t = torch.sort(_f64_grid(cat, cuda_device, "dense"), dim=0).values
+    x = np.linspace(-2.5, 3.0, 37)
     if order == "backward":
-        t = t.flip(0).contiguous()
-    st = cat.f64_staging
-    before = cuda_sgp4.LAUNCHES["sgp4_f64_scan"]
-    got = cuda_sgp4.sgp4_f64_scan(t, *st, grav=cat.grav)
-    r0, v0, e0 = cuda_sgp4.sgp4_f64_scan(t, *st, grav=cat.grav,
-                                         want_vel=False)
+        x = x[::-1].copy()
+    jd, fr = 2460310.5 + np.floor(x), x - np.floor(x)
+    before = dict(cuda_sgp4.LAUNCHES)
+    got = propagate(cat, jd, fr, scan_times=True)
+    r0, v0, e0 = propagate(cat, jd, fr, scan_times=True, velocities=False)
     torch.cuda.synchronize()
-    assert cuda_sgp4.LAUNCHES["sgp4_f64_scan"] == before + 2
-    ref = cuda_sgp4.sgp4_f64_scan_reference(t, *st, grav=cat.grav)
+    moved = {k: n - before[k] for k, n in cuda_sgp4.LAUNCHES.items()
+             if n != before[k]}
+    assert moved == {"sgp4_f64_dense": 2, "sgp4_f64_dense_epochs": 2}
+    t = cuda_sgp4.epoch_tsince(
+        *(torch.as_tensor(a, device=cuda_device) for a in (jd, fr)),
+        cat.els.epoch_jd)
+    ref = sdp4_propagate_scan(cat.els, cat.deep, t, cat.grav)
     assert _outputs_equal(got, ref) and v0 is None
     assert torch.equal(e0, ref[2]) and _same_or_both_nan(r0, ref[0])
+    assert _outputs_equal(got, propagate(cat, jd, fr))
 
 
 def _walk_grid(cat, device, case):
@@ -415,7 +423,11 @@ def test_f64_walk_runs_match_plain_on_cuda(cuda_device, case):
     """The f64 kernel's row walk on the mixed catalog where each warp takes
     several rows (runs that do not divide T and cross epoch mid-run, rows
     descending) and at T = 1: DENSE bit-equal to its plain version (r, v,
-    codes), and SCAN on the same tsince bit-equal to DENSE."""
+    codes) and, on the 1,000 rows across epoch in the middle, to the
+    plain scan (``sdp4_propagate_scan`` on the card) over them: a scan
+    started at any row equals the rest of the whole one
+    (``tests/test_torch_f64_kernel.py``), and DENSE gives the scan its
+    rows."""
     cat = _mixed_catalog(cuda_device)
     t = _walk_grid(cat, cuda_device, case)
     st = cat.f64_staging
@@ -423,12 +435,13 @@ def test_f64_walk_runs_match_plain_on_cuda(cuda_device, case):
     assert case == "one" or (
         -(-len(cat) // 32) * t.shape[0] > 4 * grid["blocks"])
     dense = cuda_sgp4.sgp4_f64_dense(t, *st, grav=cat.grav, sdp4=True)
-    scan = cuda_sgp4.sgp4_f64_scan(t, *st, grav=cat.grav)
     torch.cuda.synchronize()
     ref = cuda_sgp4.sgp4_f64_dense_reference(t, *st, grav=cat.grav,
                                              sdp4=True)
     assert _outputs_equal(dense, ref)
-    assert _outputs_equal(scan, dense)
+    mid = slice(max(t.shape[0] // 2 - 500, 0), t.shape[0] // 2 + 500)
+    scan = sdp4_propagate_scan(cat.els, cat.deep, t[mid], cat.grav)
+    assert _outputs_equal([x[mid] for x in dense], scan)
     assert (dense[2] == 0).any()
 
 
@@ -474,8 +487,8 @@ def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
     ``propagate(method="f64")`` with and without
     ``scan_times``, ``propagate_tsince`` and ``Satrec.sgp4_array``'s time
     as lanes launch the f64 kernel once each and never integrate the
-    resonance on the host; only ``propagate(method="f64")`` without
-    ``scan_times`` hands it the jd and fr rows
+    resonance on the host; ``propagate(method="f64")``, with and without
+    ``scan_times``, hands it the jd and fr rows
     (``"sgp4_f64_dense_epochs"``)."""
     from astroz_tpu_torch import api, propagate_tsince
     from astroz_tpu_torch.ops import sdp4
@@ -494,7 +507,7 @@ def test_f64_paths_launch_the_kernel_once_on_cuda(cuda_device, monkeypatch):
         "f64": (lambda: propagate(cat, jd),
                 {"sgp4_f64_dense": 1, "sgp4_f64_dense_epochs": 1}),
         "scan": (lambda: propagate(cat, jd, scan_times=True),
-                 {"sgp4_f64_scan": 1}),
+                 {"sgp4_f64_dense": 1, "sgp4_f64_dense_epochs": 1}),
         "tsince": (lambda: propagate_tsince(cat, torch.zeros(
             (3, 1), dtype=torch.float64, device=cuda_device)),
             {"sgp4_f64_dense": 1})}
@@ -904,8 +917,9 @@ def test_dense_kernels_match_twins_on_cuda(cuda_device, iters):
 
 @pytest.mark.cuda
 def test_dense_kernel_equals_k1_on_cuda(cuda_device):
-    """K5 on tsince = t_time - t_sat gives K1's planes bit for bit, and
-    ``ops.propagate_fast(deep=None)`` launches K5 once."""
+    """K5 on tsince = t_time - t_sat gives K1's planes bit for bit in
+    its time-major layout, and ``ops.propagate_fast(deep=None)`` launches
+    K5 once."""
     cat = build_catalog(synthetic_leo_text(), device=cuda_device)
     st = cat.fast_staging
     t_time = torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
@@ -916,13 +930,15 @@ def test_dense_kernel_equals_k1_on_cuda(cuda_device):
     tsince = (t_time[:, None] - st.t_sat[None, :]).contiguous()
     k5 = cuda_sgp4.propagate_fast_dense(tsince, st.spine, st.tail, st.flags,
                                         **kw)
-    assert all(torch.equal(a, b) for a, b in zip(k1, k5))
+    assert torch.equal(k5[0], k1[0].permute(1, 2, 0))
+    assert torch.equal(k5[1], k1[1].permute(1, 2, 0))
+    assert torch.equal(k5[2], k1[2])
     before = cuda_sgp4.LAUNCHES["sgp4_shallow_dense"]
     r, v, e = propagate_fast(cat.els, None, tsince, cat.grav,
                              kepler_iters=cat.kepler_iters)
     torch.cuda.synchronize()
     assert cuda_sgp4.LAUNCHES["sgp4_shallow_dense"] == before + 1
-    assert torch.equal(r, k5[0].permute(1, 2, 0))
+    assert torch.equal(r, k5[0])
 
 
 def test_merge_maps_from_deep_slot():
@@ -1001,8 +1017,9 @@ def test_cpu_runs_no_kernel():
 @pytest.mark.cuda
 @pytest.mark.parametrize("iters", [3, 8])
 def test_dense_time_major_matches_planes_on_cuda(cuda_device, iters):
-    """K5's time-major store (``propagate_fast_fused``) gives the (T, S,
-    3) layout of its planes bit for bit, contiguous, with and without
+    """K5's time-major store, through ``propagate_fast_fused`` and
+    ``propagate_fast_dense``, gives the (T, S, 3) layout of its plain
+    version's planes bit for bit, contiguous, with and without
     velocities, on a dense grid and on a (T, 1) column."""
     cat = build_catalog(synthetic_leo_text(), device=cuda_device)
     st = cat.fast_staging
@@ -1010,8 +1027,8 @@ def test_dense_time_major_matches_planes_on_cuda(cuda_device, iters):
     for t in (_dense_grid(cat, cuda_device),
               torch.linspace(-250.0, 2000.0, 9, dtype=torch.float64,
                              device=cuda_device)[:, None].contiguous()):
-        planes = cuda_sgp4.propagate_fast_dense(t, st.spine, st.tail,
-                                                st.flags, **kw)
+        dense = cuda_sgp4.propagate_fast_dense(t, st.spine, st.tail,
+                                               st.flags, **kw)
         before = cuda_sgp4.LAUNCHES["sgp4_shallow_dense"]
         r, v, e = cuda_sgp4.propagate_fast_fused(cat.els, t, cat.grav,
                                                  kepler_iters=iters)
@@ -1019,7 +1036,9 @@ def test_dense_time_major_matches_planes_on_cuda(cuda_device, iters):
             cat.els, t, cat.grav, kepler_iters=iters, want_vel=False)
         torch.cuda.synchronize()
         assert cuda_sgp4.LAUNCHES["sgp4_shallow_dense"] == before + 2
-        ref = cuda_sgp4._time_major(*planes)
+        ref = cuda_sgp4.propagate_fast_dense_reference(t, st.spine, st.tail,
+                                                       st.flags, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(dense, ref))
         assert r.is_contiguous() and v.is_contiguous() and v0 is None
         assert torch.equal(r, ref[0]) and torch.equal(v, ref[1])
         assert torch.equal(e, ref[2]) and torch.equal(e0, ref[2])
@@ -1092,10 +1111,11 @@ def test_spine_kernel_matches_twin_on_cuda(cuda_device, form):
 @pytest.mark.cuda
 @pytest.mark.parametrize("iters", [3, 8])
 def test_grids_kernel_stores_match_twin_on_cuda(cuda_device, iters):
-    """K6 in both stores, the (3, T, S) planes and the time-major (T, S,
-    3) r and v, against its plain version on the ragged shapes of
+    """K6's store, the time-major (T, S, 3) r and v, against its plain
+    version on the ragged shapes of
     ``test_dense_kernels_match_twins_on_cuda`` and on a 7 x 45 grid that
-    is part of one wave: bit-equal, with and without velocities."""
+    is part of one wave: bit-equal, contiguous, with and without
+    velocities, one launch a call."""
     cat = build_catalog(synthetic_leo_text(), device=cuda_device)
     near = build_catalog(synthetic_leo_text(45), device=cuda_device)
     gen = torch.Generator().manual_seed(9)
@@ -1112,20 +1132,16 @@ def test_grids_kernel_stores_match_twin_on_cuda(cuda_device, iters):
         for want_vel in (True, False):
             kw = dict(grav=c.grav, kepler_iters=iters, want_vel=want_vel)
             before = cuda_sgp4.LAUNCHES["sgp4_shallow_grids"]
-            planes = cuda_sgp4.propagate_fast_spine_grids(grids, tail, flags,
-                                                          **kw)
-            tm = cuda_sgp4._grids_tail(grids, tail, flags, c.grav, iters,
-                                       want_vel, time_major=True)
+            got = cuda_sgp4.propagate_fast_spine_grids(grids, tail, flags,
+                                                       **kw)
             torch.cuda.synchronize()
-            assert cuda_sgp4.LAUNCHES["sgp4_shallow_grids"] == before + 2
+            assert cuda_sgp4.LAUNCHES["sgp4_shallow_grids"] == before + 1
             ref = cuda_sgp4.propagate_fast_spine_grids_reference(
                 grids, tail, flags, **kw)
+            assert got[0].is_contiguous()
+            assert got[0].shape == grids[0].shape + (3,)
             assert all(a is b is None or torch.equal(a, b)
-                       for a, b in zip(planes, ref))
-            ref_tm = cuda_sgp4._time_major(*ref)
-            assert tm[0].is_contiguous() and tm[0].shape == ref_tm[0].shape
-            assert all(a is b is None or torch.equal(a, b)
-                       for a, b in zip(tm, ref_tm))
+                       for a, b in zip(got, ref))
 
 
 @pytest.mark.cuda

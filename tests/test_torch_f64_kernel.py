@@ -1,23 +1,25 @@
 """The f64 kernel's staging, wrappers and routing on the CPU.
 
 The f64 kernel (``astroz_tpu_torch/csrc/sgp4_f64.cu``) computes the plain
-f64 functions at independent points in three modes: DENSE
-(``ops/sgp4.py:sgp4_propagate`` / ``ops/sdp4.py:sdp4_propagate``), ESCAPE
-(``ops/fast.py:sdp4_propagate_tables`` into kernel K2's planes) and SCAN
-(``ops/sdp4.py:sdp4_propagate_scan``). Here, where no card runs it:
+f64 functions at independent points in two modes: DENSE
+(``ops/sgp4.py:sgp4_propagate`` / ``ops/sdp4.py:sdp4_propagate``) and
+ESCAPE (``ops/fast.py:sdp4_propagate_tables`` into kernel K2's planes);
+on the card ``ops/sdp4.py:sdp4_propagate_scan`` (``scan_times=True``) is
+DENSE on a sweep's jd and fr rows. Here, where no card runs it:
 
 * the staged (F, S) f64 and (5, S) i32 matrices unpack to the elements
   they were packed from, the JAX package's carried across, bit for bit,
   and their rows are the kernel's ``enum Field``; the last flag row, the
   slot order, groups the lanes by regime;
-* the identity DENSE and SCAN's row walk rests on: every row of the plain
-  ``sdp4_propagate_scan`` is ``sdp4_propagate`` at that row alone, bit
-  for bit, and a scan started at any row equals the rest of the whole
-  scan; a Python model of the walk computes every point once, each
-  thread's run along consecutive rows of one lane from a fresh carry;
+* the identity DENSE's row walk, and the scan on it, rests on: every row
+  of the plain ``sdp4_propagate_scan`` is ``sdp4_propagate`` at that row
+  alone, bit for bit, and a scan started at any row equals the rest of
+  the whole scan; a Python model of the walk computes every point once,
+  each thread's run along consecutive rows of one lane from a fresh
+  carry;
 * on CPU tensors each wrapper equals its plain function bit for bit and
   counts no launch;
-* DENSE, SCAN and ``propagate(method="f64")`` through the new routing
+* DENSE, also on the scan's rows, and ``propagate(method="f64")``
   stay within the JAX f64 path's gates of ``tests/test_torch_f64.py``
   (2e-7 km and 3e-10 km/s TEME, 6e-6 km ECEF);
 * the escape's routing leaves K2's planes as the plain recompute on the
@@ -304,20 +306,25 @@ def test_dense_epochs_raises_on_rows_it_does_not_take(case, mixed):
 
 @pytest.mark.parametrize("order", ["forward", "backward"])
 def test_scan_wrapper_equals_plain_on_cpu(order, mixed):
-    """SCAN on CPU tensors is ``sdp4_propagate_scan`` bit for bit, on
-    rows sorted either way across epoch, and counts no launch."""
+    """The scan on a sweep's jd and fr rows, on CPU tensors, through its
+    wrapper and through ``propagate(scan_times=True)``, is
+    ``sdp4_propagate_scan`` on ``epoch_tsince``'s grid bit for bit, on
+    epochs sorted either way across the lanes' epochs, and counts no
+    launch."""
     pcat = mixed[1]
-    times = _dense_times(len(pcat), seed=1)
-    times = np.sort(times, axis=0)
+    jd, fr = _epoch_rows("rows")
     if order == "backward":
-        times = times[::-1].copy()
-    t = torch.from_numpy(times)
+        jd, fr = jd.flip(0), fr.flip(0)
+    t = cuda_sgp4.epoch_tsince(jd, fr, pcat.els.epoch_jd)
     before = dict(cuda_sgp4.LAUNCHES)
-    out = cuda_sgp4.sgp4_f64_scan(t, *pcat.f64_staging, grav=pcat.grav)
+    out = cuda_sgp4.sgp4_f64_scan(jd, fr, *pcat.f64_staging, grav=pcat.grav)
+    via = P.propagate(pcat, jd.numpy(), fr.numpy(), method="f64",
+                      scan_times=True)
     plain = sdp4_propagate_scan(pcat.els, pcat.deep, t, pcat.grav)
     assert dict(cuda_sgp4.LAUNCHES) == before
     assert all(_equal(a, b) for a, b in zip(out, plain))
-    r0, v0, e0 = cuda_sgp4.sgp4_f64_scan(t, *pcat.f64_staging,
+    assert all(_equal(a, b) for a, b in zip(via, plain))
+    r0, v0, e0 = cuda_sgp4.sgp4_f64_scan(jd, fr, *pcat.f64_staging,
                                          grav=pcat.grav, want_vel=False)
     assert v0 is None and _equal(r0, out[0]) and _equal(e0, out[2])
 
@@ -359,7 +366,7 @@ def test_scan_rows_are_sdp4_propagate_alone(order, mixed):
 
 
 # ---------------------------------------------------------------------------
-# The row walk of DENSE and SCAN (csrc/sgp4_f64.cu sgp4_f64_walk_kernel)
+# The row walk of DENSE (csrc/sgp4_f64.cu sgp4_f64_walk_kernel)
 # ---------------------------------------------------------------------------
 
 WARP, BLOCK = 32, 128
@@ -525,14 +532,18 @@ def test_dense_within_jax_f64_gates(kind, form, mixed, near):
 
 @pytest.mark.parametrize("order", ["forward", "backward"])
 def test_scan_within_jax_f64_gates(order, mixed):
-    """SCAN against the JAX package's scan, rows sorted either way."""
+    """DENSE in SDP4 mode, which the card's scan runs, on the JAX
+    package's scan's rows sorted either way, within the gates of that
+    scan: every point computed alone stays as close to the scan as the
+    scan computed in order."""
     jcat, pcat = mixed
     times = np.linspace(-3100.0, 3700.0, 9)
     if order == "backward":
         times = times[::-1].copy()
     out_j = jsdp4.sdp4_propagate_scan(jcat.els, jcat.deep, times, J_WGS72)
-    out_p = cuda_sgp4.sgp4_f64_scan(torch.from_numpy(times[:, None]),
-                                    *pcat.f64_staging, grav=pcat.grav)
+    out_p = cuda_sgp4.sgp4_f64_dense(torch.from_numpy(times[:, None]),
+                                     *pcat.f64_staging, grav=pcat.grav,
+                                     sdp4=True)
     _assert_close(out_j, out_p)
 
 
@@ -597,11 +608,11 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(mixed, near):
         cuda_sgp4.sgp4_f64_dense(t, st.fields, st.flags[:3], sdp4=True, **kw)
     with pytest.raises(ValueError, match="tsince"):
         cuda_sgp4.sgp4_f64_dense(t.float(), *st, sdp4=True, **kw)
-    with pytest.raises(ValueError, match="times"):
-        cuda_sgp4.sgp4_f64_scan(torch.zeros(3, 2, dtype=torch.float64), *st,
-                                **kw)
+    jd, fr = _epoch_rows("rows")
+    with pytest.raises(ValueError, match="jd, fr"):
+        cuda_sgp4.sgp4_f64_scan(jd[:, None], fr[:, None], *st, **kw)
     with pytest.raises(ValueError, match="fields"):
-        cuda_sgp4.sgp4_f64_scan(t, *nst, **kw)
+        cuda_sgp4.sgp4_f64_scan(jd, fr, *nst, **kw)
     esc = pcat.heo_escape
     jd = pcat.epoch_min_jd + np.linspace(0.0, 1.0, 3)
     t_time, steps, (dr, dv, de) = _k2_planes(pcat, jd)

@@ -131,7 +131,8 @@ def test_output_allocations_are_spans(alloc):
     dev = torch.device("cpu")
     (r, v, err), spans = _traced(
         (lambda: cuda_sgp4._outputs(dev, 4, 5, True)) if alloc == "fast"
-        else (lambda: cuda_sgp4._outputs_f64(dev, (4, 5), True)))
+        else (lambda: cuda_sgp4._outputs_rows(dev, (4, 5), True,
+                                              torch.float64)))
     assert [s[0] for s in spans] == ["astroz.alloc"]
     assert r.shape == ((3, 4, 5) if alloc == "fast" else (4, 5, 3))
     assert v.shape == r.shape and err.shape == (4, 5)
