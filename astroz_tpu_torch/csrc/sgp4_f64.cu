@@ -84,15 +84,19 @@
 //   every point reads (epoch_jd among them, for the tsince of the jd and
 //   fr rows, and the per-lane products bstar * cc4 and bstar * cc5,
 //   which the plain chain forms before it meets t) in shared memory, 34
-//   KB a block, read where they are used; the deep rows, read on the deep
-//   warps alone, come from the matrix through L1.
+//   KB a block (37 with the prologue's values, below), read where they are
+//   used; the deep rows, read on the deep warps alone, come from the
+//   matrix through L1.
 // - Deep columns weigh 4: a warp column that holds a deep slot runs ~3x
 //   the hot SASS instructions of a near-earth one (6,373 in the row loop
 //   against ~2,000), so with every row weighing one unit its warps ran
 //   long after the others (5.70 ms); a row of such a column weighs
 //   F64_DEEP_WEIGHT units in the split, and their runs are that much
-//   shorter: 2.76 ms (weight 8: 3.23). The column where the deep slots
-//   start is found on the card (first_deep_column).
+//   shorter: 2.76 ms (weight 8: 3.23). With the prologue (below) near-earth
+//   rows got cheaper than deep ones, and 4 and 5 were timed in turns again:
+//   a day's sweep 2.4438 and 2.4449 ms with the first prologue, 2.3535
+//   and 2.4064 with the final one; 4 kept. The column where the deep
+//   slots start is found on the card (first_deep_column).
 // - The resonance is carried along the run: ops/sdp4.py
 //   integrate_resonance's state after k steps does not depend on the
 //   target time, and its restart rule resets the carry where t lies
@@ -121,7 +125,32 @@
 //   not a template axis: SDP4 mode keeps 96 registers (spill stores 456
 //   -> 412 B with velocities, 436 -> 424 without), SGP4 mode 80 (32 B
 //   with velocities, 16 -> 32 without).
-
+// - The prologue (StagedLane::prologue): where a run enters a column, a
+//   thread first computes its lane's values that do not depend on t, once
+//   for the run's rows, into three more body slots (37 KB a block; 6
+//   blocks still fill an SM in SGP4 mode): the drag pow (xke / nm)^(2/3)
+//   where nm before drag is the same at every t (every lane in SGP4 mode;
+//   in SDP4 mode all but the deep resonant ones, whose point keeps its
+//   own where the resonance gives nm), and the sin and cos of the
+//   inclination kepler_and_posvel takes where no dpper moves it (every
+//   lane in SGP4 mode, the near-earth ones in SDP4 mode; a deep lane's
+//   point keeps the pair it takes for its coefficients). kepler_and_posvel
+//   reads the pair after its Newton loop, so it holds no register across
+//   the loop. A day's sweep 2.6751 -> 2.3535 ms, DENSE on a grid 2.7597
+//   -> 2.4793, the +-7-day catalog 2.7432 -> 2.5120, the scan x 240
+//   0.4656 -> 0.4103, the 1year_1s grid in SGP4 mode 3.4707 -> 2.9448,
+//   bit-equal. Each value pays: without the staged pow a day's sweep took
+//   2.5634 ms, without the staged pair 2.4925, against 2.4393 with both
+//   (the prologue as a call in place of inline code: 2.5080); reading the
+//   deep lane's pair from the slot after the loop, not taking it again,
+//   2.3541 against 2.3902. ptxas, SDP4 mode: 96 registers, spill stores
+//   412 -> 412 B with velocities, 424 -> 408 without; SGP4 mode: 80, 32
+//   -> 24 B and 32 -> 0; 5 and 6 blocks an SM as before. The row loop's
+//   static f64 SASS (both sides of each branch) is 2,004 a point in SDP4
+//   mode before and after, since the resonant lanes keep their pow and
+//   the deep ones their pair in the loop, and 621 -> 576 in SGP4 mode.
+//   ESCAPE builds on the same helpers: 76 registers and no spill before,
+//   72 and 12 / 16 B of spill stores after.
 #include <climits>
 
 #include "sgp4_common.cuh"
@@ -130,8 +159,8 @@ namespace {
 
 constexpr int BLOCK = 128;
 // blocks an SM that __launch_bounds__ asks registers for, in SDP4 and in
-// SGP4 mode (the body takes 34 KB of shared memory a block, so at most 6
-// fit)
+// SGP4 mode (the body takes 37 KB of shared memory a block, and the card
+// reserves 1 KB more a block: 6 fill the H100's 228 KB)
 constexpr int F64_MIN_BLOCKS = 5;
 constexpr int F64_SGP4_MIN_BLOCKS = 6;
 // units a row of a warp column that holds a deep slot weighs in the
@@ -228,8 +257,11 @@ struct Consts {
 // rows NO_UNKOZAI..EPOCH_JD and MDOT..X7THM1 of the field matrix at body
 // slots 0..31, then the per-lane products bstar * cc4 and bstar * cc5
 // (EPOCH_JD for the points whose tsince the walk forms from the sweep's
-// epochs)
-constexpr int BSTAR_CC4 = 32, BSTAR_CC5 = 33, N_BODY = 34;
+// epochs), then the lane's values that do not depend on t (the prologue,
+// StagedLane::prologue): its drag pow and the sin and cos of its
+// inclination (on a deep lane, which dpper moves, the point's own)
+constexpr int BSTAR_CC4 = 32, BSTAR_CC5 = 33, DRAG_POW = 34, SIN_INCL = 35,
+              COS_INCL = 36, N_BODY = 37;
 __host__ __device__ constexpr int body_slot(int k) {
   return k >= NO_UNKOZAI && k <= EPOCH_JD
              ? k - NO_UNKOZAI
@@ -238,8 +270,42 @@ __host__ __device__ constexpr int body_slot(int k) {
 }
 static_assert(body_slot(X7THM1) == BSTAR_CC4 - 1, "body slots");
 
+struct Flags {
+  bool isimp, is_deep;
+  int irez, error;
+};
+
+__device__ __forceinline__ Flags read_flags(const int* flags, size_t stride,
+                                            size_t lane) {
+  return {flags[ISIMP * stride + lane] != 0,
+          flags[IS_DEEP * stride + lane] != 0, flags[IREZ * stride + lane],
+          flags[ERROR * stride + lane]};
+}
+
+// The row walk's prologue (SGP4 and SDP4 mode) stages a lane's drag pow
+// where its nm before drag is the same at every t: every lane in SGP4
+// mode, in SDP4 mode all but the deep resonant ones
+template <int MODE>
+__device__ __forceinline__ bool drag_pow_staged(const Flags& fl) {
+  return MODE == SGP4 || !fl.is_deep || fl.irez == 0;
+}
+// and the sin and cos of its inclination where no dpper moves it: every
+// lane in SGP4 mode, in SDP4 mode the near-earth ones
+template <int MODE>
+__device__ __forceinline__ bool incl_staged(const Flags& fl) {
+  return MODE == SGP4 || !fl.is_deep;
+}
+
+// the drag pow of am, (xke / nm)^(2/3), nm guarded as code 2 guards it
+__device__ __forceinline__ D drag_pow(const Consts& c, D nm) {
+  const D nm_safe = nm > 0.0 ? nm : D(1e-8);
+  return pow(recip(nm_safe) * c.xke, X2O3);
+}
+
 // one lane's fields read where they are used: row k of the (F, stride)
-// matrix at the lane (ESCAPE)
+// matrix at the lane (ESCAPE); it stages and keeps nothing, so every point
+// takes its drag pow and kepler_and_posvel the sin and cos of its
+// inclination itself
 struct GlobalLane {
   const double* f;
   size_t stride;
@@ -251,6 +317,15 @@ struct GlobalLane {
   }
   __device__ __forceinline__ D bstar_cc5() const {
     return (*this)[BSTAR] * (*this)[CC5];
+  }
+  __device__ __forceinline__ D drag_pow_of(const Consts& c, D nm) const {
+    return drag_pow(c, nm);
+  }
+  __device__ __forceinline__ void keep_drag_pow(const Consts&, D) const {}
+  __device__ __forceinline__ void keep_incl_sin_cos(D, D) const {}
+  __device__ __forceinline__ void incl_sin_cos(D xincp, D& s, D& co) const {
+    s = sin(xincp);
+    co = cos(xincp);
   }
 };
 
@@ -272,8 +347,29 @@ struct StagedLane {
   __device__ __forceinline__ D bstar_cc5() const {
     return body[BSTAR_CC5][threadIdx.x];
   }
+  // the drag pow: staged by the prologue where drag_pow_staged holds, else
+  // kept by the point where the resonance gives its nm
+  __device__ __forceinline__ D drag_pow_of(const Consts&, D) const {
+    return body[DRAG_POW][threadIdx.x];
+  }
+  __device__ __forceinline__ void keep_drag_pow(const Consts& c, D nm) const {
+    body[DRAG_POW][threadIdx.x] = drag_pow(c, nm).v;
+  }
+  // the sin and cos of the inclination the point passes to
+  // kepler_and_posvel: staged by the prologue where incl_staged holds,
+  // else kept by the point (a deep lane's, which dpper moves) for its own
+  // use; read where they are used, after the Newton loop, so that they
+  // hold no register across it
+  __device__ __forceinline__ void keep_incl_sin_cos(D s, D co) const {
+    body[SIN_INCL][threadIdx.x] = s.v;
+    body[COS_INCL][threadIdx.x] = co.v;
+  }
+  __device__ __forceinline__ void incl_sin_cos(D, D& s, D& co) const {
+    s = body[SIN_INCL][threadIdx.x];
+    co = body[COS_INCL][threadIdx.x];
+  }
   // the body of the lane at `f`
-  __device__ __forceinline__ void stage() {
+  __device__ __forceinline__ void stage() const {
 #pragma unroll
     for (int k = NO_UNKOZAI; k <= EPOCH_JD; ++k)
       body[body_slot(k)][threadIdx.x] = __ldg(f + (size_t)k * stride);
@@ -283,19 +379,28 @@ struct StagedLane {
     body[BSTAR_CC4][threadIdx.x] = ((*this)[BSTAR] * (*this)[CC4]).v;
     body[BSTAR_CC5][threadIdx.x] = ((*this)[BSTAR] * (*this)[CC5]).v;
   }
+  // the prologue: the lane's values that do not depend on t, from the
+  // inputs a point builds them from (nm with SDP4 mode's + 0.0; the
+  // inclination as the point passes it to kepler_and_posvel: SGP4 mode's
+  // inclo, SDP4 mode's fabs(inclo + 0.0) where no dpper moves it), so
+  // that they have the point's bits. It reads its two fields from the
+  // matrix and runs before stage(), where ptxas spills less in the
+  // column's head than after it
+  template <int MODE>
+  __device__ __forceinline__ void prologue(const Flags& fl,
+                                           const Consts& c) const {
+    if (drag_pow_staged<MODE>(fl)) {
+      const D nm = __ldg(f + (size_t)NO_UNKOZAI * stride);
+      body[DRAG_POW][threadIdx.x] =
+          drag_pow(c, MODE == SGP4 ? nm : nm + 0.0).v;
+    }
+    if (incl_staged<MODE>(fl)) {
+      const D inclo = __ldg(f + (size_t)INCLO * stride);
+      const D xincp = MODE == SGP4 ? inclo : fabs(inclo + 0.0);
+      keep_incl_sin_cos(sin(xincp), cos(xincp));
+    }
+  }
 };
-
-struct Flags {
-  bool isimp, is_deep;
-  int irez, error;
-};
-
-__device__ __forceinline__ Flags read_flags(const int* flags, size_t stride,
-                                            size_t lane) {
-  return {flags[ISIMP * stride + lane] != 0,
-          flags[IS_DEEP * stride + lane] != 0, flags[IREZ * stride + lane],
-          flags[ERROR * stride + lane]};
-}
 
 // one point's outputs, TEME km and km/s
 struct Out {
@@ -442,11 +547,12 @@ struct FromTables {
 };
 
 // ---- ops/sgp4.py kepler_and_posvel ----------------------------------------
-template <bool WANT_VEL>
+// sin(xincp) and cos(xincp) from the lane (F::incl_sin_cos)
+template <bool WANT_VEL, class F>
 __device__ __forceinline__ Out kepler_and_posvel(
-    const Consts& c, D am, D nm, D ep, D xincp, D nodep, D argpp, D mp,
-    D aycof, D xlcof, D con41, D x1mth2, D x7thm1, int error) {
-  const D sinip = sin(xincp), cosip = cos(xincp);
+    const F& L, const Consts& c, D am, D nm, D ep, D xincp, D nodep,
+    D argpp, D mp, D aycof, D xlcof, D con41, D x1mth2, D x7thm1,
+    int error) {
   const D axnl = ep * cos(argpp);
   const D temp0 = recip(am * (D(1.0) - ep * ep));
   const D aynl = ep * sin(argpp) + temp0 * aycof;
@@ -490,6 +596,8 @@ __device__ __forceinline__ Out kepler_and_posvel(
   const D mrt = rl * (D(1.0) - D(1.5) * temp2 * betal * con41) +
                 D(0.5) * temp1 * x1mth2 * cos2u;
   su = su - D(0.25) * temp2 * x7thm1 * sin2u;
+  D sinip, cosip;
+  L.incl_sin_cos(xincp, sinip, cosip);
   const D xnode = nodep + D(1.5) * temp2 * cosip * sin2u;
   const D xinc = xincp + D(1.5) * temp2 * cosip * sinip * cos2u;
 
@@ -619,6 +727,7 @@ __device__ __forceinline__ Out f64_point(D t, const F& L, const Flags& fl,
       mm = fl.irez == 1 ? xl - nodem - argpm + theta
                         : xl - D(2.0) * nodem + D(2.0) * theta;
       nm = nm_res;
+      L.keep_drag_pow(c, nm);
     }
   } else {
     nm = L[NO_UNKOZAI] + 0.0;
@@ -638,6 +747,7 @@ __device__ __forceinline__ Out f64_point(D t, const F& L, const Flags& fl,
         mm = fl.irez == 1 ? xl - nodem - argpm + theta
                           : xl - D(2.0) * nodem + D(2.0) * theta;
         nm = nm_res;
+        L.keep_drag_pow(c, nm);
       }
     }
   }
@@ -645,8 +755,7 @@ __device__ __forceinline__ Out f64_point(D t, const F& L, const Flags& fl,
   // the drag-updated elements (sgp4_propagate; sdp4_finish's head)
   int error = fl.error;
   if (nm <= 0.0 && error == 0) error = 2;
-  const D nm_safe = nm > 0.0 ? nm : D(1e-8);
-  const D am = pow(recip(nm_safe) * c.xke, X2O3) * s.tempa * s.tempa;
+  const D am = L.drag_pow_of(c, nm) * s.tempa * s.tempa;
   nm = recip(pow(am > 0.0 ? am : D(1.0), 1.5)) * c.xke;
   em = em - s.tempe;
   if ((em >= 1.0 || em < -0.001) && error == 0) error = 1;
@@ -659,8 +768,8 @@ __device__ __forceinline__ Out f64_point(D t, const F& L, const Flags& fl,
     xlm = rem2pi(xlm);
     mm = rem2pi(xlm - argpm - nodem);
     return kepler_and_posvel<WANT_VEL>(
-        c, am, nm, em, inclm, nodem, argpm, mm, L[AYCOF], L[XLCOF], L[CON41],
-        L[X1MTH2], L[X7THM1], error);
+        L, c, am, nm, em, inclm, nodem, argpm, mm, L[AYCOF], L[XLCOF],
+        L[CON41], L[X1MTH2], L[X7THM1], error);
   }
   nodem = fmod2pi(nodem);
   argpm = fmod2pi(argpm);
@@ -678,11 +787,20 @@ __device__ __forceinline__ Out f64_point(D t, const F& L, const Flags& fl,
   if ((ep < 0.0 || ep > 1.0) && error == 0) error = 3;
   ep = clamp(ep, 1e-12, 0.999999);
 
-  // per-point inclination-dependent coefficients on deep lanes
-  D aycof = L[AYCOF], xlcof = L[XLCOF], con41 = L[CON41];
-  D x1mth2 = L[X1MTH2], x7thm1 = L[X7THM1];
-  if (fl.is_deep) {
+  // per-point inclination-dependent coefficients on deep lanes, whose sin
+  // and cos of xincp the lane keeps for kepler_and_posvel; a near-earth
+  // lane's are read after the deep branch, so that no keep comes between
+  // them and their use
+  D aycof, xlcof, con41, x1mth2, x7thm1;
+  if (!fl.is_deep) {
+    aycof = L[AYCOF];
+    xlcof = L[XLCOF];
+    con41 = L[CON41];
+    x1mth2 = L[X1MTH2];
+    x7thm1 = L[X7THM1];
+  } else {
     const D sinip = sin(xincp), cosip = cos(xincp);
+    L.keep_incl_sin_cos(sinip, cosip);
     aycof = c.aycof_c * sinip;
     const D num = c.xlcof_c * sinip * (D(3.0) + D(5.0) * cosip);
     xlcof = fabs(cosip + 1.0) > 1.5e-12 ? num / (D(1.0) + cosip)
@@ -692,8 +810,8 @@ __device__ __forceinline__ Out f64_point(D t, const F& L, const Flags& fl,
     x1mth2 = D(1.0) - cosisq;
     x7thm1 = D(7.0) * cosisq - 1.0;
   }
-  return kepler_and_posvel<WANT_VEL>(c, am, nm, ep, xincp, nodep, argpp, mp,
-                                     aycof, xlcof, con41, x1mth2, x7thm1,
+  return kepler_and_posvel<WANT_VEL>(L, c, am, nm, ep, xincp, nodep, argpp,
+                                     mp, aycof, xlcof, con41, x1mth2, x7thm1,
                                      error);
 }
 
@@ -793,9 +911,10 @@ sgp4_f64_walk_kernel(const GridArgs a) {
     if (slot >= n_out) continue;
     const int n = a.lane_step ? a.flags[SLOT_LANE * S + slot] : slot;
     const size_t lane = (size_t)n * (size_t)a.lane_step;
-    StagedLane L{a.fields + lane, S, body};
-    L.stage();
     const Flags fl = read_flags(a.flags, S, lane);
+    const StagedLane L{a.fields + lane, S, body};
+    L.prologue<MODE>(fl, a.c);
+    L.stage();
     FromCarry carry{D(0.0), D(0.0), D(0.0)};
     const double* tp = a.tsince + ti * a.t_row + n * a.t_col;
     size_t q = (size_t)ti * n_out + n;

@@ -87,6 +87,16 @@ LAUNCHES = {"sgp4_shallow": 0, "sgp4_deep": 0, "sgp4_shallow_merge": 0,
             "sgp4_spine_grids": 0, "sgp4_f64_dense": 0,
             "sgp4_f64_dense_epochs": 0, "sgp4_f64_escape": 0,
             "resonance_tables": 0}
+#: DENSE's prologue (``csrc/sgp4_f64.cu``: where a warp's run enters a warp
+#: column, each thread computes its lane's values that do not depend on t
+#: once for the run's rows): each DENSE launch adds the lanes it runs
+#: (``"lanes"``), those whose drag pow it stages (``"drag_pow"``: every lane
+#: in SGP4 mode, in SDP4 mode all but the deep resonant ones) and those
+#: whose inclination's sin and cos it stages (``"sin_cos"``: every lane in
+#: SGP4 mode, in SDP4 mode the near-earth ones). The counts of a staging
+#: are read once, when :func:`f64_staging` builds it
+#: (:func:`prologue_lanes`), so a launch reads nothing from the card.
+PROLOGUE = {"lanes": 0, "drag_pow": 0, "sin_cos": 0}
 
 F32 = torch.float32
 F64 = torch.float64
@@ -896,7 +906,9 @@ def f64_staging(els, deep=None) -> F64Staging:
     f64 kernel's matrices: every float field copied as it is, the masks
     and codes as i32 (``irez`` 0 without ``deep``), and the slot order
     (:func:`f64_slot_lanes`) as the last row of the flags.
-    :func:`f64_unstage` gives the same elements back bit for bit."""
+    :func:`f64_unstage` gives the same elements back bit for bit. The
+    build reads the flags' :func:`prologue_lanes` once, for
+    :data:`PROLOGUE`."""
     shape = torch.broadcast_shapes(*(x.shape for x in els))
     rows = [getattr(els, n) for n in SGP4_F64_FIELD_NAMES]
     if deep is not None:
@@ -908,9 +920,42 @@ def f64_staging(els, deep=None) -> F64Staging:
              for x in (els.isimp, els.is_deep, irez, els.error)]
     flags.append(f64_slot_lanes(flags[1] != 0, flags[2],
                                 els.inclo.expand(shape)))
-    return F64Staging(
+    staging = F64Staging(
         torch.stack([x.to(F64).expand(shape) for x in rows]).contiguous(),
         torch.stack(flags).contiguous())
+    _prologue_of(staging.flags)
+    return staging
+
+
+def prologue_lanes(flags, sdp4: bool = True):
+    """The lanes of :func:`f64_staging`'s ``flags`` whose values DENSE's
+    prologue stages in SDP4 mode (with ``sdp4``) or SGP4 mode, as a launch
+    adds them to :data:`PROLOGUE`: ``{"lanes": S, "drag_pow": n,
+    "sin_cos": n}``. One read of the flags."""
+    n = flags.shape[1]
+    if not sdp4:
+        return {"lanes": n, "drag_pow": n, "sin_cos": n}
+    deep = flags[F64_FLAG_NAMES.index("is_deep")] != 0
+    resonant = deep & (flags[F64_FLAG_NAMES.index("irez")] != 0)
+    n_deep, n_resonant = torch.stack([deep.sum(), resonant.sum()]).tolist()
+    return {"lanes": n, "drag_pow": n - n_resonant, "sin_cos": n - n_deep}
+
+
+def _prologue_of(flags):
+    """:func:`prologue_lanes` of ``flags`` in SDP4 mode, read once per
+    flags tensor and kept on it (:func:`f64_staging` reads it as it
+    builds them)."""
+    counts = getattr(flags, "_prologue_lanes", None)
+    if counts is None:
+        counts = flags._prologue_lanes = prologue_lanes(flags)
+    return counts
+
+
+def _count_prologue(flags, sdp4):
+    """Add one DENSE launch on ``flags`` to :data:`PROLOGUE`."""
+    counts = _prologue_of(flags) if sdp4 else prologue_lanes(flags, False)
+    for k, n in counts.items():
+        PROLOGUE[k] += n
 
 
 def f64_unstage(fields, flags):
@@ -989,7 +1034,8 @@ def _grid_2d(tsince, n_lanes):
 def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
                    sdp4: bool, want_vel: bool = True):
     """The f64 kernel's DENSE mode: SGP4/SDP4 in f64 at every point, one
-    launch of the kernel's row walk over the lanes in slot order.
+    launch of the kernel's row walk over the lanes in slot order, counted
+    in :data:`LAUNCHES` and :data:`PROLOGUE`.
 
     Args:
       tsince: f64 minutes since each epoch, broadcasting against the S
@@ -1029,6 +1075,7 @@ def sgp4_f64_dense(tsince, fields, flags, *, grav: GravityModel,
                 n_lanes, int(n_lanes > 1), n_times, n_out, int(sdp4),
                 int(want_vel), *_f64_consts(grav), r.data_ptr(), _ptr(v),
                 err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _count_prologue(flags, sdp4)
     return r, v, err
 
 
@@ -1060,7 +1107,8 @@ def sgp4_f64_dense_epochs(jd, fr, fields, flags, *, grav: GravityModel,
     the grid, so no (T, S) grid is written or read. The outputs are
     :func:`sgp4_f64_dense`'s on :func:`epoch_tsince`'s grid bit for bit.
     One launch, counted under ``"sgp4_f64_dense"`` and
-    ``"sgp4_f64_dense_epochs"`` in :data:`LAUNCHES`.
+    ``"sgp4_f64_dense_epochs"`` in :data:`LAUNCHES`, and in
+    :data:`PROLOGUE`.
 
     Args:
       jd, fr: (T,) f64 rows of one length, on the elements' device.
@@ -1090,6 +1138,7 @@ def sgp4_f64_dense_epochs(jd, fr, fields, flags, *, grav: GravityModel,
                 *_f64_consts(grav), r.data_ptr(), _ptr(v), err.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         LAUNCHES["sgp4_f64_dense_epochs"] += 1
+        _count_prologue(flags, sdp4)
     return r, v, err
 
 

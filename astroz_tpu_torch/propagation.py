@@ -279,7 +279,9 @@ class SatCatalog:
         """Every lane's elements, and the SDP4 coefficients where the
         catalog has them, as the f64 kernel reads them, with its slot
         order (``ops.cuda_sgp4.f64_staging``), built once per catalog on
-        its device."""
+        its device; the build reads the counts of DENSE's prologue from
+        the flags once (``ops.cuda_sgp4.prologue_lanes``), so that no
+        sweep waits for them."""
         return f64_staging(self.els, self.deep)
 
     @cached_property

@@ -1156,29 +1156,36 @@ def _headline_tsince(cat):
     return (jd[:, None] - cat.els.epoch_jd[None, :]) * 1440.0
 
 
-#: the f64 row walk's ptxas report before DENSE formed tsince from the jd
-#: and fr rows (parent build of csrc/sgp4_f64.cu on an H100, CUDA 12.8):
-#: (registers, spill store bytes) by (SDP4 mode, velocities)
-F64_WALK_PTXAS_GRID = {(1, 1): (96, 456), (1, 0): (96, 436),
-                       (0, 1): (80, 32), (0, 0): (80, 16)}
+#: the f64 row walk before its prologue staged each lane's time-invariant
+#: values (the build of csrc/sgp4_f64.cu before it, on an H100, CUDA
+#: 12.8), by (SDP4 mode, velocities): registers, spill store bytes, blocks
+#: an SM and the hot f64 SASS instructions a point of the row loop
+#: (sass_loop_instructions with inner=True, both sides of each branch)
+F64_WALK_BEFORE_PROLOGUE = {(1, 1): (96, 412, 5, 2004),
+                            (1, 0): (96, 424, 5, 1927),
+                            (0, 1): (80, 32, 6, 621), (0, 0): (80, 32, 6, 544)}
+
+
+def _before_prologue(key):
+    was = F64_WALK_BEFORE_PROLOGUE[key]
+    return (f"before the prologue: {was[0]} registers, spill stores "
+            f"{was[1]} B, {was[2]} blocks an SM, {was[3]} hot f64 "
+            f"instructions a point in the row loop")
 
 
 def f64_walk_ptxas():
     """Print the f64 row walk's registers and spills of each instantiation
-    (ptxas) beside :data:`F64_WALK_PTXAS_GRID`."""
+    (ptxas) beside :data:`F64_WALK_BEFORE_PROLOGUE`."""
     from astroz_tpu_torch import _build
 
     for name, regs, st, ld in _build.ptxas_report():
         m = re.search(r"sgp4_f64_walk_kernelILi(\d)ELb(\d)E", name)
         if m:
             key = (int(m.group(1)), int(m.group(2)))
-            was = F64_WALK_PTXAS_GRID.get(key)
             print(f"# phase 2d: ptxas row walk "
                   f"({'SDP4' if key[0] else 'SGP4'} mode, velocities "
                   f"{bool(key[1])}): {regs} registers, spill stores {st} B, "
-                  f"spill loads {ld} B (on a tsince grid before: "
-                  f"{'not measured' if was is None else was[0]} registers, "
-                  f"{'' if was is None else was[1]} B of spill stores)")
+                  f"spill loads {ld} B ({_before_prologue(key)})")
 
 
 def phase2d_f64_vs_plain(headline_cat, spread_cat):
@@ -2694,11 +2701,28 @@ def _max_sm_clock_hz():
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def row_loop_instructions(lib_path, kernel):
+def row_loop_instructions(lib_path, kernel, inner=False):
     """The static SASS instructions of the row loop of the kernel whose
     mangled name matches the regex ``kernel``, in the library at
-    ``lib_path`` as ``cuobjdump -sass`` lists it: the span of the kernel's
-    widest backward branch, the loop that walks the time rows. Returns
+    ``lib_path`` as ``cuobjdump -sass`` lists it
+    (:func:`sass_loop_instructions`). None if the dump shows no such
+    loop."""
+    from astroz_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    return sass_loop_instructions(dump, kernel, inner)
+
+
+def sass_loop_instructions(dump, kernel, inner=False):
+    """The static instructions of the row loop of the kernel whose mangled
+    name matches the regex ``kernel`` in the SASS text ``dump``: the span
+    of the kernel's widest backward branch, the loop that walks the time
+    rows; with ``inner``, of the widest backward branch inside that one
+    (the f64 row walk's loop over a run's rows, inside its loop over warp
+    columns, whose head stages each lane and its prologue). Returns
     ``(all, hot)``: all of them, and those outside the cold fallbacks of
     ``sgp4_common.cuh:fmod_exact`` (CUDA's f64 fmod loop for |x| >=
     2^52, which these grids never reach): the block that the branch on
@@ -2709,12 +2733,6 @@ def row_loop_instructions(lib_path, kernel):
     side issues fewer (an inner loop's body is counted once). Returns
     ``(all, hot, hot_f64)``, ``hot_f64`` those of ``hot`` whose opcode is
     one of F64_OPCODES. None if the dump shows no such loop."""
-    from astroz_tpu_torch import _build
-
-    tool = Path(_build._nvcc()).with_name("cuobjdump")
-    dump = subprocess.run([str(tool), "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=600).stdout
     body = next((f for f in re.split(r"\n\s*Function : ", dump)[1:]
                  if re.search(kernel, f.split(None, 1)[0])), None)
     if body is None:
@@ -2732,6 +2750,11 @@ def row_loop_instructions(lib_path, kernel):
     if not spans:
         return None
     _, lo, hi = max(spans)
+    if inner:
+        spans = [(w, t, a) for w, t, a in spans if lo <= t and a < hi]
+        if not spans:
+            return None
+        _, lo, hi = max(spans)
     cold = set()
     for i, (a, t) in enumerate(ins):
         guard = re.match(r"DSETP\.GEU\.AND (P\d), PT, \|?R\d+\|?, "
@@ -2764,7 +2787,7 @@ def row_loop_instructions(lib_path, kernel):
             sum(opcode(text[a]) in F64_OPCODES for a in hot))
 
 
-def kernel_report(label, kernel, grid, points, ms, smi, f64=False):
+def kernel_report(label, kernel, grid, points, ms, smi, f64=None):
     """Print a persistent kernel's registers and spills (ptxas), its grid
     (``cuda_sgp4.launch_grid``) and its issue estimate: the hot static
     instructions of its row loop a point (:func:`row_loop_instructions`,
@@ -2772,16 +2795,19 @@ def kernel_report(label, kernel, grid, points, ms, smi, f64=False):
     the card's issue rate (its SMs x LANES_PER_SM lanes at its largest SM
     clock), and its share of the kernel's time ``ms``: an upper estimate
     of the share of the SMs' issue slots the kernel fills. With ``f64``,
-    also its f64-pipe estimate: the hot f64 instructions a point
-    (F64_OPCODES) x ``points`` over the SMs x F64_LANES_PER_SM lanes at
-    that clock."""
+    the f64 row walk's (SDP4 mode, velocities) key of
+    :data:`F64_WALK_BEFORE_PROLOGUE`: the loop over a run's rows alone
+    (``inner``), its f64-pipe estimate (the hot f64 instructions a point,
+    F64_OPCODES, x ``points`` over the SMs x F64_LANES_PER_SM lanes at
+    that clock) and the walk's numbers before its prologue."""
     from astroz_tpu_torch import _build
 
     regs = [(rg, st, ld) for name, rg, st, ld in _build.ptxas_report()
             if re.search(kernel, name)]
     check(len(regs) == 1, f"{label}: ptxas reports {regs} for {kernel}")
     rg, st, ld = regs[0]
-    loop = row_loop_instructions(_build.library_path(), kernel)
+    loop = row_loop_instructions(_build.library_path(), kernel,
+                                 inner=f64 is not None)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = _max_sm_clock_hz()
     issue = (None if loop is None
@@ -2794,9 +2820,9 @@ def kernel_report(label, kernel, grid, points, ms, smi, f64=False):
                   f"x {LANES_PER_SM} lanes at {clock / 1e9:.3f} GHz; "
                   f"{issue / ms:.1%} of the kernel's {ms:.4f} ms replayed "
                   f"from a CUDA graph)")
-    f64_ms = (None if loop is None or not f64 else
+    f64_ms = (None if loop is None or f64 is None else
               loop[2] * points / (sms * F64_LANES_PER_SM * clock) * 1e3)
-    f64_text = ("" if not f64 else
+    f64_text = ("" if f64 is None else
                 "; f64-pipe estimate not measured (no row loop found)"
                 if f64_ms is None else
                 f"; f64-pipe estimate {f64_ms:.4f} ms ({loop[2]} f64 "
@@ -2805,6 +2831,8 @@ def kernel_report(label, kernel, grid, points, ms, smi, f64=False):
                 f"{points} points over {sms} SMs x {F64_LANES_PER_SM} f64 "
                 f"lanes at {clock / 1e9:.3f} GHz; {f64_ms / ms:.1%} of the "
                 f"kernel's {ms:.4f} ms replayed)")
+    if f64 is not None:
+        f64_text += f"; {_before_prologue(f64)}"
     print(f"# {label} [{smi}]: {rg} registers, spill stores {st} B, spill "
           f"loads {ld} B; grid: {grid['per_sm']} blocks an SM x "
           f"{grid['sms']} SMs, {grid['blocks']} blocks launched, "
@@ -3185,7 +3213,7 @@ def phase4c_dense_timings(mcon, smi, scan_ms, scan_peak, spread_cat):
         kernel_report(f"phase 4c: {name} {shape}", F64_KERNEL.format(
             int(sdp4)), cuda_sgp4.launch_grid(
                 "sgp4_f64_dense", *shape, sdp4=sdp4), shape[0] * shape[1],
-            ms, smi, f64=True)
+            ms, smi, f64=(int(sdp4), 1))
     return ((k5, k5_bound), (k6, k6_bound), (spine, spine_bound),
             (f64_dense, dense_bound), (f64_scan, scan_bound))
 

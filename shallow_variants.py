@@ -56,8 +56,9 @@ of the variants reversed on every other round:
   without it torch's tsince grid and DENSE on it.
 
 It prints, for each variant, ptxas' registers and spills of every
-kernel instantiation, the static SASS instructions of K5's and K2's row
-loops (``chip_smoke.row_loop_instructions``), whether its outputs equal
+kernel instantiation, the static SASS instructions of the row loops of
+K5, K6, K2 and the f64 row walk (``chip_smoke.sass_loop_instructions``),
+the f64 row walk's blocks an SM in each mode, whether its outputs equal
 the default build's bit for bit, each kernel's time in every round and
 the mean, the card's name and power limit, and a JSON line with all of
 it, also written to ``variants_<tag>.json`` in the output directory
@@ -834,14 +835,29 @@ def workloads(ops, x):
 
 def loop_counts(build, chip_smoke):
     """{"K5": n, "K6": n, "K2": n, "f64": n, "f64year": n}: the static
-    SASS instructions of each kernel's row loop in one variant's library
-    (:func:`chip_smoke.row_loop_instructions`; None where not found)."""
+    SASS instructions of each kernel's row loop in one variant's library,
+    from one ``cuobjdump -sass`` of it
+    (:func:`chip_smoke.sass_loop_instructions`; the f64 row walk's loop
+    over a run's rows, ``inner``; None where not found)."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
     out = {}
     for k, names in _LOOPS.items():
-        counts = [chip_smoke.row_loop_instructions(build.library_path(), n)
-                  for n in names]
+        counts = [chip_smoke.sass_loop_instructions(
+            dump, n, inner=k.startswith("f64")) for n in names]
         out[k] = next((c for c in counts if c is not None), None)
     return out
+
+
+def f64_blocks_per_sm(ops):
+    """{"f64 m<mode> v<velocities>": blocks an SM}: the occupancy of each
+    instantiation of the f64 row walk in one variant's library (mode 1
+    SDP4, 0 SGP4; ``cuda_sgp4.launch_grid``)."""
+    return {f"f64 m{m} v{v}": ops.launch_grid(
+        "sgp4_f64_dense", N_TIMES, N_SATS, want_vel=bool(v),
+        sdp4=bool(m))["per_sm"] for m in (1, 0) for v in (1, 0)}
 
 
 def time_variants(args):
@@ -898,12 +914,15 @@ def time_variants(args):
                  for k, fn in fns[v].items()}
         ptxas = ptxas_summary(build.ptxas_report())
         loops = loop_counts(build, chip_smoke)
+        per_sm = f64_blocks_per_sm(pkgs[v][1])
         result["variants"][v] = {"edits": len(VARIANTS.get(v, ())),
                                  "equal_to_default": equal, "ptxas": ptxas,
                                  "row_loop_instructions": loops,
+                                 "f64_blocks_per_sm": per_sm,
                                  "ms": {k: [] for k in fns[v]}}
         print(f"# {args.tag} {v}: bit-equal to the default build {equal}; "
-              f"static SASS instructions of the row loops {loops}")
+              f"static SASS instructions of the row loops {loops}; the f64 "
+              f"row walk's blocks an SM {per_sm}")
         for kname, (regs, st, ld) in sorted(ptxas.items()):
             print(f"# {args.tag} {v}: ptxas {kname}: {regs} registers, "
                   f"spill stores {st} B, spill loads {ld} B")

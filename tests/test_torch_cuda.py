@@ -19,6 +19,7 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +35,10 @@ from astroz_tpu_torch.screening import _positions_planes_f32
 from astroz_tpu_torch.tle import format_lines
 
 torch.set_num_threads(1)
+
+#: CUDA runtime calls that block the host until the card has finished
+BLOCKING = re.compile(r"^cuda(StreamSynchronize|DeviceSynchronize|Memcpy"
+                      r"(2D|3D)?(FromSymbol|ToSymbol)?)$")
 
 
 def synthetic_leo_text(n: int = 64, seed: int = 7,
@@ -351,25 +356,89 @@ def sweep_kernel_names():
             and not e.name.startswith(("Memcpy", "Memset"))]
 
 
-@pytest.mark.cuda
-def test_f64_sweep_is_one_kernel_on_cuda(cuda_device):
-    """Under ``torch.profiler``, an f64 TEME time-major sweep runs one
-    kernel on the card, DENSE's row walk, and no torch elementwise kernel
-    (the tsince grid is formed inside it). The profiler runs in a child
-    process: on the H100 a session that recorded the card's kernels here
-    left the later sessions of this process (``test_torch_staging.py``'s)
-    without the card's events."""
+def _in_child(name):
+    """What ``test_torch_cuda.<name>()`` returns, run in a child process
+    and passed back as JSON. The profiler runs there: on the H100 a
+    session that recorded the card's kernels in this process left the
+    later sessions of this process (``test_torch_staging.py``'s) without
+    the card's events."""
     here = Path(__file__).resolve().parent
     code = ("import json, sys; sys.path[:0] = sys.argv[1:]; "
             "import test_torch_cuda as t; "
-            "print(json.dumps(t.sweep_kernel_names()))")
+            f"print(json.dumps(t.{name}()))")
     child = subprocess.run([sys.executable, "-c", code, str(here.parent),
                             str(here)], capture_output=True, text=True,
                            timeout=600)
     assert child.returncode == 0, child.stderr[-4000:]
-    kernels = json.loads(child.stdout.strip().splitlines()[-1])
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_f64_sweep_is_one_kernel_on_cuda(cuda_device):
+    """Under ``torch.profiler``, an f64 TEME time-major sweep runs one
+    kernel on the card, DENSE's row walk, and no torch elementwise kernel
+    (the tsince grid is formed inside it); the profiler in a child
+    process (``_in_child``)."""
+    kernels = _in_child("sweep_kernel_names")
     assert len(kernels) == 1 and "sgp4_f64_walk_kernel" in kernels[0], \
         kernels
+
+
+def prologue_sweep_counts():
+    """For ``_epoch_case``'s spread mixed catalog (SDP4 mode) and its
+    near-earth one (SGP4 mode): what one f64 TEME time-major sweep (the
+    second: the first builds and stages) adds to ``cuda_sgp4.PROLOGUE``,
+    the staging's ``prologue_lanes`` in the sweep's mode, and the runtime
+    calls inside the sweep's ``astroz.propagate`` span that block the
+    host (``BLOCKING``), both sweeps under one ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sweeps = {}
+    for case in ("spread", "near"):
+        cat, jd, fr = _epoch_case(torch.device("cuda"), case)
+        sweeps[case] = (cat, jd.cpu().numpy(), fr.cpu().numpy())
+        propagate(*sweeps[case])
+    torch.cuda.synchronize()
+    added = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for case, sweep in sweeps.items():
+            before = dict(cuda_sgp4.PROLOGUE)
+            propagate(*sweep)
+            added[case] = {k: n - before[k]
+                           for k, n in cuda_sgp4.PROLOGUE.items()}
+        torch.cuda.synchronize()
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in host
+                   if e.name == "astroz.propagate")
+    assert len(spans) == len(sweeps)
+    return {case: {
+        "added": added[case],
+        "staged": cuda_sgp4.prologue_lanes(cat.f64_staging.flags,
+                                           cat.deep is not None),
+        "blocking": [e.name for e in host
+                     if r0 <= e.time_range.start and e.time_range.end <= r1
+                     and BLOCKING.match(e.name)]}
+        for (case, (cat, _, _)), (r0, r1) in zip(sweeps.items(), spans)}
+
+
+@pytest.mark.cuda
+def test_f64_sweep_counts_its_prologue_once_on_cuda(cuda_device):
+    """One ``propagate(method="f64")`` adds its staging's prologue counts
+    to ``cuda_sgp4.PROLOGUE`` once, and no runtime call inside it blocks
+    the host: the counts were read when the staging was built. SDP4 mode
+    (a mixed catalog) stages the drag pow of all but the deep resonant
+    lanes and the inclination's sin and cos of the near-earth ones, SGP4
+    mode (a near-earth catalog) both on every lane. The profiler in a
+    child process (``_in_child``)."""
+    counts = _in_child("prologue_sweep_counts")
+    for case, got in counts.items():
+        assert got["added"] == got["staged"], case
+        assert not got["blocking"], (case, got["blocking"])
+    mixed, near = counts["spread"]["staged"], counts["near"]["staged"]
+    assert mixed["lanes"] > mixed["drag_pow"] > mixed["sin_cos"] > 0
+    assert near["lanes"] == near["drag_pow"] == near["sin_cos"] > 0
 
 
 @pytest.mark.cuda
@@ -443,6 +512,92 @@ def test_f64_walk_runs_match_plain_on_cuda(cuda_device, case):
     scan = sdp4_propagate_scan(cat.els, cat.deep, t[mid], cat.grav)
     assert _outputs_equal([x[mid] for x in dense], scan)
     assert (dense[2] == 0).any()
+
+
+#: (rev/day, eccentricity, inclination deg) of one lane of each class
+#: that DENSE's prologue stages apart: near-earth on simplified drag (its
+#: perigee under 220 km) and on full drag; deep with irez 0 at or above
+#: the Lyddane inclination (0.2 rad) and below it; irez 1
+#: (geosynchronous); irez 2 (half-day, e >= 0.5)
+PROLOGUE_CLASSES = ((16.2, 0.012, 51.6), (15.2, 0.001, 51.6),
+                    (3.0, 0.3, 40.0), (3.0, 0.05, 5.0), (1.0027, 3e-4, 2.0),
+                    (2.006, 0.72, 63.4))
+
+
+def prologue_class_catalog(device):
+    """A catalog of one lane of each of ``PROLOGUE_CLASSES``, in that
+    order, then copies of the full-drag near-earth lane and of the irez 2
+    lane whose init error is set (codes 1 and 2)."""
+    from astroz_tpu_torch.ops.sgp4 import Sgp4Elements
+    from astroz_tpu_torch.propagation import catalog_from_elements
+
+    lines = []
+    for k, (rev, ecc, inc) in enumerate(PROLOGUE_CLASSES):
+        lines += format_lines(
+            satnum=60000 + k, epoch_jd=2460310.5 + 0.3 * k - 0.8, ecco=ecc,
+            inclo_deg=inc, nodeo_deg=35.0 * k, argpo_deg=50.0 + 20.0 * k,
+            mo_deg=10.0 + 40.0 * k, no_rev_day=rev, bstar=2e-4)
+    cat = build_catalog("\n".join(lines), device="cpu")
+    pick = np.array([0, 1, 2, 3, 4, 5, 1, 5])
+    els = Sgp4Elements(*(x[pick] for x in cat.host))
+    error = els.error.copy()
+    error[6:] = (1, 2)
+    return catalog_from_elements(els._replace(error=error), cat.grav,
+                                 device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["lanes", "fold"])
+@pytest.mark.parametrize("sdp4", [True, False])
+def test_f64_prologue_classes_match_plain_on_cuda(cuda_device, sdp4, form):
+    """DENSE against its plain version, bit for bit (r, v and codes;
+    positions and codes without velocities), on one lane of each class
+    that its prologue stages apart (``prologue_class_catalog``: what it
+    stages differs by near-earth or deep, irez and, through dpper's
+    branch, the inclination; the init error rides along), in SDP4 and
+    SGP4 mode: ``lanes`` the catalog over 20,000 rows from -5,000 to
+    +5,000 minutes with a jitter a lane, ``fold`` each lane alone against
+    a (4,000, 40) grid (lane step 0). Each holds several times more
+    (column, row) points than the grid has warps, so that most runs enter
+    their column mid-way and the prologue runs at each run's staging."""
+    from astroz_tpu_torch.ops.sdp4 import DeepElements
+    from astroz_tpu_torch.ops.sgp4 import Sgp4Elements
+
+    cat = prologue_class_catalog(cuda_device)
+    flags = cat.f64_staging.flags.cpu()
+    assert flags[0].tolist()[:2] == [1, 0]
+    assert flags[1].tolist() == [0, 0, 1, 1, 1, 1, 0, 1]
+    assert flags[2].tolist() == [0, 0, 0, 0, 1, 2, 0, 2]
+    assert flags[3].tolist() == [0] * 6 + [1, 2]
+    assert (cat.host.inclo[2:4] < 0.2).tolist() == [False, True]
+    gen = torch.Generator().manual_seed(9)
+    if form == "lanes":
+        rows = torch.linspace(-5000.0, 5000.0, 20000, dtype=torch.float64)
+        jitter = torch.rand((1, len(cat)), generator=gen,
+                            dtype=torch.float64) - 0.5
+        cases = [((rows[:, None] + jitter * 600.0).to(cuda_device),
+                  cat.f64_staging)]
+    else:
+        grid = (torch.linspace(-4000.0, 4000.0, 4000, dtype=torch.float64)
+                [:, None] + torch.rand((1, 40), generator=gen,
+                                       dtype=torch.float64) * 300.0)
+        cases = [(grid.to(cuda_device), cuda_sgp4.f64_staging(
+            Sgp4Elements(*(x[k:k + 1] for x in cat.els)),
+            DeepElements(*(x[k:k + 1] for x in cat.deep))))
+            for k in range(len(cat))]
+    kw = dict(grav=cat.grav, sdp4=sdp4)
+    for t, st in cases:
+        grid = cuda_sgp4.launch_grid("sgp4_f64_dense", *t.shape, sdp4=sdp4)
+        assert -(-t.shape[1] // 32) * t.shape[0] > 8 * grid["blocks"]
+        got = cuda_sgp4.sgp4_f64_dense(t, *st, **kw)
+        r0, v0, e0 = cuda_sgp4.sgp4_f64_dense(t, *st, **kw, want_vel=False)
+        ref = cuda_sgp4.sgp4_f64_dense_reference(t, *st, **kw)
+        assert _outputs_equal(got, ref) and v0 is None
+        assert torch.equal(e0, ref[2]) and _same_or_both_nan(r0, ref[0])
+    if form == "lanes":
+        codes = got[2].cpu()
+        assert (codes[:, 6] == 1).all() and (codes[:, 7] == 2).all()
+        assert (codes[:, :6] == 0).any(0).all()
 
 
 @pytest.mark.cuda
@@ -984,9 +1139,9 @@ def test_merge_maps_of_another_deep_slot_raise():
 
 def test_cpu_runs_no_kernel():
     """On CPU tensors every wrapper runs its plain version and counts no
-    launch, the f64 path's and the epilogue's too."""
-    before = (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES),
-              dict(cuda_finalize.LAUNCHES))
+    launch, the f64 path's (and its prologue) and the epilogue's too."""
+    before = (dict(cuda_sgp4.LAUNCHES), dict(cuda_sgp4.PROLOGUE),
+              dict(cuda_screen.LAUNCHES), dict(cuda_finalize.LAUNCHES))
     cat = build_catalog(synthetic_leo_text(16) + "\n"
                         + synthetic_deep_text(6), device="cpu")
     st = cat.fast_staging
@@ -1010,8 +1165,9 @@ def test_cpu_runs_no_kernel():
     from astroz_tpu_torch.parallel import make_mesh
     from astroz_tpu_torch.screening import screen_all_ring
     screen_all_ring(near, jd, threshold_km=50.0, mesh=make_mesh(["cpu"] * 2))
-    assert (dict(cuda_sgp4.LAUNCHES), dict(cuda_screen.LAUNCHES),
-            dict(cuda_finalize.LAUNCHES)) == before
+    after = (dict(cuda_sgp4.LAUNCHES), dict(cuda_sgp4.PROLOGUE),
+             dict(cuda_screen.LAUNCHES), dict(cuda_finalize.LAUNCHES))
+    assert after == before
 
 
 @pytest.mark.cuda

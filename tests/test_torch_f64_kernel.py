@@ -203,6 +203,32 @@ def test_staging_broadcasts_one_satellite():
     assert torch.equal(st.fields, st.fields[:, :1].expand(-1, 64))
 
 
+@pytest.mark.parametrize("sdp4", [True, False])
+def test_prologue_counts_the_lanes_of_each_class(sdp4, mixed):
+    """The lanes whose time-invariant values DENSE's prologue stages, as
+    a launch counts them (``cuda_sgp4.prologue_lanes`` of the staged
+    flags): in SDP4 mode the drag pow on near-earth lanes and deep lanes
+    with irez 0 (not on resonant ones), the inclination's sin and cos on
+    near-earth lanes; in SGP4 mode both on every lane. Counted from the
+    catalog's own masks, class by class; DENSE on the CPU counts nothing."""
+    pcat = mixed[1]
+    deep = pcat.is_deep
+    irez = np.asarray(pcat.deep_host.irez)
+    classes = {"near": ~deep, "deep_irez0": deep & (irez == 0),
+               "resonant": deep & (irez != 0)}
+    n = {k: int(m.sum()) for k, m in classes.items()}
+    assert all(n.values())
+    want = ({"lanes": len(pcat), "drag_pow": n["near"] + n["deep_irez0"],
+             "sin_cos": n["near"]} if sdp4
+            else dict.fromkeys(("lanes", "drag_pow", "sin_cos"), len(pcat)))
+    st = pcat.f64_staging
+    assert cuda_sgp4.prologue_lanes(st.flags, sdp4) == want
+    before = dict(cuda_sgp4.PROLOGUE)
+    cuda_sgp4.sgp4_f64_dense(torch.from_numpy(T_COL), *st, grav=pcat.grav,
+                             sdp4=sdp4)
+    assert cuda_sgp4.PROLOGUE == before
+
+
 @pytest.mark.parametrize("want_vel", [True, False])
 @pytest.mark.parametrize("form", ["column", "dense", "lanes", "scalar"])
 @pytest.mark.parametrize("kind", ["mixed", "near"])

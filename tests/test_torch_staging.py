@@ -13,8 +13,6 @@ This file imports no JAX, so it also runs on a GPU machine without it:
     python -m pytest --noconftest tests/test_torch_staging.py -q
 """
 
-import re
-
 import numpy as np
 import pytest
 import torch
@@ -22,8 +20,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from astroz_tpu_torch import build_catalog, propagate
 
-from test_torch_cuda import (_same_bits, cuda_device,  # noqa: F401
-                             synthetic_leo_text)
+from test_torch_cuda import (BLOCKING, _same_bits,  # noqa: F401
+                             cuda_device, synthetic_leo_text)
 
 torch.set_num_threads(1)
 
@@ -33,9 +31,6 @@ FR = np.arange(144) / 144.0
 #: cycles of ``torch.cuda._sleep`` that keep the card busy (~25 ms) while
 #: the host queues what follows
 BUSY_CYCLES = 50_000_000
-#: CUDA runtime calls that block the host until the card has finished
-BLOCKING = re.compile(r"^cuda(StreamSynchronize|DeviceSynchronize|Memcpy"
-                      r"(2D|3D)?(FromSymbol|ToSymbol)?)$")
 
 
 @pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
