@@ -20,6 +20,7 @@ the ``sat_major`` tile walk.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -189,55 +190,63 @@ def finalize(r, v, err, jd_sum, *, source: str, output: str, layout: str,
     Returns ``(r, v, err)``: the sweep's own tensors in the identity cases
     (:func:`is_identity`), fresh ones otherwise (err only where the layout
     or the mask changes it).
+
+    Under a ``torch.profiler`` its work outside the identity cases (the
+    GMST row, the output allocation and the launch; on the CPU the plain
+    version) is one ``astroz.finalize`` span (``profiling``).
     """
     _check_names(source, output, layout)
-    dev = err.device
-    if dev.type == "cpu":
-        return finalize_reference(r, v, err, jd_sum, source=source,
-                                  output=output, layout=layout,
-                                  velocities=velocities, mask=mask)
-    if dev.type != "cuda":
-        raise ValueError(f"finalize: no kernel for device {dev}")
-    if not velocities:
-        v = None
-    elif v is None:
-        raise ValueError("finalize: velocities=True without v")
-    n_times, n_sats = _check(r, v, err, jd_sum, source, mask)
-    if is_identity(source, output, layout, mask):
-        return r, v, err
-    out_shape = {"time_major": (n_times, n_sats, 3),
-                 "sat_major": (n_sats, n_times, 3),
-                 "planes": (3, n_times, n_sats)}[layout]
-    with span("astroz.alloc"):
-        r_out = torch.empty(out_shape, dtype=r.dtype, device=dev)
-        v_out = None if v is None else torch.empty_like(r_out)
-        err_out = None
-        if layout == "sat_major":
-            err_out = torch.empty((n_sats, n_times), dtype=torch.int32,
-                                  device=dev)
-        elif mask is not None:
-            err_out = torch.empty_like(err)
-    if n_times == 0 or n_sats == 0:
+    quiet = is_identity(source, output, layout, mask)
+    with contextlib.nullcontext() if quiet else span("astroz.finalize"):
+        dev = err.device
+        if dev.type == "cpu":
+            return finalize_reference(r, v, err, jd_sum, source=source,
+                                      output=output, layout=layout,
+                                      velocities=velocities, mask=mask)
+        if dev.type != "cuda":
+            raise ValueError(f"finalize: no kernel for device {dev}")
+        if not velocities:
+            v = None
+        elif v is None:
+            raise ValueError("finalize: velocities=True without v")
+        n_times, n_sats = _check(r, v, err, jd_sum, source, mask)
+        if quiet:
+            return r, v, err
+        out_shape = {"time_major": (n_times, n_sats, 3),
+                     "sat_major": (n_sats, n_times, 3),
+                     "planes": (3, n_times, n_sats)}[layout]
+        with span("astroz.alloc"):
+            r_out = torch.empty(out_shape, dtype=r.dtype, device=dev)
+            v_out = None if v is None else torch.empty_like(r_out)
+            err_out = None
+            if layout == "sat_major":
+                err_out = torch.empty((n_sats, n_times), dtype=torch.int32,
+                                      device=dev)
+            elif mask is not None:
+                err_out = torch.empty_like(err)
+        if n_times == 0 or n_sats == 0:
+            return r_out, v_out, err if err_out is None else err_out
+        sg = cg = None
+        if output != "teme":
+            # the (T,) rows of the plain version's sin and cos of GMST
+            gmst = gstime(jd_sum).to(r.dtype)
+            sg = torch.sin(gmst).reshape(-1)
+            cg = torch.cos(gmst).reshape(-1)
+        kernel = _KERNELS[r.dtype]
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            rc = getattr(lib, "astroz_" + kernel)(
+                r.data_ptr(), _ptr(v), err.data_ptr(), _ptr(sg), _ptr(cg),
+                _ptr(mask), n_times, n_sats, SOURCES.index(source),
+                LAYOUTS.index(layout), OUTPUT_MODES.index(output),
+                r_out.data_ptr(), _ptr(v_out), _ptr(err_out),
+                WGS84.radius_earth_km, WGS84_ECC_SQ, RAD2DEG,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{kernel} kernel launch failed: "
+                               f"cudaError {rc}")
+        LAUNCHES[kernel] += 1
         return r_out, v_out, err if err_out is None else err_out
-    sg = cg = None
-    if output != "teme":
-        # the (T,) rows of the plain version's sin and cos of GMST
-        gmst = gstime(jd_sum).to(r.dtype)
-        sg, cg = torch.sin(gmst).reshape(-1), torch.cos(gmst).reshape(-1)
-    kernel = _KERNELS[r.dtype]
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, "astroz_" + kernel)(
-            r.data_ptr(), _ptr(v), err.data_ptr(), _ptr(sg), _ptr(cg),
-            _ptr(mask), n_times, n_sats, SOURCES.index(source),
-            LAYOUTS.index(layout), OUTPUT_MODES.index(output),
-            r_out.data_ptr(), _ptr(v_out), _ptr(err_out),
-            WGS84.radius_earth_km, WGS84_ECC_SQ, RAD2DEG,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    LAUNCHES[kernel] += 1
-    return r_out, v_out, err if err_out is None else err_out
 
 
 def launch_grid(dtype, n_times: int, n_sats: int, *, velocities: bool = True,

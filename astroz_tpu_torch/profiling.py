@@ -24,6 +24,10 @@ while none does. The spans are a closed set:
   blocks; no CUDA sweep has one), ``count`` (K4's candidate count),
   ``pairs`` (a screen's pairs copied to the host);
 * ``astroz.alloc``: a sweep's output allocation;
+* ``astroz.finalize``: the output epilogue's work in one call of
+  ``ops.cuda_finalize.finalize`` (the GMST row, the output
+  allocation and the launch), none where the epilogue returns the
+  sweep's own tensors;
 * ``astroz.retry.candidates``: K4's relaunch when its hits pass the
   room it was given.
 """

@@ -444,8 +444,9 @@ def propagate(cat: SatCatalog, jd, fr=None, *, output: str = "teme",
 
     Under a ``torch.profiler`` the call is one ``astroz.propagate`` span,
     with one ``astroz.stage.epochs`` span around the staging of its
-    epochs and mask, and ``astroz.alloc`` spans around the output
-    allocations (``profiling``).
+    epochs and mask, ``astroz.alloc`` spans around the output
+    allocations, and one ``astroz.finalize`` span around the epilogue's
+    work where it is not the identity (``profiling``).
     """
     with span("astroz.propagate"):
         if output not in OUTPUT_MODES:

@@ -118,6 +118,19 @@ Phases (any failure exits non-zero; nothing is caught):
    golden vectors within
    0.01 km, and ``propagate_tsince`` on a (16, 1) grid (one DENSE launch)
    equal to ``sdp4_propagate``;
+3e. the Starlink Gen2 fleet at its benchmark cell's shape: the
+   ``starlink-gen2-29988`` configuration's 29,988 near-earth lanes
+   (``portbench.catalogs.walker_shells``) x a 72-hour request of 4,320
+   epochs at 60 s through ``propagate(method="f64", output="ecef",
+   layout="sat_major", velocities=True)``, whose r alone is 3.11 GB,
+   past 2^31 bytes: one launch each of DENSE in SGP4 mode and of the
+   f64 epilogue kernel and nothing else, its peak device memory;
+   ``sgp4_f64_dense_epochs`` (SGP4 mode) on the rows and
+   ``cuda_finalize.finalize`` on its outputs at the whole shape equal
+   to that call's outputs and, in blocks of 540 rows, to
+   ``sgp4_f64_dense_reference`` and ``finalize_reference`` bit for bit
+   (r, v, codes); both timed in turns with their plain versions (one
+   call a CUDA graph), each with its bound;
 4. timings with CUDA events: K1 alone and its plain version on the card,
    in turns (the kernel launched back to back, host gaps included, and
    replayed from a CUDA graph, its own time), and the whole near-earth
@@ -310,7 +323,8 @@ Phases (any failure exits non-zero; nothing is caught):
 The last three lines of output are the card line from nvidia-smi, a
 JSON line describing the kernels (K1-K6, the spine kernel, the f64
 kernel's two modes and the scan on DENSE, the epilogue kernel in f32 and
-f64, TABLES and the
+f64, DENSE in SGP4 mode and the f64 epilogue at the Gen2 fleet's shape,
+TABLES and the
 integrator kernel's four, with each one's bound: the larger of
 its bytes over the card's memory rate and its operations over the peak
 rate for their type; ``ms`` is the kernel launched back to back through
@@ -2022,6 +2036,180 @@ def phase3d_f64_path(mcon):
     print("# phase 3d: propagate_tsince on a (16, 1) grid (one launch of the "
           "f64 kernel) equals sdp4_propagate bit for bit")
     return scan_ms, scan_peak, scan_launches, n
+
+
+#: phase 3e: the Starlink Gen2 fleet (the benchmark's configuration
+#: ``starlink-gen2-29988``, 29,988 near-earth lanes, at one seed) x a
+#: 72-hour request of 60 s epochs from GEN2_DAY days after its epoch, as
+#: the cell ``starlink29988.oem-ecef-f64-72h`` sends it: the day in jd,
+#: the minutes in fr; the plain versions run in blocks of GEN2_BLOCK rows
+#: (a block's plain SGP4 holds ~60 temporaries of 0.13 GB)
+GEN2_CONFIG = (Path(__file__).resolve().parent / "portbench" / "configs"
+               / "starlink-gen2-29988.json")
+GEN2_SEED, GEN2_DAY, GEN2_TIMES, GEN2_BLOCK = 2**31 + 77, 6, 4320, 540
+#: calls of the kernel a timing, and rows apart of the sample the plain
+#: SGP4's operations are counted on
+GEN2_REPS, GEN2_OPS_STRIDE = 10, 60
+
+
+def _gen2_turns(kernel, plain):
+    """:class:`Turns` of a Gen2 kernel call (6.7 GB of outputs) and its
+    plain version in blocks: one call captured a CUDA graph, so the graph
+    holds one call's outputs."""
+    return Turns((_cuda_ms(plain, 1), _cuda_ms(kernel, GEN2_REPS),
+                  _graph_ms(kernel, GEN2_REPS, per_graph=1),
+                  _graph_ms(kernel, GEN2_REPS, per_graph=1),
+                  _cuda_ms(kernel, GEN2_REPS), _cuda_ms(plain, 1)))
+
+
+def phase3e_gen2(smi):
+    """The Starlink Gen2 fleet through the f64 main path at its benchmark
+    cell's shape (r alone 3.11 GB, past 2^31 bytes): ``propagate(method=
+    "f64", output="ecef", layout="sat_major", velocities=True)`` launches
+    DENSE in SGP4 mode and the f64 epilogue kernel once each; DENSE on
+    the rows and ``cuda_finalize.finalize`` on its outputs at the whole
+    shape equal that call's outputs and, block by block, their plain
+    versions bit for bit (r, v, codes); both timed in turns with their
+    plain versions, with their bounds. Returns the call's launches by
+    kernel, the largest differences {"dense", "finalize"}, and DENSE's
+    and the epilogue's (Turns, bound)."""
+    from astroz_tpu_torch import build_catalog, propagate
+    from astroz_tpu_torch.ops import cuda_finalize as cf
+    from astroz_tpu_torch.ops import cuda_sgp4
+    from portbench.catalogs import walker_shells
+
+    config = json.loads(GEN2_CONFIG.read_text())
+    t0 = time.perf_counter()
+    cat = build_catalog(walker_shells.text(config, GEN2_SEED), device=DEVICE)
+    build_s = time.perf_counter() - t0
+    n_sats = len(cat)
+    check(n_sats == 29988 and cat.deep is None,
+          f"phase 3e: the Gen2 catalog has {n_sats} lanes, deep "
+          f"{cat.deep is not None}")
+    jd_h = np.full(GEN2_TIMES, config["epoch_jd"] + GEN2_DAY)
+    fr_h = np.arange(GEN2_TIMES, dtype=np.float64) * 60.0 / 86400.0
+    kw = dict(method="f64", output="ecef", layout="sat_major",
+              velocities=True)
+    propagate(cat, jd_h[:2], fr_h[:2], **kw)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = propagate(cat, jd_h, fr_h, **kw)
+    sync()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    n = {k: c for k, c in launches().items() if c}
+    check(n == {"sgp4_f64_dense": 1, "sgp4_f64_dense_epochs": 1,
+                "finalize_f64": 1},
+          f"phase 3e: Gen2 propagate launched {n}")
+    check(out[0].shape == out[1].shape == (n_sats, GEN2_TIMES, 3)
+          and out[0].dtype == torch.float64
+          and out[2].shape == (n_sats, GEN2_TIMES)
+          and nbytes(out[0]) >= 2**31,
+          "phase 3e: Gen2 outputs of the wrong shape or type")
+    print(f"# phase 3e: the Starlink Gen2 fleet ({n_sats} lanes, seed "
+          f"{GEN2_SEED}; built in {build_s:.2f} s) x {GEN2_TIMES} epochs "
+          f"at 60 s from day {GEN2_DAY}: propagate(f64, ecef, sat_major, "
+          f"velocities) {call_ms:.1f} ms, launches {n}; r "
+          f"{nbytes(out[0]) / 1e9:.3f} GB, v {nbytes(out[1]) / 1e9:.3f} "
+          f"GB, codes {nbytes(out[2]) / 1e9:.3f} GB; peak device memory "
+          f"{peak / 1e9:.3f} GB")
+
+    jd, fr = (torch.as_tensor(a, device=DEVICE) for a in (jd_h, fr_h))
+    st = cat.f64_staging
+    dkw = dict(grav=cat.grav, sdp4=False)
+    blocks = [(a, min(a + GEN2_BLOCK, GEN2_TIMES))
+              for a in range(0, GEN2_TIMES, GEN2_BLOCK)]
+
+    def dense():
+        return cuda_sgp4.sgp4_f64_dense_epochs(jd, fr, *st, **dkw)
+
+    def dense_plain(a, b):
+        return cuda_sgp4.sgp4_f64_dense_reference(cuda_sgp4.epoch_tsince(
+            jd[a:b], fr[a:b], cat.els.epoch_jd), *st, **dkw)
+
+    def dense_plain_all():
+        for a, b in blocks:
+            dense_plain(a, b)
+
+    worst = {"dense": 0.0, "finalize": 0.0}
+    r, v, e = dense()
+    for a, b in blocks:
+        rr, vr, er = dense_plain(a, b)
+        check(_same_or_both_nan(r[a:b], rr) and _same_or_both_nan(v[a:b], vr)
+              and torch.equal(e[a:b], er),
+              f"phase 3e: DENSE (SGP4 mode) on the Gen2 rows {a}-{b} differs "
+              "from its plain version")
+        worst["dense"] = max(worst["dense"], _max_diff(r[a:b], rr),
+                             _max_diff(v[a:b], vr))
+        del rr, vr, er
+    codes = sorted(set(torch.unique(e).tolist()))
+
+    jd_sum = torch.as_tensor(jd_h + fr_h, device=DEVICE)[:, None]
+    fkw = dict(source="time_major", output="ecef", layout="sat_major",
+               velocities=True)
+
+    def epilogue():
+        return cf.finalize(r, v, e, jd_sum, **fkw)
+
+    got = epilogue()
+    sync()
+    check(all(_same_bits(x, y) for x, y in zip(got, out)),
+          "phase 3e: DENSE and finalize on the Gen2 rows differ from "
+          "propagate's outputs")
+    del out
+    for a, b in blocks:
+        want = cf.finalize_reference(r[a:b], v[a:b], e[a:b], jd_sum[a:b],
+                                     **fkw)
+        for x, y in zip(got, want):
+            part = x[:, a:b]
+            check(part.shape == y.shape and _same_bits(part, y),
+                  f"phase 3e: finalize on the Gen2 rows {a}-{b} differs "
+                  "from its plain version")
+            if y.is_floating_point():
+                worst["finalize"] = max(worst["finalize"],
+                                        _max_diff(part, y))
+        del want
+    print(f"# phase 3e: DENSE (SGP4 mode) and the f64 epilogue to ECEF "
+          f"sat_major on the whole Gen2 request bit-equal to propagate's "
+          f"outputs and, in {len(blocks)} blocks of {GEN2_BLOCK} rows, to "
+          f"their plain versions (r, v, codes; max diff "
+          f"{worst['dense']:.1e}, {worst['finalize']:.1e}); error codes "
+          f"{codes}")
+
+    n_points = GEN2_TIMES * n_sats
+    sample = cuda_sgp4.epoch_tsince(jd[::GEN2_OPS_STRIDE],
+                                    fr[::GEN2_OPS_STRIDE], cat.els.epoch_jd)
+    dense_ops = [x * n_points / sample.numel()
+                 for x in f64_ops(None, sample, *st, cat.grav)]
+    dense_bound = bound(nbytes(jd, fr, *st) + 52 * n_points, *dense_ops)
+    fin_ops = [x * GEN2_TIMES / GEN2_BLOCK for x in count_ops(
+        lambda: cf.finalize_reference(r[:GEN2_BLOCK], v[:GEN2_BLOCK],
+                                      e[:GEN2_BLOCK], jd_sum[:GEN2_BLOCK],
+                                      **fkw))]
+    fin_bound = bound(nbytes(r, v, e, *got), *fin_ops)
+    del got
+    dense_turns = _gen2_turns(dense, dense_plain_all)
+
+    def epilogue_plain_all():
+        for a, b in blocks:
+            cf.finalize_reference(r[a:b], v[a:b], e[a:b], jd_sum[a:b], **fkw)
+
+    fin_turns = _gen2_turns(epilogue, epilogue_plain_all)
+    for name, turns, (b_ms, b_by), ops in (
+            ("DENSE (SGP4 mode)", dense_turns, dense_bound, dense_ops),
+            ("finalize (tile_kernel<double>, ECEF sat_major)", fin_turns,
+             fin_bound, fin_ops)):
+        print(f"# phase 3e [{smi}]: Gen2 {GEN2_TIMES} x {n_sats}: "
+              f"{turns.text(name)}; bound {b_ms:.4f} ms by {b_by} "
+              f"({ops[1] / n_points:.1f} f64 operations a point in the "
+              f"plain version, {turns.device_ms / b_ms:.2f}x the bound "
+              f"replayed)")
+    del r, v, e, cat
+    torch.cuda.empty_cache()
+    return n, worst, (dense_turns, dense_bound), (fin_turns, fin_bound)
 
 
 def _cuda_ms(fn, reps, warm=True):
@@ -5380,6 +5568,7 @@ def main():
     mcon, mixed_launches = phase3b_mixed_path(mixed_text)
     dense_launches = phase3c_single_sat()
     scan_ms, scan_peak, scan_launches, f64_launches = phase3d_f64_path(mcon)
+    gen2_launches, gen2_err, gen2_dense, gen2_fin = phase3e_gen2(smi)
     k1 = phase4_timings(con, smi)
     k2, k3, f64_escape, tables = phase4b_mixed_timings(mcon, smi)
     fin32, fin64 = phase4d_epilogue_timings(con, mcon, smi)
@@ -5486,6 +5675,19 @@ def main():
               "astroz_tpu/propagation.py:752",
               f64_launches["finalize_f64"], fin_err["f64"], fin64[:2],
               fin64[2]),
+        # both at the Starlink Gen2 fleet's shape (phase 3e), the
+        # launches of its one f64 ECEF sat_major propagate call
+        entry("sgp4_f64_dense (the f64 kernel, DENSE in SGP4 mode: the "
+              "Starlink Gen2 fleet, 29,988 x 4,320)",
+              "astroz_tpu_torch/csrc/sgp4_f64.cu",
+              "astroz_tpu/propagation.py:822",
+              gen2_launches["sgp4_f64_dense"], gen2_err["dense"], gen2_dense),
+        entry("finalize (f64) (the epilogue kernel to ECEF sat_major: the "
+              "Starlink Gen2 fleet, 29,988 x 4,320)",
+              "astroz_tpu_torch/csrc/finalize.cu",
+              "astroz_tpu/propagation.py:752",
+              gen2_launches["finalize_f64"], gen2_err["finalize"],
+              gen2_fin),
         entry("resonance_tables (TABLES)",
               "astroz_tpu_torch/csrc/sgp4_deep.cu",
               "astroz_tpu/ops/fast.py:138",

@@ -53,7 +53,12 @@ of the variants reversed on every other round:
   ``f64day``, the f64 kernel's part of ``propagate(method="f64")`` on
   the mixed catalog x a day of 1,440 epochs (the day in jd, the minutes
   in fr): DENSE on the rows (``sgp4_f64_dense_epochs``), or in a tree
-  without it torch's tsince grid and DENSE on it.
+  without it torch's tsince grid and DENSE on it; ``gen2``, DENSE in
+  SGP4 mode on the rows of a 72-hour request of the Starlink Gen2 fleet
+  (``portbench/configs/starlink-gen2-29988.json``, 29,988 lanes x 4,320
+  one-minute epochs), back to back; ``gen2epi``, the epilogue kernel's
+  f64 ``sat_major`` walk to ECEF (``tile_kernel<double>``, the GMST row
+  included) on the default build's outputs of ``gen2``, back to back.
 
 It prints, for each variant, ptxas' registers and spills of every
 kernel instantiation, the static SASS instructions of the row loops of
@@ -101,6 +106,7 @@ one ulp away.
 
 import argparse
 import concurrent.futures
+import functools
 import importlib
 import importlib.util
 import inspect
@@ -122,9 +128,9 @@ N_SATS, N_TIMES = 13478, 1440
 K_REPS = {"K1": 20, "K3": 20, "K5": 50, "K6": 50, "K2": 50, "K5tm": 50,
           "K6tm": 50, "spine": 50, "grids": 50, "grids_b2b": 20,
           "sweep": 5, "K2c": 50, "f64": 10, "f64s": 10, "f64scan": 20,
-          "f64year": 3, "f64day": 10}
+          "f64year": 3, "f64day": 10, "gen2": 10, "gen2epi": 10}
 #: workloads timed with CUDA events around calls launched back to back
-_BACK_TO_BACK = ("sweep", "grids_b2b", "f64year")
+_BACK_TO_BACK = ("sweep", "grids_b2b", "f64year", "gen2", "gen2epi")
 #: mangled template arguments of the kernels: (velocities, trips, mode);
 #: in older trees K5 is mode 2 of the shallow kernel or the dense one
 #: without a source, K6 mode 3 of the shallow one
@@ -135,6 +141,8 @@ _SPINE = re.compile(r"sgp4_spine_grids_kernel")
 #: the f64 kernel's modes: the row walk (mode 0 SGP4, 1 SDP4) and, in
 #: older trees, the one-point DENSE kernel, the SCAN walkers and ESCAPE
 _F64 = re.compile(r"sgp4_f64_(\w+?)_kernelI(?:Li(\d)E)?Lb(\d)E")
+#: the epilogue kernel's walks (``csrc/finalize.cu``) by their type
+_EPILOGUE = re.compile(r"(flat|tile)_kernelI([df])E")
 _MODES = ("K1", "K3", "K5", "K6")
 #: K5, K6 and K2 with velocities at the timed trips, in this tree and
 #: before (the first name a library has)
@@ -690,6 +698,10 @@ def ptxas_summary(report):
         if m:
             mode = "" if m.group(2) is None else f" m{m.group(2)}"
             out[f"f64 {m.group(1)}{mode} v{m.group(3)}"] = (regs, st, ld)
+        m = _EPILOGUE.search(name)
+        if m:
+            kind = "f64" if m.group(2) == "d" else "f32"
+            out[f"epilogue {m.group(1)} {kind}"] = (regs, st, ld)
     return out
 
 
@@ -748,7 +760,7 @@ def inputs(chip_smoke, default_ops):
                                    dtype=torch.float64, device="cuda"),
                jd=torch.full_like(fr, chip_smoke.EPOCH_JD + 1.0), fr=fr)
     return dict(
-        f64=f64,
+        f64=f64, gen2=functools.cache(lambda: gen2_inputs(default_ops)),
         k1=((t_time, st.t_sat, st.spine, st.tail, st.flags),
             dict(grav=near.grav, kepler_iters=near.kepler_iters)),
         k2=(k2, k2_kw), k2c=k2c, order=order, chunks=chunks, els=els,
@@ -760,9 +772,50 @@ def inputs(chip_smoke, default_ops):
         dense_kw=dict(grav=iss.grav, kepler_iters=5))
 
 
+def gen2_inputs(default_ops):
+    """The Starlink Gen2 fleet's catalog (its benchmark configuration, one
+    seed) and the rows of a 72-hour request from a day after its epoch;
+    the default build's DENSE outputs on them and their GMST argument, the
+    epilogue's input."""
+    from astroz_tpu_torch import build_catalog
+    from portbench.catalogs import walker_shells
+
+    config = json.loads((ROOT / "portbench" / "configs"
+                         / "starlink-gen2-29988.json").read_text())
+    cat = build_catalog(walker_shells.text(config, 2**31 + 77))
+    n = 4320
+    fr = torch.arange(n, dtype=torch.float64, device="cuda") / 1440.0
+    jd = torch.full_like(fr, config["epoch_jd"] + 1.0)
+    rows = default_ops.sgp4_f64_dense_epochs(
+        jd, fr, *default_ops.f64_staging(cat.els), grav=cat.grav,
+        sdp4=False)
+    return dict(cat=cat, jd=jd, fr=fr, rows=rows,
+                jd_sum=(jd + fr)[:, None].contiguous())
+
+
 def workloads(ops, x):
     """{kernel: fn()} through the wrappers of one variant's package."""
     f = x["f64"]
+    fin = importlib.import_module(
+        ops.__name__.replace("cuda_sgp4", "cuda_finalize"))
+
+    @functools.cache
+    def gen2_staged():
+        # built at the first call, which precedes the timed rounds
+        g = x["gen2"]()
+        return g, ops.f64_staging(g["cat"].els)
+
+    def gen2():
+        g, st = gen2_staged()
+        return ops.sgp4_f64_dense_epochs(g["jd"], g["fr"], *st,
+                                         grav=g["cat"].grav, sdp4=False)
+
+    def gen2epi():
+        g = x["gen2"]()
+        return fin.finalize(*g["rows"], g["jd_sum"], source="time_major",
+                            output="ecef", layout="sat_major",
+                            velocities=True)
+
     m_st = ops.f64_staging(f["mixed"].els, f["mixed"].deep)
     s_st = ops.f64_staging(f["spread"].els, f["spread"].deep)
     y_st = ops.f64_staging(x["els"])
@@ -830,6 +883,8 @@ def workloads(ops, x):
                                                sdp4=False)
                             for c in x["chunks"]][-1],
         "f64day": f64day,
+        "gen2": gen2,
+        "gen2epi": gen2epi,
     }
 
 

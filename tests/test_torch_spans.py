@@ -3,7 +3,8 @@ under a ``torch.profiler`` each ``propagate`` is one ``astroz.propagate``
 span holding one ``astroz.stage.epochs`` span (its epochs and mask
 staged for the card, fast or f64, masked or not) and no
 ``astroz.wait.epochs``, ``propagate_tsince`` and ``screen_all`` give
-their roots and the screen its ``astroz.wait.pairs`` copies, the output allocations give ``astroz.alloc``; a span is a host
+their roots and the screen its ``astroz.wait.pairs`` copies, the output allocations give ``astroz.alloc``, the epilogue
+``astroz.finalize`` where it is not the identity; a span is a host
 operation, never a user annotation that the profiler would copy onto the
 card's timeline; with no profiler recording, a span is one shared no-op
 and no record function is built or entered. The card's own spans (the
@@ -37,6 +38,8 @@ FR = np.linspace(0.0, 1.0, 9)
 #: the one span a propagate holds around its epochs (and mask), fast or
 #: f64; ``astroz.wait.epochs``, a copy that blocks, it holds none of
 STAGE, WAIT = "astroz.stage.epochs", "astroz.wait.epochs"
+#: the output epilogue's span, where it is not the identity
+FINALIZE = "astroz.finalize"
 
 
 @pytest.fixture(scope="module")
@@ -80,8 +83,8 @@ def _inside(spans, root):
 @pytest.mark.parametrize("method", ["fast", "f64"])
 def test_propagate_spans(cat, method, masked):
     """Two calls, two ``astroz.propagate`` spans; each holds one
-    staging of its epochs (and mask) and no wait, and nothing lies
-    outside a root."""
+    staging of its epochs (and mask), one epilogue (ECEF) and no wait,
+    and nothing lies outside a root."""
     mask = np.arange(len(cat)) % 3 != 0 if masked else None
 
     def sweep():
@@ -96,7 +99,26 @@ def test_propagate_spans(cat, method, masked):
     for r0, r1 in [(a, b) for _, a, b in roots]:
         names = [n for n, root in held if root == (r0, r1)]
         assert names.count(STAGE) == 1 and WAIT not in names
-    assert {n for n, _ in held} == {STAGE}
+        assert names.count(FINALIZE) == 1
+    assert {n for n, _ in held} == {STAGE, FINALIZE}
+
+
+@pytest.mark.parametrize("method, output, layout, epilogues", [
+    ("fast", "ecef", "planes", 1), ("fast", "teme", "sat_major", 1),
+    ("fast", "teme", "planes", 0), ("f64", "ecef", "time_major", 1),
+    ("f64", "teme", "sat_major", 1), ("f64", "ecef", "sat_major", 1),
+    ("f64", "teme", "time_major", 0)])
+def test_finalize_span_opens_where_the_epilogue_works(cat, method, output,
+                                                      layout, epilogues):
+    """``astroz.finalize`` opens once inside the call's root for an ECEF
+    or ``sat_major`` sweep, and not at all for TEME in the sweep's own
+    layout (fast planes, f64 time-major), where the epilogue returns the
+    sweep's tensors and launches nothing."""
+    _, spans = _traced(lambda: propagate(cat, JD, FR, method=method,
+                                         output=output, layout=layout))
+    held = _inside(spans, "astroz.propagate")
+    assert [n for n, _ in held].count(FINALIZE) == epilogues
+    assert all(root is not None for _, root in held)
 
 
 def test_propagate_tsince_spans(cat):
@@ -148,7 +170,8 @@ def test_spans_are_host_operations(cat, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     kinds = {(e["name"], e.get("cat")) for e in events
              if str(e.get("name", "")).startswith("astroz.")}
-    assert kinds == {("astroz.propagate", "cpu_op"), (STAGE, "cpu_op")}
+    assert kinds == {("astroz.propagate", "cpu_op"), (STAGE, "cpu_op"),
+                     (FINALIZE, "cpu_op")}
 
 
 def test_span_is_a_shared_no_op_when_nothing_records(cat, monkeypatch):
@@ -197,10 +220,10 @@ def cuda_device():
     ("f64", "ecef", 2)])
 def test_sweep_spans_on_cuda(cuda_device, method, output, allocs):
     """On the card, time-major: the kernel's outputs are one
-    ``astroz.alloc`` and the epilogue's one more, where it is not the
-    identity (fast TEME planes -> time-major is not; f64 TEME time-major
-    is); one staging and no wait, as on the CPU; no span leaves its
-    root."""
+    ``astroz.alloc`` and the epilogue's one more, inside its one
+    ``astroz.finalize``, where it is not the identity (fast TEME planes
+    -> time-major is not; f64 TEME time-major is); one staging and no
+    wait, as on the CPU; no span leaves its root."""
     cat = build_catalog(synthetic_leo_text(64), device=cuda_device)
     _, spans = _traced(lambda: propagate(
         cat, JD, FR, method=method, output=output, layout="time_major"),
@@ -211,6 +234,7 @@ def test_sweep_spans_on_cuda(cuda_device, method, output, allocs):
     assert all(root is not None for _, root in held)
     assert names.count(STAGE) == 1 and WAIT not in names
     assert names.count("astroz.alloc") == allocs
+    assert names.count(FINALIZE) == allocs - 1
 
 
 @pytest.mark.cuda
